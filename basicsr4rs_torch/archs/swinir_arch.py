@@ -1,0 +1,287 @@
+"""SwinIR, the shifted-window transformer for image restoration (counterpart
+of ``basicsr4rs_tpu/archs/swinir_arch.py``; reference:
+basicsr/archs/swinir_arch.py). Eval forward.
+
+BasicSR's module tree and key names, so a BasicSR SwinIR state_dict loads
+once its ``relative_position_index`` / ``attn_mask`` buffers are dropped:
+here the relative-position index and the shifted-window mask are computed
+per window size and input shape, cached, and never stored. Every Swin block
+runs as one call of ``ops.swin_block.fused_swin_block_full`` on the rolled
+map (the CUDA kernel for a CUDA tensor), and rolls back.
+"""
+
+from __future__ import annotations
+
+import functools
+import itertools
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.swin_block import fused_swin_block_full
+from ..utils.registry import ARCH_REGISTRY
+from .arch_util import Upsample, UpsampleOneStep, default_conv_init_, trunc_normal_
+
+
+@functools.lru_cache(maxsize=16)
+def _relative_position_index(window_size: int, table_window: int,
+                             device: torch.device) -> torch.Tensor:
+    """(n*n,) row of the (2*table_window-1)^2 bias table for each query/key
+    pair of a window_size x window_size window (reference
+    swinir_arch.py:119-133)."""
+    coords = np.stack(np.meshgrid(np.arange(window_size), np.arange(window_size),
+                                  indexing='ij')).reshape(2, -1)
+    rel = (coords[:, :, None] - coords[:, None, :]).transpose(1, 2, 0) + (table_window - 1)
+    index = rel[:, :, 0] * (2 * table_window - 1) + rel[:, :, 1]
+    return torch.from_numpy(index.reshape(-1)).to(device)
+
+
+@functools.lru_cache(maxsize=64)
+def _shift_attn_mask(h: int, w: int, window_size: int, shift_size: int,
+                     device: torch.device) -> torch.Tensor:
+    """(nW, n, n) float32 0/-100 mask of the shifted windows of an h x w map
+    (reference swinir_arch.py:226-244 calculate_mask)."""
+    img_mask = np.zeros((h, w), np.float32)
+    slices = (slice(0, -window_size), slice(-window_size, -shift_size), slice(-shift_size, None))
+    for i, (rows, cols) in enumerate(itertools.product(slices, slices)):
+        img_mask[rows, cols] = i
+    m = img_mask.reshape(h // window_size, window_size, w // window_size, window_size)
+    m = m.transpose(0, 2, 1, 3).reshape(-1, window_size * window_size)
+    diff = m[:, None, :] - m[:, :, None]
+    return torch.from_numpy(np.where(diff != 0, -100.0, 0.0).astype(np.float32)).to(device)
+
+
+class WindowAttention(nn.Module):
+    """Parameters of window attention with relative-position bias (reference
+    swinir_arch.py:95-192); the attention itself runs in the block kernel."""
+
+    def __init__(self, dim: int, window_size: int, num_heads: int, qkv_bias: bool = True,
+                 qk_scale: Optional[float] = None):
+        super().__init__()
+        self.dim = dim
+        self.window_size = window_size
+        self.num_heads = num_heads
+        self.scale = qk_scale or (dim // num_heads)**-0.5
+        self.relative_position_bias_table = nn.Parameter(
+            torch.zeros((2 * window_size - 1)**2, num_heads))
+        self.qkv = nn.Linear(dim, dim * 3, bias=qkv_bias)
+        self.proj = nn.Linear(dim, dim)
+
+    def relative_position_bias(self, window_size: int) -> torch.Tensor:
+        """(heads, n, n) float32 bias of a window_size x window_size window."""
+        n = window_size * window_size
+        index = _relative_position_index(window_size, self.window_size,
+                                         self.relative_position_bias_table.device)
+        table = self.relative_position_bias_table[index]
+        return table.view(n, n, -1).permute(2, 0, 1).float().contiguous()
+
+
+class Mlp(nn.Module):
+
+    def __init__(self, in_features: int, hidden_features: int):
+        super().__init__()
+        self.fc1 = nn.Linear(in_features, hidden_features)
+        self.fc2 = nn.Linear(hidden_features, in_features)
+
+
+class SwinTransformerBlock(nn.Module):
+    """(reference swinir_arch.py:194-310)"""
+
+    def __init__(self, dim: int, num_heads: int, window_size: int = 7, shift_size: int = 0,
+                 mlp_ratio: float = 4., qkv_bias: bool = True, qk_scale: Optional[float] = None):
+        super().__init__()
+        self.window_size = window_size
+        self.shift_size = shift_size
+        self.norm1 = nn.LayerNorm(dim)
+        self.attn = WindowAttention(dim, window_size, num_heads, qkv_bias, qk_scale)
+        self.norm2 = nn.LayerNorm(dim)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+
+    def forward(self, x: torch.Tensor, x_size) -> torch.Tensor:
+        """x: (B, H*W, C) tokens of an H x W map."""
+        h, w = x_size
+        b, _, c = x.shape
+        window_size, shift_size = self.window_size, self.shift_size
+        if min(x_size) <= window_size:  # small input: shrink the window, no shift
+            window_size, shift_size = min(x_size), 0
+
+        x = x.reshape(b, h, w, c)
+        mask = None
+        if shift_size > 0:
+            x = torch.roll(x, (-shift_size, -shift_size), dims=(1, 2))
+            mask = _shift_attn_mask(h, w, window_size, shift_size, x.device)
+        attn = self.attn
+        qkv_bias = attn.qkv.bias
+        if qkv_bias is None:
+            qkv_bias = torch.zeros(3 * c, device=x.device)
+        x = fused_swin_block_full(
+            x.contiguous(), self.norm1.weight, self.norm1.bias, attn.qkv.weight, qkv_bias,
+            attn.proj.weight, attn.proj.bias, attn.relative_position_bias(window_size), mask,
+            self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight, self.mlp.fc1.bias,
+            self.mlp.fc2.weight, self.mlp.fc2.bias, window_size, attn.num_heads, attn.scale)
+        if shift_size > 0:
+            x = torch.roll(x, (shift_size, shift_size), dims=(1, 2))
+        return x.reshape(b, h * w, c)
+
+
+class BasicLayer(nn.Module):
+    """A stack of Swin blocks, shifted every other one (reference
+    swinir_arch.py:393-477)."""
+
+    def __init__(self, dim: int, depth: int, num_heads: int, window_size: int,
+                 mlp_ratio: float, qkv_bias: bool, qk_scale: Optional[float]):
+        super().__init__()
+        self.blocks = nn.ModuleList([
+            SwinTransformerBlock(dim, num_heads, window_size,
+                                 0 if i % 2 == 0 else window_size // 2, mlp_ratio,
+                                 qkv_bias, qk_scale) for i in range(depth)])
+
+    def forward(self, x, x_size):
+        for block in self.blocks:
+            x = block(x, x_size)
+        return x
+
+
+class RSTB(nn.Module):
+    """Residual Swin Transformer Block: Swin blocks, a 3x3 conv, a residual
+    (reference swinir_arch.py:480-569)."""
+
+    def __init__(self, dim: int, depth: int, num_heads: int, window_size: int,
+                 mlp_ratio: float, qkv_bias: bool, qk_scale: Optional[float]):
+        super().__init__()
+        self.residual_group = BasicLayer(dim, depth, num_heads, window_size, mlp_ratio,
+                                         qkv_bias, qk_scale)
+        self.conv = nn.Conv2d(dim, dim, 3, 1, 1)
+
+    def forward(self, x, x_size):
+        res = self.residual_group(x, x_size)
+        b, _, c = res.shape
+        img = res.transpose(1, 2).reshape(b, c, *x_size)
+        return self.conv(img).flatten(2).transpose(1, 2) + x
+
+
+class PatchEmbed(nn.Module):
+    """Holds the patch-embedding LayerNorm (key ``patch_embed.norm``)."""
+
+    def __init__(self, embed_dim: int, patch_norm: bool):
+        super().__init__()
+        self.norm = nn.LayerNorm(embed_dim) if patch_norm else None
+
+
+@ARCH_REGISTRY.register()
+class SwinIR(nn.Module):
+    """(reference swinir_arch.py:694-956). Upsamplers: ``pixelshuffle``
+    (classical SR), ``pixelshuffledirect`` (lightweight SR), ``nearest+conv``
+    (real-world SR, x4) and ``''`` (denoising / JPEG artifacts). Only the
+    ``1conv`` residual connection and no absolute position embedding are
+    ported. ``generator`` seeds the parameter init (torch's global generator
+    when None)."""
+
+    # JAX package parameter path -> BasicSR key (utils/jax_convert.py)
+    JAX_KEY_RULES = (
+        (r'^patch_embed_norm\.', 'patch_embed.norm.'),
+        (r'^upsample\.conv(\d+)\.', lambda m: f'upsample.{2 * int(m.group(1))}.'),
+    )
+
+    def __init__(self, img_size: int = 64, patch_size: int = 1, in_chans: int = 3,
+                 embed_dim: int = 96, depths: Sequence[int] = (6, 6, 6, 6),
+                 num_heads: Sequence[int] = (6, 6, 6, 6), window_size: int = 7,
+                 mlp_ratio: float = 4., qkv_bias: bool = True, qk_scale: Optional[float] = None,
+                 drop_rate: float = 0., attn_drop_rate: float = 0., drop_path_rate: float = 0.1,
+                 ape: bool = False, patch_norm: bool = True, upscale: int = 2,
+                 img_range: float = 1., upsampler: str = '', resi_connection: str = '1conv',
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if patch_size != 1 or ape or resi_connection != '1conv':
+            raise NotImplementedError('SwinIR: patch_size 1, ape False and resi_connection '
+                                      '1conv are ported')
+        num_feat = 64
+        self.img_range = img_range
+        self.upscale = upscale
+        self.upsampler = upsampler
+        mean = (0.4488, 0.4371, 0.4040) if in_chans == 3 else (0.,)
+        self.register_buffer('mean', torch.tensor(mean).view(1, -1, 1, 1), persistent=False)
+
+        self.conv_first = nn.Conv2d(in_chans, embed_dim, 3, 1, 1)
+        self.patch_embed = PatchEmbed(embed_dim, patch_norm)
+        self.layers = nn.ModuleList([
+            RSTB(embed_dim, depths[i], num_heads[i], window_size, mlp_ratio, qkv_bias, qk_scale)
+            for i in range(len(depths))])
+        self.norm = nn.LayerNorm(embed_dim)
+        self.conv_after_body = nn.Conv2d(embed_dim, embed_dim, 3, 1, 1)
+
+        if upsampler in ('pixelshuffle', 'nearest+conv'):
+            self.conv_before_upsample = nn.Sequential(
+                nn.Conv2d(embed_dim, num_feat, 3, 1, 1), nn.LeakyReLU(inplace=True))
+        if upsampler == 'pixelshuffle':
+            self.upsample = Upsample(upscale, num_feat)
+            self.conv_last = nn.Conv2d(num_feat, in_chans, 3, 1, 1)
+        elif upsampler == 'pixelshuffledirect':
+            self.upsample = UpsampleOneStep(upscale, embed_dim, in_chans)
+        elif upsampler == 'nearest+conv':
+            if upscale != 4:
+                raise ValueError('nearest+conv supports x4 only')
+            self.conv_up1 = nn.Conv2d(num_feat, num_feat, 3, 1, 1)
+            self.conv_up2 = nn.Conv2d(num_feat, num_feat, 3, 1, 1)
+            self.conv_hr = nn.Conv2d(num_feat, num_feat, 3, 1, 1)
+            self.conv_last = nn.Conv2d(num_feat, in_chans, 3, 1, 1)
+            self.lrelu = nn.LeakyReLU(negative_slope=0.2, inplace=True)
+        elif upsampler == '':
+            self.conv_last = nn.Conv2d(embed_dim, in_chans, 3, 1, 1)
+        else:
+            raise ValueError(f'unknown upsampler {upsampler!r}')
+        self.reset_parameters(generator)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """BasicSR's init: Linear weights and the bias tables trunc-normal
+        (std .02), Linear biases 0, LayerNorm 1/0, convs torch's default."""
+        for m in self.modules():
+            if isinstance(m, nn.Linear):
+                trunc_normal_(m.weight, .02, generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.LayerNorm):
+                m.weight.fill_(1.)
+                m.bias.zero_()
+            elif isinstance(m, nn.Conv2d):
+                default_conv_init_(m, generator)
+            elif isinstance(m, WindowAttention):
+                trunc_normal_(m.relative_position_bias_table, .02, generator)
+
+    def forward_features(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        x = x.flatten(2).transpose(1, 2)
+        if self.patch_embed.norm is not None:
+            x = self.patch_embed.norm(x)
+        for layer in self.layers:
+            x = layer(x, (h, w))
+        return self.norm(x).transpose(1, 2).reshape(b, c, h, w)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (B, C, H, W) with H, W multiples of the window (or at most one
+        window); returns (B, C, upscale*H, upscale*W)."""
+        if self.training:
+            raise NotImplementedError('SwinIR: only the eval forward is ported; call .eval()')
+        mean = self.mean.to(x.dtype)
+        x = (x - mean) * self.img_range
+        if self.upsampler == '':
+            x_first = self.conv_first(x)
+            res = self.conv_after_body(self.forward_features(x_first)) + x_first
+            x = x + self.conv_last(res)
+        else:
+            x = self.conv_first(x)
+            x = self.conv_after_body(self.forward_features(x)) + x
+            if self.upsampler == 'pixelshuffle':
+                x = self.conv_last(self.upsample(self.conv_before_upsample(x)))
+            elif self.upsampler == 'pixelshuffledirect':
+                x = self.upsample(x)
+            else:
+                x = self.conv_before_upsample(x)
+                x = self.lrelu(self.conv_up1(F.interpolate(x, scale_factor=2, mode='nearest')))
+                x = self.lrelu(self.conv_up2(F.interpolate(x, scale_factor=2, mode='nearest')))
+                x = self.conv_last(self.lrelu(self.conv_hr(x)))
+        return x / self.img_range + mean

@@ -1,0 +1,69 @@
+"""Convert a Flax parameter tree of the JAX package into a torch state_dict.
+
+The inverse of ``basicsr4rs_tpu/utils/torch_convert.py``: it takes the nested
+dict of numpy arrays that the JAX package's modules hold and returns the
+BasicSR-keyed ``state_dict`` that the port's ``nn.Module``s load. Rules:
+
+* conv kernel (kH, kW, I, O) -> weight (O, I, kH, kW)
+* dense kernel (in, out)     -> weight (out, in)
+* ``kernel`` and LayerNorm ``scale`` -> ``weight``
+* module-list names ``a_0.b`` -> ``a.0.b``
+* then the architecture's own ``rules``: ``(regex, replacement)`` pairs on
+  the dotted key, e.g. ``SwinIR.JAX_KEY_RULES``.
+
+Arrays go in as numpy (never JAX arrays), so the port needs no JAX.
+"""
+
+from __future__ import annotations
+
+import re
+from collections import OrderedDict
+from typing import Any, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+
+def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _flatten(value, prefix + (key,))
+        else:
+            yield prefix + (key,), value
+
+
+def jax_path_to_torch_key(path: Sequence[str],
+                          rules: Optional[Sequence[Tuple[str, Any]]] = None) -> str:
+    """Flax param path -> torch state_dict key."""
+    parts = list(path)
+    if parts[-1] in ('kernel', 'scale'):
+        parts[-1] = 'weight'
+    key = '.'.join(parts)
+    # a_2_0.b -> a.2.0.b, innermost index first
+    while re.search(r'_(\d+)(?=\.|$)', key):
+        key = re.sub(r'_(\d+)(?=\.|$)', r'.\1', key)
+    for pattern, repl in (rules or ()):
+        key = re.sub(pattern, repl, key)
+    return key
+
+
+def convert_array(leaf: str, arr: np.ndarray) -> np.ndarray:
+    """Flax layout -> torch layout for one leaf named ``leaf``."""
+    if leaf == 'kernel':
+        if arr.ndim == 4:   # HWIO -> OIHW
+            return np.transpose(arr, (3, 2, 0, 1))
+        if arr.ndim == 2:   # (in, out) -> (out, in)
+            return np.transpose(arr, (1, 0))
+    return arr
+
+
+def jax_params_to_state_dict(params: Mapping[str, Any],
+                             rules: Optional[Sequence[Tuple[str, Any]]] = None
+                             ) -> 'OrderedDict[str, torch.Tensor]':
+    """Nested Flax params (numpy leaves) -> torch state_dict (CPU tensors)."""
+    state_dict: 'OrderedDict[str, torch.Tensor]' = OrderedDict()
+    for path, value in _flatten(params):
+        arr = convert_array(path[-1], np.asarray(value))
+        state_dict[jax_path_to_torch_key(path, rules)] = torch.from_numpy(
+            np.ascontiguousarray(arr))
+    return state_dict

@@ -1,0 +1,178 @@
+"""YAML experiment-config parsing (counterpart of
+``basicsr4rs_tpu/utils/options.py``; reference: basicsr/utils/options.py).
+
+One YAML file per experiment names the model, network, dataset and metric
+types that the registries resolve; ``--force_yml a:b=c`` overrides entries;
+``scale``/``phase`` propagate into the dataset options. ``num_gpu`` picks the
+device: ``auto`` is ``torch.cuda.device_count()``, ``0`` means the CPU, and a
+run that asks for a GPU on a host without one raises instead of falling back
+to the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import random
+from collections import OrderedDict
+from os import path as osp
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import yaml
+
+from .dist_util import get_dist_info
+
+
+def ordered_yaml():
+    """(Loader, Dumper) that keep the order of mappings."""
+    try:
+        from yaml import CDumper as Dumper
+        from yaml import CLoader as Loader
+    except ImportError:
+        from yaml import Dumper, Loader
+
+    mapping_tag = yaml.resolver.BaseResolver.DEFAULT_MAPPING_TAG
+
+    def dict_representer(dumper, data):
+        return dumper.represent_dict(data.items())
+
+    def dict_constructor(loader, node):
+        return OrderedDict(loader.construct_pairs(node))
+
+    Dumper.add_representer(OrderedDict, dict_representer)
+    Loader.add_constructor(mapping_tag, dict_constructor)
+    return Loader, Dumper
+
+
+def yaml_load(f: str) -> Dict[str, Any]:
+    """Load YAML from a file path or a YAML string."""
+    if os.path.isfile(f):
+        with open(f, 'r') as fh:
+            return yaml.load(fh, Loader=ordered_yaml()[0])
+    if f.endswith(('.yml', '.yaml')) and '\n' not in f:
+        raise FileNotFoundError(f'option file not found: {f}')
+    return yaml.load(f, Loader=ordered_yaml()[0])
+
+
+def dict2str(opt: Dict[str, Any], indent_level: int = 1) -> str:
+    """Pretty-print a nested option dict."""
+    msg = '\n'
+    for k, v in opt.items():
+        if isinstance(v, dict):
+            msg += ' ' * (indent_level * 2) + f'{k}:['
+            msg += dict2str(v, indent_level + 1)
+            msg += ' ' * (indent_level * 2) + ']\n'
+        else:
+            msg += ' ' * (indent_level * 2) + f'{k}: {v}\n'
+    return msg
+
+
+def _postprocess_value(v: str) -> Any:
+    """Parse a ``--force_yml`` value into None/bool/number/list/str."""
+    if v in ('~', 'none', 'None'):
+        return None
+    if v.lower() == 'true':
+        return True
+    if v.lower() == 'false':
+        return False
+    if v.startswith('!!float'):
+        return float(v.replace('!!float', ''))
+    try:
+        return int(v)
+    except ValueError:
+        pass
+    try:
+        return float(v)
+    except ValueError:
+        pass
+    if v.startswith('[') and v.endswith(']'):
+        return yaml.safe_load(v)
+    return v
+
+
+def set_random_seed(seed: int) -> None:
+    """Seed Python's, numpy's and torch's global generators."""
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+
+
+def apply_force_yml(opt: Dict[str, Any], force_yml) -> None:
+    """Apply ``a:b:c=value`` deep overrides."""
+    for entry in force_yml or ():
+        keys, value = entry.replace(' ', '').split('=', 1)
+        node = opt
+        key_list = keys.split(':')
+        for key in key_list[:-1]:
+            node = node[key]
+        node[key_list[-1]] = _postprocess_value(value)
+
+
+def resolve_num_gpu(num_gpu) -> int:
+    """``auto`` -> every visible CUDA device; 0 -> the CPU; n >= 1 needs n
+    CUDA devices. Raises when the devices asked for are not there."""
+    available = torch.cuda.device_count()
+    if num_gpu == 'auto':
+        num_gpu = available
+        if num_gpu == 0:
+            raise RuntimeError('num_gpu: auto found no CUDA device; set num_gpu: 0 '
+                               'to run on the CPU')
+    num_gpu = int(num_gpu)
+    if num_gpu > available:
+        raise RuntimeError(f'num_gpu: {num_gpu} asks for CUDA devices, {available} '
+                           'visible; set num_gpu: 0 to run on the CPU')
+    return num_gpu
+
+
+def parse_options(root_path: str, is_train: bool = False,
+                  args: Optional[argparse.Namespace] = None
+                  ) -> Tuple[Dict[str, Any], argparse.Namespace]:
+    """Parse the command line (``-opt``, ``--force_yml``) and the YAML file
+    into the experiment option dict. The train-time options (``--debug``,
+    ``--auto_resume``, launchers, the experiments layout) come with the
+    train path."""
+    if is_train:
+        raise NotImplementedError('parse_options: the train path is not ported yet')
+    if args is None:
+        parser = argparse.ArgumentParser()
+        parser.add_argument('-opt', type=str, required=True, help='Path to option YAML file.')
+        parser.add_argument('--force_yml', nargs='+', default=None,
+                            help='Force to update yml files. Example: train:ema_decay=0.999')
+        args = parser.parse_args()
+
+    opt = yaml_load(args.opt)
+    rank, world_size = get_dist_info()
+    opt['rank'], opt['world_size'] = rank, world_size
+    opt['dist'] = False
+    apply_force_yml(opt, args.force_yml)
+
+    seed = opt.get('manual_seed')
+    if seed is None:
+        seed = random.randint(1, 10000)
+        opt['manual_seed'] = seed
+    set_random_seed(seed + rank)
+
+    opt['is_train'] = is_train
+    opt['num_gpu'] = resolve_num_gpu(opt.get('num_gpu', 'auto'))
+
+    for phase, dataset in (opt.get('datasets') or {}).items():
+        dataset['phase'] = phase.split('_')[0]
+        if 'scale' in opt:
+            dataset['scale'] = opt['scale']
+        for key in ('dataroot_gt', 'dataroot_lq'):
+            if dataset.get(key) is not None:
+                dataset[key] = osp.expanduser(dataset[key])
+
+    for key, val in opt.get('path', {}).items():
+        if (val is not None) and ('resume_state' in key or 'pretrain_network' in key):
+            opt['path'][key] = osp.expanduser(val)
+
+    results_root = osp.join(opt['path'].get('results_root') or osp.join(root_path, 'results'),
+                            opt['name'])
+    opt['path']['results_root'] = results_root
+    opt['path']['log'] = results_root
+    opt['path']['visualization'] = osp.join(results_root, 'visualization')
+
+    return opt, args

@@ -23,7 +23,8 @@ setup(
     keywords='computer vision, super resolution, jax, tpu, restoration',
     packages=find_packages(exclude=('options', 'datasets', 'experiments',
                                     'results', 'tests', 'scripts', 'inference')),
-    package_data={'basicsr4rs_tpu': ['metrics/niqe_pris_params.npz']},
+    package_data={'basicsr4rs_tpu': ['metrics/niqe_pris_params.npz'],
+                  'basicsr4rs_torch': ['csrc/*.cu']},
     classifiers=[
         'Development Status :: 4 - Beta',
         'License :: OSI Approved :: Apache Software License',
