@@ -1,13 +1,16 @@
 """SwinIR, the shifted-window transformer for image restoration (counterpart
 of ``basicsr4rs_tpu/archs/swinir_arch.py``; reference:
-basicsr/archs/swinir_arch.py). Eval forward.
+basicsr/archs/swinir_arch.py).
 
 BasicSR's module tree and key names, so a BasicSR SwinIR state_dict loads
 once its ``relative_position_index`` / ``attn_mask`` buffers are dropped:
 here the relative-position index and the shifted-window mask are computed
-per window size and input shape, cached, and never stored. Every Swin block
-runs as one call of ``ops.swin_block.fused_swin_block_full`` on the rolled
-map (the CUDA kernel for a CUDA tensor), and rolls back.
+per window size and input shape, cached, and never stored. In ``eval()``
+every Swin block runs as one call of ``ops.swin_block.fused_swin_block_full``
+on the rolled map (one CUDA kernel for a CUDA tensor) and rolls back. In
+``train()`` it is the differentiable pair ``fused_swin_attn_block`` +
+``fused_mlp_block`` (a forward and a backward kernel each), with the
+residual adds and DropPath's per-sample scales folded into the kernels.
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.swin_block import fused_swin_block_full
+from ..ops.mlp_block import fused_mlp_block
+from ..ops.swin_block import fused_swin_attn_block, fused_swin_block_full
 from ..utils.registry import ARCH_REGISTRY
 from .arch_util import Upsample, UpsampleOneStep, default_conv_init_, trunc_normal_
 
@@ -36,7 +40,10 @@ def _relative_position_index(window_size: int, table_window: int,
                                   indexing='ij')).reshape(2, -1)
     rel = (coords[:, :, None] - coords[:, None, :]).transpose(1, 2, 0) + (table_window - 1)
     index = rel[:, :, 0] * (2 * table_window - 1) + rel[:, :, 1]
-    return torch.from_numpy(index.reshape(-1)).to(device)
+    # cached across calls: made outside inference mode, so that a training
+    # forward after a validation can save it for backward
+    with torch.inference_mode(False):
+        return torch.from_numpy(index.reshape(-1)).to(device)
 
 
 @functools.lru_cache(maxsize=64)
@@ -51,7 +58,8 @@ def _shift_attn_mask(h: int, w: int, window_size: int, shift_size: int,
     m = img_mask.reshape(h // window_size, window_size, w // window_size, window_size)
     m = m.transpose(0, 2, 1, 3).reshape(-1, window_size * window_size)
     diff = m[:, None, :] - m[:, :, None]
-    return torch.from_numpy(np.where(diff != 0, -100.0, 0.0).astype(np.float32)).to(device)
+    with torch.inference_mode(False):   # cached: see _relative_position_index
+        return torch.from_numpy(np.where(diff != 0, -100.0, 0.0).astype(np.float32)).to(device)
 
 
 class WindowAttention(nn.Module):
@@ -91,17 +99,36 @@ class SwinTransformerBlock(nn.Module):
     """(reference swinir_arch.py:194-310)"""
 
     def __init__(self, dim: int, num_heads: int, window_size: int = 7, shift_size: int = 0,
-                 mlp_ratio: float = 4., qkv_bias: bool = True, qk_scale: Optional[float] = None):
+                 mlp_ratio: float = 4., qkv_bias: bool = True, qk_scale: Optional[float] = None,
+                 drop_path: float = 0.):
         super().__init__()
         self.window_size = window_size
         self.shift_size = shift_size
+        self.drop_path = drop_path
+        # DropPath draws from this generator (torch's global one when None);
+        # SwinIR hands every block the model's
+        self.generator: Optional[torch.Generator] = None
         self.norm1 = nn.LayerNorm(dim)
         self.attn = WindowAttention(dim, window_size, num_heads, qkv_bias, qk_scale)
         self.norm2 = nn.LayerNorm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
-    def forward(self, x: torch.Tensor, x_size) -> torch.Tensor:
-        """x: (B, H*W, C) tokens of an H x W map."""
+    def drop_path_scales(self, batch: int, device: torch.device):
+        """DropPath's per-sample scales (s1, s2) = bernoulli(keep) / keep, each
+        (batch,) float32, for the attention and the MLP branch; None when
+        the block keeps every path (``drop_path == 0`` or ``eval()``)."""
+        if not self.training or self.drop_path == 0.:
+            return None
+        keep = 1. - self.drop_path
+        generator = self.generator
+        draw_on = device if generator is None else generator.device
+        mask = torch.rand(2, batch, device=draw_on, generator=generator) < keep
+        s1, s2 = (mask.to(device=device, dtype=torch.float32) / keep).unbind(0)
+        return s1, s2
+
+    def forward(self, x: torch.Tensor, x_size, residual_scales=None) -> torch.Tensor:
+        """x: (B, H*W, C) tokens of an H x W map. ``residual_scales``
+        overrides the DropPath draw of a training forward with given (s1, s2)."""
         h, w = x_size
         b, _, c = x.shape
         window_size, shift_size = self.window_size, self.shift_size
@@ -117,11 +144,23 @@ class SwinTransformerBlock(nn.Module):
         qkv_bias = attn.qkv.bias
         if qkv_bias is None:
             qkv_bias = torch.zeros(3 * c, device=x.device)
-        x = fused_swin_block_full(
-            x.contiguous(), self.norm1.weight, self.norm1.bias, attn.qkv.weight, qkv_bias,
-            attn.proj.weight, attn.proj.bias, attn.relative_position_bias(window_size), mask,
-            self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight, self.mlp.fc1.bias,
-            self.mlp.fc2.weight, self.mlp.fc2.bias, window_size, attn.num_heads, attn.scale)
+        attn_args = (self.norm1.weight, self.norm1.bias, attn.qkv.weight, qkv_bias,
+                     attn.proj.weight, attn.proj.bias, attn.relative_position_bias(window_size),
+                     mask)
+        mlp_args = (self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight, self.mlp.fc1.bias,
+                    self.mlp.fc2.weight, self.mlp.fc2.bias)
+        geometry = (window_size, attn.num_heads, attn.scale)
+        if self.training:
+            # the split pair; the residual adds (and DropPath's x + s * branch)
+            # happen inside the kernels, and the roll back commutes with both
+            if residual_scales is None:
+                residual_scales = self.drop_path_scales(b, x.device)
+            s1, s2 = residual_scales if residual_scales is not None else (None, None)
+            x = fused_swin_attn_block(x.contiguous(), *attn_args, *geometry,
+                                      add_residual=s1 is None, residual_scale=s1)
+            x = fused_mlp_block(x, *mlp_args, add_residual=s2 is None, residual_scale=s2)
+        else:
+            x = fused_swin_block_full(x.contiguous(), *attn_args, *mlp_args, *geometry)
         if shift_size > 0:
             x = torch.roll(x, (shift_size, shift_size), dims=(1, 2))
         return x.reshape(b, h * w, c)
@@ -132,12 +171,13 @@ class BasicLayer(nn.Module):
     swinir_arch.py:393-477)."""
 
     def __init__(self, dim: int, depth: int, num_heads: int, window_size: int,
-                 mlp_ratio: float, qkv_bias: bool, qk_scale: Optional[float]):
+                 mlp_ratio: float, qkv_bias: bool, qk_scale: Optional[float],
+                 drop_path: Sequence[float]):
         super().__init__()
         self.blocks = nn.ModuleList([
             SwinTransformerBlock(dim, num_heads, window_size,
                                  0 if i % 2 == 0 else window_size // 2, mlp_ratio,
-                                 qkv_bias, qk_scale) for i in range(depth)])
+                                 qkv_bias, qk_scale, drop_path[i]) for i in range(depth)])
 
     def forward(self, x, x_size):
         for block in self.blocks:
@@ -150,10 +190,11 @@ class RSTB(nn.Module):
     (reference swinir_arch.py:480-569)."""
 
     def __init__(self, dim: int, depth: int, num_heads: int, window_size: int,
-                 mlp_ratio: float, qkv_bias: bool, qk_scale: Optional[float]):
+                 mlp_ratio: float, qkv_bias: bool, qk_scale: Optional[float],
+                 drop_path: Sequence[float]):
         super().__init__()
         self.residual_group = BasicLayer(dim, depth, num_heads, window_size, mlp_ratio,
-                                         qkv_bias, qk_scale)
+                                         qkv_bias, qk_scale, drop_path)
         self.conv = nn.Conv2d(dim, dim, 3, 1, 1)
 
     def forward(self, x, x_size):
@@ -178,7 +219,9 @@ class SwinIR(nn.Module):
     (real-world SR, x4) and ``''`` (denoising / JPEG artifacts). Only the
     ``1conv`` residual connection and no absolute position embedding are
     ported. ``generator`` seeds the parameter init (torch's global generator
-    when None)."""
+    when None). ``drop_path_rate`` is the stochastic-depth rate of the last
+    block, rising linearly from 0 at the first; a training forward draws the
+    DropPath masks from ``drop_path_generator`` (see ``seed_drop_path``)."""
 
     # JAX package parameter path -> BasicSR key (utils/jax_convert.py)
     JAX_KEY_RULES = (
@@ -198,6 +241,9 @@ class SwinIR(nn.Module):
         if patch_size != 1 or ape or resi_connection != '1conv':
             raise NotImplementedError('SwinIR: patch_size 1, ape False and resi_connection '
                                       '1conv are ported')
+        if drop_rate != 0. or attn_drop_rate != 0.:
+            raise NotImplementedError('SwinIR: drop_rate and attn_drop_rate other than 0 need '
+                                      'the unfused block, which is not ported')
         num_feat = 64
         self.img_range = img_range
         self.upscale = upscale
@@ -207,8 +253,11 @@ class SwinIR(nn.Module):
 
         self.conv_first = nn.Conv2d(in_chans, embed_dim, 3, 1, 1)
         self.patch_embed = PatchEmbed(embed_dim, patch_norm)
+        # stochastic depth decay rule (reference swinir_arch.py:786)
+        dpr = np.linspace(0, drop_path_rate, sum(depths)).tolist()
         self.layers = nn.ModuleList([
-            RSTB(embed_dim, depths[i], num_heads[i], window_size, mlp_ratio, qkv_bias, qk_scale)
+            RSTB(embed_dim, depths[i], num_heads[i], window_size, mlp_ratio, qkv_bias, qk_scale,
+                 dpr[sum(depths[:i]):sum(depths[:i + 1])])
             for i in range(len(depths))])
         self.norm = nn.LayerNorm(embed_dim)
         self.conv_after_body = nn.Conv2d(embed_dim, embed_dim, 3, 1, 1)
@@ -234,6 +283,15 @@ class SwinIR(nn.Module):
         else:
             raise ValueError(f'unknown upsampler {upsampler!r}')
         self.reset_parameters(generator)
+        self.drop_path_generator: Optional[torch.Generator] = None
+
+    def seed_drop_path(self, seed: int, device='cpu') -> torch.Generator:
+        """Give the model its own DropPath generator on ``device``, seeded."""
+        self.drop_path_generator = torch.Generator(device=device).manual_seed(seed)
+        for m in self.modules():
+            if isinstance(m, SwinTransformerBlock):
+                m.generator = self.drop_path_generator
+        return self.drop_path_generator
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
@@ -264,8 +322,6 @@ class SwinIR(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, C, H, W) with H, W multiples of the window (or at most one
         window); returns (B, C, upscale*H, upscale*W)."""
-        if self.training:
-            raise NotImplementedError('SwinIR: only the eval forward is ported; call .eval()')
         mean = self.mean.to(x.dtype)
         x = (x - mean) * self.img_range
         if self.upsampler == '':

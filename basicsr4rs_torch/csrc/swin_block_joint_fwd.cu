@@ -30,24 +30,11 @@
 // (out, in) layout, kKTile elements of K per row and stage, and every lane of
 // a warp reads the same four of them (a broadcast).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cmath>
-#include <cstddef>
+#include "swin_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTok = 64;        // tokens per window, padded; ws * ws <= kTok
-constexpr int kLd = kTok + 2;   // row stride: even for float2, 2-way banks on transposes
-constexpr int kHidChunk = 96;   // MLP hidden columns per chunk (multiple of 4)
-constexpr int kTN = 6;          // weight GEMMs: output columns per warp and round
-constexpr int kRoundRows = kWarps * kTN;  // weight rows staged per round
-constexpr int kKTile = 32;      // weight GEMMs: K elements per pipeline stage
-constexpr int kPerTok = kThreads / kTok;  // threads per token in LayerNorm and softmax
-static_assert(kPerTok == 8, "the token reductions below use 8 lanes");
+using namespace swin;
 
 // Float offset of the weight-GEMM stages: after x, the two C-row buffers and
 // the scratch rows (q/k/v + scores, or the MLP hidden chunk), 16-byte aligned.
@@ -78,197 +65,6 @@ struct Params {
   float scale;
 };
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// The model dtype's rounding of a value that feeds a GEMM.
-template <typename T>
-__device__ __forceinline__ float round_to(float v) {
-  return to_f32(from_f32<T>(v));
-}
-
-// cp.async of 4 elements (16 B of float, 8 B of bfloat16) into shared memory
-template <typename T>
-__device__ __forceinline__ void cp_async4(T* dst, const T* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if constexpr (sizeof(T) == 4)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int Pending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
-}
-
-// Four consecutive staged weights in shared memory as floats.
-__device__ __forceinline__ float4 lds4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 lds4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
-}
-
-__device__ __forceinline__ float gelu(float v) {
-  return 0.5f * v * (1.f + erff(v * 0.7071067811865476f));
-}
-
-// out(o, t) = sum_k A[k][t] * W_o[k] over the kTok token columns of the
-// feature-major shared operand A and the global weight rows W_o = row(o)
-// (K % 4 == 0). The output rows go in rounds of kRoundRows; in each round
-// the whole block streams the round's weights through two shared-memory
-// stages of kKTile columns with cp.async, and warp w owns rows w * kTN ...
-// of the round. epi(o, t, v_t, v_t+1) receives two tokens at once.
-template <typename T, class Row, class Epi>
-__device__ __forceinline__ void gemm_w(const float* __restrict__ A, int K, int N, Row row, Epi epi,
-                                       T* stages) {
-  const int t = 2 * (threadIdx.x & 31);
-  const int o0 = (threadIdx.x >> 5) * kTN;  // this warp's first row in a round
-  for (int r0 = 0; r0 < N; r0 += kRoundRows) {
-    const int rows = min(kRoundRows, N - r0);
-    auto stage_in = [&](int s, int k0) {
-      const int chunks = min(kKTile, K - k0) / 4;
-      for (int c = threadIdx.x; c < rows * chunks; c += kThreads) {
-        const int o = c / chunks, q = c % chunks;
-        cp_async4(stages + (s * kRoundRows + o) * kKTile + 4 * q, row(r0 + o) + k0 + 4 * q);
-      }
-      cp_async_commit();
-    };
-    float acc0[kTN], acc1[kTN];
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      acc0[j] = 0.f;
-      acc1[j] = 0.f;
-    }
-    stage_in(0, 0);
-    for (int k0 = 0, s = 0; k0 < K; k0 += kKTile, s ^= 1) {
-      if (k0 + kKTile < K) {
-        stage_in(s ^ 1, k0 + kKTile);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const T* w = stages + (s * kRoundRows + o0) * kKTile;
-      const int kn = min(kKTile, K - k0);
-      for (int kk = 0; kk < kn; kk += 4) {
-        const float* a = A + (k0 + kk) * kLd + t;
-        const float2 a0 = *reinterpret_cast<const float2*>(a);
-        const float2 a1 = *reinterpret_cast<const float2*>(a + kLd);
-        const float2 a2 = *reinterpret_cast<const float2*>(a + 2 * kLd);
-        const float2 a3 = *reinterpret_cast<const float2*>(a + 3 * kLd);
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) {
-          const float4 b = lds4(w + j * kKTile + kk);
-          acc0[j] = fmaf(a0.x, b.x, acc0[j]);
-          acc1[j] = fmaf(a0.y, b.x, acc1[j]);
-          acc0[j] = fmaf(a1.x, b.y, acc0[j]);
-          acc1[j] = fmaf(a1.y, b.y, acc1[j]);
-          acc0[j] = fmaf(a2.x, b.z, acc0[j]);
-          acc1[j] = fmaf(a2.y, b.z, acc1[j]);
-          acc0[j] = fmaf(a3.x, b.w, acc0[j]);
-          acc1[j] = fmaf(a3.y, b.w, acc1[j]);
-        }
-      }
-      __syncthreads();  // the stage is refilled next
-    }
-#pragma unroll
-    for (int j = 0; j < kTN; ++j)
-      if (o0 + j < rows) epi(r0 + o0 + j, t, acc0[j], acc1[j]);
-  }
-}
-
-// As gemm_w, with the second operand b(o, k) in shared memory (the same
-// address across a warp, so each read is a broadcast).
-template <int TN, class B, class Epi>
-__device__ __forceinline__ void gemm_s(const float* __restrict__ A, int K, int N, B b, Epi epi) {
-  const int t = 2 * (threadIdx.x & 31);
-  for (int o0 = (threadIdx.x >> 5) * TN; o0 < N; o0 += kWarps * TN) {
-    float acc0[TN], acc1[TN];
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      acc0[j] = 0.f;
-      acc1[j] = 0.f;
-    }
-    for (int k = 0; k < K; ++k) {
-      const float2 a = *reinterpret_cast<const float2*>(A + k * kLd + t);
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const float v = b(min(o0 + j, N - 1), k);
-        acc0[j] = fmaf(a.x, v, acc0[j]);
-        acc1[j] = fmaf(a.y, v, acc1[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < TN; ++j)
-      if (o0 + j < N) epi(o0 + j, t, acc0[j], acc1[j]);
-  }
-}
-
-// sum / max over the kPerTok consecutive lanes that share a token
-__device__ __forceinline__ float token_sum(float v) {
-#pragma unroll
-  for (int o = 1; o < kPerTok; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float token_max(float v) {
-#pragma unroll
-  for (int o = 1; o < kPerTok; o <<= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Y = LN(X) per token (kPerTok threads each): var = E[x^2] - mean^2,
-// eps 1e-5, output rounded to the model dtype.
-template <typename T>
-__device__ void layer_norm(const float* X, float* Y, int C, const float* g, const float* b) {
-  const int t = threadIdx.x / kPerTok, part = threadIdx.x % kPerTok;
-  float s = 0.f, ss = 0.f;
-  for (int c = part; c < C; c += kPerTok) {
-    const float v = X[c * kLd + t];
-    s += v;
-    ss += v * v;
-  }
-  const float mu = token_sum(s) / C;
-  const float inv = rsqrtf(token_sum(ss) / C - mu * mu + 1e-5f);
-  for (int c = part; c < C; c += kPerTok)
-    Y[c * kLd + t] = round_to<T>((X[c * kLd + t] - mu) * inv * g[c] + b[c]);
-}
-
-// Softmax over the n keys of each query column of the key-major scores S,
-// probabilities rounded to the model dtype.
-template <typename T>
-__device__ void softmax_keys(float* S, int n) {
-  const int i = threadIdx.x / kPerTok, part = threadIdx.x % kPerTok;
-  float m = -INFINITY;
-  for (int j = part; j < n; j += kPerTok) m = fmaxf(m, S[j * kLd + i]);
-  m = token_max(m);
-  float s = 0.f;
-  for (int j = part; j < n; j += kPerTok) {
-    const float e = expf(S[j * kLd + i] - m);
-    S[j * kLd + i] = e;
-    s += e;
-  }
-  s = token_sum(s);
-  for (int j = part; j < n; j += kPerTok) S[j * kLd + i] = round_to<T>(S[j * kLd + i] / s);
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads) swin_block_joint_fwd_kernel(const Params p) {
   extern __shared__ float smem[];
@@ -296,8 +92,6 @@ __global__ void __launch_bounds__(kThreads) swin_block_joint_fwd_kernel(const Pa
   float* S = QKV + 3 * hd * kLd;  // scores of one head, key-major: kTok rows
   float* HB = QKV;                // GELU(fc1) chunk: kHidChunk rows, aliases QKV and S
   T* stages = reinterpret_cast<T*>(smem + stage_offset(C, heads));  // weight GEMM stages
-  const float* Q = QKV;
-  const float* K = QKV + hd * kLd;
   const float* V = QKV + 2 * hd * kLd;
 
   // token t of the window sits at row row0 + t / ws, column col0 + t % ws
@@ -314,32 +108,9 @@ __global__ void __launch_bounds__(kThreads) swin_block_joint_fwd_kernel(const Pa
   __syncthreads();
 
   for (int h = 0; h < heads; ++h) {
-    // output o of q|k|v is row (o / hd) * C + h * hd + o % hd of Wqkv
-    auto qkv_row = [&](int o) { return (o / hd) * C + h * hd + o % hd; };
-    gemm_w<T>(
-        XN, C, 3 * hd, [&](int o) { return wqkv + static_cast<size_t>(qkv_row(o)) * C; },
-        [&](int o, int t, float v0, float v1) {
-          const float b = bqkv[qkv_row(o)];
-          const float s = o < hd ? scale : 1.f;
-          *reinterpret_cast<float2*>(QKV + o * kLd + t) =
-              make_float2(round_to<T>(v0 + b) * s, round_to<T>(v1 + b) * s);
-        }, stages);
+    head_qkv<T>(XN, QKV, C, hd, h, wqkv, bqkv, scale, stages);
     __syncthreads();
-    // S[j][i] = bias[i][j] (+ mask[i][j]): read along j, coalesced
-    const float* rb = p.rel_bias + static_cast<size_t>(h) * n * n;
-    for (int e = threadIdx.x; e < n * n; e += kThreads)
-      S[(e % n) * kLd + e / n] = rb[e] + (mask ? mask[e] : 0.f);
-    __syncthreads();
-    gemm_s<4>(
-        Q, hd, n, [&](int j, int d) { return K[d * kLd + j]; },
-        [&](int j, int i, float v0, float v1) {
-          float2* ps = reinterpret_cast<float2*>(S + j * kLd + i);
-          const float2 c = *ps;
-          *ps = make_float2(v0 + c.x, v1 + c.y);
-        });
-    __syncthreads();
-    softmax_keys<T>(S, n);
-    __syncthreads();
+    head_probs<T>(QKV, S, hd, n, p.rel_bias + static_cast<size_t>(h) * n * n, mask);
     gemm_s<2>(
         S, n, hd, [&](int d, int j) { return V[d * kLd + j]; },
         [&](int d, int t, float v0, float v1) {
@@ -406,8 +177,7 @@ extern "C" {
 
 // Shared memory one thread block takes, in bytes.
 size_t swin_block_joint_fwd_smem_bytes(int channels, int heads) {
-  return (static_cast<size_t>(stage_offset(channels, heads)) + 2 * kRoundRows * kKTile) *
-         sizeof(float);
+  return (static_cast<size_t>(stage_offset(channels, heads)) + kStageElems) * sizeof(float);
 }
 
 // dtype: 0 float32, 1 bfloat16. Returns the cudaError_t of the launch (0 on success).

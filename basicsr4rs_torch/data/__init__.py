@@ -10,9 +10,11 @@ from os import path as osp
 from ..utils.logger import get_root_logger
 from ..utils.misc import scandir
 from ..utils.registry import DATASET_REGISTRY
-from .loader import DataLoader, default_collate
+from .loader import (CPUPrefetcher, CUDAPrefetcher, DataLoader, EnlargedSampler,
+                     default_collate)
 
-__all__ = ['build_dataset', 'build_dataloader', 'DataLoader', 'default_collate']
+__all__ = ['build_dataset', 'build_dataloader', 'DataLoader', 'default_collate',
+           'EnlargedSampler', 'CPUPrefetcher', 'CUDAPrefetcher']
 
 # import every '*_dataset.py' so that its registry decorators run
 _data_folder = osp.dirname(osp.abspath(__file__))
@@ -29,12 +31,21 @@ def build_dataset(dataset_opt):
     return dataset
 
 
-def build_dataloader(dataset, dataset_opt, num_gpu: int = 1, dist: bool = False):
-    """The val/test loader: batch 1, in order. The train loader comes with
-    the train path."""
+def build_dataloader(dataset, dataset_opt, num_gpu: int = 1, dist: bool = False,
+                     sampler=None, seed=None):
+    """The train loader (``batch_size_per_gpu`` items per device of this
+    process, worker threads, the given sampler, incomplete batches
+    dropped) or the val/test loader (batch 1, in order)."""
     phase = dataset_opt['phase']
+    if phase == 'train':
+        multiplier = max(num_gpu, 1)   # the global batch, as in the JAX package
+        prefetch_cuda = dataset_opt.get('prefetch_mode') == 'cuda'
+        return DataLoader(dataset, batch_size=dataset_opt['batch_size_per_gpu'] * multiplier,
+                          sampler=sampler,
+                          shuffle=sampler is None and dataset_opt.get('use_shuffle', True),
+                          num_workers=dataset_opt.get('num_worker_per_gpu', 0) * multiplier,
+                          drop_last=True, seed=seed,
+                          pin_memory=dataset_opt.get('pin_memory', prefetch_cuda))
     if phase in ('val', 'test'):
         return DataLoader(dataset, batch_size=1)
-    if phase == 'train':
-        raise NotImplementedError('build_dataloader: the train loader is not ported yet')
     raise ValueError(f"Wrong dataset phase: {phase}. Supported ones are 'train', 'val' and 'test'.")

@@ -2,14 +2,16 @@
 ``basicsr4rs_tpu/data/paired_image_dataset.py``; reference:
 basicsr/data/paired_image_dataset.py).
 
-Folder mode for the val/test phases: each item is the LQ and GT images as
-CHW float32 RGB tensors in [0, 1], with the GT cropped to scale x the LQ.
-Training crops and augmentation, and the LMDB and meta-info-file modes,
-come with the train path.
+Folder mode: each item is the LQ and GT images as CHW float32 RGB tensors in
+[0, 1]. The train phase takes a random aligned crop (``gt_size``) and flips
+and rotates it, drawing from a generator seeded with ``manual_seed``; the
+val/test phases crop the GT to scale x the LQ. The LMDB and meta-info-file
+modes are not ported yet.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..utils.color_util import bgr2ycbcr
@@ -17,15 +19,13 @@ from ..utils.file_client import FileClient
 from ..utils.img_util import imfrombytes, img2tensor
 from ..utils.registry import DATASET_REGISTRY
 from .data_util import paired_paths_from_folder
+from .transforms import augment, paired_random_crop
 
 
 @DATASET_REGISTRY.register()
 class PairedImageDataset:
 
     def __init__(self, opt):
-        if opt['phase'] == 'train':
-            raise NotImplementedError('PairedImageDataset: the train phase (random crop '
-                                      'and augmentation) is not ported yet')
         self.opt = opt
         io_backend_opt = dict(opt.get('io_backend', {'type': 'disk'}))
         if io_backend_opt['type'] != 'disk' or opt.get('meta_info_file') is not None:
@@ -36,6 +36,9 @@ class PairedImageDataset:
         self.std = opt.get('std')
         self.paths = paired_paths_from_folder([opt['dataroot_lq'], opt['dataroot_gt']],
                                               ['lq', 'gt'], opt.get('filename_tmpl', '{}'))
+        # per-item random stream, as in the JAX package: one generator, drawn
+        # in item order (the loader fetches a batch's items in order)
+        self._rng = np.random.default_rng(opt.get('manual_seed'))
 
     def __getitem__(self, index):
         scale = self.opt['scale']
@@ -44,12 +47,19 @@ class PairedImageDataset:
         img_gt = imfrombytes(self.file_client.get(gt_path, 'gt'), float32=True)
         img_lq = imfrombytes(self.file_client.get(lq_path, 'lq'), float32=True)
 
+        if self.opt['phase'] == 'train':
+            img_gt, img_lq = paired_random_crop(img_gt, img_lq, self.opt['gt_size'], scale,
+                                                gt_path, rng=self._rng)
+            img_gt, img_lq = augment([img_gt, img_lq], self.opt.get('use_hflip', False),
+                                     self.opt.get('use_rot', False), rng=self._rng)
+
         y_only = self.opt.get('color') == 'y'
         if y_only:
             img_gt = bgr2ycbcr(img_gt, y_only=True)[..., None]
             img_lq = bgr2ycbcr(img_lq, y_only=True)[..., None]
 
-        img_gt = img_gt[0:img_lq.shape[0] * scale, 0:img_lq.shape[1] * scale, :]
+        if self.opt['phase'] != 'train':
+            img_gt = img_gt[0:img_lq.shape[0] * scale, 0:img_lq.shape[1] * scale, :]
         img_gt, img_lq = img2tensor([img_gt, img_lq], bgr2rgb=not y_only, float32=True)
 
         if self.mean is not None or self.std is not None:

@@ -1,0 +1,67 @@
+"""Pixel losses (counterpart of ``basicsr4rs_tpu/losses/basic_loss.py``;
+reference: basicsr/losses/basic_loss.py). ``L1Loss``, ``MSELoss`` and
+``CharbonnierLoss`` are ported; the rest come with the models that use them."""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..utils.registry import LOSS_REGISTRY
+from .loss_util import weighted_loss
+
+_reduction_modes = ['none', 'mean', 'sum']
+
+
+@weighted_loss
+def l1_loss(pred, target):
+    return (pred - target).abs()
+
+
+@weighted_loss
+def mse_loss(pred, target):
+    return (pred - target)**2
+
+
+@weighted_loss
+def charbonnier_loss(pred, target, eps: float = 1e-12):
+    return torch.sqrt((pred - target)**2 + eps)
+
+
+class _PixelLoss(nn.Module):
+    """``loss_weight`` times an elementwise loss, reduced."""
+
+    def __init__(self, loss_weight: float = 1.0, reduction: str = 'mean'):
+        super().__init__()
+        if reduction not in _reduction_modes:
+            raise ValueError(f'Unsupported reduction mode: {reduction}. '
+                             f'Supported ones are: {_reduction_modes}')
+        self.loss_weight = loss_weight
+        self.reduction = reduction
+
+
+@LOSS_REGISTRY.register()
+class L1Loss(_PixelLoss):
+
+    def forward(self, pred, target, weight=None, **kwargs):
+        return self.loss_weight * l1_loss(pred, target, weight, reduction=self.reduction)
+
+
+@LOSS_REGISTRY.register()
+class MSELoss(_PixelLoss):
+
+    def forward(self, pred, target, weight=None, **kwargs):
+        return self.loss_weight * mse_loss(pred, target, weight, reduction=self.reduction)
+
+
+@LOSS_REGISTRY.register()
+class CharbonnierLoss(_PixelLoss):
+    """Differentiable variant of L1: sqrt(diff^2 + eps), eps 1e-12."""
+
+    def __init__(self, loss_weight: float = 1.0, reduction: str = 'mean', eps: float = 1e-12):
+        super().__init__(loss_weight, reduction)
+        self.eps = eps
+
+    def forward(self, pred, target, weight=None, **kwargs):
+        return self.loss_weight * charbonnier_loss(pred, target, weight, eps=self.eps,
+                                                   reduction=self.reduction)

@@ -1,20 +1,26 @@
-"""BaseModel, eval subset (counterpart of ``basicsr4rs_tpu/models/base_model.py``;
+"""BaseModel (counterpart of ``basicsr4rs_tpu/models/base_model.py``;
 reference: basicsr/models/base_model.py).
 
-The device, network printing, ``.pth`` loading with a param key and strict
-key matching, validation dispatch and best-metric tracking. Optimizers,
-schedulers, EMA and checkpoint saving come with the train path.
+The device, network printing, ``.pth`` loading and saving with param keys
+and strict key matching, validation dispatch, best-metric tracking,
+optimizers, schedulers with linear warm-up, EMA, and the training state
+(``.state`` files written by ``torch.save``).
 """
 
 from __future__ import annotations
 
+import os
+import time
 from collections import OrderedDict
-from typing import Any, Dict
+from os import path as osp
+from typing import Any, Dict, List
 
 import torch
 from torch import nn
 
+from ..utils.dist_util import master_only
 from ..utils.logger import get_root_logger
+from . import lr_scheduler
 
 # buffers that BasicSR stores and the port computes per input shape
 _COMPUTED_BUFFERS = ('relative_position_index', 'attn_mask')
@@ -27,11 +33,20 @@ class BaseModel:
         self.is_train = opt['is_train']
         self.device = torch.device('cuda' if opt['num_gpu'] != 0 else 'cpu')
         self.best_metric_results: Dict[str, Any] = {}
+        self.schedulers: List[Any] = []
+        self.optimizers: List[torch.optim.Optimizer] = []
+        self.log_dict: Dict[str, Any] = {}
 
     def feed_data(self, data):
         pass
 
+    def optimize_parameters(self, current_iter):
+        pass
+
     def test(self):
+        pass
+
+    def save(self, epoch, current_iter):
         pass
 
     def get_current_visuals(self):
@@ -59,6 +74,78 @@ class BaseModel:
         if (val >= record['val']) if record['better'] == 'higher' else (val <= record['val']):
             record['val'] = val
             record['iter'] = current_iter
+
+    # ------------------------------------------------- optimizers, schedulers
+    def get_optimizer(self, optim_type: str, params, lr: float, **kwargs):
+        """The ``torch.optim`` optimizer of that name. torch's ``Adam`` adds
+        ``weight_decay`` to the gradient (L2), which is what the JAX
+        package's Adam composes by hand."""
+        types = ('Adam', 'AdamW', 'Adamax', 'SGD', 'RMSprop')
+        if optim_type not in types:
+            raise NotImplementedError(f'optimizer {optim_type} is not supported yet; '
+                                      f'supported: {types}')
+        return getattr(torch.optim, optim_type)(params, lr, **kwargs)
+
+    def setup_schedulers(self):
+        train_opt = self.opt['train']
+        scheduler_opt = dict(train_opt.get('scheduler') or {'type': 'ConstantLR'})
+        scheduler_type = scheduler_opt.pop('type')
+        for optimizer in self.optimizers:
+            if scheduler_type == 'MultiStepLR':
+                scheduler = torch.optim.lr_scheduler.MultiStepLR(optimizer, **scheduler_opt)
+            elif scheduler_type == 'MultiStepRestartLR':
+                scheduler = lr_scheduler.MultiStepRestartLR(optimizer, **scheduler_opt)
+            elif scheduler_type == 'CosineAnnealingRestartLR':
+                scheduler = lr_scheduler.CosineAnnealingRestartLR(optimizer, **scheduler_opt)
+            elif scheduler_type in ('ConstantLR', 'none', None):
+                scheduler = torch.optim.lr_scheduler.LambdaLR(optimizer, lambda _: 1.)
+            else:
+                raise NotImplementedError(f'Scheduler {scheduler_type} is not implemented yet.')
+            self.schedulers.append(scheduler)
+
+    def _get_init_lr(self):
+        return [[group['initial_lr'] for group in optimizer.param_groups]
+                for optimizer in self.optimizers]
+
+    def update_learning_rate(self, current_iter: int, warmup_iter: int = -1):
+        """Step the schedulers (from the second iteration on, so that each
+        step follows an optimizer step), then overwrite the rates with the
+        linear warm-up while ``current_iter < warmup_iter``."""
+        if current_iter > 1:
+            for optimizer, scheduler in zip(self.optimizers, self.schedulers):
+                # a scheduler that derives the next rate from the group's current
+                # one must find its own last value there, not the warm-up's
+                for group, lr in zip(optimizer.param_groups, scheduler.get_last_lr()):
+                    group['lr'] = lr
+                scheduler.step()
+        if current_iter < warmup_iter:
+            for optimizer, init_lrs in zip(self.optimizers, self._get_init_lr()):
+                warm = lr_scheduler.linear_warmup_lr(init_lrs, current_iter, warmup_iter)
+                for group, lr in zip(optimizer.param_groups, warm):
+                    group['lr'] = lr
+
+    def get_current_learning_rate(self):
+        return [group['lr'] for group in self.optimizers[0].param_groups]
+
+    # ------------------------------------------------------------------- EMA
+    @torch.no_grad()
+    def model_ema(self, decay: float = 0.999):
+        """``net_g_ema = decay * net_g_ema + (1 - decay) * net_g``, parameters
+        only, in place."""
+        ema = list(self.net_g_ema.parameters())
+        cur = list(self.net_g.parameters())
+        torch._foreach_mul_(ema, decay)
+        torch._foreach_add_(ema, cur, alpha=1 - decay)
+
+    def get_current_log(self):
+        """The last step's losses as floats (this reads them off the device)."""
+        return OrderedDict((k, float(v)) for k, v in self.log_dict.items())
+
+    def reduce_loss_dict(self, loss_dict) -> OrderedDict:
+        """The losses to log: detached device tensors, so that a training
+        step never waits for the host; ``get_current_log`` turns them into
+        floats when a line is printed. One process has nothing to reduce."""
+        return OrderedDict((k, v.detach()) for k, v in loss_dict.items())
 
     # --------------------------------------------------------------- utils
     def print_network(self, net: nn.Module) -> None:
@@ -89,3 +176,66 @@ class BaseModel:
             (k[len('module.'):] if k.startswith('module.') else k, v)
             for k, v in state_dict.items() if not k.endswith(_COMPUTED_BUFFERS))
         net.load_state_dict(state_dict, strict=strict)
+
+    # ----------------------------------------------------------- checkpoints
+    @master_only
+    def save_network(self, net, net_label: str, current_iter, param_key='params'):
+        """Save ``models/net_<label>_<iter>.pth``: ``{param_key: state_dict}``
+        on the CPU with BasicSR's key names. ``net`` and ``param_key`` may be
+        lists of the same length (``params`` and ``params_ema``)."""
+        if current_iter == -1:
+            current_iter = 'latest'
+        save_path = osp.join(self.opt['path']['models'], f'net_{net_label}_{current_iter}.pth')
+        nets = net if isinstance(net, list) else [net]
+        param_keys = param_key if isinstance(param_key, list) else [param_key]
+        if len(nets) != len(param_keys):
+            raise ValueError('The lengths of net and param_key should be the same.')
+        save_dict = {}
+        for net_, key in zip(nets, param_keys):
+            save_dict[key] = OrderedDict(
+                (k[len('module.'):] if k.startswith('module.') else k, v.cpu())
+                for k, v in net_.state_dict().items())
+        _save_with_retry(save_dict, save_path)
+
+    @master_only
+    def save_training_state(self, epoch: int, current_iter: int):
+        """Save ``training_states/<iter>.state``: epoch, iteration, and the
+        state of every optimizer and scheduler."""
+        if current_iter == -1:
+            return
+        state = {'epoch': epoch, 'iter': current_iter,
+                 'optimizers': [o.state_dict() for o in self.optimizers],
+                 'schedulers': [s.state_dict() for s in self.schedulers]}
+        state.update(self.extra_training_state())
+        _save_with_retry(state, osp.join(self.opt['path']['training_states'],
+                                         f'{current_iter}.state'))
+
+    def extra_training_state(self) -> Dict[str, Any]:
+        """What a model adds to the ``.state`` file (random generators)."""
+        return {}
+
+    def resume_training(self, resume_state):
+        """Restore optimizers and schedulers; the networks come from the
+        ``.pth`` of the same iteration (``utils.misc.check_resume``)."""
+        optimizers, schedulers = resume_state['optimizers'], resume_state['schedulers']
+        if len(optimizers) != len(self.optimizers) or len(schedulers) != len(self.schedulers):
+            raise ValueError('Wrong lengths of optimizers or schedulers in the resume state')
+        for optimizer, state in zip(self.optimizers, optimizers):
+            optimizer.load_state_dict(state)
+        for scheduler, state in zip(self.schedulers, schedulers):
+            scheduler.load_state_dict(state)
+
+
+def _save_with_retry(obj, save_path: str, retries: int = 3) -> None:
+    """``torch.save`` through a temporary file, tried up to three times."""
+    logger = get_root_logger()
+    os.makedirs(osp.dirname(save_path), exist_ok=True)
+    for remaining in range(retries - 1, -1, -1):
+        try:
+            torch.save(obj, save_path + '.tmp')
+            os.replace(save_path + '.tmp', save_path)
+            return
+        except OSError as e:
+            logger.warning(f'Save error: {e}, remaining retry times: {remaining}')
+            time.sleep(1)
+    raise IOError(f'Cannot save {save_path}.')

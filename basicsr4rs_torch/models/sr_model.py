@@ -1,10 +1,12 @@
-"""SRModel, eval path (counterpart of ``basicsr4rs_tpu/models/sr_model.py``;
-reference: basicsr/models/sr_model.py).
+"""SRModel (counterpart of ``basicsr4rs_tpu/models/sr_model.py``; reference:
+basicsr/models/sr_model.py).
 
-Builds ``network_g`` on the model's device, loads ``pretrain_network_g``,
-and validates: each item of the loader is one request, run forward under
+Builds ``network_g`` on the model's device and loads ``pretrain_network_g``.
+Training: pixel loss, one optimizer with its scheduler, an EMA copy of the
+network (``net_g_ema``) that validation and the saved ``params_ema`` use.
+Validation: each item of the loader is one request, run forward under
 ``torch.inference_mode()``, scored with the configured metrics and saved.
-Training, EMA and self-ensemble testing come with the train path.
+Perceptual losses and self-ensemble testing are not ported yet.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from os import path as osp
 import torch
 
 from ..archs import build_network
+from ..losses import build_loss
 from ..metrics import calculate_metric
 from ..utils.img_util import imwrite, tensor2img
 from ..utils.logger import get_root_logger
@@ -27,24 +30,113 @@ class SRModel(BaseModel):
 
     def __init__(self, opt):
         super().__init__(opt)
-        if self.is_train:
-            raise NotImplementedError('SRModel: the train path is not ported yet')
         self.net_g = build_network(opt['network_g']).to(self.device)
         self.print_network(self.net_g)
         load_path = self.opt['path'].get('pretrain_network_g')
         if load_path is not None:
             self.load_network(self.net_g, load_path, self.opt['path'].get('strict_load_g', True),
                               self.opt['path'].get('param_key_g', 'params'))
-        self.net_g.eval()
+        self.ema_decay = 0
+        if self.is_train:
+            self.init_training_settings()
+        else:
+            self.net_g.eval()
+
+    # ----------------------------------------------------------- training
+    def init_training_settings(self):
+        self.net_g.train()
+        train_opt = self.opt['train']
+        logger = get_root_logger()
+        # the network's own random draws (DropPath) come from one generator,
+        # seeded from the experiment's seed and saved with the training state
+        if hasattr(self.net_g, 'seed_drop_path'):
+            self.net_g.seed_drop_path(self.opt.get('manual_seed') or 0, self.device)
+
+        self.ema_decay = train_opt.get('ema_decay', 0)
+        if self.ema_decay > 0:
+            logger.info(f'Use Exponential Moving Average with decay: {self.ema_decay}')
+            # a second network, used only for testing and saving; it starts as
+            # the pretrained params_ema when there is one, else as a copy
+            self.net_g_ema = build_network(self.opt['network_g']).to(self.device)
+            load_path = self.opt['path'].get('pretrain_network_g')
+            if load_path is not None:
+                self.load_network(self.net_g_ema, load_path,
+                                  self.opt['path'].get('strict_load_g', True), 'params_ema')
+            else:
+                self.net_g_ema.load_state_dict(self.net_g.state_dict())
+            self.net_g_ema.eval()
+
+        self.cri_pix = (build_loss(train_opt['pixel_opt']).to(self.device)
+                        if train_opt.get('pixel_opt') else None)
+        if train_opt.get('perceptual_opt'):
+            raise NotImplementedError('SRModel: the perceptual loss is not ported yet')
+        if self.cri_pix is None:
+            raise ValueError('Both pixel and perceptual losses are None.')
+
+        self.setup_optimizers()
+        self.setup_schedulers()
+
+    def setup_optimizers(self):
+        optim_opt = dict(self.opt['train']['optim_g'])
+        optim_params = []
+        for name, param in self.net_g.named_parameters():
+            if param.requires_grad:
+                optim_params.append(param)
+            else:
+                get_root_logger().warning(f'Params {name} will not be optimized.')
+        self.optimizer_g = self.get_optimizer(optim_opt.pop('type'), optim_params, **optim_opt)
+        self.optimizers.append(self.optimizer_g)
 
     def feed_data(self, data):
-        self.lq = data['lq'].to(self.device)
+        self.lq = data['lq'].to(self.device, non_blocking=True)
         if 'gt' in data:
-            self.gt = data['gt'].to(self.device)
+            self.gt = data['gt'].to(self.device, non_blocking=True)
+
+    def optimize_parameters(self, current_iter):
+        self.optimizer_g.zero_grad(set_to_none=True)
+        self.output = self.net_g(self.lq)
+        loss_dict = OrderedDict()
+        l_pix = self.cri_pix(self.output, self.gt)
+        loss_dict['l_pix'] = l_pix
+        l_pix.backward()
+        self.optimizer_g.step()
+        self.log_dict = self.reduce_loss_dict(loss_dict)
+        if self.ema_decay > 0:
+            self.model_ema(decay=self.ema_decay)
+
+    def _test_net(self):
+        """Validation uses the EMA network when training keeps one."""
+        return self.net_g_ema if self.ema_decay > 0 else self.net_g
+
+    def _eval_forward(self, x):
+        net = self._test_net()
+        was_training = net.training
+        net.eval()
+        with torch.inference_mode():
+            out = net(x)
+        net.train(was_training)
+        return out
 
     def test(self):
-        with torch.inference_mode():
-            self.output = self.net_g(self.lq)
+        self.output = self._eval_forward(self.lq)
+
+    def save(self, epoch, current_iter):
+        if self.ema_decay > 0:
+            self.save_network([self.net_g, self.net_g_ema], 'g', current_iter,
+                              param_key=['params', 'params_ema'])
+        else:
+            self.save_network(self.net_g, 'g', current_iter)
+        self.save_training_state(epoch, current_iter)
+
+    def extra_training_state(self):
+        generator = getattr(self.net_g, 'drop_path_generator', None)
+        return {} if generator is None else {'drop_path_generator': generator.get_state()}
+
+    def resume_training(self, resume_state):
+        super().resume_training(resume_state)
+        generator = getattr(self.net_g, 'drop_path_generator', None)
+        if generator is not None and 'drop_path_generator' in resume_state:
+            generator.set_state(resume_state['drop_path_generator'].cpu())
 
     def get_current_visuals(self):
         out_dict = OrderedDict()
@@ -77,9 +169,14 @@ class SRModel(BaseModel):
                 del self.gt
 
             if save_img:
-                tag = val_opt.get('suffix') or self.opt['name']
-                imwrite(metric_data['img'], osp.join(self.opt['path']['visualization'],
-                                                     dataset_name, f'{img_name}_{tag}.png'))
+                if self.is_train:
+                    save_path = osp.join(self.opt['path']['visualization'], img_name,
+                                         f'{img_name}_{current_iter}.png')
+                else:
+                    tag = val_opt.get('suffix') or self.opt['name']
+                    save_path = osp.join(self.opt['path']['visualization'], dataset_name,
+                                         f'{img_name}_{tag}.png')
+                imwrite(metric_data['img'], save_path)
 
             if with_metrics:
                 for name, opt_ in val_opt['metrics'].items():

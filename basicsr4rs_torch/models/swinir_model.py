@@ -31,6 +31,5 @@ class SwinIRModel(SRModel):
         window_size = self.opt['network_g'].get('window_size', 8)
         scale = self.opt.get('scale', 1)
         _, _, h, w = self.lq.shape
-        with torch.inference_mode():
-            output = self.net_g(pad_to_multiple(self.lq, window_size))
+        output = self._eval_forward(pad_to_multiple(self.lq, window_size))
         self.output = output[:, :, :h * scale, :w * scale]

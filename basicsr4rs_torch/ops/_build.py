@@ -1,10 +1,12 @@
 """Build the port's CUDA kernels and load them with ctypes.
 
-Each kernel is one ``csrc/<name>.cu`` file with a plain C interface. It is
-compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library at first
-use, under ``build/kernels/`` at the root of the checkout, named by a hash of
-the source and the flags, so an edited source builds anew and an unchanged
-one is built once. The compiler's output (``-Xptxas=-v``: registers, shared
+Each kernel is one ``csrc/<name>.cu`` file with a plain C interface, over the
+device code they share in ``csrc/*.cuh``. It is compiled with ``nvcc`` for
+Hopper (``sm_90a``) into a shared library at first use, under
+``build/kernels/`` at the root of the checkout, named by a hash of the
+source, the headers and the flags, so an edited source or header builds anew
+and an unchanged one is built once. ``build_all`` compiles several kernels
+at once, one ``nvcc`` each. The compiler's output (``-Xptxas=-v``: registers, shared
 memory, spills) is kept beside the library as ``<library>.log``.
 """
 
@@ -16,11 +18,14 @@ import hashlib
 import os
 import subprocess
 from pathlib import Path
+from typing import Dict, Iterable
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v')
+              '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v', '-I', str(CSRC_DIR))
+KERNELS = ('swin_block_joint_fwd', 'swin_attn_block_fwd', 'swin_attn_block_bwd',
+           'mlp_block_fwd', 'mlp_block_bwd')
 
 
 def _nvcc() -> str:
@@ -31,23 +36,47 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, 'bin', 'nvcc')
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless a library of the same source and
-    flags exists; return the library's path."""
-    src = CSRC_DIR / f'{name}.cu'
-    key = hashlib.sha256(src.read_bytes() + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f'{name}-{key}.so'
-    if lib.exists():
-        return lib
+def _library_path(name: str) -> Path:
+    h = hashlib.sha256((CSRC_DIR / f'{name}.cu').read_bytes())
+    for header in sorted(CSRC_DIR.glob('*.cuh')):
+        h.update(header.read_bytes())
+    h.update(' '.join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f'{name}-{h.hexdigest()[:16]}.so'
+
+
+def build_all(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
+    """Compile each ``csrc/<name>.cu`` that has no library of the same
+    sources and flags, all at once; return the libraries' paths by name."""
+    libs = {name: _library_path(name) for name in names}
+    missing = {name: lib for name, lib in libs.items() if not lib.exists()}
+    if not missing:
+        return libs
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f'{lib.name}.{os.getpid()}.tmp')
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(src)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f'nvcc failed on {src}:\n{proc.stdout}{proc.stderr}')
-    lib.with_name(lib.name + '.log').write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return lib
+    running = []
+    for name, lib in missing.items():
+        tmp = lib.with_name(f'{lib.name}.{os.getpid()}.tmp')
+        src = CSRC_DIR / f'{name}.cu'
+        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, '-o', str(tmp), str(src)],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running.append((src, lib, tmp, proc))
+    failures = []
+    for src, lib, tmp, proc in running:
+        output, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f'nvcc failed on {src}:\n{output}')
+            continue
+        lib.with_name(lib.name + '.log').write_text(output)
+        os.replace(tmp, lib)
+    if failures:
+        raise RuntimeError('\n'.join(failures))
+    return libs
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless a library of the same sources and
+    flags exists; return the library's path."""
+    return build_all([name])[name]
 
 
 @functools.lru_cache(maxsize=None)

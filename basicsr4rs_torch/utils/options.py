@@ -1,9 +1,12 @@
 """YAML experiment-config parsing (counterpart of
 ``basicsr4rs_tpu/utils/options.py``; reference: basicsr/utils/options.py).
 
-One YAML file per experiment names the model, network, dataset and metric
-types that the registries resolve; ``--force_yml a:b=c`` overrides entries;
-``scale``/``phase`` propagate into the dataset options. ``num_gpu`` picks the
+One YAML file per experiment names the model, network, dataset, loss and
+metric types that the registries resolve; ``--force_yml a:b=c`` overrides
+entries; ``scale``/``phase`` propagate into the dataset options; a training
+run gets the ``experiments/<name>/`` layout, a test run ``results/<name>/``;
+``--debug`` (or a name with ``debug`` in it) shrinks the logging, validation
+and checkpoint intervals. ``num_gpu`` picks the
 device: ``auto`` is ``torch.cuda.device_count()``, ``0`` means the CPU, and a
 run that asks for a GPU on a host without one raises instead of falling back
 to the CPU.
@@ -14,6 +17,8 @@ from __future__ import annotations
 import argparse
 import os
 import random
+import sys
+import time
 from collections import OrderedDict
 from os import path as osp
 from typing import Any, Dict, Optional, Tuple
@@ -22,7 +27,7 @@ import numpy as np
 import torch
 import yaml
 
-from .dist_util import get_dist_info
+from .dist_util import get_dist_info, master_only
 
 
 def ordered_yaml():
@@ -129,15 +134,14 @@ def resolve_num_gpu(num_gpu) -> int:
 def parse_options(root_path: str, is_train: bool = False,
                   args: Optional[argparse.Namespace] = None
                   ) -> Tuple[Dict[str, Any], argparse.Namespace]:
-    """Parse the command line (``-opt``, ``--force_yml``) and the YAML file
-    into the experiment option dict. The train-time options (``--debug``,
-    ``--auto_resume``, launchers, the experiments layout) come with the
-    train path."""
-    if is_train:
-        raise NotImplementedError('parse_options: the train path is not ported yet')
+    """Parse the command line (``-opt``, ``--auto_resume``, ``--debug``,
+    ``--force_yml``) and the YAML file into the experiment option dict.
+    Distributed launchers are not ported: the run is one process."""
     if args is None:
         parser = argparse.ArgumentParser()
         parser.add_argument('-opt', type=str, required=True, help='Path to option YAML file.')
+        parser.add_argument('--auto_resume', action='store_true')
+        parser.add_argument('--debug', action='store_true')
         parser.add_argument('--force_yml', nargs='+', default=None,
                             help='Force to update yml files. Example: train:ema_decay=0.999')
         args = parser.parse_args()
@@ -148,12 +152,16 @@ def parse_options(root_path: str, is_train: bool = False,
     opt['dist'] = False
     apply_force_yml(opt, args.force_yml)
 
+    if getattr(args, 'debug', False) and not opt['name'].startswith('debug'):
+        opt['name'] = 'debug_' + opt['name']
+
     seed = opt.get('manual_seed')
     if seed is None:
         seed = random.randint(1, 10000)
         opt['manual_seed'] = seed
     set_random_seed(seed + rank)
 
+    opt['auto_resume'] = getattr(args, 'auto_resume', False)
     opt['is_train'] = is_train
     opt['num_gpu'] = resolve_num_gpu(opt.get('num_gpu', 'auto'))
 
@@ -169,10 +177,38 @@ def parse_options(root_path: str, is_train: bool = False,
         if (val is not None) and ('resume_state' in key or 'pretrain_network' in key):
             opt['path'][key] = osp.expanduser(val)
 
-    results_root = osp.join(opt['path'].get('results_root') or osp.join(root_path, 'results'),
-                            opt['name'])
-    opt['path']['results_root'] = results_root
-    opt['path']['log'] = results_root
-    opt['path']['visualization'] = osp.join(results_root, 'visualization')
+    if is_train:
+        experiments_root = osp.join(
+            opt['path'].get('experiments_root') or osp.join(root_path, 'experiments'),
+            opt['name'])
+        opt['path']['experiments_root'] = experiments_root
+        opt['path']['models'] = osp.join(experiments_root, 'models')
+        opt['path']['training_states'] = osp.join(experiments_root, 'training_states')
+        opt['path']['log'] = experiments_root
+        opt['path']['visualization'] = osp.join(experiments_root, 'visualization')
+        if 'debug' in opt['name']:
+            if opt.get('val'):
+                opt['val']['val_freq'] = 8
+            if opt.get('logger'):
+                opt['logger']['print_freq'] = 1
+                opt['logger']['save_checkpoint_freq'] = 8
+    else:
+        results_root = osp.join(
+            opt['path'].get('results_root') or osp.join(root_path, 'results'), opt['name'])
+        opt['path']['results_root'] = results_root
+        opt['path']['log'] = results_root
+        opt['path']['visualization'] = osp.join(results_root, 'visualization')
 
     return opt, args
+
+
+@master_only
+def copy_opt_file(opt_file: str, experiments_root: str) -> None:
+    """Copy the config into the experiment directory under a header that
+    says when and by which command it ran."""
+    os.makedirs(experiments_root, exist_ok=True)
+    with open(opt_file, 'r') as f:
+        lines = f.readlines()
+    lines.insert(0, f'# GENERATE TIME: {time.asctime()}\n# CMD:\n# {" ".join(sys.argv)}\n\n')
+    with open(osp.join(experiments_root, osp.basename(opt_file)), 'w') as f:
+        f.writelines(lines)

@@ -6,18 +6,33 @@ From the root of a checkout, in phases; any failure ends the run with a
 nonzero exit code and no result line:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. builds the Swin block kernel from ``basicsr4rs_torch/csrc/`` with nvcc;
-3. holds the kernel against its plain PyTorch version on the card at
+2. builds the five Swin block kernels from ``basicsr4rs_torch/csrc/`` with
+   nvcc, all at once;
+3. holds each kernel against its plain PyTorch version on the card at
    SwinIR-M block shapes (C=180, 6 heads, window 8, hidden 360), without
-   and with the shift mask, in float32 and bfloat16, and at the shapes of
-   the served requests, and times both;
+   and with the shift mask, in float32 and bfloat16, and times both: the
+   joint forward kernel also at the shapes of the served requests; the
+   attention and MLP branch kernels, forward and backward, at the training
+   shape (batch 4 of 48x48) in their three output modes, every gradient by
+   name;
 4. serves SwinIR-M x4 through ``basicsr4rs_torch.test`` (the code path of
    ``python -m basicsr4rs_torch.test -opt options/test/SwinIR/
    test_SwinIR_M_x4_synthetic.yml``) on 4 synthetic image pairs and random
    seed-0 weights that it writes first, counts the kernel's launches, checks
    the outputs and times each request;
 5. runs one request again with every block on the plain version and
-   compares the two outputs.
+   compares the two outputs;
+6. trains SwinIR-M x4 through ``basicsr4rs_torch.train`` (the code path of
+   ``python -m basicsr4rs_torch.train -opt options/train/SwinIR/
+   train_SwinIR_M_x4_synthetic.yml``) for 8 steps of batch 4 at GT 192 on
+   synthetic pairs that it writes first, with two validations and
+   checkpoints inside: counts every kernel's launches per step, checks that
+   the loss is finite and falls on a fixed batch, the EMA, the saved
+   ``.pth`` and a resume from the saved ``.state``, times the steps, and
+   breaks three more steps down by kernel with ``torch.profiler``;
+7. runs one training batch forward and backward through the kernels and
+   through their plain versions, with the same DropPath masks, and compares
+   the loss and every parameter's gradient.
 
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -44,8 +59,16 @@ SCALE = 4
 # float32, so errors are bf16 ulps of the largest magnitudes, not of each
 # element: max|err| <= 1.6e-2 max|plain| (two ulps at the top of the range).
 F32_TOL = (1e-4, 1e-4)   # (atol, rtol)
+# float32 parameter gradients are sums over every token of the call (9216 at
+# the training shape), added by atomicAdd in an order that changes from run
+# to run; an entry's error follows the size of the sum's terms, not of the
+# entry, so the bound is relative to the largest entry: max|err| <= 1e-4 max|plain|.
+F32_SUM_TOL = 1e-4
 BF16_TOL = 1.6e-2
 MODEL_TOLERANCE = 1e-3   # on the [0, 1] output: a quarter of one uint8 level
+# Published peaks of one H100 SXM (NVIDIA's data sheet): float32 on the CUDA
+# cores, dense bfloat16 on the tensor cores, HBM3
+PEAK_FLOPS_F32, PEAK_FLOPS_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
 
 
 def fail(msg):
@@ -56,7 +79,7 @@ def phase(title):
     print(f'\n== {title}', flush=True)
 
 
-def cuda_time_ms(fn, iters=20):
+def cuda_time_ms(fn, iters=10):
     """Mean milliseconds per call, CUDA events around ``iters`` calls after
     a warm-up."""
     for _ in range(3):
@@ -77,31 +100,38 @@ def card_info():
                          capture_output=True, text=True, timeout=60)
     if smi.returncode != 0 or not smi.stdout.strip():
         fail(f'nvidia-smi: {smi.stderr.strip()}')
-    print(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
     print(f'python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, '
           f'{torch.cuda.device_count()} x {torch.cuda.get_device_name(0)}')
+    return card
 
 
-def build_kernel():
+def build_kernels():
     from basicsr4rs_torch.ops import _build
     phase('2. build')
-    src = _build.CSRC_DIR / 'swin_block_joint_fwd.cu'
     t0 = time.perf_counter()
-    lib = _build.build('swin_block_joint_fwd')
-    print(f'built {os.path.relpath(src, ROOT)} -> {os.path.relpath(lib, ROOT)} in '
-          f'{time.perf_counter() - t0:.2f} s with nvcc {" ".join(_build.NVCC_FLAGS)}')
-    log = lib.with_name(lib.name + '.log').read_text()
-    print('\n'.join(line.strip() for line in log.splitlines()
-                    if 'registers' in line or 'spill' in line))
-    if 'sm_90a' not in log:
-        fail('the kernel was not compiled for sm_90a')
+    libs = _build.build_all()   # one nvcc per source, all at once
+    print(f'built {len(libs)} kernels in {time.perf_counter() - t0:.2f} s with nvcc '
+          f'{" ".join(_build.NVCC_FLAGS)}')
+    for name, lib in libs.items():
+        print(f'{os.path.relpath(_build.CSRC_DIR / (name + ".cu"), ROOT)} -> '
+              f'{os.path.relpath(lib, ROOT)}')
+        log = lib.with_name(lib.name + '.log').read_text()
+        print('\n'.join('  ' + line.strip() for line in log.splitlines()
+                        if 'registers' in line or 'spill' in line))
+        if 'sm_90a' not in log:
+            fail(f'{name} was not compiled for sm_90a')
+
+
+C, HEADS, WS, HIDDEN = 180, 6, 8, 360   # a SwinIR-M block
 
 
 def block_inputs(b, h, w, dtype, shift, gen):
     """SwinIR-M block inputs on the card: x already rolled, weights with
     std 1/sqrt(fan_in) so that the attention is far from uniform."""
     from basicsr4rs_torch.archs.swinir_arch import _shift_attn_mask
-    c, heads, ws, hidden = 180, 6, 8, 360
+    c, heads, ws, hidden = C, HEADS, WS, HIDDEN
     n = ws * ws
 
     def r(*shape, std=1.):
@@ -116,9 +146,63 @@ def block_inputs(b, h, w, dtype, shift, gen):
     return args + [ws, heads, (c // heads)**-.5]
 
 
-def check_block_kernel():
+def bound_ms(flop, nbytes, dtype):
+    """The least time the card could take: the larger of operations over the
+    peak rate of the type (float32 on the CUDA cores, bfloat16 on the tensor
+    cores) and bytes over the memory rate; and which of the two it is."""
+    peak = PEAK_FLOPS_F32 if dtype == torch.float32 else PEAK_FLOPS_BF16
+    by_ops, by_bytes = flop / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (by_ops, 'operations') if by_ops >= by_bytes else (by_bytes, 'bytes')
+
+
+def kernel_work(kernel, b, h, w, dtype, shifted):
+    """(FLOP, bytes) of one call on a SwinIR-M block: every product of the
+    function, each input read once and each output written once."""
+    t, c, hid, n, es = b * h * w, C, HIDDEN, WS * WS, torch.finfo(dtype).bits // 8
+    attn_w, mlp_w = 4 * c * c, 2 * c * hid                      # weight elements
+    small = 4 * (8 * c + hid) + 4 * HEADS * n * n               # LN, biases, rel_bias (f32)
+    mask = 4 * (h // WS) * (w // WS) * n * n if shifted else 0
+    attn_fwd = t * (8 * c * c + 4 * n * c)
+    mlp_fwd = t * 4 * c * hid
+    return {
+        'swin_block_joint_fwd': (attn_fwd + mlp_fwd,
+                                 2 * t * c * es + (attn_w + mlp_w) * es + small + mask),
+        'swin_attn_block_fwd': (attn_fwd, 2 * t * c * es + attn_w * es + small + mask),
+        # recomputes qkv, scores and P v; then dWproj, dO, dV, dP, dQ, dK, dWqkv, dLN
+        'swin_attn_block_bwd': (t * (22 * c * c + 12 * n * c),
+                                3 * t * c * es + attn_w * (es + 4) + 2 * small + mask),
+        'mlp_block_fwd': (mlp_fwd, 2 * t * c * es + mlp_w * es + small),
+        # recomputes fc1; then dW2, dh, dW1, dLN
+        'mlp_block_bwd': (t * 10 * c * hid, 3 * t * c * es + mlp_w * (es + 4) + 2 * small),
+    }[kernel]
+
+
+def compare(got, want, dtype, rule):
+    """(ok, max abs err, max abs err / max|plain|, the tolerance in words)."""
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        return False, float('nan'), float('nan'), 'finite'
+    err = (got - want).abs()
+    max_abs = err.max().item()
+    max_rel = max_abs / max(want.abs().max().item(), 1e-30)
+    if dtype != torch.float32:
+        return max_rel <= BF16_TOL, max_abs, max_rel, f'max|err| <= {BF16_TOL} max|plain|'
+    if rule == 'elementwise':
+        ok = bool((err <= F32_TOL[0] + F32_TOL[1] * want.abs()).all())
+        return ok, max_abs, max_rel, f'|err| <= {F32_TOL[0]} + {F32_TOL[1]} |plain|'
+    return max_rel <= F32_SUM_TOL, max_abs, max_rel, f'max|err| <= {F32_SUM_TOL} max|plain|'
+
+
+def time_pair(plain, kernel):
+    """(kernel ms, plain ms), timed in the order plain, kernel, kernel, plain."""
+    times = [cuda_time_ms(fn) for fn in (plain, kernel, kernel, plain)]
+    return (times[1] + times[2]) / 2, (times[0] + times[3]) / 2
+
+
+def check_joint_kernel():
     from basicsr4rs_torch.ops.swin_block import fused_swin_block_full, reference_swin_block_full
-    phase('3. kernel vs plain version (SwinIR-M block: C=180, 6 heads, window 8, hidden 360)')
+    phase('3a. joint forward kernel vs plain version (SwinIR-M block: C=180, 6 heads, '
+          'window 8, hidden 360)')
     gen = torch.Generator().manual_seed(0)
     cases = [(2, 64, 64, dt, shift) for dt in (torch.float32, torch.bfloat16) for shift in (0, 4)]
     # the padded shapes of the served requests, one image each
@@ -127,34 +211,111 @@ def check_block_kernel():
     for b, h, w, dt, shift in cases:
         args = block_inputs(b, h, w, dt, shift, gen)
         with torch.no_grad():
-            got = fused_swin_block_full(*args).float()
-            want = reference_swin_block_full(*args).float()
+            got = fused_swin_block_full(*args)
+            want = reference_swin_block_full(*args)
         torch.cuda.synchronize()
-        if not torch.isfinite(got).all():
-            fail(f'non-finite kernel output at {(b, h, w, dt, shift)}')
-        err = (got - want).abs()
-        max_abs, max_rel = err.max().item(), err.max().item() / want.abs().max().item()
-        if dt == torch.float32:
-            ok = bool((err <= F32_TOL[0] + F32_TOL[1] * want.abs()).all())
-            tolerance = f'|err| <= {F32_TOL[0]} + {F32_TOL[1]} |plain|'
-        else:
-            ok = max_rel <= BF16_TOL
-            tolerance = f'max|err| <= {BF16_TOL} max|plain|'
+        ok, max_abs, max_rel, tolerance = compare(got, want, dt, 'elementwise')
         line = (f'B={b} {h}x{w} {str(dt)[6:]:8s} shift={shift}: max_abs_err={max_abs:.3e} '
                 f'max_rel_err={max_rel:.3e} (max|err| / max|plain|), tolerance {tolerance}')
         with torch.no_grad():
-            times = [cuda_time_ms(lambda: fn(*args)) for fn in
-                     (reference_swin_block_full, fused_swin_block_full,
-                      fused_swin_block_full, reference_swin_block_full)]
-        kernel_ms, plain_ms = (times[1] + times[2]) / 2, (times[0] + times[3]) / 2
+            kernel_ms, plain_ms = time_pair(lambda: reference_swin_block_full(*args),
+                                            lambda: fused_swin_block_full(*args))
         line += f' | kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms'
         if (b, h, w, dt) == (1, 128, 128, torch.float32):   # the largest served request
-            summary.update(ms=kernel_ms, plain_ms=plain_ms)
+            flop, nbytes = kernel_work('swin_block_joint_fwd', b, h, w, dt, shift)
+            bound, by = bound_ms(flop, nbytes, dt)
+            summary.update(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+            line += f', bound {bound:.4f} ms by {by}'
         print(line, flush=True)
         if not ok:
-            fail(f'kernel and plain version disagree at {(b, h, w, dt, shift)}')
+            fail(f'joint kernel and plain version disagree at {(b, h, w, dt, shift)}')
         if dt == torch.float32:
             summary['max_abs_err'] = max(summary['max_abs_err'], max_abs)
+    return summary
+
+
+ATTN_GRADS = ('dx', 'd_ln_weight', 'd_ln_bias', 'd_qkv_weight', 'd_qkv_bias', 'd_proj_weight',
+              'd_proj_bias', 'd_rel_bias')
+MLP_GRADS = ('dx', 'd_ln_weight', 'd_ln_bias', 'd_fc1_weight', 'd_fc1_bias', 'd_fc2_weight',
+             'd_fc2_bias')
+TRAIN_SHAPE = (4, 48, 48)   # batch 4 of 48x48 LQ patches: the training step's block input
+
+
+def check_branch_kernels():
+    """The four kernels of the training path against their plain versions."""
+    from basicsr4rs_torch.ops import mlp_block as M
+    from basicsr4rs_torch.ops import swin_block as S
+    phase('3b. attention and MLP branch kernels, forward and backward, vs plain versions')
+    gen = torch.Generator().manual_seed(1)
+    cases = [(shape, torch.float32, shift, mode) for shape in (TRAIN_SHAPE, (2, 64, 64))
+             for shift in (0, 4) for mode in ('branch', 'residual', 'scaled')]
+    cases += [(TRAIN_SHAPE, torch.bfloat16, 4, mode) for mode in ('branch', 'scaled')]
+    summary = {name: {'max_abs_err': 0.} for name in
+               ('swin_attn_block_fwd', 'swin_attn_block_bwd', 'mlp_block_fwd', 'mlp_block_bwd')}
+    for (b, h, w), dt, shift, mode in cases:
+        (x, ln1w, ln1b, wqkv, bqkv, wproj, bproj, rel, mask, ln2w, ln2b, w1, b1, w2, b2,
+         ws, heads, scale) = block_inputs(b, h, w, dt, shift, gen)
+        dz = torch.randn(x.shape, generator=gen).cuda().to(dt)
+        add = mode == 'residual'
+        s = None
+        if mode == 'scaled':   # DropPath's mask / keep: one sample dropped
+            s = torch.full((b,), 1 / 0.9, device='cuda')
+            s[1] = 0.
+        tail = (add, s)
+        attn = (x, ln1w, ln1b, wqkv, bqkv, wproj, bproj, rel, mask, ws, heads, scale) + tail
+        attn_b = (x, dz, ln1w, ln1b, wqkv, bqkv, wproj, rel, mask, ws, heads, scale) + tail
+        mlp = (x, ln2w, ln2b, w1, b1, w2, b2) + tail
+        mlp_b = (x, dz, ln2w, ln2b, w1, b1, w2) + tail
+        runs = [
+            ('swin_attn_block_fwd', S.swin_attn_block_forward, S.reference_swin_attn_block,
+             attn, ('out',)),
+            ('swin_attn_block_bwd', S.swin_attn_block_backward,
+             S.reference_swin_attn_block_backward, attn_b, ATTN_GRADS),
+            ('mlp_block_fwd', M.mlp_block_forward, M.reference_mlp_block, mlp, ('out',)),
+            ('mlp_block_bwd', M.mlp_block_backward, M.reference_mlp_block_backward, mlp_b,
+             MLP_GRADS),
+        ]
+        tag = f'B={b} {h}x{w} {str(dt)[6:]:8s} shift={shift} {mode:8s}'
+        for name, kernel, plain, args, outputs in runs:
+            with torch.no_grad():
+                got = kernel(*args)
+            want = plain(*args)
+            torch.cuda.synchronize()
+            got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+            worst = []
+            for out_name, g, wnt in zip(outputs, got, want):
+                # activations elementwise; parameter gradients, sums over all
+                # tokens, relative to the largest entry
+                rule = 'elementwise' if out_name in ('out', 'dx') else 'sum'
+                ok, max_abs, max_rel, tolerance = compare(g, wnt, dt, rule)
+                worst.append(f'{out_name} {max_abs:.2e} ({max_rel:.1e})')
+                if not ok:
+                    print(f'{name} {tag}: ' + ', '.join(worst))
+                    fail(f'{name}: {out_name} disagrees with the plain version at {tag}: '
+                         f'max abs err {max_abs:.3e}, {max_rel:.3e} of max|plain|, '
+                         f'tolerance {tolerance}')
+                if dt == torch.float32:
+                    summary[name]['max_abs_err'] = max(summary[name]['max_abs_err'], max_abs)
+            if mode == 'scaled':   # a dropped sample passes x and dz through untouched
+                through = dz if name.endswith('bwd') else x
+                if not torch.equal(got[0][1], through[1]):
+                    fail(f'{name}: the dropped sample is not passed through at {tag}')
+            kernel_ms, plain_ms = time_pair(lambda: plain(*args), lambda: kernel(*args))
+            flop, nbytes = kernel_work(name, b, h, w, dt, shift)
+            bound, by = bound_ms(flop, nbytes, dt)
+            print(f'{name:20s} {tag}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, '
+                  f'bound {bound:.4f} ms by {by} | max abs err (of max|plain|): '
+                  + ', '.join(worst), flush=True)
+            if ((b, h, w), dt, shift, mode) == (TRAIN_SHAPE, torch.float32, 4, 'scaled'):
+                summary[name].update(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound,
+                                     bound_by=by)
+                if name.endswith('bwd'):   # atomicAdd sums: reported, not required
+                    with torch.no_grad():
+                        again = kernel(*args)
+                    print(f'{name:20s} {tag}: a second launch on the same inputs repeats bit '
+                          'for bit: ' + ', '.join(
+                              f'{o} {"yes" if torch.equal(g, a) else "no"}'
+                              for o, g, a in zip(outputs, got, again)), flush=True)
     return summary
 
 
@@ -265,23 +426,342 @@ def check_whole_model(model, loader):
         fail('whole-model outputs disagree')
 
 
+TRAIN_CONFIG = 'options/train/SwinIR/train_SwinIR_M_x4_synthetic.yml'
+TRAIN_DATA_DIR = 'datasets/SwinIR_M_x4_synthetic_train'
+TRAIN_IMAGES, TRAIN_GT_SIZE, VAL_LQ_SIZE = 8, 256, 64
+RESUME_ITERS = 2
+PROFILE_DIR = 'results/chip_smoke'
+# whole-model gradients, kernels vs plain versions: per parameter,
+# max|difference| <= 1e-3 of the largest entry of the plain gradient (float32
+# sums in another order through 36 blocks and 7 convolutions' backward)
+GRAD_TOLERANCE = 1e-3
+
+
+def smooth_image(rng, h, w):
+    """A smooth random uint8 image: coarse noise, bicubically enlarged."""
+    import cv2
+    import numpy as np
+    coarse = rng.rand(h // 16 + 2, w // 16 + 2, 3).astype(np.float32)
+    img = cv2.resize(coarse, (w, h), interpolation=cv2.INTER_CUBIC)
+    return (np.clip(img, 0, 1) * 255).round().astype(np.uint8)
+
+
+def write_train_inputs():
+    """Synthetic GT/LQ pairs for training (8 of GT 256x256, two batches of 4
+    at GT patch 192) and one validation pair (LQ 64x64)."""
+    import cv2
+    import numpy as np
+    rng = np.random.RandomState(1)
+    sets = [('GT', 'LQ', TRAIN_IMAGES, TRAIN_GT_SIZE), ('val_GT', 'val_LQ', 1, SCALE * VAL_LQ_SIZE)]
+    for gt_dir, lq_dir, count, size in sets:
+        for sub in (gt_dir, lq_dir):
+            os.makedirs(os.path.join(TRAIN_DATA_DIR, sub), exist_ok=True)
+        for i in range(count):
+            gt = smooth_image(rng, size, size)
+            lq = cv2.resize(gt, (size // SCALE, size // SCALE), interpolation=cv2.INTER_CUBIC)
+            cv2.imwrite(os.path.join(TRAIN_DATA_DIR, gt_dir, f'{i:04d}.png'), gt)
+            cv2.imwrite(os.path.join(TRAIN_DATA_DIR, lq_dir, f'{i:04d}.png'), lq)
+
+
+def training_kernels():
+    from basicsr4rs_torch.ops import mlp_block as M
+    from basicsr4rs_torch.ops import swin_block as S
+    return {'swin_block_joint_fwd': S.fused_swin_block_full,
+            'swin_attn_block_fwd': S.swin_attn_block_forward,
+            'swin_attn_block_bwd': S.swin_attn_block_backward,
+            'mlp_block_fwd': M.mlp_block_forward, 'mlp_block_bwd': M.mlp_block_backward}
+
+
+def run_train_pipeline(extra_args, record):
+    """``basicsr4rs_torch.train.train_pipeline`` on the synthetic config, with
+    every optimization step timed by CUDA events and its loss and launch
+    counts recorded."""
+    import basicsr4rs_torch.train as entry
+    from basicsr4rs_torch.models.swinir_model import SwinIRModel
+    wrappers = training_kernels()
+    step = SwinIRModel.optimize_parameters
+
+    def timed_step(model, current_iter):
+        if 'fixed' not in record:   # the first batch: the loss is followed on it
+            record['fixed'] = (model.lq.clone(), model.gt.clone())
+            record['fixed_loss_before'] = fixed_batch_loss(model, record['fixed'])
+        before = {k: w.launches for k, w in wrappers.items()}
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(model, current_iter)
+        end.record()
+        torch.cuda.synchronize()
+        record['steps'].append({
+            'iter': current_iter, 'ms': start.elapsed_time(end),
+            'l_pix': float(model.log_dict['l_pix']),
+            'launches': {k: w.launches - before[k] for k, w in wrappers.items()}})
+
+    argv = sys.argv
+    sys.argv = ['basicsr4rs_torch.train', '-opt', TRAIN_CONFIG] + extra_args
+    try:
+        with mock.patch.object(SwinIRModel, 'optimize_parameters', timed_step):
+            return entry.train_pipeline(ROOT)
+    finally:
+        sys.argv = argv
+
+
+def fixed_batch_loss(model, batch):
+    """The pixel loss of the training network in eval mode on a fixed batch."""
+    lq, gt = batch
+    net = model.net_g
+    net.eval()
+    with torch.no_grad():
+        loss = float(model.cri_pix(net(lq), gt))
+    net.train()
+    return loss
+
+
+def train():
+    import glob
+    import shutil
+
+    from basicsr4rs_torch.archs.swinir_arch import SwinIR
+    from basicsr4rs_torch.utils.options import yaml_load
+    phase('6. train SwinIR-M x4 through basicsr4rs_torch.train on cuda:0 '
+          '(batch 4, GT 192: 9216 tokens a step)')
+    write_train_inputs()
+    opt = yaml_load(TRAIN_CONFIG)
+    total_iter = opt['train']['total_iter']
+    blocks = sum(opt['network_g']['depths'])
+    exp_dir = os.path.join('experiments', opt['name'])
+    for old in glob.glob(exp_dir + '*'):   # a clean start: no archived copies, no resume
+        shutil.rmtree(old)
+    wrappers = training_kernels()
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    record = {'steps': []}
+    t0 = time.perf_counter()
+    model = run_train_pipeline([], record)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    if model.device.type != 'cuda' or next(model.net_g.parameters()).device.type != 'cuda':
+        fail(f'the model trained on {model.device}')
+    steps = record['steps']
+    # validation at every val_freq and once more after the loop
+    validations = total_iter // opt['val']['val_freq'] + 1
+    print(f'pipeline wall time {wall:.3f} s for {len(steps)} steps, {validations} validations, '
+          'checkpoints')
+    for st in steps:
+        print(f'step {st["iter"]}: {st["ms"]:.3f} ms, l_pix {st["l_pix"]:.6f}, launches '
+              + ' '.join(f'{k}={v}' for k, v in st['launches'].items() if v))
+    if [st['iter'] for st in steps] != list(range(1, total_iter + 1)):
+        fail(f'expected steps 1..{total_iter}, ran {[st["iter"] for st in steps]}')
+    for st in steps:
+        if not torch.isfinite(torch.tensor(st['l_pix'])):
+            fail(f'l_pix is not finite at step {st["iter"]}')
+        for name in ('swin_attn_block_fwd', 'swin_attn_block_bwd', 'mlp_block_fwd',
+                     'mlp_block_bwd'):
+            if st['launches'][name] != blocks:
+                fail(f'step {st["iter"]}: {st["launches"][name]} launches of {name}, '
+                     f'expected {blocks}')
+    # each validation image, and the fixed batch before step 1, is one forward
+    # of the joint kernel per block
+    if launches['swin_block_joint_fwd'] != blocks * (validations + 1):
+        fail(f'{launches["swin_block_joint_fwd"]} launches of the joint kernel, expected '
+             f'{blocks} x ({validations} validation images + 1 fixed batch)')
+    print('launches in the run: ' + ' '.join(f'{k}={v}' for k, v in launches.items()))
+    timed = [st['ms'] for st in steps[2:]]
+    print(f'training step: {sum(timed) / len(timed):.3f} ms mean of steps 3..{total_iter} '
+          f'(min {min(timed):.3f}, max {max(timed):.3f}; CUDA events around '
+          f'optimize_parameters, after 2 warm-up steps); peak device memory {peak:.1f} MiB')
+    loss_after = fixed_batch_loss(model, record['fixed'])
+    print(f'l_pix on the first batch, eval mode: {record["fixed_loss_before"]:.6f} before '
+          f'step 1, {loss_after:.6f} after step {total_iter} '
+          f'(Adam, lr {opt["train"]["optim_g"]["lr"]}, the config\'s)')
+    if not loss_after < record['fixed_loss_before']:
+        fail('the loss on the fixed batch did not fall')
+
+    # EMA, checkpoint, resume
+    diff = max((p - e).abs().max().item() for p, e in
+               zip(model.net_g.parameters(), model.net_g_ema.parameters()))
+    print(f'max |net_g - net_g_ema| over the parameters: {diff:.3e}')
+    if not diff > 0:
+        fail('the EMA network equals the trained network')
+    ckpt_path = os.path.join(exp_dir, 'models', f'net_g_{total_iter}.pth')
+    ckpt = torch.load(ckpt_path, map_location='cpu', weights_only=True)
+    if sorted(ckpt) != ['params', 'params_ema']:
+        fail(f'{ckpt_path} holds {sorted(ckpt)}')
+    net_opt = dict(opt['network_g'])
+    net_opt.pop('type')
+    fresh = SwinIR(**net_opt)
+    for key in ('params', 'params_ema'):
+        model.load_network(fresh, ckpt_path, True, key)
+    for (name, p), q in zip(fresh.named_parameters(), model.net_g_ema.parameters()):
+        if not torch.equal(p, q.cpu()):
+            fail(f'{ckpt_path}: params_ema[{name}] differs from the EMA network')
+    print(f'{ckpt_path}: params and params_ema load back, params_ema equals the EMA network')
+
+    resumed = {'steps': [], 'fixed': record['fixed'], 'fixed_loss_before': 0.}
+    # the resumed run also takes its batches through the CUDA prefetcher
+    run_train_pipeline(['--auto_resume', '--force_yml',
+                        f'train:total_iter={total_iter + RESUME_ITERS}',
+                        'datasets:train:prefetch_mode=cuda'], resumed)
+    iters = [st['iter'] for st in resumed['steps']]
+    print(f'resumed from {total_iter}.state (prefetch_mode: cuda): ran steps {iters}, l_pix '
+          + ' '.join(f'{st["l_pix"]:.6f}' for st in resumed['steps']))
+    if iters != list(range(total_iter + 1, total_iter + RESUME_ITERS + 1)):
+        fail(f'resume should continue at step {total_iter + 1}, ran {iters}')
+    profile_training_steps(model, record['fixed'])
+    return launches, sum(timed) / len(timed), peak
+
+
+def profile_training_steps(model, batch, steps=3):
+    """Where a training step's device time goes: ``steps`` steps on a fixed
+    batch under ``torch.profiler``, device time summed by kernel. Reported,
+    not required: a profiler that sees no device time only says so."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    phase(f'6b. device time of {steps} training steps by kernel (torch.profiler)')
+    model.lq, model.gt = batch
+    for _ in range(2):
+        model.optimize_parameters(0)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(steps):
+            model.optimize_parameters(0)
+        end.record()
+        torch.cuda.synchronize()
+    window_ms = start.elapsed_time(end)
+    # kernels and memory operations only: a host annotation (Optimizer.step#...)
+    # also shows on the device timeline, over the kernels it spans
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+            and '#' not in e.key]
+    busy_ms = sum(ms for _, ms, _ in rows)
+    if busy_ms == 0:
+        print('the profiler recorded no device time')
+        return
+    groups = {}
+    ours = ('swin_attn_block_fwd', 'swin_attn_block_bwd', 'mlp_block_fwd', 'mlp_block_bwd',
+            'swin_block_joint_fwd')
+    for key, ms, count in rows:
+        group = next((k for k in ours if k in key), None)
+        if group is None:
+            low = key.lower()
+            group = ('memset / memcpy' if low.startswith('mem') else
+                     'convolutions (cuDNN)' if any(w in low for w in (
+                         'cudnn', 'conv', 'xmma', 'cutlass', 'wgrad', 'dgrad', 'nchw', 'nhwc'))
+                     else 'other PyTorch kernels (rolls, gathers, loss, Adam, EMA)')
+        total, n = groups.get(group, (0., 0))
+        groups[group] = (total + ms, n + count)
+    print(f'{steps} steps: {window_ms / steps:.3f} ms a step by CUDA events (profiler on), device '
+          f'busy {busy_ms / steps:.3f} ms a step = {100 * busy_ms / window_ms:.1f}% of the window')
+    for group, (ms, count) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        print(f'  {ms / steps:8.3f} ms a step  {100 * ms / busy_ms:5.1f}%  {count // steps:5d} launches '
+              f'a step  {group}')
+    print('  the 8 longest kernels:')
+    for key, ms, count in sorted(rows, key=lambda r: -r[1])[:8]:
+        print(f'  {ms / steps:8.3f} ms a step  {count // steps:5d} x  {key[:90]}')
+    os.makedirs(PROFILE_DIR, exist_ok=True)
+    with open(os.path.join(PROFILE_DIR, 'train_step_profile.json'), 'w') as f:
+        json.dump({'steps': steps, 'window_ms': window_ms, 'device_busy_ms': busy_ms,
+                   'groups': {k: {'ms': v[0], 'launches': v[1]} for k, v in groups.items()},
+                   'kernels': [{'name': k, 'ms': ms, 'launches': n} for k, ms, n in rows]}, f)
+
+
+def check_model_gradients():
+    from basicsr4rs_torch.archs.swinir_arch import SwinIR
+    from basicsr4rs_torch.ops import mlp_block as M
+    from basicsr4rs_torch.ops import swin_block as S
+    from basicsr4rs_torch.utils.options import yaml_load
+    phase('7. whole model, forward and backward: kernels vs plain versions, one training batch')
+    net_opt = dict(yaml_load(TRAIN_CONFIG)['network_g'])
+    net_opt.pop('type')
+    net = SwinIR(**net_opt, generator=torch.Generator().manual_seed(0)).cuda().train()
+    gen = torch.Generator().manual_seed(2)
+    lq = torch.rand(4, 3, 48, 48, generator=gen).cuda()
+    gt = torch.rand(4, 3, 192, 192, generator=gen).cuda()
+
+    def loss_and_grads():
+        net.seed_drop_path(123, 'cuda')   # the same DropPath masks in both runs
+        net.zero_grad(set_to_none=True)
+        loss = (net(lq) - gt).abs().mean()
+        loss.backward()
+        return loss.item(), {k: p.grad.clone() for k, p in net.named_parameters()}
+
+    loss_k, grads_k = loss_and_grads()
+    plain = [(S, 'swin_attn_block_forward', S.reference_swin_attn_block),
+             (S, 'swin_attn_block_backward', S.reference_swin_attn_block_backward),
+             (M, 'mlp_block_forward', M.reference_mlp_block),
+             (M, 'mlp_block_backward', M.reference_mlp_block_backward)]
+    counts = {k: w.launches for k, w in training_kernels().items()}
+    patches = [mock.patch.object(mod, name, fn) for mod, name, fn in plain]
+    for p in patches:
+        p.start()
+    try:
+        loss_p, grads_p = loss_and_grads()
+    finally:
+        for p in patches:
+            p.stop()
+    if counts != {k: w.launches for k, w in training_kernels().items()}:
+        fail('the plain run launched a kernel')
+    floor = 1e-6 * max(g.abs().max().item() for g in grads_p.values())
+    worst, worst_name = 0., ''
+    for name, g in grads_p.items():
+        if not torch.isfinite(grads_k[name]).all():
+            fail(f'non-finite gradient of {name}')
+        rel = (grads_k[name] - g).abs().max().item() / max(g.abs().max().item(), floor)
+        if rel > worst:
+            worst, worst_name = rel, name
+    print(f'loss {loss_k:.7f} (kernels) vs {loss_p:.7f} (plain); {len(grads_p)} parameter '
+          f'gradients, largest max|difference| / max|plain|: {worst:.3e} at {worst_name} '
+          f'(tolerance {GRAD_TOLERANCE})')
+    if abs(loss_k - loss_p) > 1e-5 * abs(loss_p) or worst > GRAD_TOLERANCE:
+        fail('whole-model loss or gradients disagree')
+
+
+KERNELS = [
+    ('swin_block_joint_fwd', 'basicsr4rs_tpu/ops/swin_block.py:287'),
+    ('swin_attn_block_fwd', 'basicsr4rs_tpu/ops/swin_block.py:244'),
+    ('swin_attn_block_bwd', 'basicsr4rs_tpu/ops/swin_block.py:405'),
+    ('mlp_block_fwd', 'basicsr4rs_tpu/ops/mlp_block.py:74'),
+    ('mlp_block_bwd', 'basicsr4rs_tpu/ops/mlp_block.py:97'),
+]
+
+
 def main():
     if not torch.cuda.is_available():
         fail('no CUDA device')
     os.chdir(ROOT)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card_info()
-    build_kernel()
-    kernel = check_block_kernel()
-    model, loader, launches = serve()
+    card = card_info()
+    build_kernels()
+    kernels = {'swin_block_joint_fwd': check_joint_kernel()}
+    kernels.update(check_branch_kernels())
+    if sys.argv[1:] == ['kernels']:   # development: the kernel phases alone
+        print(json.dumps(kernels))
+        return
+    model, loader, serve_launches = serve()
     check_whole_model(model, loader)
+    del model
+    train_launches, step_ms, peak = train()
+    check_model_gradients()
+    # launches on the main paths: the serving run plus the training run (its
+    # validations go through the joint kernel)
+    launches = dict(train_launches)
+    launches['swin_block_joint_fwd'] += serve_launches
+    for name, count in launches.items():
+        if count == 0:
+            fail(f'{name} was never launched on the main paths')
+    print(card)
     print(json.dumps({'kernels': [{
-        'name': 'swin_block_joint_fwd', 'route': 'cuda',
-        'source': 'basicsr4rs_torch/csrc/swin_block_joint_fwd.cu',
-        'replaces': 'basicsr4rs_tpu/ops/swin_block.py:287', 'launches': launches,
-        'max_abs_err': kernel['max_abs_err'], 'ms': kernel['ms'],
-        'plain_ms': kernel['plain_ms']}]}))
+        'name': name, 'route': 'cuda', 'source': f'basicsr4rs_torch/csrc/{name}.cu',
+        'replaces': replaces, 'launches': launches[name],
+        'max_abs_err': kernels[name]['max_abs_err'], 'ms': kernels[name]['ms'],
+        'plain_ms': kernels[name]['plain_ms'], 'bound_ms': kernels[name]['bound_ms'],
+        'bound_by': kernels[name]['bound_by'], 'library_ms': None}
+        for name, replaces in KERNELS]}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                              'kind': torch.cuda.get_device_name(0),
                                              'count': torch.cuda.device_count()}}))

@@ -4,6 +4,7 @@ reference, on the same numpy inputs, in float32 on the CPU. On the CPU the
 port runs its plain PyTorch version; the CUDA kernel itself is checked
 against that version on the card by chip_smoke.py."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -94,7 +95,7 @@ def test_cuda_entry_raises_without_a_device():
     args = _port_args(_case(8, False, seed=4, C=24, HIDDEN=48))  # shapes the kernel takes
     launches = port.fused_swin_block_full.launches
     with pytest.raises(RuntimeError):
-        port._launch(*args, 8, HEADS, SCALE)
+        port._launch_joint(*args, 8, HEADS, SCALE)
     meta = [None if t is None else t.to('meta') for t in args]
     with pytest.raises(ValueError, match='no kernel for device'):
         port.fused_swin_block_full(*meta, 8, HEADS, SCALE)
@@ -116,4 +117,126 @@ def test_launch_rejects_what_the_kernel_does_not_take(change, error):
     if change.get('transpose_x'):
         args[0] = args[0].transpose(1, 2)
     with pytest.raises(error):
-        port._launch(*args, window_size, HEADS, SCALE)
+        port._launch_joint(*args, window_size, HEADS, SCALE)
+
+
+# ------------------------------------------------- the attention branch (training)
+ATTN_NAMES = ('x', 'ln1_weight', 'ln1_bias', 'qkv_weight', 'qkv_bias', 'proj_weight', 'proj_bias',
+              'rel_bias')
+ATTN_MODES = ['branch', 'residual', 'scaled']
+
+
+def _attn_mode_kwargs(mode, lib):
+    if mode == 'scaled':   # DropPath's mask / keep: the first sample dropped
+        return dict(residual_scale=lib(np.array([0., 1.25], np.float32)))
+    return dict(add_residual=mode == 'residual')
+
+
+def _port_attn_run(case, dz, window_size, mode):
+    args = [torch.from_numpy(case[k]).requires_grad_() for k in ATTN_NAMES]
+    mask = None if case['mask'] is None else torch.from_numpy(case['mask'])
+    out = port.fused_swin_attn_block(*args, mask, window_size, HEADS, SCALE,
+                                     **_attn_mode_kwargs(mode, torch.from_numpy))
+    out.backward(torch.from_numpy(dz))
+    return out.detach().numpy(), [a.grad.numpy() for a in args]
+
+
+def _jax_attn_run(case, dz, window_size, mode, fn):
+    """Output and gradients of a JAX attention-branch function in the port's
+    layout: weights transposed back, the gradient of the summed (nW | 1,
+    heads, n, n) bias summed over its windows into d rel_bias."""
+    args = [jnp.asarray(case[k].T if k.endswith('_weight') and case[k].ndim == 2 else case[k])
+            for k in ATTN_NAMES[:-1]]
+    mask = case['mask']
+
+    def f(*a):
+        *params, rel_bias = a
+        bias = rel_bias[None] if mask is None else rel_bias[None] + jnp.asarray(mask)[:, None]
+        return fn(*params, bias, window_size, HEADS, SCALE, **_attn_mode_kwargs(mode, jnp.asarray))
+
+    out, vjp = jax.vjp(f, *args, jnp.asarray(case['rel_bias']))
+    grads = [np.asarray(g) for g in vjp(jnp.asarray(dz))]
+    return np.asarray(out), [g.T if k.endswith('_weight') and g.ndim == 2 else g
+                             for k, g in zip(ATTN_NAMES, grads)]
+
+
+def _jax_attn_reference(x, *params_and_geometry, add_residual=False, residual_scale=None):
+    z = ref.reference_swin_attn_block(x, *params_and_geometry)
+    if residual_scale is not None:
+        return x + z * residual_scale[:, None, None, None]
+    return x + z if add_residual else z
+
+
+@pytest.mark.parametrize('mode', ATTN_MODES)
+@pytest.mark.parametrize('shifted', [False, True], ids=['no_shift', 'shift_mask'])
+@pytest.mark.parametrize('window_size', [4, 8])
+def test_attn_block_matches_jax_kernels_and_reference(window_size, shifted, mode):
+    """K2 and K3's semantics: forward and all eight gradients of
+    ``fused_swin_attn_block`` in the three output modes against the Pallas
+    kernels (interpret mode) and the XLA reference. Tolerance: the JAX
+    package's own for its kernels against its reference
+    (tests/test_ops/test_swin_block.py: forward atol 5e-5, rtol 1e-4;
+    gradients atol 2e-4, rtol 1e-3), float32 sums in another order."""
+    case = _case(window_size, shifted, seed=20 + window_size + shifted)
+    dz = np.random.RandomState(3).randn(B, H, W, C).astype(np.float32)
+    launches = (port.swin_attn_block_forward.launches, port.swin_attn_block_backward.launches)
+    out, grads = _port_attn_run(case, dz, window_size, mode)
+    assert (port.swin_attn_block_forward.launches,
+            port.swin_attn_block_backward.launches) == launches
+    for fn in (lambda *a, **k: ref.fused_swin_attn_block(*a, interpret=True, **k),
+               _jax_attn_reference):
+        want, want_grads = _jax_attn_run(case, dz, window_size, mode, fn)
+        np.testing.assert_allclose(out, want, atol=5e-5, rtol=1e-4)
+        for name, g, w in zip(ATTN_NAMES, grads, want_grads):
+            np.testing.assert_allclose(g, w, atol=2e-4, rtol=1e-3, err_msg=f'd {name}')
+
+
+def test_attn_block_dropped_sample_passes_through():
+    """A sample whose DropPath scale is 0 gives out == x and dx == dz exactly."""
+    case = _case(8, True, seed=31)
+    dz = np.random.RandomState(4).randn(B, H, W, C).astype(np.float32)
+    out, grads = _port_attn_run(case, dz, 8, 'scaled')
+    np.testing.assert_array_equal(out[0], case['x'][0])
+    np.testing.assert_array_equal(grads[0][0], dz[0])
+    assert np.abs(out[1] - case['x'][1]).max() > 0
+
+
+def test_attn_backward_wrapper_returns_the_kernel_tuple():
+    """``swin_attn_block_backward`` on the CPU is the plain version: eight
+    gradients in the parameters' shapes, float32; d rel_bias sums over every
+    window and sample, and a non-contiguous cotangent is accepted by the
+    autograd function."""
+    case = _case(4, True, seed=32)
+    args = [torch.from_numpy(case[k]) for k in ATTN_NAMES]
+    mask = torch.from_numpy(case['mask'])
+    dz = torch.from_numpy(np.random.RandomState(5).randn(B, W, H, C).astype(np.float32))
+    grads = port.swin_attn_block_backward(args[0], dz.transpose(1, 2).contiguous(), *args[1:6],
+                                          args[7], mask, 4, HEADS, SCALE, add_residual=True)
+    assert [tuple(g.shape) for g in grads] == [tuple(a.shape) for a in args]
+    assert all(g.dtype == torch.float32 for g in grads)
+    leaves = [a.clone().requires_grad_() for a in args]
+    out = port.fused_swin_attn_block(*leaves, mask, 4, HEADS, SCALE, add_residual=True)
+    out.backward(dz.transpose(1, 2))   # not contiguous
+    for g, leaf in zip(grads, leaves):
+        np.testing.assert_allclose(g.numpy(), leaf.grad.numpy(), atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize('entry', ['_launch_attn_forward', '_launch_attn_backward'])
+def test_attn_cuda_entries_raise_without_a_device(entry):
+    """Operand checks first, then the build, which raises on a host without
+    the CUDA toolkit; nothing falls back to the plain version."""
+    case = _case(8, False, seed=33, C=24, HIDDEN=48)
+    args = [torch.from_numpy(case[k]) for k in ATTN_NAMES]
+    tail = [None, 8, HEADS, SCALE, False, None]
+    if entry == '_launch_attn_backward':
+        args = [args[0], torch.zeros_like(args[0])] + args[1:6] + [args[7]]
+    with pytest.raises(ValueError, match='contiguous'):
+        getattr(port, entry)(args[0].transpose(1, 2), *args[1:], *tail)
+    with pytest.raises(TypeError):
+        getattr(port, entry)(args[0].half(), *args[1:], *tail)
+    with pytest.raises(RuntimeError):
+        getattr(port, entry)(*args, *tail)
+    public = (port.swin_attn_block_forward if entry == '_launch_attn_forward'
+              else port.swin_attn_block_backward)
+    with pytest.raises(ValueError, match='no kernel for device'):
+        public(*[t.to('meta') for t in args], *tail)
