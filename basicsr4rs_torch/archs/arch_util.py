@@ -8,6 +8,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -18,8 +19,9 @@ def trunc_normal_(tensor: torch.Tensor, std: float = 0.02,
     return nn.init.trunc_normal_(tensor, 0., std, -2 * std, 2 * std, generator=generator)
 
 
-def default_conv_init_(conv: nn.Conv2d, generator: Optional[torch.Generator] = None) -> None:
-    """torch's own ``Conv2d.reset_parameters`` distribution, from ``generator``."""
+def default_conv_init_(conv: nn.Module, generator: Optional[torch.Generator] = None) -> None:
+    """torch's own ``reset_parameters`` distribution of a ``Conv2d`` (and of
+    a ``Conv1d`` or ``Linear``, which share it), from ``generator``."""
     nn.init.kaiming_uniform_(conv.weight, a=math.sqrt(5), generator=generator)
     if conv.bias is not None:
         fan_in = conv.weight[0].numel()
@@ -49,3 +51,28 @@ class UpsampleOneStep(nn.Sequential):
     def __init__(self, scale: int, num_feat: int, num_out_ch: int):
         super().__init__(nn.Conv2d(num_feat, scale**2 * num_out_ch, 3, 1, 1),
                          nn.PixelShuffle(scale))
+
+
+def resize_nearest(x: torch.Tensor, scale: int) -> torch.Tensor:
+    """Integer-factor nearest upsample of NCHW (each pixel repeated)."""
+    return F.interpolate(x, scale_factor=scale, mode='nearest')
+
+
+def resize_bicubic(x: torch.Tensor, scale: float, align_corners: bool = False) -> torch.Tensor:
+    """Bicubic resize of NCHW to ``int(size * scale)``: torch's own bicubic
+    (a = -0.75, border clamp, no antialiasing), which the JAX package's
+    ``resize_bicubic`` reproduces."""
+    h, w = x.shape[-2:]
+    return F.interpolate(x, size=(int(h * scale), int(w * scale)), mode='bicubic',
+                         align_corners=align_corners)
+
+
+def pixel_unshuffle(x: torch.Tensor, scale: int) -> torch.Tensor:
+    """(B, C, H*s, W*s) -> (B, C*s*s, H, W), channel-major like torch's
+    ``F.pixel_unshuffle``."""
+    return F.pixel_unshuffle(x, scale)
+
+
+def per_level(value, levels: int) -> list:
+    """A per-level setting given once for all levels or as a list."""
+    return list(value) if isinstance(value, (list, tuple)) else [value] * levels

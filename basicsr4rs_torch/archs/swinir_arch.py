@@ -26,6 +26,7 @@ from torch import nn
 
 from ..ops.mlp_block import fused_mlp_block
 from ..ops.swin_block import fused_swin_attn_block, fused_swin_block_full
+from ..ops.window_attention import fused_window_attention
 from ..utils.registry import ARCH_REGISTRY
 from .arch_util import Upsample, UpsampleOneStep, default_conv_init_, trunc_normal_
 
@@ -64,7 +65,9 @@ def _shift_attn_mask(h: int, w: int, window_size: int, shift_size: int,
 
 class WindowAttention(nn.Module):
     """Parameters of window attention with relative-position bias (reference
-    swinir_arch.py:95-192); the attention itself runs in the block kernel."""
+    swinir_arch.py:95-192). SwinIR's blocks hand them to the block kernels;
+    ``fused`` is the attention on its own, for blocks that normalise
+    otherwise (the diffusion UNet's)."""
 
     def __init__(self, dim: int, window_size: int, num_heads: int, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None):
@@ -85,6 +88,19 @@ class WindowAttention(nn.Module):
                                          self.relative_position_bias_table.device)
         table = self.relative_position_bias_table[index]
         return table.view(n, n, -1).permute(2, 0, 1).float().contiguous()
+
+    def fused(self, x: torch.Tensor, window_size: int,
+              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """proj(W-MSA(qkv(x))) for x (B, H, W, C), already rolled: the two
+        GEMMs as ``nn.Linear``, the attention between them as one call of
+        ``fused_window_attention``. ``mask``: (nW, n, n) shift mask or None;
+        the bias handed on is (1, heads, n, n) without it and
+        (nW, heads, n, n) with it."""
+        bias = self.relative_position_bias(window_size)[None]
+        if mask is not None:
+            bias = bias + mask.float()[:, None]
+        out = fused_window_attention(self.qkv(x), bias, window_size, self.num_heads, self.scale)
+        return self.proj(out)
 
 
 class Mlp(nn.Module):

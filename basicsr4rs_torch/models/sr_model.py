@@ -46,25 +46,12 @@ class SRModel(BaseModel):
     def init_training_settings(self):
         self.net_g.train()
         train_opt = self.opt['train']
-        logger = get_root_logger()
         # the network's own random draws (DropPath) come from one generator,
         # seeded from the experiment's seed and saved with the training state
         if hasattr(self.net_g, 'seed_drop_path'):
             self.net_g.seed_drop_path(self.opt.get('manual_seed') or 0, self.device)
 
-        self.ema_decay = train_opt.get('ema_decay', 0)
-        if self.ema_decay > 0:
-            logger.info(f'Use Exponential Moving Average with decay: {self.ema_decay}')
-            # a second network, used only for testing and saving; it starts as
-            # the pretrained params_ema when there is one, else as a copy
-            self.net_g_ema = build_network(self.opt['network_g']).to(self.device)
-            load_path = self.opt['path'].get('pretrain_network_g')
-            if load_path is not None:
-                self.load_network(self.net_g_ema, load_path,
-                                  self.opt['path'].get('strict_load_g', True), 'params_ema')
-            else:
-                self.net_g_ema.load_state_dict(self.net_g.state_dict())
-            self.net_g_ema.eval()
+        self._init_ema()
 
         self.cri_pix = (build_loss(train_opt['pixel_opt']).to(self.device)
                         if train_opt.get('pixel_opt') else None)
@@ -75,6 +62,23 @@ class SRModel(BaseModel):
 
         self.setup_optimizers()
         self.setup_schedulers()
+
+    def _init_ema(self):
+        """``net_g_ema``, when ``train.ema_decay`` > 0: a second network, used
+        only for testing and saving; it starts as the pretrained ``params_ema``
+        when there is one, else as a copy of ``net_g``."""
+        self.ema_decay = self.opt['train'].get('ema_decay', 0)
+        if self.ema_decay > 0:
+            get_root_logger().info(
+                f'Use Exponential Moving Average with decay: {self.ema_decay}')
+            self.net_g_ema = build_network(self.opt['network_g']).to(self.device)
+            load_path = self.opt['path'].get('pretrain_network_g')
+            if load_path is not None:
+                self.load_network(self.net_g_ema, load_path,
+                                  self.opt['path'].get('strict_load_g', True), 'params_ema')
+            else:
+                self.net_g_ema.load_state_dict(self.net_g.state_dict())
+            self.net_g_ema.eval()
 
     def setup_optimizers(self):
         optim_opt = dict(self.opt['train']['optim_g'])

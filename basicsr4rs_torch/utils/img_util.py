@@ -58,6 +58,11 @@ def tensor2img(tensor, rgb2bgr: bool = True, out_type=np.uint8,
     return result[0] if single else result
 
 
+def minusone_one_tensor_to_ubyte_numpy(tensor, rgb2bgr: bool = True):
+    """The remote-sensing convention: tensor(s) in [-1, 1] -> uint8 HWC image(s)."""
+    return tensor2img(tensor, rgb2bgr=rgb2bgr, out_type=np.uint8, min_max=(-1, 1))
+
+
 def imfrombytes(content: bytes, flag: str = 'color', float32: bool = False) -> np.ndarray:
     """Decode image bytes with cv2 (BGR for color)."""
     flags = {'color': cv2.IMREAD_COLOR, 'grayscale': cv2.IMREAD_GRAYSCALE,

@@ -4,12 +4,14 @@ The inverse of ``basicsr4rs_tpu/utils/torch_convert.py``: it takes the nested
 dict of numpy arrays that the JAX package's modules hold and returns the
 BasicSR-keyed ``state_dict`` that the port's ``nn.Module``s load. Rules:
 
-* conv kernel (kH, kW, I, O) -> weight (O, I, kH, kW)
+* conv kernel (kH, kW, I, O) -> weight (O, I, kH, kW); 1-d (kW, I, O) -> (O, I, kW)
 * dense kernel (in, out)     -> weight (out, in)
 * ``kernel`` and LayerNorm ``scale`` -> ``weight``
 * module-list names ``a_0.b`` -> ``a.0.b``
 * then the architecture's own ``rules``: ``(regex, replacement)`` pairs on
-  the dotted key, e.g. ``SwinIR.JAX_KEY_RULES``.
+  the dotted key: each architecture of the port keeps its own as
+  ``JAX_KEY_RULES`` (``SwinIR``, the diffusion UNets, the first-stage
+  autoencoders), the inverse of the JAX module's ``TORCH_KEY_RULES``.
 
 Arrays go in as numpy (never JAX arrays), so the port needs no JAX.
 """
@@ -52,6 +54,8 @@ def convert_array(leaf: str, arr: np.ndarray) -> np.ndarray:
     if leaf == 'kernel':
         if arr.ndim == 4:   # HWIO -> OIHW
             return np.transpose(arr, (3, 2, 0, 1))
+        if arr.ndim == 3:   # conv1d WIO -> OIW
+            return np.transpose(arr, (2, 1, 0))
         if arr.ndim == 2:   # (in, out) -> (out, in)
             return np.transpose(arr, (1, 0))
     return arr

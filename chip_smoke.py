@@ -6,15 +6,19 @@ From the root of a checkout, in phases; any failure ends the run with a
 nonzero exit code and no result line:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. builds the five Swin block kernels from ``basicsr4rs_torch/csrc/`` with
-   nvcc, all at once;
+2. builds the seven kernels (five Swin block kernels, the window attention
+   forward and backward) from ``basicsr4rs_torch/csrc/`` with nvcc, all at
+   once;
 3. holds each kernel against its plain PyTorch version on the card at
    SwinIR-M block shapes (C=180, 6 heads, window 8, hidden 360), without
    and with the shift mask, in float32 and bfloat16, and times both: the
    joint forward kernel also at the shapes of the served requests; the
    attention and MLP branch kernels, forward and backward, at the training
    shape (batch 4 of 48x48) in their three output modes, every gradient by
-   name;
+   name; the window-attention kernels at the shapes of the ResShift UNet
+   (C=192, 6 heads of 32, window 8; maps of 64, 32, 16 and 8; batch 1 and
+   the training batch; with the shift mask and without) and at C=180 with
+   heads of 30, beside ``F.scaled_dot_product_attention`` as a yardstick;
 4. serves SwinIR-M x4 through ``basicsr4rs_torch.test`` (the code path of
    ``python -m basicsr4rs_torch.test -opt options/test/SwinIR/
    test_SwinIR_M_x4_synthetic.yml``) on 4 synthetic image pairs and random
@@ -32,9 +36,23 @@ nonzero exit code and no result line:
    breaks three more steps down by kernel with ``torch.profiler``;
 7. runs one training batch forward and backward through the kernels and
    through their plain versions, with the same DropPath masks, and compares
-   the loss and every parameter's gradient.
+   the loss and every parameter's gradient;
+8. serves ResShift x4 through ``basicsr4rs_torch.test`` (``-opt
+   options/test/ResShift/test_ResShift_x4_synthetic.yml``: UNetModelSwin at
+   the published width behind a VQ-f4 first stage, 15 reverse steps) on 4
+   synthetic pairs and seed-0 weights that it writes first: 270 launches of
+   the attention kernel a request, latency after a warm-up request, one
+   request again on the plain versions with the same seed, and where the
+   device time of a request goes (``torch.profiler``);
+9. trains it through ``basicsr4rs_torch.train`` (``-opt
+   options/train/ResShift/train_ResShift_x4_synthetic.yml``) for 8 steps:
+   18 launches of each attention kernel a step, finite losses, step time,
+   peak memory, EMA, checkpoint, resume, the device time of a step by
+   kernel, and two steps under bfloat16 autocast;
+10. runs one ResShift training batch forward and backward through the
+    kernels and through the plain versions and compares every gradient.
 
-The line before the last is a JSON summary of the kernels; the last line is
+``python3 chip_smoke.py kernels`` stops after phase 3. The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -319,6 +337,123 @@ def check_branch_kernels():
     return summary
 
 
+RS_C, RS_HEADS = 192, 6   # the Swin layers of the ResShift UNet: 6 heads of 32, window 8
+ATTENTION_KERNELS = ('window_attention_fwd', 'window_attention_bwd')
+
+
+def attention_work(kernel, b, h, w, c, heads, nwb, dtype):
+    """(FLOP, bytes) of one window-attention call: the two products of the
+    forward (4 n C a token) or the five of the backward (10 n C, the scores
+    recomputed), qkv (and dout) read once, out (or dqkv) written once, the
+    float32 bias read and, in the backward, dbias written."""
+    t, n, es = b * h * w, WS * WS, torch.finfo(dtype).bits // 8
+    bias = 4 * nwb * heads * n * n
+    return {'window_attention_fwd': (t * 4 * n * c, t * 4 * c * es + bias),
+            'window_attention_bwd': (t * 10 * n * c, t * 7 * c * es + 2 * bias)}[kernel]
+
+
+def sdpa_window_attention(qkv, mask, ws, heads, scale):
+    """The one library call that computes the forward kernel's function,
+    ``F.scaled_dot_product_attention`` with the float bias as ``attn_mask``,
+    between the window partition and reverse copies it needs. Timed here as a
+    yardstick; the port never calls it."""
+    import torch.nn.functional as F
+    b, h, w, c3 = qkv.shape
+    c = c3 // 3
+    x = qkv.reshape(b, h // ws, ws, w // ws, ws, 3, heads, c // heads)
+    q, k, v = x.permute(5, 0, 1, 3, 6, 2, 4, 7).reshape(3, -1, heads, ws * ws, c // heads)
+    o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
+    o = o.reshape(b, h // ws, w // ws, heads, ws, ws, c // heads)
+    return o.permute(0, 1, 4, 2, 5, 3, 6).reshape(b, h, w, c)
+
+
+def check_attention_kernels(train_batch):
+    """The window-attention kernels, forward and backward, against their
+    plain versions at the shapes the ResShift UNet gives them."""
+    from basicsr4rs_torch.archs.unet_arch import shift_attn_mask_resshift
+    from basicsr4rs_torch.ops import window_attention as A
+    phase('3c. window attention kernels, forward and backward, vs plain versions '
+          f'(C={RS_C}, {RS_HEADS} heads, window {WS}; and C={C}, head_dim {C // HEADS})')
+    gen = torch.Generator().manual_seed(3)
+    f32, bf16 = torch.float32, torch.bfloat16
+    # (B, H = W, C, dtype, shifted)
+    serve_case, train_case = (1, 64, RS_C, f32, True), (train_batch, 64, RS_C, f32, True)
+    cases = [serve_case, (1, 64, RS_C, f32, False), (1, 8, RS_C, f32, False), train_case,
+             (train_batch, 64, RS_C, f32, False), (train_batch, 32, RS_C, f32, True),
+             (train_batch, 16, RS_C, f32, True), (train_batch, 8, RS_C, f32, False),
+             (train_batch, 64, RS_C, bf16, True), (train_batch, 64, RS_C, bf16, False),
+             (1, 64, RS_C, bf16, True), (2, 64, C, f32, True), (2, 64, C, bf16, False)]
+    summary = {name: {'max_abs_err': 0., 'library_ms': None} for name in ATTENTION_KERNELS}
+    for case in cases:
+        b, size, c, dt, shifted = case
+        heads, n = HEADS, WS * WS
+        scale = (c // heads)**-.5
+        qkv = torch.randn(b, size, size, 3 * c, generator=gen).cuda().to(dt)
+        dout = torch.randn(b, size, size, c, generator=gen).cuda().to(dt)
+        bias = (torch.randn(1, heads, n, n, generator=gen) * .5).cuda()
+        if shifted:
+            mask = torch.from_numpy(shift_attn_mask_resshift(size, size, WS, WS // 2)).cuda()
+            bias = bias + mask[:, None]
+        nwb = bias.shape[0]
+        args = (qkv, bias, WS, heads, scale)
+        args_b = (qkv, bias, dout, WS, heads, scale)
+        tag = f'B={b} {size}x{size} C={c} {str(dt)[6:]:8s} nWb={nwb}'
+        runs = [('window_attention_fwd', A.window_attention_forward,
+                 A.reference_window_attention, args, ('out',)),
+                ('window_attention_bwd', A.window_attention_backward,
+                 A.reference_window_attention_backward, args_b, ('dqkv', 'dbias'))]
+        for name, kernel, plain, call, outputs in runs:
+            with torch.no_grad():
+                got = kernel(*call)
+            want = plain(*call)
+            torch.cuda.synchronize()
+            got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+            worst = []
+            for out_name, g_, w_ in zip(outputs, got, want):
+                # dbias is a sum over samples (and windows); activations elementwise
+                rule = 'sum' if out_name == 'dbias' else 'elementwise'
+                ok, max_abs, max_rel, tolerance = compare(g_, w_, dt, rule)
+                worst.append(f'{out_name} {max_abs:.2e} ({max_rel:.1e})')
+                if not ok:
+                    fail(f'{name}: {out_name} disagrees with the plain version at {tag}: '
+                         f'max abs err {max_abs:.3e}, {max_rel:.3e} of max|plain|, '
+                         f'tolerance {tolerance}')
+                if dt == f32:
+                    summary[name]['max_abs_err'] = max(summary[name]['max_abs_err'], max_abs)
+            with torch.no_grad():
+                kernel_ms, plain_ms = time_pair(lambda: plain(*call), lambda: kernel(*call))
+            flop, nbytes = attention_work(name, b, size, size, c, heads, nwb, dt)
+            bound, by = bound_ms(flop, nbytes, dt)
+            line = (f'{name:20s} {tag}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, '
+                    f'bound {bound:.4f} ms by {by}')
+            library_ms = None
+            if name == 'window_attention_fwd':
+                windows = (size // WS)**2
+                mask = bias.to(dt) if nwb == 1 else bias.to(dt).repeat(b, 1, 1, 1)
+                with torch.no_grad():
+                    lib_out = sdpa_window_attention(qkv, mask, WS, heads, scale)
+                    ok, max_abs, _, _ = compare(lib_out, want[0], dt, 'elementwise')
+                    if not ok:
+                        fail(f'the library call disagrees with the plain version at {tag}: '
+                             f'{max_abs:.3e}')
+                    library_ms = cuda_time_ms(
+                        lambda: sdpa_window_attention(qkv, mask, WS, heads, scale))
+                line += (f', library (SDPA + partition/reverse copies, {b * windows} windows) '
+                         f'{library_ms:.4f} ms')
+            print(line + ' | max abs err (of max|plain|): ' + ', '.join(worst), flush=True)
+            main_case = serve_case if name == 'window_attention_fwd' else train_case
+            if case == main_case:
+                summary[name].update(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound,
+                                     bound_by=by, library_ms=library_ms)
+            if name == 'window_attention_bwd' and case in (train_case, train_case[:4] + (False,)):
+                with torch.no_grad():   # atomicAdd sums: reported, not required
+                    again = kernel(*call)
+                print(f'{name:20s} {tag}: a second launch on the same inputs repeats bit for '
+                      'bit: ' + ', '.join(f'{o} {"yes" if torch.equal(g_, a) else "no"}'
+                                          for o, g_, a in zip(outputs, got, again)), flush=True)
+    return summary
+
+
 def write_inputs():
     """4 synthetic GT/LQ pairs (smooth random images, LQ the bicubic
     downscale) and the seed-0 random SwinIR-M weights the config names."""
@@ -472,19 +607,22 @@ def training_kernels():
             'mlp_block_fwd': M.mlp_block_forward, 'mlp_block_bwd': M.mlp_block_backward}
 
 
-def run_train_pipeline(extra_args, record):
-    """``basicsr4rs_torch.train.train_pipeline`` on the synthetic config, with
-    every optimization step timed by CUDA events and its loss and launch
-    counts recorded."""
+def run_train_pipeline(extra_args, record, config=None, model_cls=None, loss_key='l_pix',
+                       wrappers=None, before_first_step=None):
+    """``basicsr4rs_torch.train.train_pipeline`` on a synthetic config, with
+    every optimization step of ``model_cls`` timed by CUDA events and its
+    loss and launch counts recorded."""
     import basicsr4rs_torch.train as entry
     from basicsr4rs_torch.models.swinir_model import SwinIRModel
-    wrappers = training_kernels()
-    step = SwinIRModel.optimize_parameters
+    config = config or TRAIN_CONFIG
+    model_cls = model_cls or SwinIRModel
+    wrappers = wrappers or training_kernels()
+    before_first_step = before_first_step or follow_first_batch
+    step = model_cls.optimize_parameters
 
     def timed_step(model, current_iter):
-        if 'fixed' not in record:   # the first batch: the loss is followed on it
-            record['fixed'] = (model.lq.clone(), model.gt.clone())
-            record['fixed_loss_before'] = fixed_batch_loss(model, record['fixed'])
+        if not record['steps']:
+            before_first_step(model, record)
         before = {k: w.launches for k, w in wrappers.items()}
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -493,16 +631,23 @@ def run_train_pipeline(extra_args, record):
         torch.cuda.synchronize()
         record['steps'].append({
             'iter': current_iter, 'ms': start.elapsed_time(end),
-            'l_pix': float(model.log_dict['l_pix']),
+            loss_key: float(model.log_dict[loss_key]),
             'launches': {k: w.launches - before[k] for k, w in wrappers.items()}})
 
     argv = sys.argv
-    sys.argv = ['basicsr4rs_torch.train', '-opt', TRAIN_CONFIG] + extra_args
+    sys.argv = ['basicsr4rs_torch.train', '-opt', config] + extra_args
     try:
-        with mock.patch.object(SwinIRModel, 'optimize_parameters', timed_step):
+        with mock.patch.object(model_cls, 'optimize_parameters', timed_step):
             return entry.train_pipeline(ROOT)
     finally:
         sys.argv = argv
+
+
+def follow_first_batch(model, record):
+    """Keep SwinIR's first batch: the loss is followed on it."""
+    if 'fixed' not in record:
+        record['fixed'] = (model.lq.clone(), model.gt.clone())
+        record['fixed_loss_before'] = fixed_batch_loss(model, record['fixed'])
 
 
 def fixed_batch_loss(model, batch):
@@ -613,60 +758,88 @@ def train():
     return launches, sum(timed) / len(timed), peak
 
 
-def profile_training_steps(model, batch, steps=3):
-    """Where a training step's device time goes: ``steps`` steps on a fixed
-    batch under ``torch.profiler``, device time summed by kernel. Reported,
-    not required: a profiler that sees no device time only says so."""
+def device_time_by_group(prof, ours):
+    """(rows, groups, busy ms) of a ``torch.profiler`` trace: every device
+    kernel and memory operation as (name, ms, count), and their sums by
+    group: each of our kernels (``ours``, matched by name), cuDNN
+    convolutions, GroupNorm, library GEMMs, memory operations, the rest."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    phase(f'6b. device time of {steps} training steps by kernel (torch.profiler)')
-    model.lq, model.gt = batch
-    for _ in range(2):
-        model.optimize_parameters(0)
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        start.record()
-        for _ in range(steps):
-            model.optimize_parameters(0)
-        end.record()
-        torch.cuda.synchronize()
-    window_ms = start.elapsed_time(end)
     # kernels and memory operations only: a host annotation (Optimizer.step#...)
     # also shows on the device timeline, over the kernels it spans
     rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and not e.is_user_annotation
             and '#' not in e.key]
-    busy_ms = sum(ms for _, ms, _ in rows)
-    if busy_ms == 0:
-        print('the profiler recorded no device time')
-        return
     groups = {}
-    ours = ('swin_attn_block_fwd', 'swin_attn_block_bwd', 'mlp_block_fwd', 'mlp_block_bwd',
-            'swin_block_joint_fwd')
     for key, ms, count in rows:
         group = next((k for k in ours if k in key), None)
         if group is None:
             low = key.lower()
             group = ('memset / memcpy' if low.startswith('mem') else
                      'convolutions (cuDNN)' if any(w in low for w in (
-                         'cudnn', 'conv', 'xmma', 'cutlass', 'wgrad', 'dgrad', 'nchw', 'nhwc'))
-                     else 'other PyTorch kernels (rolls, gathers, loss, Adam, EMA)')
+                         'cudnn', 'conv', 'fprop', 'wgrad', 'dgrad', 'winograd', 'nchw', 'nhwc',
+                         'fft', 'cf32', 'pointwise_mult_and_sum'))
+                     else 'GroupNorm' if any(w in low for w in (
+                         'groupnorm', 'group_norm', 'rowwisemoments', 'computefusedparams',
+                         'computeinternalgradients', 'gammabeta'))
+                     else 'GEMMs (cuBLAS: Linear layers)' if any(w in low for w in (
+                         'gemm', 'cublas', 'cutlass'))
+                     else 'other PyTorch kernels')
         total, n = groups.get(group, (0., 0))
         groups[group] = (total + ms, n + count)
-    print(f'{steps} steps: {window_ms / steps:.3f} ms a step by CUDA events (profiler on), device '
-          f'busy {busy_ms / steps:.3f} ms a step = {100 * busy_ms / window_ms:.1f}% of the window')
+    return rows, groups, sum(ms for _, ms, _ in rows)
+
+
+def print_device_time(rows, groups, busy_ms, window_ms, units, unit):
+    print(f'{units} {unit}s: {window_ms / units:.3f} ms a {unit} by CUDA events (profiler on), '
+          f'device busy {busy_ms / units:.3f} ms a {unit} = {100 * busy_ms / window_ms:.1f}% of '
+          'the window')
     for group, (ms, count) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
-        print(f'  {ms / steps:8.3f} ms a step  {100 * ms / busy_ms:5.1f}%  {count // steps:5d} launches '
-              f'a step  {group}')
+        print(f'  {ms / units:8.3f} ms a {unit}  {100 * ms / busy_ms:5.1f}%  {count // units:5d} '
+              f'launches a {unit}  {group}')
     print('  the 8 longest kernels:')
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:8]:
-        print(f'  {ms / steps:8.3f} ms a step  {count // steps:5d} x  {key[:90]}')
+        print(f'  {ms / units:8.3f} ms a {unit}  {count // units:5d} x  {key[:90]}')
+
+
+def profile_device_time(run, units, unit, ours, json_name):
+    """Where the device time of ``units`` calls of ``run`` goes, under
+    ``torch.profiler``: summed by group, printed, and written to
+    ``results/chip_smoke/<json_name>``. Reported, not required: a profiler
+    that sees no device time only says so. Returns the groups as
+    {name: (ms, launches)} over all units, or None."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(units):
+            run()
+        end.record()
+        torch.cuda.synchronize()
+    window_ms = start.elapsed_time(end)
+    rows, groups, busy_ms = device_time_by_group(prof, ours)
+    if busy_ms == 0:
+        print('the profiler recorded no device time')
+        return None
+    print_device_time(rows, groups, busy_ms, window_ms, units, unit)
     os.makedirs(PROFILE_DIR, exist_ok=True)
-    with open(os.path.join(PROFILE_DIR, 'train_step_profile.json'), 'w') as f:
-        json.dump({'steps': steps, 'window_ms': window_ms, 'device_busy_ms': busy_ms,
+    with open(os.path.join(PROFILE_DIR, json_name), 'w') as f:
+        json.dump({unit + 's': units, 'window_ms': window_ms, 'device_busy_ms': busy_ms,
                    'groups': {k: {'ms': v[0], 'launches': v[1]} for k, v in groups.items()},
                    'kernels': [{'name': k, 'ms': ms, 'launches': n} for k, ms, n in rows]}, f)
+    return groups
+
+
+def profile_training_steps(model, batch, steps=3):
+    """Three SwinIR training steps on a fixed batch, device time by kernel."""
+    phase(f'6b. device time of {steps} training steps by kernel (torch.profiler)')
+    model.lq, model.gt = batch
+    for _ in range(2):
+        model.optimize_parameters(0)
+    ours = ('swin_attn_block_fwd', 'swin_attn_block_bwd', 'mlp_block_fwd', 'mlp_block_bwd',
+            'swin_block_joint_fwd')
+    profile_device_time(lambda: model.optimize_parameters(0), steps, 'step', ours,
+                        'train_step_profile.json')
 
 
 def check_model_gradients():
@@ -720,12 +893,398 @@ def check_model_gradients():
         fail('whole-model loss or gradients disagree')
 
 
+# ------------------------------------------------------------------ ResShift
+RS_CONFIG = 'options/test/ResShift/test_ResShift_x4_synthetic.yml'
+RS_TRAIN_CONFIG = 'options/train/ResShift/train_ResShift_x4_synthetic.yml'
+RS_DATA_DIR = 'datasets/ResShift_x4_synthetic'
+RS_REQUESTS, RS_LQ, RS_TRAIN_IMAGES = 4, 64, 32
+RS_LAYERS = 9   # Swin layers of the UNet: four down, the middle one, four up
+RS_AMP_ITERS = 2
+# kernels vs plain versions through 15 reverse steps, on the latent and on the
+# [-1, 1] image: float32 sums in another order through 270 attention calls
+RS_SAMPLE_TOLERANCE = 1e-3
+
+
+def attention_wrappers():
+    from basicsr4rs_torch.ops import window_attention as A
+    return {'window_attention_fwd': A.window_attention_forward,
+            'window_attention_bwd': A.window_attention_backward}
+
+
+def resshift_options(config):
+    from basicsr4rs_torch.utils.options import yaml_load
+    opt = yaml_load(config)
+    steps = opt['diffusion']['steps']
+    per_forward = RS_LAYERS * opt['network_g']['swin_depth']
+    return opt, steps, per_forward
+
+
+def random_resshift_weights(opt, seed=0):
+    """(UNet, first stage) with random weights made from ``seed`` and every
+    parameter non-zero: the zero-initialised convolutions, which make a fresh
+    UNet answer 0 to everything, get the other convolutions' init, and the
+    codebook is spread over the latents' range ([-1, 1]) instead of the
+    init's +-1/8192, so that the decoded image depends on the latent."""
+    from basicsr4rs_torch.archs.arch_util import default_conv_init_
+    from basicsr4rs_torch.archs.autoencoder_arch import VQModelTorch
+    from basicsr4rs_torch.archs.unet_arch import UNetModelSwin
+    gen = torch.Generator().manual_seed(seed)
+    net = UNetModelSwin(**{k: v for k, v in opt['network_g'].items() if k != 'type'},
+                        generator=gen)
+    with torch.no_grad():
+        for m in net.modules():
+            if getattr(m, 'zero_init', False):
+                default_conv_init_(m, gen)
+    stage = VQModelTorch(**{k: v for k, v in opt['autoencoder'].items() if k != 'type'},
+                         generator=gen)
+    with torch.no_grad():
+        stage.quantize.embedding.weight.uniform_(-1., 1., generator=gen)
+    return net, stage
+
+
+def write_resshift_inputs(opt):
+    """Synthetic pairs (GT 256x256, LQ 64x64: 4 to serve, 32 to train on,
+    one to validate) and the seed-0 random weights the test config names."""
+    import cv2
+    import numpy as np
+    rng = np.random.RandomState(2)
+    size = SCALE * RS_LQ
+    for gt_dir, lq_dir, count in (('test_GT', 'test_LQ', RS_REQUESTS),
+                                  ('GT', 'LQ', RS_TRAIN_IMAGES), ('val_GT', 'val_LQ', 1)):
+        for sub in (gt_dir, lq_dir):
+            os.makedirs(os.path.join(RS_DATA_DIR, sub), exist_ok=True)
+        for i in range(count):
+            gt = smooth_image(rng, size, size)
+            lq = cv2.resize(gt, (RS_LQ, RS_LQ), interpolation=cv2.INTER_CUBIC)
+            cv2.imwrite(os.path.join(RS_DATA_DIR, gt_dir, f'{i:04d}.png'), gt)
+            cv2.imwrite(os.path.join(RS_DATA_DIR, lq_dir, f'{i:04d}.png'), lq)
+    net, stage = random_resshift_weights(opt)
+    for module, key in ((net, 'pretrain_network_g'), (stage, 'pretrain_network_ae')):
+        os.makedirs(os.path.dirname(opt['path'][key]), exist_ok=True)
+        torch.save({'params': module.state_dict()}, opt['path'][key])
+
+
+def serve_resshift():
+    import cv2
+    import numpy as np
+
+    import basicsr4rs_torch.test as entry
+    from basicsr4rs_torch.archs import swinir_arch
+    from basicsr4rs_torch.ops import window_attention as A
+    phase('8. serve ResShift x4 through basicsr4rs_torch.test on cuda:0 (LQ 64x64, batch 1, '
+          '15 reverse steps on a 64x64x3 latent, VQ-f4 decode to 256x256)')
+    opt, steps, per_forward = resshift_options(RS_CONFIG)
+    write_resshift_inputs(opt)
+    per_request = per_forward * steps
+    wrappers = attention_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    argv = sys.argv
+    sys.argv = ['basicsr4rs_torch.test', '-opt', RS_CONFIG]
+    t0 = time.perf_counter()
+    try:
+        model = entry.test_pipeline(ROOT)
+    finally:
+        sys.argv = argv
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = wrappers['window_attention_fwd'].launches
+    print(f'pipeline wall time {wall:.3f} s (model build, weight load, {RS_REQUESTS} requests, '
+          f'metrics, image writes); window_attention_fwd launches {launches} = '
+          f'{launches / RS_REQUESTS:g} per request ({per_forward} per UNet forward x {steps} steps)')
+    if model.device.type != 'cuda' or next(model.net_g.parameters()).device.type != 'cuda':
+        fail(f'the model ran on {model.device}')
+    if launches != per_request * RS_REQUESTS or wrappers['window_attention_bwd'].launches:
+        fail(f'expected {per_request} forward launches per request and no backward launch, '
+             f'counted {launches} and {wrappers["window_attention_bwd"].launches}')
+    for name, value in model.metric_results.items():
+        print(f'{name}: {value:.4f} (random weights)')
+        if not np.isfinite(value):
+            fail(f'{name} is not finite')
+    out_dir = os.path.join(model.opt['path']['visualization'], 'RGB', 'ResShift_x4_synthetic')
+    size = SCALE * RS_LQ
+    for i in range(RS_REQUESTS):
+        img = cv2.imread(os.path.join(out_dir, f'{i:04d}', 'result.png'))
+        if img is None or img.shape != (size, size, 3):
+            fail(f'saved image {i}: {None if img is None else img.shape}')
+    csv_path = os.path.join(model.opt['path']['visualization'],
+                            f'ResShift_x4_synthetic_{model.opt["name"]}.csv')
+    with open(csv_path) as f:
+        rows = f.read().splitlines()
+    if len(rows) != RS_REQUESTS + 1:
+        fail(f'{csv_path} has {len(rows)} lines')
+
+    # per-request latency of the model's own test(), after a warm-up request
+    dataset_opt = model.opt['datasets']['test_1']
+    from basicsr4rs_torch.data import build_dataloader, build_dataset
+    loader = list(build_dataloader(build_dataset(dataset_opt), dataset_opt))
+    model.feed_data(loader[0])
+    model.test()
+    torch.cuda.reset_peak_memory_stats()
+    latencies = []
+    for item in loader:
+        model.feed_data(item)
+        before = wrappers['window_attention_fwd'].launches
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        model.test()
+        end.record()
+        torch.cuda.synchronize()
+        out = model.output
+        if out.shape != (1, 3, size, size) or not torch.isfinite(out).all():
+            fail(f'request: output {tuple(out.shape)}')
+        if wrappers['window_attention_fwd'].launches - before != per_request:
+            fail(f'a request did not launch the forward kernel {per_request} times')
+        latencies.append(start.elapsed_time(end))
+        print(f'request LQ {RS_LQ}x{RS_LQ} -> {size}x{size}: {latencies[-1]:.3f} ms '
+              f'({latencies[-1] / steps:.3f} ms a reverse step, decode included)')
+    print(f'request latency: mean {sum(latencies) / len(latencies):.3f} ms of {len(latencies)}; '
+          f'peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB')
+
+    # one request through the kernels and through the plain versions, same seed
+    kept = {}
+    decode = model.base_diffusion.decode_first_stage
+
+    def keep_latent(z, *args, **kwargs):
+        kept['z'] = z.clone()
+        return decode(z, *args, **kwargs)
+
+    results = []
+    with mock.patch.object(model.base_diffusion, 'decode_first_stage', keep_latent):
+        for plain in (False, True):
+            model.generator.manual_seed(11)
+            model.feed_data(loader[1])
+            if plain:
+                with mock.patch.object(swinir_arch, 'fused_window_attention',
+                                       A.reference_window_attention):
+                    model.test()
+            else:
+                model.test()
+            with torch.inference_mode():
+                codes = model.first_stage.quantize(kept['z'])[2]
+            results.append((kept['z'], model.output.clone(), codes))
+    if wrappers['window_attention_fwd'].launches != per_request * (2 * RS_REQUESTS + 2):
+        fail('the plain request launched a kernel')
+    (z_k, img_k, codes_k), (z_p, img_p, codes_p) = results
+    z_err = (z_k - z_p).abs().max().item()
+    img_err = (img_k - img_p).abs().max().item()
+    flipped = int((codes_k != codes_p).sum())
+    print(f'kernels vs plain versions, one request, same seed: latent max abs difference '
+          f'{z_err:.3e}, image {img_err:.3e} on [-1, 1] (tolerance {RS_SAMPLE_TOLERANCE}); '
+          f'{flipped} of {codes_k.numel()} code indices differ')
+    # a latent at the border of two codes' cells may fall either way: then,
+    # and only then, the image may differ there
+    if z_err > RS_SAMPLE_TOLERANCE or flipped > 4 or (flipped == 0 and
+                                                      img_err > RS_SAMPLE_TOLERANCE):
+        fail('the sampled request differs between kernels and plain versions')
+
+    phase('8b. device time of 2 sampled requests by kernel (torch.profiler)')
+
+    def request():
+        model.feed_data(loader[0])
+        model.test()
+
+    profile_device_time(request, 2, 'request', tuple(wrappers), 'resshift_request_profile.json')
+    print('of which the first stage alone (bicubic x4, VQ-f4 encode of the LQ, quantize and '
+          'decode of a latent):')
+    lq = model.lq
+
+    def first_stage_only():
+        with torch.inference_mode():
+            z = model.base_diffusion.encode_first_stage(lq, model.first_stage, up_sample=True)
+            model.base_diffusion.decode_first_stage(z, model.first_stage)
+
+    profile_device_time(first_stage_only, 2, 'request', tuple(wrappers),
+                        'resshift_first_stage_profile.json')
+    return launches
+
+
+def train_resshift():
+    import glob
+    import shutil
+
+    from basicsr4rs_torch.models.resshift_model import ResShiftModel
+    from basicsr4rs_torch.ops import window_attention as A
+    opt, steps, per_forward = resshift_options(RS_TRAIN_CONFIG)
+    batch = opt['datasets']['train']['batch_size_per_gpu']
+    phase(f'9. train ResShift x4 through basicsr4rs_torch.train on cuda:0 (batch {batch}, '
+          'GT 256 -> latent 64x64, float32)')
+    total_iter = opt['train']['total_iter']
+    exp_dir = os.path.join('experiments', opt['name'])
+    for old in glob.glob(exp_dir + '*'):   # a clean start: no archived copies, no resume
+        shutil.rmtree(old)
+    wrappers = attention_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    record = {'steps': []}
+
+    def keep_first_batch(model, record):
+        record.setdefault('batch', (model.lq.clone(), model.gt.clone()))
+
+    common = dict(config=RS_TRAIN_CONFIG, model_cls=ResShiftModel, loss_key='loss',
+                  wrappers=wrappers, before_first_step=keep_first_batch)
+    t0 = time.perf_counter()
+    model = run_train_pipeline([], record, **common)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    if model.device.type != 'cuda' or next(model.net_g.parameters()).device.type != 'cuda':
+        fail(f'the model trained on {model.device}')
+    run = record['steps']
+    validations = total_iter // opt['val']['val_freq'] + 1
+    print(f'pipeline wall time {wall:.3f} s for {len(run)} steps, {validations} validations '
+          f'(one image, {steps} reverse steps each), checkpoints')
+    for st in run:
+        print(f'step {st["iter"]}: {st["ms"]:.3f} ms, loss {st["loss"]:.6f}, launches '
+              + ' '.join(f'{k}={v}' for k, v in st['launches'].items()))
+    if [st['iter'] for st in run] != list(range(1, total_iter + 1)):
+        fail(f'expected steps 1..{total_iter}, ran {[st["iter"] for st in run]}')
+    for st in run:
+        if not torch.isfinite(torch.tensor(st['loss'])):
+            fail(f'the loss is not finite at step {st["iter"]}')
+        if set(st['launches'].values()) != {per_forward}:
+            fail(f'step {st["iter"]}: launches {st["launches"]}, expected {per_forward} of each')
+    if model.skipped_steps:
+        fail(f'{model.skipped_steps} steps were skipped as non-finite')
+    want = {'window_attention_fwd': per_forward * (total_iter + steps * validations),
+            'window_attention_bwd': per_forward * total_iter}
+    if launches != want:
+        fail(f'launches in the run {launches}, expected {want}')
+    print('launches in the run: ' + ' '.join(f'{k}={v}' for k, v in launches.items()))
+    timed = [st['ms'] for st in run[2:]]
+    step_ms = sum(timed) / len(timed)
+    print(f'training step: {step_ms:.3f} ms mean of steps 3..{total_iter} (min {min(timed):.3f}, '
+          f'max {max(timed):.3f}; CUDA events around optimize_parameters, after 2 warm-up '
+          f'steps); peak device memory {peak:.1f} MiB at batch {batch}')
+
+    diff = max((p - e).abs().max().item() for p, e in
+               zip(model.net_g.parameters(), model.net_g_ema.parameters()))
+    print(f'max |net_g - net_g_ema| over the parameters: {diff:.3e}')
+    if not diff > 0:
+        fail('the EMA network equals the trained network')
+    ckpt_path = os.path.join(exp_dir, 'models', f'net_g_{total_iter}.pth')
+    ckpt = torch.load(ckpt_path, map_location='cpu', weights_only=True)
+    if sorted(ckpt) != ['params', 'params_ema']:
+        fail(f'{ckpt_path} holds {sorted(ckpt)}')
+    fresh, _ = random_resshift_weights(opt, seed=1)
+    model.load_network(fresh, ckpt_path, True, 'params_ema')
+    for (name, p), q in zip(fresh.named_parameters(), model.net_g_ema.parameters()):
+        if not torch.equal(p, q.cpu()):
+            fail(f'{ckpt_path}: params_ema[{name}] differs from the EMA network')
+    print(f'{ckpt_path}: params and params_ema load back, params_ema equals the EMA network')
+
+    resumed = {'steps': []}
+    run_train_pipeline(['--auto_resume', '--force_yml',
+                        f'train:total_iter={total_iter + RESUME_ITERS}'], resumed, **common)
+    iters = [st['iter'] for st in resumed['steps']]
+    print(f'resumed from {total_iter}.state: ran steps {iters}, loss '
+          + ' '.join(f'{st["loss"]:.6f}' for st in resumed['steps']))
+    if iters != list(range(total_iter + 1, total_iter + RESUME_ITERS + 1)):
+        fail(f'resume should continue at step {total_iter + 1}, ran {iters}')
+
+    phase('9b. device time of 2 training steps by kernel (torch.profiler)')
+    model.feed_data(dict(zip(('lq', 'gt'), record['batch'])))
+    model.optimize_parameters(0)
+    profile_device_time(lambda: model.optimize_parameters(0), 2, 'step', tuple(wrappers),
+                        'resshift_train_step_profile.json')
+    del model
+
+    phase(f'9c. {RS_AMP_ITERS} training steps under use_amp: true (bfloat16 autocast)')
+    dtypes = {name: [] for name in wrappers}
+    spies = []
+    for name, attr in (('window_attention_fwd', '_launch_forward'),
+                       ('window_attention_bwd', '_launch_backward')):
+        def spy(qkv, *args, _inner=getattr(A, attr), _name=name):
+            dtypes[_name].append(qkv.dtype)   # the dtype each launch is made in
+            return _inner(qkv, *args)
+        spies.append(mock.patch.object(A, attr, spy))
+    amp = {'steps': []}
+    for sp in spies:
+        sp.start()
+    try:
+        run_train_pipeline(['--force_yml', 'train:use_amp=true', f'train:total_iter={RS_AMP_ITERS}',
+                            f'name={opt["name"]}_amp', 'val:val_freq=100',
+                            'logger:save_checkpoint_freq=100'], amp, **common)
+    finally:
+        for sp in spies:
+            sp.stop()
+    for st in amp['steps']:
+        print(f'step {st["iter"]}: {st["ms"]:.3f} ms, loss {st["loss"]:.6f}, launches '
+              + ' '.join(f'{k}={v}' for k, v in st['launches'].items()))
+        if not torch.isfinite(torch.tensor(st['loss'])):
+            fail(f'the loss under use_amp is not finite at step {st["iter"]}')
+    # the steps, then the validation after the loop in forward launches
+    bf16 = {k: sum(d == torch.bfloat16 for d in v) for k, v in dtypes.items()}
+    print(f'bfloat16 launches: {bf16}')
+    if (bf16['window_attention_bwd'] != per_forward * RS_AMP_ITERS
+            or bf16['window_attention_fwd'] < per_forward * RS_AMP_ITERS
+            or any(d != torch.bfloat16 for v in dtypes.values() for d in v)):
+        fail(f'under use_amp the attention kernels should run in bfloat16: {bf16}')
+    return launches
+
+
+def check_resshift_gradients():
+    from basicsr4rs_torch.archs import swinir_arch
+    from basicsr4rs_torch.ops import window_attention as A
+    from basicsr4rs_torch.utils.gaussian_diffusion import create_gaussian_diffusion
+    opt, steps, per_forward = resshift_options(RS_TRAIN_CONFIG)
+    batch = opt['datasets']['train']['batch_size_per_gpu']
+    phase('10. ResShift, forward and backward: kernels vs plain versions, one training batch '
+          f'of {batch}')
+    net, stage = random_resshift_weights(opt)
+    net, stage = net.cuda().train(), stage.cuda().eval().requires_grad_(False)
+    diffusion = create_gaussian_diffusion(**opt['diffusion'])
+    gen = torch.Generator().manual_seed(4)
+    size = SCALE * RS_LQ
+    lq = (torch.rand(batch, 3, RS_LQ, RS_LQ, generator=gen) * 2 - 1).cuda()
+    gt = (torch.rand(batch, 3, size, size, generator=gen) * 2 - 1).cuda()
+    tt = torch.randint(0, steps, (batch,), generator=gen).cuda()
+    noise = torch.randn(batch, 3, RS_LQ, RS_LQ, generator=gen).cuda()
+
+    def loss_and_grads():
+        net.zero_grad(set_to_none=True)
+        losses, _, _ = diffusion.training_losses(None, lambda x, t: net(x, t, lq=lq), gt, lq, tt,
+                                                 first_stage_model=stage, noise=noise)
+        loss = losses['mse'].mean()
+        loss.backward()
+        return loss.item(), {k: p.grad.clone() for k, p in net.named_parameters()}
+
+    wrappers = attention_wrappers()
+    counts = {k: w.launches for k, w in wrappers.items()}
+    loss_k, grads_k = loss_and_grads()
+    if {k: w.launches - counts[k] for k, w in wrappers.items()} != dict.fromkeys(wrappers,
+                                                                                per_forward):
+        fail('the kernel run did not launch each attention kernel once per Swin block')
+    counts = {k: w.launches for k, w in wrappers.items()}
+    with mock.patch.object(swinir_arch, 'fused_window_attention', A.reference_window_attention):
+        loss_p, grads_p = loss_and_grads()
+    if counts != {k: w.launches for k, w in wrappers.items()}:
+        fail('the plain run launched a kernel')
+    floor = 1e-6 * max(g.abs().max().item() for g in grads_p.values())
+    worst, worst_name = 0., ''
+    for name, g in grads_p.items():
+        if not torch.isfinite(grads_k[name]).all():
+            fail(f'non-finite gradient of {name}')
+        rel = (grads_k[name] - g).abs().max().item() / max(g.abs().max().item(), floor)
+        if rel > worst:
+            worst, worst_name = rel, name
+    print(f'loss {loss_k:.7f} (kernels) vs {loss_p:.7f} (plain); {len(grads_p)} parameter '
+          f'gradients, largest max|difference| / max|plain|: {worst:.3e} at {worst_name} '
+          f'(tolerance {GRAD_TOLERANCE})')
+    if abs(loss_k - loss_p) > 1e-5 * abs(loss_p) or worst > GRAD_TOLERANCE:
+        fail('ResShift loss or gradients disagree between kernels and plain versions')
+
+
 KERNELS = [
     ('swin_block_joint_fwd', 'basicsr4rs_tpu/ops/swin_block.py:287'),
     ('swin_attn_block_fwd', 'basicsr4rs_tpu/ops/swin_block.py:244'),
     ('swin_attn_block_bwd', 'basicsr4rs_tpu/ops/swin_block.py:405'),
     ('mlp_block_fwd', 'basicsr4rs_tpu/ops/mlp_block.py:74'),
     ('mlp_block_bwd', 'basicsr4rs_tpu/ops/mlp_block.py:97'),
+    ('window_attention_fwd', 'basicsr4rs_tpu/ops/window_attention.py:120'),
+    ('window_attention_bwd', 'basicsr4rs_tpu/ops/window_attention.py:227'),
 ]
 
 
@@ -736,21 +1295,30 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_info()
+    rs_batch = resshift_options(RS_TRAIN_CONFIG)[0]['datasets']['train']['batch_size_per_gpu']
     build_kernels()
     kernels = {'swin_block_joint_fwd': check_joint_kernel()}
     kernels.update(check_branch_kernels())
+    kernels.update(check_attention_kernels(rs_batch))
     if sys.argv[1:] == ['kernels']:   # development: the kernel phases alone
         print(json.dumps(kernels))
         return
+    # each phase below sets its kernels' counts to 0 just before it drives its
+    # path and reads them just after
     model, loader, serve_launches = serve()
     check_whole_model(model, loader)
     del model
-    train_launches, step_ms, peak = train()
+    train_launches, _, _ = train()
     check_model_gradients()
-    # launches on the main paths: the serving run plus the training run (its
-    # validations go through the joint kernel)
+    # SwinIR's paths: the serving run plus the training run (its validations
+    # go through the joint kernel)
     launches = dict(train_launches)
     launches['swin_block_joint_fwd'] += serve_launches
+    served = serve_resshift()
+    trained = train_resshift()
+    check_resshift_gradients()
+    launches['window_attention_fwd'] = served + trained['window_attention_fwd']
+    launches['window_attention_bwd'] = trained['window_attention_bwd']
     for name, count in launches.items():
         if count == 0:
             fail(f'{name} was never launched on the main paths')
@@ -760,7 +1328,7 @@ def main():
         'replaces': replaces, 'launches': launches[name],
         'max_abs_err': kernels[name]['max_abs_err'], 'ms': kernels[name]['ms'],
         'plain_ms': kernels[name]['plain_ms'], 'bound_ms': kernels[name]['bound_ms'],
-        'bound_by': kernels[name]['bound_by'], 'library_ms': None}
+        'bound_by': kernels[name]['bound_by'], 'library_ms': kernels[name].get('library_ms')}
         for name, replaces in KERNELS]}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                              'kind': torch.cuda.get_device_name(0),

@@ -10,11 +10,33 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'basicsr4rs_tpu')
 
 
+def port_modules():
+    """Every module of the port, by its dotted name."""
+    package = ROOT / 'basicsr4rs_torch'
+    names = []
+    for path in sorted(package.rglob('*.py')):
+        parts = path.relative_to(ROOT).with_suffix('').parts
+        names.append('.'.join(parts[:-1] if parts[-1] == '__init__' else parts))
+    return names
+
+
 def test_port_imports_without_jax():
-    code = ('import sys\n'
+    """Every module of the port (the diffusion slice's among them) imports
+    with JAX and the JAX package blocked, and none of them is in
+    ``sys.modules`` afterwards."""
+    modules = port_modules()
+    for expected in ('basicsr4rs_torch.ops.window_attention', 'basicsr4rs_torch.archs.unet_arch',
+                     'basicsr4rs_torch.archs.autoencoder_arch',
+                     'basicsr4rs_torch.utils.gaussian_diffusion',
+                     'basicsr4rs_torch.models.srrs_model',
+                     'basicsr4rs_torch.models.resshift_model', 'basicsr4rs_torch.train',
+                     'basicsr4rs_torch.test'):
+        assert expected in modules
+    code = ('import importlib, sys\n'
             f'for name in {BLOCKED!r}:\n'
             '    sys.modules[name] = None\n'
-            'import basicsr4rs_torch, basicsr4rs_torch.test\n'
+            f'for name in {modules!r}:\n'
+            '    importlib.import_module(name)\n'
             'from basicsr4rs_torch.ops import swin_block\n'
             'assert not any(m.split(".")[0] in {"jax", "flax", "basicsr4rs_tpu"} '
             'for m in sys.modules if sys.modules[m] is not None)\n')
