@@ -5,11 +5,13 @@ NCHW, BasicSR's module and key layout."""
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.dcn import bilinear_warp
 
 
 def trunc_normal_(tensor: torch.Tensor, std: float = 0.02,
@@ -27,6 +29,43 @@ def default_conv_init_(conv: nn.Module, generator: Optional[torch.Generator] = N
         fan_in = conv.weight[0].numel()
         bound = 1 / math.sqrt(fan_in) if fan_in > 0 else 0
         nn.init.uniform_(conv.bias, -bound, bound, generator=generator)
+
+
+@torch.no_grad()
+def default_init_weights(module_list, scale: float = 1., bias_fill: float = 0.) -> None:
+    """Kaiming-normal weights times ``scale`` and constant biases for every
+    convolution and linear layer of the modules (BasicSR's residual-branch
+    initialisation)."""
+    if not isinstance(module_list, (list, tuple)):
+        module_list = [module_list]
+    for module in module_list:
+        for m in module.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                nn.init.kaiming_normal_(m.weight)
+                m.weight.mul_(scale)
+                if m.bias is not None:
+                    m.bias.fill_(bias_fill)
+
+
+def make_layer(basic_block: Callable[..., nn.Module], num_basic_block: int,
+               **kwarg) -> nn.Sequential:
+    """``num_basic_block`` instances of one block in a ``Sequential``."""
+    return nn.Sequential(*[basic_block(**kwarg) for _ in range(num_basic_block)])
+
+
+class ResidualBlockNoBN(nn.Module):
+    """conv, ReLU, conv with an identity skip and no normalisation; the
+    branch starts at a tenth of the usual scale."""
+
+    def __init__(self, num_feat: int = 64, res_scale: float = 1.):
+        super().__init__()
+        self.res_scale = res_scale
+        self.conv1 = nn.Conv2d(num_feat, num_feat, 3, 1, 1)
+        self.conv2 = nn.Conv2d(num_feat, num_feat, 3, 1, 1)
+        default_init_weights([self.conv1, self.conv2], 0.1)
+
+    def forward(self, x):
+        return x + self.conv2(F.relu(self.conv1(x))) * self.res_scale
 
 
 class Upsample(nn.Sequential):
@@ -76,3 +115,66 @@ def pixel_unshuffle(x: torch.Tensor, scale: int) -> torch.Tensor:
 def per_level(value, levels: int) -> list:
     """A per-level setting given once for all levels or as a list."""
     return list(value) if isinstance(value, (list, tuple)) else [value] * levels
+
+
+def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int,
+                    align_corners: bool = False) -> torch.Tensor:
+    """Bilinear resize of NCHW without antialiasing, in either corner
+    convention."""
+    return F.interpolate(x, size=(out_h, out_w), mode='bilinear', align_corners=align_corners)
+
+
+def flow_warp(x: torch.Tensor, flow: torch.Tensor, interpolation: str = 'bilinear',
+              padding_mode: str = 'zeros') -> torch.Tensor:
+    """Warp a map by an optical flow: output pixel (h, w) is x sampled at
+    (w + dx, h + dy), in pixels.
+
+    Args:
+      x: (N, C, H, W).
+      flow: (N, H, W, 2), last dimension (dx, dy).
+      interpolation: 'bilinear' (the deformable sampler with one tap, a CUDA
+        kernel on a card) or 'nearest' (plain indexing, no flow gradient).
+      padding_mode: 'zeros', or 'border' (positions clamped to the map).
+    """
+    if padding_mode not in ('zeros', 'border'):
+        raise ValueError(f'flow_warp: padding_mode {padding_mode!r} is not supported')
+    n, _, h, w = x.shape
+    if tuple(flow.shape) != (n, h, w, 2):
+        raise ValueError(f'flow_warp: flow must be {(n, h, w, 2)}, got {tuple(flow.shape)}')
+    grid_y = torch.arange(h, device=x.device, dtype=flow.dtype).view(1, h, 1)
+    grid_x = torch.arange(w, device=x.device, dtype=flow.dtype).view(1, 1, w)
+    sx = grid_x + flow[..., 0]
+    sy = grid_y + flow[..., 1]
+    if interpolation == 'bilinear':
+        return bilinear_warp(x, sy, sx, border=padding_mode == 'border')
+    if interpolation != 'nearest':
+        raise ValueError(f'flow_warp: interpolation {interpolation!r} is not supported')
+    ix, iy = torch.round(sx).long(), torch.round(sy).long()
+    valid = (ix >= 0) & (ix < w) & (iy >= 0) & (iy < h)
+    index = (iy.clamp(0, h - 1) * w + ix.clamp(0, w - 1)).view(n, 1, h * w)
+    out = torch.gather(x.reshape(n, -1, h * w), 2, index.expand(-1, x.shape[1], -1)).view_as(x)
+    if padding_mode == 'zeros':
+        out = out * valid.unsqueeze(1).to(x.dtype)
+    return out
+
+
+def resize_flow(flow: torch.Tensor, size_type: str, sizes: Sequence[float],
+                interpolation: str = 'bilinear') -> torch.Tensor:
+    """Resize a flow (N, H, W, 2) to a ratio or a shape and rescale its
+    values to the new pixel size."""
+    n, h, w, _ = flow.shape
+    if size_type == 'ratio':
+        out_h, out_w = int(h * sizes[0]), int(w * sizes[1])
+    elif size_type == 'shape':
+        out_h, out_w = int(sizes[0]), int(sizes[1])
+    else:
+        raise ValueError(f'Size type should be ratio or shape, but got type {size_type}.')
+    if interpolation not in ('bilinear', 'nearest'):
+        raise ValueError(f'resize_flow: interpolation {interpolation!r} is not supported')
+    maps = flow.permute(0, 3, 1, 2)
+    if interpolation == 'bilinear':
+        resized = F.interpolate(maps, size=(out_h, out_w), mode='bilinear', align_corners=False)
+    else:
+        resized = F.interpolate(maps, size=(out_h, out_w), mode='nearest')
+    ratio = torch.tensor([out_w / w, out_h / h], dtype=flow.dtype, device=flow.device)
+    return resized.permute(0, 2, 3, 1) * ratio

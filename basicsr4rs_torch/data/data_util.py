@@ -1,13 +1,71 @@
 """Dataset path helpers (counterpart of ``basicsr4rs_tpu/data/data_util.py``;
-reference: basicsr/data/data_util.py). The folder scan is ported; the LMDB
-and meta-info-file variants and the video helpers come with their datasets."""
+reference: basicsr/data/data_util.py). The folder scan and the video
+helpers are ported; the LMDB and meta-info-file variants of the image pairs
+and DUF's downsampling come with their datasets."""
 
 from __future__ import annotations
 
 from os import path as osp
 from typing import List, Sequence
 
+import cv2
+import numpy as np
+import torch
+
+from ..utils.img_util import img2tensor
 from ..utils.misc import scandir
+from .transforms import mod_crop
+
+
+def read_img_seq(path, require_mod_crop: bool = False, scale: int = 1,
+                 return_imgname: bool = False):
+    """Read the frames of a folder (sorted) or of a list of paths into a
+    (T, C, H, W) float32 RGB tensor in [0, 1]; with ``return_imgname`` also
+    the frames' names without extension."""
+    if isinstance(path, list):
+        img_paths = path
+    else:
+        img_paths = sorted(scandir(path, full_path=True))
+    imgs = [cv2.imread(v).astype(np.float32) / 255. for v in img_paths]
+    if require_mod_crop:
+        imgs = [mod_crop(img, scale) for img in imgs]
+    imgs = torch.stack(img2tensor(imgs, bgr2rgb=True, float32=True), dim=0)
+    if return_imgname:
+        return imgs, [osp.splitext(osp.basename(p))[0] for p in img_paths]
+    return imgs
+
+
+def generate_frame_indices(crt_idx: int, max_frame_num: int, num_frames: int,
+                           padding: str = 'reflection') -> List[int]:
+    """The ``num_frames`` frame indices of the window centred at ``crt_idx``
+    (0-based) in a clip of ``max_frame_num`` frames. At the clip's start,
+    for 5 frames around frame 0:
+
+    replicate:          [0, 0, 0, 1, 2]
+    reflection:         [2, 1, 0, 1, 2]
+    reflection_circle:  [4, 3, 0, 1, 2]
+    circle:             [3, 4, 0, 1, 2]
+    """
+    if num_frames % 2 != 1:
+        raise ValueError('num_frames should be an odd number.')
+    if padding not in ('replicate', 'reflection', 'reflection_circle', 'circle'):
+        raise ValueError(f'Wrong padding mode: {padding}.')
+    last = max_frame_num - 1
+    num_pad = num_frames // 2
+    indices = []
+    for i in range(crt_idx - num_pad, crt_idx + num_pad + 1):
+        if i < 0:
+            pad_idx = {'replicate': 0, 'reflection': -i,
+                       'reflection_circle': crt_idx + num_pad - i,
+                       'circle': num_frames + i}[padding]
+        elif i > last:
+            pad_idx = {'replicate': last, 'reflection': last * 2 - i,
+                       'reflection_circle': (crt_idx - num_pad) - (i - last),
+                       'circle': i - num_frames}[padding]
+        else:
+            pad_idx = i
+        indices.append(pad_idx)
+    return indices
 
 
 def paired_paths_from_folder(folders: Sequence[str], keys: Sequence[str],

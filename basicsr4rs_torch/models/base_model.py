@@ -22,8 +22,9 @@ from ..utils.dist_util import master_only
 from ..utils.logger import get_root_logger
 from . import lr_scheduler
 
-# buffers that BasicSR stores and the port computes per input shape
-_COMPUTED_BUFFERS = ('relative_position_index', 'attn_mask')
+# buffers that BasicSR stores and the port computes (per input shape, or as
+# constants: SpyNet's normalisation)
+_COMPUTED_BUFFERS = ('relative_position_index', 'attn_mask', 'spynet.mean', 'spynet.std')
 
 
 class BaseModel:

@@ -50,7 +50,10 @@ def get_position_from_periods(iteration: int, cumulative_period: Sequence[int]) 
 class CosineAnnealingRestartLR(LRScheduler):
     """Cosine annealing with restarts: inside period i, which starts at
     ``start_i``, ``lr = eta_min + (base_lr * w_i - eta_min) / 2 *
-    (1 + cos(pi * (t - start_i) / period_i))``."""
+    (1 + cos(pi * (t - start_i) / period_i))``. ``eta_min`` is the first
+    param group's; a group with a learning-rate multiplier gets it times the
+    multiplier, so that the groups keep their ratio at every iteration, as
+    the JAX package's scaled updates do."""
 
     def __init__(self, optimizer, periods: Sequence[int],
                  restart_weights: Sequence[float] = (1,), eta_min: float = 0,
@@ -68,9 +71,12 @@ class CosineAnnealingRestartLR(LRScheduler):
         weight = self.restart_weights[idx]
         start = 0 if idx == 0 else self.cumulative_period[idx - 1]
         period = self.periods[idx]
-        return [self.eta_min + (base_lr * weight - self.eta_min) * 0.5
-                * (1 + math.cos(math.pi * (self.last_epoch - start) / period))
-                for base_lr in self.base_lrs]
+        cosine = 0.5 * (1 + math.cos(math.pi * (self.last_epoch - start) / period))
+        rates = []
+        for base_lr in self.base_lrs:
+            eta_min = self.eta_min * base_lr / self.base_lrs[0]
+            rates.append(eta_min + (base_lr * weight - eta_min) * cosine)
+        return rates
 
 
 def linear_warmup_lr(init_lrs: Sequence[float], current_iter: int,

@@ -19,6 +19,7 @@ import torch
 from ..archs import build_network
 from ..losses import build_loss
 from ..metrics import calculate_metric
+from ..ops.dcn import DCNv2Pack
 from ..utils.img_util import imwrite, tensor2img
 from ..utils.logger import get_root_logger
 from ..utils.registry import MODEL_REGISTRY
@@ -60,6 +61,11 @@ class SRModel(BaseModel):
         if self.cri_pix is None:
             raise ValueError('Both pixel and perceptual losses are None.')
 
+        if train_opt.get('log_dcn_offset'):
+            for module in self.net_g.modules():
+                if isinstance(module, DCNv2Pack):
+                    module.log_offset = True
+
         self.setup_optimizers()
         self.setup_schedulers()
 
@@ -80,14 +86,31 @@ class SRModel(BaseModel):
                 self.net_g_ema.load_state_dict(self.net_g.state_dict())
             self.net_g_ema.eval()
 
+    def lr_multiplier(self, name: str) -> float:
+        """The factor on the learning rate of the parameter ``name`` (the
+        video models scale their alignment or flow parameters)."""
+        return 1.
+
+    def frozen_parameters(self, current_iter: int):
+        """The parameters whose update iteration ``current_iter`` discards (a
+        warm-up that trains a part of the network only)."""
+        return []
+
     def setup_optimizers(self):
+        """One optimizer; parameters with a learning-rate multiplier form a
+        param group of their own with ``lr * multiplier``, which the
+        schedulers and the warm-up scale like the first."""
         optim_opt = dict(self.opt['train']['optim_g'])
-        optim_params = []
+        groups = {}
         for name, param in self.net_g.named_parameters():
             if param.requires_grad:
-                optim_params.append(param)
+                groups.setdefault(self.lr_multiplier(name), []).append(param)
             else:
                 get_root_logger().warning(f'Params {name} will not be optimized.')
+        optim_params = groups.pop(1., [])
+        if groups:
+            optim_params = [{'params': optim_params}] + [
+                {'params': params, 'lr': optim_opt['lr'] * mul} for mul, params in groups.items()]
         self.optimizer_g = self.get_optimizer(optim_opt.pop('type'), optim_params, **optim_opt)
         self.optimizers.append(self.optimizer_g)
 
@@ -103,7 +126,15 @@ class SRModel(BaseModel):
         l_pix = self.cri_pix(self.output, self.gt)
         loss_dict['l_pix'] = l_pix
         l_pix.backward()
+        # a frozen parameter takes part in the step (its moments and step
+        # count run from the first iteration, as in the JAX package, which
+        # masks the update) and gets its old value back
+        frozen = self.frozen_parameters(current_iter)
+        kept = [p.detach().clone() for p in frozen]
         self.optimizer_g.step()
+        if frozen:
+            with torch.no_grad():
+                torch._foreach_copy_(frozen, kept)
         self.log_dict = self.reduce_loss_dict(loss_dict)
         if self.ema_decay > 0:
             self.model_ema(decay=self.ema_decay)

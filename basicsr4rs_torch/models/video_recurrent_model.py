@@ -1,0 +1,94 @@
+"""VideoRecurrentModel (counterpart of
+``basicsr4rs_tpu/models/video_recurrent_model.py``; reference:
+basicsr/models/video_recurrent_model.py).
+
+Training and validation items are whole clips, (B, T, C, H, W). The optical
+flow network learns at ``train.flow_lr_mul`` times the rate, and before
+iteration ``train.fix_flow`` its updates (and those of a keyframe ``edvr``
+branch) are discarded. Validation runs each clip in one forward, optionally
+averaged with the reversed clip (``val.flip_seq``) or cut to its centre frame
+(``val.center_frame_only``). The GAN variants come with the GAN models.
+"""
+
+from __future__ import annotations
+
+from os import path as osp
+
+import torch
+
+from ..metrics import calculate_metric
+from ..utils.img_util import imwrite, tensor2img
+from ..utils.logger import get_root_logger
+from ..utils.registry import MODEL_REGISTRY
+from .video_base_model import VideoBaseModel
+
+
+@MODEL_REGISTRY.register()
+class VideoRecurrentModel(VideoBaseModel):
+
+    def __init__(self, opt):
+        train_opt = opt.get('train') or {}
+        self.fix_flow_iter = train_opt.get('fix_flow') or 0
+        self.flow_lr_mul = train_opt.get('flow_lr_mul', 1.)
+        super().__init__(opt)
+
+    def lr_multiplier(self, name):
+        return float(self.flow_lr_mul) if 'spynet' in name else 1.
+
+    def frozen_parameters(self, current_iter):
+        if not self.fix_flow_iter or current_iter >= self.fix_flow_iter:
+            return []
+        return [p for name, p in self.net_g.named_parameters()
+                if 'spynet' in name or 'edvr' in name]
+
+    def optimize_parameters(self, current_iter):
+        if self.fix_flow_iter and current_iter == 1:
+            get_root_logger().info(
+                f'Fix flow network and feature extractor for {self.fix_flow_iter} iters.')
+        elif self.fix_flow_iter and current_iter == self.fix_flow_iter:
+            get_root_logger().warning('Train all the parameters.')
+        super().optimize_parameters(current_iter)
+
+    def test(self):
+        lq = self.lq
+        flip_seq = self.opt['val'].get('flip_seq', False)
+        if flip_seq:
+            lq = torch.cat([lq, lq.flip(1)], dim=1)
+        output = self._eval_forward(lq)
+        if flip_seq:
+            t = output.shape[1] // 2
+            output = 0.5 * (output[:, :t] + output[:, t:].flip(1))
+        if self.opt['val'].get('center_frame_only', False):
+            output = output[:, output.shape[1] // 2]
+        self.output = output
+
+    def _validate_item(self, val_data, dataset_name, save_img, with_metrics):
+        """One clip: every frame's output, image and metric row."""
+        folder = val_data['folder'][0]
+        self.feed_data(val_data)
+        self.test()
+        visuals = self.get_current_visuals()
+        result = visuals['result'][0]                   # (T, C, H, W), or (C, H, W)
+        gt = visuals['gt'][0] if 'gt' in visuals else None
+        if gt is not None:
+            del self.gt
+        if self.opt['val'].get('center_frame_only', False):
+            # the one frame takes metric row 0
+            result = result.unsqueeze(0)
+            if gt is not None:
+                gt = gt[gt.shape[0] // 2].unsqueeze(0)
+
+        for frame_idx in range(result.shape[0]):
+            metric_data = {'img': tensor2img(result[frame_idx])}
+            if gt is not None:
+                metric_data['img2'] = tensor2img(gt[frame_idx])
+            if save_img:
+                if self.is_train:
+                    raise NotImplementedError('saving image is not supported during training.')
+                imwrite(metric_data['img'],
+                        osp.join(self.opt['path']['visualization'], dataset_name, folder,
+                                 f'{frame_idx:08d}_{self.opt["name"]}.png'))
+            if with_metrics:
+                for metric_idx, opt_ in enumerate(self.opt['val']['metrics'].values()):
+                    self.metric_results_per_folder[folder][frame_idx, metric_idx] = (
+                        calculate_metric(metric_data, opt_))

@@ -15,17 +15,19 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MODES = {'branch': 0, 'residual': 1, 'scaled': 2}
 
 
-def bind(name: str, argtypes: Sequence, smem_argtypes: Sequence,
+def bind(name: str, argtypes: Sequence, smem_argtypes: Optional[Sequence],
          grad_floats_argtypes: Optional[Sequence] = None) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu`` with the types of its C
     functions set: ``<name>`` (the launch, returns a cudaError_t),
-    ``<name>_smem_bytes``, ``<name>_error`` and, for a backward kernel,
-    ``<name>_grad_floats`` (the size of its gradient buffer)."""
+    ``<name>_error``, for a kernel that takes shared memory
+    ``<name>_smem_bytes`` and, for a backward kernel with a gradient buffer,
+    ``<name>_grad_floats`` (its size)."""
     lib = load_library(name)
     launch = getattr(lib, name)
     launch.argtypes, launch.restype = list(argtypes), ctypes.c_int
-    smem = getattr(lib, f'{name}_smem_bytes')
-    smem.argtypes, smem.restype = list(smem_argtypes), ctypes.c_size_t
+    if smem_argtypes is not None:
+        smem = getattr(lib, f'{name}_smem_bytes')
+        smem.argtypes, smem.restype = list(smem_argtypes), ctypes.c_size_t
     err = getattr(lib, f'{name}_error')
     err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
     if grad_floats_argtypes is not None:

@@ -6,9 +6,9 @@ From the root of a checkout, in phases; any failure ends the run with a
 nonzero exit code and no result line:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. builds the seven kernels (five Swin block kernels, the window attention
-   forward and backward) from ``basicsr4rs_torch/csrc/`` with nvcc, all at
-   once;
+2. builds the nine kernels (five Swin block kernels, the window attention
+   forward and backward, the deformable sampler forward and backward) from
+   ``basicsr4rs_torch/csrc/`` with nvcc, all at once;
 3. holds each kernel against its plain PyTorch version on the card at
    SwinIR-M block shapes (C=180, 6 heads, window 8, hidden 360), without
    and with the shift mask, in float32 and bfloat16, and times both: the
@@ -19,6 +19,13 @@ nonzero exit code and no result line:
    (C=192, 6 heads of 32, window 8; maps of 64, 32, 16 and 8; batch 1 and
    the training batch; with the shift mask and without) and at C=180 with
    heads of 30, beside ``F.scaled_dot_product_attention`` as a yardstick;
+   the deformable sampler's kernels (3d) at the shapes EDVR-M gives them
+   (64 channels in 8 groups, nine taps; training batch 4 x 5 frames of 64x64
+   and a served window of 5 frames of 180x320, all three pyramid levels) and
+   BasicVSR++ (128 channels in 16 groups; one tap on 64-, 3- and 2-channel
+   maps for the flow warps, also with ``border``), with offsets small and
+   large enough to leave the map and whole positions among them, beside
+   ``F.grid_sample`` as the one-tap yardstick;
 4. serves SwinIR-M x4 through ``basicsr4rs_torch.test`` (the code path of
    ``python -m basicsr4rs_torch.test -opt options/test/SwinIR/
    test_SwinIR_M_x4_synthetic.yml``) on 4 synthetic image pairs and random
@@ -50,7 +57,28 @@ nonzero exit code and no result line:
    peak memory, EMA, checkpoint, resume, the device time of a step by
    kernel, and two steps under bfloat16 autocast;
 10. runs one ResShift training batch forward and backward through the
-    kernels and through the plain versions and compares every gradient.
+    kernels and through the plain versions and compares every gradient;
+11. serves EDVR-M x4 through ``basicsr4rs_torch.test`` (``-opt
+    options/test/EDVR/test_EDVR_M_x4_synthetic.yml``: ``VideoTestDataset``,
+    windows of 5 LQ frames of 180x320, per-clip PSNR) on two synthetic clips
+    and seed-0 weights that it writes first: 4 launches of the sampler a
+    request, latency after a warm-up request, one request again on the plain
+    versions, the device time of a request by kernel;
+12. trains it through ``basicsr4rs_torch.train`` (``-opt
+    options/train/EDVR/train_EDVR_M_x4_synthetic.yml``: ``REDSDataset``,
+    batch 4, GT 256) for 8 steps: 4 forward and 4 backward launches a step,
+    a finite loss that falls on the first batch, the end of the TSA-only
+    warm-up at iteration 4 (a frozen parameter keeps its value before it and
+    moves from it on), EMA, checkpoint, resume, step time, peak memory, the
+    device time of a step by kernel;
+13. runs one EDVR training batch forward and backward through the kernels
+    and through the plain versions and compares every gradient;
+14. to 16. the same three for BasicVSR++ (``options/test/BasicVSRPP/
+    test_BasicVSRPP_x4_synthetic.yml``: one clip of 30 frames of 180x320 in
+    one forward, 462 launches; ``options/train/BasicVSRPP/
+    train_BasicVSRPP_x4_synthetic.yml``: ``REDSRecurrentDataset``, batch 1 of
+    30 frames, 462 forward and 461 backward launches a step, SpyNet frozen
+    before iteration 4).
 
 ``python3 chip_smoke.py kernels`` stops after phase 3. The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -454,6 +482,215 @@ def check_attention_kernels(train_batch):
     return summary
 
 
+# ------------------------------------------------- the deformable sampler
+DEFORM_KERNELS = ('deform_sample_fwd', 'deform_sample_bwd')
+EDVR_FEAT, EDVR_GROUPS, EDVR_FRAMES = 64, 8, 5          # EDVR-M: num_feat, deformable_groups
+EDVR_TRAIN_BATCH, EDVR_TRAIN_LQ = 4, 64                 # GT 256 at x4
+VIDEO_LQ = (180, 320)                                   # the REDS4 frame at x4
+PP_FEAT, PP_GROUPS = 64, 16                             # BasicVSR++: mid_channels, deform groups
+
+
+def deform_work(kernel, n, c, h, w, taps, groups, with_mask, dtype):
+    """(FLOP, bytes) of one sampler call with stride 1 and 'same' padding:
+    the map, offsets and mask read once, the column tensor written once (or
+    read once, with the three gradients written); 8 operations a sample for
+    the blend and the mask, 30 in the backward, 20 a tap for its position."""
+    es, p = torch.finfo(dtype).bits // 8, h * w
+    maps, col = n * c * p * es, n * c * taps * p * es
+    offsets = n * groups * taps * p * 4 * (3 if with_mask else 2)
+    position = 20 * n * groups * taps * p
+    return {'deform_sample_fwd': (8 * n * c * taps * p + position, maps + offsets + col),
+            'deform_sample_bwd': (30 * n * c * taps * p + 2 * position,
+                                  2 * maps + 2 * offsets + col)}[kernel]
+
+
+def deform_inputs(n, c, h, w, taps, groups, with_mask, dtype, spread, gen):
+    """A map, offsets and a mask on the card. ``spread`` is the offsets'
+    standard deviation in pixels; the first sample's offsets are whole
+    numbers, a tenth of them zero."""
+    from basicsr4rs_torch.ops.dcn import SampleGeometry
+    k = 3 if taps == 9 else 1
+    geo = SampleGeometry(k, k, 1, k // 2, 1, groups)
+    x = torch.randn(n, c, h, w, generator=gen).cuda().to(dtype)
+    offset = torch.randn(n, groups * 2 * taps, h, w, generator=gen) * spread
+    offset[0] = offset[0].round() * (torch.rand(offset[0].shape, generator=gen) > .1)
+    mask = torch.rand(n, groups * taps, h, w, generator=gen).cuda() if with_mask else None
+    dcol = torch.randn(n, c, taps, h, w, generator=gen).cuda().to(dtype)
+    return x, offset.cuda(), mask, dcol, geo
+
+
+def grid_of(offset):
+    """``F.grid_sample``'s normalised grid for a one-tap offset (dy, dx)."""
+    n, _, h, w = offset.shape
+    ys = torch.arange(h, device=offset.device).view(1, h, 1) + offset[:, 0]
+    xs = torch.arange(w, device=offset.device).view(1, 1, w) + offset[:, 1]
+    return torch.stack([2 * xs / (w - 1) - 1, 2 * ys / (h - 1) - 1], dim=-1)
+
+
+def check_deform_kernels():
+    """The deformable sampler's kernels against their plain versions at the
+    shapes EDVR-M and BasicVSR++ give them, nine taps and one."""
+    import torch.nn.functional as F
+
+    from basicsr4rs_torch.ops import dcn as D
+    phase('3d. deformable sampler kernels, forward and backward, vs plain versions')
+    gen = torch.Generator().manual_seed(4)
+    f32, bf16 = torch.float32, torch.bfloat16
+    tb, tl, (sh, sw) = EDVR_TRAIN_BATCH * EDVR_FRAMES, EDVR_TRAIN_LQ, VIDEO_LQ
+    edvr = (EDVR_FEAT, 9, EDVR_GROUPS, True)
+    pp = (2 * PP_FEAT, 9, PP_GROUPS, True)
+    # (tag, N, H, W, (C, taps, deform groups, mask), dtype, offset spread, timed)
+    train_case = ('EDVR train L1', tb, tl, tl, edvr, f32, 2., True)
+    warp_case = ('warp 64ch zeros', 1, 64, 64, (PP_FEAT, 1, 1, False), f32, 3., True)
+    cases = [train_case,
+             ('EDVR train L2', tb, tl // 2, tl // 2, edvr, f32, 2., False),
+             ('EDVR train L3', tb, tl // 4, tl // 4, edvr, f32, 12., False),
+             ('EDVR train L1 bf16', tb, tl, tl, edvr, bf16, 2., False),
+             ('EDVR serve L1', EDVR_FRAMES, sh, sw, edvr, f32, 2., True),
+             ('EDVR serve L2', EDVR_FRAMES, sh // 2, sw // 2, edvr, f32, 40., False),
+             ('EDVR serve L3', EDVR_FRAMES, sh // 4, sw // 4, edvr, f32, 2., False),
+             ('EDVR serve L1 bf16', EDVR_FRAMES, sh, sw, edvr, bf16, 2., False),
+             ('BasicVSR++ train', 1, 64, 64, pp, f32, 4., True),
+             ('BasicVSR++ train far', 1, 64, 64, pp, f32, 40., False),
+             ('BasicVSR++ serve', 1, sh, sw, pp, f32, 4., True),
+             ('BasicVSR++ train bf16', 1, 64, 64, pp, bf16, 4., False),
+             warp_case,
+             ('warp 64ch serve', 1, sh, sw, (PP_FEAT, 1, 1, False), f32, 3., True),
+             ('warp 2ch flow', 1, 64, 64, (2, 1, 1, False), f32, 30., False),
+             ('warp 3ch SpyNet', 58, 64, 64, (3, 1, 1, False), f32, 3., False),
+             ('warp 64ch bf16', 1, 64, 64, (PP_FEAT, 1, 1, False), bf16, 3., False)]
+    summary = {name: {'max_abs_err': 0., 'library_ms': None} for name in DEFORM_KERNELS}
+    for case in cases:
+        tag, n, h, w, (c, taps, groups, with_mask), dt, spread, timed = case
+        x, offset, mask, dcol, geo = deform_inputs(n, c, h, w, taps, groups, with_mask, dt,
+                                                   spread, gen)
+        outside = 1 - D.reference_deform_sample(torch.ones(n, groups, h, w, device='cuda'),
+                                                offset, None, geo).ne(0).float().mean().item()
+        tag = (f'{tag:22s} N={n} C={c} {h}x{w} K={taps} G={groups} {str(dt)[6:]:8s} '
+               f'({100 * outside:.1f}% of the samples outside)')
+        runs = [('deform_sample_fwd', lambda: D.deform_sample_forward(x, offset, mask, geo),
+                 lambda: D.reference_deform_sample(x, offset, mask, geo), ('col',)),
+                ('deform_sample_bwd', lambda: D.deform_sample_backward(x, offset, mask, dcol, geo),
+                 lambda: D.reference_deform_sample_backward(x, offset, mask, dcol, geo),
+                 ('dx', 'doffset', 'dmask'))]
+        for name, kernel, plain, outputs in runs:
+            with torch.no_grad():
+                got = kernel()
+            want = plain()
+            torch.cuda.synchronize()
+            got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+            worst = []
+            for out_name, g_, w_ in zip(outputs, got, want):
+                if w_ is None:
+                    if g_ is not None:
+                        fail(f'{name}: {out_name} without a mask at {tag}')
+                    continue
+                # the column tensor is elementwise; the gradients are sums (dx over the
+                # samples that touch a pixel, by atomicAdd; the others over a group's channels)
+                rule = 'elementwise' if out_name == 'col' else 'sum'
+                ok, max_abs, max_rel, tolerance = compare(g_, w_, dt, rule)
+                worst.append(f'{out_name} {max_abs:.2e} ({max_rel:.1e})')
+                if not ok:
+                    fail(f'{name}: {out_name} disagrees with the plain version at {tag}: '
+                         f'max abs err {max_abs:.3e}, {max_rel:.3e} of max|plain|, '
+                         f'tolerance {tolerance}')
+                if dt == f32:
+                    summary[name]['max_abs_err'] = max(summary[name]['max_abs_err'], max_abs)
+            line = f'{name:18s} {tag}: max abs err (of max|plain|) ' + ', '.join(worst)
+            del got, want
+            if timed:
+                with torch.no_grad():
+                    kernel_ms = cuda_time_ms(kernel, iters=5)
+                plain_ms = cuda_time_ms(plain, iters=2)
+                with torch.no_grad():
+                    kernel_ms = (kernel_ms + cuda_time_ms(kernel, iters=5)) / 2
+                flop, nbytes = deform_work(name, n, c, h, w, taps, groups, with_mask, dt)
+                bound, by = bound_ms(flop, nbytes, dt)
+                line += (f' | kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
+                         f'{bound:.4f} ms by {by}')
+                times = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+                if taps == 1:   # the library's call for the same warp, as a yardstick
+                    grid = grid_of(offset)
+                    if name == 'deform_sample_fwd':
+                        def call():
+                            return F.grid_sample(x, grid, 'bilinear', 'zeros', True)
+                        with torch.no_grad():
+                            lib = call().unsqueeze(2)
+                            want = plain()
+                    else:
+                        xg, gg = x.clone().requires_grad_(), grid.clone().requires_grad_()
+                        out = F.grid_sample(xg, gg, 'bilinear', 'zeros', True)
+
+                        def call():
+                            return torch.autograd.grad(out, (xg, gg), dcol[:, :, 0],
+                                                       retain_graph=True)
+                        lib, want = call()[0], plain()[0]
+                    ok, max_abs, max_rel, _ = compare(lib, want, dt, 'sum')
+                    if max_rel > 1e-3:   # it blends on the normalised grid: a looser check
+                        fail(f'F.grid_sample disagrees with the plain version at {tag}: '
+                             f'{max_abs:.3e}')
+                    times['library_ms'] = cuda_time_ms(call, iters=5)
+                    line += f', library (F.grid_sample) {times["library_ms"]:.4f} ms'
+                    if case == warp_case:
+                        summary[name]['one_tap'] = times
+                if case == train_case:
+                    summary[name].update(times)
+            print(line, flush=True)
+            if name == 'deform_sample_bwd' and timed:
+                with torch.no_grad():   # atomicAdd sums: reported, not required
+                    first, again = kernel(), kernel()
+                print(f'{name:18s} {tag}: a second launch on the same inputs repeats bit for '
+                      'bit: ' + ', '.join(f'{o} {"yes" if torch.equal(a, b) else "no"}'
+                                          for o, a, b in zip(outputs, first, again)
+                                          if a is not None), flush=True)
+        del x, offset, mask, dcol
+        torch.cuda.empty_cache()
+    check_border_warp(gen)
+    return summary
+
+
+def check_border_warp(gen):
+    """``bilinear_warp`` with ``border`` (positions clamped to the map before
+    the kernel sees them), forward and backward through the autograd
+    function, against the same call on the plain versions."""
+    from basicsr4rs_torch.ops import dcn as D
+    n, c, h, w = 58, 3, 96, 160   # SpyNet's batch of a 30-frame clip, one level down
+    x = torch.randn(n, c, h, w, generator=gen).cuda()
+    ys = torch.arange(h).view(1, h, 1) + torch.randn(n, h, w, generator=gen) * 20
+    xs = torch.arange(w).view(1, 1, w) + torch.randn(n, h, w, generator=gen) * 20
+    dout = torch.randn(n, c, h, w, generator=gen).cuda()
+
+    def run():
+        leaves = [t.clone().cuda().requires_grad_() for t in (x, ys, xs)]
+        out = D.bilinear_warp(*leaves, border=True)
+        return (out.detach(),) + torch.autograd.grad(out, leaves, dout)
+
+    got = run()
+    patches = plain_sampler()
+    for p in patches:
+        p.start()
+    try:
+        want = run()
+    finally:
+        for p in patches:
+            p.stop()
+    clamped = ((ys < 0) | (ys > h - 1) | (xs < 0) | (xs > w - 1)).float().mean().item()
+    worst = []
+    for name, g_, w_ in zip(('out', 'dx', 'dpy', 'dpx'), got, want):
+        ok, max_abs, max_rel, tolerance = compare(g_, w_, torch.float32,
+                                                  'elementwise' if name == 'out' else 'sum')
+        worst.append(f'{name} {max_abs:.2e} ({max_rel:.1e})')
+        if not ok:
+            fail(f'bilinear_warp with border: {name} disagrees with the plain version: '
+                 f'{max_abs:.3e}, tolerance {tolerance}')
+    outside = (ys < 0) | (ys > h - 1)
+    if got[2].cpu()[outside].abs().max().item() != 0:
+        fail('bilinear_warp with border: a clamped position has a gradient')
+    print(f'bilinear_warp border  N={n} C={c} {h}x{w} ({100 * clamped:.1f}% of the positions '
+          'clamped, their gradient zero): max abs err (of max|plain|) ' + ', '.join(worst),
+          flush=True)
+
+
 def write_inputs():
     """4 synthetic GT/LQ pairs (smooth random images, LQ the bicubic
     downscale) and the seed-0 random SwinIR-M weights the config names."""
@@ -608,10 +845,11 @@ def training_kernels():
 
 
 def run_train_pipeline(extra_args, record, config=None, model_cls=None, loss_key='l_pix',
-                       wrappers=None, before_first_step=None):
+                       wrappers=None, before_first_step=None, after_step=None):
     """``basicsr4rs_torch.train.train_pipeline`` on a synthetic config, with
     every optimization step of ``model_cls`` timed by CUDA events and its
-    loss and launch counts recorded."""
+    loss and launch counts recorded; ``after_step(model, step record)`` may
+    add to the step's record."""
     import basicsr4rs_torch.train as entry
     from basicsr4rs_torch.models.swinir_model import SwinIRModel
     config = config or TRAIN_CONFIG
@@ -633,6 +871,8 @@ def run_train_pipeline(extra_args, record, config=None, model_cls=None, loss_key
             'iter': current_iter, 'ms': start.elapsed_time(end),
             loss_key: float(model.log_dict[loss_key]),
             'launches': {k: w.launches - before[k] for k, w in wrappers.items()}})
+        if after_step is not None:
+            after_step(model, record['steps'][-1])
 
     argv = sys.argv
     sys.argv = ['basicsr4rs_torch.train', '-opt', config] + extra_args
@@ -659,6 +899,26 @@ def fixed_batch_loss(model, batch):
         loss = float(model.cri_pix(net(lq), gt))
     net.train()
     return loss
+
+
+def check_ema_and_checkpoint(model, fresh, ckpt_path):
+    """The EMA network has left the trained one, and the saved ``.pth`` holds
+    ``params`` and ``params_ema`` that load into ``fresh`` (a new network of
+    the same options), ``params_ema`` equal to the EMA network."""
+    diff = max((p - e).abs().max().item() for p, e in
+               zip(model.net_g.parameters(), model.net_g_ema.parameters()))
+    print(f'max |net_g - net_g_ema| over the parameters: {diff:.3e}')
+    if not diff > 0:
+        fail('the EMA network equals the trained network')
+    ckpt = torch.load(ckpt_path, map_location='cpu', weights_only=True)
+    if sorted(ckpt) != ['params', 'params_ema']:
+        fail(f'{ckpt_path} holds {sorted(ckpt)}')
+    for key in ('params', 'params_ema'):
+        model.load_network(fresh, ckpt_path, True, key)
+    for (name, p), q in zip(fresh.named_parameters(), model.net_g_ema.parameters()):
+        if not torch.equal(p, q.cpu()):
+            fail(f'{ckpt_path}: params_ema[{name}] differs from the EMA network')
+    print(f'{ckpt_path}: params and params_ema load back, params_ema equals the EMA network')
 
 
 def train():
@@ -725,24 +985,10 @@ def train():
         fail('the loss on the fixed batch did not fall')
 
     # EMA, checkpoint, resume
-    diff = max((p - e).abs().max().item() for p, e in
-               zip(model.net_g.parameters(), model.net_g_ema.parameters()))
-    print(f'max |net_g - net_g_ema| over the parameters: {diff:.3e}')
-    if not diff > 0:
-        fail('the EMA network equals the trained network')
-    ckpt_path = os.path.join(exp_dir, 'models', f'net_g_{total_iter}.pth')
-    ckpt = torch.load(ckpt_path, map_location='cpu', weights_only=True)
-    if sorted(ckpt) != ['params', 'params_ema']:
-        fail(f'{ckpt_path} holds {sorted(ckpt)}')
     net_opt = dict(opt['network_g'])
     net_opt.pop('type')
-    fresh = SwinIR(**net_opt)
-    for key in ('params', 'params_ema'):
-        model.load_network(fresh, ckpt_path, True, key)
-    for (name, p), q in zip(fresh.named_parameters(), model.net_g_ema.parameters()):
-        if not torch.equal(p, q.cpu()):
-            fail(f'{ckpt_path}: params_ema[{name}] differs from the EMA network')
-    print(f'{ckpt_path}: params and params_ema load back, params_ema equals the EMA network')
+    check_ema_and_checkpoint(model, SwinIR(**net_opt),
+                             os.path.join(exp_dir, 'models', f'net_g_{total_iter}.pth'))
 
     resumed = {'steps': [], 'fixed': record['fixed'], 'fixed_loss_before': 0.}
     # the resumed run also takes its batches through the CUDA prefetcher
@@ -842,6 +1088,25 @@ def profile_training_steps(model, batch, steps=3):
                         'train_step_profile.json')
 
 
+def compare_gradients(what, loss_k, grads_k, loss_p, grads_p):
+    """Hold one batch's loss and parameter gradients through the kernels
+    against those through the plain versions: each gradient within
+    GRAD_TOLERANCE of the plain one's largest entry."""
+    floor = 1e-6 * max(g.abs().max().item() for g in grads_p.values())
+    worst, worst_name = 0., ''
+    for name, g in grads_p.items():
+        if not torch.isfinite(grads_k[name]).all():
+            fail(f'non-finite gradient of {name}')
+        rel = (grads_k[name] - g).abs().max().item() / max(g.abs().max().item(), floor)
+        if rel > worst:
+            worst, worst_name = rel, name
+    print(f'loss {loss_k:.7f} (kernels) vs {loss_p:.7f} (plain); {len(grads_p)} parameter '
+          f'gradients, largest max|difference| / max|plain|: {worst:.3e} at {worst_name} '
+          f'(tolerance {GRAD_TOLERANCE})')
+    if abs(loss_k - loss_p) > 1e-5 * abs(loss_p) or worst > GRAD_TOLERANCE:
+        fail(f'{what}: loss or gradients disagree between kernels and plain versions')
+
+
 def check_model_gradients():
     from basicsr4rs_torch.archs.swinir_arch import SwinIR
     from basicsr4rs_torch.ops import mlp_block as M
@@ -878,19 +1143,7 @@ def check_model_gradients():
             p.stop()
     if counts != {k: w.launches for k, w in training_kernels().items()}:
         fail('the plain run launched a kernel')
-    floor = 1e-6 * max(g.abs().max().item() for g in grads_p.values())
-    worst, worst_name = 0., ''
-    for name, g in grads_p.items():
-        if not torch.isfinite(grads_k[name]).all():
-            fail(f'non-finite gradient of {name}')
-        rel = (grads_k[name] - g).abs().max().item() / max(g.abs().max().item(), floor)
-        if rel > worst:
-            worst, worst_name = rel, name
-    print(f'loss {loss_k:.7f} (kernels) vs {loss_p:.7f} (plain); {len(grads_p)} parameter '
-          f'gradients, largest max|difference| / max|plain|: {worst:.3e} at {worst_name} '
-          f'(tolerance {GRAD_TOLERANCE})')
-    if abs(loss_k - loss_p) > 1e-5 * abs(loss_p) or worst > GRAD_TOLERANCE:
-        fail('whole-model loss or gradients disagree')
+    compare_gradients('SwinIR', loss_k, grads_k, loss_p, grads_p)
 
 
 # ------------------------------------------------------------------ ResShift
@@ -1159,21 +1412,8 @@ def train_resshift():
           f'max {max(timed):.3f}; CUDA events around optimize_parameters, after 2 warm-up '
           f'steps); peak device memory {peak:.1f} MiB at batch {batch}')
 
-    diff = max((p - e).abs().max().item() for p, e in
-               zip(model.net_g.parameters(), model.net_g_ema.parameters()))
-    print(f'max |net_g - net_g_ema| over the parameters: {diff:.3e}')
-    if not diff > 0:
-        fail('the EMA network equals the trained network')
-    ckpt_path = os.path.join(exp_dir, 'models', f'net_g_{total_iter}.pth')
-    ckpt = torch.load(ckpt_path, map_location='cpu', weights_only=True)
-    if sorted(ckpt) != ['params', 'params_ema']:
-        fail(f'{ckpt_path} holds {sorted(ckpt)}')
-    fresh, _ = random_resshift_weights(opt, seed=1)
-    model.load_network(fresh, ckpt_path, True, 'params_ema')
-    for (name, p), q in zip(fresh.named_parameters(), model.net_g_ema.parameters()):
-        if not torch.equal(p, q.cpu()):
-            fail(f'{ckpt_path}: params_ema[{name}] differs from the EMA network')
-    print(f'{ckpt_path}: params and params_ema load back, params_ema equals the EMA network')
+    check_ema_and_checkpoint(model, random_resshift_weights(opt, seed=1)[0],
+                             os.path.join(exp_dir, 'models', f'net_g_{total_iter}.pth'))
 
     resumed = {'steps': []}
     run_train_pipeline(['--auto_resume', '--force_yml',
@@ -1262,19 +1502,366 @@ def check_resshift_gradients():
         loss_p, grads_p = loss_and_grads()
     if counts != {k: w.launches for k, w in wrappers.items()}:
         fail('the plain run launched a kernel')
-    floor = 1e-6 * max(g.abs().max().item() for g in grads_p.values())
-    worst, worst_name = 0., ''
-    for name, g in grads_p.items():
-        if not torch.isfinite(grads_k[name]).all():
-            fail(f'non-finite gradient of {name}')
-        rel = (grads_k[name] - g).abs().max().item() / max(g.abs().max().item(), floor)
-        if rel > worst:
-            worst, worst_name = rel, name
-    print(f'loss {loss_k:.7f} (kernels) vs {loss_p:.7f} (plain); {len(grads_p)} parameter '
-          f'gradients, largest max|difference| / max|plain|: {worst:.3e} at {worst_name} '
-          f'(tolerance {GRAD_TOLERANCE})')
-    if abs(loss_k - loss_p) > 1e-5 * abs(loss_p) or worst > GRAD_TOLERANCE:
-        fail('ResShift loss or gradients disagree between kernels and plain versions')
+    compare_gradients('ResShift', loss_k, grads_k, loss_p, grads_p)
+
+
+# ------------------------------------------------------------ the video path
+def sampler_wrappers():
+    from basicsr4rs_torch.ops import dcn as D
+    return {'deform_sample_fwd': D.deform_sample_forward,
+            'deform_sample_bwd': D.deform_sample_backward}
+
+
+SAMPLER_DEVICE_KERNELS = ('deform_sample_fwd', 'deform_sample_dx', 'deform_sample_doffset')
+
+
+def plain_sampler():
+    """Patches that put the sampler's plain versions in place of both kernels."""
+    from basicsr4rs_torch.ops import dcn as D
+    return [mock.patch.object(D, 'deform_sample_forward', D.reference_deform_sample),
+            mock.patch.object(D, 'deform_sample_backward', D.reference_deform_sample_backward)]
+
+
+def moving_clip(rng, frames, h, w):
+    """``frames`` uint8 frames (h, w, 3): one smooth random image seen through
+    a window that moves two pixels right and one down a frame."""
+    big = smooth_image(rng, h + frames + 16, w + 2 * frames + 16)
+    return [big[i:i + h, 2 * i:2 * i + w] for i in range(frames)]
+
+
+def write_clips(root, name, clips, lq_size):
+    """GT and LQ frames (LQ the bicubic x4 downscale) of ``clips`` {clip:
+    frames} under ``<root>/<name>_GT`` / ``_LQ``, and ``meta_info_<name>.txt``."""
+    import cv2
+    import numpy as np
+    rng = np.random.RandomState(sum(map(ord, root + name)))
+    h, w = lq_size
+    for clip, frames in clips.items():
+        for sub in ('GT', 'LQ'):
+            os.makedirs(os.path.join(root, f'{name}_{sub}', clip), exist_ok=True)
+        for i, gt in enumerate(moving_clip(rng, frames, SCALE * h, SCALE * w)):
+            lq = cv2.resize(gt, (w, h), interpolation=cv2.INTER_CUBIC)
+            cv2.imwrite(os.path.join(root, f'{name}_GT', clip, f'{i:08d}.png'), gt)
+            cv2.imwrite(os.path.join(root, f'{name}_LQ', clip, f'{i:08d}.png'), lq)
+    with open(os.path.join(root, f'meta_info_{name}.txt'), 'w') as f:
+        f.writelines(f'{clip} {frames} ({SCALE * h},{SCALE * w},3)\n'
+                     for clip, frames in clips.items())
+
+
+def seed0_video_weights(opt, path):
+    """Seed-0 random weights of the config's network. The last offset
+    convolutions, which start at zero, get small random weights: otherwise
+    every deformable sample would sit on a pixel."""
+    from basicsr4rs_torch.archs import build_network
+    torch.manual_seed(0)
+    net = build_network(opt['network_g'])
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if 'conv_offset' in name and not p.any():
+                p.normal_(0., 0.02 if p.dim() > 1 else 0.5)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save({'params': net.state_dict()}, path)
+
+
+def edvr_launches(frames_in_item):
+    """Sampler launches of one EDVR forward: PCD levels 3, 2, 1 and the
+    cascade, the frames folded into the batch."""
+    return 4
+
+
+def basicvsrpp_launches(t):
+    """Sampler launches of one BasicVSR++ forward on t frames: 4 (t - 1)
+    alignments with nine taps; with one tap SpyNet's 6 levels (both
+    directions in one batch), a feature warp a step and branch, and a flow and
+    a feature warp from a branch's third step on."""
+    return 4 * (t - 1) + 6 + 4 * (t - 1) + 8 * (t - 2)
+
+
+VIDEO = {
+    'EDVR-M': dict(
+        test_config='options/test/EDVR/test_EDVR_M_x4_synthetic.yml',
+        train_config='options/train/EDVR/train_EDVR_M_x4_synthetic.yml',
+        data='datasets/EDVR_M_x4_synthetic',
+        # 2 clips of 5 frames (reflection_circle needs as many as the window):
+        # 10 requests, each a window of 5 frames
+        clips={'test': ({'300': 5, '301': 5}, VIDEO_LQ),
+               'train': ({'100': 8, '101': 8}, (80, 80)), 'val': ({'200': 5}, (64, 64))},
+        forward_launches=edvr_launches, backward_skipped=0, train_frames=EDVR_FRAMES,
+        boundary_key='tsa_iter', frozen='conv_first.weight', free='fusion.feat_fusion.weight'),
+    'BasicVSR++': dict(
+        test_config='options/test/BasicVSRPP/test_BasicVSRPP_x4_synthetic.yml',
+        train_config='options/train/BasicVSRPP/train_BasicVSRPP_x4_synthetic.yml',
+        data='datasets/BasicVSRPP_x4_synthetic',
+        # one clip of 30 frames: one request
+        clips={'test': ({'300': 30}, VIDEO_LQ),
+               'train': ({'100': 32, '101': 32}, (72, 72)), 'val': ({'200': 4}, (64, 64))},
+        # SpyNet's first warp has a zero flow and an input image: no backward
+        forward_launches=basicvsrpp_launches, backward_skipped=1, train_frames=30,
+        boundary_key='fix_flow', frozen='spynet.basic_module.5.basic_module.0.weight',
+        free='conv_last.weight'),
+}
+
+
+def serve_video(name, number):
+    """Serve one video model through ``basicsr4rs_torch.test``; then time
+    requests, repeat one on the plain versions, and profile one."""
+    import numpy as np
+
+    import basicsr4rs_torch.test as entry
+    from basicsr4rs_torch.utils.options import yaml_load
+    spec = VIDEO[name]
+    opt = yaml_load(spec['test_config'])
+    phase(f'{number}. serve {name} x4 through basicsr4rs_torch.test on cuda:0 '
+          f'(LQ {VIDEO_LQ[0]}x{VIDEO_LQ[1]})')
+    clips, lq_size = spec['clips']['test']
+    write_clips(spec['data'], 'test', clips, lq_size)
+    seed0_video_weights(opt, opt['path']['pretrain_network_g'])
+    wrappers = sampler_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    argv = sys.argv
+    sys.argv = ['basicsr4rs_torch.test', '-opt', spec['test_config']]
+    t0 = time.perf_counter()
+    try:
+        model = entry.test_pipeline(ROOT)
+    finally:
+        sys.argv = argv
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = wrappers['deform_sample_fwd'].launches
+    loader = [item for item in model_loader(model)]
+    expected = sum(spec['forward_launches'](item['lq'].shape[1]) for item in loader)
+    print(f'pipeline wall time {wall:.3f} s (model build, weight load, {len(loader)} requests, '
+          f'metrics, image writes); sampler launches {launches}, '
+          f'{launches / len(loader):g} a request')
+    if model.device.type != 'cuda':
+        fail(f'the model ran on {model.device}')
+    if launches != expected or wrappers['deform_sample_bwd'].launches != 0:
+        fail(f'expected {expected} forward launches of the sampler and no backward, counted '
+             f'{launches} and {wrappers["deform_sample_bwd"].launches}')
+    for folder, rows in model.metric_results_per_folder.items():
+        print(f'clip {folder}: PSNR {rows[:, 0].mean():.4f} dB over {len(rows)} frames '
+              '(random weights)')
+        if not np.isfinite(rows).all():
+            fail(f'a metric of clip {folder} is not finite')
+    frames = sum(clips.values())
+    saved = sum(len(files) for _, _, files in os.walk(
+        os.path.join(model.opt['path']['visualization'], opt['datasets']['test_1']['name'])))
+    if saved != frames:
+        fail(f'{saved} images saved, expected {frames}')
+
+    # latency of the model's own test(), after a warm-up request
+    model.feed_data(loader[0])
+    model.test()
+    torch.cuda.reset_peak_memory_stats()
+    latencies = []
+    for item in loader[:4]:
+        model.feed_data(item)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        model.test()
+        end.record()
+        torch.cuda.synchronize()
+        out = model.output
+        t = item['lq'].shape[1]
+        want = (1, t, 3) if out.dim() == 5 else (1, 3)
+        want += (SCALE * lq_size[0], SCALE * lq_size[1])
+        if tuple(out.shape) != want or not torch.isfinite(out).all():
+            fail(f'request: output {tuple(out.shape)}, expected {want}')
+        latencies.append(start.elapsed_time(end))
+        frames_out = t if out.dim() == 5 else 1
+        print(f'request of {t} LQ frames {lq_size[0]}x{lq_size[1]} -> {frames_out} frames '
+              f'{want[-2]}x{want[-1]}: {latencies[-1]:.3f} ms, '
+              f'{latencies[-1] / frames_out:.3f} ms an output frame')
+    print(f'request latency: mean {sum(latencies) / len(latencies):.3f} ms of {len(latencies)}; '
+          f'peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB')
+
+    # one request through the kernels and through the plain versions
+    before = wrappers['deform_sample_fwd'].launches
+    model.feed_data(loader[-1])
+    model.test()
+    with_kernels = model.output.float().clamp(0, 1)
+    per_request = wrappers['deform_sample_fwd'].launches - before
+    patches = plain_sampler()
+    for p in patches:
+        p.start()
+    try:
+        model.test()
+    finally:
+        for p in patches:
+            p.stop()
+    if wrappers['deform_sample_fwd'].launches != before + per_request:
+        fail('the plain request launched a kernel')
+    err = (with_kernels - model.output.float().clamp(0, 1)).abs().max().item()
+    print(f'kernels vs plain versions, one request: max abs difference on the [0, 1] output '
+          f'{err:.3e} (tolerance {MODEL_TOLERANCE})')
+    if err > MODEL_TOLERANCE:
+        fail(f'{name}: the request differs between kernels and plain versions')
+
+    phase(f'{number}b. device time of a {name} request by kernel (torch.profiler)')
+    profile_device_time(model.test, 2, 'request', SAMPLER_DEVICE_KERNELS,
+                        f'{name.lower().replace("+", "p")}_request_profile.json')
+    del model
+    torch.cuda.empty_cache()
+    return launches, sum(latencies) / len(latencies)
+
+
+def train_video(name, number):
+    """Train one video model through ``basicsr4rs_torch.train`` for the
+    config's 8 iterations; then resume for two more and profile a step."""
+    import glob
+    import shutil
+
+    from basicsr4rs_torch.archs import build_network
+    from basicsr4rs_torch.utils.options import yaml_load
+    from basicsr4rs_torch.utils.registry import MODEL_REGISTRY
+    spec = VIDEO[name]
+    opt = yaml_load(spec['train_config'])
+    total_iter, boundary = opt['train']['total_iter'], opt['train'][spec['boundary_key']]
+    train_opt = opt['datasets']['train']
+    batch, lq = train_opt['batch_size_per_gpu'], train_opt['gt_size'] // SCALE
+    phase(f'{number}. train {name} x4 through basicsr4rs_torch.train on cuda:0 (batch {batch} of '
+          f'{spec["train_frames"]} LQ frames {lq}x{lq}; {spec["boundary_key"]}: {boundary})')
+    for part in ('train', 'val'):
+        write_clips(spec['data'], part, *spec['clips'][part])
+    exp_dir = os.path.join('experiments', opt['name'])
+    for old in glob.glob(exp_dir + '*'):
+        shutil.rmtree(old)
+    model_cls = MODEL_REGISTRY.get(opt['model_type'])
+    wrappers = sampler_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    forward = spec['forward_launches'](spec['train_frames'])
+    backward = forward - spec['backward_skipped']
+
+    def watch(model, record):
+        """Before step 1: keep the first batch and two parameters to follow."""
+        params = dict(model.net_g.named_parameters())
+        record['watched'] = {k: params[spec[k]] for k in ('frozen', 'free')}
+        record['previous'] = {k: p.detach().clone() for k, p in record['watched'].items()}
+        record['fixed'] = (model.lq.clone(), model.gt.clone())
+        record['fixed_loss_before'] = fixed_batch_loss(model, record['fixed'])
+
+    def moved(model, step):
+        for k, p in record['watched'].items():
+            step[k + '_moved'] = not torch.equal(p, record['previous'][k])
+            record['previous'][k] = p.detach().clone()
+
+    torch.cuda.reset_peak_memory_stats()
+    record = {'steps': []}
+    t0 = time.perf_counter()
+    model = run_train_pipeline([], record, config=spec['train_config'], model_cls=model_cls,
+                               wrappers=wrappers, before_first_step=watch, after_step=moved)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    if model.device.type != 'cuda' or next(model.net_g.parameters()).device.type != 'cuda':
+        fail(f'the model trained on {model.device}')
+    steps = record['steps']
+    print(f'pipeline wall time {wall:.3f} s for {len(steps)} steps, validations, checkpoints')
+    for st in steps:
+        print(f'step {st["iter"]}: {st["ms"]:.3f} ms, l_pix {st["l_pix"]:.6f}, launches '
+              + ' '.join(f'{k}={v}' for k, v in st['launches'].items())
+              + f'; {spec["frozen"]} moved: {st["frozen_moved"]}, {spec["free"]} moved: '
+              f'{st["free_moved"]}')
+    if [st['iter'] for st in steps] != list(range(1, total_iter + 1)):
+        fail(f'expected steps 1..{total_iter}, ran {[st["iter"] for st in steps]}')
+    for st in steps:
+        if not torch.isfinite(torch.tensor(st['l_pix'])):
+            fail(f'l_pix is not finite at step {st["iter"]}')
+        if st['launches'] != {'deform_sample_fwd': forward, 'deform_sample_bwd': backward}:
+            fail(f'step {st["iter"]}: launches {st["launches"]}, expected {forward} forward '
+                 f'and {backward} backward')
+        # the warm-up discards the frozen parameters' updates before its boundary
+        if st['frozen_moved'] != (st['iter'] >= boundary) or not st['free_moved']:
+            fail(f'step {st["iter"]}: the warm-up boundary is at {boundary}, '
+                 f'{spec["frozen"]} moved: {st["frozen_moved"]}')
+    timed = [st['ms'] for st in steps[2:]]
+    mean_ms = sum(timed) / len(timed)
+    print(f'training step: {mean_ms:.3f} ms mean of steps 3..{total_iter} (min {min(timed):.3f}, '
+          f'max {max(timed):.3f}; CUDA events around optimize_parameters, after 2 warm-up '
+          f'steps); peak device memory {peak:.1f} MiB')
+    print('launches in the run (steps, validations, the fixed batch): '
+          + ' '.join(f'{k}={v}' for k, v in launches.items()))
+    loss_after = fixed_batch_loss(model, record['fixed'])
+    print(f'l_pix on the first batch, eval mode: {record["fixed_loss_before"]:.6f} before step '
+          f'1, {loss_after:.6f} after step {total_iter} (Adam, lr '
+          f'{opt["train"]["optim_g"]["lr"]}, the config\'s)')
+    if not loss_after < record['fixed_loss_before']:
+        fail('the loss on the fixed batch did not fall')
+
+    # EMA, checkpoint, resume
+    check_ema_and_checkpoint(model, build_network(opt['network_g']),
+                             os.path.join(exp_dir, 'models', f'net_g_{total_iter}.pth'))
+    resumed = {'steps': []}
+    run_train_pipeline(['--auto_resume', '--force_yml',
+                        f'train:total_iter={total_iter + RESUME_ITERS}'], resumed,
+                       config=spec['train_config'], model_cls=model_cls, wrappers=wrappers,
+                       before_first_step=lambda model, record: None)
+    iters = [st['iter'] for st in resumed['steps']]
+    print(f'resumed from {total_iter}.state: ran steps {iters}, l_pix '
+          + ' '.join(f'{st["l_pix"]:.6f}' for st in resumed['steps']))
+    if iters != list(range(total_iter + 1, total_iter + RESUME_ITERS + 1)):
+        fail(f'resume should continue at step {total_iter + 1}, ran {iters}')
+
+    phase(f'{number}b. device time of 2 {name} training steps by kernel (torch.profiler)')
+    model.lq, model.gt = record['fixed']
+    model.optimize_parameters(total_iter)
+    profile_device_time(lambda: model.optimize_parameters(total_iter), 2, 'step',
+                        SAMPLER_DEVICE_KERNELS,
+                        f'{name.lower().replace("+", "p")}_step_profile.json')
+    del model
+    torch.cuda.empty_cache()
+    return launches, mean_ms, peak
+
+
+def check_video_gradients(name, number):
+    """One training batch forward and backward through the sampler's kernels
+    and through its plain versions: the loss and every parameter's gradient."""
+    from basicsr4rs_torch.archs import build_network
+    from basicsr4rs_torch.utils.options import yaml_load
+    spec = VIDEO[name]
+    opt = yaml_load(spec['train_config'])
+    phase(f'{number}. {name}, forward and backward: kernels vs plain versions, one training batch')
+    path = os.path.join('experiments', 'chip_smoke_gradients.pth')
+    seed0_video_weights(opt, path)
+    net = build_network(opt['network_g'])
+    net.load_state_dict(torch.load(path, map_location='cpu', weights_only=True)['params'])
+    net = net.cuda().train()
+    train_opt = opt['datasets']['train']
+    batch, lq = train_opt['batch_size_per_gpu'], train_opt['gt_size'] // SCALE
+    rng = __import__('numpy').random.RandomState(5)
+    clips = [moving_clip(rng, spec['train_frames'], lq, lq) for _ in range(batch)]
+    x = torch.from_numpy(__import__('numpy').stack(
+        [[f.transpose(2, 0, 1) for f in clip] for clip in clips])).float().div(255).cuda()
+    with torch.no_grad():
+        shape = net(x).shape
+    gt = torch.rand(shape, generator=torch.Generator().manual_seed(6)).cuda()
+
+    def loss_and_grads():
+        net.zero_grad(set_to_none=True)
+        loss = torch.sqrt((net(x) - gt)**2 + 1e-12).mean()
+        loss.backward()
+        return loss.item(), {k: p.grad.clone() for k, p in net.named_parameters()}
+
+    wrappers = sampler_wrappers()
+    counts = {k: w.launches for k, w in wrappers.items()}
+    loss_k, grads_k = loss_and_grads()
+    if any(w.launches == counts[k] for k, w in wrappers.items()):
+        fail('the kernel run launched no kernel')
+    counts = {k: w.launches for k, w in wrappers.items()}
+    patches = plain_sampler()
+    for p in patches:
+        p.start()
+    try:
+        loss_p, grads_p = loss_and_grads()
+    finally:
+        for p in patches:
+            p.stop()
+    if counts != {k: w.launches for k, w in wrappers.items()}:
+        fail('the plain run launched a kernel')
+    compare_gradients(name, loss_k, grads_k, loss_p, grads_p)
 
 
 KERNELS = [
@@ -1285,6 +1872,8 @@ KERNELS = [
     ('mlp_block_bwd', 'basicsr4rs_tpu/ops/mlp_block.py:97'),
     ('window_attention_fwd', 'basicsr4rs_tpu/ops/window_attention.py:120'),
     ('window_attention_bwd', 'basicsr4rs_tpu/ops/window_attention.py:227'),
+    ('deform_sample_fwd', 'basicsr4rs_tpu/ops/dcn.py:174'),
+    ('deform_sample_bwd', 'basicsr4rs_tpu/ops/dcn.py:224'),
 ]
 
 
@@ -1300,6 +1889,7 @@ def main():
     kernels = {'swin_block_joint_fwd': check_joint_kernel()}
     kernels.update(check_branch_kernels())
     kernels.update(check_attention_kernels(rs_batch))
+    kernels.update(check_deform_kernels())
     if sys.argv[1:] == ['kernels']:   # development: the kernel phases alone
         print(json.dumps(kernels))
         return
@@ -1319,6 +1909,13 @@ def main():
     check_resshift_gradients()
     launches['window_attention_fwd'] = served + trained['window_attention_fwd']
     launches['window_attention_bwd'] = trained['window_attention_bwd']
+    launches.update(deform_sample_fwd=0, deform_sample_bwd=0)
+    for i, name in enumerate(VIDEO):
+        served, _ = serve_video(name, 11 + 3 * i)
+        trained, _, _ = train_video(name, 12 + 3 * i)
+        check_video_gradients(name, 13 + 3 * i)
+        launches['deform_sample_fwd'] += served + trained['deform_sample_fwd']
+        launches['deform_sample_bwd'] += trained['deform_sample_bwd']
     for name, count in launches.items():
         if count == 0:
             fail(f'{name} was never launched on the main paths')
@@ -1328,7 +1925,8 @@ def main():
         'replaces': replaces, 'launches': launches[name],
         'max_abs_err': kernels[name]['max_abs_err'], 'ms': kernels[name]['ms'],
         'plain_ms': kernels[name]['plain_ms'], 'bound_ms': kernels[name]['bound_ms'],
-        'bound_by': kernels[name]['bound_by'], 'library_ms': kernels[name].get('library_ms')}
+        'bound_by': kernels[name]['bound_by'], 'library_ms': kernels[name].get('library_ms'),
+        **({'one_tap': kernels[name]['one_tap']} if 'one_tap' in kernels[name] else {})}
         for name, replaces in KERNELS]}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                              'kind': torch.cuda.get_device_name(0),

@@ -21,8 +21,8 @@ def port_modules():
 
 
 def test_port_imports_without_jax():
-    """Every module of the port (the diffusion slice's among them) imports
-    with JAX and the JAX package blocked, and none of them is in
+    """Every module of the port (the diffusion and video slices' among them)
+    imports with JAX and the JAX package blocked, and none of them is in
     ``sys.modules`` afterwards."""
     modules = port_modules()
     for expected in ('basicsr4rs_torch.ops.window_attention', 'basicsr4rs_torch.archs.unet_arch',
@@ -30,7 +30,14 @@ def test_port_imports_without_jax():
                      'basicsr4rs_torch.utils.gaussian_diffusion',
                      'basicsr4rs_torch.models.srrs_model',
                      'basicsr4rs_torch.models.resshift_model', 'basicsr4rs_torch.train',
-                     'basicsr4rs_torch.test'):
+                     'basicsr4rs_torch.test', 'basicsr4rs_torch.ops.dcn',
+                     'basicsr4rs_torch.archs.edvr_arch', 'basicsr4rs_torch.archs.spynet_arch',
+                     'basicsr4rs_torch.archs.basicvsr_arch',
+                     'basicsr4rs_torch.archs.basicvsrpp_arch',
+                     'basicsr4rs_torch.data.video_test_dataset',
+                     'basicsr4rs_torch.data.reds_dataset',
+                     'basicsr4rs_torch.models.video_base_model',
+                     'basicsr4rs_torch.models.video_recurrent_model'):
         assert expected in modules
     code = ('import importlib, sys\n'
             f'for name in {BLOCKED!r}:\n'

@@ -91,3 +91,45 @@ def test_one_dimensional_conv_kernels_and_key_rules():
                                  rules) == 'decoder.up.1.upsample.conv.bias'
     assert jax_path_to_torch_key(('quantize', 'embedding'),
                                  rules) == 'quantize.embedding.weight'
+
+
+@pytest.mark.parametrize('path, key', [
+    (('pcd_align', 'offset_conv1_l3', 'kernel'), 'pcd_align.offset_conv1.l3.weight'),
+    (('pcd_align', 'dcn_pack_l1', 'conv_offset', 'bias'), 'pcd_align.dcn_pack.l1.conv_offset.bias'),
+    (('pcd_align', 'dcn_pack_l2', 'kernel'), 'pcd_align.dcn_pack.l2.weight'),
+    (('pcd_align', 'feat_conv_l2', 'kernel'), 'pcd_align.feat_conv.l2.weight'),
+    (('pcd_align', 'cas_dcnpack', 'kernel'), 'pcd_align.cas_dcnpack.weight'),
+    (('conv_l2_1', 'kernel'), 'conv_l2_1.weight'),
+    (('predeblur', 'resblock_l2_2', 'conv1', 'bias'), 'predeblur.resblock_l2_2.conv1.bias'),
+    (('predeblur', 'resblock_l1_3', 'conv2', 'kernel'), 'predeblur.resblock_l1.3.conv2.weight'),
+    (('predeblur', 'stride_conv_l3', 'kernel'), 'predeblur.stride_conv_l3.weight'),
+    (('fusion', 'spatial_attn_l1', 'kernel'), 'fusion.spatial_attn_l1.weight'),
+    (('feature_extraction_4', 'conv1', 'kernel'), 'feature_extraction.4.conv1.weight'),
+])
+def test_edvr_key_rules(path, key):
+    from basicsr4rs_torch.archs.edvr_arch import EDVR
+    assert jax_path_to_torch_key(path, EDVR.JAX_KEY_RULES) == key
+
+
+@pytest.mark.parametrize('path, key', [
+    (('prop_backward_1', 'deform_align', 'conv_offset_6', 'kernel'),
+     'deform_align.backward_1.conv_offset.6.weight'),
+    (('prop_forward_2', 'deform_align', 'kernel'), 'deform_align.forward_2.weight'),
+    (('prop_forward_2', 'backbone', 'main_2_6', 'conv2', 'bias'),
+     'backbone.forward_2.main.2.6.conv2.bias'),
+    (('spynet', 'basic_module_3', 'basic_module_8', 'kernel'),
+     'spynet.basic_module.3.basic_module.8.weight'),
+    (('feat_extract', 'main_0', 'kernel'), 'feat_extract.main.0.weight'),
+    (('feat_extract_4', 'main_2_0', 'conv1', 'kernel'), 'feat_extract.4.main.2.0.conv1.weight'),
+    (('reconstruction', 'main_2_4', 'conv1', 'bias'), 'reconstruction.main.2.4.conv1.bias'),
+])
+def test_basicvsrpp_key_rules(path, key):
+    from basicsr4rs_torch.archs.basicvsrpp_arch import BasicVSRPlusPlus
+    assert jax_path_to_torch_key(path, BasicVSRPlusPlus.JAX_KEY_RULES) == key
+
+
+def test_deformable_convolution_weight_layout():
+    """The DCN weight is a plain 4-d ``kernel``: HWIO -> OIHW."""
+    kernel = np.arange(3 * 3 * 4 * 6, dtype=np.float32).reshape(3, 3, 4, 6)
+    weight = convert_array('kernel', kernel)
+    assert weight.shape == (6, 4, 3, 3) and weight[5, 2, 1, 0] == kernel[1, 0, 2, 5]
