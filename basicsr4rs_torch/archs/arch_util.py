@@ -11,6 +11,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.conv3x3 import conv_fusion_enabled, fused_conv3x3
 from ..ops.dcn import bilinear_warp
 
 
@@ -70,7 +71,8 @@ class ResidualBlockNoBN(nn.Module):
 
 class Upsample(nn.Sequential):
     """Pixel-shuffle upsampler for scales 2^n and 3: (conv, PixelShuffle)
-    per stage, so the convs are keys ``0``, ``2``, ..."""
+    per stage, so the convs are keys ``0``, ``2``, ... With
+    ``SWIN_FUSED_CONV=1`` the convs run through ``fused_conv3x3``."""
 
     def __init__(self, scale: int, num_feat: int):
         m = []
@@ -82,6 +84,15 @@ class Upsample(nn.Sequential):
         else:
             raise ValueError(f'scale {scale} is not supported. Supported scales: 2^n and 3.')
         super().__init__(*m)
+
+    def forward(self, x):
+        fused = conv_fusion_enabled()
+        for module in self:
+            if fused and isinstance(module, nn.Conv2d):
+                x = fused_conv3x3(x, module.weight, module.bias)
+            else:
+                x = module(x)
+        return x
 
 
 class UpsampleOneStep(nn.Sequential):

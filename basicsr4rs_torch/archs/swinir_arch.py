@@ -7,10 +7,16 @@ once its ``relative_position_index`` / ``attn_mask`` buffers are dropped:
 here the relative-position index and the shifted-window mask are computed
 per window size and input shape, cached, and never stored. In ``eval()``
 every Swin block runs as one call of ``ops.swin_block.fused_swin_block_full``
-on the rolled map (one CUDA kernel for a CUDA tensor) and rolls back. In
-``train()`` it is the differentiable pair ``fused_swin_attn_block`` +
-``fused_mlp_block`` (a forward and a backward kernel each), with the
-residual adds and DropPath's per-sample scales folded into the kernels.
+on the rolled map (one CUDA kernel for a CUDA tensor) and rolls back; inside
+a ``quantized_inference(..., swin_kernels=True)`` scope that call is the
+W8A8 kernel. In ``train()`` it is the differentiable pair
+``fused_swin_attn_block`` + ``fused_mlp_block`` (a forward and a backward
+kernel each), with the residual adds and DropPath's per-sample scales folded
+into the kernels, or, with ``SWIN_JOINT_TRAIN=1``, the joint kernel with its
+recomputing backward. With ``SWIN_FUSED_CONV=1`` the 3x3 convolutions after
+the Swin blocks run through ``ops.conv3x3.fused_conv3x3`` with their
+residual or leaky-ReLU folded in; the modules stay ``nn.Conv2d``, so the
+``state_dict`` is the same on every route.
 """
 
 from __future__ import annotations
@@ -24,11 +30,29 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.conv3x3 import conv_fusion_enabled, fused_conv3x3
 from ..ops.mlp_block import fused_mlp_block
-from ..ops.swin_block import fused_swin_attn_block, fused_swin_block_full
+from ..ops.quant import swin_kernels_int8
+from ..ops.swin_block import (fused_swin_attn_block, fused_swin_block_full,
+                              joint_train_enabled, swin_block_full_int8)
 from ..ops.window_attention import fused_window_attention
 from ..utils.registry import ARCH_REGISTRY
 from .arch_util import Upsample, UpsampleOneStep, default_conv_init_, trunc_normal_
+
+
+def conv3x3(conv: nn.Conv2d, x: torch.Tensor, residual: Optional[torch.Tensor] = None,
+            act_slope: Optional[float] = None) -> torch.Tensor:
+    """``conv(x)`` (+ ``residual``), then a leaky-ReLU of ``act_slope`` when
+    given: one call of ``fused_conv3x3`` on the module's parameters when
+    ``SWIN_FUSED_CONV=1``, else the module and plain tensor code."""
+    if conv_fusion_enabled():
+        return fused_conv3x3(x, conv.weight, conv.bias, residual, act_slope)
+    out = conv(x)
+    if residual is not None:
+        out = out + residual
+    if act_slope is not None:
+        out = F.leaky_relu(out, act_slope)
+    return out
 
 
 @functools.lru_cache(maxsize=16)
@@ -167,16 +191,21 @@ class SwinTransformerBlock(nn.Module):
                     self.mlp.fc2.weight, self.mlp.fc2.bias)
         geometry = (window_size, attn.num_heads, attn.scale)
         if self.training:
-            # the split pair; the residual adds (and DropPath's x + s * branch)
-            # happen inside the kernels, and the roll back commutes with both
             if residual_scales is None:
                 residual_scales = self.drop_path_scales(b, x.device)
+        if self.training and joint_train_enabled():
+            x = fused_swin_block_full(x.contiguous(), *attn_args, *mlp_args, *geometry,
+                                      residual_scales=residual_scales)
+        elif self.training:
+            # the split pair; the residual adds (and DropPath's x + s * branch)
+            # happen inside the kernels, and the roll back commutes with both
             s1, s2 = residual_scales if residual_scales is not None else (None, None)
             x = fused_swin_attn_block(x.contiguous(), *attn_args, *geometry,
                                       add_residual=s1 is None, residual_scale=s1)
             x = fused_mlp_block(x, *mlp_args, add_residual=s2 is None, residual_scale=s2)
         else:
-            x = fused_swin_block_full(x.contiguous(), *attn_args, *mlp_args, *geometry)
+            block = swin_block_full_int8 if swin_kernels_int8() else fused_swin_block_full
+            x = block(x.contiguous(), *attn_args, *mlp_args, *geometry)
         if shift_size > 0:
             x = torch.roll(x, (shift_size, shift_size), dims=(1, 2))
         return x.reshape(b, h * w, c)
@@ -217,6 +246,9 @@ class RSTB(nn.Module):
         res = self.residual_group(x, x_size)
         b, _, c = res.shape
         img = res.transpose(1, 2).reshape(b, c, *x_size)
+        if conv_fusion_enabled():   # the conv and the RSTB residual in one call
+            shortcut = x.transpose(1, 2).reshape(b, c, *x_size)
+            return conv3x3(self.conv, img, residual=shortcut).flatten(2).transpose(1, 2)
         return self.conv(img).flatten(2).transpose(1, 2) + x
 
 
@@ -342,18 +374,21 @@ class SwinIR(nn.Module):
         x = (x - mean) * self.img_range
         if self.upsampler == '':
             x_first = self.conv_first(x)
-            res = self.conv_after_body(self.forward_features(x_first)) + x_first
+            res = conv3x3(self.conv_after_body, self.forward_features(x_first), x_first)
             x = x + self.conv_last(res)
         else:
             x = self.conv_first(x)
-            x = self.conv_after_body(self.forward_features(x)) + x
-            if self.upsampler == 'pixelshuffle':
-                x = self.conv_last(self.upsample(self.conv_before_upsample(x)))
-            elif self.upsampler == 'pixelshuffledirect':
+            x = conv3x3(self.conv_after_body, self.forward_features(x), x)
+            if self.upsampler == 'pixelshuffledirect':
                 x = self.upsample(x)
             else:
-                x = self.conv_before_upsample(x)
-                x = self.lrelu(self.conv_up1(F.interpolate(x, scale_factor=2, mode='nearest')))
-                x = self.lrelu(self.conv_up2(F.interpolate(x, scale_factor=2, mode='nearest')))
-                x = self.conv_last(self.lrelu(self.conv_hr(x)))
+                x = conv3x3(self.conv_before_upsample[0], x, act_slope=0.01)
+            if self.upsampler == 'pixelshuffle':
+                x = self.conv_last(self.upsample(x))
+            elif self.upsampler == 'nearest+conv':
+                x = conv3x3(self.conv_up1, F.interpolate(x, scale_factor=2, mode='nearest'),
+                            act_slope=0.2)
+                x = conv3x3(self.conv_up2, F.interpolate(x, scale_factor=2, mode='nearest'),
+                            act_slope=0.2)
+                x = self.conv_last(conv3x3(self.conv_hr, x, act_slope=0.2))
         return x / self.img_range + mean

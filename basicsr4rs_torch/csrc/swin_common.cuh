@@ -15,7 +15,8 @@
 //   gemm_w    out(o, t) = sum_k A[k][t] W[o][k]     y = x W^T     (weight rows)
 //   gemm_wt   out(o, t) = sum_k A[k][t] W[k][o]     dx = dy W     (weight columns)
 //   gemm_tok  out(a, b) = sum_t A[a][t] B[b][t]     dW = dy^T x   (over the tokens)
-// and gemm_s is gemm_w with the second operand in shared memory.
+// and gemm_s is gemm_w with the second operand in shared memory. gemm_w_i8 is
+// gemm_w on int8 operands (int32 sums by __dp4a), fed by quantize_tile.
 
 #pragma once
 
@@ -24,6 +25,7 @@
 
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
 
 namespace swin {
 
@@ -36,6 +38,7 @@ constexpr int kTN = 6;          // weight GEMMs: output columns per warp and rou
 constexpr int kRoundRows = kWarps * kTN;  // weight rows staged per round
 constexpr int kKTile = 32;      // weight GEMMs: K elements per pipeline stage
 constexpr int kStageElems = 2 * kRoundRows * kKTile;  // both stages, in elements
+constexpr int kKTileI8 = 4 * kKTile;  // int8 weight GEMMs: K bytes per stage, the same stage bytes
 constexpr int kPerTok = kThreads / kTok;  // threads per token in LayerNorm and softmax
 static_assert(kPerTok == 8, "the token reductions below use 8 lanes");
 
@@ -100,6 +103,12 @@ __device__ __forceinline__ float2 lds2(const float* p) {
 __device__ __forceinline__ float2 lds2(const __nv_bfloat16* p) {
   const unsigned u = *reinterpret_cast<const unsigned*>(p);
   return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
+}
+
+// acc * d, kept a multiplication of its own (no fused multiply-add with the
+// bias that follows), as the plain version computes it.
+__device__ __forceinline__ float dequant(int acc, float d) {
+  return __fmul_rn(static_cast<float>(acc), d);
 }
 
 __device__ __forceinline__ float gelu(float v) {
@@ -234,6 +243,111 @@ __device__ __forceinline__ void gemm_wt(const float* __restrict__ A, int K, int 
     for (int j = 0; j < kTN; ++j)
       if (o0 + j < rows) epi(r0 + o0 + j, t, acc0[j], acc1[j]);
   }
+}
+
+// gemm_w on int8 operands: out(o, t) = sum_k AQ[k][t] * W_o[k] in exact int32.
+// AQ packs four consecutive k of a token into one word (row k / 4, row stride
+// kLd words), as quantize_tile leaves it; W_o = row(o) points at Kp int8
+// values, 16-byte aligned, Kp % 16 == 0, zero beyond the true K (AQ is zero
+// there too). The pipeline is gemm_w's; a lane does 16 k of two tokens
+// against kTN rows with 4 + kTN loads and 8 * kTN __dp4a.
+template <class Row, class Epi>
+__device__ __forceinline__ void gemm_w_i8(const int* __restrict__ AQ, int Kp, int N, Row row,
+                                          Epi epi, int8_t* stages) {
+  const int t = 2 * (threadIdx.x & 31);
+  const int o0 = (threadIdx.x >> 5) * kTN;
+  for (int r0 = 0; r0 < N; r0 += kRoundRows) {
+    const int rows = min(kRoundRows, N - r0);
+    auto stage_in = [&](int s, int k0) {
+      const int chunks = min(kKTileI8, Kp - k0) / 16;
+      for (int c = threadIdx.x; c < rows * chunks; c += kThreads) {
+        const int o = c / chunks, q = c % chunks;
+        cp_async<16>(stages + (s * kRoundRows + o) * kKTileI8 + 16 * q,
+                     row(r0 + o) + k0 + 16 * q);
+      }
+      cp_async_commit();
+    };
+    int acc0[kTN], acc1[kTN];
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) {
+      acc0[j] = 0;
+      acc1[j] = 0;
+    }
+    stage_in(0, 0);
+    for (int k0 = 0, s = 0; k0 < Kp; k0 += kKTileI8, s ^= 1) {
+      if (k0 + kKTileI8 < Kp) {
+        stage_in(s ^ 1, k0 + kKTileI8);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const int8_t* w = stages + (s * kRoundRows + o0) * kKTileI8;
+      const int kn = min(kKTileI8, Kp - k0);
+      for (int kk = 0; kk < kn; kk += 16) {
+        const int* a = AQ + ((k0 + kk) >> 2) * kLd + t;
+        const int2 a0 = *reinterpret_cast<const int2*>(a);
+        const int2 a1 = *reinterpret_cast<const int2*>(a + kLd);
+        const int2 a2 = *reinterpret_cast<const int2*>(a + 2 * kLd);
+        const int2 a3 = *reinterpret_cast<const int2*>(a + 3 * kLd);
+#pragma unroll
+        for (int j = 0; j < kTN; ++j) {
+          const int4 b = *reinterpret_cast<const int4*>(w + j * kKTileI8 + kk);
+          acc0[j] = __dp4a(a0.x, b.x, acc0[j]);
+          acc1[j] = __dp4a(a0.y, b.x, acc1[j]);
+          acc0[j] = __dp4a(a1.x, b.y, acc0[j]);
+          acc1[j] = __dp4a(a1.y, b.y, acc1[j]);
+          acc0[j] = __dp4a(a2.x, b.z, acc0[j]);
+          acc1[j] = __dp4a(a2.y, b.z, acc1[j]);
+          acc0[j] = __dp4a(a3.x, b.w, acc0[j]);
+          acc1[j] = __dp4a(a3.y, b.w, acc1[j]);
+        }
+      }
+      __syncthreads();  // the stage is refilled next
+    }
+#pragma unroll
+    for (int j = 0; j < kTN; ++j)
+      if (o0 + j < rows) epi(r0 + o0 + j, t, acc0[j], acc1[j]);
+  }
+}
+
+// Symmetric int8 quantisation of the `rows` features of the tile's n tokens
+// in the feature-major A, with one dynamic scale for the whole tile:
+// s = max(absmax, 1e-12) / 127, q = clip(rint(v * (1 / s)), -127, 127)
+// (rint rounds half to even). AQ receives rows_p / 4 rows of packed words
+// (rows_p % 16 == 0), zero for features >= rows and tokens >= n. red is
+// kWarps floats of scratch. Returns s to every thread; ends with the block
+// in step.
+__device__ inline float quantize_tile(const float* A, int rows, int rows_p, int n, int* AQ,
+                                      float* red) {
+  float m = 0.f;
+  for (int e = threadIdx.x; e < rows * kTok; e += kThreads) {
+    const int t = e % kTok;
+    if (t < n) m = fmaxf(m, fabsf(A[(e / kTok) * kLd + t]));
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = m;
+  __syncthreads();
+  m = red[0];
+#pragma unroll
+  for (int i = 1; i < kWarps; ++i) m = fmaxf(m, red[i]);
+  const float s = fmaxf(m, 1e-12f) * (1.f / 127.f);
+  const float inv = 1.f / s;
+  for (int e = threadIdx.x; e < (rows_p / 4) * kTok; e += kThreads) {
+    const int g = e / kTok, t = e % kTok;
+    unsigned word = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = 4 * g + i;
+      const float v = r < rows && t < n ? A[r * kLd + t] : 0.f;
+      const int q = static_cast<int>(fminf(fmaxf(rintf(v * inv), -127.f), 127.f));
+      word |= static_cast<unsigned>(q & 0xff) << (8 * i);
+    }
+    AQ[g * kLd + t] = static_cast<int>(word);
+  }
+  __syncthreads();
+  return s;
 }
 
 // As gemm_w, with the second operand b(o, k) in shared memory (the same
@@ -412,6 +526,25 @@ __device__ __forceinline__ void head_qkv(const float* XN, float* QKV, int C, int
         const float s = o < hd ? scale : 1.f;
         *reinterpret_cast<float2*>(QKV + o * kLd + t) =
             make_float2(round_to<T>(v0 + b) * s, round_to<T>(v1 + b) * s);
+      }, stages);
+}
+
+// head_qkv on the quantised LN(x) (AQ, scale sx) and int8 weights of Kp
+// values a row with their scales sw: round(acc * (sx * sw) + bqkv_h).
+template <typename T>
+__device__ __forceinline__ void head_qkv_i8(const int* AQ, float* QKV, int C, int Kp, int hd,
+                                            int h, const int8_t* wqkv, const float* sw,
+                                            const float* bqkv, float sx, float scale,
+                                            int8_t* stages) {
+  auto qkv_row = [&](int o) { return (o / hd) * C + h * hd + o % hd; };
+  gemm_w_i8(
+      AQ, Kp, 3 * hd, [&](int o) { return wqkv + static_cast<size_t>(qkv_row(o)) * Kp; },
+      [&](int o, int t, int v0, int v1) {
+        const int r = qkv_row(o);
+        const float d = sx * sw[r], b = bqkv[r];
+        const float s = o < hd ? scale : 1.f;
+        *reinterpret_cast<float2*>(QKV + o * kLd + t) =
+            make_float2(round_to<T>(dequant(v0, d) + b) * s, round_to<T>(dequant(v1, d) + b) * s);
       }, stages);
 }
 

@@ -6,11 +6,16 @@ Training: pixel loss, one optimizer with its scheduler, an EMA copy of the
 network (``net_g_ema``) that validation and the saved ``params_ema`` use.
 Validation: each item of the loader is one request, run forward under
 ``torch.inference_mode()``, scored with the configured metrics and saved.
-Perceptual losses and self-ensemble testing are not ported yet.
+``val.quant_int8: true | 'static'`` runs the evaluation forward as W8A8
+(``ops/quant.py``): dynamic activation scales, or scales calibrated on the
+first evaluation batch and static from then on.
+``val.selfensemble_testing`` averages the x8 flip / transpose ensemble.
+Perceptual losses are not ported yet.
 """
 
 from __future__ import annotations
 
+import contextlib
 from collections import OrderedDict
 from os import path as osp
 
@@ -20,10 +25,16 @@ from ..archs import build_network
 from ..losses import build_loss
 from ..metrics import calculate_metric
 from ..ops.dcn import DCNv2Pack
+from ..ops.quant import calibrate_act_scales, quantized_inference
 from ..utils.img_util import imwrite, tensor2img
 from ..utils.logger import get_root_logger
 from ..utils.registry import MODEL_REGISTRY
 from .base_model import BaseModel
+
+
+def _flips(x):
+    """[identity, hflip, vflip, hvflip] of NCHW."""
+    return [x, x.flip(3), x.flip(2), x.flip(2, 3)]
 
 
 @MODEL_REGISTRY.register()
@@ -31,6 +42,7 @@ class SRModel(BaseModel):
 
     def __init__(self, opt):
         super().__init__(opt)
+        self._quant_scales = None
         self.net_g = build_network(opt['network_g']).to(self.device)
         self.print_network(self.net_g)
         load_path = self.opt['path'].get('pretrain_network_g')
@@ -143,17 +155,64 @@ class SRModel(BaseModel):
         """Validation uses the EMA network when training keeps one."""
         return self.net_g_ema if self.ema_decay > 0 else self.net_g
 
+    def _quant_scope(self, net, x):
+        """The W8A8 scope ``val.quant_int8`` asks for, or none. 'static'
+        calibrates the activation scales on the first evaluation batch, in
+        full precision, and keeps them."""
+        quant = (self.opt.get('val') or {}).get('quant_int8')
+        if not quant:
+            return contextlib.nullcontext()
+        scales = None
+        if quant == 'static':
+            if self._quant_scales is None:
+                self._quant_scales = calibrate_act_scales(net, net, [x])
+            scales = self._quant_scales
+        return quantized_inference(net, act_scales=scales)
+
     def _eval_forward(self, x):
         net = self._test_net()
         was_training = net.training
         net.eval()
-        with torch.inference_mode():
-            out = net(x)
-        net.train(was_training)
-        return out
+        try:
+            with torch.inference_mode(), self._quant_scope(net, x):
+                return net(x)
+        finally:
+            net.train(was_training)
 
     def test(self):
         self.output = self._eval_forward(self.lq)
+
+    def _test_views(self, views):
+        """``test()`` on each view of the LQ (a subclass's padding and
+        cropping included); the outputs, in order."""
+        lq, outs = self.lq, []
+        try:
+            for view in views:
+                self.lq = view
+                self.test()
+                outs.append(self.output)
+        finally:
+            self.lq = lq
+        return outs
+
+    def test_selfensemble(self):
+        """x8 flip / transpose ensemble (reference sr_model.py:131-177): the
+        four flips share a shape and so do the four transposed ones, so they
+        run as two forwards of 4x the batch; ``val.selfensemble_batched:
+        false`` runs the eight one at a time at a quarter of the memory."""
+        lq = self.lq
+        t = lq.transpose(2, 3)
+        if (self.opt.get('val') or {}).get('selfensemble_batched', True):
+            y, yt = (out.chunk(4, dim=0)
+                     for out in self._test_views([torch.cat(_flips(lq)), torch.cat(_flips(t))]))
+        else:
+            outs = self._test_views(_flips(lq) + _flips(t))
+            y, yt = outs[:4], outs[4:]
+        # the flips are involutions: undo each with itself
+        undo = [lambda v: v, lambda v: v.flip(3), lambda v: v.flip(2), lambda v: v.flip(2, 3)]
+        outs = [f(v) for f, v in zip(undo, y)]
+        outs += [f(v).transpose(2, 3) for f, v in zip(undo, yt)]
+        self.output = torch.stack(outs).mean(dim=0)
 
     def save(self, epoch, current_iter):
         if self.ema_decay > 0:
@@ -184,8 +243,6 @@ class SRModel(BaseModel):
     def nondist_validation(self, dataloader, current_iter, tb_logger, save_img):
         dataset_name = dataloader.dataset.opt['name']
         val_opt = self.opt['val']
-        if val_opt.get('selfensemble_testing', False):
-            raise NotImplementedError('SRModel: self-ensemble testing is not ported yet')
         with_metrics = val_opt.get('metrics') is not None
         if with_metrics:
             self.metric_results = {metric: 0 for metric in val_opt['metrics']}
@@ -195,7 +252,10 @@ class SRModel(BaseModel):
         for val_data in dataloader:
             img_name = osp.splitext(osp.basename(val_data['lq_path'][0]))[0]
             self.feed_data(val_data)
-            self.test()
+            if val_opt.get('selfensemble_testing', False):
+                self.test_selfensemble()
+            else:
+                self.test()
 
             visuals = self.get_current_visuals()
             metric_data = {'img': tensor2img(visuals['result'])}

@@ -26,7 +26,8 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v', '-I', str(CSRC_DIR))
 KERNELS = ('swin_block_joint_fwd', 'swin_attn_block_fwd', 'swin_attn_block_bwd',
            'mlp_block_fwd', 'mlp_block_bwd', 'window_attention_fwd', 'window_attention_bwd',
-           'deform_sample_fwd', 'deform_sample_bwd')
+           'deform_sample_fwd', 'deform_sample_bwd', 'conv3x3_fwd',
+           'swin_block_joint_int8_fwd')
 
 
 def _nvcc() -> str:

@@ -3,12 +3,18 @@
 Counterpart of ``basicsr4rs_tpu/ops/swin_block.py``. For x (B, H, W, C)
 already rolled by the caller:
 
-- ``fused_swin_block_full`` (inference) computes the whole block,
+- ``fused_swin_block_full`` computes the whole block,
 
-      y   = x + proj(W-MSA(LN1(x)))        # relative-position bias + shift mask
-      out = y + fc2(GELU(fc1(LN2(y))))
+      y   = x + s1 * proj(W-MSA(LN1(x)))   # relative-position bias + shift mask
+      out = y + s2 * fc2(GELU(fc1(LN2(y))))
 
-  in one launch of ``csrc/swin_block_joint_fwd.cu``; it has no backward.
+  in one launch of ``csrc/swin_block_joint_fwd.cu`` (s1, s2: DropPath's
+  per-sample scales, 1 without them). Its backward recomputes y with the
+  attention branch's forward kernel and runs the MLP's and the attention
+  branch's backward kernels with the residual (or the scale) folded, as
+  the JAX package's joint VJP does. With ``quant_int8=True`` it is the W8A8
+  serving variant, one launch of ``csrc/swin_block_joint_int8_fwd.cu``
+  (``swin_block_full_int8``), which has no backward.
 - ``fused_swin_attn_block`` (training) is the attention branch
   ``proj(W-MSA(LN(x)))`` as a ``torch.autograd.Function`` over
   ``swin_attn_block_forward`` (``csrc/swin_attn_block_fwd.cu``) and
@@ -29,12 +35,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import os
+import weakref
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from . import _launch
-from .mlp_block import fold_branch, layer_norm_f32, reference_mlp_block
+from .mlp_block import fold_branch, layer_norm_f32, mlp_block_backward, reference_mlp_block
+from .quant import quantize_weight_int8
 from .window_attention import reference_window_attention
 
 MAX_TOKENS_PER_WINDOW = 64
@@ -159,32 +169,37 @@ def fused_swin_attn_block(x, ln_weight, ln_bias, qkv_weight, qkv_bias, proj_weig
                                      add_residual, residual_scale)
 
 
+def joint_train_enabled() -> bool:
+    """Whether training also routes through the joint kernel and its
+    recomputing backward (``SWIN_JOINT_TRAIN=1``; default off, the split
+    pair of branch kernels)."""
+    return os.environ.get('SWIN_JOINT_TRAIN', '0') == '1'
+
+
 def reference_swin_block_full(x, ln1_weight, ln1_bias, qkv_weight, qkv_bias,
                               proj_weight, proj_bias, rel_bias, mask, ln2_weight,
                               ln2_bias, fc1_weight, fc1_bias, fc2_weight, fc2_bias,
-                              window_size: int, num_heads: int, scale: float):
-    """The plain PyTorch version of ``fused_swin_block_full``."""
-    y = x + reference_swin_attn_block(x, ln1_weight, ln1_bias, qkv_weight, qkv_bias,
-                                      proj_weight, proj_bias, rel_bias, mask, window_size,
-                                      num_heads, scale)
-    return y + reference_mlp_block(y, ln2_weight, ln2_bias, fc1_weight, fc1_bias,
-                                   fc2_weight, fc2_bias)
+                              window_size: int, num_heads: int, scale: float,
+                              residual_scales=None):
+    """The plain PyTorch version of ``swin_block_full_forward``."""
+    s1, s2 = residual_scales if residual_scales is not None else (None, None)
+    y = reference_swin_attn_block(x, ln1_weight, ln1_bias, qkv_weight, qkv_bias,
+                                  proj_weight, proj_bias, rel_bias, mask, window_size,
+                                  num_heads, scale, s1 is None, s1)
+    return reference_mlp_block(y, ln2_weight, ln2_bias, fc1_weight, fc1_bias,
+                               fc2_weight, fc2_bias, s2 is None, s2)
 
 
-def fused_swin_block_full(x, ln1_weight, ln1_bias, qkv_weight, qkv_bias,
-                          proj_weight, proj_bias, rel_bias, mask, ln2_weight,
-                          ln2_bias, fc1_weight, fc1_bias, fc2_weight, fc2_bias,
-                          window_size: int, num_heads: int, scale: float):
-    """The whole Swin block (attention + residual, MLP + residual) for x
-    (B, H, W, C), already rolled; returns (B, H, W, C) in x's dtype.
-
-    ``rel_bias``: (heads, n, n) relative-position bias with n = window_size**2;
-    ``mask``: (nW, n, n) 0/-100 shift mask for the nW windows of one image,
-    or None. Each launch of the kernel adds one to
-    ``fused_swin_block_full.launches``."""
+def swin_block_full_forward(x, ln1_weight, ln1_bias, qkv_weight, qkv_bias,
+                            proj_weight, proj_bias, rel_bias, mask, ln2_weight,
+                            ln2_bias, fc1_weight, fc1_bias, fc2_weight, fc2_bias,
+                            window_size: int, num_heads: int, scale: float,
+                            residual_scales=None):
+    """The whole block of x (B, H, W, C) in one kernel launch; no autograd.
+    Each launch adds one to ``fused_swin_block_full.launches``."""
     args = (x, ln1_weight, ln1_bias, qkv_weight, qkv_bias, proj_weight, proj_bias,
             rel_bias, mask, ln2_weight, ln2_bias, fc1_weight, fc1_bias, fc2_weight,
-            fc2_bias, window_size, num_heads, scale)
+            fc2_bias, window_size, num_heads, scale, residual_scales)
     if x.device.type == 'cpu':
         return reference_swin_block_full(*args)
     if x.device.type != 'cuda':
@@ -194,13 +209,192 @@ def fused_swin_block_full(x, ln1_weight, ln1_bias, qkv_weight, qkv_bias,
     return out
 
 
+class _FusedSwinBlockFull(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, ln1_weight, ln1_bias, qkv_weight, qkv_bias, proj_weight, proj_bias,
+                rel_bias, mask, ln2_weight, ln2_bias, fc1_weight, fc1_bias, fc2_weight,
+                fc2_bias, window_size, num_heads, scale, s1, s2):
+        ctx.save_for_backward(x, ln1_weight, ln1_bias, qkv_weight, qkv_bias, proj_weight,
+                              proj_bias, rel_bias, mask, ln2_weight, ln2_bias, fc1_weight,
+                              fc1_bias, fc2_weight, fc2_bias, s1, s2)
+        ctx.geometry = (window_size, num_heads, scale)
+        return swin_block_full_forward(
+            x, ln1_weight, ln1_bias, qkv_weight, qkv_bias, proj_weight, proj_bias, rel_bias,
+            mask, ln2_weight, ln2_bias, fc1_weight, fc1_bias, fc2_weight, fc2_bias,
+            window_size, num_heads, scale, None if s1 is None else (s1, s2))
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dz):
+        (x, ln1_weight, ln1_bias, qkv_weight, qkv_bias, proj_weight, proj_bias, rel_bias, mask,
+         ln2_weight, ln2_bias, fc1_weight, fc1_bias, fc2_weight, fc2_bias, s1,
+         s2) = ctx.saved_tensors
+        attn = (ln1_weight, ln1_bias, qkv_weight, qkv_bias, proj_weight)
+        mlp = (ln2_weight, ln2_bias, fc1_weight, fc1_bias, fc2_weight)
+        # y = x + s1 * attention branch, recomputed rather than kept
+        y = swin_attn_block_forward(x, *attn, proj_bias, rel_bias, mask, *ctx.geometry,
+                                    s1 is None, s1)
+        dy, *mlp_grads = mlp_block_backward(y, dz.to(x.dtype).contiguous(), *mlp, s2 is None,
+                                            s2)
+        dx, *attn_grads = swin_attn_block_backward(x, dy, *attn, rel_bias, mask, *ctx.geometry,
+                                                   s1 is None, s1)
+        like_attn = (*attn, proj_bias, rel_bias)
+        like_mlp = (*mlp, fc2_bias)
+        return (dx, *(g.to(p.dtype) for g, p in zip(attn_grads, like_attn)), None,
+                *(g.to(p.dtype) for g, p in zip(mlp_grads, like_mlp)), None, None, None, None,
+                None)
+
+
+def fused_swin_block_full(x, ln1_weight, ln1_bias, qkv_weight, qkv_bias,
+                          proj_weight, proj_bias, rel_bias, mask, ln2_weight,
+                          ln2_bias, fc1_weight, fc1_bias, fc2_weight, fc2_bias,
+                          window_size: int, num_heads: int, scale: float,
+                          quant_int8: bool = False, residual_scales=None):
+    """The whole Swin block (attention + residual, MLP + residual) for x
+    (B, H, W, C), already rolled; returns (B, H, W, C) in x's dtype.
+
+    ``rel_bias``: (heads, n, n) relative-position bias with n = window_size**2;
+    ``mask``: (nW, n, n) 0/-100 shift mask for the nW windows of one image,
+    or None (no gradient). ``residual_scales``: (s1, s2), each (B,) float32,
+    DropPath's mask / keep per sample for the two branches, without
+    gradient: ``y = x + s1 * attn; out = y + s2 * mlp``. Differentiable: the
+    forward is one launch of the joint kernel
+    (``fused_swin_block_full.launches``), the backward one launch each of
+    ``swin_attn_block_forward``, ``mlp_block_backward`` and
+    ``swin_attn_block_backward``. ``quant_int8``: the W8A8 serving variant
+    ``swin_block_full_int8`` (no gradient, no scales)."""
+    if quant_int8:
+        if residual_scales is not None:
+            raise ValueError('fused_swin_block_full: the int8 block takes no DropPath scales')
+        return swin_block_full_int8(x, ln1_weight, ln1_bias, qkv_weight, qkv_bias, proj_weight,
+                                    proj_bias, rel_bias, mask, ln2_weight, ln2_bias, fc1_weight,
+                                    fc1_bias, fc2_weight, fc2_bias, window_size, num_heads,
+                                    scale)
+    s1, s2 = residual_scales if residual_scales is not None else (None, None)
+    return _FusedSwinBlockFull.apply(x, ln1_weight, ln1_bias, qkv_weight, qkv_bias,
+                                     proj_weight, proj_bias, rel_bias, mask, ln2_weight,
+                                     ln2_bias, fc1_weight, fc1_bias, fc2_weight, fc2_bias,
+                                     window_size, num_heads, scale, s1, s2)
+
+
 fused_swin_block_full.launches = 0
+
+
+# --------------------------------------------------------------- W8A8 block
+_QUANT_CACHE = {}
+
+
+def _quantize_rows(weight):
+    """(int8 (out, round_up(in, 16)) zero-padded, float32 (out,) scales) of an
+    ``nn.Linear`` weight, quantised per output row."""
+    wq, s = quantize_weight_int8(weight, (1,))
+    return F.pad(wq, (0, -wq.shape[1] % 16)).contiguous(), s.reshape(-1).contiguous()
+
+
+def quantized_block_weights(qkv_weight, proj_weight, fc1_weight, fc2_weight):
+    """(qkv_q, qkv_s, proj_q, proj_s, fc1_q, fc1_s, fc2_q, fc2_s) of a block's
+    four weights, each quantised per output row; kept until one of the four
+    changes (its storage or its version counter)."""
+    weights = (qkv_weight, proj_weight, fc1_weight, fc2_weight)
+    if any(w.is_inference() for w in weights):   # no version counter to watch
+        return tuple(t for w in weights for t in _quantize_rows(w.detach()))
+    key = id(qkv_weight)
+    signature = tuple((id(w), w.data_ptr(), w._version) for w in weights)
+    hit = _QUANT_CACHE.get(key)
+    if hit is not None and hit[0]() is qkv_weight and hit[1] == signature:
+        return hit[2]
+    with torch.inference_mode(False), torch.no_grad():
+        packed = tuple(t for w in weights for t in _quantize_rows(w.detach()))
+    ref = weakref.ref(qkv_weight, lambda _, key=key: _QUANT_CACHE.pop(key, None))
+    _QUANT_CACHE[key] = (ref, signature, packed)
+    return packed
+
+
+def _quantize_windows(v, window_size: int):
+    """The float32 map v (B, H, W, K) as integers in float32, quantised with
+    one dynamic scale per window: (q, s), q (B, H/ws, ws, W/ws, ws, K) and s
+    broadcasting against it. ``s = max(absmax, 1e-12) * (1 / 127)`` and
+    ``q = clip(round(v * (1 / s)))``, as the kernel computes them."""
+    b, h, w, k = v.shape
+    ws = window_size
+    t = v.reshape(b, h // ws, ws, w // ws, ws, k)
+    s = t.abs().amax(dim=(2, 4, 5), keepdim=True).clamp_min(1e-12) * (1. / 127.)
+    return torch.clamp(torch.round(t * (1. / s)), -127., 127.), s
+
+
+def _int8_linear(v, wq, sw, bias, window_size: int):
+    """``acc * (s_x * s_w) + bias`` of the window-quantised v against int8
+    rows ``wq`` with scales ``sw``; the sum is exact (float32 holds
+    K * 127^2 up to K = 1040, float64 beyond)."""
+    k = v.shape[-1]
+    q, s = _quantize_windows(v, window_size)
+    exact = torch.float32 if k * 127 * 127 < 2**24 else torch.float64
+    acc = (q.to(exact) @ wq[:, :k].to(exact).t()).float()
+    return (acc * (s * sw) + bias.float()).reshape(*v.shape[:-1], wq.shape[0])
+
+
+def reference_swin_block_full_int8(x, ln1_weight, ln1_bias, qkv_weight, qkv_bias,
+                                   proj_weight, proj_bias, rel_bias, mask, ln2_weight,
+                                   ln2_bias, fc1_weight, fc1_bias, fc2_weight, fc2_bias,
+                                   window_size: int, num_heads: int, scale: float):
+    """The plain PyTorch version of ``swin_block_full_int8``: the same
+    quantisation (per output row for weights, per window for the activation
+    entering each of the four products), exact integer sums, float32
+    elsewhere."""
+    dt, ws = x.dtype, window_size
+    qkv_q, qkv_s, proj_q, proj_s, fc1_q, fc1_s, fc2_q, fc2_s = quantized_block_weights(
+        qkv_weight, proj_weight, fc1_weight, fc2_weight)
+    xn = layer_norm_f32(x, ln1_weight, ln1_bias)
+    qkv = _int8_linear(xn, qkv_q, qkv_s, qkv_bias, ws).to(dt)
+    a = reference_window_attention(qkv, _attention_bias(rel_bias, mask), ws, num_heads, scale)
+    y = _int8_linear(a.float(), proj_q, proj_s, proj_bias, ws) + x.float()
+    hidden = F.gelu(_int8_linear(layer_norm_f32(y, ln2_weight, ln2_bias), fc1_q, fc1_s,
+                                 fc1_bias, ws))
+    return (_int8_linear(hidden, fc2_q, fc2_s, fc2_bias, ws) + y).to(dt)
+
+
+def swin_block_full_int8(x, ln1_weight, ln1_bias, qkv_weight, qkv_bias,
+                         proj_weight, proj_bias, rel_bias, mask, ln2_weight,
+                         ln2_bias, fc1_weight, fc1_bias, fc2_weight, fc2_bias,
+                         window_size: int, num_heads: int, scale: float):
+    """The whole Swin block with qkv, proj, fc1 and fc2 as int8 x int8 ->
+    int32 products, for x (B, H, W, C) already rolled, in one kernel launch
+    (``swin_block_full_int8.launches``); serving only, it raises when
+    autograd needs a gradient.
+
+    Weights are quantised per output channel (absmax / 127) outside the
+    kernel, once until a weight changes. The activation entering each
+    product is quantised with a dynamic scale absmax / 127 (floor 1e-12,
+    round half to even, clip +-127) **per window of window_size**2 tokens**,
+    the tile this kernel holds; the JAX kernel's tile is a row of windows
+    sized for its memory, so the two agree in kind, not number by number.
+    Dequantised as ``acc * (s_x * s_w[col]) + bias`` in float32; LayerNorm,
+    softmax, GELU, the residuals and q.k / p.v are as in the float block."""
+    args = (x, ln1_weight, ln1_bias, qkv_weight, qkv_bias, proj_weight, proj_bias,
+            rel_bias, mask, ln2_weight, ln2_bias, fc1_weight, fc1_bias, fc2_weight,
+            fc2_bias, window_size, num_heads, scale)
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in args):
+        raise NotImplementedError('swin_block_full_int8: the int8 block has no backward; '
+                                  'run it under torch.no_grad()')
+    if x.device.type == 'cpu':
+        return reference_swin_block_full_int8(*args)
+    if x.device.type != 'cuda':
+        raise ValueError(f'swin_block_full_int8: no kernel for device {x.device}')
+    out = _launch_joint_int8(*args)
+    swin_block_full_int8.launches += 1
+    return out
+
+
+swin_block_full_int8.launches = 0
 
 
 # ------------------------------------------------------------------ launches
 _SIGNATURES = {
     # after (dtype, x, out) / (dtype, x, dz, dx): ints, pointers, ...
-    'swin_block_joint_fwd': lambda p, i, f: [i, p, p] + [i] * 7 + [p] * 14 + [f, p],
+    'swin_block_joint_fwd': lambda p, i, f: [i, p, p] + [i] * 7 + [p] * 16 + [f, p],
+    'swin_block_joint_int8_fwd': lambda p, i, f: [i, p, p] + [i] * 7 + [p] * 18 + [f, p],
     'swin_attn_block_fwd': lambda p, i, f: [i, p, p] + [i] * 6 + [p] * 8 + [i, p, f, p],
     'swin_attn_block_bwd': lambda p, i, f: [i, p, p, p] + [i] * 6 + [p] * 7 + [i, p, f, p, p],
 }
@@ -209,7 +403,8 @@ _SIGNATURES = {
 @functools.lru_cache(maxsize=None)
 def _lib(name: str) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
-    return _launch.bind(name, _SIGNATURES[name](p, i, ctypes.c_float), [i, i],
+    return _launch.bind(name, _SIGNATURES[name](p, i, ctypes.c_float),
+                        [i, i, i] if name == 'swin_block_joint_int8_fwd' else [i, i],
                         [i, i, i] if name == 'swin_attn_block_bwd' else None)
 
 
@@ -243,26 +438,20 @@ def _attention_operands(op, x, ln_weight, ln_bias, qkv_weight, qkv_bias, proj_we
     return ops, rel_bias, mask
 
 
-def _launch_joint(x, ln1_weight, ln1_bias, qkv_weight, qkv_bias, proj_weight, proj_bias,
-                  rel_bias, mask: Optional[torch.Tensor], ln2_weight, ln2_bias, fc1_weight,
-                  fc1_bias, fc2_weight, fc2_bias, window_size, num_heads, scale):
-    op = 'swin_block_joint_fwd'
-    tensors = (x, ln1_weight, ln1_bias, qkv_weight, qkv_bias, proj_weight, proj_bias,
-               rel_bias, mask, ln2_weight, ln2_bias, fc1_weight, fc1_bias, fc2_weight,
-               fc2_bias)
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
-        raise NotImplementedError('fused_swin_block_full: the joint kernel has no backward; '
-                                  'run under torch.no_grad(), or train through '
-                                  'fused_swin_attn_block and fused_mlp_block')
+def _joint_operands(op, x, ln1_weight, ln1_bias, qkv_weight, qkv_bias, proj_weight, proj_bias,
+                    rel_bias, mask, ln2_weight, ln2_bias, fc1_weight, fc1_bias, fc2_weight,
+                    fc2_bias, window_size, num_heads):
+    """Checked operands of the whole block in the kernels' order, weights in
+    x's dtype."""
     attn, rel_bias, mask = _attention_operands(op, x, ln1_weight, ln1_bias, qkv_weight,
                                                qkv_bias, proj_weight, rel_bias, mask,
                                                window_size, num_heads)
-    b, h, w, c = x.shape
+    c = x.shape[-1]
     hidden = fc1_weight.shape[0]
     if hidden % 4:
         raise ValueError(f'{op}: needs hidden % 4 == 0 (hidden={hidden})')
     dev, f32 = x.device, torch.float32
-    ops = attn + [
+    return attn + [
         _launch.operand(proj_bias, 'proj_bias', (c,), f32, dev), rel_bias, mask,
         _launch.operand(ln2_weight, 'ln2_weight', (c,), f32, dev),
         _launch.operand(ln2_bias, 'ln2_bias', (c,), f32, dev),
@@ -271,15 +460,57 @@ def _launch_joint(x, ln1_weight, ln1_bias, qkv_weight, qkv_bias, proj_weight, pr
         _launch.operand(fc2_weight, 'fc2_weight', (c, hidden), x.dtype, dev),
         _launch.operand(fc2_bias, 'fc2_bias', (c,), f32, dev),
     ]
+
+
+def _launch_joint(x, ln1_weight, ln1_bias, qkv_weight, qkv_bias, proj_weight, proj_bias,
+                  rel_bias, mask: Optional[torch.Tensor], ln2_weight, ln2_bias, fc1_weight,
+                  fc1_bias, fc2_weight, fc2_bias, window_size, num_heads, scale,
+                  residual_scales=None):
+    op = 'swin_block_joint_fwd'
+    ops = _joint_operands(op, x, ln1_weight, ln1_bias, qkv_weight, qkv_bias, proj_weight,
+                          proj_bias, rel_bias, mask, ln2_weight, ln2_bias, fc1_weight, fc1_bias,
+                          fc2_weight, fc2_bias, window_size, num_heads)
+    b, h, w, c = x.shape
+    s1, s2 = residual_scales if residual_scales is not None else (None, None)
+    ops += [_launch.scale_operand(s1, x), _launch.scale_operand(s2, x)]
     lib = _lib(op)
-    _launch.check_shared_memory(lib.swin_block_joint_fwd_smem_bytes(c, num_heads), dev, op)
+    _launch.check_shared_memory(lib.swin_block_joint_fwd_smem_bytes(c, num_heads), x.device, op)
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
     rc = lib.swin_block_joint_fwd(
         _launch.DTYPES[x.dtype], x.data_ptr(), out.data_ptr(), b, h, w, c, num_heads,
+        window_size, fc1_weight.shape[0], *_launch.pointers(ops), float(scale),
+        _launch.current_stream(x.device))
+    _launch.check_rc(rc, lib, op)
+    return out
+
+
+def _launch_joint_int8(x, ln1_weight, ln1_bias, qkv_weight, qkv_bias, proj_weight, proj_bias,
+                       rel_bias, mask: Optional[torch.Tensor], ln2_weight, ln2_bias, fc1_weight,
+                       fc1_bias, fc2_weight, fc2_bias, window_size, num_heads, scale):
+    op = 'swin_block_joint_int8_fwd'
+    (ln1_weight, ln1_bias, _, qkv_bias, _, proj_bias, rel_bias, mask, ln2_weight, ln2_bias, _,
+     fc1_bias, _, fc2_bias) = _joint_operands(
+         op, x, ln1_weight, ln1_bias, qkv_weight, qkv_bias, proj_weight, proj_bias, rel_bias,
+         mask, ln2_weight, ln2_bias, fc1_weight, fc1_bias, fc2_weight, fc2_bias, window_size,
+         num_heads)
+    b, h, w, c = x.shape
+    hidden = fc1_weight.shape[0]
+    qkv_q, qkv_s, proj_q, proj_s, fc1_q, fc1_s, fc2_q, fc2_s = quantized_block_weights(
+        qkv_weight, proj_weight, fc1_weight, fc2_weight)
+    ops = [ln1_weight, ln1_bias, qkv_q, qkv_s, qkv_bias, proj_q, proj_s, proj_bias, rel_bias,
+           mask, ln2_weight, ln2_bias, fc1_q, fc1_s, fc1_bias, fc2_q, fc2_s, fc2_bias]
+    lib = _lib(op)
+    _launch.check_shared_memory(lib.swin_block_joint_int8_fwd_smem_bytes(c, num_heads, hidden),
+                                x.device, op)
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    rc = lib.swin_block_joint_int8_fwd(
+        _launch.DTYPES[x.dtype], x.data_ptr(), out.data_ptr(), b, h, w, c, num_heads,
         window_size, hidden, *_launch.pointers(ops), float(scale),
-        _launch.current_stream(dev))
+        _launch.current_stream(x.device))
     _launch.check_rc(rc, lib, op)
     return out
 

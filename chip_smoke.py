@@ -6,8 +6,9 @@ From the root of a checkout, in phases; any failure ends the run with a
 nonzero exit code and no result line:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. builds the nine kernels (five Swin block kernels, the window attention
-   forward and backward, the deformable sampler forward and backward) from
+2. builds the eleven kernels (five Swin block kernels and the W8A8 joint
+   block, the window attention forward and backward, the deformable sampler
+   forward and backward, the 3x3 convolution) from
    ``basicsr4rs_torch/csrc/`` with nvcc, all at once;
 3. holds each kernel against its plain PyTorch version on the card at
    SwinIR-M block shapes (C=180, 6 heads, window 8, hidden 360), without
@@ -25,7 +26,12 @@ nonzero exit code and no result line:
    BasicVSR++ (128 channels in 16 groups; one tap on 64-, 3- and 2-channel
    maps for the flow warps, also with ``border``), with offsets small and
    large enough to leave the map and whole positions among them, beside
-   ``F.grid_sample`` as the one-tap yardstick;
+   ``F.grid_sample`` as the one-tap yardstick; the 3x3 convolution kernel
+   (3e) at the shapes SwinIR-M x4 gives it (180->180 on the LQ map, 180->64,
+   64->256 on the LQ and the 2x map, 64->64 on the 4x map, one odd size), all
+   four epilogues, beside ``F.conv2d`` + its epilogue, and its gradients; the
+   W8A8 joint block (3f) against its plain version by the rule stated there,
+   against the float block by SNR, and timed beside the float kernel;
 4. serves SwinIR-M x4 through ``basicsr4rs_torch.test`` (the code path of
    ``python -m basicsr4rs_torch.test -opt options/test/SwinIR/
    test_SwinIR_M_x4_synthetic.yml``) on 4 synthetic image pairs and random
@@ -78,9 +84,27 @@ nonzero exit code and no result line:
     one forward, 462 launches; ``options/train/BasicVSRPP/
     train_BasicVSRPP_x4_synthetic.yml``: ``REDSRecurrentDataset``, batch 1 of
     30 frames, 462 forward and 461 backward launches a step, SpyNet frozen
-    before iteration 4).
+    before iteration 4);
+17. serves SwinIR-M x4 through ``basicsr4rs_torch.test`` again with
+    ``SWIN_FUSED_CONV=1``: 10 launches of the convolution kernel a forward,
+    outputs against the cuDNN route, latency of both routes;
+18. runs it under ``quantized_inference(net, min_channels=10**9,
+    swin_kernels=True)`` at B=16 of LQ 64x64 and at the 128x128 request: 36
+    launches of the W8A8 block a forward, the kernel route against the plain
+    route, PSNR against the float output, output MP/s of both;
+19. serves MSRResNet x4 through ``basicsr4rs_torch.test`` (``-opt
+    options/test/SRResNet_SRGAN/test_MSRResNet_x4_synthetic.yml``) in float,
+    ``val:quant_int8=true`` and ``=static``: SNR against float, latency of
+    the three; then trains it for 8 steps through ``basicsr4rs_torch.train``
+    (``-opt options/train/SRResNet_SRGAN/train_MSRResNet_x4_synthetic.yml``);
+20. runs ``basicsr4rs_torch.inference.inference_swinir --tile 128`` on one LQ
+    512x512 image (16 tiles in one batch) and holds it against the untiled
+    forward; MSRResNet tiled with a pad that covers its receptive field;
+21. trains SwinIR-M x4 for 4 steps with ``SWIN_JOINT_TRAIN=1``: launch
+    counts per step, gradients against the split route, step time.
 
-``python3 chip_smoke.py kernels`` stops after phase 3. The line before the last is a JSON summary of the kernels; the last line is
+``python3 chip_smoke.py kernels`` stops after phase 3; ``python3 chip_smoke.py
+serving`` runs phases 3e, 3f, 4 and 17 to 21 alone. The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -94,6 +118,7 @@ from unittest import mock
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T0 = time.perf_counter()
 CONFIG = 'options/test/SwinIR/test_SwinIR_M_x4_synthetic.yml'
 DATA_DIR = 'datasets/SwinIR_M_x4_synthetic'
 WEIGHTS = 'experiments/SwinIR_M_x4_synthetic/net_g_seed0.pth'
@@ -1864,6 +1889,598 @@ def check_video_gradients(name, number):
     compare_gradients(name, loss_k, grads_k, loss_p, grads_p)
 
 
+# ------------------------------------------- the serving modes of the image-SR path
+PEAK_OPS_INT8 = 1979e12   # dense int8 on the tensor cores (the data sheet's rate)
+CONV_SHAPES = [            # (B, Cin, Cout, H, W, residual, slope): how SwinIR-M x4 calls K10
+    (1, 180, 180, 128, 128, True, None),    # RSTB tail and conv_after_body, LQ 128x128
+    (16, 180, 180, 64, 64, True, None),     # the same at the batched serving shape
+    (1, 180, 64, 128, 128, False, 0.01),    # conv_before_upsample
+    (1, 64, 256, 128, 128, False, None),    # Upsample, LQ map
+    (1, 64, 256, 256, 256, False, None),    # Upsample, 2x map
+    (1, 64, 64, 512, 512, False, 0.2),      # nearest+conv: conv_hr on the 4x map
+    (1, 180, 180, 125, 94, True, None),     # a map that is no multiple of 8
+]
+# K11 against its plain version. The integer sums are exact in both, but the
+# values that are quantised come from float32 arithmetic in another order
+# (LayerNorm, softmax, the dequantised products), so a value that sits on a
+# half can round to the next integer in one and not in the other: one step of
+# s_x * s_w in that token's products, which attention then spreads over its
+# window. A window rounds 57,600 values (64 tokens x 900 features), each on a
+# half with a probability of about its float32 error in steps (1e-6 to 1e-5),
+# so up to a quarter of the windows hold a flip. The rule is per window: at
+# most INT8_FLIPPED_WINDOWS of the windows may leave F32_TOL at all; none may
+# differ from the plain version by more than the plain int8 block itself
+# differs from the plain float block (a flipped step is one of the
+# quantisation steps that difference is made of); and the flips' noise lies
+# INT8_FLIP_MARGIN_DB under the quantisation noise itself.
+INT8_FLIPPED_WINDOWS = 0.25
+INT8_FLIP_MARGIN_DB = 15.
+# int8 block against the float block: the JAX package's criterion
+# (tests/test_ops/test_swin_block.py): SNR and the largest deviation over the range
+INT8_BLOCK_SNR_DB, INT8_BLOCK_MAX_DEV = 30., 0.1
+# SwinIR-M's int8 output against its float output on [0, 1]: the block
+# criterion of 30 dB SNR, carried to an image whose power lies 5 dB under its
+# peak value
+INT8_MODEL_PSNR_DB = 35.
+INT8_CONV_SNR_DB = 28.    # MSRResNet int8 against float (tests/test_ops/test_quant.py:148)
+# tiling a window-attention model is approximate (each tile sees its halo, not
+# the image): the bound of tests/test_torch_tile.py on the [0, 1] output
+TILE_APPROX_TOLERANCE = 0.05
+MS_CONFIG = 'options/test/SRResNet_SRGAN/test_MSRResNet_x4_synthetic.yml'
+MS_TRAIN_CONFIG = 'options/train/SRResNet_SRGAN/train_MSRResNet_x4_synthetic.yml'
+MS_DATA_DIR = 'datasets/MSRResNet_x4_synthetic'
+MS_LQ_SIZES = [(128, 128), (96, 160)]
+TILED_DIR = 'datasets/SwinIR_M_x4_tiled'
+TILED_LQ, TILE, TILE_PAD = 512, 128, 32
+JOINT_TRAIN_ITERS = 4
+
+
+def snr_db(ref, got):
+    ref, got = ref.double(), got.double()
+    return (10 * torch.log10(ref.square().mean() / ((got - ref).square().mean() + 1e-30))).item()
+
+
+def psnr_db(ref, got):
+    """PSNR of two [0, 1] images."""
+    mse = (ref.double().clamp(0, 1) - got.double().clamp(0, 1)).square().mean().item()
+    return 10 * torch.log10(torch.tensor(1. / max(mse, 1e-30))).item()
+
+
+def check_conv_kernel():
+    import torch.nn.functional as F
+
+    from basicsr4rs_torch.ops.conv3x3 import fused_conv3x3, reference_conv3x3
+    phase('3e. 3x3 convolution kernel (K10) vs plain version, at the shapes SwinIR-M x4 gives it')
+    gen = torch.Generator().manual_seed(5)
+    summary = {'max_abs_err': 0.}
+    for b, cin, cout, h, w, model_res, model_slope in CONV_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(b, cin, h, w, generator=gen).cuda().to(dt)
+            weight = (torch.randn(cout, cin, 3, 3, generator=gen) * (9 * cin)**-.5).cuda()
+            bias = (torch.randn(cout, generator=gen) * .1).cuda()
+            res = torch.randn(b, cout, h, w, generator=gen).cuda().to(dt)
+            worst = 0.
+            for with_res, slope in ((False, None), (True, None), (False, 0.2), (True, 0.01)):
+                r = res if with_res else None
+                with torch.no_grad():
+                    got = fused_conv3x3(x, weight, bias, r, slope)
+                    want = reference_conv3x3(x, weight, bias, r, slope)
+                torch.cuda.synchronize()
+                ok, max_abs, max_rel, tolerance = compare(got, want, dt, 'elementwise')
+                worst = max(worst, max_abs)
+                if not ok:
+                    fail(f'K10 and plain version disagree at {(b, cin, cout, h, w)} {dt} '
+                         f'residual={with_res} slope={slope}: max_abs_err={max_abs:.3e} '
+                         f'({tolerance})')
+            r = res if model_res else None
+            wd, bd = weight.to(dt), bias.to(dt)
+
+            def library():    # one cuDNN convolution and PyTorch's own epilogue
+                out = F.conv2d(x, wd, bd, padding=1)
+                if r is not None:
+                    out = out + r
+                return out if model_slope is None else F.leaky_relu(out, model_slope)
+
+            with torch.no_grad():
+                kernel_ms, plain_ms = time_pair(
+                    lambda: reference_conv3x3(x, weight, bias, r, model_slope),
+                    lambda: fused_conv3x3(x, weight, bias, r, model_slope))
+                library_ms = cuda_time_ms(library)
+            es = torch.finfo(dt).bits // 8
+            flop = 2 * 9 * cin * cout * b * h * w
+            nbytes = (b * h * w * (cin + cout * (2 if model_res else 1)) + 9 * cin * cout) * es \
+                + 4 * cout
+            bound, by = bound_ms(flop, nbytes, dt)
+            print(f'B={b} {cin}->{cout} {h}x{w} {str(dt)[6:]:8s} residual={model_res} '
+                  f'slope={model_slope}: four epilogues max_abs_err={worst:.3e} | kernel '
+                  f'{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, F.conv2d + epilogue '
+                  f'{library_ms:.4f} ms, bound {bound:.4f} ms by {by}', flush=True)
+            if dt == torch.float32:
+                summary['max_abs_err'] = max(summary['max_abs_err'], worst)
+                if (b, cin, cout, h) == (1, 180, 180, 128):
+                    summary.update(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                                   bound_ms=bound, bound_by=by)
+    # gradients: the backward is PyTorch's library on the kernel's saved output
+    x = torch.randn(2, 64, 48, 48, generator=gen).cuda().requires_grad_()
+    weight = (torch.randn(64, 64, 3, 3, generator=gen) / 24).cuda().requires_grad_()
+    bias = torch.randn(64, generator=gen).cuda().requires_grad_()
+    res = torch.randn(2, 64, 48, 48, generator=gen).cuda().requires_grad_()
+    leaves = (x, weight, bias, res)
+    got = torch.autograd.grad(fused_conv3x3(*leaves, 0.2).square().sum(), leaves)
+    want = torch.autograd.grad(reference_conv3x3(*leaves, 0.2).square().sum(), leaves)
+    for name, g, wnt in zip(('dx', 'd_weight', 'd_bias', 'd_residual'), got, want):
+        ok, max_abs, max_rel, tolerance = compare(g, wnt, torch.float32, 'sum')
+        print(f'gradient {name}: max_abs_err={max_abs:.3e} max_rel_err={max_rel:.3e} ({tolerance})')
+        if not ok:
+            fail(f'K10 gradient {name} disagrees')
+    return {'conv3x3_fwd': summary}
+
+
+def int8_block_work(b, h, w, dtype, shifted):
+    """(int8 operations, float32 operations, bytes) of one W8A8 block: the
+    four weight products in int8, q.k and p.v in float32; x in, out back,
+    int8 weights, scales and the small float operands once."""
+    t, c, hid, n, es = b * h * w, C, HIDDEN, WS * WS, torch.finfo(dtype).bits // 8
+    small = 4 * (8 * c + hid) + 4 * HEADS * n * n + 4 * (5 * c + hid)
+    mask = 4 * (h // WS) * (w // WS) * n * n if shifted else 0
+    return (t * (8 * c * c + 4 * c * hid), t * 4 * n * c,
+            2 * t * c * es + 4 * c * c + 2 * c * hid + small + mask)
+
+
+def check_int8_block_kernel():
+    from basicsr4rs_torch.ops import swin_block as S
+    phase('3f. W8A8 joint block kernel (K11) vs plain version and vs the float block')
+    print(f'rule: windows beyond F32_TOL {F32_TOL} of the plain version <= '
+          f'{INT8_FLIPPED_WINDOWS:.0%}, none further from it than the plain int8 block is from '
+          f'the plain float block, flip noise {INT8_FLIP_MARGIN_DB} dB under the quantisation '
+          f'noise; against the float block SNR > {INT8_BLOCK_SNR_DB} dB and '
+          f'max deviation < {INT8_BLOCK_MAX_DEV} of the range')
+    gen = torch.Generator().manual_seed(6)
+    summary = {'max_abs_err': 0.}
+    for b, h, w in ((1, 128, 128), (16, 64, 64)):
+        for dt in (torch.float32, torch.bfloat16):
+            for shift in (0, 4):
+                args = block_inputs(b, h, w, dt, shift, gen)
+                with torch.no_grad():
+                    got = S.swin_block_full_int8(*args)
+                    want = S.reference_swin_block_full_int8(*args)
+                    flo = S.reference_swin_block_full(*args)
+                torch.cuda.synchronize()
+                if not torch.isfinite(got).all():
+                    fail(f'K11 output is not finite at {(b, h, w, dt, shift)}')
+                err = (got.float() - want.float()).abs()
+                quant_err = (want.float() - flo.float()).abs().max().item()
+                tag = f'B={b} {h}x{w} {str(dt)[6:]:8s} shift={shift}'
+                if dt == torch.float32:
+                    off = err > F32_TOL[0] + F32_TOL[1] * want.float().abs()
+                    windows = off.reshape(b, h // WS, WS, w // WS, WS, C).any(5).any(4).any(2)
+                    share = windows.float().mean().item()
+                    margin = snr_db(want.float(), got.float()) - snr_db(flo.float(), want.float())
+                    line = (f'{tag}: {int(windows.sum())} of {windows.numel()} windows beyond '
+                            f'F32_TOL ({share:.2%}), max_abs_err={err.max().item():.3e} against '
+                            f'the int8 block\'s own {quant_err:.3e} from the float block, flip '
+                            f'noise {margin:.1f} dB under the quantisation noise')
+                    if (share > INT8_FLIPPED_WINDOWS or err.max().item() > quant_err
+                            or margin < INT8_FLIP_MARGIN_DB):
+                        print(line)
+                        fail(f'K11 and plain version disagree at {tag}')
+                    summary['max_abs_err'] = max(summary['max_abs_err'], err.max().item())
+                else:
+                    ok, max_abs, max_rel, tolerance = compare(got, want, dt, 'elementwise')
+                    line = f'{tag}: max_abs_err={max_abs:.3e} max_rel_err={max_rel:.3e} ({tolerance})'
+                    if not ok:
+                        fail(f'K11 and plain version disagree at {tag}')
+                snr = snr_db(flo.float(), got.float())
+                dev = (got.float() - flo.float()).abs().max().item() / flo.float().abs().max().item()
+                line += f' | vs float block: SNR {snr:.2f} dB, max deviation {dev:.4f} of the range'
+                if snr <= INT8_BLOCK_SNR_DB or dev >= INT8_BLOCK_MAX_DEV:
+                    fail(f'K11 is too far from the float block at {tag}')
+                with torch.no_grad():
+                    kernel_ms, plain_ms = time_pair(
+                        lambda: S.reference_swin_block_full_int8(*args),
+                        lambda: S.swin_block_full_int8(*args))
+                    k1_ms = cuda_time_ms(lambda: S.swin_block_full_forward(*args))
+                ops8, ops32, nbytes = int8_block_work(b, h, w, dt, shift)
+                by_ops = (ops8 / PEAK_OPS_INT8 + ops32 / PEAK_FLOPS_F32) * 1e3
+                by_bytes = nbytes / PEAK_BYTES * 1e3
+                bound, by = max((by_ops, 'operations'), (by_bytes, 'bytes'))
+                line += (f' | kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, float kernel '
+                         f'(K1) {k1_ms:.4f} ms, bound {bound:.4f} ms by {by} (int8 products at '
+                         f'{PEAK_OPS_INT8 / 1e12:.0f} TOP/s, q.k and p.v at float32)')
+                print(line, flush=True)
+                if (b, dt, shift) == (1, torch.float32, 4):
+                    summary.update(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                                   k1_ms=k1_ms)
+    return {'swin_block_joint_int8_fwd': summary}
+
+
+def once_ms(fn):
+    """Milliseconds of one call after one warm-up call, CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def timed_test(model, item, repeats=3):
+    """Mean milliseconds of ``model.test()`` on one loader item, CUDA events."""
+    model.feed_data(item)
+    model.test()
+    return cuda_time_ms(model.test, repeats)
+
+
+def serve_fused_conv():
+    import basicsr4rs_torch.test as entry
+    from basicsr4rs_torch.ops.conv3x3 import fused_conv3x3
+    from basicsr4rs_torch.ops.swin_block import fused_swin_block_full
+    phase('17. serve SwinIR-M x4 through basicsr4rs_torch.test with SWIN_FUSED_CONV=1')
+    argv = sys.argv
+    sys.argv = ['basicsr4rs_torch.test', '-opt', CONFIG]
+    fused_conv3x3.launches = fused_swin_block_full.launches = 0
+    os.environ['SWIN_FUSED_CONV'] = '1'
+    try:
+        model = entry.test_pipeline(ROOT)
+    finally:
+        sys.argv = argv
+        os.environ.pop('SWIN_FUSED_CONV')
+    torch.cuda.synchronize()
+    launches, k1 = fused_conv3x3.launches, fused_swin_block_full.launches
+    per_forward = 6 + 1 + 1 + 2   # RSTB tails, conv_after_body, conv_before_upsample, Upsample
+    print(f'K10 launches {launches} = {launches / len(LQ_SIZES):g} per request; K1 launches {k1}')
+    if launches != per_forward * len(LQ_SIZES):
+        fail(f'expected {per_forward} K10 launches per forward, counted {launches} over '
+             f'{len(LQ_SIZES)} requests')
+    for name, value in model.metric_results.items():
+        print(f'{name}: {value:.4f} (random weights)')
+    loader = list(model_loader(model))
+    for item, (h, w) in zip(loader, LQ_SIZES):
+        model.feed_data(item)
+        model.test()
+        cudnn = model.output.float().clamp(0, 1)
+        times = []
+        for fused in (False, True, True, False):
+            if fused:
+                os.environ['SWIN_FUSED_CONV'] = '1'
+            try:
+                times.append(timed_test(model, item))
+            finally:
+                os.environ.pop('SWIN_FUSED_CONV', None)
+            if fused:
+                out = model.output.float().clamp(0, 1)
+        err = (out - cudnn).abs().max().item()
+        fused_ms, cudnn_ms = (times[1] + times[2]) / 2, (times[0] + times[3]) / 2
+        print(f'request LQ {h}x{w}: fused-conv route {fused_ms:.3f} ms, cuDNN route '
+              f'{cudnn_ms:.3f} ms; max abs difference on [0, 1] {err:.3e} '
+              f'(tolerance {MODEL_TOLERANCE})')
+        if out.shape != (1, 3, SCALE * h, SCALE * w) or not err <= MODEL_TOLERANCE:
+            fail(f'request {h}x{w}: the fused-conv route disagrees with the cuDNN route')
+    return model, loader, launches, k1
+
+
+def serve_int8(model, loader):
+    from basicsr4rs_torch.archs import swinir_arch
+    from basicsr4rs_torch.ops import swin_block as S
+    from basicsr4rs_torch.ops.quant import quantized_inference
+    phase('18. SwinIR-M x4 under quantized_inference(net, min_channels=10**9, swin_kernels=True)')
+    net = model.net_g
+    blocks = sum(model.opt['network_g']['depths'])
+    S.swin_block_full_int8.launches = 0
+    forwards = 0
+    gen = torch.Generator().manual_seed(7)
+    batch = torch.rand(16, 3, 64, 64, generator=gen).cuda()
+
+    def scope():
+        return quantized_inference(net, min_channels=10**9, swin_kernels=True)
+
+    def forward(x):
+        with torch.inference_mode():
+            return net(x)
+
+    for tag, x in (('B=16 LQ 64x64', batch), ('B=1 LQ 128x128', loader[0]['lq'].cuda())):
+        flo = forward(x)
+        with scope():
+            got = forward(x)
+            forwards += 1
+            with mock.patch.object(swinir_arch, 'swin_block_full_int8',
+                                   S.reference_swin_block_full_int8):
+                plain = forward(x)
+        torch.cuda.synchronize()
+        if got.shape != flo.shape or not torch.isfinite(got).all():
+            fail(f'{tag}: int8 output {tuple(got.shape)}')
+        psnr, routes = psnr_db(flo, got), psnr_db(plain, got)
+        times = []
+        for quantised in (False, True, True, False):
+            if quantised:
+                with scope():
+                    forward(x)
+                    times.append(cuda_time_ms(lambda: forward(x), 3))
+                forwards += 1 + 3 + 3
+            else:
+                times.append(cuda_time_ms(lambda: forward(x), 3))
+        int8_ms, float_ms = (times[1] + times[2]) / 2, (times[0] + times[3]) / 2
+        mp = x.shape[0] * SCALE * x.shape[2] * SCALE * x.shape[3] / 1e3
+        print(f'{tag}: int8 route {int8_ms:.3f} ms = {mp / int8_ms:.3f} output MP/s, float route '
+              f'{float_ms:.3f} ms = {mp / float_ms:.3f} output MP/s; PSNR of int8 against float '
+              f'{psnr:.2f} dB (bound {INT8_MODEL_PSNR_DB}); kernel route against plain route '
+              f'{routes:.2f} dB')
+        if psnr < INT8_MODEL_PSNR_DB:
+            fail(f'{tag}: the int8 output is {psnr:.2f} dB from the float output')
+        # flips of single steps through 36 blocks: no more noise than the scheme's own
+        if routes < psnr:
+            fail(f'{tag}: K11 route and plain route agree to {routes:.2f} dB only: further '
+                 'apart than int8 is from float')
+    launches = S.swin_block_full_int8.launches
+    print(f'K11 launches {launches} over {forwards} forwards = {launches / forwards:g} per forward')
+    if launches != blocks * forwards:
+        fail(f'expected {blocks} K11 launches per forward')
+    if swinir_arch.swin_kernels_int8():
+        fail('the scope left swin_kernels_int8() on')
+    return launches
+
+
+def write_msrresnet_inputs():
+    """Two synthetic pairs to serve, 16 GT 160x160 pairs to train on, one to
+    validate, and the seed-0 weights the test config names."""
+    import cv2
+    import numpy as np
+
+    from basicsr4rs_torch.archs.srresnet_arch import MSRResNet
+    from basicsr4rs_torch.utils.options import yaml_load
+    rng = np.random.RandomState(3)
+    train_dir = MS_DATA_DIR + '_train'
+    sets = [(MS_DATA_DIR, 'GT', 'LQ', [(SCALE * h, SCALE * w) for h, w in MS_LQ_SIZES]),
+            (train_dir, 'GT', 'LQ', [(160, 160)] * 16), (train_dir, 'val_GT', 'val_LQ', [(256, 256)])]
+    for root, gt_dir, lq_dir, sizes in sets:
+        for sub in (gt_dir, lq_dir):
+            os.makedirs(os.path.join(root, sub), exist_ok=True)
+        for i, (h, w) in enumerate(sizes):
+            gt = smooth_image(rng, h, w)
+            lq = cv2.resize(gt, (w // SCALE, h // SCALE), interpolation=cv2.INTER_CUBIC)
+            cv2.imwrite(os.path.join(root, gt_dir, f'{i:04d}.png'), gt)
+            cv2.imwrite(os.path.join(root, lq_dir, f'{i:04d}.png'), lq)
+    opt = yaml_load(MS_CONFIG)
+    net_opt = dict(opt['network_g'])
+    net_opt.pop('type')
+    torch.manual_seed(0)
+    net = MSRResNet(**net_opt)
+    with torch.no_grad():    # biases off their zero init, so that every parameter shows
+        for name, p in net.named_parameters():
+            if name.endswith('bias'):
+                p.normal_(0, 0.02)
+    os.makedirs(os.path.dirname(opt['path']['pretrain_network_g']), exist_ok=True)
+    torch.save({'params': net.state_dict()}, opt['path']['pretrain_network_g'])
+    return net_opt
+
+
+def serve_and_train_msrresnet():
+    import glob
+    import shutil
+
+    import basicsr4rs_torch.test as entry
+    from basicsr4rs_torch.archs.arch_util import resize_bilinear
+    from basicsr4rs_torch.archs.srresnet_arch import MSRResNet
+    from basicsr4rs_torch.models.sr_model import SRModel
+    from basicsr4rs_torch.utils.options import yaml_load
+    phase('19. MSRResNet x4 through basicsr4rs_torch.test in float, quant_int8: true and '
+          'static; then 8 training steps through basicsr4rs_torch.train')
+    net_opt = write_msrresnet_inputs()
+    outputs, latency = {}, {}
+    for mode, force in (('float', []), ('true', ['--force_yml', 'val:quant_int8=true']),
+                        ('static', ['--force_yml', 'val:quant_int8=static'])):
+        argv = sys.argv
+        sys.argv = ['basicsr4rs_torch.test', '-opt', MS_CONFIG] + force
+        try:
+            model = entry.test_pipeline(ROOT)
+        finally:
+            sys.argv = argv
+        if model.device.type != 'cuda':
+            fail(f'MSRResNet ran on {model.device}')
+        wanted = {'float': False, 'true': True, 'static': 'static'}[mode]
+        if model.opt['val'].get('quant_int8', False) != wanted:
+            fail(f'val.quant_int8 is {model.opt["val"].get("quant_int8")!r} in the {mode} run')
+        if mode == 'static' and not model._quant_scales:
+            fail('the static run calibrated no scale')
+        loader = list(model_loader(model))
+        outputs[mode] = []
+        for item, (h, w) in zip(loader, MS_LQ_SIZES):
+            model.feed_data(item)
+            model.test()
+            out = model.output.float()
+            if out.shape != (1, 3, SCALE * h, SCALE * w) or not torch.isfinite(out).all():
+                fail(f'MSRResNet {mode} request {h}x{w}: output {tuple(out.shape)}')
+            outputs[mode].append(out)
+        latency[mode] = timed_test(model, loader[0])
+        print(f'{mode}: PSNR {model.metric_results["psnr"]:.4f} dB against the synthetic GT '
+              f'(random weights); request LQ 128x128 {latency[mode]:.3f} ms')
+        if any('forward' in m.__dict__ for m in model.net_g.modules()):
+            fail('a convolution kept its int8 forward after the scope')
+    # the output is the bilinear skip plus the network's branch, which is small
+    # under random weights: its own SNR is printed beside the output's
+    skips = [resize_bilinear(item['lq'].cuda(), SCALE * h, SCALE * w)
+             for item, (h, w) in zip(loader, MS_LQ_SIZES)]
+    for mode in ('true', 'static'):
+        for out, ref, skip, (h, w) in zip(outputs[mode], outputs['float'], skips, MS_LQ_SIZES):
+            snr = snr_db(ref, out)
+            print(f'quant_int8 {mode}, LQ {h}x{w}: SNR against float {snr:.2f} dB '
+                  f'(bound {INT8_CONV_SNR_DB}); of the branch alone (output minus the bilinear '
+                  f'skip) {snr_db(ref - skip, out - skip):.2f} dB')
+            if snr <= INT8_CONV_SNR_DB or torch.equal(out, ref):
+                fail(f'MSRResNet quant_int8 {mode}: SNR {snr:.2f} dB, or the float output itself')
+
+    opt = yaml_load(MS_TRAIN_CONFIG)
+    total_iter = opt['train']['total_iter']
+    exp_dir = os.path.join('experiments', opt['name'])
+    for old in glob.glob(exp_dir + '*'):
+        shutil.rmtree(old)
+    torch.cuda.reset_peak_memory_stats()
+    record = {'steps': []}
+    model = run_train_pipeline([], record, config=MS_TRAIN_CONFIG, model_cls=SRModel)
+    steps = record['steps']
+    if model.device.type != 'cuda' or [st['iter'] for st in steps] != list(range(1, total_iter + 1)):
+        fail(f'MSRResNet training ran steps {[st["iter"] for st in steps]} on {model.device}')
+    for st in steps:
+        if not torch.isfinite(torch.tensor(st['l_pix'])):
+            fail(f'l_pix is not finite at step {st["iter"]}')
+    timed = [st['ms'] for st in steps[2:]]
+    loss_after = fixed_batch_loss(model, record['fixed'])
+    print(f'training step: {sum(timed) / len(timed):.3f} ms mean of steps 3..{total_iter} (min '
+          f'{min(timed):.3f}, max {max(timed):.3f}); peak device memory '
+          f'{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; l_pix '
+          + ' '.join(f'{st["l_pix"]:.5f}' for st in steps))
+    print(f'l_pix on the first batch, eval mode: {record["fixed_loss_before"]:.6f} before step 1, '
+          f'{loss_after:.6f} after step {total_iter}')
+    if not loss_after < record['fixed_loss_before']:
+        fail('MSRResNet: the loss on the fixed batch did not fall')
+    check_ema_and_checkpoint(model, MSRResNet(**net_opt),
+                             os.path.join(exp_dir, 'models', f'net_g_{total_iter}.pth'))
+
+
+def serve_tiled():
+    import cv2
+    import numpy as np
+
+    from basicsr4rs_torch.archs.srresnet_arch import MSRResNet
+    from basicsr4rs_torch.archs.swinir_arch import SwinIR
+    from basicsr4rs_torch.inference import inference_swinir
+    from basicsr4rs_torch.ops.swin_block import fused_swin_block_full
+    from basicsr4rs_torch.ops.tile import tiled_apply
+    from basicsr4rs_torch.utils.options import yaml_load
+    phase(f'20. tiled serving: inference_swinir --tile {TILE} --tile_pad {TILE_PAD} on one LQ '
+          f'{TILED_LQ}x{TILED_LQ} image; MSRResNet tiled with its receptive field as the pad')
+    os.makedirs(os.path.join(TILED_DIR, 'LQ'), exist_ok=True)
+    img = smooth_image(np.random.RandomState(4), TILED_LQ, TILED_LQ)
+    cv2.imwrite(os.path.join(TILED_DIR, 'LQ', '0000.png'), img)
+    out_dir = os.path.join('results', 'chip_smoke', 'tiled')
+    fused_swin_block_full.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    inference_swinir.main(['--model_path', WEIGHTS, '--task', 'classical_sr', '--input',
+                           os.path.join(TILED_DIR, 'LQ'), '--output', out_dir, '--tile', str(TILE),
+                           '--tile_pad', str(TILE_PAD)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fused_swin_block_full.launches
+    tiles = (TILED_LQ // TILE)**2
+    full = TILE + 2 * TILE_PAD
+    print(f'inference_swinir: {wall:.3f} s wall (weights, read, {tiles} tiles of {full}x{full} as '
+          f'one batch, write); K1 launches {launches}; peak device memory '
+          f'{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB')
+    saved = cv2.imread(os.path.join(out_dir, '0000_SwinIR.png'))
+    if saved is None or saved.shape != (SCALE * TILED_LQ, SCALE * TILED_LQ, 3):
+        fail(f'tiled output: {None if saved is None else saved.shape}')
+    if launches != 36:
+        fail(f'expected 36 K1 launches (one batched forward), counted {launches}')
+    # against the untiled forward
+    net = SwinIR(**inference_swinir.TASKS['classical_sr'])
+    net.load_state_dict(inference_swinir.load_state_dict(WEIGHTS), strict=True)
+    net.cuda().eval()
+    x = torch.from_numpy(np.ascontiguousarray(
+        img[..., ::-1].astype(np.float32).transpose(2, 0, 1) / 255.))[None].cuda()
+    apply = inference_swinir.build_apply(net, SCALE, 8, TILE, TILE_PAD)
+    tiled_ms = once_ms(lambda: apply(x))
+    tiled = apply(x).clamp(0, 1)
+    with torch.inference_mode():
+        whole = net(x).clamp(0, 1)
+        whole_ms = once_ms(lambda: net(x))
+    written = torch.from_numpy(np.ascontiguousarray(saved[..., ::-1].transpose(2, 0, 1))).cuda()
+    if ((tiled[0] * 255).round() - written.float()).abs().max().item() > 1:
+        fail('the written image is not the tiled forward')
+    err = (tiled - whole).abs()
+    print(f'SwinIR-M x4 LQ {TILED_LQ}x{TILED_LQ}: tiled {tiled_ms:.1f} ms, untiled {whole_ms:.1f} '
+          f'ms; tiled against untiled on [0, 1]: max {err.max().item():.3e}, mean '
+          f'{err.mean().item():.3e} (a tile sees {TILE_PAD} pixels of halo, not the image: '
+          f'tolerance {TILE_APPROX_TOLERANCE})')
+    if not err.max().item() < TILE_APPROX_TOLERANCE:
+        fail('tiled SwinIR is too far from the untiled forward')
+    del net, tiled, whole
+    # MSRResNet: 34 convolutions at LQ size, one at 2x, two at 4x: a receptive
+    # field of 36 LQ pixels each way, covered by a pad of 40
+    net_opt = dict(yaml_load(MS_CONFIG)['network_g'])
+    net_opt.pop('type')
+    net = MSRResNet(**net_opt)
+    net.load_state_dict(torch.load(yaml_load(MS_CONFIG)['path']['pretrain_network_g'],
+                                   weights_only=True)['params'])
+    net.cuda().eval()
+
+    def forward(v):
+        with torch.inference_mode():
+            return net(v)
+
+    whole = forward(x)
+    tiled = tiled_apply(forward, x, SCALE, TILE, 40)
+    ok, max_abs, max_rel, tolerance = compare(tiled, whole, torch.float32, 'elementwise')
+    print(f'MSRResNet x4 LQ {TILED_LQ}x{TILED_LQ}, tile {TILE}, pad 40: tiled against untiled '
+          f'max_abs_err={max_abs:.3e} ({tolerance}); tiled '
+          f'{once_ms(lambda: tiled_apply(forward, x, SCALE, TILE, 40)):.1f} ms, untiled '
+          f'{once_ms(lambda: forward(x)):.1f} ms')
+    if not ok:
+        fail('tiled MSRResNet differs from the untiled forward')
+    return launches
+
+
+def train_joint(split_step_ms):
+    import glob
+    import shutil
+
+    from basicsr4rs_torch.archs.swinir_arch import SwinIR
+    from basicsr4rs_torch.utils.options import yaml_load
+    phase(f'21. train SwinIR-M x4 for {JOINT_TRAIN_ITERS} steps with SWIN_JOINT_TRAIN=1 (the '
+          'joint kernel and its recomputing backward)')
+    opt = yaml_load(TRAIN_CONFIG)
+    blocks = sum(opt['network_g']['depths'])
+    name = opt['name'] + '_joint'
+    for old in glob.glob(os.path.join('experiments', name) + '*'):
+        shutil.rmtree(old)
+    wrappers = training_kernels()
+    for w in wrappers.values():
+        w.launches = 0
+    record = {'steps': []}
+    os.environ['SWIN_JOINT_TRAIN'] = '1'
+    try:
+        run_train_pipeline(['--force_yml', f'name={name}', f'train:total_iter={JOINT_TRAIN_ITERS}'],
+                           record)
+        torch.cuda.synchronize()
+        launches = {k: w.launches for k, w in wrappers.items()}
+        # one training batch: the joint route's gradients against the split route's
+        net_opt = dict(opt['network_g'])
+        net_opt.pop('type')
+        net = SwinIR(**net_opt, generator=torch.Generator().manual_seed(0)).cuda().train()
+        gen = torch.Generator().manual_seed(2)
+        lq = torch.rand(4, 3, 48, 48, generator=gen).cuda()
+        gt = torch.rand(4, 3, 192, 192, generator=gen).cuda()
+
+        def loss_and_grads():
+            net.seed_drop_path(123, 'cuda')   # the same DropPath masks in both runs
+            net.zero_grad(set_to_none=True)
+            loss = (net(lq) - gt).abs().mean()
+            loss.backward()
+            return loss.item(), {k: p.grad.clone() for k, p in net.named_parameters()}
+
+        loss_j, grads_j = loss_and_grads()
+        os.environ['SWIN_JOINT_TRAIN'] = '0'
+        loss_s, grads_s = loss_and_grads()
+    finally:
+        os.environ.pop('SWIN_JOINT_TRAIN')
+    expected = {'swin_block_joint_fwd': blocks, 'swin_attn_block_fwd': blocks,
+                'swin_attn_block_bwd': blocks, 'mlp_block_fwd': 0, 'mlp_block_bwd': blocks}
+    for st in record['steps']:
+        print(f'step {st["iter"]}: {st["ms"]:.3f} ms, l_pix {st["l_pix"]:.6f}, launches '
+              + ' '.join(f'{k}={v}' for k, v in st['launches'].items()))
+        if st['launches'] != expected or not torch.isfinite(torch.tensor(st['l_pix'])):
+            fail(f'step {st["iter"]}: launches {st["launches"]}, expected {expected}')
+    if [st['iter'] for st in record['steps']] != list(range(1, JOINT_TRAIN_ITERS + 1)):
+        fail(f'ran steps {[st["iter"] for st in record["steps"]]}')
+    timed = [st['ms'] for st in record['steps'][2:]]
+    print(f'training step on the joint route: {sum(timed) / len(timed):.3f} ms mean of steps '
+          f'3..{JOINT_TRAIN_ITERS}; on the split route (phase 6) {split_step_ms:.3f} ms')
+    compare_gradients('SwinIR joint route vs split route', loss_j, grads_j, loss_s, grads_s)
+    return launches
+
+
 KERNELS = [
     ('swin_block_joint_fwd', 'basicsr4rs_tpu/ops/swin_block.py:287'),
     ('swin_attn_block_fwd', 'basicsr4rs_tpu/ops/swin_block.py:244'),
@@ -1874,6 +2491,8 @@ KERNELS = [
     ('window_attention_bwd', 'basicsr4rs_tpu/ops/window_attention.py:227'),
     ('deform_sample_fwd', 'basicsr4rs_tpu/ops/dcn.py:174'),
     ('deform_sample_bwd', 'basicsr4rs_tpu/ops/dcn.py:224'),
+    ('conv3x3_fwd', 'basicsr4rs_tpu/ops/conv3x3.py:47'),
+    ('swin_block_joint_int8_fwd', 'basicsr4rs_tpu/ops/swin_block.py:354'),
 ]
 
 
@@ -1886,10 +2505,23 @@ def main():
     card = card_info()
     rs_batch = resshift_options(RS_TRAIN_CONFIG)[0]['datasets']['train']['batch_size_per_gpu']
     build_kernels()
+    if sys.argv[1:] == ['serving']:   # development: the serving modes' kernels and paths alone
+        print(json.dumps({**check_conv_kernel(), **check_int8_block_kernel()}))
+        serve()
+        write_train_inputs()
+        model, loader, _, _ = serve_fused_conv()
+        serve_int8(model, loader)
+        del model
+        serve_and_train_msrresnet()
+        serve_tiled()
+        train_joint(float('nan'))
+        return
     kernels = {'swin_block_joint_fwd': check_joint_kernel()}
     kernels.update(check_branch_kernels())
     kernels.update(check_attention_kernels(rs_batch))
     kernels.update(check_deform_kernels())
+    kernels.update(check_conv_kernel())
+    kernels.update(check_int8_block_kernel())
     if sys.argv[1:] == ['kernels']:   # development: the kernel phases alone
         print(json.dumps(kernels))
         return
@@ -1898,7 +2530,7 @@ def main():
     model, loader, serve_launches = serve()
     check_whole_model(model, loader)
     del model
-    train_launches, _, _ = train()
+    train_launches, split_step_ms, _ = train()
     check_model_gradients()
     # SwinIR's paths: the serving run plus the training run (its validations
     # go through the joint kernel)
@@ -1916,9 +2548,19 @@ def main():
         check_video_gradients(name, 13 + 3 * i)
         launches['deform_sample_fwd'] += served + trained['deform_sample_fwd']
         launches['deform_sample_bwd'] += trained['deform_sample_bwd']
+    # the serving modes of the image-SR path, and the joint training route
+    model, loader, conv_launches, k1_fused = serve_fused_conv()
+    launches['conv3x3_fwd'] = conv_launches
+    launches['swin_block_joint_int8_fwd'] = serve_int8(model, loader)
+    del model
+    serve_and_train_msrresnet()
+    launches['swin_block_joint_fwd'] += k1_fused + serve_tiled()
+    for name, count in train_joint(split_step_ms).items():
+        launches[name] += count
     for name, count in launches.items():
         if count == 0:
             fail(f'{name} was never launched on the main paths')
+    print(f'total {time.perf_counter() - T0:.1f} s')
     print(card)
     print(json.dumps({'kernels': [{
         'name': name, 'route': 'cuda', 'source': f'basicsr4rs_torch/csrc/{name}.cu',
@@ -1926,7 +2568,7 @@ def main():
         'max_abs_err': kernels[name]['max_abs_err'], 'ms': kernels[name]['ms'],
         'plain_ms': kernels[name]['plain_ms'], 'bound_ms': kernels[name]['bound_ms'],
         'bound_by': kernels[name]['bound_by'], 'library_ms': kernels[name].get('library_ms'),
-        **({'one_tap': kernels[name]['one_tap']} if 'one_tap' in kernels[name] else {})}
+        **{k: kernels[name][k] for k in ('one_tap', 'k1_ms') if k in kernels[name]}}
         for name, replaces in KERNELS]}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                              'kind': torch.cuda.get_device_name(0),

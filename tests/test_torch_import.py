@@ -21,8 +21,8 @@ def port_modules():
 
 
 def test_port_imports_without_jax():
-    """Every module of the port (the diffusion and video slices' among them)
-    imports with JAX and the JAX package blocked, and none of them is in
+    """Every module of the port (the diffusion, video and serving-mode
+    slices' among them) imports with JAX and the JAX package blocked, and none of them is in
     ``sys.modules`` afterwards."""
     modules = port_modules()
     for expected in ('basicsr4rs_torch.ops.window_attention', 'basicsr4rs_torch.archs.unet_arch',
@@ -37,7 +37,10 @@ def test_port_imports_without_jax():
                      'basicsr4rs_torch.data.video_test_dataset',
                      'basicsr4rs_torch.data.reds_dataset',
                      'basicsr4rs_torch.models.video_base_model',
-                     'basicsr4rs_torch.models.video_recurrent_model'):
+                     'basicsr4rs_torch.models.video_recurrent_model',
+                     'basicsr4rs_torch.ops.conv3x3', 'basicsr4rs_torch.ops.quant',
+                     'basicsr4rs_torch.ops.tile', 'basicsr4rs_torch.archs.srresnet_arch',
+                     'basicsr4rs_torch.inference.inference_swinir'):
         assert expected in modules
     code = ('import importlib, sys\n'
             f'for name in {BLOCKED!r}:\n'

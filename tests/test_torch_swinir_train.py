@@ -191,3 +191,112 @@ def test_training_forward_after_an_inference_mode_forward():
 def test_dropout_inside_the_block_is_refused(option):
     with pytest.raises(NotImplementedError, match='drop_rate'):
         port_arch.SwinIR(**_config(8), **{option: 0.1})
+
+
+# ------------------------------------------------- SWIN_JOINT_TRAIN=1: the joint VJP
+def _model_grads(net, lq, gt, scales=None):
+    net.zero_grad(set_to_none=True)
+    if scales is not None:      # the same DropPath scales in every block and every run
+        for m in net.modules():
+            if isinstance(m, port_arch.SwinTransformerBlock):
+                m.drop_path_scales = lambda batch, device: scales
+    loss = (net(lq) - gt).abs().mean()
+    loss.backward()
+    return loss.item(), {k: p.grad.clone() for k, p in net.named_parameters()}
+
+
+@pytest.mark.parametrize('scaled', [False, True], ids=['residual', 'drop_path_scales'])
+def test_joint_train_gradients_match_the_split_route(monkeypatch, scaled):
+    """With ``SWIN_JOINT_TRAIN=1`` a training block is one call of
+    ``fused_swin_block_full`` whose backward recomputes y and runs the MLP's
+    and the attention branch's backward with the residual (or DropPath's
+    scale) folded: the same loss and gradients as the split pair, to 1e-6 of
+    each gradient's largest entry (the same arithmetic, y recomputed), and
+    one joint forward, one attention forward, one MLP backward and one
+    attention backward per block, no MLP forward."""
+    cfg = _config(8, drop_path_rate=0.2 if scaled else 0.)
+    net = port_arch.SwinIR(**cfg, generator=torch.Generator().manual_seed(3)).train()
+    rng = np.random.RandomState(4)
+    lq = torch.from_numpy(rng.rand(2, 3, SIZE, SIZE).astype(np.float32))
+    gt = torch.from_numpy(rng.rand(2, 3, 2 * SIZE, 2 * SIZE).astype(np.float32))
+    scales = (torch.tensor([1.25, 0.]), torch.tensor([0., 1.25])) if scaled else None
+    monkeypatch.delenv('SWIN_JOINT_TRAIN', raising=False)
+    assert not port_swin.joint_train_enabled()
+    split_loss, split = _model_grads(net, lq, gt, scales)
+
+    monkeypatch.setenv('SWIN_JOINT_TRAIN', '1')
+    assert port_swin.joint_train_enabled()
+    calls = {name: 0 for name in ('swin_block_full_forward', 'swin_attn_block_forward',
+                                  'swin_attn_block_backward', 'mlp_block_backward')}
+
+    def counted(name):
+        real = getattr(port_swin, name)
+
+        def wrapper(*a, **k):
+            calls[name] += 1
+            return real(*a, **k)
+        return wrapper
+
+    for name in calls:
+        monkeypatch.setattr(port_swin, name, counted(name))
+    mlp_forward = []
+    monkeypatch.setattr(port_mlp, 'mlp_block_forward',
+                        lambda *a, **k: mlp_forward.append(1))
+    joint_loss, joint = _model_grads(net, lq, gt, scales)
+    assert calls == dict.fromkeys(calls, 4) and not mlp_forward
+    assert joint_loss == pytest.approx(split_loss, rel=1e-6)
+    for key, grad in split.items():
+        assert np.abs(joint[key].numpy() - grad.numpy()).max() <= 1e-6 * grad.abs().max() + 1e-12, key
+
+
+def test_joint_train_gradients_match_jax_joint_vjp(monkeypatch):
+    """The same network under ``SWIN_JOINT_TRAIN=1`` in both packages, the
+    JAX one with every fused site on its Pallas kernel (``force_interpret``):
+    loss to 1e-5, every gradient to atol 2e-5 + rtol 2e-3, the bound of the
+    split route's test above."""
+    monkeypatch.setenv('SWIN_JOINT_TRAIN', '1')
+    cfg = _config(8)
+    jnet = jax_arch.SwinIR(**cfg)
+    params = jax.jit(jnet.init)(jax.random.PRNGKey(0), jnp.zeros((1, SIZE, SIZE, 3)))['params']
+    params = _randomize(jax.tree_util.tree_map(np.asarray, jax.device_get(params)),
+                        np.random.RandomState(5))
+    rng = np.random.RandomState(6)
+    lq = rng.rand(2, 3, SIZE, SIZE).astype(np.float32)
+    gt = rng.rand(2, 3, 2 * SIZE, 2 * SIZE).astype(np.float32)
+
+    def jax_loss(p):
+        out = jnet.apply({'params': p}, jnp.asarray(lq.transpose(0, 2, 3, 1)),
+                         deterministic=False, rngs={'dropout': jax.random.PRNGKey(0)})
+        return jnp.abs(out - jnp.asarray(gt.transpose(0, 2, 3, 1))).mean()
+
+    with dispatch.force_interpret():
+        want_loss, want = jax.jit(jax.value_and_grad(jax_loss))(params)
+    want = grads_to_state_dict(want)
+    net = port_arch.SwinIR(**cfg).train()
+    net.load_state_dict(jax_params_to_state_dict(params, port_arch.SwinIR.JAX_KEY_RULES))
+    joint = []
+    real = port_swin.swin_block_full_forward
+    monkeypatch.setattr(port_swin, 'swin_block_full_forward',
+                        lambda *a, **k: joint.append(1) or real(*a, **k))
+    loss, got = _model_grads(net, torch.from_numpy(lq), torch.from_numpy(gt))
+    assert len(joint) == 4
+    assert loss == pytest.approx(float(want_loss), rel=1e-5)
+    for key, grad in got.items():
+        np.testing.assert_allclose(grad.numpy(), want[key].numpy(), atol=2e-5, rtol=2e-3,
+                                   err_msg=key)
+
+
+def test_joint_block_scales_match_jax_kernel():
+    """K1 with per-sample scales: the port's joint block with (s1, s2)
+    against the JAX kernel in interpret mode with ``residual_scales``; atol
+    5e-5, rtol 1e-4, the bound of the unscaled block's test."""
+    from basicsr4rs_tpu.ops import swin_block as jax_swin
+    from test_torch_swin_block import HEADS, SCALE, _case, _jax_args, _port_args
+    case = _case(8, True, seed=31)
+    s1, s2 = np.array([0., 1.25], np.float32), np.array([1.25, 0.5], np.float32)
+    got = port_swin.fused_swin_block_full(
+        *_port_args(case), 8, HEADS, SCALE,
+        residual_scales=(torch.from_numpy(s1), torch.from_numpy(s2))).numpy()
+    want = jax_swin.fused_swin_block_full(*_jax_args(case), 8, HEADS, SCALE, interpret=True,
+                                          residual_scales=(jnp.asarray(s1), jnp.asarray(s2)))
+    np.testing.assert_allclose(got, np.asarray(want), atol=5e-5, rtol=1e-4)
