@@ -89,6 +89,11 @@ struct JointParams {
   const float* sproj;
   const float* sw1;
   const float* sw2;
+  // what the int8 kernel quantised, for checks; both null in serving.
+  // quant_q: the int8 inputs of qkv, proj, fc1 (B, H, W, C each) and fc2
+  // (B, H, W, hidden), one after the other; quant_s: their scales, (4, windows)
+  int8_t* quant_q;
+  float* quant_s;
 };
 
 template <typename T, bool kInt8>
@@ -128,6 +133,17 @@ __global__ void __launch_bounds__(kThreads) swin_block_joint_kernel(const JointP
   auto offset = [&](int t) {
     return ((static_cast<size_t>(img) * H + row0 + t / ws) * W + col0 + t % ws) * C;
   };
+  // product `stage` (0 qkv, 1 proj, 2 fc1, 3 fc2) read the `rows` features in Q at scale s
+  auto keep_quantised = [&](int stage, int rows, float s) {
+    if (p.quant_q == nullptr) return;
+    int8_t* dst = p.quant_q + static_cast<size_t>(stage) * p.batch * H * W * C;
+    for (int e = threadIdx.x; e < n * rows; e += kThreads) {
+      const int t = e / rows, r = e % rows;
+      const int word = Q[(r >> 2) * kLd + t];
+      dst[offset(t) / C * rows + r] = static_cast<int8_t>((word >> (8 * (r & 3))) & 0xff);
+    }
+    if (threadIdx.x == 0) p.quant_s[stage * gridDim.x + blockIdx.x] = s;
+  };
 
   for (int e = threadIdx.x; e < kTok * C; e += kThreads) {
     const int t = e / C, c = e % C;
@@ -137,7 +153,10 @@ __global__ void __launch_bounds__(kThreads) swin_block_joint_kernel(const JointP
   layer_norm<LnT>(X, XN, C, p.ln1_w, p.ln1_b);
   __syncthreads();
   float sx = 0.f;
-  if constexpr (kInt8) sx = quantize_tile(XN, C, Cp, n, Q, red);
+  if constexpr (kInt8) {
+    sx = quantize_tile(XN, C, Cp, n, Q, red);
+    keep_quantised(0, C, sx);
+  }
 
   for (int h = 0; h < heads; ++h) {
     if constexpr (kInt8)
@@ -166,6 +185,7 @@ __global__ void __launch_bounds__(kThreads) swin_block_joint_kernel(const JointP
   };
   if constexpr (kInt8) {
     const float sa = quantize_tile(AO, C, Cp, n, Q, red);
+    keep_quantised(1, C, sa);
     const int8_t* wproj = static_cast<const int8_t*>(p.wproj);
     gemm_w_i8(
         Q, Cp, C, [&](int o) { return wproj + static_cast<size_t>(o) * Cp; },
@@ -184,6 +204,7 @@ __global__ void __launch_bounds__(kThreads) swin_block_joint_kernel(const JointP
   if constexpr (kInt8) {
     __syncthreads();
     const float sy = quantize_tile(XN, C, Cp, n, Q, red);
+    keep_quantised(2, C, sy);
     float* HF = XN;  // the whole GELU output: hidden rows over XN, AO and the scratch
     const int8_t* w1 = static_cast<const int8_t*>(p.w1);
     const int8_t* w2 = static_cast<const int8_t*>(p.w2);
@@ -196,6 +217,7 @@ __global__ void __launch_bounds__(kThreads) swin_block_joint_kernel(const JointP
         }, stages8);
     __syncthreads();
     const float sh = quantize_tile(HF, hidden, Hp, n, Q, red);
+    keep_quantised(3, hidden, sh);
     // out = y + (mlp + b2), in place
     gemm_w_i8(
         Q, Hp, C, [&](int o) { return w2 + static_cast<size_t>(o) * Hp; },

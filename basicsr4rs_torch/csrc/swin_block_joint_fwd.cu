@@ -39,7 +39,7 @@ int swin_block_joint_fwd(int dtype, const void* x, void* out, int batch, int hei
   const swin::JointParams p{x,     out,   batch, height, width, channels, heads,    window,
                             hidden, ln1_w, ln1_b, wqkv,  bqkv,  wproj,    bproj,    rel_bias,
                             mask,  ln2_w, ln2_b, w1,     b1,    w2,       b2,       scale,
-                            s1,    s2,    nullptr, nullptr, nullptr, nullptr};
+                            s1,    s2,    nullptr, nullptr, nullptr, nullptr, nullptr, nullptr};
   return swin::launch_joint<false>(dtype, p, stream);
 }
 

@@ -28,8 +28,9 @@ size_t swin_block_joint_int8_fwd_smem_bytes(int channels, int heads, int hidden)
 
 // dtype of x and out: 0 float32, 1 bfloat16. wqkv, wproj, w1: int8 rows of
 // round_up16(channels) values; w2: int8 rows of round_up16(hidden) values;
-// sqkv, sproj, sw1, sw2: one float32 scale per row. Returns the cudaError_t
-// of the launch (0 on success).
+// sqkv, sproj, sw1, sw2: one float32 scale per row. quant_q, quant_s: null,
+// or where the kernel also writes what it quantised (JointParams). Returns
+// the cudaError_t of the launch (0 on success).
 int swin_block_joint_int8_fwd(int dtype, const void* x, void* out, int batch, int height,
                               int width, int channels, int heads, int window, int hidden,
                               const float* ln1_w, const float* ln1_b, const void* wqkv,
@@ -37,11 +38,13 @@ int swin_block_joint_int8_fwd(int dtype, const void* x, void* out, int batch, in
                               const float* sproj, const float* bproj, const float* rel_bias,
                               const float* mask, const float* ln2_w, const float* ln2_b,
                               const void* w1, const float* sw1, const float* b1, const void* w2,
-                              const float* sw2, const float* b2, float scale, void* stream) {
+                              const float* sw2, const float* b2, float scale, void* quant_q,
+                              float* quant_s, void* stream) {
   const swin::JointParams p{x,     out,   batch, height, width, channels, heads,    window,
                             hidden, ln1_w, ln1_b, wqkv,  bqkv,  wproj,    bproj,    rel_bias,
                             mask,  ln2_w, ln2_b, w1,     b1,    w2,       b2,       scale,
-                            nullptr, nullptr, sqkv, sproj, sw1, sw2};
+                            nullptr, nullptr, sqkv, sproj, sw1, sw2,
+                            static_cast<int8_t*>(quant_q), quant_s};
   return swin::launch_joint<true>(dtype, p, stream);
 }
 

@@ -312,23 +312,32 @@ def quantized_block_weights(qkv_weight, proj_weight, fc1_weight, fc2_weight):
 
 
 def _quantize_windows(v, window_size: int):
-    """The float32 map v (B, H, W, K) as integers in float32, quantised with
-    one dynamic scale per window: (q, s), q (B, H/ws, ws, W/ws, ws, K) and s
-    broadcasting against it. ``s = max(absmax, 1e-12) * (1 / 127)`` and
-    ``q = clip(round(v * (1 / s)))``, as the kernel computes them."""
+    """The float32 map v (B, H, W, K) quantised with one dynamic scale per
+    window: (q, s, r), all float32; r = v * (1 / s) before rounding and
+    q = clip(round(r)), both (B, H/ws, ws, W/ws, ws, K); s =
+    max(absmax, 1e-12) * (1 / 127), broadcasting against them, as the kernel
+    computes them."""
     b, h, w, k = v.shape
     ws = window_size
     t = v.reshape(b, h // ws, ws, w // ws, ws, k)
     s = t.abs().amax(dim=(2, 4, 5), keepdim=True).clamp_min(1e-12) * (1. / 127.)
-    return torch.clamp(torch.round(t * (1. / s)), -127., 127.), s
+    r = t * (1. / s)
+    return torch.clamp(torch.round(r), -127., 127.), s, r
 
 
-def _int8_linear(v, wq, sw, bias, window_size: int):
+def _int8_linear(v, wq, sw, bias, window_size: int, given=None, quantised=None):
     """``acc * (s_x * s_w) + bias`` of the window-quantised v against int8
     rows ``wq`` with scales ``sw``; the sum is exact (float32 holds
-    K * 127^2 up to K = 1040, float64 beyond)."""
+    K * 127^2 up to K = 1040, float64 beyond). ``quantised``: a list that
+    receives (q int8 (B, H, W, K), s (B, H/ws, W/ws), r) of this v; ``given``:
+    a (q, s) of those shapes that the product uses in place of its own."""
     k = v.shape[-1]
-    q, s = _quantize_windows(v, window_size)
+    q, s, r = _quantize_windows(v, window_size)
+    if quantised is not None:
+        quantised.append((q.reshape(v.shape).to(torch.int8), s[:, :, 0, :, 0, 0],
+                          r.reshape(v.shape)))
+    if given is not None:
+        q, s = given[0].reshape(q.shape).float(), given[1].reshape(s.shape)
     exact = torch.float32 if k * 127 * 127 < 2**24 else torch.float64
     acc = (q.to(exact) @ wq[:, :k].to(exact).t()).float()
     return (acc * (s * sw) + bias.float()).reshape(*v.shape[:-1], wq.shape[0])
@@ -337,27 +346,35 @@ def _int8_linear(v, wq, sw, bias, window_size: int):
 def reference_swin_block_full_int8(x, ln1_weight, ln1_bias, qkv_weight, qkv_bias,
                                    proj_weight, proj_bias, rel_bias, mask, ln2_weight,
                                    ln2_bias, fc1_weight, fc1_bias, fc2_weight, fc2_bias,
-                                   window_size: int, num_heads: int, scale: float):
+                                   window_size: int, num_heads: int, scale: float,
+                                   quantised=None, given=None):
     """The plain PyTorch version of ``swin_block_full_int8``: the same
     quantisation (per output row for weights, per window for the activation
     entering each of the four products), exact integer sums, float32
-    elsewhere."""
+    elsewhere.
+
+    ``quantised``: a list that receives, for qkv, proj, fc1 and fc2 in turn,
+    (q, s, r): the int8 input (B, H, W, K) of the product, its scales
+    (B, H/ws, W/ws) and the unrounded r = v / s that q was rounded from.
+    ``given``: four (q, s) that the products use in place of their own, so
+    that each r is what this version finds downstream of another's integers."""
     dt, ws = x.dtype, window_size
     qkv_q, qkv_s, proj_q, proj_s, fc1_q, fc1_s, fc2_q, fc2_s = quantized_block_weights(
         qkv_weight, proj_weight, fc1_weight, fc2_weight)
+    g = given if given is not None else (None,) * 4
     xn = layer_norm_f32(x, ln1_weight, ln1_bias)
-    qkv = _int8_linear(xn, qkv_q, qkv_s, qkv_bias, ws).to(dt)
+    qkv = _int8_linear(xn, qkv_q, qkv_s, qkv_bias, ws, g[0], quantised).to(dt)
     a = reference_window_attention(qkv, _attention_bias(rel_bias, mask), ws, num_heads, scale)
-    y = _int8_linear(a.float(), proj_q, proj_s, proj_bias, ws) + x.float()
+    y = _int8_linear(a.float(), proj_q, proj_s, proj_bias, ws, g[1], quantised) + x.float()
     hidden = F.gelu(_int8_linear(layer_norm_f32(y, ln2_weight, ln2_bias), fc1_q, fc1_s,
-                                 fc1_bias, ws))
-    return (_int8_linear(hidden, fc2_q, fc2_s, fc2_bias, ws) + y).to(dt)
+                                 fc1_bias, ws, g[2], quantised))
+    return (_int8_linear(hidden, fc2_q, fc2_s, fc2_bias, ws, g[3], quantised) + y).to(dt)
 
 
 def swin_block_full_int8(x, ln1_weight, ln1_bias, qkv_weight, qkv_bias,
                          proj_weight, proj_bias, rel_bias, mask, ln2_weight,
                          ln2_bias, fc1_weight, fc1_bias, fc2_weight, fc2_bias,
-                         window_size: int, num_heads: int, scale: float):
+                         window_size: int, num_heads: int, scale: float, quantised=None):
     """The whole Swin block with qkv, proj, fc1 and fc2 as int8 x int8 ->
     int32 products, for x (B, H, W, C) already rolled, in one kernel launch
     (``swin_block_full_int8.launches``); serving only, it raises when
@@ -370,7 +387,11 @@ def swin_block_full_int8(x, ln1_weight, ln1_bias, qkv_weight, qkv_bias,
     the tile this kernel holds; the JAX kernel's tile is a row of windows
     sized for its memory, so the two agree in kind, not number by number.
     Dequantised as ``acc * (s_x * s_w[col]) + bias`` in float32; LayerNorm,
-    softmax, GELU, the residuals and q.k / p.v are as in the float block."""
+    softmax, GELU, the residuals and q.k / p.v are as in the float block.
+
+    ``quantised``: for checks, a list that receives what the same launch
+    quantised: for qkv, proj, fc1 and fc2 in turn (q, s), the product's int8
+    input (B, H, W, K) and its scales (B, H/ws, W/ws)."""
     args = (x, ln1_weight, ln1_bias, qkv_weight, qkv_bias, proj_weight, proj_bias,
             rel_bias, mask, ln2_weight, ln2_bias, fc1_weight, fc1_bias, fc2_weight,
             fc2_bias, window_size, num_heads, scale)
@@ -379,10 +400,14 @@ def swin_block_full_int8(x, ln1_weight, ln1_bias, qkv_weight, qkv_bias,
         raise NotImplementedError('swin_block_full_int8: the int8 block has no backward; '
                                   'run it under torch.no_grad()')
     if x.device.type == 'cpu':
-        return reference_swin_block_full_int8(*args)
+        own = None if quantised is None else []
+        out = reference_swin_block_full_int8(*args, quantised=own)
+        if own is not None:
+            quantised.extend((q, s) for q, s, _ in own)
+        return out
     if x.device.type != 'cuda':
         raise ValueError(f'swin_block_full_int8: no kernel for device {x.device}')
-    out = _launch_joint_int8(*args)
+    out = _launch_joint_int8(*args, quantised)
     swin_block_full_int8.launches += 1
     return out
 
@@ -394,7 +419,7 @@ swin_block_full_int8.launches = 0
 _SIGNATURES = {
     # after (dtype, x, out) / (dtype, x, dz, dx): ints, pointers, ...
     'swin_block_joint_fwd': lambda p, i, f: [i, p, p] + [i] * 7 + [p] * 16 + [f, p],
-    'swin_block_joint_int8_fwd': lambda p, i, f: [i, p, p] + [i] * 7 + [p] * 18 + [f, p],
+    'swin_block_joint_int8_fwd': lambda p, i, f: [i, p, p] + [i] * 7 + [p] * 18 + [f, p, p, p],
     'swin_attn_block_fwd': lambda p, i, f: [i, p, p] + [i] * 6 + [p] * 8 + [i, p, f, p],
     'swin_attn_block_bwd': lambda p, i, f: [i, p, p, p] + [i] * 6 + [p] * 7 + [i, p, f, p, p],
 }
@@ -488,7 +513,8 @@ def _launch_joint(x, ln1_weight, ln1_bias, qkv_weight, qkv_bias, proj_weight, pr
 
 def _launch_joint_int8(x, ln1_weight, ln1_bias, qkv_weight, qkv_bias, proj_weight, proj_bias,
                        rel_bias, mask: Optional[torch.Tensor], ln2_weight, ln2_bias, fc1_weight,
-                       fc1_bias, fc2_weight, fc2_bias, window_size, num_heads, scale):
+                       fc1_bias, fc2_weight, fc2_bias, window_size, num_heads, scale,
+                       quantised=None):
     op = 'swin_block_joint_int8_fwd'
     (ln1_weight, ln1_bias, _, qkv_bias, _, proj_bias, rel_bias, mask, ln2_weight, ln2_bias, _,
      fc1_bias, _, fc2_bias) = _joint_operands(
@@ -505,12 +531,19 @@ def _launch_joint_int8(x, ln1_weight, ln1_bias, qkv_weight, qkv_bias, proj_weigh
     _launch.check_shared_memory(lib.swin_block_joint_int8_fwd_smem_bytes(c, num_heads, hidden),
                                 x.device, op)
     out = torch.empty_like(x)
+    quant_q = quant_s = None
+    if quantised is not None:
+        windows = (b, h // window_size, w // window_size)
+        quant_q = torch.empty(b * h * w * (3 * c + hidden), dtype=torch.int8, device=x.device)
+        quant_s = torch.empty(4, *windows, device=x.device)
+        parts = quant_q.split([b * h * w * k for k in (c, c, c, hidden)])
+        quantised.extend((q.view(b, h, w, -1), s) for q, s in zip(parts, quant_s))
     if x.numel() == 0:
         return out
     rc = lib.swin_block_joint_int8_fwd(
         _launch.DTYPES[x.dtype], x.data_ptr(), out.data_ptr(), b, h, w, c, num_heads,
         window_size, hidden, *_launch.pointers(ops), float(scale),
-        _launch.current_stream(x.device))
+        *_launch.pointers([quant_q, quant_s]), _launch.current_stream(x.device))
     _launch.check_rc(rc, lib, op)
     return out
 

@@ -348,6 +348,38 @@ def test_int8_block_tile_is_one_window():
     assert torch.equal(moved[:, 8:], base[:, 8:]) and torch.equal(moved[:, :8, 8:], base[:, :8, 8:])
 
 
+@pytest.mark.parametrize('shifted', [False, True], ids=['no_shift', 'shift_mask'])
+def test_int8_block_reports_and_takes_quantised_inputs(shifted):
+    """``quantised`` receives the int8 input and the window scales of qkv,
+    proj, fc1 and fc2; the plain version given them back repeats its output
+    bit for bit and finds the same integers; given one of fc2's integers
+    moved by a step, it answers differently at that token only, while its
+    own rounding of what it sees still names the unmoved integer."""
+    case = _case(8, shifted, seed=25)
+    args = _port_args(case) + [8, HEADS, SCALE]
+    rec = []
+    out = port_block.swin_block_full_int8(*args, quantised=rec)
+    b, h, w, c = args[0].shape
+    hidden = args[11].shape[0]
+    assert [tuple(q.shape) for q, _ in rec] == [(b, h, w, k) for k in (c, c, c, hidden)]
+    assert all(q.dtype == torch.int8 and s.shape == (b, h // 8, w // 8) for q, s in rec)
+    assert all(int(q.abs().max()) == 127 for q, _ in rec)
+    assert torch.equal(out, port_block.swin_block_full_int8(*args))
+    again = []
+    forced = port_block.reference_swin_block_full_int8(*args, given=rec, quantised=again)
+    assert torch.equal(forced, out)
+    for (q, s), (q2, s2, r) in zip(rec, again):
+        assert torch.equal(q, q2) and torch.equal(s, s2)
+        assert torch.equal(torch.clamp(torch.round(r), -127, 127).to(torch.int8), q)
+    moved = [(q.clone(), s) for q, s in rec]
+    moved[3][0][0, 1, 2, 3] += 1 if moved[3][0][0, 1, 2, 3] < 127 else -1
+    again = []
+    other = port_block.reference_swin_block_full_int8(*args, given=moved, quantised=again)
+    differs = (other != out).any(-1)
+    assert differs[0, 1, 2] and differs.sum() == 1
+    assert torch.equal(again[3][0], rec[3][0])
+
+
 def test_int8_block_weights_are_quantised_once_until_they_change():
     case = _case(8, False, seed=23)
     args = [None if t is None else t.clone() for t in _port_args(case)]
