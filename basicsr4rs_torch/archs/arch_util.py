@@ -12,7 +12,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.conv3x3 import conv_fusion_enabled, fused_conv3x3
-from ..ops.dcn import bilinear_warp
+from ..ops.dcn import bilinear_warp, warp_by_flow
 
 
 def trunc_normal_(tensor: torch.Tensor, std: float = 0.02,
@@ -145,19 +145,23 @@ def flow_warp(x: torch.Tensor, flow: torch.Tensor, interpolation: str = 'bilinea
       flow: (N, H, W, 2), last dimension (dx, dy).
       interpolation: 'bilinear' (the deformable sampler with one tap, a CUDA
         kernel on a card) or 'nearest' (plain indexing, no flow gradient).
-      padding_mode: 'zeros', or 'border' (positions clamped to the map).
+      padding_mode: 'zeros' (the sampler reads the flow through its strides:
+        no grid, no offset tensor), or 'border' (positions clamped to the
+        map first, in PyTorch).
     """
     if padding_mode not in ('zeros', 'border'):
         raise ValueError(f'flow_warp: padding_mode {padding_mode!r} is not supported')
     n, _, h, w = x.shape
     if tuple(flow.shape) != (n, h, w, 2):
         raise ValueError(f'flow_warp: flow must be {(n, h, w, 2)}, got {tuple(flow.shape)}')
+    if interpolation == 'bilinear' and padding_mode == 'zeros':
+        return warp_by_flow(x, flow)   # the kernel reads the flow as it is
     grid_y = torch.arange(h, device=x.device, dtype=flow.dtype).view(1, h, 1)
     grid_x = torch.arange(w, device=x.device, dtype=flow.dtype).view(1, 1, w)
     sx = grid_x + flow[..., 0]
     sy = grid_y + flow[..., 1]
-    if interpolation == 'bilinear':
-        return bilinear_warp(x, sy, sx, border=padding_mode == 'border')
+    if interpolation == 'bilinear':   # 'border': the clamp, with its gradient rule, in PyTorch
+        return bilinear_warp(x, sy, sx, border=True)
     if interpolation != 'nearest':
         raise ValueError(f'flow_warp: interpolation {interpolation!r} is not supported')
     ix, iy = torch.round(sx).long(), torch.round(sy).long()

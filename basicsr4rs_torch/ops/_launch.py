@@ -5,6 +5,7 @@ exception."""
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Sequence
 
 import torch
@@ -71,10 +72,25 @@ def mode_of(add_residual: bool, residual_scale) -> int:
     return MODES['residual'] if add_residual else MODES['branch']
 
 
+_RAW_STREAM = getattr(torch._C, '_cuda_getCurrentRawStream', None)   # CUDA builds only
+
+
 def current_stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw ``cudaStream_t`` of PyTorch's current stream on ``device``,
+    without building a ``torch.cuda.Stream`` object where the build allows."""
+    if _RAW_STREAM is None:
+        return torch.cuda.current_stream(device).cuda_stream
+    return _RAW_STREAM(torch.cuda.current_device() if device.index is None else device.index)
 
 
+def stream_of(t: torch.Tensor) -> int:
+    """``current_stream`` of the CUDA tensor ``t``'s device."""
+    if _RAW_STREAM is None:
+        return current_stream(t.device)
+    return _RAW_STREAM(t.get_device())
+
+
+@functools.lru_cache(maxsize=None)
 def shared_memory_limit(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).shared_memory_per_block_optin
 

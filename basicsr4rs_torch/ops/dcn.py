@@ -18,7 +18,9 @@ group g and tap k = i * kw + j of K = kh * kw.
 - ``modulated_deform_conv`` is the sampler and one (grouped) matrix product
   with the weight, which stays ``torch.matmul``;
 - ``bilinear_warp`` is the sampler with one tap, the whole channel dimension
-  as one deform group: the warped map itself.
+  as one deform group: the warped map itself; ``warp_by_flow`` the same for
+  a flow (N, H, W, 2), which the kernel reads through its strides
+  (``offset_layout``), so ``flow_warp`` builds no grid and no offset.
 
 Every wrapper sends a CUDA tensor to its kernel and a CPU tensor to its plain
 PyTorch version (``reference_*``), and counts its launches in ``.launches``.
@@ -49,6 +51,7 @@ class SampleGeometry(NamedTuple):
     padding: int = 1
     dilation: int = 1
     deform_groups: int = 1
+    flow: bool = False   # the offset is a flow (N, Ho, Wo, 2), last dimension (dx, dy)
 
     def out_size(self, h: int, w: int) -> Tuple[int, int]:
         return ((h + 2 * self.padding - self.dilation * (self.kh - 1) - 1) // self.stride + 1,
@@ -56,6 +59,64 @@ class SampleGeometry(NamedTuple):
 
 
 WARP = SampleGeometry(1, 1, 1, 0, 1, 1)
+FLOW_WARP = WARP._replace(flow=True)
+
+
+class OffsetLayout(NamedTuple):
+    """Where the sampler finds the (dy, dx) pair of sample n, deform group
+    g, tap k and output pixel p = ho * Wo + wo, in float32 elements from the
+    offset's first element: dy at ``start + n * batch + (g * K + k) * tap +
+    p * pixel``, dx ``pair`` elements from it (before it when negative)."""
+    start: int
+    batch: int
+    tap: int
+    pair: int
+    pixel: int
+
+
+def flow_operand(flow: torch.Tensor) -> torch.Tensor:
+    """A flow (N, H, W, 2) as the sampler reads it: itself when it is
+    float32 and its pixels flatten to one stride (a contiguous flow, or
+    ``flow.permute(0, 2, 3, 1)`` of a contiguous (N, 2, H, W) one), else a
+    contiguous float32 copy."""
+    _, h, w, _ = flow.shape
+    if flow.dtype == torch.float32 and (h == 1 or flow.stride(1) == w * flow.stride(2)):
+        return flow
+    return flow.float().contiguous()
+
+
+def offset_layout(offset: torch.Tensor, geo: SampleGeometry) -> OffsetLayout:
+    """The layout of a float32 offset: BasicSR's (N, G * 2K, Ho, Wo),
+    contiguous; or, for ``geo.flow``, a flow (N, Ho, Wo, 2) with last
+    dimension (dx, dy) as ``flow_operand`` gives it, so dy is one channel
+    stride past dx: start s_c, pair -s_c."""
+    return _layout_of(offset.shape, offset.stride(), geo.flow)
+
+
+def _layout_of(shape, stride, flow: bool) -> OffsetLayout:
+    if flow:
+        s_n, _, s_w, s_c = stride
+        return OffsetLayout(s_c, s_n, 0, -s_c, s_w)
+    _, channels, ho, wo = shape
+    p = ho * wo
+    return OffsetLayout(0, channels * p, 2 * p, p, 1)
+
+
+def offset_pairs(offset: torch.Tensor, geo: SampleGeometry) -> torch.Tensor:
+    """BasicSR's offset (N, G * 2K, Ho, Wo) read from ``offset``'s storage
+    through its ``offset_layout``, by ``torch.as_strided`` (the pair
+    dimension flipped where dx comes first): the offset the kernel sees."""
+    layout = offset_layout(offset, geo)
+    n = offset.shape[0]
+    ho, wo = offset.shape[1:3] if geo.flow else offset.shape[2:]
+    pairs = geo.deform_groups * geo.kh * geo.kw
+    view = torch.as_strided(
+        offset, (n, pairs, 2, ho, wo),
+        (layout.batch, layout.tap, abs(layout.pair), wo * layout.pixel, layout.pixel),
+        offset.storage_offset() + layout.start + min(0, layout.pair))
+    if layout.pair < 0:
+        view = view.flip(2)
+    return view.reshape(n, 2 * pairs, ho, wo)
 
 
 # ------------------------------------------------------------ plain versions
@@ -80,7 +141,10 @@ def reference_deform_sample(x: torch.Tensor, offset: torch.Tensor,
     """The plain PyTorch version of ``deform_sample_forward``: four corner
     reads by ``gather``, blended in float32. Differentiable; autograd gives
     the one-sided position gradient at whole positions (the floor has no
-    gradient) and zero outside (-1, H) x (-1, W)."""
+    gradient) and zero outside (-1, H) x (-1, W). A flow (``geo.flow``) is
+    read as the kernel reads it (``offset_pairs``)."""
+    if geo.flow:
+        offset, geo = offset_pairs(flow_operand(offset), geo), geo._replace(flow=False)
     n, c, h, w = x.shape
     ho, wo = offset.shape[-2:]
     dg, k2 = geo.deform_groups, geo.kh * geo.kw
@@ -127,9 +191,9 @@ def reference_deform_sample_backward(x, offset, mask, dcol, geo: SampleGeometry,
 # ------------------------------------------------------------------ wrappers
 def deform_sample_forward(x, offset, mask, geo: SampleGeometry) -> torch.Tensor:
     """The column tensor (N, C, K, Ho, Wo) in one kernel launch; no autograd."""
-    if x.device.type == 'cpu':
-        return reference_deform_sample(x, offset, mask, geo)
-    if x.device.type != 'cuda':
+    if not x.is_cuda:
+        if x.device.type == 'cpu':
+            return reference_deform_sample(x, offset, mask, geo)
         raise ValueError(f'deform_sample_forward: no kernel for device {x.device}')
     col = _launch_forward(x, offset, mask, geo)
     deform_sample_forward.launches += 1
@@ -236,6 +300,39 @@ def bilinear_warp(x: torch.Tensor, py: torch.Tensor, px: torch.Tensor,
     return deform_sample(x, offset, None, WARP).reshape(x.shape)
 
 
+class _FlowWarp(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, flow):
+        x = x if x.is_contiguous() else x.contiguous()
+        ctx.save_for_backward(x, flow)
+        return deform_sample_forward(x, flow, None, FLOW_WARP).view(x.shape)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        x, flow = ctx.saved_tensors
+        need_x, need_flow = ctx.needs_input_grad
+        # K9 takes the offset as a contiguous (N, 2, H, W), built once here
+        offset = offset_pairs(flow_operand(flow), FLOW_WARP).contiguous()
+        dx, doffset, _ = deform_sample_backward(
+            x, offset, None, dout.to(x.dtype).contiguous().unsqueeze(2), WARP, need_dx=need_x,
+            need_doffset=need_flow)
+        dflow = None if doffset is None else doffset.flip(1).permute(0, 2, 3, 1).to(flow.dtype)
+        return dx, dflow
+
+
+def warp_by_flow(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """x (N, C, H, W) sampled bilinearly at (h + dy, w + dx), zero outside
+    the map, for a flow (N, H, W, 2) with last dimension (dx, dy) in pixels:
+    one launch of the sampler, which reads the flow through its strides, so
+    the position is h + dy in one rounding; differentiable in both."""
+    if torch.is_grad_enabled() and (x.requires_grad or flow.requires_grad):
+        return _FlowWarp.apply(x, flow)
+    x = x if x.is_contiguous() else x.contiguous()
+    return deform_sample_forward(x, flow, None, FLOW_WARP).view(x.shape)
+
+
 # --------------------------------------------------------------- the modules
 class ModulatedDeformConvPack(nn.Module):
     """DCNv2 whose offsets and masks come from the same input through
@@ -293,8 +390,9 @@ class DCNv2Pack(ModulatedDeformConvPack):
 @functools.lru_cache(maxsize=None)
 def _lib(op: str) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
-    pointers = 4 if op == 'deform_sample_fwd' else 7
-    return _launch.bind(op, [i] + [p] * pointers + [i] * 12 + [p], None)
+    if op == 'deform_sample_fwd':   # the integers as one array (_forward_dims)
+        return _launch.bind(op, [i] + [p] * 6, None)
+    return _launch.bind(op, [i] + [p] * 7 + [i] * 12 + [p], None)
 
 
 def _check_activation(t, name: str, op: str) -> None:
@@ -307,55 +405,90 @@ def _check_activation(t, name: str, op: str) -> None:
         raise ValueError(f'{op}: {name} must be contiguous')
 
 
-def _check_shapes(op: str, x, offset, mask, geo: SampleGeometry) -> Tuple[int, int]:
-    """Raise unless offset and mask fit x and the geometry; (Ho, Wo)."""
-    if x.dim() != 4 or x.shape[1] % geo.deform_groups:
-        raise ValueError(f'{op}: x {tuple(x.shape)} does not split into '
+@functools.lru_cache(maxsize=256)
+def _plan(op: str, shape, geo: SampleGeometry):
+    """(the kernels' integers, the offset's shape, the mask's shape, the
+    column tensor's shape) for x of ``shape`` under ``geo``, computed once
+    per shape; raises for a shape the kernels do not take (their indices
+    are 32-bit where these sizes allow, addresses 64-bit)."""
+    if len(shape) != 4 or shape[1] % geo.deform_groups:
+        raise ValueError(f'{op}: x {tuple(shape)} does not split into '
                          f'{geo.deform_groups} deform groups')
-    ho, wo = geo.out_size(*x.shape[-2:])
-    taps = geo.deform_groups * geo.kh * geo.kw
-    for name, t, channels in (('offset', offset, 2 * taps), ('mask', mask, taps)):
-        want = (x.shape[0], channels, ho, wo)
-        if t is not None and tuple(t.shape) != want:
-            raise ValueError(f'{op}: {name} must be {want}, got {tuple(t.shape)}')
-        if t is not None and t.device != x.device:
+    n, c, h, w = shape
+    ho, wo = geo.out_size(h, w)
+    taps = geo.kh * geo.kw
+    pairs = geo.deform_groups * taps
+    if n * c * h * w >= 2**31 or n * c * taps >= 2**31:
+        raise ValueError(f'{op}: x {tuple(shape)} is too large for 32-bit indices')
+    ints = (n, c, h, w, ho, wo, geo.kh, geo.kw, geo.stride, geo.padding, geo.dilation,
+            geo.deform_groups)
+    offset = (n, ho, wo, 2) if geo.flow else (n, 2 * pairs, ho, wo)
+    return ints, torch.Size(offset), torch.Size((n, pairs, ho, wo)), (n, c, taps, ho, wo)
+
+
+def _check_shapes(op: str, x, offset, mask, geo: SampleGeometry):
+    """Raise unless offset and mask fit x and the geometry; ``_plan``'s
+    integers and the column tensor's shape."""
+    ints, offset_shape, mask_shape, col_shape = _plan(op, x.shape, geo)
+    for name, t, want in (('offset', offset, offset_shape), ('mask', mask, mask_shape)):
+        if t is not None and t.shape != want:
+            raise ValueError(f'{op}: {name} must be {tuple(want)}, got {tuple(t.shape)}')
+        if t is not None and t.get_device() != x.get_device():
             raise ValueError(f'{op}: {name} is on {t.device}, x on {x.device}')
-    return ho, wo
+    return ints, col_shape
+
+
+def _float32(t):
+    return t if t.dtype == torch.float32 and t.is_contiguous() else t.float().contiguous()
 
 
 def _operands(op: str, x, offset, mask, geo: SampleGeometry):
-    """The float32 offset and mask, checked, and the geometry's integers."""
+    """The float32 offset and mask, checked (copied only where they are not
+    float32 or not in the layout the kernels read), the geometry's integers
+    and the column tensor's shape."""
     _check_activation(x, 'x', op)
-    ho, wo = _check_shapes(op, x, offset, mask, geo)
-    offset = offset.detach().float().contiguous()
+    ints, col_shape = _check_shapes(op, x, offset, mask, geo)
+    offset = flow_operand(offset) if geo.flow else _float32(offset)
     if mask is not None:
-        mask = mask.detach().float().contiguous()
-    n, c, h, w = x.shape
-    ints = (n, c, h, w, ho, wo, geo.kh, geo.kw, geo.stride, geo.padding, geo.dilation,
-            geo.deform_groups)
-    return offset, mask, ints
+        mask = _float32(mask)
+    return offset, mask, ints, col_shape
+
+
+@functools.lru_cache(maxsize=256)
+def _forward_dims(shape, geo: SampleGeometry, offset_shape, offset_stride):
+    """The forward launch's integers, the geometry and then the offset's
+    layout, as one C array made once per shape and layout, and its address
+    (valid while the caller holds the array)."""
+    layout = _layout_of(offset_shape, offset_stride, geo.flow)
+    reach = max(layout.start, layout.start + layout.pair) + sum(
+        (size - 1) * stride for size, stride in zip(offset_shape, offset_stride))
+    if reach >= 2**31:
+        raise ValueError('deform_sample_fwd: the offset is too large for 32-bit indices')
+    dims = (ctypes.c_int * 17)(*_plan('deform_sample_fwd', shape, geo)[0], *layout)
+    return dims, ctypes.addressof(dims)
 
 
 def _launch_forward(x, offset, mask, geo: SampleGeometry):
     op = 'deform_sample_fwd'
-    offset, mask, ints = _operands(op, x, offset, mask, geo)
-    lib = _lib(op)
-    n, c, ho, wo = ints[0], ints[1], ints[4], ints[5]
-    col = torch.empty((n, c, geo.kh * geo.kw, ho, wo), dtype=x.dtype, device=x.device)
+    offset, mask, _, col_shape = _operands(op, x, offset, mask, geo)
+    dims, address = _forward_dims(x.shape, geo, offset.shape, offset.stride())
+    col = torch.empty(col_shape, dtype=x.dtype, device=x.device)
     if col.numel() == 0:
         return col
-    rc = lib.deform_sample_fwd(_launch.DTYPES[x.dtype], *_launch.pointers([x, offset, mask, col]),
-                               *ints, _launch.current_stream(x.device))
+    lib = _lib(op)
+    rc = lib.deform_sample_fwd(_launch.DTYPES[x.dtype], x.data_ptr(), offset.data_ptr(),
+                               None if mask is None else mask.data_ptr(), col.data_ptr(),
+                               address, _launch.stream_of(x))
     _launch.check_rc(rc, lib, op)
     return col
 
 
 def _launch_backward(x, offset, mask, dcol, geo: SampleGeometry, need_dx, need_doffset):
     op = 'deform_sample_bwd'
-    offset, mask, ints = _operands(op, x, offset, mask, geo)
+    if geo.flow:
+        raise ValueError(f'{op}: takes BasicSR\'s offset; a flow goes through offset_pairs')
+    offset, mask, ints, want = _operands(op, x, offset, mask, geo)
     _check_activation(dcol, 'dcol', op)
-    n, c, ho, wo = ints[0], ints[1], ints[4], ints[5]
-    want = (n, c, geo.kh * geo.kw, ho, wo)
     if tuple(dcol.shape) != want or dcol.dtype != x.dtype or dcol.device != x.device:
         raise ValueError(f'{op}: dcol must be {want} in x\'s dtype and on its device')
     lib = _lib(op)

@@ -26,10 +26,14 @@ nonzero exit code and no result line:
    BasicVSR++ (128 channels in 16 groups; one tap on 64-, 3- and 2-channel
    maps for the flow warps, also with ``border``), with offsets small and
    large enough to leave the map and whole positions among them, beside
-   ``F.grid_sample`` as the one-tap yardstick; the 3x3 convolution kernel
+   ``F.grid_sample`` as the one-tap yardstick, and the warps as ``flow_warp``
+   runs them (the flow read through its strides; call time and device time
+   beside ``F.grid_sample``'s; gradients); the 3x3 convolution kernel
    (3e) at the shapes SwinIR-M x4 gives it (180->180 on the LQ map, 180->64,
-   64->256 on the LQ and the 2x map, 64->64 on the 4x map, one odd size), all
-   four epilogues, beside ``F.conv2d`` + its epilogue, and its gradients; the
+   64->256 on the LQ and the 2x map, 64->64 on the 4x map, one odd size; and
+   180->180 channels-last and as the RSTB's view of its tokens), all four
+   epilogues in both types, beside ``F.conv2d`` + its epilogue, and its
+   gradients; the
    W8A8 joint block (3f) against its plain version by the rule stated there,
    against the float block by SNR, and timed beside the float kernel;
 4. serves SwinIR-M x4 through ``basicsr4rs_torch.test`` (the code path of
@@ -192,8 +196,9 @@ def build_kernels():
         print(f'{os.path.relpath(_build.CSRC_DIR / (name + ".cu"), ROOT)} -> '
               f'{os.path.relpath(lib, ROOT)}')
         log = lib.with_name(lib.name + '.log').read_text()
+        keep = ('registers', 'spill') + (('Compiling entry',) if name == 'conv3x3_fwd' else ())
         print('\n'.join('  ' + line.strip() for line in log.splitlines()
-                        if 'registers' in line or 'spill' in line))
+                        if any(k in line for k in keep)))
         if 'sm_90a' not in log:
             fail(f'{name} was not compiled for sm_90a')
 
@@ -686,8 +691,136 @@ def check_deform_kernels():
                                           if a is not None), flush=True)
         del x, offset, mask, dcol
         torch.cuda.empty_cache()
+    check_flow_warps(gen, summary)
     check_border_warp(gen)
     return summary
+
+
+def kernel_device_ms(fn, iters=20, only=None):
+    """Milliseconds of device time (kernels and memory operations; with
+    ``only``, those whose name holds it) a call of ``fn`` takes, by
+    ``torch.profiler`` over ``iters`` calls; None when the profiler saw none."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = device_time_by_group(prof, ())[0]
+    busy_ms = sum(ms for key, ms, _ in rows if only is None or only in key)
+    return busy_ms / iters if busy_ms else None
+
+
+def show_ms(ms):
+    return 'not seen' if ms is None else f'{ms:.4f} ms'
+
+
+def host_us(fn, iters=200):
+    """Microseconds of host time a call of ``fn`` takes, the device kept
+    ahead of the host by a long kernel first."""
+    torch.cuda._sleep(int(2e8))   # about 0.1 s of device time, so nothing waits on it
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / iters * 1e6
+
+
+def check_flow_warps(gen, summary):
+    """The one-tap warp as ``flow_warp`` runs it in 'zeros' mode: the flow
+    (N, H, W, 2) read by the kernel through its strides, handed over as
+    BasicVSR++ does (a permuted (N, 2, H, W) map), against the plain version
+    on BasicSR's offset; then the call time (CUDA events around the
+    wrapper) and the kernel's device time (``torch.profiler``) beside
+    ``F.grid_sample``'s, so that what is left between them reads as host or
+    device time; and the gradients of ``flow_warp`` against the plain
+    versions."""
+    import torch.nn.functional as F
+
+    from basicsr4rs_torch.archs.arch_util import flow_warp
+    from basicsr4rs_torch.ops import dcn as D
+    f32 = torch.float32
+    for tag, c, (h, w) in (('warp 64ch flow', PP_FEAT, (64, 64)),
+                           ('warp 64ch flow serve', PP_FEAT, VIDEO_LQ),
+                           ('warp 2ch flow', 2, (64, 64))):
+        x = torch.randn(1, c, h, w, generator=gen).cuda()
+        flow = (torch.randn(1, 2, h, w, generator=gen) * 3.).cuda().permute(0, 2, 3, 1)
+        offset = torch.stack([flow[..., 1], flow[..., 0]], dim=1)   # BasicSR's (dy, dx)
+        with torch.no_grad():
+            got = D.warp_by_flow(x, flow)
+        want = D.reference_deform_sample(x, offset, None, D.WARP).reshape(x.shape)
+        ok, max_abs, max_rel, tolerance = compare(got, want, f32, 'elementwise')
+        if not ok:
+            fail(f'deform_sample_fwd: the flow warp disagrees with the plain version at {tag}: '
+                 f'{max_abs:.3e}, tolerance {tolerance}')
+        summary['deform_sample_fwd']['max_abs_err'] = max(
+            summary['deform_sample_fwd']['max_abs_err'], max_abs)
+        grid = grid_of(offset)
+
+        def kernel():
+            return D.warp_by_flow(x, flow)
+
+        def library():
+            return F.grid_sample(x, grid, 'bilinear', 'zeros', True)
+
+        col = torch.empty(1, c, 1, h, w, device='cuda')
+        lib = D._lib('deform_sample_fwd')
+        launch_args = (0, x.data_ptr(), flow.data_ptr(), None, col.data_ptr(),
+                       D._forward_dims(x.shape, D.FLOW_WARP, flow.shape, flow.stride())[1],
+                       torch.cuda.current_stream().cuda_stream)
+
+        def launch_only():   # the C call alone: ctypes and the kernel's launch
+            return lib.deform_sample_fwd(*launch_args)
+
+        with torch.no_grad():
+            kernel_ms, library_ms = time_pair(library, kernel)
+            device_ms, library_device_ms = kernel_device_ms(kernel), kernel_device_ms(library)
+            wrapper_us, launch_us, library_us = host_us(kernel), host_us(launch_only), host_us(
+                library)
+        bound, by = bound_ms(*deform_work('deform_sample_fwd', 1, c, h, w, 1, 1, False, f32), f32)
+
+        print(f'{"deform_sample_fwd":18s} {tag:22s} N=1 C={c} {h}x{w} (flow_warp, zeros): max abs '
+              f'err {max_abs:.2e} | call {kernel_ms:.4f} ms, device {show_ms(device_ms)}; '
+              f'F.grid_sample call {library_ms:.4f} ms, device {show_ms(library_device_ms)}; bound '
+              f'{bound:.4f} ms by {by}; host {wrapper_us:.1f} us a call, of which the C call '
+              f'(ctypes and launch) {launch_us:.1f} us; F.grid_sample host {library_us:.1f} us',
+              flush=True)
+        summary['deform_sample_fwd'].setdefault('flow_warp', {})[f'C={c} {h}x{w}'] = dict(
+            ms=kernel_ms, device_ms=device_ms, library_ms=library_ms,
+            library_device_ms=library_device_ms, bound_ms=bound, host_us=wrapper_us,
+            launch_us=launch_us, library_host_us=library_us)
+    # gradients of flow_warp's zeros mode, through the kernels and the plain versions
+    n, c, h, w = 2, 16, 96, 160
+    x = torch.randn(n, c, h, w, generator=gen).cuda()
+    flow = (torch.randn(n, 2, h, w, generator=gen) * 20).cuda()
+    dout = torch.randn(n, c, h, w, generator=gen).cuda()
+
+    def run():
+        xx, ff = x.clone().requires_grad_(), flow.clone().requires_grad_()
+        out = flow_warp(xx, ff.permute(0, 2, 3, 1))
+        return (out.detach(),) + torch.autograd.grad(out, (xx, ff), dout)
+
+    got = run()
+    patches = plain_sampler()
+    for p in patches:
+        p.start()
+    try:
+        want = run()
+    finally:
+        for p in patches:
+            p.stop()
+    worst = []
+    for name, g_, w_ in zip(('out', 'dx', 'dflow'), got, want):
+        ok, max_abs, max_rel, tolerance = compare(g_, w_, f32, 'elementwise' if name == 'out'
+                                                  else 'sum')
+        worst.append(f'{name} {max_abs:.2e} ({max_rel:.1e})')
+        if not ok:
+            fail(f'flow_warp (zeros): {name} disagrees with the plain version: {max_abs:.3e}, '
+                 f'tolerance {tolerance}')
+    print(f'flow_warp zeros       N={n} C={c} {h}x{w}, flow as a permuted (N, 2, H, W) map: '
+          'max abs err (of max|plain|) ' + ', '.join(worst), flush=True)
 
 
 def check_border_warp(gen):
@@ -1949,6 +2082,11 @@ INT8_FLIP_REACH = 4.
 # int8 block against the float block: the JAX package's criterion
 # (tests/test_ops/test_swin_block.py): SNR and the largest deviation over the range
 INT8_BLOCK_SNR_DB, INT8_BLOCK_MAX_DEV = 30., 0.1
+# bfloat16 K11's output against the float32 float block on the same inputs
+# (full-scale weights, block_inputs): a bound set 3 dB under the lowest
+# reading of this script on an NVIDIA H100 80GB HBM3 (38.14 to 38.25 dB at
+# B=1 128x128 and B=16 64x64, shift 0 and 4; the values come from a seed)
+INT8_BLOCK_SNR_BF16_DB = 35.1
 # The models' int8 outputs against their float outputs. Under the
 # configs' own initialisation (linears of std 0.02, MSRResNet's convolutions
 # scaled by 0.1) the quantised layers' branches lie far under the residual
@@ -1990,19 +2128,53 @@ def psnr_db(ref, got):
     return 10 * torch.log10(torch.tensor(1. / max(mse, 1e-30))).item()
 
 
+# K10's bound by its route: float32 as three TF32 products (3xTF32) at the
+# TF32 peak, bfloat16 at the bfloat16 peak; the float32 CUDA-core bound
+# (PR 5's route) is printed beside it
+PEAK_FLOPS_TF32 = 495e12
+# the layouts phase 3e hands K10 at the RSTB's shape, beside the NCHW ones of
+# CONV_SHAPES: channels-last memory, and the RSTB's own view of its tokens
+CONV_LAYOUTS = ('channels_last', 'token view')
+
+
+def conv_operand(t, layout):
+    """``t`` (B, C, H, W) in one of the layouts K10 takes."""
+    if layout == 'nchw':
+        return t
+    if layout == 'channels_last':
+        return t.contiguous(memory_format=torch.channels_last)
+    b, c, h, w = t.shape   # tokens (B, HW, C), seen as the RSTB sees them
+    return t.flatten(2).transpose(1, 2).contiguous().transpose(1, 2).reshape(b, c, h, w)
+
+
+def conv_bound_ms(flop, nbytes, dtype):
+    """(bound ms, by what) on K10's route, and the CUDA-core bound."""
+    peak, products = (PEAK_FLOPS_TF32, 3) if dtype == torch.float32 else (PEAK_FLOPS_BF16, 1)
+    by_ops, by_bytes = products * flop / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    bound = (by_ops, 'operations') if by_ops >= by_bytes else (by_bytes, 'bytes')
+    return bound, max(flop / PEAK_FLOPS_F32 * 1e3, by_bytes)
+
+
 def check_conv_kernel():
     import torch.nn.functional as F
 
+    from basicsr4rs_torch.ops import conv3x3 as K
     from basicsr4rs_torch.ops.conv3x3 import fused_conv3x3, reference_conv3x3
     phase('3e. 3x3 convolution kernel (K10) vs plain version, at the shapes SwinIR-M x4 gives it')
+    lib = K._lib()
+    print('K10 (mma.sync: 3xTF32 for float32, bfloat16): shared memory a block ' + ', '.join(
+        f'{lib.conv3x3_fwd_smem_bytes(n)} bytes at {n} output channels' for n in K.BLOCK_N)
+        + '; registers and spills in phase 2')
     gen = torch.Generator().manual_seed(5)
     summary = {'max_abs_err': 0.}
-    for b, cin, cout, h, w, model_res, model_slope in CONV_SHAPES:
+    cases = [(shape, 'nchw') for shape in CONV_SHAPES] + [
+        (CONV_SHAPES[0], layout) for layout in CONV_LAYOUTS]
+    for (b, cin, cout, h, w, model_res, model_slope), layout in cases:
         for dt in (torch.float32, torch.bfloat16):
-            x = torch.randn(b, cin, h, w, generator=gen).cuda().to(dt)
+            x = conv_operand(torch.randn(b, cin, h, w, generator=gen).cuda().to(dt), layout)
             weight = (torch.randn(cout, cin, 3, 3, generator=gen) * (9 * cin)**-.5).cuda()
             bias = (torch.randn(cout, generator=gen) * .1).cuda()
-            res = torch.randn(b, cout, h, w, generator=gen).cuda().to(dt)
+            res = conv_operand(torch.randn(b, cout, h, w, generator=gen).cuda().to(dt), layout)
             worst = 0.
             for with_res, slope in ((False, None), (True, None), (False, 0.2), (True, 0.01)):
                 r = res if with_res else None
@@ -2012,10 +2184,10 @@ def check_conv_kernel():
                 torch.cuda.synchronize()
                 ok, max_abs, max_rel, tolerance = compare(got, want, dt, 'elementwise')
                 worst = max(worst, max_abs)
-                if not ok:
-                    fail(f'K10 and plain version disagree at {(b, cin, cout, h, w)} {dt} '
+                if not ok or not got.is_contiguous(memory_format=torch.channels_last):
+                    fail(f'K10 and plain version disagree at {(b, cin, cout, h, w)} {layout} {dt} '
                          f'residual={with_res} slope={slope}: max_abs_err={max_abs:.3e} '
-                         f'({tolerance})')
+                         f'({tolerance}), or the output is not channels-last')
             r = res if model_res else None
             wd, bd = weight.to(dt), bias.to(dt)
 
@@ -2025,38 +2197,57 @@ def check_conv_kernel():
                     out = out + r
                 return out if model_slope is None else F.leaky_relu(out, model_slope)
 
+            def kernel():
+                return fused_conv3x3(x, weight, bias, r, model_slope)
+
             with torch.no_grad():
-                kernel_ms, plain_ms = time_pair(
-                    lambda: reference_conv3x3(x, weight, bias, r, model_slope),
-                    lambda: fused_conv3x3(x, weight, bias, r, model_slope))
-                library_ms = cuda_time_ms(library)
+                kernel_ms, library_ms = time_pair(library, kernel)
+                plain_ms = cuda_time_ms(lambda: reference_conv3x3(x, weight, bias, r, model_slope))
+                device_ms = kernel_device_ms(kernel, iters=5)
+                k10_ms = kernel_device_ms(kernel, iters=5, only='conv3x3_fwd_kernel')
+                library_device_ms = kernel_device_ms(library, iters=5)
+                call_us = host_us(kernel, iters=50)
             es = torch.finfo(dt).bits // 8
             flop = 2 * 9 * cin * cout * b * h * w
             nbytes = (b * h * w * (cin + cout * (2 if model_res else 1)) + 9 * cin * cout) * es \
                 + 4 * cout
-            bound, by = bound_ms(flop, nbytes, dt)
-            print(f'B={b} {cin}->{cout} {h}x{w} {str(dt)[6:]:8s} residual={model_res} '
+            (bound, by), core_bound = conv_bound_ms(flop, nbytes, dt)
+            print(f'B={b} {cin}->{cout} {h}x{w} {layout:13s} {str(dt)[6:]:8s} residual={model_res} '
                   f'slope={model_slope}: four epilogues max_abs_err={worst:.3e} | kernel '
-                  f'{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, F.conv2d + epilogue '
-                  f'{library_ms:.4f} ms, bound {bound:.4f} ms by {by}', flush=True)
+                  f'{kernel_ms:.4f} ms, F.conv2d + epilogue {library_ms:.4f} ms (ratio '
+                  f'{kernel_ms / library_ms:.2f}), plain {plain_ms:.4f} ms, bound {bound:.4f} ms '
+                  f'by {by} on the route ({100 * bound / kernel_ms:.0f}%), CUDA-core bound '
+                  f'{core_bound:.4f} ms | device: the call {show_ms(device_ms)} of which K10 '
+                  f'{show_ms(k10_ms)}, the library {show_ms(library_device_ms)}; host '
+                  f'{call_us:.1f} us a call', flush=True)
             if dt == torch.float32:
                 summary['max_abs_err'] = max(summary['max_abs_err'], worst)
-                if (b, cin, cout, h) == (1, 180, 180, 128):
-                    summary.update(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                                   bound_ms=bound, bound_by=by)
-    # gradients: the backward is PyTorch's library on the kernel's saved output
-    x = torch.randn(2, 64, 48, 48, generator=gen).cuda().requires_grad_()
-    weight = (torch.randn(64, 64, 3, 3, generator=gen) / 24).cuda().requires_grad_()
-    bias = torch.randn(64, generator=gen).cuda().requires_grad_()
-    res = torch.randn(2, 64, 48, 48, generator=gen).cuda().requires_grad_()
-    leaves = (x, weight, bias, res)
-    got = torch.autograd.grad(fused_conv3x3(*leaves, 0.2).square().sum(), leaves)
-    want = torch.autograd.grad(reference_conv3x3(*leaves, 0.2).square().sum(), leaves)
-    for name, g, wnt in zip(('dx', 'd_weight', 'd_bias', 'd_residual'), got, want):
-        ok, max_abs, max_rel, tolerance = compare(g, wnt, torch.float32, 'sum')
-        print(f'gradient {name}: max_abs_err={max_abs:.3e} max_rel_err={max_rel:.3e} ({tolerance})')
-        if not ok:
-            fail(f'K10 gradient {name} disagrees')
+            times = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
+                         bound_by=by, device_ms=device_ms, kernel_device_ms=k10_ms,
+                         library_device_ms=library_device_ms)
+            if (b, cin, cout, h) == (1, 180, 180, 128):   # the RSTB tail at LQ 128x128
+                if dt == torch.float32 and layout == 'token view':   # as the main path calls it
+                    summary.update(times)
+                else:
+                    summary[f'{layout} {str(dt)[6:]}'] = times
+            del x, res, got, want
+    # gradients: the backward is PyTorch's library on the kernel's saved output,
+    # with x and the residual channels-last as the RSTB hands them over
+    for layout in ('nchw', 'token view'):
+        x = conv_operand(torch.randn(2, 64, 48, 48, generator=gen).cuda(), layout).requires_grad_()
+        weight = (torch.randn(64, 64, 3, 3, generator=gen) / 24).cuda().requires_grad_()
+        bias = torch.randn(64, generator=gen).cuda().requires_grad_()
+        res = conv_operand(torch.randn(2, 64, 48, 48, generator=gen).cuda(), layout)
+        res.requires_grad_()
+        leaves = (x, weight, bias, res)
+        got = torch.autograd.grad(fused_conv3x3(*leaves, 0.2).square().sum(), leaves)
+        want = torch.autograd.grad(reference_conv3x3(*leaves, 0.2).square().sum(), leaves)
+        for name, g, wnt in zip(('dx', 'd_weight', 'd_bias', 'd_residual'), got, want):
+            ok, max_abs, max_rel, tolerance = compare(g, wnt, torch.float32, 'sum')
+            print(f'gradient {name} ({layout}): max_abs_err={max_abs:.3e} '
+                  f'max_rel_err={max_rel:.3e} ({tolerance})')
+            if not ok:
+                fail(f'K10 gradient {name} disagrees ({layout})')
     return {'conv3x3_fwd': summary}
 
 
@@ -2176,6 +2367,17 @@ def check_int8_block_kernel():
                 if snr <= INT8_BLOCK_SNR_DB or dev >= INT8_BLOCK_MAX_DEV:
                     print(line)
                     fail(f'K11 is too far from the float block at {tag}')
+                if dt == torch.bfloat16:
+                    with torch.no_grad():
+                        flo32 = S.reference_swin_block_full(
+                            *[a.float() if torch.is_tensor(a) else a for a in args])
+                    snr32 = snr_db(flo32, got.float())
+                    line += (f', vs the float32 float block SNR {snr32:.2f} dB (bound '
+                             f'{INT8_BLOCK_SNR_BF16_DB})')
+                    del flo32
+                    if snr32 <= INT8_BLOCK_SNR_BF16_DB:
+                        print(line)
+                        fail(f'bfloat16 K11 is too far from the float32 block at {tag}')
                 with torch.no_grad():
                     kernel_ms, plain_ms = time_pair(
                         lambda: S.reference_swin_block_full_int8(*args),
@@ -2192,7 +2394,41 @@ def check_int8_block_kernel():
                 if (b, dt, shift) == (1, torch.float32, 4):
                     summary.update(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                                    k1_ms=k1_ms)
+    check_int8_half_rounding(gen)
     return {'swin_block_joint_int8_fwd': summary}
+
+
+def check_int8_half_rounding(gen):
+    """K11 rounds an activation that lands exactly on k + 0.5 to even, as
+    ``torch.round`` and ``jnp.round`` do (``rintf``; ``roundf`` would round it
+    away from zero). LayerNorms with weight 0 hand every token their bias:
+    half-integers whose absmax is 127, so the window scale is exactly 1 and
+    the inputs of qkv and fc1 are those halves. Every integer of the kernel
+    at an exact half must equal the plain rounding there."""
+    from basicsr4rs_torch.ops import swin_block as S
+    for dt in (torch.float32, torch.bfloat16):
+        args = block_inputs(1, 128, 128, dt, 0, gen)
+        for i in (1, 9):   # ln1_weight, ln2_weight; ln1_bias, ln2_bias
+            halves = torch.randint(-127, 127, (C,), generator=gen).float() + .5
+            halves[int(torch.randint(C, (1,), generator=gen))] = 127.
+            args[i], args[i + 1] = torch.zeros_like(args[i]), halves.cuda()
+        rec, plain_rec = [], []
+        with torch.no_grad():
+            S.swin_block_full_int8(*args, quantised=rec)
+            S.reference_swin_block_full_int8(*args, given=rec, quantised=plain_rec)
+        torch.cuda.synchronize()
+        counts = []
+        for name, (q, _), (qp, _, r) in zip(('qkv', 'fc1'), rec[::2], plain_rec[::2]):
+            on_half = (r - r.floor()) == .5
+            wrong = int((on_half & (q.int() != qp.int())).sum())
+            odd = int((on_half & (qp.int() % 2 != 0)).sum())
+            counts.append(f'{name} {int(on_half.sum())} exact halves, {wrong} rounded otherwise')
+            if not on_half.any() or wrong or odd:
+                fail(f'K11 {str(dt)[6:]}: {counts[-1]} (the plain rounding gave {odd} odd '
+                     'integers there): halves must round to even')
+        print(f'K11 at exact halves, B=1 128x128 {str(dt)[6:]}: ' + '; '.join(counts)
+              + ' (to even, as torch.round and jnp.round)', flush=True)
+
 
 
 def once_ms(fn):
@@ -2594,6 +2830,7 @@ def train_joint(split_step_ms):
     return launches
 
 
+SUMMARY_KEYS = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
 KERNELS = [
     ('swin_block_joint_fwd', 'basicsr4rs_tpu/ops/swin_block.py:287'),
     ('swin_attn_block_fwd', 'basicsr4rs_tpu/ops/swin_block.py:244'),
@@ -2683,7 +2920,7 @@ def main():
         'max_abs_err': kernels[name]['max_abs_err'], 'ms': kernels[name]['ms'],
         'plain_ms': kernels[name]['plain_ms'], 'bound_ms': kernels[name]['bound_ms'],
         'bound_by': kernels[name]['bound_by'], 'library_ms': kernels[name].get('library_ms'),
-        **{k: kernels[name][k] for k in ('one_tap', 'k1_ms') if k in kernels[name]}}
+        **{k: v for k, v in kernels[name].items() if k not in SUMMARY_KEYS}}
         for name, replaces in KERNELS]}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                              'kind': torch.cuda.get_device_name(0),

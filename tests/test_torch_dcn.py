@@ -274,12 +274,28 @@ def _warp_case(seed=0, n=2, h=16, w=24, c=8, mag=6.0):
     return x, flow
 
 
-@pytest.mark.parametrize('interpolation, padding_mode',
-                         [('bilinear', 'zeros'), ('bilinear', 'border'), ('nearest', 'zeros'),
-                          ('nearest', 'border')])
-def test_flow_warp_matches_jax(interpolation, padding_mode):
+def _flow_as(flow, layout):
+    """A numpy flow (N, H, W, 2) as a torch tensor: contiguous, or as
+    BasicVSR++ and SpyNet hand it over, ``permute(0, 2, 3, 1)`` of a
+    contiguous (N, 2, H, W) map."""
+    if layout == 'permuted':
+        nchw = np.ascontiguousarray(flow.transpose(0, 3, 1, 2))
+        return torch.from_numpy(nchw).permute(0, 2, 3, 1)
+    return torch.from_numpy(flow.copy())
+
+
+@pytest.mark.parametrize('interpolation, padding_mode, layout',
+                         [('bilinear', 'zeros', 'contiguous'), ('bilinear', 'border', 'contiguous'),
+                          ('nearest', 'zeros', 'contiguous'), ('nearest', 'border', 'contiguous'),
+                          ('bilinear', 'zeros', 'permuted'), ('bilinear', 'border', 'permuted')],
+                         ids=['bilinear-zeros', 'bilinear-border', 'nearest-zeros',
+                              'nearest-border', 'bilinear-zeros-permuted',
+                              'bilinear-border-permuted'])
+def test_flow_warp_matches_jax(interpolation, padding_mode, layout):
     """Values, and for the bilinear modes the gradients of the map and the
-    flow, against the JAX ``flow_warp`` through its Pallas kernels."""
+    flow, against the JAX ``flow_warp`` through its Pallas kernels; the flow
+    contiguous or permuted from (N, 2, H, W), as BasicVSR++ passes it (the
+    'zeros' mode reads it through its strides)."""
     x, flow = _warp_case(seed=1)
     weights = np.cos(np.arange(x.size, dtype=np.float32)).reshape(x.shape)
 
@@ -291,7 +307,7 @@ def test_flow_warp_matches_jax(interpolation, padding_mode):
     with dispatch.force_interpret():
         want = [np.asarray(a) for a in jax.jit(run)(jnp.asarray(x), jnp.asarray(flow))]
     tx = torch.from_numpy(_nchw(x)).requires_grad_()
-    tf = torch.from_numpy(flow.copy()).requires_grad_()
+    tf = _flow_as(flow, layout).requires_grad_()
     out = port_util.flow_warp(tx, tf, interpolation=interpolation, padding_mode=padding_mode)
     np.testing.assert_allclose(_nhwc(out.detach().numpy()), want[0], rtol=VALUE_TOL,
                                atol=VALUE_TOL)
@@ -299,6 +315,37 @@ def test_flow_warp_matches_jax(interpolation, padding_mode):
         out.backward(torch.from_numpy(_nchw(weights)))
         np.testing.assert_allclose(_nhwc(tx.grad.numpy()), want[1], rtol=GRAD_TOL, atol=GRAD_TOL)
         np.testing.assert_allclose(tf.grad.numpy(), want[2], rtol=GRAD_TOL, atol=GRAD_TOL)
+
+
+@pytest.mark.parametrize('layout', ['contiguous', 'permuted'])
+def test_flow_offset_strides(layout):
+    """The strides the sampler reads a flow through (``offset_layout``),
+    applied by ``torch.as_strided`` (``offset_pairs``), give BasicSR's offset
+    (N, 2, H, W) = (dy, dx): the flow's own values, and the offset that
+    ``bilinear_warp`` builds from positions (h + dy) - h. On flows of
+    multiples of 2**-10 under 64 on this grid both sums are exact, so the two
+    are equal bit for bit."""
+    flow = (np.random.RandomState(7).randint(-2**16, 2**16, (2, 16, 24, 2)) / 2**10).astype(
+        np.float32)
+    tf = _flow_as(flow, layout)
+    pairs = port.offset_pairs(port.flow_operand(tf), port.FLOW_WARP)
+    assert pairs.shape == (2, 2, 16, 24)
+    dy_dx = np.ascontiguousarray(flow[..., ::-1].transpose(0, 3, 1, 2))
+    assert torch.equal(pairs, torch.from_numpy(dy_dx))
+    grid_y = torch.arange(16, dtype=torch.float32).view(1, 16, 1)
+    grid_x = torch.arange(24, dtype=torch.float32).view(1, 1, 24)
+    py, px = grid_y + tf[..., 1], grid_x + tf[..., 0]
+    assert torch.equal(pairs, torch.stack([py - grid_y, px - grid_x], dim=1))
+    layout_ = port.offset_layout(port.flow_operand(tf), port.FLOW_WARP)
+    assert layout_.pair == -layout_.start and layout_.tap == 0
+    assert layout_.pixel == (1 if layout == 'permuted' else 2)
+
+
+@pytest.mark.parametrize('op', ['deform_sample_fwd', 'deform_sample_bwd'])
+def test_binding_matches_the_c_signature(monkeypatch, op):
+    """The sampler's ctypes types are its kernels' C parameters, one for one."""
+    from test_torch_conv3x3 import bound_argtypes, c_signature
+    assert bound_argtypes(monkeypatch, port, op, op) == c_signature(op)
 
 
 def test_flow_warp_rejects_other_modes():

@@ -53,8 +53,27 @@ def test_weight_quantisation_matches_jax():
     assert wq.abs().amax(dim=(1, 2, 3)).eq(127).all()   # every channel uses the full range
 
 
-@pytest.mark.parametrize('static', [None, 0.03], ids=['dynamic', 'static'])
+@pytest.mark.parametrize('static', [None, 0.03, 'halves'], ids=['dynamic', 'static', 'halves'])
 def test_activation_quantisation_matches_jax(static):
+    """'halves': activations of absmax 127 at k + 0.5, so that the scale is
+    exactly 1 and every value lies on a half. The integers must be
+    ``jnp.round``'s, half to even, with no flip allowed: for the per-tensor
+    quantiser and for the per-window one of the int8 Swin block's plain
+    version (the rounding only; the window scale is the port's own)."""
+    if static == 'halves':
+        x = (np.random.RandomState(2).randint(-127, 127, (2, 8, 8, 12)) + .5).astype(np.float32)
+        x[..., 0] = 127.   # the absmax of every window and of the tensor
+        want = np.asarray(jnp.clip(jnp.round(jnp.asarray(x)), -127, 127))
+        assert (want[x % 1 == .5] % 2 == 0).all()   # jnp.round: half to even
+        xq, s = port.quantize_act_int8(torch.from_numpy(x))
+        jq, js = jax_quant.quantize_act_int8(jnp.asarray(x), None)
+        assert float(s) == float(js) == 1.
+        np.testing.assert_array_equal(xq.numpy(), want)
+        np.testing.assert_array_equal(xq.numpy(), np.asarray(jq))
+        q, s, r = port_block._quantize_windows(torch.from_numpy(x), 4)
+        assert (s == 1.).all() and torch.equal(r.reshape(x.shape), torch.from_numpy(x))
+        np.testing.assert_array_equal(q.reshape(x.shape).numpy(), want)
+        return
     x = np.random.RandomState(1).randn(2, 8, 12, 12).astype(np.float32)
     xq, s = port.quantize_act_int8(torch.from_numpy(x), static)
     jq, js = jax_quant.quantize_act_int8(jnp.asarray(x), static)
