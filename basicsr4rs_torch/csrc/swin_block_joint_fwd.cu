@@ -5,26 +5,23 @@
 // scales s1, s2 (scaled=True there). The body is swin_block_joint.cuh's with
 // kInt8 = false; swin_block_joint_int8_fwd.cu is its W8A8 twin.
 //
-// What bounds it on an H100: compute. A SwinIR-M block (C=180, 6 heads of 30,
-// 8x8 windows, hidden 360) does about 0.56 MFLOP per token against about
-// 1.4 KB of float32 activation traffic (x in, out back), and its ~1 MB of
-// float32 weights stay resident in the 50 MB L2. The design keeps every
-// intermediate of a window (LN outputs, q/k/v, scores, the attention output,
-// the MLP hidden) in shared memory, so device memory sees only x, out and the
-// L2-resident weights, and feeds the CUDA cores from shared memory: the
-// weights of each GEMM stream through two shared-memory stages by cp.async,
-// so their L2 latency overlaps the math, and each thread holds a 2-token x
-// 6-column register tile. 16 warps per window; the ~200 KB of shared memory
-// allows one window per SM. Tensor cores (wgmma/mma.sync) and TMA are later
-// work.
+// What bounds it on an H100: operations. A SwinIR-M block (C=180, 6 heads of
+// 30, 8x8 windows, hidden 360) does 36.3 MFLOP a window against 2 x 46 KB of
+// float32 x and out; the ~1 MB of float32 weights (0.5 MB bfloat16) stay in
+// the 50 MB L2 and are read again by every window. Every product runs on
+// the tensor cores by mma.sync (swin_block_joint.cuh: 3xTF32 in float32,
+// m16n8k16 in bfloat16), every intermediate of a window stays in shared
+// memory or registers, and the weights of each product stream from L2
+// through two shared-memory stages by cp.async. 16 warps per window; the
+// ~190 KB of shared memory (float32) allows one window per SM.
 
 #include "swin_block_joint.cuh"
 
 extern "C" {
 
-// Shared memory one thread block takes, in bytes.
-size_t swin_block_joint_fwd_smem_bytes(int channels, int heads) {
-  return swin::joint_smem_bytes(channels, heads, 0, false);
+// Shared memory one thread block of dtype (0 float32, 1 bfloat16) takes, in bytes.
+size_t swin_block_joint_fwd_smem_bytes(int dtype, int channels, int heads) {
+  return swin::joint_smem_bytes(dtype, channels, heads, 0, false);
 }
 
 // dtype: 0 float32, 1 bfloat16; s1, s2: (batch) float32 or both null.

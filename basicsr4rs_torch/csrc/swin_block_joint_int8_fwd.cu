@@ -4,26 +4,26 @@
 // Replaces basicsr4rs_tpu/ops/swin_block.py::_joint_int8_fwd_kernel (the
 // Pallas kernel behind fused_swin_block_full(..., quant_int8=True)). The body
 // is swin_block_joint.cuh's with kInt8 = true: qkv, proj, fc1 and fc2 are
-// int8 x int8 -> int32 sums by __dp4a on weights quantised per output channel
-// outside the kernel and activations quantised inside it, one dynamic scale
-// per product and window (the tile this kernel holds; the TPU kernel's tile
-// was a row of windows chosen for its VMEM).
+// int8 x int8 -> int32 sums on the tensor cores (mma.sync m16n8k32 s8) on
+// weights quantised per output channel outside the kernel and activations
+// quantised inside it, one dynamic scale per product and window (the tile
+// this kernel holds; the TPU kernel's tile was a row of windows chosen for
+// its VMEM).
 //
-// What bounds it on an H100: operations. The four products are 0.52 of the
-// block's 0.56 M operations per token; as __dp4a they issue a quarter of the
-// float kernel's instructions for them, at the CUDA cores' integer rate. The
-// q.k and p.v products, LayerNorm, softmax, GELU and the four absmax and
-// quantisation passes over the window stay float32 on the CUDA cores. Weights
-// are 0.26 MB a block in int8 and stay in L2; device memory sees x in and
-// out back. The int8 tensor cores (mma.sync s8) are later work.
+// What bounds it on an H100: operations. The four products are 33.2 of a
+// window's 36.3 M operations; q.k and p.v stay in the model dtype's route
+// (3xTF32 or bfloat16 on the tensor cores), and LayerNorm, softmax, GELU
+// and the four absmax and quantisation passes over the window run on the
+// CUDA cores. Weights are 0.26 MB a block in int8 and stay in L2; device
+// memory sees x in and out back.
 
 #include "swin_block_joint.cuh"
 
 extern "C" {
 
-// Shared memory one thread block takes, in bytes.
-size_t swin_block_joint_int8_fwd_smem_bytes(int channels, int heads, int hidden) {
-  return swin::joint_smem_bytes(channels, heads, hidden, true);
+// Shared memory one thread block of dtype (0 float32, 1 bfloat16) takes, in bytes.
+size_t swin_block_joint_int8_fwd_smem_bytes(int dtype, int channels, int heads, int hidden) {
+  return swin::joint_smem_bytes(dtype, channels, heads, hidden, true);
 }
 
 // dtype of x and out: 0 float32, 1 bfloat16. wqkv, wproj, w1: int8 rows of

@@ -48,6 +48,9 @@ from .quant import quantize_weight_int8
 from .window_attention import reference_window_attention
 
 MAX_TOKENS_PER_WINDOW = 64
+# the joint kernels hold proj's and fc2's outputs in registers, 6 n8 tiles a
+# warp (csrc/swin_block_joint.cuh: kMaxN), and pad a head to 32 features
+JOINT_MAX_CHANNELS, JOINT_MAX_HEAD_DIM = 192, 32
 
 
 def _attention_bias(rel_bias, mask):
@@ -428,8 +431,8 @@ _SIGNATURES = {
 @functools.lru_cache(maxsize=None)
 def _lib(name: str) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
-    return _launch.bind(name, _SIGNATURES[name](p, i, ctypes.c_float),
-                        [i, i, i] if name == 'swin_block_joint_int8_fwd' else [i, i],
+    smem = {'swin_block_joint_fwd': [i, i, i], 'swin_block_joint_int8_fwd': [i, i, i, i]}
+    return _launch.bind(name, _SIGNATURES[name](p, i, ctypes.c_float), smem.get(name, [i, i]),
                         [i, i, i] if name == 'swin_attn_block_bwd' else None)
 
 
@@ -475,6 +478,9 @@ def _joint_operands(op, x, ln1_weight, ln1_bias, qkv_weight, qkv_bias, proj_weig
     hidden = fc1_weight.shape[0]
     if hidden % 4:
         raise ValueError(f'{op}: needs hidden % 4 == 0 (hidden={hidden})')
+    if c > JOINT_MAX_CHANNELS or c // num_heads > JOINT_MAX_HEAD_DIM:
+        raise ValueError(f'{op}: takes C <= {JOINT_MAX_CHANNELS} and a head dim <= '
+                         f'{JOINT_MAX_HEAD_DIM} (C={c}, heads={num_heads})')
     dev, f32 = x.device, torch.float32
     return attn + [
         _launch.operand(proj_bias, 'proj_bias', (c,), f32, dev), rel_bias, mask,
@@ -499,7 +505,8 @@ def _launch_joint(x, ln1_weight, ln1_bias, qkv_weight, qkv_bias, proj_weight, pr
     s1, s2 = residual_scales if residual_scales is not None else (None, None)
     ops += [_launch.scale_operand(s1, x), _launch.scale_operand(s2, x)]
     lib = _lib(op)
-    _launch.check_shared_memory(lib.swin_block_joint_fwd_smem_bytes(c, num_heads), x.device, op)
+    _launch.check_shared_memory(
+        lib.swin_block_joint_fwd_smem_bytes(_launch.DTYPES[x.dtype], c, num_heads), x.device, op)
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
@@ -528,8 +535,8 @@ def _launch_joint_int8(x, ln1_weight, ln1_bias, qkv_weight, qkv_bias, proj_weigh
     ops = [ln1_weight, ln1_bias, qkv_q, qkv_s, qkv_bias, proj_q, proj_s, proj_bias, rel_bias,
            mask, ln2_weight, ln2_bias, fc1_q, fc1_s, fc1_bias, fc2_q, fc2_s, fc2_bias]
     lib = _lib(op)
-    _launch.check_shared_memory(lib.swin_block_joint_int8_fwd_smem_bytes(c, num_heads, hidden),
-                                x.device, op)
+    _launch.check_shared_memory(lib.swin_block_joint_int8_fwd_smem_bytes(
+        _launch.DTYPES[x.dtype], c, num_heads, hidden), x.device, op)
     out = torch.empty_like(x)
     quant_q = quant_s = None
     if quantised is not None:

@@ -13,7 +13,8 @@ nonzero exit code and no result line:
 3. holds each kernel against its plain PyTorch version on the card at
    SwinIR-M block shapes (C=180, 6 heads, window 8, hidden 360), without
    and with the shift mask, in float32 and bfloat16, and times both: the
-   joint forward kernel also at the shapes of the served requests; the
+   joint forward kernel also at the shapes of the served requests, at
+   SwinIR-light's widths (C=60, heads of 10) and with a window of 4; the
    attention and MLP branch kernels, forward and backward, at the training
    shape (batch 4 of 48x48) in their three output modes, every gradient by
    name; the window-attention kernels at the shapes of the ResShift UNet
@@ -40,7 +41,8 @@ nonzero exit code and no result line:
    ``python -m basicsr4rs_torch.test -opt options/test/SwinIR/
    test_SwinIR_M_x4_synthetic.yml``) on 4 synthetic image pairs and random
    seed-0 weights that it writes first, counts the kernel's launches, checks
-   the outputs and times each request;
+   the outputs and times each request; 4b breaks two requests of each size
+   down by kernel group with ``torch.profiler``;
 5. runs one request again with every block on the plain version and
    compares the two outputs;
 6. trains SwinIR-M x4 through ``basicsr4rs_torch.train`` (the code path of
@@ -109,7 +111,7 @@ nonzero exit code and no result line:
     counts per step, gradients against the split route, step time.
 
 ``python3 chip_smoke.py kernels`` stops after phase 3; ``python3 chip_smoke.py
-serving`` runs phases 3a, 3e, 3f, 4 and 17 to 21 alone. The line before the
+serving`` runs phases 3a, 3e, 3f, 4, 4b and 17 to 21 alone. The line before the
 last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -147,6 +149,7 @@ MODEL_TOLERANCE = 1e-3   # on the [0, 1] output: a quarter of one uint8 level
 # Published peaks of one H100 SXM (NVIDIA's data sheet): float32 on the CUDA
 # cores, dense bfloat16 on the tensor cores, HBM3
 PEAK_FLOPS_F32, PEAK_FLOPS_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
+PEAK_FLOPS_TF32 = 495e12   # dense TF32 on the tensor cores
 
 
 def fail(msg):
@@ -206,11 +209,11 @@ def build_kernels():
 C, HEADS, WS, HIDDEN = 180, 6, 8, 360   # a SwinIR-M block
 
 
-def block_inputs(b, h, w, dtype, shift, gen):
-    """SwinIR-M block inputs on the card: x already rolled, weights with
-    std 1/sqrt(fan_in) so that the attention is far from uniform."""
+def block_inputs(b, h, w, dtype, shift, gen, c=C, heads=HEADS, ws=WS, hidden=HIDDEN):
+    """Block inputs on the card (SwinIR-M's widths unless given): x already
+    rolled, weights with std 1/sqrt(fan_in) so that the attention is far
+    from uniform."""
     from basicsr4rs_torch.archs.swinir_arch import _shift_attn_mask
-    c, heads, ws, hidden = C, HEADS, WS, HIDDEN
     n = ws * ws
 
     def r(*shape, std=1.):
@@ -232,6 +235,22 @@ def bound_ms(flop, nbytes, dtype):
     peak = PEAK_FLOPS_F32 if dtype == torch.float32 else PEAK_FLOPS_BF16
     by_ops, by_bytes = flop / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (by_ops, 'operations') if by_ops >= by_bytes else (by_bytes, 'bytes')
+
+
+M_WIDTHS = (C, HEADS, WS, HIDDEN)
+LIGHT_WIDTHS = (60, 6, 8, 120)   # SwinIR-light: embed 60, 6 heads of 10, mlp 2
+ROUTE = {torch.float32: '3xTF32 at 495 TFLOP/s', torch.bfloat16: 'bfloat16 at 989 TFLOP/s'}
+
+
+def tensor_core_bound_ms(flop, nbytes, dtype):
+    """(bound ms, by what) of a kernel whose products all run on the tensor
+    cores (K1, K10): float32 as three TF32 products (3xTF32) at the TF32
+    peak, bfloat16 at the bfloat16 peak; and the float32 CUDA-core bound
+    (their first route) beside it."""
+    peak, products = (PEAK_FLOPS_TF32, 3) if dtype == torch.float32 else (PEAK_FLOPS_BF16, 1)
+    by_ops, by_bytes = products * flop / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    bound = (by_ops, 'operations') if by_ops >= by_bytes else (by_bytes, 'bytes')
+    return bound, max(flop / PEAK_FLOPS_F32 * 1e3, by_bytes)
 
 
 def kernel_work(kernel, b, h, w, dtype, shifted):
@@ -289,9 +308,14 @@ def check_joint_kernel():
     cases += [(1, h + (-h) % 8, w + (-w) % 8, torch.float32, 4, False) for h, w in LQ_SIZES]
     # the joint training route's call: a batch of patches under DropPath's scales
     cases += [(*TRAIN_SHAPE, dt, shift, True) for dt in both for shift in (0, 4)]
+    cases = [case + (M_WIDTHS,) for case in cases]
+    # SwinIR-light's widths (head dim 10), and a window of 16 tokens
+    cases += [(2, 64, 64, dt, shift, False, LIGHT_WIDTHS) for dt in both for shift in (0, 4)]
+    cases += [(2, 32, 32, dt, shift, False, (C, HEADS, 4, HIDDEN))
+              for dt in both for shift in (0, 2)]
     summary = {'max_abs_err': 0.}
-    for b, h, w, dt, shift, scaled in cases:
-        args = block_inputs(b, h, w, dt, shift, gen)
+    for b, h, w, dt, shift, scaled, (c, heads, ws, hidden) in cases:
+        args = block_inputs(b, h, w, dt, shift, gen, c, heads, ws, hidden)
         scales = None
         if scaled:   # mask / keep per sample and branch: sample 1 loses both, sample 2 one
             s1 = torch.full((b,), 1 / 0.9, device='cuda')
@@ -305,7 +329,8 @@ def check_joint_kernel():
         ok, max_abs, max_rel, tolerance = compare(got, want, dt, 'elementwise')
         if scaled and not torch.equal(got[1], args[0][1]):
             fail(f'joint kernel: a dropped sample is not passed through at {(b, h, w, dt, shift)}')
-        line = (f'B={b} {h}x{w} {str(dt)[6:]:8s} shift={shift}{" scaled" if scaled else ""}: '
+        widths = '' if (c, heads, ws, hidden) == M_WIDTHS else f' C={c} heads={heads} ws={ws}'
+        line = (f'B={b} {h}x{w}{widths} {str(dt)[6:]:8s} shift={shift}{" scaled" if scaled else ""}: '
                 f'max_abs_err={max_abs:.3e} '
                 f'max_rel_err={max_rel:.3e} (max|err| / max|plain|), tolerance {tolerance}')
         with torch.no_grad():
@@ -313,11 +338,15 @@ def check_joint_kernel():
                 lambda: reference_swin_block_full(*args, residual_scales=scales),
                 lambda: fused_swin_block_full(*args, residual_scales=scales))
         line += f' | kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms'
-        if (b, h, w, dt) == (1, 128, 128, torch.float32):   # the largest served request
+        if (c, heads, ws, hidden) == M_WIDTHS and (
+                (b, h, w) == (1, 128, 128) or (b, h, w, dt) == (2, 64, 64, torch.bfloat16)):
             flop, nbytes = kernel_work('swin_block_joint_fwd', b, h, w, dt, shift)
-            bound, by = bound_ms(flop, nbytes, dt)
-            summary.update(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
-            line += f', bound {bound:.4f} ms by {by}'
+            (bound, by), cuda_cores = tensor_core_bound_ms(flop, nbytes, dt)
+            line += (f', bound {bound:.4f} ms by {by} on its route ({ROUTE[dt]}; on the CUDA '
+                     f'cores {cuda_cores:.4f} ms)')
+            if (b, h, w, dt) == (1, 128, 128, torch.float32):   # the largest served request
+                summary.update(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                               cuda_core_bound_ms=cuda_cores)
         print(line, flush=True)
         if not ok:
             fail(f'joint kernel and plain version disagree at {(b, h, w, dt, shift, scaled)}')
@@ -948,6 +977,17 @@ def serve():
               f'{SCALE * h * SCALE * w / ms / 1e3:.3f} output MP/s')
     print(f'peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB')
     return model, loader, launches
+
+
+def profile_requests(model, loader):
+    """Phase 4b: where the device time of the SwinIR-M requests goes, by
+    kernel group, two requests of each served size."""
+    phase('4b. device time of the SwinIR-M requests by kernel group (torch.profiler)')
+    for item, (h, w) in zip(loader, LQ_SIZES):
+        model.feed_data(item)
+        print(f'LQ {h}x{w}:')
+        profile_device_time(model.test, 2, 'request', ('swin_block_joint_kernel',),
+                            f'swinir_request_{h}x{w}_profile.json')
 
 
 def model_loader(model):
@@ -2128,10 +2168,6 @@ def psnr_db(ref, got):
     return 10 * torch.log10(torch.tensor(1. / max(mse, 1e-30))).item()
 
 
-# K10's bound by its route: float32 as three TF32 products (3xTF32) at the
-# TF32 peak, bfloat16 at the bfloat16 peak; the float32 CUDA-core bound
-# (PR 5's route) is printed beside it
-PEAK_FLOPS_TF32 = 495e12
 # the layouts phase 3e hands K10 at the RSTB's shape, beside the NCHW ones of
 # CONV_SHAPES: channels-last memory, and the RSTB's own view of its tokens
 CONV_LAYOUTS = ('channels_last', 'token view')
@@ -2145,14 +2181,6 @@ def conv_operand(t, layout):
         return t.contiguous(memory_format=torch.channels_last)
     b, c, h, w = t.shape   # tokens (B, HW, C), seen as the RSTB sees them
     return t.flatten(2).transpose(1, 2).contiguous().transpose(1, 2).reshape(b, c, h, w)
-
-
-def conv_bound_ms(flop, nbytes, dtype):
-    """(bound ms, by what) on K10's route, and the CUDA-core bound."""
-    peak, products = (PEAK_FLOPS_TF32, 3) if dtype == torch.float32 else (PEAK_FLOPS_BF16, 1)
-    by_ops, by_bytes = products * flop / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-    bound = (by_ops, 'operations') if by_ops >= by_bytes else (by_bytes, 'bytes')
-    return bound, max(flop / PEAK_FLOPS_F32 * 1e3, by_bytes)
 
 
 def check_conv_kernel():
@@ -2211,7 +2239,7 @@ def check_conv_kernel():
             flop = 2 * 9 * cin * cout * b * h * w
             nbytes = (b * h * w * (cin + cout * (2 if model_res else 1)) + 9 * cin * cout) * es \
                 + 4 * cout
-            (bound, by), core_bound = conv_bound_ms(flop, nbytes, dt)
+            (bound, by), core_bound = tensor_core_bound_ms(flop, nbytes, dt)
             print(f'B={b} {cin}->{cout} {h}x{w} {layout:13s} {str(dt)[6:]:8s} residual={model_res} '
                   f'slope={model_slope}: four epilogues max_abs_err={worst:.3e} | kernel '
                   f'{kernel_ms:.4f} ms, F.conv2d + epilogue {library_ms:.4f} ms (ratio '
@@ -2252,8 +2280,8 @@ def check_conv_kernel():
 
 
 def int8_block_work(b, h, w, dtype, shifted):
-    """(int8 operations, float32 operations, bytes) of one W8A8 block: the
-    four weight products in int8, q.k and p.v in float32; x in, out back,
+    """(int8 operations, model-dtype operations, bytes) of one W8A8 block:
+    the four weight products in int8, q.k and p.v in the model dtype; x in, out back,
     int8 weights, scales and the small float operands once."""
     t, c, hid, n, es = b * h * w, C, HIDDEN, WS * WS, torch.finfo(dtype).bits // 8
     small = 4 * (8 * c + hid) + 4 * HEADS * n * n + 4 * (5 * c + hid)
@@ -2383,17 +2411,21 @@ def check_int8_block_kernel():
                         lambda: S.reference_swin_block_full_int8(*args),
                         lambda: S.swin_block_full_int8(*args))
                     k1_ms = cuda_time_ms(lambda: S.swin_block_full_forward(*args))
-                ops8, ops32, nbytes = int8_block_work(b, h, w, dt, shift)
-                by_ops = (ops8 / PEAK_OPS_INT8 + ops32 / PEAK_FLOPS_F32) * 1e3
+                ops8, ops_attn, nbytes = int8_block_work(b, h, w, dt, shift)
+                (attn_ms, _), attn_core_ms = tensor_core_bound_ms(ops_attn, 0, dt)
                 by_bytes = nbytes / PEAK_BYTES * 1e3
+                by_ops = ops8 / PEAK_OPS_INT8 * 1e3 + attn_ms
                 bound, by = max((by_ops, 'operations'), (by_bytes, 'bytes'))
+                # on the CUDA cores: __dp4a (four int8 products an instruction) and float32
+                core_bound = max((ops8 / (4 * PEAK_FLOPS_F32)) * 1e3 + attn_core_ms, by_bytes)
                 line += (f' | kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, float kernel '
                          f'(K1) {k1_ms:.4f} ms, bound {bound:.4f} ms by {by} (int8 products at '
-                         f'{PEAK_OPS_INT8 / 1e12:.0f} TOP/s, q.k and p.v at float32)')
+                         f'{PEAK_OPS_INT8 / 1e12:.0f} TOP/s, q.k and p.v {ROUTE[dt]}; on the CUDA '
+                         f'cores {core_bound:.4f} ms)')
                 print(line, flush=True)
                 if (b, dt, shift) == (1, torch.float32, 4):
                     summary.update(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                                   k1_ms=k1_ms)
+                                   k1_ms=k1_ms, cuda_core_bound_ms=core_bound)
     check_int8_half_rounding(gen)
     return {'swin_block_joint_int8_fwd': summary}
 
@@ -2872,7 +2904,7 @@ def main():
     if sys.argv[1:] == ['serving']:   # development: the serving modes' kernels and paths alone
         print(json.dumps({'swin_block_joint_fwd': check_joint_kernel(), **check_conv_kernel(),
                           **check_int8_block_kernel()}))
-        serve()
+        profile_requests(*serve()[:2])
         write_train_inputs()
         serving_modes(collections.Counter(), None)
         return
@@ -2888,6 +2920,7 @@ def main():
     # each phase below sets its kernels' counts to 0 just before it drives its
     # path and reads them just after
     model, loader, serve_launches = serve()
+    profile_requests(model, loader)
     check_whole_model(model, loader)
     del model
     train_launches, split_step_ms, _ = train()

@@ -26,7 +26,7 @@ from basicsr4rs_tpu.ops import quant as jax_quant
 from basicsr4rs_tpu.ops import swin_block as jax_block
 from basicsr4rs_tpu.ops.dispatch import force_interpret
 
-from test_torch_swin_block import HEADS, SCALE, _case, _jax_args, _port_args
+from test_torch_swin_block import HEADS, SCALE, _case, _jax_args, _port_args, bound_types
 
 
 def snr_db(ref, got):
@@ -413,6 +413,22 @@ def test_int8_block_weights_are_quantised_once_until_they_change():
     assert second[0] is not first[0]
     np.testing.assert_allclose(second[5].numpy(), 2 * first[5].numpy(), rtol=1e-6)
     assert torch.equal(second[4], first[4])
+
+
+def test_int8_block_binding_matches_the_c_signature(monkeypatch):
+    """The int8 block's ctypes types are its kernel's C parameters, one for
+    one, for the launch and for its shared-memory query."""
+    bound, declared = bound_types(monkeypatch, port_block, 'swin_block_joint_int8_fwd')
+    assert bound == declared
+
+
+@pytest.mark.parametrize('channels, heads', [(208, 8), (96, 2)], ids=['C208', 'head_dim48'])
+def test_int8_block_rejects_widths_past_the_register_tiles(channels, heads):
+    """As the float block: C <= 192 and heads of at most 32 features, checked
+    before the weights are quantised or anything is built."""
+    args = _port_args(_case(8, False, seed=5, C=channels, HIDDEN=2 * channels, heads=heads))
+    with pytest.raises(ValueError, match='takes C <= 192 and a head dim <= 32'):
+        port_block._launch_joint_int8(*args, 8, heads, (channels // heads)**-.5)
 
 
 def test_int8_block_has_no_backward():

@@ -18,7 +18,7 @@ B, H, W, C, HEADS, HIDDEN = 2, 16, 16, 18, 3, 36   # head_dim 6: not a multiple 
 SCALE = (C // HEADS)**-0.5
 
 
-def _case(window_size, shifted, seed, C=C, HIDDEN=HIDDEN):
+def _case(window_size, shifted, seed, C=C, HIDDEN=HIDDEN, heads=HEADS):
     """Inputs in the port's layout (nn.Linear (out, in) weights, separate
     relative-position bias and shift mask), as numpy."""
     rng = np.random.RandomState(seed)
@@ -29,7 +29,7 @@ def _case(window_size, shifted, seed, C=C, HIDDEN=HIDDEN):
 
     case = dict(x=r(B, H, W, C, std=1.), ln1_weight=1 + r(C, std=.1), ln1_bias=r(C, std=.1),
                 qkv_weight=r(3 * C, C), qkv_bias=r(3 * C, std=.1), proj_weight=r(C, C),
-                proj_bias=r(C, std=.1), rel_bias=r(HEADS, n, n, std=1.), mask=None,
+                proj_bias=r(C, std=.1), rel_bias=r(heads, n, n, std=1.), mask=None,
                 ln2_weight=1 + r(C, std=.1), ln2_bias=r(C, std=.1), fc1_weight=r(HIDDEN, C),
                 fc1_bias=r(HIDDEN, std=.1), fc2_weight=r(C, HIDDEN), fc2_bias=r(C, std=.1))
     if shifted:
@@ -107,17 +107,61 @@ def test_cuda_entry_raises_without_a_device():
     (dict(window_size=3), ValueError),       # 16 is not a multiple of 3
     (dict(window_size=16), ValueError),      # 256 tokens per window
     (dict(transpose_x=True), ValueError),    # not contiguous
+    (dict(channels=208, heads=8), ValueError),   # C > 192: proj's outputs stay in registers
+    (dict(channels=96, heads=2), ValueError),    # heads of 48 features, padded to 32
 ])
 def test_launch_rejects_what_the_kernel_does_not_take(change, error):
     """Shape, dtype and layout checks run before anything is built."""
     window_size = change.get('window_size', 8)
-    args = _port_args(_case(8, False, seed=5, C=24, HIDDEN=48))
+    c, heads = change.get('channels', 24), change.get('heads', HEADS)
+    args = _port_args(_case(8, False, seed=5, C=c, HIDDEN=2 * c, heads=heads))
     if 'x_dtype' in change:
         args[0] = args[0].to(change['x_dtype'])
     if change.get('transpose_x'):
         args[0] = args[0].transpose(1, 2)
     with pytest.raises(error):
-        port._launch_joint(*args, window_size, HEADS, SCALE)
+        port._launch_joint(*args, window_size, heads, SCALE)
+
+
+def test_launch_takes_the_widest_block():
+    """C = 192 in heads of 32 passes every check and goes on to build the
+    kernel, which this host cannot: the error is the missing toolkit."""
+    args = _port_args(_case(8, False, seed=5, C=192, HIDDEN=384, heads=6))
+    with pytest.raises(RuntimeError, match='nvcc|CUDA'):
+        port._launch_joint(*args, 8, 6, 32**-.5)
+
+
+def bound_types(monkeypatch, module, name):
+    """The ctypes types ``module._lib`` gives ``name`` and ``<name>_smem_bytes``,
+    with the library's load replaced by a stand-in (no kernel is built), and
+    the C parameters of both in ``csrc/<name>.cu``."""
+    import ctypes
+    import re
+    import types
+    from basicsr4rs_torch.ops import _build, _launch
+    from test_torch_conv3x3 import c_signature
+    fake = types.SimpleNamespace(**{n: types.SimpleNamespace() for n in (
+        name, f'{name}_error', f'{name}_smem_bytes')})
+    monkeypatch.setattr(_launch, 'load_library', lambda _: fake)
+    module._lib.cache_clear()
+    try:
+        module._lib(name)
+    finally:
+        module._lib.cache_clear()
+    source = (_build.CSRC_DIR / f'{name}.cu').read_text()
+    smem = re.search(rf'\bsize_t {name}_smem_bytes\(([^)]*)\)', source).group(1)
+    assert all(p.split()[0] == 'int' for p in smem.split(','))
+    return ((list(getattr(fake, name).argtypes), list(getattr(fake, f'{name}_smem_bytes').argtypes)),
+            (c_signature(name), [ctypes.c_int] * len(smem.split(','))))
+
+
+def test_binding_matches_the_c_signature(monkeypatch):
+    """The wrapper's ctypes types are the joint kernel's C parameters, one
+    for one, for the launch and for its shared-memory query: a count that
+    differs passes a pointer as an int or fails at the first launch on the
+    card."""
+    bound, declared = bound_types(monkeypatch, port, 'swin_block_joint_fwd')
+    assert bound == declared
 
 
 # ------------------------------------------------- the attention branch (training)
