@@ -1,6 +1,7 @@
 // Tensor-core building blocks shared by the kernels that multiply on them
-// (conv3x3_fwd.cu, swin_block_joint.cuh): the TF32 split, ldmatrix, and the
-// warp-wide mma.sync products of Hopper's (and Ampere's) tensor cores.
+// (conv3x3_fwd.cu, swin_block_joint.cuh, swin_attn_block_bwd.cu): the TF32
+// split, ldmatrix (plain and transposing), and the warp-wide mma.sync
+// products of Hopper's (and Ampere's) tensor cores.
 //
 // Fragments, for lane l, g = l / 4 and t = l % 4, as 32-bit registers:
 //   A (16 x K, row-major):  a0 (row g, word t), a1 (row g + 8, word t),
@@ -24,6 +25,22 @@ namespace tc {
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// The transposing loads: lane l receives, of each 8 x 8 b16 matrix whose
+// rows lanes 8j .. 8j + 7 address, the word (row 2 (l % 4), row 2 (l % 4) + 1)
+// of column l / 4, the lower row in the lower bits. For a matrix stored with
+// its K index along the rows, that is the A or B fragment word of m16n8k16.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
                : "r"(addr));
 }
 

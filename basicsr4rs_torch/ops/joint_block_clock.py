@@ -1,16 +1,22 @@
-"""Where a window's time goes in the joint Swin block kernels (K1, K11).
+"""Where a window's time goes in the joint Swin block kernels (K1, K11), or
+a (window, head) unit's in the attention branch's backward (K3).
 
     python -m basicsr4rs_torch.ops.joint_block_clock [--dtype float32|bfloat16]
+    python -m basicsr4rs_torch.ops.joint_block_clock --kernel attn_bwd [--csrc DIR]
 
-On one CUDA card. Builds a copy of ``csrc/`` under ``build/joint_block_clock/``
-in which every barrier of ``swin_block_joint.cuh`` reads ``clock64()`` on
-the first lane of each warp of block 0, runs both kernels on a SwinIR-M
-block (C=180, 6 heads, window 8, hidden 360; B=1 128x128, shifted, weights
-of std 1/sqrt(fan_in) from a seed) and prints, for each barrier, the work
-each warp did since the one before: the slowest warp's, the mean and the
-fastest, averaged over 10 launches. The kernel is barrier-synchronised, so
-the slowest warps' work summed over the barriers is the window's time.
-The kernels in ``csrc/`` are untouched.
+On one CUDA card. Builds a copy of ``csrc/`` under ``build/`` in which every
+barrier of ``swin_block_joint.cuh`` (K1, K11), or of
+``swin_attn_block_bwd.cu``'s block kernel and the ``swin_common.cuh``
+helpers it calls (K3), reads ``clock64()`` on the first lane of each warp of
+block 0. K1 and K11 run on a SwinIR-M block (C=180, 6 heads, window 8,
+hidden 360; B=1 128x128, shifted), K3 on its training call (B=4 48x48,
+shifted, DropPath's scales), weights of std 1/sqrt(fan_in) from a seed. It
+prints, for each barrier, the work each warp did since the one before: the
+slowest warp's, the mean and the fastest, averaged over 10 launches. The
+kernel is barrier-synchronised, so the slowest warps' work summed over the
+barriers is the block's time. ``--csrc`` instruments another checkout's
+kernel sources (an earlier K3, whose C interface had no scratch buffer), as
+they stand. The kernels in ``csrc/`` are untouched.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import ctypes
 import re
 import shutil
 import subprocess
+from pathlib import Path
 
 import torch
 
@@ -44,6 +51,52 @@ extern "C" void clock_zero() {
   cudaMemcpyToSymbol(swin::g_work, z, sizeof(z));
 }
 ''' % SLOTS
+
+
+def kernel_body(text, signature):
+    """(start, end): the offsets just inside the braces of the function
+    whose text begins with ``signature``."""
+    start = text.index('{', text.index(signature)) + 1
+    depth, at = 1, start
+    while depth:
+        at = re.search(r'[{}]', text[at:]).start() + at + 1
+        depth += 1 if text[at - 1] == '{' else -1
+    return start, at - 1
+
+
+def instrumented_attn_bwd(src_dir, out_dir):
+    """Copies src_dir to out_dir with the barriers of K3's block kernel and
+    of the swin_common.cuh helpers counted; returns (file, line) of each
+    counted barrier."""
+    shutil.rmtree(out_dir, ignore_errors=True)
+    shutil.copytree(src_dir, out_dir)
+    lines = []
+
+    def counted(name, text, lo, hi):
+        def count(match):
+            lines.append((name, text[:lo + match.start()].count('\n') + 1))
+            return f'SYNC({len(lines) - 1});'
+        return text[:lo] + re.sub(r'__syncthreads\(\);', count, text[lo:hi]) + text[hi:]
+
+    common = out_dir / 'swin_common.cuh'
+    head, body = common.read_text().split('namespace swin {\n', 1)
+    text = head + DEFINE + body   # DEFINE opens the namespace
+    text = counted('swin_common.cuh', text, len(head) + len(DEFINE), len(text))
+    common.write_text(text)
+    path = out_dir / 'swin_attn_block_bwd.cu'
+    text = path.read_text()
+    _, hi = kernel_body(text, '__global__ void __launch_bounds__(kThreads')
+    text = counted('swin_attn_block_bwd.cu', text, 0, hi)
+    lo, hi = kernel_body(text, '__global__ void __launch_bounds__(kThreads')
+    mark = '  if (blockIdx.x == 0 && (threadIdx.x & 31) == 0) '
+    text = (text[:lo] + '\n' + mark + 'g_mark[threadIdx.x >> 5] = clock64();\n' + text[lo:hi]
+            + mark + f'g_work[threadIdx.x >> 5][{SLOTS - 1}] += clock64() - '
+            'g_mark[threadIdx.x >> 5];\n' + text[hi:])
+    path.write_text(text + READ)
+    assert len(lines) < SLOTS
+    # the line numbers of the sources as they are, before the definitions went in
+    shift = DEFINE.count('\n') - 1
+    return [(name, line - shift if name == 'swin_common.cuh' else line) for name, line in lines]
 
 
 def instrumented_sources(out_dir):
@@ -73,17 +126,17 @@ def instrumented_sources(out_dir):
     return lines
 
 
-def block_inputs(dtype, gen):
-    """A shifted SwinIR-M block at B=1 128x128 on the card, as phase 3 of
+def block_inputs(dtype, gen, b=1, h=128):
+    """A shifted SwinIR-M block at B=b hxh on the card, as phase 3 of
     chip_smoke.py draws it."""
     from ..archs.swinir_arch import _shift_attn_mask
-    c, heads, ws, hidden, h = 180, 6, 8, 360, 128
+    c, heads, ws, hidden = 180, 6, 8, 360
     n = ws * ws
 
     def r(*shape, std=1.):
         return (torch.randn(*shape, generator=gen) * std).cuda()
 
-    x = r(1, h, h, c).to(dtype)
+    x = r(b, h, h, c).to(dtype)
     return [x, 1 + r(c, std=.1), r(c, std=.1), r(3 * c, c, std=c**-.5), r(3 * c, std=.02),
             r(c, c, std=c**-.5), r(c, std=.02), r(heads, n, n, std=.5),
             _shift_attn_mask(h, h, ws, ws // 2, x.device),
@@ -91,12 +144,99 @@ def block_inputs(dtype, gen):
             r(c, hidden, std=hidden**-.5), r(c, std=.02), ws, heads, (c // heads)**-.5]
 
 
+def print_work(buf, total_of, where):
+    """The slots of one kernel's clock, as main() describes them."""
+    work = [[buf[w * SLOTS + s] / 10 for w in range(16)] for s in range(SLOTS)]
+    total = sum(max(ws) for ws in work)
+    print(f'{total_of}: {total:.0f} cycles, summed over the barriers\' slowest warps')
+    for s, ws in enumerate(work):
+        if max(ws) < 0.01 * total:
+            continue
+        print(f'  {max(ws):9.0f} slowest {sum(ws) / 16:9.0f} mean {min(ws):9.0f} fastest '
+              f'{100 * max(ws) / total:5.1f}%  before {where(s)}')
+
+
+def clock_attn_bwd(dtype, src_dir):
+    """K3 at its training call, instrumented from ``src_dir``, called through
+    its C interface as that source declares it."""
+    out_dir = _build.BUILD_DIR.parent / 'attn_bwd_clock'
+    lines = instrumented_attn_bwd(src_dir, out_dir)
+    flags = [str(out_dir) if f == str(_build.CSRC_DIR) else f for f in _build.NVCC_FLAGS]
+    lib_path = out_dir / 'swin_attn_block_bwd.so'
+    proc = subprocess.run([_build._nvcc(), *flags, '-o', str(lib_path),
+                           str(out_dir / 'swin_attn_block_bwd.cu')],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode:
+        raise SystemExit(f'nvcc failed on swin_attn_block_bwd:\n{proc.stdout}')
+    source = (src_dir / 'swin_attn_block_bwd.cu').read_text()
+    with_scratch = 'float* scratch' in source
+    smem_args = re.search(r'size_t swin_attn_block_bwd_smem_bytes\(([^)]*)\)', source).group(1)
+    lib = ctypes.CDLL(str(lib_path))
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.swin_attn_block_bwd.argtypes = ([i, p, p, p] + [i] * 6 + [p] * 7 + [i, p, f, p]
+                                        + [p] * (2 if with_scratch else 1))
+    lib.swin_attn_block_bwd_grad_floats.restype = ctypes.c_size_t
+    lib.swin_attn_block_bwd_smem_bytes.restype = ctypes.c_size_t
+    b, hw = 4, 48
+    (x, ln_w, ln_b, wqkv, bqkv, wproj, _, rel, mask, *_, ws, heads, scale) = block_inputs(
+        dtype, torch.Generator().manual_seed(0), b=b, h=hw)
+    c = x.shape[-1]
+    dz = torch.randn(x.shape, generator=torch.Generator().manual_seed(1)).cuda().to(dtype)
+    s = torch.full((b,), 1 / 0.9, device='cuda')
+    s[1] = 0.
+    dx = torch.empty_like(x)
+    grads = torch.empty(lib.swin_attn_block_bwd_grad_floats(c, heads, ws), device='cuda')
+    scratch = torch.empty(x.numel(), device='cuda')
+    dt = 0 if dtype == torch.float32 else 1
+    smem = (lib.swin_attn_block_bwd_smem_bytes(dt, c, heads) if smem_args.count(',') == 2
+            else lib.swin_attn_block_bwd_smem_bytes(c, heads))
+    wqkv, wproj = wqkv.to(dtype), wproj.to(dtype)
+    ptr = [t.data_ptr() for t in (x, dz, dx)]
+    weights = [t.data_ptr() for t in (ln_w, ln_b, wqkv, bqkv, wproj, rel, mask)]
+
+    def run():
+        rc = lib.swin_attn_block_bwd(dt, *ptr, b, hw, hw, c, heads, ws, *weights, 2,
+                                     s.data_ptr(), scale, grads.data_ptr(),
+                                     *([scratch.data_ptr()] if with_scratch else []),
+                                     torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise SystemExit(f'swin_attn_block_bwd: CUDA error {rc}')
+
+    print(torch.cuda.get_device_name(0), str(dtype)[6:], f'B={b} {hw}x{hw} shifted, scaled, '
+          f'SwinIR-M; {src_dir}; {smem} bytes of shared memory a block')
+    run()
+    torch.cuda.synchronize()
+    lib.clock_zero()
+    for _ in range(10):
+        run()
+    torch.cuda.synchronize()
+    buf = (ctypes.c_ulonglong * (16 * SLOTS))()
+    lib.clock_read(buf)
+    texts = {name: (src_dir / name).read_text().split('\n') for name in
+             ('swin_common.cuh', 'swin_attn_block_bwd.cu')}
+
+    def where(slot):
+        if slot == SLOTS - 1:
+            return 'the block\'s end'
+        name, line = lines[slot]
+        before = ' | '.join(t.strip() for t in texts[name][line - 3:line - 1] if t.strip())
+        return f'{name}:{line}: {before[:80]}'
+
+    print_work(buf, 'swin_attn_block_bwd block 0', where)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     parser.add_argument('--dtype', choices=('float32', 'bfloat16'), default='float32')
+    parser.add_argument('--kernel', choices=('joint', 'attn_bwd'), default='joint')
+    parser.add_argument('--csrc', type=Path, default=_build.CSRC_DIR,
+                        help='kernel sources to instrument (attn_bwd)')
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('joint_block_clock: needs a CUDA card')
+    if args.kernel == 'attn_bwd':
+        clock_attn_bwd(getattr(torch, args.dtype), args.csrc.resolve())
+        return
     out_dir = _build.BUILD_DIR.parent / 'joint_block_clock'
     lines = instrumented_sources(out_dir)
     source = (_build.CSRC_DIR / 'swin_block_joint.cuh').read_text().split('\n')
@@ -127,17 +267,9 @@ def main():
             torch.cuda.synchronize()
         buf = (ctypes.c_ulonglong * (16 * SLOTS))()
         lib.clock_read(buf)
-        work = [[buf[w * SLOTS + s] / 10 for w in range(16)] for s in range(SLOTS)]
-        total = sum(max(ws) for ws in work)
-        print(f'{name}: {total:.0f} cycles a window, summed over the barriers\' slowest warps')
-        for s, ws in enumerate(work):
-            if max(ws) < 0.01 * total:
-                continue
-            where = 'the kernel\'s end' if s == SLOTS - 1 else (
-                f'line {lines[s]}: ' + ' | '.join(
-                    t.strip() for t in source[lines[s] - 3:lines[s] - 1] if t.strip())[:90])
-            print(f'  {max(ws):9.0f} slowest {sum(ws) / 16:9.0f} mean {min(ws):9.0f} fastest '
-                  f'{100 * max(ws) / total:5.1f}%  before {where}')
+        print_work(buf, f'{name} a window', lambda s: 'the kernel\'s end' if s == SLOTS - 1 else (
+            f'line {lines[s]}: ' + ' | '.join(
+                t.strip() for t in source[lines[s] - 3:lines[s] - 1] if t.strip())[:90]))
     S._lib.cache_clear()
 
 

@@ -51,6 +51,10 @@ MAX_TOKENS_PER_WINDOW = 64
 # the joint kernels hold proj's and fc2's outputs in registers, 6 n8 tiles a
 # warp (csrc/swin_block_joint.cuh: kMaxN), and pad a head to 32 features
 JOINT_MAX_CHANNELS, JOINT_MAX_HEAD_DIM = 192, 32
+# the attention backward holds dL/dLN(x)'s outputs in registers, 8 n8 tiles a
+# warp, and dO's, 3 a warp (csrc/swin_attn_block_bwd.cu): wider blocks than
+# any whose shared memory its first route could hold
+ATTN_BWD_MAX_CHANNELS, ATTN_BWD_MAX_HEAD_DIM = 256, 96
 
 
 def _attention_bias(rel_bias, mask):
@@ -424,14 +428,15 @@ _SIGNATURES = {
     'swin_block_joint_fwd': lambda p, i, f: [i, p, p] + [i] * 7 + [p] * 16 + [f, p],
     'swin_block_joint_int8_fwd': lambda p, i, f: [i, p, p] + [i] * 7 + [p] * 18 + [f, p, p, p],
     'swin_attn_block_fwd': lambda p, i, f: [i, p, p] + [i] * 6 + [p] * 8 + [i, p, f, p],
-    'swin_attn_block_bwd': lambda p, i, f: [i, p, p, p] + [i] * 6 + [p] * 7 + [i, p, f, p, p],
+    'swin_attn_block_bwd': lambda p, i, f: [i, p, p, p] + [i] * 6 + [p] * 7 + [i, p, f, p, p, p],
 }
 
 
 @functools.lru_cache(maxsize=None)
 def _lib(name: str) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
-    smem = {'swin_block_joint_fwd': [i, i, i], 'swin_block_joint_int8_fwd': [i, i, i, i]}
+    smem = {'swin_block_joint_fwd': [i, i, i], 'swin_block_joint_int8_fwd': [i, i, i, i],
+            'swin_attn_block_bwd': [i, i, i]}
     return _launch.bind(name, _SIGNATURES[name](p, i, ctypes.c_float), smem.get(name, [i, i]),
                         [i, i, i] if name == 'swin_attn_block_bwd' else None)
 
@@ -590,23 +595,29 @@ def _launch_attn_backward(x, dz, ln_weight, ln_bias, qkv_weight, qkv_bias, proj_
     if dz.shape != x.shape or dz.dtype != x.dtype or dz.device != x.device:
         raise ValueError(f'{op}: dz must match x in shape, dtype and device')
     b, h, w, c = x.shape
+    if c > ATTN_BWD_MAX_CHANNELS or c // num_heads > ATTN_BWD_MAX_HEAD_DIM:
+        raise ValueError(f'{op}: takes C <= {ATTN_BWD_MAX_CHANNELS} and a head dim <= '
+                         f'{ATTN_BWD_MAX_HEAD_DIM} (C={c}, heads={num_heads})')
     n = window_size * window_size
     ops += [rel_bias, mask]
     lib = _lib(op)
-    _launch.check_shared_memory(lib.swin_attn_block_bwd_smem_bytes(c, num_heads), x.device, op)
+    dtype = _launch.DTYPES[x.dtype]
+    _launch.check_shared_memory(lib.swin_attn_block_bwd_smem_bytes(dtype, c, num_heads),
+                                x.device, op)
     dx = torch.empty_like(x)
-    # one float32 buffer for every parameter gradient; the op zeroes it on the stream
+    # one float32 buffer for every parameter gradient and one for dL/dLN(x)
+    # summed over the heads; the op zeroes both on the stream
     grads = torch.empty(lib.swin_attn_block_bwd_grad_floats(c, num_heads, window_size),
                         dtype=torch.float32, device=x.device)
     if x.numel() == 0:
         grads.zero_()
     else:
+        scratch = torch.empty(x.numel(), dtype=torch.float32, device=x.device)
         rc = lib.swin_attn_block_bwd(
-            _launch.DTYPES[x.dtype], x.data_ptr(), dz.data_ptr(), dx.data_ptr(), b, h, w, c,
-            num_heads, window_size, *_launch.pointers(ops),
-            _launch.mode_of(add_residual, residual_scale),
+            dtype, x.data_ptr(), dz.data_ptr(), dx.data_ptr(), b, h, w, c, num_heads,
+            window_size, *_launch.pointers(ops), _launch.mode_of(add_residual, residual_scale),
             *_launch.pointers([_launch.scale_operand(residual_scale, x)]), float(scale),
-            grads.data_ptr(), _launch.current_stream(x.device))
+            grads.data_ptr(), scratch.data_ptr(), _launch.stream_of(x))
         _launch.check_rc(rc, lib, op)
     dln_w, dln_b, dwqkv, dbqkv, dwproj, dbproj, drel = grads.split(
         [c, c, 3 * c * c, 3 * c, c * c, c, num_heads * n * n])

@@ -17,7 +17,9 @@ nonzero exit code and no result line:
    SwinIR-light's widths (C=60, heads of 10) and with a window of 4; the
    attention and MLP branch kernels, forward and backward, at the training
    shape (batch 4 of 48x48) in their three output modes, every gradient by
-   name; the window-attention kernels at the shapes of the ResShift UNet
+   name, and the attention kernels also where their tiles are padded
+   (SwinIR-light's widths, a window of 4, heads of 48); the
+   window-attention kernels at the shapes of the ResShift UNet
    (C=192, 6 heads of 32, window 8; maps of 64, 32, 16 and 8; batch 1 and
    the training batch; with the shift mask and without) and at C=180 with
    heads of 30, beside ``F.scaled_dot_product_attention`` as a yardstick;
@@ -244,7 +246,7 @@ ROUTE = {torch.float32: '3xTF32 at 495 TFLOP/s', torch.bfloat16: 'bfloat16 at 98
 
 def tensor_core_bound_ms(flop, nbytes, dtype):
     """(bound ms, by what) of a kernel whose products all run on the tensor
-    cores (K1, K10): float32 as three TF32 products (3xTF32) at the TF32
+    cores (K1, K3, K10): float32 as three TF32 products (3xTF32) at the TF32
     peak, bfloat16 at the bfloat16 peak; and the float32 CUDA-core bound
     (their first route) beside it."""
     peak, products = (PEAK_FLOPS_TF32, 3) if dtype == torch.float32 else (PEAK_FLOPS_BF16, 1)
@@ -253,13 +255,15 @@ def tensor_core_bound_ms(flop, nbytes, dtype):
     return bound, max(flop / PEAK_FLOPS_F32 * 1e3, by_bytes)
 
 
-def kernel_work(kernel, b, h, w, dtype, shifted):
-    """(FLOP, bytes) of one call on a SwinIR-M block: every product of the
-    function, each input read once and each output written once."""
-    t, c, hid, n, es = b * h * w, C, HIDDEN, WS * WS, torch.finfo(dtype).bits // 8
+def kernel_work(kernel, b, h, w, dtype, shifted, widths=M_WIDTHS):
+    """(FLOP, bytes) of one call on a Swin block (SwinIR-M's widths unless
+    given): every product of the function, each input read once and each
+    output written once."""
+    c, heads, ws, hid = widths
+    t, n, es = b * h * w, ws * ws, torch.finfo(dtype).bits // 8
     attn_w, mlp_w = 4 * c * c, 2 * c * hid                      # weight elements
-    small = 4 * (8 * c + hid) + 4 * HEADS * n * n               # LN, biases, rel_bias (f32)
-    mask = 4 * (h // WS) * (w // WS) * n * n if shifted else 0
+    small = 4 * (8 * c + hid) + 4 * heads * n * n               # LN, biases, rel_bias (f32)
+    mask = 4 * (h // ws) * (w // ws) * n * n if shifted else 0
     attn_fwd = t * (8 * c * c + 4 * n * c)
     mlp_fwd = t * 4 * c * hid
     return {
@@ -368,14 +372,26 @@ def check_branch_kernels():
     from basicsr4rs_torch.ops import swin_block as S
     phase('3b. attention and MLP branch kernels, forward and backward, vs plain versions')
     gen = torch.Generator().manual_seed(1)
-    cases = [(shape, torch.float32, shift, mode) for shape in (TRAIN_SHAPE, (2, 64, 64))
+    t0 = time.perf_counter()
+    cases = [(shape, torch.float32, shift, mode, M_WIDTHS) for shape in (TRAIN_SHAPE, (2, 64, 64))
              for shift in (0, 4) for mode in ('branch', 'residual', 'scaled')]
-    cases += [(TRAIN_SHAPE, torch.bfloat16, 4, mode) for mode in ('branch', 'scaled')]
+    cases += [(TRAIN_SHAPE, torch.bfloat16, 4, mode, M_WIDTHS) for mode in ('branch', 'scaled')]
+    # the attention kernels where their tiles are padded: SwinIR-light's
+    # heads of 10 features, windows of 16 tokens, and heads of 48 features
+    # (two 32-feature chunks of a head, wider than the joint kernel takes)
+    both = (torch.float32, torch.bfloat16)
+    cases += [((2, 64, 64), dt, 4, 'scaled', LIGHT_WIDTHS) for dt in both]
+    cases += [((2, 32, 32), dt, 2, mode, (C, HEADS, 4, HIDDEN))
+              for dt in both for mode in ('branch', 'scaled')]
+    cases += [((2, 64, 64), torch.float32, 4, 'residual', (96, 2, WS, 192))]
+    padded_s = 0.
     summary = {name: {'max_abs_err': 0.} for name in
                ('swin_attn_block_fwd', 'swin_attn_block_bwd', 'mlp_block_fwd', 'mlp_block_bwd')}
-    for (b, h, w), dt, shift, mode in cases:
+    for (b, h, w), dt, shift, mode, widths in cases:
+        t_case = time.perf_counter()
+        c, heads, ws, hidden = widths
         (x, ln1w, ln1b, wqkv, bqkv, wproj, bproj, rel, mask, ln2w, ln2b, w1, b1, w2, b2,
-         ws, heads, scale) = block_inputs(b, h, w, dt, shift, gen)
+         ws, heads, scale) = block_inputs(b, h, w, dt, shift, gen, c, heads, ws, hidden)
         dz = torch.randn(x.shape, generator=gen).cuda().to(dt)
         add = mode == 'residual'
         s = None
@@ -396,7 +412,10 @@ def check_branch_kernels():
             ('mlp_block_bwd', M.mlp_block_backward, M.reference_mlp_block_backward, mlp_b,
              MLP_GRADS),
         ]
-        tag = f'B={b} {h}x{w} {str(dt)[6:]:8s} shift={shift} {mode:8s}'
+        if widths != M_WIDTHS:
+            runs = runs[:2]
+        tag = (f'B={b} {h}x{w} {str(dt)[6:]:8s} shift={shift} {mode:8s}'
+               + ('' if widths == M_WIDTHS else f' C={c} heads={heads} ws={ws}'))
         for name, kernel, plain, args, outputs in runs:
             with torch.no_grad():
                 got = kernel(*args)
@@ -422,14 +441,23 @@ def check_branch_kernels():
                 if not torch.equal(got[0][1], through[1]):
                     fail(f'{name}: the dropped sample is not passed through at {tag}')
             kernel_ms, plain_ms = time_pair(lambda: plain(*args), lambda: kernel(*args))
-            flop, nbytes = kernel_work(name, b, h, w, dt, shift)
-            bound, by = bound_ms(flop, nbytes, dt)
+            flop, nbytes = kernel_work(name, b, h, w, dt, shift, widths)
+            cuda_cores = None
+            if name == 'swin_attn_block_bwd':   # K3: every product on the tensor cores
+                (bound, by), cuda_cores = tensor_core_bound_ms(flop, nbytes, dt)
+                route = (f'bound {bound:.4f} ms by {by} on its route ({ROUTE[dt]}; on the CUDA '
+                         f'cores {cuda_cores:.4f} ms)')
+            else:
+                bound, by = bound_ms(flop, nbytes, dt)
+                route = f'bound {bound:.4f} ms by {by}'
             print(f'{name:20s} {tag}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, '
-                  f'bound {bound:.4f} ms by {by} | max abs err (of max|plain|): '
-                  + ', '.join(worst), flush=True)
-            if ((b, h, w), dt, shift, mode) == (TRAIN_SHAPE, torch.float32, 4, 'scaled'):
+                  f'{route} | max abs err (of max|plain|): ' + ', '.join(worst), flush=True)
+            if ((b, h, w), dt, shift, mode, widths) == (TRAIN_SHAPE, torch.float32, 4, 'scaled',
+                                                        M_WIDTHS):
                 summary[name].update(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound,
                                      bound_by=by)
+                if cuda_cores is not None:
+                    summary[name]['cuda_core_bound_ms'] = cuda_cores
                 if name.endswith('bwd'):   # atomicAdd sums: reported, not required
                     with torch.no_grad():
                         again = kernel(*args)
@@ -437,6 +465,10 @@ def check_branch_kernels():
                           'for bit: ' + ', '.join(
                               f'{o} {"yes" if torch.equal(g, a) else "no"}'
                               for o, g, a in zip(outputs, got, again)), flush=True)
+        if widths != M_WIDTHS:
+            padded_s += time.perf_counter() - t_case
+    print(f'phase 3b: {time.perf_counter() - t0:.1f} s, of which {padded_s:.1f} s for the '
+          'padded shapes (C=60, window 4, C=96)')
     return summary
 
 

@@ -141,7 +141,7 @@ def bound_types(monkeypatch, module, name):
     from basicsr4rs_torch.ops import _build, _launch
     from test_torch_conv3x3 import c_signature
     fake = types.SimpleNamespace(**{n: types.SimpleNamespace() for n in (
-        name, f'{name}_error', f'{name}_smem_bytes')})
+        name, f'{name}_error', f'{name}_smem_bytes', f'{name}_grad_floats')})
     monkeypatch.setattr(_launch, 'load_library', lambda _: fake)
     module._lib.cache_clear()
     try:
@@ -155,12 +155,13 @@ def bound_types(monkeypatch, module, name):
             (c_signature(name), [ctypes.c_int] * len(smem.split(','))))
 
 
-def test_binding_matches_the_c_signature(monkeypatch):
-    """The wrapper's ctypes types are the joint kernel's C parameters, one
-    for one, for the launch and for its shared-memory query: a count that
+@pytest.mark.parametrize('name', ['swin_block_joint_fwd', 'swin_attn_block_bwd'])
+def test_binding_matches_the_c_signature(monkeypatch, name):
+    """The wrapper's ctypes types are the kernel's C parameters, one for
+    one, for the launch and for its shared-memory query: a count that
     differs passes a pointer as an int or fails at the first launch on the
     card."""
-    bound, declared = bound_types(monkeypatch, port, 'swin_block_joint_fwd')
+    bound, declared = bound_types(monkeypatch, port, name)
     assert bound == declared
 
 
@@ -263,6 +264,20 @@ def test_attn_backward_wrapper_returns_the_kernel_tuple():
     out.backward(dz.transpose(1, 2))   # not contiguous
     for g, leaf in zip(grads, leaves):
         np.testing.assert_allclose(g.numpy(), leaf.grad.numpy(), atol=1e-6, rtol=1e-6)
+
+
+def test_attn_backward_launch_takes_heads_wider_than_the_joint_kernel():
+    """The attention backward takes every shape its first route held in
+    shared memory, heads of 48 features (C = 96, 2 heads) among them, which
+    the joint kernel refuses: no check of the joint kernel's widths reaches
+    it, and it goes on to build the kernel, which this host cannot."""
+    case = _case(8, True, seed=34, C=96, HIDDEN=192, heads=2)
+    args = [torch.from_numpy(case[k]) for k in ATTN_NAMES]
+    with pytest.raises(ValueError, match='head dim'):
+        port._launch_joint(*_port_args(case), 8, 2, 48**-.5)
+    with pytest.raises(RuntimeError, match='nvcc|CUDA'):
+        port._launch_attn_backward(args[0], torch.zeros_like(args[0]), *args[1:6], args[7],
+                                   torch.from_numpy(case['mask']), 8, 2, 48**-.5, False, None)
 
 
 @pytest.mark.parametrize('entry', ['_launch_attn_forward', '_launch_attn_backward'])
