@@ -1,5 +1,6 @@
-// Device code shared by the Swin block kernels (the split attention and MLP
-// branches, forward and backward; the joint forward takes its reductions).
+// Device code shared by the Swin block kernels on the CUDA cores (the split
+// attention and MLP branches' forward kernels; the joint forward and the
+// backward kernels take its constants and cp.async).
 //
 // One thread block of kThreads threads works on a tile of at most kTok
 // tokens (one attention window, or kTok consecutive tokens of the MLP).
@@ -11,11 +12,9 @@
 // layout in device memory and stream through two shared-memory stages by
 // cp.async.
 //
-// Three GEMM shapes cover forward and backward:
-//   gemm_w    out(o, t) = sum_k A[k][t] W[o][k]     y = x W^T     (weight rows)
-//   gemm_wt   out(o, t) = sum_k A[k][t] W[k][o]     dx = dy W     (weight columns)
-//   gemm_tok  out(a, b) = sum_t A[a][t] B[b][t]     dW = dy^T x   (over the tokens)
-// and gemm_s is gemm_w with the second operand in shared memory.
+// gemm_w is the product with a weight, out(o, t) = sum_k A[k][t] W[o][k]
+// (y = x W^T, weight rows); gemm_s is gemm_w with the second operand in
+// shared memory.
 
 #pragma once
 
@@ -94,15 +93,6 @@ __device__ __forceinline__ float4 lds4(const __nv_bfloat16* p) {
                      __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
 }
 
-// Two consecutive staged weights as floats.
-__device__ __forceinline__ float2 lds2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 lds2(const __nv_bfloat16* p) {
-  const unsigned u = *reinterpret_cast<const unsigned*>(p);
-  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
-}
-
 __device__ __forceinline__ float gelu(float v) {
   return 0.5f * v * (1.f + erff(v * 0.7071067811865476f));
 }
@@ -179,64 +169,6 @@ __device__ __forceinline__ void gemm_w(const float* __restrict__ A, int K, int N
   }
 }
 
-// out(o, t) = sum_k A[k][t] * W_k[o]: the product with the transpose of a
-// weight, read in place. row(k) points at the N consecutive elements of the
-// k-th reduction row (global, aligned to CH elements; N % CH == 0, CH 4 or
-// 2). A stage holds kKTile reduction rows of kRoundRows outputs; warp w
-// reads its kTN outputs of a row as three pairs.
-template <typename T, int CH, class Row, class Epi>
-__device__ __forceinline__ void gemm_wt(const float* __restrict__ A, int K, int N, Row row, Epi epi,
-                                        T* stages) {
-  static_assert(kTN == 6, "three pairs of outputs per warp");
-  const int t = 2 * (threadIdx.x & 31);
-  const int o0 = (threadIdx.x >> 5) * kTN;
-  for (int r0 = 0; r0 < N; r0 += kRoundRows) {
-    const int rows = min(kRoundRows, N - r0);
-    auto stage_in = [&](int s, int k0) {
-      const int kn = min(kKTile, K - k0);
-      const int chunks = rows / CH;
-      for (int c = threadIdx.x; c < kn * chunks; c += kThreads) {
-        const int k = c / chunks, q = c % chunks;
-        cp_async<CH>(stages + (s * kKTile + k) * kRoundRows + CH * q, row(k0 + k) + r0 + CH * q);
-      }
-      cp_async_commit();
-    };
-    float acc0[kTN], acc1[kTN];
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      acc0[j] = 0.f;
-      acc1[j] = 0.f;
-    }
-    stage_in(0, 0);
-    for (int k0 = 0, s = 0; k0 < K; k0 += kKTile, s ^= 1) {
-      if (k0 + kKTile < K) {
-        stage_in(s ^ 1, k0 + kKTile);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const T* w = stages + s * kKTile * kRoundRows + o0;
-      const int kn = min(kKTile, K - k0);
-      for (int kk = 0; kk < kn; ++kk) {
-        const float2 a = *reinterpret_cast<const float2*>(A + (k0 + kk) * kLd + t);
-        const T* wk = w + kk * kRoundRows;
-        const float2 b01 = lds2(wk), b23 = lds2(wk + 2), b45 = lds2(wk + 4);
-        const float b[kTN] = {b01.x, b01.y, b23.x, b23.y, b45.x, b45.y};
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) {
-          acc0[j] = fmaf(a.x, b[j], acc0[j]);
-          acc1[j] = fmaf(a.y, b[j], acc1[j]);
-        }
-      }
-      __syncthreads();  // the stage is refilled next
-    }
-#pragma unroll
-    for (int j = 0; j < kTN; ++j)
-      if (o0 + j < rows) epi(r0 + o0 + j, t, acc0[j], acc1[j]);
-  }
-}
-
 // As gemm_w, with the second operand b(o, k) in shared memory (the same
 // address across a warp, so each read is a broadcast).
 template <int TN, class B, class Epi>
@@ -264,60 +196,6 @@ __device__ __forceinline__ void gemm_s(const float* __restrict__ A, int K, int N
   }
 }
 
-// out(a, b) = sum_t A[a][t] * B[b][t] over all kTok token columns of two
-// feature-major shared operands (a < Na, b < Nb): the sums over the tokens
-// that weight gradients are. Lane l owns TB columns b = l, l + 32, ... at a
-// time, so that epi(a, b, v) can add into device memory whose fastest index
-// is b; a warp owns TA rows a at a time, each read as a broadcast.
-template <int TA, int TB, class Epi>
-__device__ __forceinline__ void gemm_tok(const float* __restrict__ A, int Na,
-                                         const float* __restrict__ B, int Nb, Epi epi) {
-  const int lane = threadIdx.x & 31;
-  for (int b0 = lane; b0 < Nb + lane; b0 += 32 * TB) {  // b0 - lane < Nb: uniform in a warp
-    const float* bp[TB];
-#pragma unroll
-    for (int jb = 0; jb < TB; ++jb) bp[jb] = B + min(b0 + 32 * jb, Nb - 1) * kLd;
-    for (int a0 = (threadIdx.x >> 5) * TA; a0 < Na; a0 += kWarps * TA) {
-      float acc[TA][TB];
-#pragma unroll
-      for (int ia = 0; ia < TA; ++ia)
-#pragma unroll
-        for (int jb = 0; jb < TB; ++jb) acc[ia][jb] = 0.f;
-      for (int t = 0; t < kTok; t += 2) {
-        float2 bv[TB];
-#pragma unroll
-        for (int jb = 0; jb < TB; ++jb) bv[jb] = *reinterpret_cast<const float2*>(bp[jb] + t);
-#pragma unroll
-        for (int ia = 0; ia < TA; ++ia) {
-          const float2 av =
-              *reinterpret_cast<const float2*>(A + min(a0 + ia, Na - 1) * kLd + t);
-#pragma unroll
-          for (int jb = 0; jb < TB; ++jb)
-            acc[ia][jb] = fmaf(av.y, bv[jb].y, fmaf(av.x, bv[jb].x, acc[ia][jb]));
-        }
-      }
-#pragma unroll
-      for (int ia = 0; ia < TA; ++ia)
-#pragma unroll
-        for (int jb = 0; jb < TB; ++jb)
-          if (a0 + ia < Na && b0 + 32 * jb < Nb) epi(a0 + ia, b0 + 32 * jb, acc[ia][jb]);
-    }
-  }
-}
-
-// f(r, sum over the kTok columns of v(r, t)) for every row r < rows, one
-// warp per row; f runs on lane 0.
-template <class V, class F>
-__device__ __forceinline__ void row_sums(int rows, V v, F f) {
-  const int lane = threadIdx.x & 31;
-  for (int r = threadIdx.x >> 5; r < rows; r += kWarps) {
-    float s = v(r, 2 * lane) + v(r, 2 * lane + 1);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (lane == 0) f(r, s);
-  }
-}
-
 // sum / max over the kPerTok consecutive lanes that share a token
 __device__ __forceinline__ float token_sum(float v) {
 #pragma unroll
@@ -332,11 +210,9 @@ __device__ __forceinline__ float token_max(float v) {
 }
 
 // Y = LN(X) per token (kPerTok threads each): var = E[x^2] - mean^2,
-// eps 1e-5, output rounded to the model dtype. With stats (2 * kTok
-// floats) it keeps each token's mean and 1 / std for the backward.
+// eps 1e-5, output rounded to the model dtype.
 template <typename T>
-__device__ void layer_norm(const float* X, float* Y, int C, const float* g, const float* b,
-                           float* stats = nullptr) {
+__device__ void layer_norm(const float* X, float* Y, int C, const float* g, const float* b) {
   const int t = threadIdx.x / kPerTok, part = threadIdx.x % kPerTok;
   float s = 0.f, ss = 0.f;
   for (int c = part; c < C; c += kPerTok) {
@@ -348,36 +224,6 @@ __device__ void layer_norm(const float* X, float* Y, int C, const float* g, cons
   const float inv = rsqrtf(token_sum(ss) / C - mu * mu + 1e-5f);
   for (int c = part; c < C; c += kPerTok)
     Y[c * kLd + t] = round_to<T>((X[c * kLd + t] - mu) * inv * g[c] + b[c]);
-  if (stats && part == 0) {
-    stats[t] = mu;
-    stats[kTok + t] = inv;
-  }
-}
-
-// LayerNorm backward of one tile, in place: D holds dL/d LN(x) on entry and
-// dL/dx on return; X is x, stats what layer_norm kept. The gradients of the
-// affine (sums over the tile's tokens) are added to dg and db in device
-// memory. Ends with the block in step.
-__device__ inline void layer_norm_backward(const float* X, float* D, int C, const float* g,
-                                           const float* stats, float* dg, float* db) {
-  auto xhat = [&](int c, int t) { return (X[c * kLd + t] - stats[t]) * stats[kTok + t]; };
-  row_sums(C, [&](int c, int t) { return D[c * kLd + t] * xhat(c, t); },
-           [&](int c, float v) { atomicAdd(dg + c, v); });
-  row_sums(C, [&](int c, int t) { return D[c * kLd + t]; },
-           [&](int c, float v) { atomicAdd(db + c, v); });
-  __syncthreads();
-  const int t = threadIdx.x / kPerTok, part = threadIdx.x % kPerTok;
-  float s1 = 0.f, s2 = 0.f;
-  for (int c = part; c < C; c += kPerTok) {
-    const float d = D[c * kLd + t] * g[c];
-    s1 += d;
-    s2 += d * xhat(c, t);
-  }
-  const float m1 = token_sum(s1) / C, m2 = token_sum(s2) / C;
-  const float inv = stats[kTok + t];
-  for (int c = part; c < C; c += kPerTok)
-    D[c * kLd + t] = inv * (D[c * kLd + t] * g[c] - m1 - xhat(c, t) * m2);
-  __syncthreads();
 }
 
 // Softmax over the n keys of each query column of the key-major scores S,

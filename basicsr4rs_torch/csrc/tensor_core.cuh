@@ -1,5 +1,5 @@
 // Tensor-core building blocks shared by the kernels that multiply on them
-// (conv3x3_fwd.cu, swin_block_joint.cuh, swin_attn_block_bwd.cu): the TF32
+// (conv3x3_fwd.cu, swin_block_joint.cuh, branch_bwd.cuh): the TF32
 // split, ldmatrix (plain and transposing), and the warp-wide mma.sync
 // products of Hopper's (and Ampere's) tensor cores.
 //
@@ -22,9 +22,17 @@
 
 namespace tc {
 
+// lane l receives, of each 8 x 8 b16 matrix whose rows lanes 8j .. 8j + 7
+// address, the word l % 4 of row l / 4
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
                : "r"(addr));
 }
 

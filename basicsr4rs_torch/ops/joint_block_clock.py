@@ -1,22 +1,23 @@
-"""Where a window's time goes in the joint Swin block kernels (K1, K11), or
-a (window, head) unit's in the attention branch's backward (K3).
+"""Where a window's time goes in the joint Swin block kernels (K1, K11), a
+(window, head) unit's in the attention branch's backward (K3), or a (token
+tile, hidden chunk) unit's in the MLP branch's backward (K5).
 
     python -m basicsr4rs_torch.ops.joint_block_clock [--dtype float32|bfloat16]
-    python -m basicsr4rs_torch.ops.joint_block_clock --kernel attn_bwd [--csrc DIR]
+    python -m basicsr4rs_torch.ops.joint_block_clock --kernel attn_bwd|mlp_bwd [--csrc DIR]
 
 On one CUDA card. Builds a copy of ``csrc/`` under ``build/`` in which every
-barrier of ``swin_block_joint.cuh`` (K1, K11), or of
-``swin_attn_block_bwd.cu``'s block kernel and the ``swin_common.cuh``
-helpers it calls (K3), reads ``clock64()`` on the first lane of each warp of
-block 0. K1 and K11 run on a SwinIR-M block (C=180, 6 heads, window 8,
-hidden 360; B=1 128x128, shifted), K3 on its training call (B=4 48x48,
+barrier of ``swin_block_joint.cuh`` (K1, K11), or of the backward kernel's
+block kernel and the ``swin_common.cuh`` and ``branch_bwd.cuh`` helpers it
+calls (K3, K5), reads ``clock64()`` on the first lane of each warp of block
+0. K1 and K11 run on a SwinIR-M block (C=180, 6 heads, window 8, hidden
+360; B=1 128x128, shifted), K3 and K5 on their training call (B=4 48x48,
 shifted, DropPath's scales), weights of std 1/sqrt(fan_in) from a seed. It
 prints, for each barrier, the work each warp did since the one before: the
 slowest warp's, the mean and the fastest, averaged over 10 launches. The
 kernel is barrier-synchronised, so the slowest warps' work summed over the
 barriers is the block's time. ``--csrc`` instruments another checkout's
-kernel sources (an earlier K3, whose C interface had no scratch buffer), as
-they stand. The kernels in ``csrc/`` are untouched.
+kernel sources (an earlier K3 or K5, whose C interface had no scratch
+buffer), as they stand. The kernels in ``csrc/`` are untouched.
 """
 
 from __future__ import annotations
@@ -64,17 +65,23 @@ def kernel_body(text, signature):
     return start, at - 1
 
 
-def instrumented_attn_bwd(src_dir, out_dir):
-    """Copies src_dir to out_dir with the barriers of K3's block kernel and
-    of the swin_common.cuh helpers counted; returns (file, line) of each
+BACKWARD = {'attn_bwd': 'swin_attn_block_bwd', 'mlp_bwd': 'mlp_block_bwd'}   # K3, K5
+LN_LAUNCH = '// ------------------------------------------------------- the LayerNorm backward'
+
+
+def instrumented_backward(src_dir, out_dir, name):
+    """Copies src_dir to out_dir with the barriers of the block kernel of
+    ``<name>.cu`` and of the helpers it calls counted: those of
+    ``swin_common.cuh`` and of ``branch_bwd.cuh`` up to its LayerNorm
+    launch, which runs as a kernel of its own. Returns (file, line) of each
     counted barrier."""
     shutil.rmtree(out_dir, ignore_errors=True)
     shutil.copytree(src_dir, out_dir)
     lines = []
 
-    def counted(name, text, lo, hi):
+    def counted(file, text, lo, hi):
         def count(match):
-            lines.append((name, text[:lo + match.start()].count('\n') + 1))
+            lines.append((file, text[:lo + match.start()].count('\n') + 1))
             return f'SYNC({len(lines) - 1});'
         return text[:lo] + re.sub(r'__syncthreads\(\);', count, text[lo:hi]) + text[hi:]
 
@@ -83,10 +90,14 @@ def instrumented_attn_bwd(src_dir, out_dir):
     text = head + DEFINE + body   # DEFINE opens the namespace
     text = counted('swin_common.cuh', text, len(head) + len(DEFINE), len(text))
     common.write_text(text)
-    path = out_dir / 'swin_attn_block_bwd.cu'
+    shared = out_dir / 'branch_bwd.cuh'
+    if shared.exists():   # an earlier checkout may have none
+        text = shared.read_text()
+        shared.write_text(counted('branch_bwd.cuh', text, 0, text.index(LN_LAUNCH)))
+    path = out_dir / f'{name}.cu'
     text = path.read_text()
     _, hi = kernel_body(text, '__global__ void __launch_bounds__(kThreads')
-    text = counted('swin_attn_block_bwd.cu', text, 0, hi)
+    text = counted(f'{name}.cu', text, 0, hi)
     lo, hi = kernel_body(text, '__global__ void __launch_bounds__(kThreads')
     mark = '  if (blockIdx.x == 0 && (threadIdx.x & 31) == 0) '
     text = (text[:lo] + '\n' + mark + 'g_mark[threadIdx.x >> 5] = clock64();\n' + text[lo:hi]
@@ -96,7 +107,7 @@ def instrumented_attn_bwd(src_dir, out_dir):
     assert len(lines) < SLOTS
     # the line numbers of the sources as they are, before the definitions went in
     shift = DEFINE.count('\n') - 1
-    return [(name, line - shift if name == 'swin_common.cuh' else line) for name, line in lines]
+    return [(file, line - shift if file == 'swin_common.cuh' else line) for file, line in lines]
 
 
 def instrumented_sources(out_dir):
@@ -156,53 +167,65 @@ def print_work(buf, total_of, where):
               f'{100 * max(ws) / total:5.1f}%  before {where(s)}')
 
 
-def clock_attn_bwd(dtype, src_dir):
-    """K3 at its training call, instrumented from ``src_dir``, called through
-    its C interface as that source declares it."""
-    out_dir = _build.BUILD_DIR.parent / 'attn_bwd_clock'
-    lines = instrumented_attn_bwd(src_dir, out_dir)
+def clock_backward(kernel, dtype, src_dir):
+    """K3 or K5 at its training call, instrumented from ``src_dir``, called
+    through its C interface as that source declares it (an earlier one had
+    no scratch buffer and no dtype in its shared-memory query)."""
+    name = BACKWARD[kernel]
+    out_dir = _build.BUILD_DIR.parent / f'{kernel}_clock'
+    lines = instrumented_backward(src_dir, out_dir, name)
     flags = [str(out_dir) if f == str(_build.CSRC_DIR) else f for f in _build.NVCC_FLAGS]
-    lib_path = out_dir / 'swin_attn_block_bwd.so'
+    lib_path = out_dir / f'{name}.so'
     proc = subprocess.run([_build._nvcc(), *flags, '-o', str(lib_path),
-                           str(out_dir / 'swin_attn_block_bwd.cu')],
+                           str(out_dir / f'{name}.cu')],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode:
-        raise SystemExit(f'nvcc failed on swin_attn_block_bwd:\n{proc.stdout}')
-    source = (src_dir / 'swin_attn_block_bwd.cu').read_text()
+        raise SystemExit(f'nvcc failed on {name}:\n{proc.stdout}')
+    source = (src_dir / f'{name}.cu').read_text()
     with_scratch = 'float* scratch' in source
-    smem_args = re.search(r'size_t swin_attn_block_bwd_smem_bytes\(([^)]*)\)', source).group(1)
+    smem_args = re.search(rf'size_t {name}_smem_bytes\(([^)]*)\)', source).group(1)
     lib = ctypes.CDLL(str(lib_path))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.swin_attn_block_bwd.argtypes = ([i, p, p, p] + [i] * 6 + [p] * 7 + [i, p, f, p]
-                                        + [p] * (2 if with_scratch else 1))
-    lib.swin_attn_block_bwd_grad_floats.restype = ctypes.c_size_t
-    lib.swin_attn_block_bwd_smem_bytes.restype = ctypes.c_size_t
     b, hw = 4, 48
-    (x, ln_w, ln_b, wqkv, bqkv, wproj, _, rel, mask, *_, ws, heads, scale) = block_inputs(
-        dtype, torch.Generator().manual_seed(0), b=b, h=hw)
+    (x, ln1_w, ln1_b, wqkv, bqkv, wproj, _, rel, mask, ln2_w, ln2_b, w1, b1, w2, _, ws, heads,
+     scale) = block_inputs(dtype, torch.Generator().manual_seed(0), b=b, h=hw)
     c = x.shape[-1]
     dz = torch.randn(x.shape, generator=torch.Generator().manual_seed(1)).cuda().to(dtype)
     s = torch.full((b,), 1 / 0.9, device='cuda')
     s[1] = 0.
+    if kernel == 'attn_bwd':
+        argtypes = [i, p, p, p] + [i] * 6 + [p] * 7 + [i, p, f, p]
+        dims, smem_dims, grad_dims = [b, hw, hw, c, heads, ws], [c, heads], [c, heads, ws]
+        weights = [ln1_w, ln1_b, wqkv.to(dtype), bqkv, wproj.to(dtype), rel, mask]
+        tail, what = [2, s.data_ptr(), scale], 'shifted, scaled'
+    else:
+        hidden = w1.shape[0]
+        argtypes = [i, p, p, p] + [i] * 4 + [p] * 5 + [i, p, p]
+        dims, smem_dims, grad_dims = [b * hw * hw, c, hidden, hw * hw], [c], [c, hidden]
+        weights = [ln2_w, ln2_b, w1.to(dtype), b1, w2.to(dtype)]
+        tail, what = [2, s.data_ptr()], 'scaled'
+    launch = getattr(lib, name)
+    launch.argtypes = argtypes + [p] * (2 if with_scratch else 1)
+    floats, smem_of = getattr(lib, f'{name}_grad_floats'), getattr(lib, f'{name}_smem_bytes')
+    floats.argtypes = [i] * len(grad_dims)
+    floats.restype = smem_of.restype = ctypes.c_size_t
     dx = torch.empty_like(x)
-    grads = torch.empty(lib.swin_attn_block_bwd_grad_floats(c, heads, ws), device='cuda')
+    grads = torch.empty(floats(*grad_dims), device='cuda')
     scratch = torch.empty(x.numel(), device='cuda')
     dt = 0 if dtype == torch.float32 else 1
-    smem = (lib.swin_attn_block_bwd_smem_bytes(dt, c, heads) if smem_args.count(',') == 2
-            else lib.swin_attn_block_bwd_smem_bytes(c, heads))
-    wqkv, wproj = wqkv.to(dtype), wproj.to(dtype)
+    smem = (smem_of(dt, *smem_dims) if smem_args.count(',') == len(smem_dims)
+            else smem_of(*smem_dims))
     ptr = [t.data_ptr() for t in (x, dz, dx)]
-    weights = [t.data_ptr() for t in (ln_w, ln_b, wqkv, bqkv, wproj, rel, mask)]
+    weights = [t.data_ptr() for t in weights]
 
     def run():
-        rc = lib.swin_attn_block_bwd(dt, *ptr, b, hw, hw, c, heads, ws, *weights, 2,
-                                     s.data_ptr(), scale, grads.data_ptr(),
-                                     *([scratch.data_ptr()] if with_scratch else []),
-                                     torch.cuda.current_stream().cuda_stream)
+        rc = launch(dt, *ptr, *dims, *weights, *tail, grads.data_ptr(),
+                    *([scratch.data_ptr()] if with_scratch else []),
+                    torch.cuda.current_stream().cuda_stream)
         if rc:
-            raise SystemExit(f'swin_attn_block_bwd: CUDA error {rc}')
+            raise SystemExit(f'{name}: CUDA error {rc}')
 
-    print(torch.cuda.get_device_name(0), str(dtype)[6:], f'B={b} {hw}x{hw} shifted, scaled, '
+    print(torch.cuda.get_device_name(0), str(dtype)[6:], f'B={b} {hw}x{hw} {what}, '
           f'SwinIR-M; {src_dir}; {smem} bytes of shared memory a block')
     run()
     torch.cuda.synchronize()
@@ -212,30 +235,29 @@ def clock_attn_bwd(dtype, src_dir):
     torch.cuda.synchronize()
     buf = (ctypes.c_ulonglong * (16 * SLOTS))()
     lib.clock_read(buf)
-    texts = {name: (src_dir / name).read_text().split('\n') for name in
-             ('swin_common.cuh', 'swin_attn_block_bwd.cu')}
+    texts = {file: (src_dir / file).read_text().split('\n') for file, _ in lines}
 
     def where(slot):
         if slot == SLOTS - 1:
             return 'the block\'s end'
-        name, line = lines[slot]
-        before = ' | '.join(t.strip() for t in texts[name][line - 3:line - 1] if t.strip())
-        return f'{name}:{line}: {before[:80]}'
+        file, line = lines[slot]
+        before = ' | '.join(t.strip() for t in texts[file][line - 3:line - 1] if t.strip())
+        return f'{file}:{line}: {before[:80]}'
 
-    print_work(buf, 'swin_attn_block_bwd block 0', where)
+    print_work(buf, f'{name} block 0', where)
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     parser.add_argument('--dtype', choices=('float32', 'bfloat16'), default='float32')
-    parser.add_argument('--kernel', choices=('joint', 'attn_bwd'), default='joint')
+    parser.add_argument('--kernel', choices=('joint', *BACKWARD), default='joint')
     parser.add_argument('--csrc', type=Path, default=_build.CSRC_DIR,
-                        help='kernel sources to instrument (attn_bwd)')
+                        help='kernel sources to instrument (attn_bwd, mlp_bwd)')
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('joint_block_clock: needs a CUDA card')
-    if args.kernel == 'attn_bwd':
-        clock_attn_bwd(getattr(torch, args.dtype), args.csrc.resolve())
+    if args.kernel in BACKWARD:
+        clock_backward(args.kernel, getattr(torch, args.dtype), args.csrc.resolve())
         return
     out_dir = _build.BUILD_DIR.parent / 'joint_block_clock'
     lines = instrumented_sources(out_dir)

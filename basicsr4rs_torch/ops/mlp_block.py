@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from . import _launch
 
 LN_EPS = 1e-5
+MLP_BWD_MAX_CHANNELS = 256   # the backward kernel's LayerNorm launch: 8 features a lane
 
 
 def layer_norm_f32(x: torch.Tensor, weight: torch.Tensor,
@@ -152,7 +153,8 @@ def _lib(name: str) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     if name == 'mlp_block_fwd':
         return _launch.bind(name, [i, p, p] + [i] * 4 + [p] * 6 + [i, p, p], [i])
-    return _launch.bind(name, [i, p, p, p] + [i] * 4 + [p] * 5 + [i, p, p, p], [i], [i, i])
+    return _launch.bind(name, [i, p, p, p] + [i] * 4 + [p] * 5 + [i, p, p, p, p], [i, i],
+                        [i, i])
 
 
 def _prepare(op, x, ln_weight, ln_bias, fc1_weight, fc1_bias, fc2_weight, residual_scale):
@@ -202,20 +204,25 @@ def _launch_backward(x, dz, ln_weight, ln_bias, fc1_weight, fc1_bias, fc2_weight
     _launch.check_activation(dz, 'dz', op)
     if dz.shape != x.shape or dz.dtype != x.dtype or dz.device != x.device:
         raise ValueError(f'{op}: dz must match x in shape, dtype and device')
+    if c > MLP_BWD_MAX_CHANNELS:
+        raise ValueError(f'{op}: takes C <= {MLP_BWD_MAX_CHANNELS} (C={c})')
     lib = _lib(op)
-    _launch.check_shared_memory(lib.mlp_block_bwd_smem_bytes(c), x.device, op)
+    dtype = _launch.DTYPES[x.dtype]
+    _launch.check_shared_memory(lib.mlp_block_bwd_smem_bytes(dtype, c), x.device, op)
     dx = torch.empty_like(x)
-    # one float32 buffer for every parameter gradient; the op zeroes it on the stream
+    # one float32 buffer for every parameter gradient and one for dL/dLN(x)
+    # summed over the hidden chunks; the op zeroes both on the stream
     grads = torch.empty(lib.mlp_block_bwd_grad_floats(c, hidden), dtype=torch.float32,
                         device=x.device)
     if tokens == 0:
         grads.zero_()
     else:
+        scratch = torch.empty(x.numel(), dtype=torch.float32, device=x.device)
         rc = lib.mlp_block_bwd(
-            _launch.DTYPES[x.dtype], x.data_ptr(), dz.data_ptr(), dx.data_ptr(), tokens, c,
-            hidden, per_sample, *_launch.pointers(ops),
-            _launch.mode_of(add_residual, residual_scale), *_launch.pointers([scale]),
-            grads.data_ptr(), _launch.current_stream(x.device))
+            dtype, x.data_ptr(), dz.data_ptr(), dx.data_ptr(), tokens, c, hidden, per_sample,
+            *_launch.pointers(ops), _launch.mode_of(add_residual, residual_scale),
+            *_launch.pointers([scale]), grads.data_ptr(), scratch.data_ptr(),
+            _launch.current_stream(x.device))
         _launch.check_rc(rc, lib, op)
     dln_w, dln_b, dw1, db1, dw2, db2 = grads.split(
         [c, c, hidden * c, hidden, c * hidden, c])

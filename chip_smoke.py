@@ -17,12 +17,14 @@ nonzero exit code and no result line:
    SwinIR-light's widths (C=60, heads of 10) and with a window of 4; the
    attention and MLP branch kernels, forward and backward, at the training
    shape (batch 4 of 48x48) in their three output modes, every gradient by
-   name, and the attention kernels also where their tiles are padded
-   (SwinIR-light's widths, a window of 4, heads of 48); the
-   window-attention kernels at the shapes of the ResShift UNet
-   (C=192, 6 heads of 32, window 8; maps of 64, 32, 16 and 8; batch 1 and
-   the training batch; with the shift mask and without) and at C=180 with
-   heads of 30, beside ``F.scaled_dot_product_attention`` as a yardstick;
+   name, and where their tiles are padded: the attention kernels at
+   SwinIR-light's widths, a window of 4 and heads of 48, the MLP kernels at
+   SwinIR-light's widths and at 480 tokens (not a multiple of their
+   64-token tile); the window-attention kernels at the shapes of the
+   ResShift UNet (C=192, 6 heads of 32, window 8; maps of 64, 32, 16 and 8;
+   batch 1 and the training batch; with the shift mask and without) and at
+   C=180 with heads of 30, beside ``F.scaled_dot_product_attention`` (and
+   its backward by autograd) as a yardstick;
    the deformable sampler's kernels (3d) at the shapes EDVR-M gives them
    (64 channels in 8 groups, nine taps; training batch 4 x 5 frames of 64x64
    and a served window of 5 frames of 180x320, all three pyramid levels) and
@@ -375,7 +377,8 @@ def check_branch_kernels():
     t0 = time.perf_counter()
     cases = [(shape, torch.float32, shift, mode, M_WIDTHS) for shape in (TRAIN_SHAPE, (2, 64, 64))
              for shift in (0, 4) for mode in ('branch', 'residual', 'scaled')]
-    cases += [(TRAIN_SHAPE, torch.bfloat16, 4, mode, M_WIDTHS) for mode in ('branch', 'scaled')]
+    cases += [(TRAIN_SHAPE, torch.bfloat16, 4, mode, M_WIDTHS)
+              for mode in ('branch', 'residual', 'scaled')]
     # the attention kernels where their tiles are padded: SwinIR-light's
     # heads of 10 features, windows of 16 tokens, and heads of 48 features
     # (two 32-feature chunks of a head, wider than the joint kernel takes)
@@ -384,6 +387,10 @@ def check_branch_kernels():
     cases += [((2, 32, 32), dt, 2, mode, (C, HEADS, 4, HIDDEN))
               for dt in both for mode in ('branch', 'scaled')]
     cases += [((2, 64, 64), torch.float32, 4, 'residual', (96, 2, WS, 192))]
+    # a token count that is not a multiple of the MLP kernels' 64-token tile
+    # (480, the last tile half full and across two samples): not whole
+    # windows, so the MLP kernels alone
+    cases += [((2, 20, 12), dt, 0, 'scaled', M_WIDTHS) for dt in both]
     padded_s = 0.
     summary = {name: {'max_abs_err': 0.} for name in
                ('swin_attn_block_fwd', 'swin_attn_block_bwd', 'mlp_block_fwd', 'mlp_block_bwd')}
@@ -412,7 +419,10 @@ def check_branch_kernels():
             ('mlp_block_bwd', M.mlp_block_backward, M.reference_mlp_block_backward, mlp_b,
              MLP_GRADS),
         ]
-        if widths != M_WIDTHS:
+        padded = widths != M_WIDTHS or h % ws or w % ws
+        if h % ws or w % ws:
+            runs = runs[2:]
+        elif widths not in (M_WIDTHS, LIGHT_WIDTHS):   # the MLP kernels' tiles are not padded
             runs = runs[:2]
         tag = (f'B={b} {h}x{w} {str(dt)[6:]:8s} shift={shift} {mode:8s}'
                + ('' if widths == M_WIDTHS else f' C={c} heads={heads} ws={ws}'))
@@ -443,7 +453,7 @@ def check_branch_kernels():
             kernel_ms, plain_ms = time_pair(lambda: plain(*args), lambda: kernel(*args))
             flop, nbytes = kernel_work(name, b, h, w, dt, shift, widths)
             cuda_cores = None
-            if name == 'swin_attn_block_bwd':   # K3: every product on the tensor cores
+            if name in ('swin_attn_block_bwd', 'mlp_block_bwd'):   # K3, K5: on the tensor cores
                 (bound, by), cuda_cores = tensor_core_bound_ms(flop, nbytes, dt)
                 route = (f'bound {bound:.4f} ms by {by} on its route ({ROUTE[dt]}; on the CUDA '
                          f'cores {cuda_cores:.4f} ms)')
@@ -465,10 +475,10 @@ def check_branch_kernels():
                           'for bit: ' + ', '.join(
                               f'{o} {"yes" if torch.equal(g, a) else "no"}'
                               for o, g, a in zip(outputs, got, again)), flush=True)
-        if widths != M_WIDTHS:
+        if padded:
             padded_s += time.perf_counter() - t_case
     print(f'phase 3b: {time.perf_counter() - t0:.1f} s, of which {padded_s:.1f} s for the '
-          'padded shapes (C=60, window 4, C=96)')
+          'padded shapes (C=60, window 4, C=96, 20x12)')
     return summary
 
 
@@ -500,6 +510,25 @@ def sdpa_window_attention(qkv, mask, ws, heads, scale):
     o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
     o = o.reshape(b, h // ws, w // ws, heads, ws, ws, c // heads)
     return o.permute(0, 1, 4, 2, 5, 3, 6).reshape(b, h, w, c)
+
+
+def sdpa_window_attention_backward(qkv, bias, dout, ws, heads, scale):
+    """The library's counterpart of the backward kernel: (dqkv, dbias) by
+    ``torch.autograd.grad`` through ``sdpa_window_attention``, the float
+    bias (nWb, heads, n, n) a leaf repeated over the samples, so that its
+    gradient is summed back over them; and a function that reruns that
+    backward alone on the same forward's graph. Timed here as a yardstick;
+    the port never calls it."""
+    qkv_leaf = qkv.detach().requires_grad_()
+    bias_leaf = bias.detach().to(qkv.dtype).requires_grad_()
+    with torch.enable_grad():
+        out = sdpa_window_attention(qkv_leaf, bias_leaf.repeat(qkv.shape[0], 1, 1, 1), ws,
+                                    heads, scale)
+
+    def backward():
+        return torch.autograd.grad(out, (qkv_leaf, bias_leaf), dout, retain_graph=True)
+
+    return backward(), backward
 
 
 def check_attention_kernels(train_batch):
@@ -575,6 +604,17 @@ def check_attention_kernels(train_batch):
                         lambda: sdpa_window_attention(qkv, mask, WS, heads, scale))
                 line += (f', library (SDPA + partition/reverse copies, {b * windows} windows) '
                          f'{library_ms:.4f} ms')
+            elif case == train_case:   # the backward of that call, the forward untimed
+                lib_grads, backward = sdpa_window_attention_backward(*args_b)
+                for out_name, g_, w_ in zip(outputs, lib_grads, want):
+                    ok, max_abs, _, _ = compare(g_, w_, dt,
+                                                'sum' if out_name == 'dbias' else 'elementwise')
+                    if not ok:
+                        fail(f'the library backward disagrees with the plain version at {tag}: '
+                             f'{out_name} {max_abs:.3e}')
+                library_ms = cuda_time_ms(backward)
+                line += (f', library (autograd.grad through SDPA + partition/reverse copies, '
+                         f'dqkv and dbias) {library_ms:.4f} ms')
             print(line + ' | max abs err (of max|plain|): ' + ', '.join(worst), flush=True)
             main_case = serve_case if name == 'window_attention_fwd' else train_case
             if case == main_case:
@@ -1329,7 +1369,7 @@ def profile_training_steps(model, batch, steps=3):
     for _ in range(2):
         model.optimize_parameters(0)
     ours = ('swin_attn_block_fwd', 'swin_attn_block_bwd', 'mlp_block_fwd', 'mlp_block_bwd',
-            'swin_block_joint_fwd')
+            'swin_block_joint_fwd', 'branch_ln_bwd')   # the last: K3's and K5's LayerNorm launch
     profile_device_time(lambda: model.optimize_parameters(0), steps, 'step', ours,
                         'train_step_profile.json')
 

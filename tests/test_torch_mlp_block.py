@@ -140,3 +140,21 @@ def test_cuda_entries_raise_without_a_device(entry):
     public = port.mlp_block_forward if entry == '_launch_forward' else port.mlp_block_backward
     with pytest.raises(ValueError, match='no kernel for device'):
         public(*meta)
+
+
+@pytest.mark.parametrize('c, hidden, error, match', [
+    (60, 120, RuntimeError, 'nvcc|CUDA'),    # SwinIR-light: hidden chunks of 96 and 24
+    (180, 360, RuntimeError, 'nvcc|CUDA'),   # SwinIR-M: chunks of 96, 96, 96 and 72
+    (260, 520, ValueError, 'C <= 256'),      # past the LayerNorm launch's 8 features a lane
+])
+def test_backward_launch_checks_widths(c, hidden, error, match):
+    """The backward kernel takes SwinIR-light's and SwinIR-M's widths and a
+    hidden that is no multiple of its chunk: every operand check passes and
+    the launch goes on to build the kernel, which this host cannot. A C
+    past 256 is refused before the build."""
+    rng = np.random.RandomState(11)
+    x = torch.from_numpy(rng.randn(1, 3, 5, c).astype(np.float32))   # 15 tokens: a ragged tile
+    params = [torch.ones(c), torch.zeros(c), torch.zeros(hidden, c), torch.zeros(hidden),
+              torch.zeros(c, hidden)]
+    with pytest.raises(error, match=match):
+        port._launch_backward(x, torch.zeros_like(x), *params, False, None)

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from basicsr4rs_torch.archs.swinir_arch import _shift_attn_mask
+from basicsr4rs_torch.ops import mlp_block as mlp_port
 from basicsr4rs_torch.ops import swin_block as port
 from basicsr4rs_tpu.ops import swin_block as ref
 
@@ -155,13 +156,13 @@ def bound_types(monkeypatch, module, name):
             (c_signature(name), [ctypes.c_int] * len(smem.split(','))))
 
 
-@pytest.mark.parametrize('name', ['swin_block_joint_fwd', 'swin_attn_block_bwd'])
+@pytest.mark.parametrize('name', ['swin_block_joint_fwd', 'swin_attn_block_bwd', 'mlp_block_bwd'])
 def test_binding_matches_the_c_signature(monkeypatch, name):
     """The wrapper's ctypes types are the kernel's C parameters, one for
     one, for the launch and for its shared-memory query: a count that
     differs passes a pointer as an int or fails at the first launch on the
     card."""
-    bound, declared = bound_types(monkeypatch, port, name)
+    bound, declared = bound_types(monkeypatch, mlp_port if name.startswith('mlp') else port, name)
     assert bound == declared
 
 
