@@ -7,13 +7,16 @@ once its ``relative_position_index`` / ``attn_mask`` buffers are dropped:
 here the relative-position index and the shifted-window mask are computed
 per window size and input shape, cached, and never stored. In ``eval()``
 every Swin block runs as one call of ``ops.swin_block.fused_swin_block_full``
-on the rolled map (one CUDA kernel for a CUDA tensor) and rolls back; inside
-a ``quantized_inference(..., swin_kernels=True)`` scope that call is the
-W8A8 kernel. In ``train()`` it is the differentiable pair
-``fused_swin_attn_block`` + ``fused_mlp_block`` (a forward and a backward
-kernel each), with the residual adds and DropPath's per-sample scales folded
-into the kernels, or, with ``SWIN_JOINT_TRAIN=1``, the joint kernel with its
-recomputing backward. With ``SWIN_FUSED_CONV=1`` the 3x3 convolutions after
+on the rolled map (one CUDA kernel for a CUDA tensor) and rolls back; a
+block wider than that kernel takes (``joint_block_takes``: C or the head dim
+past ``JOINT_MAX_CHANNELS`` / ``JOINT_MAX_HEAD_DIM``) runs the training
+route's forward pair instead, decided by its shape before any launch; inside
+a ``quantized_inference(..., swin_kernels=True)`` scope every block is the
+W8A8 kernel, which raises past those widths. In ``train()`` it is the
+differentiable pair ``fused_swin_attn_block`` + ``fused_mlp_block`` (a
+forward and a backward kernel each), with the residual adds and DropPath's
+per-sample scales folded into the kernels, or, with ``SWIN_JOINT_TRAIN=1``,
+the joint kernel with its recomputing backward. With ``SWIN_FUSED_CONV=1`` the 3x3 convolutions after
 the Swin blocks run through ``ops.conv3x3.fused_conv3x3`` with their
 residual or leaky-ReLU folded in; the modules stay ``nn.Conv2d``, so the
 ``state_dict`` is the same on every route.
@@ -34,7 +37,7 @@ from ..ops.conv3x3 import conv_fusion_enabled, fused_conv3x3
 from ..ops.mlp_block import fused_mlp_block
 from ..ops.quant import swin_kernels_int8
 from ..ops.swin_block import (fused_swin_attn_block, fused_swin_block_full,
-                              joint_train_enabled, swin_block_full_int8)
+                              joint_block_takes, joint_train_enabled, swin_block_full_int8)
 from ..ops.window_attention import fused_window_attention
 from ..utils.registry import ARCH_REGISTRY
 from .arch_util import Upsample, UpsampleOneStep, default_conv_init_, trunc_normal_
@@ -203,9 +206,13 @@ class SwinTransformerBlock(nn.Module):
             x = fused_swin_attn_block(x.contiguous(), *attn_args, *geometry,
                                       add_residual=s1 is None, residual_scale=s1)
             x = fused_mlp_block(x, *mlp_args, add_residual=s2 is None, residual_scale=s2)
-        else:
-            block = swin_block_full_int8 if swin_kernels_int8() else fused_swin_block_full
-            x = block(x.contiguous(), *attn_args, *mlp_args, *geometry)
+        elif swin_kernels_int8():
+            x = swin_block_full_int8(x.contiguous(), *attn_args, *mlp_args, *geometry)
+        elif joint_block_takes(c, attn.num_heads):
+            x = fused_swin_block_full(x.contiguous(), *attn_args, *mlp_args, *geometry)
+        else:   # wider than the joint kernel: the training route's forward pair
+            x = fused_swin_attn_block(x.contiguous(), *attn_args, *geometry, add_residual=True)
+            x = fused_mlp_block(x, *mlp_args, add_residual=True)
         if shift_size > 0:
             x = torch.roll(x, (shift_size, shift_size), dims=(1, 2))
         return x.reshape(b, h * w, c)

@@ -1,19 +1,23 @@
-// Device code shared by the window-attention kernels (forward and backward).
+// Device code of the window-attention kernels: the geometry and window
+// addressing both use, and the forward's (window_attention_fwd.cu) body on
+// the CUDA cores. The backward (window_attention_bwd.cu) runs its products
+// on the tensor cores over branch_bwd.cuh's fragments.
 //
-// One thread block of kThreads threads works on one head of one attention
-// window: n = ws * ws <= 64 tokens of hd <= 64 channels each. q, k, v (and
-// dO in the backward) are read straight from the (B, H, W, 3C) / (B, H, W, C)
-// tensors by window addressing (a head's hd channels of a token are
-// contiguous), so no window-partition copy exists. They sit token-major in
-// shared memory as float32 with an odd row stride, the n x n scores beside
-// them. Every product runs on the CUDA cores and accumulates in float32; a
-// value that feeds the second product of a chain (P, dS) is first rounded
-// to the model dtype T, as the plain version rounds it.
+// The forward: one thread block of kThreads threads works on one head of one
+// attention window: n = ws * ws <= kMaxTokens tokens of hd <= 64 channels
+// each. q, k, v are read straight from the (B, H, W, 3C) tensor by window
+// addressing (a head's hd channels of a token are contiguous), so no
+// window-partition copy exists. They sit token-major in shared memory as
+// float32 with an odd row stride, the n x n scores beside them. Every
+// product runs on the CUDA cores and accumulates in float32; P is first
+// rounded to the model dtype T, as the plain version rounds it.
 //
-// Two product shapes cover forward and backward:
-//   tile_dot      acc(i, j) = sum_d A[i][d] B[j][d]        scores, dP
-//   row_product   out(r, d) = sum_m S(r, m) X[m][d]        P v, dS k; with
-//                 S read transposed: P^T dO, dS^T q
+// Two product shapes:
+//   tile_dot      acc(i, j) = sum_d A[i][d] B[j][d]        scores
+//   row_product   out(r, d) = sum_m S(r, m) X[m][d]        P v
+// A thread (ty, tx) of the 16 x 16 thread grid owns the score entries
+// (ty + 16 a, tx + 16 b), a, b < kTile: kTile = 4 covers 64 tokens, 6 covers
+// 96 (window 9's 81).
 
 #pragma once
 
@@ -25,13 +29,14 @@ using swin::from_f32;
 using swin::round_to;
 using swin::to_f32;
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;   // the forward's 16 x 16 thread grid
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxTokens = 64;   // ws * ws
+constexpr int kMaxTokens = 96;   // ws * ws, both kernels
 constexpr int kMaxHeadDim = 64;
-constexpr int kTile = 4;         // thread (ty, tx) of the 16 x 16 thread grid owns
-                                 // the score entries (ty + 16 a, tx + 16 b), a, b < 4
-static_assert(kThreads == 256 && kTile * 16 == kMaxTokens, "16 x 16 threads cover 64 x 64");
+
+// score entries a thread of the forward owns along each side: 4 up to 64
+// tokens, 6 up to 96
+__host__ __device__ constexpr int tile_of(int n) { return n <= 64 ? 4 : 6; }
 
 struct Geometry {
   int batch, height, width, channels, heads, window;
@@ -68,6 +73,7 @@ __device__ __forceinline__ void load_head(float* X, const T* __restrict__ src, c
 // acc[a][b] = sum_d A[i_a][d] * B[j_b][d] for this thread's entries
 // i_a = ty + 16 a, j_b = tx + 16 b (rows beyond n are clamped; the caller
 // ignores them).
+template <int kTile>
 __device__ __forceinline__ void tile_dot(const float* __restrict__ A, const float* __restrict__ B,
                                          int n, int hd, float (&acc)[kTile][kTile]) {
   const int ld = head_stride(hd);
@@ -98,6 +104,7 @@ __device__ __forceinline__ void tile_dot(const float* __restrict__ A, const floa
 }
 
 // S[i][j] = acc(i, j) + bias[i][j] for this thread's entries with i, j < n.
+template <int kTile>
 __device__ __forceinline__ void store_scores(float* S, const float (&acc)[kTile][kTile],
                                              const float* __restrict__ bias, int n) {
   const int lds = score_stride(n);
@@ -112,33 +119,40 @@ __device__ __forceinline__ void store_scores(float* S, const float (&acc)[kTile]
 }
 
 // Softmax over the n keys of each of the n query rows of S, one warp per
-// row, two keys per lane; float32, not rounded.
+// row, kKeys keys per lane (2 up to 64 tokens, 3 up to 96); float32, not
+// rounded.
+template <int kKeys>
 __device__ __forceinline__ void softmax_rows(float* S, int n) {
   const int lds = score_stride(n), lane = threadIdx.x & 31;
   for (int i = threadIdx.x >> 5; i < n; i += kWarps) {
     float* row = S + i * lds;
-    const bool in0 = lane < n, in1 = lane + 32 < n;
-    const float v0 = in0 ? row[lane] : -INFINITY;
-    const float v1 = in1 ? row[lane + 32] : -INFINITY;
-    float m = fmaxf(v0, v1);
+    float v[kKeys], m = -INFINITY;
+#pragma unroll
+    for (int k = 0; k < kKeys; ++k) {
+      v[k] = lane + 32 * k < n ? row[lane + 32 * k] : -INFINITY;
+      m = fmaxf(m, v[k]);
+    }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    const float e0 = in0 ? expf(v0 - m) : 0.f;
-    const float e1 = in1 ? expf(v1 - m) : 0.f;
-    float s = e0 + e1;
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < kKeys; ++k) {
+      v[k] = lane + 32 * k < n ? expf(v[k] - m) : 0.f;
+      s += v[k];
+    }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (in0) row[lane] = e0 / s;
-    if (in1) row[lane + 32] = e1 / s;
+#pragma unroll
+    for (int k = 0; k < kKeys; ++k)
+      if (lane + 32 * k < n) row[lane + 32 * k] = v[k] / s;
   }
 }
 
-// out(r, d) = sum_m round_T(S(r, m)) * X[m][d] for r < n, d < hd, m < n, with
-// S(r, m) = S[r][m], or S[m][r] when kTransposed. A thread owns four rows r
-// of one column d: lanes along d, so X is read without bank conflicts, S as
-// broadcasts, and epi(r, d, v) can write device memory whose fastest index
-// is d.
-template <typename T, bool kTransposed, class Epi>
+// out(r, d) = sum_m round_T(S[r][m]) * X[m][d] for r < n, d < hd, m < n. A
+// thread owns four rows r of one column d: lanes along d, so X is read
+// without bank conflicts, S as broadcasts, and epi(r, d, v) can write device
+// memory whose fastest index is d.
+template <typename T, class Epi>
 __device__ __forceinline__ void row_product(const float* __restrict__ S,
                                             const float* __restrict__ X, int n, int hd, Epi epi) {
   const int lds = score_stride(n), ld = head_stride(hd);
@@ -153,8 +167,7 @@ __device__ __forceinline__ void row_product(const float* __restrict__ S,
       const float x = X[m * ld + d];
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
-        const float s = kTransposed ? S[m * lds + r[a]] : S[r[a] * lds + m];
-        acc[a] = fmaf(round_to<T>(s), x, acc[a]);
+        acc[a] = fmaf(round_to<T>(S[r[a] * lds + m]), x, acc[a]);
       }
     }
 #pragma unroll

@@ -29,7 +29,7 @@ namespace {
 
 using namespace wattn;
 
-template <typename T>
+template <typename T, int kTile>
 __global__ void __launch_bounds__(kThreads)
     window_attention_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
                                 T* __restrict__ out, const Geometry g) {
@@ -52,13 +52,13 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 
   float acc[kTile][kTile];
-  tile_dot(Q, K, n, hd, acc);
+  tile_dot<kTile>(Q, K, n, hd, acc);
   const int slot = g.bias_windows == 1 ? 0 : win;
-  store_scores(S, acc, bias + (static_cast<size_t>(slot) * g.heads + h) * n * n, n);
+  store_scores<kTile>(S, acc, bias + (static_cast<size_t>(slot) * g.heads + h) * n * n, n);
   __syncthreads();
-  softmax_rows(S, n);
+  softmax_rows<(16 * kTile + 31) / 32>(S, n);
   __syncthreads();
-  row_product<T, false>(S, V, n, hd, [&](int i, int d, float v) {
+  row_product<T>(S, V, n, hd, [&](int i, int d, float v) {
     out[token_offset(g, img, win, i, C) + h * hd + d] = from_f32<T>(v);
   });
 }
@@ -68,17 +68,23 @@ size_t smem_bytes(int channels, int heads, int window) {
   return static_cast<size_t>(3 * n * head_stride(hd) + n * score_stride(n)) * sizeof(float);
 }
 
-template <typename T>
+template <typename T, int kTile>
 int launch(const void* qkv, const float* bias, void* out, const Geometry& g, cudaStream_t stream) {
   const size_t smem = smem_bytes(g.channels, g.heads, g.window);
-  cudaError_t err = cudaFuncSetAttribute(window_attention_fwd_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(window_attention_fwd_kernel<T, kTile>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(g.batch * (g.height / g.window) * (g.width / g.window), g.heads);
-  window_attention_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+  window_attention_fwd_kernel<T, kTile><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(qkv), bias, static_cast<T*>(out), g);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch(const void* qkv, const float* bias, void* out, const Geometry& g, cudaStream_t stream) {
+  if (tile_of(g.window * g.window) == 4) return launch<T, 4>(qkv, bias, out, g, stream);
+  return launch<T, 6>(qkv, bias, out, g, stream);
 }
 
 }  // namespace

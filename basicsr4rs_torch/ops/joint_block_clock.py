@@ -1,23 +1,26 @@
 """Where a window's time goes in the joint Swin block kernels (K1, K11), a
-(window, head) unit's in the attention branch's backward (K3), or a (token
-tile, hidden chunk) unit's in the MLP branch's backward (K5).
+(window, head) unit's in the attention branch's backward (K3), a (token
+tile, hidden chunk) unit's in the MLP branch's backward (K5), or a block's
+in the window-attention backward (K7).
 
     python -m basicsr4rs_torch.ops.joint_block_clock [--dtype float32|bfloat16]
-    python -m basicsr4rs_torch.ops.joint_block_clock --kernel attn_bwd|mlp_bwd [--csrc DIR]
+    python -m basicsr4rs_torch.ops.joint_block_clock --kernel attn_bwd|mlp_bwd|wattn_bwd [--csrc DIR]
 
 On one CUDA card. Builds a copy of ``csrc/`` under ``build/`` in which every
 barrier of ``swin_block_joint.cuh`` (K1, K11), or of the backward kernel's
 block kernel and the ``swin_common.cuh`` and ``branch_bwd.cuh`` helpers it
-calls (K3, K5), reads ``clock64()`` on the first lane of each warp of block
-0. K1 and K11 run on a SwinIR-M block (C=180, 6 heads, window 8, hidden
-360; B=1 128x128, shifted), K3 and K5 on their training call (B=4 48x48,
-shifted, DropPath's scales), weights of std 1/sqrt(fan_in) from a seed. It
-prints, for each barrier, the work each warp did since the one before: the
-slowest warp's, the mean and the fastest, averaged over 10 launches. The
-kernel is barrier-synchronised, so the slowest warps' work summed over the
+calls (K3, K5, K7), reads ``clock64()`` on the first lane of each warp of
+block 0. K1 and K11 run on a SwinIR-M block (C=180, 6 heads, window 8,
+hidden 360; B=1 128x128, shifted), K3 and K5 on their training call (B=4
+48x48, shifted, DropPath's scales), weights of std 1/sqrt(fan_in) from a
+seed; K7 on the ResShift UNet's largest call (B=16 64x64, C=192 in 6 heads
+of 32, window 8, shifted), from a seed. It prints, for each barrier, the
+work each warp did since the one before: the slowest warp's, the mean and
+the fastest over the warps that ran, averaged over 10 launches. The kernel
+is barrier-synchronised, so the slowest warps' work summed over the
 barriers is the block's time. ``--csrc`` instruments another checkout's
-kernel sources (an earlier K3 or K5, whose C interface had no scratch
-buffer), as they stand. The kernels in ``csrc/`` are untouched.
+kernel sources (an earlier K3, K5 or K7, whose C interface may differ), as
+they stand. The kernels in ``csrc/`` are untouched.
 """
 
 from __future__ import annotations
@@ -38,10 +41,11 @@ SLOTS = 64          # barriers counted, the last slot is the kernel's end
 DEFINE = '''namespace swin {
 __device__ unsigned long long g_work[16][%d];
 __device__ unsigned long long g_mark[16];
-#define SYNC(s) { if (blockIdx.x == 0 && (threadIdx.x & 31) == 0) \\
-    g_work[threadIdx.x >> 5][s] += clock64() - g_mark[threadIdx.x >> 5]; \\
+#define CLOCKED (blockIdx.x == 0 && blockIdx.y == 0 && (threadIdx.x & 31) == 0)
+#define SYNC(s) { if (CLOCKED) \\
+    ::swin::g_work[threadIdx.x >> 5][s] += clock64() - ::swin::g_mark[threadIdx.x >> 5]; \\
   __syncthreads(); \\
-  if (blockIdx.x == 0 && (threadIdx.x & 31) == 0) g_mark[threadIdx.x >> 5] = clock64(); }
+  if (CLOCKED) ::swin::g_mark[threadIdx.x >> 5] = clock64(); }
 ''' % SLOTS
 READ = '''
 extern "C" void clock_read(unsigned long long* out) {
@@ -65,7 +69,9 @@ def kernel_body(text, signature):
     return start, at - 1
 
 
-BACKWARD = {'attn_bwd': 'swin_attn_block_bwd', 'mlp_bwd': 'mlp_block_bwd'}   # K3, K5
+BACKWARD = {'attn_bwd': 'swin_attn_block_bwd', 'mlp_bwd': 'mlp_block_bwd',   # K3, K5
+            'wattn_bwd': 'window_attention_bwd'}                             # K7
+KERNEL = '__global__ void __launch_bounds__('   # the block kernel: the first of the .cu
 LN_LAUNCH = '// ------------------------------------------------------- the LayerNorm backward'
 
 
@@ -96,13 +102,13 @@ def instrumented_backward(src_dir, out_dir, name):
         shared.write_text(counted('branch_bwd.cuh', text, 0, text.index(LN_LAUNCH)))
     path = out_dir / f'{name}.cu'
     text = path.read_text()
-    _, hi = kernel_body(text, '__global__ void __launch_bounds__(kThreads')
+    _, hi = kernel_body(text, KERNEL)
     text = counted(f'{name}.cu', text, 0, hi)
-    lo, hi = kernel_body(text, '__global__ void __launch_bounds__(kThreads')
-    mark = '  if (blockIdx.x == 0 && (threadIdx.x & 31) == 0) '
-    text = (text[:lo] + '\n' + mark + 'g_mark[threadIdx.x >> 5] = clock64();\n' + text[lo:hi]
-            + mark + f'g_work[threadIdx.x >> 5][{SLOTS - 1}] += clock64() - '
-            'g_mark[threadIdx.x >> 5];\n' + text[hi:])
+    lo, hi = kernel_body(text, KERNEL)
+    mark = '  if (CLOCKED) '
+    text = (text[:lo] + '\n' + mark + '::swin::g_mark[threadIdx.x >> 5] = clock64();\n'
+            + text[lo:hi] + mark + f'::swin::g_work[threadIdx.x >> 5][{SLOTS - 1}] += clock64() - '
+            '::swin::g_mark[threadIdx.x >> 5];\n' + text[hi:])
     path.write_text(text + READ)
     assert len(lines) < SLOTS
     # the line numbers of the sources as they are, before the definitions went in
@@ -156,21 +162,23 @@ def block_inputs(dtype, gen, b=1, h=128):
 
 
 def print_work(buf, total_of, where):
-    """The slots of one kernel's clock, as main() describes them."""
-    work = [[buf[w * SLOTS + s] / 10 for w in range(16)] for s in range(SLOTS)]
+    """The slots of one kernel's clock, as main() describes them, over the
+    warps that ran (the block kernels have 4 to 16)."""
+    warps = [w for w in range(16) if any(buf[w * SLOTS + s] for s in range(SLOTS))]
+    work = [[buf[w * SLOTS + s] / 10 for w in warps] for s in range(SLOTS)]
     total = sum(max(ws) for ws in work)
-    print(f'{total_of}: {total:.0f} cycles, summed over the barriers\' slowest warps')
+    print(f'{total_of}: {total:.0f} cycles, summed over the barriers\' slowest warps '
+          f'({len(warps)} warps)')
     for s, ws in enumerate(work):
         if max(ws) < 0.01 * total:
             continue
-        print(f'  {max(ws):9.0f} slowest {sum(ws) / 16:9.0f} mean {min(ws):9.0f} fastest '
+        print(f'  {max(ws):9.0f} slowest {sum(ws) / len(ws):9.0f} mean {min(ws):9.0f} fastest '
               f'{100 * max(ws) / total:5.1f}%  before {where(s)}')
 
 
-def clock_backward(kernel, dtype, src_dir):
-    """K3 or K5 at its training call, instrumented from ``src_dir``, called
-    through its C interface as that source declares it (an earlier one had
-    no scratch buffer and no dtype in its shared-memory query)."""
+def instrumented_library(kernel, src_dir):
+    """(library, counted barriers) of the backward kernel ``kernel``,
+    instrumented from ``src_dir`` and built under ``build/``."""
     name = BACKWARD[kernel]
     out_dir = _build.BUILD_DIR.parent / f'{kernel}_clock'
     lines = instrumented_backward(src_dir, out_dir, name)
@@ -181,10 +189,71 @@ def clock_backward(kernel, dtype, src_dir):
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode:
         raise SystemExit(f'nvcc failed on {name}:\n{proc.stdout}')
+    return ctypes.CDLL(str(lib_path)), lines
+
+
+def run_clocked(lib, run, lines, src_dir, total_of):
+    """Runs ``run`` once, then 10 times with the clock zeroed, and prints
+    the clock."""
+    run()
+    torch.cuda.synchronize()
+    lib.clock_zero()
+    for _ in range(10):
+        run()
+    torch.cuda.synchronize()
+    buf = (ctypes.c_ulonglong * (16 * SLOTS))()
+    lib.clock_read(buf)
+    texts = {file: (src_dir / file).read_text().split('\n') for file, _ in lines}
+
+    def where(slot):
+        if slot == SLOTS - 1:
+            return 'the block\'s end'
+        file, line = lines[slot]
+        before = ' | '.join(t.strip() for t in texts[file][line - 3:line - 1] if t.strip())
+        return f'{file}:{line}: {before[:80]}'
+
+    print_work(buf, total_of, where)
+
+
+def clock_window_backward(dtype, src_dir):
+    """K7 at the ResShift UNet's largest training call (B=16 64x64, C=192, 6
+    heads, window 8, shifted), instrumented from ``src_dir``; its C
+    interface is the same in every version."""
+    from ..archs.unet_arch import shift_attn_mask_resshift
+    lib, lines = instrumented_library('wattn_bwd', src_dir)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    launch = lib.window_attention_bwd
+    launch.argtypes, launch.restype = [i] + [p] * 5 + [i] * 7 + [f, p], ctypes.c_int
+    b, hw, c, heads, ws = 16, 64, 192, 6, 8
+    gen = torch.Generator().manual_seed(0)
+    qkv = torch.randn(b, hw, hw, 3 * c, generator=gen).cuda().to(dtype)
+    dout = torch.randn(b, hw, hw, c, generator=gen).cuda().to(dtype)
+    mask = torch.from_numpy(shift_attn_mask_resshift(hw, hw, ws, ws // 2)).cuda()
+    bias = (torch.randn(1, heads, ws * ws, ws * ws, generator=gen) * .5).cuda() + mask[:, None]
+    dqkv, dbias = torch.empty_like(qkv), torch.empty_like(bias)
+    dt = 0 if dtype == torch.float32 else 1
+
+    def run():
+        rc = launch(dt, qkv.data_ptr(), bias.data_ptr(), dout.data_ptr(), dqkv.data_ptr(),
+                    dbias.data_ptr(), b, hw, hw, c, heads, ws, bias.shape[0], (c // heads)**-.5,
+                    torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise SystemExit(f'window_attention_bwd: CUDA error {rc}')
+
+    print(torch.cuda.get_device_name(0), str(dtype)[6:], f'B={b} {hw}x{hw} C={c} {heads} heads, '
+          f'window {ws}, shifted; {src_dir}')
+    run_clocked(lib, run, lines, src_dir, 'window_attention_bwd block 0')
+
+
+def clock_backward(kernel, dtype, src_dir):
+    """K3 or K5 at its training call, instrumented from ``src_dir``, called
+    through its C interface as that source declares it (an earlier one had
+    no scratch buffer and no dtype in its shared-memory query)."""
+    name = BACKWARD[kernel]
+    lib, lines = instrumented_library(kernel, src_dir)
     source = (src_dir / f'{name}.cu').read_text()
     with_scratch = 'float* scratch' in source
     smem_args = re.search(rf'size_t {name}_smem_bytes\(([^)]*)\)', source).group(1)
-    lib = ctypes.CDLL(str(lib_path))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     b, hw = 4, 48
     (x, ln1_w, ln1_b, wqkv, bqkv, wproj, _, rel, mask, ln2_w, ln2_b, w1, b1, w2, _, ws, heads,
@@ -227,24 +296,7 @@ def clock_backward(kernel, dtype, src_dir):
 
     print(torch.cuda.get_device_name(0), str(dtype)[6:], f'B={b} {hw}x{hw} {what}, '
           f'SwinIR-M; {src_dir}; {smem} bytes of shared memory a block')
-    run()
-    torch.cuda.synchronize()
-    lib.clock_zero()
-    for _ in range(10):
-        run()
-    torch.cuda.synchronize()
-    buf = (ctypes.c_ulonglong * (16 * SLOTS))()
-    lib.clock_read(buf)
-    texts = {file: (src_dir / file).read_text().split('\n') for file, _ in lines}
-
-    def where(slot):
-        if slot == SLOTS - 1:
-            return 'the block\'s end'
-        file, line = lines[slot]
-        before = ' | '.join(t.strip() for t in texts[file][line - 3:line - 1] if t.strip())
-        return f'{file}:{line}: {before[:80]}'
-
-    print_work(buf, f'{name} block 0', where)
+    run_clocked(lib, run, lines, src_dir, f'{name} block 0')
 
 
 def main():
@@ -252,10 +304,13 @@ def main():
     parser.add_argument('--dtype', choices=('float32', 'bfloat16'), default='float32')
     parser.add_argument('--kernel', choices=('joint', *BACKWARD), default='joint')
     parser.add_argument('--csrc', type=Path, default=_build.CSRC_DIR,
-                        help='kernel sources to instrument (attn_bwd, mlp_bwd)')
+                        help='kernel sources to instrument (attn_bwd, mlp_bwd, wattn_bwd)')
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('joint_block_clock: needs a CUDA card')
+    if args.kernel == 'wattn_bwd':
+        clock_window_backward(getattr(torch, args.dtype), args.csrc.resolve())
+        return
     if args.kernel in BACKWARD:
         clock_backward(args.kernel, getattr(torch, args.dtype), args.csrc.resolve())
         return

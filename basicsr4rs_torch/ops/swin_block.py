@@ -51,6 +51,12 @@ MAX_TOKENS_PER_WINDOW = 64
 # the joint kernels hold proj's and fc2's outputs in registers, 6 n8 tiles a
 # warp (csrc/swin_block_joint.cuh: kMaxN), and pad a head to 32 features
 JOINT_MAX_CHANNELS, JOINT_MAX_HEAD_DIM = 192, 32
+
+
+def joint_block_takes(channels: int, num_heads: int) -> bool:
+    """Whether the joint kernels (float and int8) take a block of this width:
+    C <= JOINT_MAX_CHANNELS and a head dim <= JOINT_MAX_HEAD_DIM."""
+    return channels <= JOINT_MAX_CHANNELS and channels // num_heads <= JOINT_MAX_HEAD_DIM
 # the attention backward holds dL/dLN(x)'s outputs in registers, 8 n8 tiles a
 # warp, and dO's, 3 a warp (csrc/swin_attn_block_bwd.cu): wider blocks than
 # any whose shared memory its first route could hold
@@ -483,7 +489,7 @@ def _joint_operands(op, x, ln1_weight, ln1_bias, qkv_weight, qkv_bias, proj_weig
     hidden = fc1_weight.shape[0]
     if hidden % 4:
         raise ValueError(f'{op}: needs hidden % 4 == 0 (hidden={hidden})')
-    if c > JOINT_MAX_CHANNELS or c // num_heads > JOINT_MAX_HEAD_DIM:
+    if not joint_block_takes(c, num_heads):
         raise ValueError(f'{op}: takes C <= {JOINT_MAX_CHANNELS} and a head dim <= '
                          f'{JOINT_MAX_HEAD_DIM} (C={c}, heads={num_heads})')
     dev, f32 = x.device, torch.float32

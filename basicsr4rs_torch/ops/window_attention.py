@@ -19,8 +19,8 @@ and nWb 1 or the windows of one image,
 The qkv and proj GEMMs stay outside, with the caller. Every wrapper sends a
 CUDA tensor to its kernel and a CPU tensor to its plain PyTorch version
 (``reference_*``), and counts its launches in ``.launches``. The kernels
-take windows of at most 8 x 8 tokens and heads of at most 64 channels, and
-raise beyond that.
+take windows of at most 96 tokens (window 9's 81 among them) and heads of at
+most 64 channels, and raise beyond that.
 """
 
 from __future__ import annotations
@@ -32,7 +32,8 @@ import torch
 
 from . import _launch
 
-MAX_TOKENS_PER_WINDOW = 64
+# both kernels pad a window to 16-token tiles: 4 of them up to 64 tokens, 6 up to 96
+MAX_TOKENS_PER_WINDOW = 96
 MAX_HEAD_DIM = 64
 
 
@@ -137,16 +138,38 @@ def fused_window_attention(qkv, bias, window_size: int, num_heads: int, scale: f
 
 # ------------------------------------------------------------------ launches
 @functools.lru_cache(maxsize=None)
-def _checked_lib(op: str, c: int, num_heads: int, window_size: int,
+def _checked_lib(op: str, dtype: torch.dtype, c: int, num_heads: int, window_size: int,
                  device: torch.device) -> ctypes.CDLL:
     """The kernel's library with its C functions' types set, once its block's
-    shared memory is known to fit the device for this geometry."""
+    shared memory is known to fit the device for this geometry (the
+    backward's depends on the dtype too)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    pointers = 3 if op == 'window_attention_fwd' else 5
-    lib = _launch.bind(op, [i] + [p] * pointers + [i] * 7 + [f, p], [i, i, i])
-    needed = getattr(lib, f'{op}_smem_bytes')(c, num_heads, window_size)
+    if op == 'window_attention_fwd':
+        lib = _launch.bind(op, [i] + [p] * 3 + [i] * 7 + [f, p], [i, i, i])
+        needed = lib.window_attention_fwd_smem_bytes(c, num_heads, window_size)
+    else:
+        lib = _launch.bind(op, [i] + [p] * 5 + [i] * 7 + [f, p], [i, i, i, i])
+        plan = lib.window_attention_bwd_plan
+        plan.argtypes, plan.restype = [i] * 7 + [p], ctypes.c_int
+        needed = lib.window_attention_bwd_smem_bytes(_launch.DTYPES[dtype], c, num_heads,
+                                                    window_size)
     _launch.check_shared_memory(needed, device, op)
     return lib
+
+
+def backward_plan(qkv, window_size: int, num_heads: int):
+    """The grid the backward kernel launches for qkv (B, H, W, 3C) on its
+    card: (units, samples a unit, blocks an SM, SMs, stages); a unit is one
+    thread block for a (window position, head, group of samples), stages the
+    samples' buffers it holds (2: the next one's copy overlaps the work)."""
+    b, h, w, c3 = qkv.shape
+    lib = _checked_lib('window_attention_bwd', qkv.dtype, c3 // 3, num_heads, window_size,
+                       qkv.device)
+    plan = (ctypes.c_int * 5)()
+    rc = lib.window_attention_bwd_plan(_launch.DTYPES[qkv.dtype], b, h, w, c3 // 3, num_heads,
+                                       window_size, ctypes.addressof(plan))
+    _launch.check_rc(rc, lib, 'window_attention_bwd')
+    return tuple(plan)
 
 
 def _operands(op, qkv, bias, window_size, num_heads):
@@ -176,7 +199,7 @@ def _operands(op, qkv, bias, window_size, num_heads):
 def _launch_forward(qkv, bias, window_size, num_heads, scale):
     op = 'window_attention_fwd'
     bias, (b, h, w, c) = _operands(op, qkv, bias, window_size, num_heads)
-    lib = _checked_lib(op, c, num_heads, window_size, qkv.device)
+    lib = _checked_lib(op, qkv.dtype, c, num_heads, window_size, qkv.device)
     out = torch.empty((b, h, w, c), dtype=qkv.dtype, device=qkv.device)
     if out.numel() == 0:
         return out
@@ -193,7 +216,7 @@ def _launch_backward(qkv, bias, dout, window_size, num_heads, scale):
     _launch.check_activation(dout, 'dout', op)
     if dout.shape != (b, h, w, c) or dout.dtype != qkv.dtype or dout.device != qkv.device:
         raise ValueError(f'{op}: dout must be {(b, h, w, c)} in qkv\'s dtype and on its device')
-    lib = _checked_lib(op, c, num_heads, window_size, qkv.device)
+    lib = _checked_lib(op, qkv.dtype, c, num_heads, window_size, qkv.device)
     dqkv = torch.empty_like(qkv)
     # the op zeroes dbias on the stream before the launch
     dbias = torch.empty_like(bias)

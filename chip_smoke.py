@@ -22,9 +22,12 @@ nonzero exit code and no result line:
    SwinIR-light's widths and at 480 tokens (not a multiple of their
    64-token tile); the window-attention kernels at the shapes of the
    ResShift UNet (C=192, 6 heads of 32, window 8; maps of 64, 32, 16 and 8;
-   batch 1 and the training batch; with the shift mask and without) and at
-   C=180 with heads of 30, beside ``F.scaled_dot_product_attention`` (and
-   its backward by autograd) as a yardstick;
+   batch 1 and the training batch; with the shift mask and without), at
+   window 9 on the latents of ``train_ResShift_L2S288.yml`` (maps of 72, 36
+   and 18 shifted by 4, and 9 as one window; its batch 32 in bfloat16, 16 in
+   float32) and at C=180 with heads of 30, beside
+   ``F.scaled_dot_product_attention`` (and its backward by autograd) as a
+   yardstick, with the backward kernel's grid and fill;
    the deformable sampler's kernels (3d) at the shapes EDVR-M gives them
    (64 channels in 8 groups, nine taps; training batch 4 x 5 frames of 64x64
    and a served window of 5 frames of 180x320, all three pyramid levels) and
@@ -74,6 +77,12 @@ nonzero exit code and no result line:
    kernel, and two steps under bfloat16 autocast;
 10. runs one ResShift training batch forward and backward through the
     kernels and through the plain versions and compares every gradient;
+    10b. builds ``UNetModelSwin`` from ``network_g`` of
+    ``options/train/ResShift/train_ResShift_L2S288.yml`` as it stands
+    (window 9, 6 channels in and out, latents 72x72) with seed-0 weights and
+    runs B=2 forward and backward through the kernels (18 launches of each
+    attention kernel) and through the plain versions: the output and every
+    gradient;
 11. serves EDVR-M x4 through ``basicsr4rs_torch.test`` (``-opt
     options/test/EDVR/test_EDVR_M_x4_synthetic.yml``: ``VideoTestDataset``,
     windows of 5 LQ frames of 180x320, per-clip PSNR) on two synthetic clips
@@ -112,10 +121,15 @@ nonzero exit code and no result line:
     512x512 image (16 tiles in one batch) and holds it against the untiled
     forward; MSRResNet tiled with a pad that covers its receptive field;
 21. trains SwinIR-M x4 for 4 steps with ``SWIN_JOINT_TRAIN=1``: launch
-    counts per step, gradients against the split route, step time.
+    counts per step, gradients against the split route, step time;
+22. serves SwinIR (depths [2, 2], LQ 64x64, eval) at widths past the joint
+    kernel's: C=180 in 3 heads of 60 through the attention and MLP branch
+    forward kernels, no joint launch, against its plain forward; C=240 in 8
+    heads, whose blocks need more shared memory than those kernels have,
+    refused before any launch.
 
 ``python3 chip_smoke.py kernels`` stops after phase 3; ``python3 chip_smoke.py
-serving`` runs phases 3a, 3e, 3f, 4, 4b and 17 to 21 alone. The line before the
+serving`` runs phases 3a, 3e, 3f, 4, 4b and 17 to 22 alone. The line before the
 last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -482,16 +496,20 @@ def check_branch_kernels():
     return summary
 
 
-RS_C, RS_HEADS = 192, 6   # the Swin layers of the ResShift UNet: 6 heads of 32, window 8
+RS_C, RS_HEADS = 192, 6   # the Swin layers of the ResShift UNets: 6 heads of 32
+# the RS fork's own diffusion config: UNetModelSwin with window 9 (81 tokens)
+# on 72x72 latents (GT 288 through the VQ-f4 first stage), attention at 72,
+# 36, 18 and 9, batch 32 under use_amp
+L2S_CONFIG = 'options/train/ResShift/train_ResShift_L2S288.yml'
 ATTENTION_KERNELS = ('window_attention_fwd', 'window_attention_bwd')
 
 
-def attention_work(kernel, b, h, w, c, heads, nwb, dtype):
+def attention_work(kernel, b, h, w, c, heads, nwb, dtype, ws):
     """(FLOP, bytes) of one window-attention call: the two products of the
     forward (4 n C a token) or the five of the backward (10 n C, the scores
     recomputed), qkv (and dout) read once, out (or dqkv) written once, the
     float32 bias read and, in the backward, dbias written."""
-    t, n, es = b * h * w, WS * WS, torch.finfo(dtype).bits // 8
+    t, n, es = b * h * w, ws * ws, torch.finfo(dtype).bits // 8
     bias = 4 * nwb * heads * n * n
     return {'window_attention_fwd': (t * 4 * n * c, t * 4 * c * es + bias),
             'window_attention_bwd': (t * 10 * n * c, t * 7 * c * es + 2 * bias)}[kernel]
@@ -531,37 +549,48 @@ def sdpa_window_attention_backward(qkv, bias, dout, ws, heads, scale):
     return backward(), backward
 
 
-def check_attention_kernels(train_batch):
+def check_attention_kernels(train_batch, l2s_batch):
     """The window-attention kernels, forward and backward, against their
-    plain versions at the shapes the ResShift UNet gives them."""
+    plain versions at the shapes the ResShift UNets give them: window 8
+    (the published RGB config) and window 9 (``L2S_CONFIG``, whose batch under
+    use_amp is ``l2s_batch``; float32 at half of it)."""
     from basicsr4rs_torch.archs.unet_arch import shift_attn_mask_resshift
     from basicsr4rs_torch.ops import window_attention as A
     phase('3c. window attention kernels, forward and backward, vs plain versions '
-          f'(C={RS_C}, {RS_HEADS} heads, window {WS}; and C={C}, head_dim {C // HEADS})')
+          f'(C={RS_C}, {RS_HEADS} heads; window {WS}, and window 9 on the 72x72 latents of '
+          f'{os.path.basename(L2S_CONFIG)}; and C={C}, head_dim {C // HEADS})')
     gen = torch.Generator().manual_seed(3)
     f32, bf16 = torch.float32, torch.bfloat16
-    # (B, H = W, C, dtype, shifted)
-    serve_case, train_case = (1, 64, RS_C, f32, True), (train_batch, 64, RS_C, f32, True)
-    cases = [serve_case, (1, 64, RS_C, f32, False), (1, 8, RS_C, f32, False), train_case,
-             (train_batch, 64, RS_C, f32, False), (train_batch, 32, RS_C, f32, True),
-             (train_batch, 16, RS_C, f32, True), (train_batch, 8, RS_C, f32, False),
-             (train_batch, 64, RS_C, bf16, True), (train_batch, 64, RS_C, bf16, False),
-             (1, 64, RS_C, bf16, True), (2, 64, C, f32, True), (2, 64, C, bf16, False)]
+    # (B, H = W, C, dtype, shifted, window)
+    serve_case, train_case = (1, 64, RS_C, f32, True, WS), (train_batch, 64, RS_C, f32, True, WS)
+    bf16_case = (train_batch, 64, RS_C, bf16, True, WS)
+    l2s_case, l2s_bf16_case = (l2s_batch // 2, 72, RS_C, f32, True, 9), (l2s_batch, 72, RS_C,
+                                                                         bf16, True, 9)
+    cases = [serve_case, (1, 64, RS_C, f32, False, WS), (1, 8, RS_C, f32, False, WS), train_case,
+             (train_batch, 64, RS_C, f32, False, WS), (train_batch, 32, RS_C, f32, True, WS),
+             (train_batch, 16, RS_C, f32, True, WS), (train_batch, 8, RS_C, f32, False, WS),
+             bf16_case, (train_batch, 64, RS_C, bf16, False, WS), (1, 64, RS_C, bf16, True, WS),
+             (2, 64, C, f32, True, WS), (2, 64, C, bf16, False, WS)]
+    for b, dt in ((l2s_batch // 2, f32), (l2s_batch, bf16)):   # 72, 36, 18 shifted by 4; 9 alone
+        cases += [(b, size, RS_C, dt, size > 9, 9) for size in (72, 36, 18, 9)]
+    library_backward = {train_case: '', bf16_case: 'bf16_', l2s_case: 'window9_',
+                        l2s_bf16_case: 'window9_bf16_'}
     summary = {name: {'max_abs_err': 0., 'library_ms': None} for name in ATTENTION_KERNELS}
+    t0 = time.perf_counter()
     for case in cases:
-        b, size, c, dt, shifted = case
-        heads, n = HEADS, WS * WS
+        b, size, c, dt, shifted, ws = case
+        heads, n = HEADS, ws * ws
         scale = (c // heads)**-.5
         qkv = torch.randn(b, size, size, 3 * c, generator=gen).cuda().to(dt)
         dout = torch.randn(b, size, size, c, generator=gen).cuda().to(dt)
         bias = (torch.randn(1, heads, n, n, generator=gen) * .5).cuda()
         if shifted:
-            mask = torch.from_numpy(shift_attn_mask_resshift(size, size, WS, WS // 2)).cuda()
+            mask = torch.from_numpy(shift_attn_mask_resshift(size, size, ws, ws // 2)).cuda()
             bias = bias + mask[:, None]
         nwb = bias.shape[0]
-        args = (qkv, bias, WS, heads, scale)
-        args_b = (qkv, bias, dout, WS, heads, scale)
-        tag = f'B={b} {size}x{size} C={c} {str(dt)[6:]:8s} nWb={nwb}'
+        args = (qkv, bias, ws, heads, scale)
+        args_b = (qkv, bias, dout, ws, heads, scale)
+        tag = f'B={b} {size}x{size} C={c} ws={ws} {str(dt)[6:]:8s} nWb={nwb}'
         runs = [('window_attention_fwd', A.window_attention_forward,
                  A.reference_window_attention, args, ('out',)),
                 ('window_attention_bwd', A.window_attention_backward,
@@ -586,25 +615,36 @@ def check_attention_kernels(train_batch):
                     summary[name]['max_abs_err'] = max(summary[name]['max_abs_err'], max_abs)
             with torch.no_grad():
                 kernel_ms, plain_ms = time_pair(lambda: plain(*call), lambda: kernel(*call))
-            flop, nbytes = attention_work(name, b, size, size, c, heads, nwb, dt)
-            bound, by = bound_ms(flop, nbytes, dt)
-            line = (f'{name:20s} {tag}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, '
-                    f'bound {bound:.4f} ms by {by}')
+            flop, nbytes = attention_work(name, b, size, size, c, heads, nwb, dt, ws)
+            if name == 'window_attention_fwd':
+                bound, by = bound_ms(flop, nbytes, dt)
+                line = (f'{name:20s} {tag}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, '
+                        f'bound {bound:.4f} ms by {by}')
+            else:   # every product on the tensor cores
+                (bound, by), cuda_cores = tensor_core_bound_ms(flop, nbytes, dt)
+                units, group, per_sm, sms, stages = A.backward_plan(qkv, ws, heads)
+                waves = -(-units // (per_sm * sms))
+                line = (f'{name:20s} {tag}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, '
+                        f'bound {bound:.4f} ms by {by} ({ROUTE[dt]}; CUDA-core {cuda_cores:.4f}); '
+                        f'{units} units of {group} samples, {per_sm} an SM ({stages} stages): '
+                        f'{waves} waves, {100 * units / (waves * per_sm * sms):.1f}% filled')
             library_ms = None
             if name == 'window_attention_fwd':
-                windows = (size // WS)**2
+                windows = (size // ws)**2
                 mask = bias.to(dt) if nwb == 1 else bias.to(dt).repeat(b, 1, 1, 1)
                 with torch.no_grad():
-                    lib_out = sdpa_window_attention(qkv, mask, WS, heads, scale)
+                    lib_out = sdpa_window_attention(qkv, mask, ws, heads, scale)
                     ok, max_abs, _, _ = compare(lib_out, want[0], dt, 'elementwise')
                     if not ok:
                         fail(f'the library call disagrees with the plain version at {tag}: '
                              f'{max_abs:.3e}')
                     library_ms = cuda_time_ms(
-                        lambda: sdpa_window_attention(qkv, mask, WS, heads, scale))
+                        lambda: sdpa_window_attention(qkv, mask, ws, heads, scale))
                 line += (f', library (SDPA + partition/reverse copies, {b * windows} windows) '
                          f'{library_ms:.4f} ms')
-            elif case == train_case:   # the backward of that call, the forward untimed
+                if case == l2s_case:
+                    summary[name].update(window9_ms=kernel_ms, window9_library_ms=library_ms)
+            elif case in library_backward:   # the backward of that call, the forward untimed
                 lib_grads, backward = sdpa_window_attention_backward(*args_b)
                 for out_name, g_, w_ in zip(outputs, lib_grads, want):
                     ok, max_abs, _, _ = compare(g_, w_, dt,
@@ -613,19 +653,25 @@ def check_attention_kernels(train_batch):
                         fail(f'the library backward disagrees with the plain version at {tag}: '
                              f'{out_name} {max_abs:.3e}')
                 library_ms = cuda_time_ms(backward)
+                del lib_grads, backward
                 line += (f', library (autograd.grad through SDPA + partition/reverse copies, '
                          f'dqkv and dbias) {library_ms:.4f} ms')
+                key = library_backward[case]
+                if key:
+                    summary[name].update({f'{key}ms': kernel_ms, f'{key}bound_ms': bound,
+                                          f'{key}library_ms': library_ms})
             print(line + ' | max abs err (of max|plain|): ' + ', '.join(worst), flush=True)
             main_case = serve_case if name == 'window_attention_fwd' else train_case
             if case == main_case:
                 summary[name].update(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound,
                                      bound_by=by, library_ms=library_ms)
-            if name == 'window_attention_bwd' and case in (train_case, train_case[:4] + (False,)):
+            if name == 'window_attention_bwd' and case in (train_case, train_case[:4] + (False, WS)):
                 with torch.no_grad():   # atomicAdd sums: reported, not required
                     again = kernel(*call)
                 print(f'{name:20s} {tag}: a second launch on the same inputs repeats bit for '
                       'bit: ' + ', '.join(f'{o} {"yes" if torch.equal(g_, a) else "no"}'
                                           for o, g_, a in zip(outputs, got, again)), flush=True)
+    print(f'phase 3c: {time.perf_counter() - t0:.1f} s')
     return summary
 
 
@@ -1791,6 +1837,66 @@ def check_resshift_gradients():
     compare_gradients('ResShift', loss_k, grads_k, loss_p, grads_p)
 
 
+def check_l2s_unet():
+    """Phase 10b: UNetModelSwin at ``L2S_CONFIG``'s ``network_g`` (window 9,
+    as read from the YAML), seed-0 weights, forward and backward at B=2 of
+    its 72x72 latents through the kernels and through the plain versions."""
+    from basicsr4rs_torch.archs import swinir_arch
+    from basicsr4rs_torch.archs.arch_util import default_conv_init_
+    from basicsr4rs_torch.archs.unet_arch import BasicLayer, UNetModelSwin
+    from basicsr4rs_torch.ops import window_attention as A
+    from basicsr4rs_torch.utils.options import yaml_load
+    opt = yaml_load(L2S_CONFIG)
+    net_opt = {k: v for k, v in opt['network_g'].items() if k != 'type'}
+    size, ws, batch = net_opt['image_size'], net_opt['window_size'], 2
+    phase(f'10b. UNetModelSwin of {os.path.basename(L2S_CONFIG)} (window {ws}, model channels '
+          f'{net_opt["model_channels"]}, Swin {net_opt["swin_embed_dim"]}), forward and backward '
+          f'at B={batch} of {size}x{size} latents: kernels vs plain versions')
+    gen = torch.Generator().manual_seed(0)
+    net = UNetModelSwin(**net_opt, generator=gen)
+    with torch.no_grad():   # no zero-initialised convolution: every parameter shows
+        for m in net.modules():
+            if getattr(m, 'zero_init', False):
+                default_conv_init_(m, gen)
+    net = net.cuda().train()
+    per_forward = sum(len(m.blocks) for m in net.modules() if isinstance(m, BasicLayer))
+    channels = net_opt['in_channels']
+    x = torch.randn(batch, channels, size, size, generator=gen).cuda()
+    lq = torch.randn(batch, channels, net_opt['lq_size'], net_opt['lq_size'], generator=gen).cuda()
+    target = torch.randn(batch, net_opt['out_channels'], size, size, generator=gen).cuda()
+    tt = torch.randint(0, opt['diffusion']['steps'], (batch,), generator=gen).cuda()
+
+    def run():
+        net.zero_grad(set_to_none=True)
+        out = net(x, tt, lq=lq)
+        loss = (out - target).pow(2).mean()
+        loss.backward()
+        return out.detach().clone(), loss.item(), {k: q.grad.clone()
+                                                   for k, q in net.named_parameters()}
+
+    wrappers = attention_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    out_k, loss_k, grads_k = run()
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    print(f'launches {launches}: {per_forward} Swin blocks a forward')
+    if launches != dict.fromkeys(wrappers, per_forward):
+        fail(f'expected {per_forward} launches of each attention kernel, counted {launches}')
+    with mock.patch.object(swinir_arch, 'fused_window_attention', A.reference_window_attention):
+        out_p, loss_p, grads_p = run()
+    if launches != {k: w.launches for k, w in wrappers.items()}:
+        fail('the plain run launched a kernel')
+    err = (out_k - out_p).abs().max().item()
+    print(f'output: max abs difference {err:.3e} (max|plain| {out_p.abs().max().item():.3e}; '
+          f'tolerance {MODEL_TOLERANCE})')
+    if not err <= MODEL_TOLERANCE:
+        fail('UNetModelSwin at window 9: the outputs disagree')
+    compare_gradients('UNetModelSwin at window 9', loss_k, grads_k, loss_p, grads_p)
+    del net, grads_k, grads_p
+    return launches
+
+
 # ------------------------------------------------------------ the video path
 def sampler_wrappers():
     from basicsr4rs_torch.ops import dcn as D
@@ -2934,6 +3040,78 @@ def train_joint(split_step_ms):
     return launches
 
 
+WIDE_SWINIR = [(180, 3), (240, 8)]   # (embed, heads): heads of 60; SwinIR-L's 240 in 8 heads
+
+
+def serve_wide_swinir():
+    """Phase 22: SwinIR in eval at widths past the joint kernel's (C > 192 or
+    heads wider than 32), depths [2, 2], LQ 64x64, seed-0 weights: each block
+    through K2 + K4, no K1, against the plain forward. A width whose K2 or
+    K4 block needs more shared memory than the card has must raise before
+    any launch. Returns the launches of K2 and K4."""
+    from basicsr4rs_torch.archs.swinir_arch import SwinIR
+    from basicsr4rs_torch.ops import _launch
+    from basicsr4rs_torch.ops import mlp_block as M
+    from basicsr4rs_torch.ops import swin_block as S
+    phase('22. SwinIR past the joint kernel\'s widths (' + ', '.join(
+        f'C={c} in {h} heads of {c // h}' for c, h in WIDE_SWINIR) + '), eval: K2 + K4 a block')
+    gen = torch.Generator().manual_seed(0)
+    lq = torch.rand(1, 3, 64, 64, generator=gen).cuda()
+    counters = (S.fused_swin_block_full, S.swin_attn_block_forward, M.mlp_block_forward)
+    launches = {'swin_attn_block_fwd': 0, 'mlp_block_fwd': 0}
+    limit = _launch.shared_memory_limit(lq.device)
+    for embed, heads in WIDE_SWINIR:
+        depths = [2, 2]
+        net = SwinIR(upscale=4, in_chans=3, img_size=64, window_size=8, img_range=1.,
+                     depths=depths, embed_dim=embed, num_heads=[heads] * len(depths),
+                     mlp_ratio=2., upsampler='pixelshuffle', resi_connection='1conv',
+                     generator=gen).cuda().eval()
+        need = {'K2': S._lib('swin_attn_block_fwd').swin_attn_block_fwd_smem_bytes(embed, heads),
+                'K4': M._lib('mlp_block_fwd').mlp_block_fwd_smem_bytes(embed)}
+        tag = f'C={embed}, {heads} heads of {embed // heads}'
+        for f in counters:
+            f.launches = 0
+        if max(need.values()) > limit:   # refused before any launch
+            try:
+                with torch.no_grad():
+                    net(lq)
+            except ValueError as e:
+                if 'shared memory' not in str(e) or any(f.launches for f in counters):
+                    fail(f'{tag}: refused for another reason: {e}')
+                print(f'{tag}: refused before any launch, as it must be: shared memory a block '
+                      f'{need} bytes, the card has {limit} ({e})')
+                continue
+            fail(f'{tag}: ran although a block needs {need} bytes of shared memory')
+        with torch.no_grad():
+            out_k = net(lq)
+        torch.cuda.synchronize()
+        counts = [f.launches for f in counters]
+        blocks = sum(depths)
+        if counts != [0, blocks, blocks]:
+            fail(f'{tag}: launches K1, K2, K4 {counts}, expected [0, {blocks}, {blocks}]')
+        launches['swin_attn_block_fwd'] += blocks
+        launches['mlp_block_fwd'] += blocks
+        plain = [mock.patch.object(S, 'swin_attn_block_forward', S.reference_swin_attn_block),
+                 mock.patch.object(M, 'mlp_block_forward', M.reference_mlp_block)]
+        for q in plain:
+            q.start()
+        try:
+            with torch.no_grad():
+                out_p = net(lq)
+        finally:
+            for q in plain:
+                q.stop()
+        if [f.launches for f in counters] != counts:
+            fail(f'{tag}: the plain forward launched a kernel')
+        err = (out_k - out_p).abs().max().item()
+        print(f'{tag}: K1 0, K2 {blocks}, K4 {blocks} launches; shared memory a block {need} '
+              f'bytes; output max abs difference from the plain forward {err:.3e} (max|plain| '
+              f'{out_p.abs().max().item():.3e}, tolerance {MODEL_TOLERANCE})')
+        if not err <= MODEL_TOLERANCE:
+            fail(f'{tag}: the output disagrees with the plain forward')
+    return launches
+
+
 SUMMARY_KEYS = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
 KERNELS = [
     ('swin_block_joint_fwd', 'basicsr4rs_tpu/ops/swin_block.py:287'),
@@ -2951,8 +3129,9 @@ KERNELS = [
 
 
 def serving_modes(launches, split_step_ms):
-    """Phases 17 to 21: the serving modes of the image-SR path and the joint
-    training route; their launches are added to ``launches``.
+    """Phases 17 to 22: the serving modes of the image-SR path, the joint
+    training route and the widths past the joint kernel's; their launches
+    are added to ``launches``.
     ``split_step_ms``: phase 6's step time, or None when it did not run."""
     model, loader, conv_launches, k1_fused = serve_fused_conv()
     launches['conv3x3_fwd'] = conv_launches
@@ -2961,6 +3140,8 @@ def serving_modes(launches, split_step_ms):
     serve_and_train_msrresnet()
     launches['swin_block_joint_fwd'] += k1_fused + serve_tiled()
     for name, count in train_joint(split_step_ms).items():
+        launches[name] += count
+    for name, count in serve_wide_swinir().items():
         launches[name] += count
 
 
@@ -2972,6 +3153,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     card = card_info()
     rs_batch = resshift_options(RS_TRAIN_CONFIG)[0]['datasets']['train']['batch_size_per_gpu']
+    l2s_batch = resshift_options(L2S_CONFIG)[0]['datasets']['train']['batch_size_per_gpu']
     build_kernels()
     if sys.argv[1:] == ['serving']:   # development: the serving modes' kernels and paths alone
         print(json.dumps({'swin_block_joint_fwd': check_joint_kernel(), **check_conv_kernel(),
@@ -2982,7 +3164,7 @@ def main():
         return
     kernels = {'swin_block_joint_fwd': check_joint_kernel()}
     kernels.update(check_branch_kernels())
-    kernels.update(check_attention_kernels(rs_batch))
+    kernels.update(check_attention_kernels(rs_batch, l2s_batch))
     kernels.update(check_deform_kernels())
     kernels.update(check_conv_kernel())
     kernels.update(check_int8_block_kernel())
@@ -3004,8 +3186,10 @@ def main():
     served = serve_resshift()
     trained = train_resshift()
     check_resshift_gradients()
-    launches['window_attention_fwd'] = served + trained['window_attention_fwd']
-    launches['window_attention_bwd'] = trained['window_attention_bwd']
+    l2s = check_l2s_unet()
+    launches['window_attention_fwd'] = served + trained['window_attention_fwd'] + l2s[
+        'window_attention_fwd']
+    launches['window_attention_bwd'] = trained['window_attention_bwd'] + l2s['window_attention_bwd']
     launches.update(deform_sample_fwd=0, deform_sample_bwd=0)
     for i, name in enumerate(VIDEO):
         served, _ = serve_video(name, 11 + 3 * i)

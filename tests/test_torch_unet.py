@@ -156,6 +156,20 @@ def test_swin_block_gn(size, shift):
     np.testing.assert_allclose(got, want, atol=1e-5)
 
 
+@pytest.mark.parametrize('size, shift', [(18, 4), (9, 0)],
+                         ids=['window9-shifted', 'window9-one-window'])
+def test_swin_block_gn_window9(size, shift):
+    """Window 9 (81 tokens, as ``train_ResShift_L2S288.yml`` sets it): shifted
+    by 4 on an 18x18 map, and one 9x9 window, unshifted."""
+    x = np.random.RandomState(9).randn(1, 16, size, size).astype(np.float32)
+    jmod = ref.SwinBlockGN(16, 2, 9, shift, mlp_ratio=4.)
+    params = jax_params(jmod, 30 + size + shift, nhwc(x))
+    want = nchw(jmod.apply({'params': params}, nhwc(x)))
+    net = carry(port.SwinBlockGN(16, 2, 9, shift, mlp_ratio=4.), params)
+    got = net(torch.from_numpy(x)).detach().numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5)
+
+
 @pytest.mark.parametrize('patch_norm', [False, True])
 def test_basic_layer(patch_norm):
     x = np.random.RandomState(9).randn(2, 12, 8, 8).astype(np.float32)

@@ -23,6 +23,8 @@ CASES = [
     pytest.param(1, 8, 16, 60, 2, 4, 1, id='hd30-broadcast'),
     pytest.param(2, 8, 16, 60, 2, 4, 8, id='hd30-masked'),
     pytest.param(1, 8, 8, 64, 2, 8, 1, id='ws8-one-window'),
+    pytest.param(1, 9, 18, 64, 2, 9, 1, id='ws9-broadcast'),
+    pytest.param(1, 9, 18, 64, 2, 9, 2, id='ws9-masked'),
 ]
 
 
@@ -102,14 +104,14 @@ def test_no_launch_is_counted_on_the_cpu():
 
 
 @pytest.mark.parametrize('kwargs, message', [
-    (dict(ws=9, h=9, c=8, heads=2), 'more than 64 tokens'),
+    (dict(ws=10, h=10, c=8, heads=2), 'more than 96 tokens'),
     (dict(ws=4, h=8, c=260, heads=2), 'head dim'),
     (dict(ws=4, h=6, c=8, heads=2), 'not a multiple'),
     (dict(ws=4, h=8, c=8, heads=2, nwb=3), 'bias must be'),
 ])
 def test_unsupported_shapes_raise(kwargs, message):
-    """The operand checks that guard a launch: a window above 8x8, a head
-    above 64 channels, a map the window does not tile, a bias of the wrong
+    """The operand checks that guard a launch: a window above 96 tokens
+    (10x10; 9x9 is taken), a head above 64 channels, a map the window does not tile, a bias of the wrong
     leading size. No fallback."""
     ws, h, c, heads = (kwargs[k] for k in ('ws', 'h', 'c', 'heads'))
     nwb = kwargs.get('nwb', 1)
@@ -117,3 +119,41 @@ def test_unsupported_shapes_raise(kwargs, message):
     bias = torch.zeros(nwb, heads, ws * ws, ws * ws)
     with pytest.raises(ValueError, match=message):
         port._operands('window_attention_fwd', qkv, bias, ws, heads)
+
+
+@pytest.mark.parametrize('op', ['window_attention_fwd', 'window_attention_bwd'])
+def test_binding_matches_the_c_signature(monkeypatch, op):
+    """The wrapper's ctypes types are the kernel's C parameters, one for one:
+    the launch, the shared-memory query (the backward's takes the dtype
+    first) and the backward's grid query. A count that differs passes a
+    pointer as an int, or fails at the first launch on the card."""
+    import ctypes
+    import re
+    import types
+
+    from basicsr4rs_torch.ops import _build, _launch
+
+    class Fn(types.SimpleNamespace):
+        def __call__(self, *args):
+            return 0
+
+    fake = types.SimpleNamespace(**{n: Fn() for n in (
+        op, f'{op}_error', f'{op}_smem_bytes', f'{op}_plan')})
+    monkeypatch.setattr(_launch, 'load_library', lambda _: fake)
+    monkeypatch.setattr(_launch, 'check_shared_memory', lambda *args: None)
+    port._checked_lib.cache_clear()
+    try:
+        port._checked_lib(op, torch.float32, 64, 2, 9, torch.device('cpu'))
+    finally:
+        port._checked_lib.cache_clear()
+    source = (_build.CSRC_DIR / f'{op}.cu').read_text()
+    kinds = {'int': ctypes.c_int, 'float': ctypes.c_float}
+
+    def declared(name, ret):
+        params = re.search(rf'\b{ret} {name}\(([^)]*)\)', source).group(1)
+        return [ctypes.c_void_p if '*' in p else kinds[p.split()[0]] for p in params.split(',')]
+
+    assert list(getattr(fake, op).argtypes) == declared(op, 'int')
+    assert list(getattr(fake, f'{op}_smem_bytes').argtypes) == declared(f'{op}_smem_bytes', 'size_t')
+    if op == 'window_attention_bwd':
+        assert list(fake.window_attention_bwd_plan.argtypes) == declared(f'{op}_plan', 'int')
