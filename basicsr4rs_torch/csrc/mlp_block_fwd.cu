@@ -14,9 +14,11 @@
 // FLOP (0.26 MFLOP at C=180, hidden=360) against 2 * C elements of traffic;
 // the weights stay in L2. As in the joint forward kernel the hidden
 // activation never lives whole: fc1 -> GELU -> fc2 runs in chunks of 96
-// hidden columns kept in shared memory, the weights stream through two
-// cp.async stages, and each thread holds a 2-token x 6-column register tile
-// on the CUDA cores. Tensor cores are later work.
+// hidden columns kept in shared memory (64 past C = 192, so that SwinIR-L's
+// C = 240 fits: 231,552 bytes a block where 96 would take 240,000), the
+// weights stream through two cp.async stages, and each thread holds a
+// 2-token x 6-column register tile on the CUDA cores. Tensor cores are
+// later work.
 
 #include "swin_common.cuh"
 
@@ -38,10 +40,13 @@ struct Params {
   const float* s;  // (samples,) when mode == kScaled
 };
 
+// Hidden columns a chunk: kHidChunk, or 64 where 96 would not fit (C > 192)
+__host__ __device__ inline int chunk_of(int channels) { return channels <= 192 ? kHidChunk : 64; }
+
 // Float offset of the weight stages: after x, LN(x), the fc2 sum and one
 // hidden chunk, 16-byte aligned.
 __host__ __device__ inline int stage_offset(int channels) {
-  return ((3 * channels + kHidChunk) * kLd + 3) / 4 * 4;
+  return ((3 * channels + chunk_of(channels)) * kLd + 3) / 4 * 4;
 }
 
 template <typename T>
@@ -59,7 +64,7 @@ __global__ void __launch_bounds__(kThreads) mlp_block_fwd_kernel(const Params p)
   float* X = smem;
   float* XN = X + C * kLd;
   float* AO = XN + C * kLd;   // the fc2 sum
-  float* HB = AO + C * kLd;   // GELU(fc1) chunk: kHidChunk rows
+  float* HB = AO + C * kLd;   // GELU(fc1) chunk: chunk rows
   T* stages = reinterpret_cast<T*>(smem + stage_offset(C));
 
   for (int e = threadIdx.x; e < kTok * C; e += kThreads) {
@@ -71,8 +76,9 @@ __global__ void __launch_bounds__(kThreads) mlp_block_fwd_kernel(const Params p)
   for (int e = threadIdx.x; e < C * kLd; e += kThreads) AO[e] = 0.f;
   __syncthreads();
 
-  for (int j0 = 0; j0 < hidden; j0 += kHidChunk) {
-    const int hc = min(kHidChunk, hidden - j0);
+  const int chunk = chunk_of(C);
+  for (int j0 = 0; j0 < hidden; j0 += chunk) {
+    const int hc = min(chunk, hidden - j0);
     gemm_w<T>(
         XN, C, hc, [&](int o) { return w1 + static_cast<size_t>(j0 + o) * C; },
         [&](int o, int t, float v0, float v1) {

@@ -1,25 +1,28 @@
 """Where a window's time goes in the joint Swin block kernels (K1, K11), a
-(window, head) unit's in the attention branch's backward (K3), a (token
-tile, hidden chunk) unit's in the MLP branch's backward (K5), or a block's
-in the window-attention backward (K7).
+(window, head) unit's in the attention branch's forward (K2, its first
+launch) and backward (K3), a (token tile, hidden chunk) unit's in the MLP
+branch's backward (K5), or a block's in the window-attention forward (K6)
+and backward (K7).
 
     python -m basicsr4rs_torch.ops.joint_block_clock [--dtype float32|bfloat16]
-    python -m basicsr4rs_torch.ops.joint_block_clock --kernel attn_bwd|mlp_bwd|wattn_bwd [--csrc DIR]
+    python -m basicsr4rs_torch.ops.joint_block_clock \
+        --kernel attn_fwd|attn_bwd|mlp_bwd|wattn_fwd|wattn_bwd [--csrc DIR]
 
 On one CUDA card. Builds a copy of ``csrc/`` under ``build/`` in which every
-barrier of ``swin_block_joint.cuh`` (K1, K11), or of the backward kernel's
-block kernel and the ``swin_common.cuh`` and ``branch_bwd.cuh`` helpers it
-calls (K3, K5, K7), reads ``clock64()`` on the first lane of each warp of
-block 0. K1 and K11 run on a SwinIR-M block (C=180, 6 heads, window 8,
-hidden 360; B=1 128x128, shifted), K3 and K5 on their training call (B=4
-48x48, shifted, DropPath's scales), weights of std 1/sqrt(fan_in) from a
-seed; K7 on the ResShift UNet's largest call (B=16 64x64, C=192 in 6 heads
-of 32, window 8, shifted), from a seed. It prints, for each barrier, the
-work each warp did since the one before: the slowest warp's, the mean and
-the fastest over the warps that ran, averaged over 10 launches. The kernel
-is barrier-synchronised, so the slowest warps' work summed over the
-barriers is the block's time. ``--csrc`` instruments another checkout's
-kernel sources (an earlier K3, K5 or K7, whose C interface may differ), as
+barrier of ``swin_block_joint.cuh`` (K1, K11), or of the kernel's block
+kernel (the first of its ``.cu``) and the ``swin_common.cuh`` and
+``branch_bwd.cuh`` helpers it calls (K2, K3, K5, K6, K7), reads
+``clock64()`` on the first lane of each warp of block 0. K1 and K11 run on
+a SwinIR-M block (C=180, 6 heads, window 8, hidden 360; B=1 128x128,
+shifted), K2, K3 and K5 on their training call (B=4 48x48, shifted,
+DropPath's scales), weights of std 1/sqrt(fan_in) from a seed; K6 and K7 on
+the ResShift UNet's largest call (B=16 64x64, C=192 in 6 heads of 32, window
+8, shifted), from a seed. It prints, for each barrier, the work each warp
+did since the one before: the slowest warp's, the mean and the fastest over
+the warps that ran, averaged over 10 launches. The kernel is
+barrier-synchronised, so the slowest warps' work summed over the barriers
+is the block's time. ``--csrc`` instruments another checkout's kernel
+sources (an earlier K2, K3, K5, K6 or K7, whose C interface may differ), as
 they stand. The kernels in ``csrc/`` are untouched.
 """
 
@@ -38,15 +41,23 @@ from . import _build, _launch
 from . import swin_block as S
 
 SLOTS = 64          # barriers counted, the last slot is the kernel's end
+# g_on: the clocked kernel is running (a helper's barrier may run in another
+# kernel of the same library too: K2's proj launch)
 DEFINE = '''namespace swin {
 __device__ unsigned long long g_work[16][%d];
 __device__ unsigned long long g_mark[16];
-#define CLOCKED (blockIdx.x == 0 && blockIdx.y == 0 && (threadIdx.x & 31) == 0)
+__device__ int g_on[16];
+#define FIRST_LANE (blockIdx.x == 0 && blockIdx.y == 0 && (threadIdx.x & 31) == 0)
+#define CLOCKED (FIRST_LANE && ::swin::g_on[threadIdx.x >> 5])
+#define START if (FIRST_LANE) { ::swin::g_on[threadIdx.x >> 5] = 1; \\
+    ::swin::g_mark[threadIdx.x >> 5] = clock64(); }
+#define STOP if (CLOCKED) { ::swin::g_on[threadIdx.x >> 5] = 0; \\
+    ::swin::g_work[threadIdx.x >> 5][%d] += clock64() - ::swin::g_mark[threadIdx.x >> 5]; }
 #define SYNC(s) { if (CLOCKED) \\
     ::swin::g_work[threadIdx.x >> 5][s] += clock64() - ::swin::g_mark[threadIdx.x >> 5]; \\
   __syncthreads(); \\
   if (CLOCKED) ::swin::g_mark[threadIdx.x >> 5] = clock64(); }
-''' % SLOTS
+''' % (SLOTS, SLOTS - 1)
 READ = '''
 extern "C" void clock_read(unsigned long long* out) {
   cudaMemcpyFromSymbol(out, swin::g_work, sizeof(swin::g_work));
@@ -69,13 +80,14 @@ def kernel_body(text, signature):
     return start, at - 1
 
 
-BACKWARD = {'attn_bwd': 'swin_attn_block_bwd', 'mlp_bwd': 'mlp_block_bwd',   # K3, K5
-            'wattn_bwd': 'window_attention_bwd'}                             # K7
+UNITS = {'attn_fwd': 'swin_attn_block_fwd', 'attn_bwd': 'swin_attn_block_bwd',   # K2, K3
+         'mlp_bwd': 'mlp_block_bwd',                                              # K5
+         'wattn_fwd': 'window_attention_fwd', 'wattn_bwd': 'window_attention_bwd'}   # K6, K7
 KERNEL = '__global__ void __launch_bounds__('   # the block kernel: the first of the .cu
 LN_LAUNCH = '// ------------------------------------------------------- the LayerNorm backward'
 
 
-def instrumented_backward(src_dir, out_dir, name):
+def instrumented_unit(src_dir, out_dir, name):
     """Copies src_dir to out_dir with the barriers of the block kernel of
     ``<name>.cu`` and of the helpers it calls counted: those of
     ``swin_common.cuh`` and of ``branch_bwd.cuh`` up to its LayerNorm
@@ -105,10 +117,7 @@ def instrumented_backward(src_dir, out_dir, name):
     _, hi = kernel_body(text, KERNEL)
     text = counted(f'{name}.cu', text, 0, hi)
     lo, hi = kernel_body(text, KERNEL)
-    mark = '  if (CLOCKED) '
-    text = (text[:lo] + '\n' + mark + '::swin::g_mark[threadIdx.x >> 5] = clock64();\n'
-            + text[lo:hi] + mark + f'::swin::g_work[threadIdx.x >> 5][{SLOTS - 1}] += clock64() - '
-            '::swin::g_mark[threadIdx.x >> 5];\n' + text[hi:])
+    text = text[:lo] + '\n  START\n' + text[lo:hi] + '  STOP\n' + text[hi:]
     path.write_text(text + READ)
     assert len(lines) < SLOTS
     # the line numbers of the sources as they are, before the definitions went in
@@ -132,13 +141,10 @@ def instrumented_sources(out_dir):
     body = re.sub(r'__syncthreads\(\);', count, body)
     assert len(lines) < SLOTS
     start = 'extern __shared__ __align__(16) uint32_t smem[];\n'
-    body = body.replace(start, start + '  if (blockIdx.x == 0 && (threadIdx.x & 31) == 0) '
-                        'g_mark[threadIdx.x >> 5] = clock64();\n', 1)
+    body = body.replace(start, start + '  START\n', 1)
     end = '      store2(out + offset(m) + o, v0, v1);\n    }\n'
     assert body.count(end) == 1
-    body = body.replace(end, end + '  if (blockIdx.x == 0 && (threadIdx.x & 31) == 0) '
-                        f'g_work[threadIdx.x >> 5][{SLOTS - 1}] += clock64() - '
-                        'g_mark[threadIdx.x >> 5];\n')
+    body = body.replace(end, end + '  STOP\n')
     path.write_text(head + DEFINE + body + READ)
     return lines
 
@@ -177,11 +183,11 @@ def print_work(buf, total_of, where):
 
 
 def instrumented_library(kernel, src_dir):
-    """(library, counted barriers) of the backward kernel ``kernel``,
+    """(library, counted barriers) of the unit kernel ``kernel``,
     instrumented from ``src_dir`` and built under ``build/``."""
-    name = BACKWARD[kernel]
+    name = UNITS[kernel]
     out_dir = _build.BUILD_DIR.parent / f'{kernel}_clock'
-    lines = instrumented_backward(src_dir, out_dir, name)
+    lines = instrumented_unit(src_dir, out_dir, name)
     flags = [str(out_dir) if f == str(_build.CSRC_DIR) else f for f in _build.NVCC_FLAGS]
     lib_path = out_dir / f'{name}.so'
     proc = subprocess.run([_build._nvcc(), *flags, '-o', str(lib_path),
@@ -215,15 +221,17 @@ def run_clocked(lib, run, lines, src_dir, total_of):
     print_work(buf, total_of, where)
 
 
-def clock_window_backward(dtype, src_dir):
-    """K7 at the ResShift UNet's largest training call (B=16 64x64, C=192, 6
-    heads, window 8, shifted), instrumented from ``src_dir``; its C
-    interface is the same in every version."""
+def clock_window(kernel, dtype, src_dir):
+    """K6 or K7 at the ResShift UNet's largest training call (B=16 64x64,
+    C=192, 6 heads, window 8, shifted), instrumented from ``src_dir``; their C
+    interfaces are the same in every version."""
     from ..archs.unet_arch import shift_attn_mask_resshift
-    lib, lines = instrumented_library('wattn_bwd', src_dir)
+    lib, lines = instrumented_library(kernel, src_dir)
+    name = UNITS[kernel]
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    launch = lib.window_attention_bwd
-    launch.argtypes, launch.restype = [i] + [p] * 5 + [i] * 7 + [f, p], ctypes.c_int
+    launch = getattr(lib, name)
+    pointers = 3 if kernel == 'wattn_fwd' else 5
+    launch.argtypes, launch.restype = [i] + [p] * pointers + [i] * 7 + [f, p], ctypes.c_int
     b, hw, c, heads, ws = 16, 64, 192, 6, 8
     gen = torch.Generator().manual_seed(0)
     qkv = torch.randn(b, hw, hw, 3 * c, generator=gen).cuda().to(dtype)
@@ -232,68 +240,71 @@ def clock_window_backward(dtype, src_dir):
     bias = (torch.randn(1, heads, ws * ws, ws * ws, generator=gen) * .5).cuda() + mask[:, None]
     dqkv, dbias = torch.empty_like(qkv), torch.empty_like(bias)
     dt = 0 if dtype == torch.float32 else 1
+    tensors = ([qkv, bias, dout] if kernel == 'wattn_fwd' else [qkv, bias, dout, dqkv, dbias])
 
     def run():
-        rc = launch(dt, qkv.data_ptr(), bias.data_ptr(), dout.data_ptr(), dqkv.data_ptr(),
-                    dbias.data_ptr(), b, hw, hw, c, heads, ws, bias.shape[0], (c // heads)**-.5,
-                    torch.cuda.current_stream().cuda_stream)
-        if rc:
-            raise SystemExit(f'window_attention_bwd: CUDA error {rc}')
-
-    print(torch.cuda.get_device_name(0), str(dtype)[6:], f'B={b} {hw}x{hw} C={c} {heads} heads, '
-          f'window {ws}, shifted; {src_dir}')
-    run_clocked(lib, run, lines, src_dir, 'window_attention_bwd block 0')
-
-
-def clock_backward(kernel, dtype, src_dir):
-    """K3 or K5 at its training call, instrumented from ``src_dir``, called
-    through its C interface as that source declares it (an earlier one had
-    no scratch buffer and no dtype in its shared-memory query)."""
-    name = BACKWARD[kernel]
-    lib, lines = instrumented_library(kernel, src_dir)
-    source = (src_dir / f'{name}.cu').read_text()
-    with_scratch = 'float* scratch' in source
-    smem_args = re.search(rf'size_t {name}_smem_bytes\(([^)]*)\)', source).group(1)
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    b, hw = 4, 48
-    (x, ln1_w, ln1_b, wqkv, bqkv, wproj, _, rel, mask, ln2_w, ln2_b, w1, b1, w2, _, ws, heads,
-     scale) = block_inputs(dtype, torch.Generator().manual_seed(0), b=b, h=hw)
-    c = x.shape[-1]
-    dz = torch.randn(x.shape, generator=torch.Generator().manual_seed(1)).cuda().to(dtype)
-    s = torch.full((b,), 1 / 0.9, device='cuda')
-    s[1] = 0.
-    if kernel == 'attn_bwd':
-        argtypes = [i, p, p, p] + [i] * 6 + [p] * 7 + [i, p, f, p]
-        dims, smem_dims, grad_dims = [b, hw, hw, c, heads, ws], [c, heads], [c, heads, ws]
-        weights = [ln1_w, ln1_b, wqkv.to(dtype), bqkv, wproj.to(dtype), rel, mask]
-        tail, what = [2, s.data_ptr(), scale], 'shifted, scaled'
-    else:
-        hidden = w1.shape[0]
-        argtypes = [i, p, p, p] + [i] * 4 + [p] * 5 + [i, p, p]
-        dims, smem_dims, grad_dims = [b * hw * hw, c, hidden, hw * hw], [c], [c, hidden]
-        weights = [ln2_w, ln2_b, w1.to(dtype), b1, w2.to(dtype)]
-        tail, what = [2, s.data_ptr()], 'scaled'
-    launch = getattr(lib, name)
-    launch.argtypes = argtypes + [p] * (2 if with_scratch else 1)
-    floats, smem_of = getattr(lib, f'{name}_grad_floats'), getattr(lib, f'{name}_smem_bytes')
-    floats.argtypes = [i] * len(grad_dims)
-    floats.restype = smem_of.restype = ctypes.c_size_t
-    dx = torch.empty_like(x)
-    grads = torch.empty(floats(*grad_dims), device='cuda')
-    scratch = torch.empty(x.numel(), device='cuda')
-    dt = 0 if dtype == torch.float32 else 1
-    smem = (smem_of(dt, *smem_dims) if smem_args.count(',') == len(smem_dims)
-            else smem_of(*smem_dims))
-    ptr = [t.data_ptr() for t in (x, dz, dx)]
-    weights = [t.data_ptr() for t in weights]
-
-    def run():
-        rc = launch(dt, *ptr, *dims, *weights, *tail, grads.data_ptr(),
-                    *([scratch.data_ptr()] if with_scratch else []),
-                    torch.cuda.current_stream().cuda_stream)
+        rc = launch(dt, *[t.data_ptr() for t in tensors], b, hw, hw, c, heads, ws, bias.shape[0],
+                    (c // heads)**-.5, torch.cuda.current_stream().cuda_stream)
         if rc:
             raise SystemExit(f'{name}: CUDA error {rc}')
 
+    print(torch.cuda.get_device_name(0), str(dtype)[6:], f'B={b} {hw}x{hw} C={c} {heads} heads, '
+          f'window {ws}, shifted; {src_dir}')
+    run_clocked(lib, run, lines, src_dir, f'{name} block 0')
+
+
+def clock_branch(kernel, dtype, src_dir):
+    """K2, K3 or K5 at its training call, instrumented from ``src_dir``,
+    called through its C interface as that source declares it (an earlier
+    one had no scratch buffer, and no dtype in its shared-memory query)."""
+    name = UNITS[kernel]
+    lib, lines = instrumented_library(kernel, src_dir)
+    source = (src_dir / f'{name}.cu').read_text()
+    b, hw = 4, 48
+    (x, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, rel, mask, ln2_w, ln2_b, w1, b1, w2, _, ws,
+     heads, scale) = block_inputs(dtype, torch.Generator().manual_seed(0), b=b, h=hw)
+    c, hidden = x.shape[-1], w1.shape[0]
+    dz = torch.randn(x.shape, generator=torch.Generator().manual_seed(1)).cuda().to(dtype)
+    s = torch.full((b,), 1 / 0.9, device='cuda')
+    s[1] = 0.
+    dt = 0 if dtype == torch.float32 else 1
+    scratch = [torch.empty_like(x) if kernel == 'attn_fwd' else
+               torch.empty(x.numel(), device='cuda')] if 'scratch' in source else []
+    if kernel == 'attn_fwd':
+        args = [dt, x, torch.empty_like(x), b, hw, hw, c, heads, ws, ln1_w, ln1_b,
+                wqkv.to(dtype), bqkv, wproj.to(dtype), bproj, rel, mask, 2, s, scale] + scratch
+    else:
+        floats = getattr(lib, f'{name}_grad_floats')
+        floats.restype = ctypes.c_size_t
+        if kernel == 'attn_bwd':
+            floats.argtypes = [ctypes.c_int] * 3
+            grads = torch.empty(floats(c, heads, ws), device='cuda')
+            args = [dt, x, dz, torch.empty_like(x), b, hw, hw, c, heads, ws, ln1_w, ln1_b,
+                    wqkv.to(dtype), bqkv, wproj.to(dtype), rel, mask, 2, s, scale, grads]
+        else:
+            floats.argtypes = [ctypes.c_int] * 2
+            grads = torch.empty(floats(c, hidden), device='cuda')
+            args = [dt, x, dz, torch.empty_like(x), b * hw * hw, c, hidden, hw * hw, ln2_w, ln2_b,
+                    w1.to(dtype), b1, w2.to(dtype), 2, s, grads]
+        args += scratch
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    launch = getattr(lib, name)
+    launch.argtypes = [p if isinstance(v, torch.Tensor) else f if isinstance(v, float) else i
+                       for v in args] + [p]
+    values = [v.data_ptr() if isinstance(v, torch.Tensor) else v for v in args]
+    # the shared-memory query by its parameters' names (of the unit launch)
+    params = re.search(rf'size_t {name}_smem_bytes\(([^)]*)\)', source).group(1)
+    known = {'dtype': dt, 'channels': c, 'heads': heads, 'hidden': hidden, 'launch': 0}
+    smem_of = getattr(lib, f'{name}_smem_bytes')
+    smem_of.restype = ctypes.c_size_t
+    smem = smem_of(*[known[q.split()[-1]] for q in params.split(',')])
+
+    def run():
+        rc = launch(*values, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise SystemExit(f'{name}: CUDA error {rc}')
+
+    what = 'scaled' if kernel == 'mlp_bwd' else 'shifted, scaled'
     print(torch.cuda.get_device_name(0), str(dtype)[6:], f'B={b} {hw}x{hw} {what}, '
           f'SwinIR-M; {src_dir}; {smem} bytes of shared memory a block')
     run_clocked(lib, run, lines, src_dir, f'{name} block 0')
@@ -302,17 +313,17 @@ def clock_backward(kernel, dtype, src_dir):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     parser.add_argument('--dtype', choices=('float32', 'bfloat16'), default='float32')
-    parser.add_argument('--kernel', choices=('joint', *BACKWARD), default='joint')
+    parser.add_argument('--kernel', choices=('joint', *UNITS), default='joint')
     parser.add_argument('--csrc', type=Path, default=_build.CSRC_DIR,
-                        help='kernel sources to instrument (attn_bwd, mlp_bwd, wattn_bwd)')
+                        help='kernel sources to instrument (all but joint)')
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('joint_block_clock: needs a CUDA card')
-    if args.kernel == 'wattn_bwd':
-        clock_window_backward(getattr(torch, args.dtype), args.csrc.resolve())
+    if args.kernel in ('wattn_fwd', 'wattn_bwd'):
+        clock_window(args.kernel, getattr(torch, args.dtype), args.csrc.resolve())
         return
-    if args.kernel in BACKWARD:
-        clock_backward(args.kernel, getattr(torch, args.dtype), args.csrc.resolve())
+    if args.kernel in UNITS:
+        clock_branch(args.kernel, getattr(torch, args.dtype), args.csrc.resolve())
         return
     out_dir = _build.BUILD_DIR.parent / 'joint_block_clock'
     lines = instrumented_sources(out_dir)

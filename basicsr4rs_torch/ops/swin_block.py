@@ -15,12 +15,13 @@ already rolled by the caller:
   the JAX package's joint VJP does. With ``quant_int8=True`` it is the W8A8
   serving variant, one launch of ``csrc/swin_block_joint_int8_fwd.cu``
   (``swin_block_full_int8``), which has no backward.
-- ``fused_swin_attn_block`` (training) is the attention branch
-  ``proj(W-MSA(LN(x)))`` as a ``torch.autograd.Function`` over
-  ``swin_attn_block_forward`` (``csrc/swin_attn_block_fwd.cu``) and
-  ``swin_attn_block_backward`` (``csrc/swin_attn_block_bwd.cu``), with the
-  output modes of ``ops.mlp_block``: the branch alone, ``+ x``, or
-  ``s[b] * branch + x``.
+- ``fused_swin_attn_block`` (training, and SwinIR's eval past the joint
+  kernel's widths) is the attention branch ``proj(W-MSA(LN(x)))`` as a
+  ``torch.autograd.Function`` over ``swin_attn_block_forward``
+  (``csrc/swin_attn_block_fwd.cu``: two launches, (window, head) units, then
+  proj on token tiles) and ``swin_attn_block_backward``
+  (``csrc/swin_attn_block_bwd.cu``), with the output modes of
+  ``ops.mlp_block``: the branch alone, ``+ x``, or ``s[b] * branch + x``.
 
 Every wrapper sends a CUDA tensor to its kernel and a CPU tensor to its
 plain PyTorch version (``reference_*``), and counts its launches in
@@ -433,7 +434,7 @@ _SIGNATURES = {
     # after (dtype, x, out) / (dtype, x, dz, dx): ints, pointers, ...
     'swin_block_joint_fwd': lambda p, i, f: [i, p, p] + [i] * 7 + [p] * 16 + [f, p],
     'swin_block_joint_int8_fwd': lambda p, i, f: [i, p, p] + [i] * 7 + [p] * 18 + [f, p, p, p],
-    'swin_attn_block_fwd': lambda p, i, f: [i, p, p] + [i] * 6 + [p] * 8 + [i, p, f, p],
+    'swin_attn_block_fwd': lambda p, i, f: [i, p, p] + [i] * 6 + [p] * 8 + [i, p, f, p, p],
     'swin_attn_block_bwd': lambda p, i, f: [i, p, p, p] + [i] * 6 + [p] * 7 + [i, p, f, p, p, p],
 }
 
@@ -442,9 +443,18 @@ _SIGNATURES = {
 def _lib(name: str) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     smem = {'swin_block_joint_fwd': [i, i, i], 'swin_block_joint_int8_fwd': [i, i, i, i],
-            'swin_attn_block_bwd': [i, i, i]}
-    return _launch.bind(name, _SIGNATURES[name](p, i, ctypes.c_float), smem.get(name, [i, i]),
+            'swin_attn_block_fwd': [i, i, i, i], 'swin_attn_block_bwd': [i, i, i]}
+    return _launch.bind(name, _SIGNATURES[name](p, i, ctypes.c_float), smem[name],
                         [i, i, i] if name == 'swin_attn_block_bwd' else None)
+
+
+@functools.lru_cache(maxsize=None)
+def attn_forward_shared_memory(dtype: torch.dtype, channels: int, num_heads: int):
+    """Bytes of shared memory a block of each of the attention forward's two
+    launches takes: the (window, head) units, then proj's token tiles."""
+    lib = _lib('swin_attn_block_fwd')
+    return tuple(lib.swin_attn_block_fwd_smem_bytes(_launch.DTYPES[dtype], channels, num_heads,
+                                                    launch) for launch in (0, 1))
 
 
 def _attention_operands(op, x, ln_weight, ln_bias, qkv_weight, qkv_bias, proj_weight,
@@ -577,15 +587,17 @@ def _launch_attn_forward(x, ln_weight, ln_bias, qkv_weight, qkv_bias, proj_weigh
     ops += [_launch.operand(proj_bias, 'proj_bias', (c,), torch.float32, x.device), rel_bias,
             mask]
     lib = _lib(op)
-    _launch.check_shared_memory(lib.swin_attn_block_fwd_smem_bytes(c, num_heads), x.device, op)
+    for needed in attn_forward_shared_memory(x.dtype, c, num_heads):
+        _launch.check_shared_memory(needed, x.device, op)
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
+    scratch = torch.empty_like(x)   # the attention output, between the two launches
     rc = lib.swin_attn_block_fwd(
         _launch.DTYPES[x.dtype], x.data_ptr(), out.data_ptr(), b, h, w, c, num_heads,
         window_size, *_launch.pointers(ops), _launch.mode_of(add_residual, residual_scale),
         *_launch.pointers([_launch.scale_operand(residual_scale, x)]), float(scale),
-        _launch.current_stream(x.device))
+        scratch.data_ptr(), _launch.current_stream(x.device))
     _launch.check_rc(rc, lib, op)
     return out
 

@@ -8,7 +8,9 @@ and nWb 1 or the windows of one image,
     out[window, head] = softmax(scale * q k^T + bias) v          (B, H, W, C)
 
 - ``window_attention_forward`` is one launch of
-  ``csrc/window_attention_fwd.cu``;
+  ``csrc/window_attention_fwd.cu``: both products on the tensor cores, one
+  thread block a (window position, head, group of samples), as the
+  backward;
 - ``window_attention_backward`` is one launch of
   ``csrc/window_attention_bwd.cu``: from qkv, bias and the output's
   cotangent it recomputes the probabilities and returns dqkv (qkv's dtype)
@@ -140,36 +142,41 @@ def fused_window_attention(qkv, bias, window_size: int, num_heads: int, scale: f
 @functools.lru_cache(maxsize=None)
 def _checked_lib(op: str, dtype: torch.dtype, c: int, num_heads: int, window_size: int,
                  device: torch.device) -> ctypes.CDLL:
-    """The kernel's library with its C functions' types set, once its block's
-    shared memory is known to fit the device for this geometry (the
-    backward's depends on the dtype too)."""
+    """The kernel's library with its C functions' types set (the launch, the
+    shared-memory query, dtype first, and the grid query), once its block's
+    shared memory is known to fit the device for this geometry."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    if op == 'window_attention_fwd':
-        lib = _launch.bind(op, [i] + [p] * 3 + [i] * 7 + [f, p], [i, i, i])
-        needed = lib.window_attention_fwd_smem_bytes(c, num_heads, window_size)
-    else:
-        lib = _launch.bind(op, [i] + [p] * 5 + [i] * 7 + [f, p], [i, i, i, i])
-        plan = lib.window_attention_bwd_plan
-        plan.argtypes, plan.restype = [i] * 7 + [p], ctypes.c_int
-        needed = lib.window_attention_bwd_smem_bytes(_launch.DTYPES[dtype], c, num_heads,
-                                                    window_size)
+    pointers = 3 if op == 'window_attention_fwd' else 5
+    lib = _launch.bind(op, [i] + [p] * pointers + [i] * 7 + [f, p], [i, i, i, i])
+    plan = getattr(lib, f'{op}_plan')
+    plan.argtypes, plan.restype = [i] * 7 + [p], ctypes.c_int
+    needed = getattr(lib, f'{op}_smem_bytes')(_launch.DTYPES[dtype], c, num_heads, window_size)
     _launch.check_shared_memory(needed, device, op)
     return lib
 
 
-def backward_plan(qkv, window_size: int, num_heads: int):
-    """The grid the backward kernel launches for qkv (B, H, W, 3C) on its
+def _plan(op, qkv, window_size, num_heads):
+    b, h, w, c3 = qkv.shape
+    lib = _checked_lib(op, qkv.dtype, c3 // 3, num_heads, window_size, qkv.device)
+    plan = (ctypes.c_int * 5)()
+    rc = getattr(lib, f'{op}_plan')(_launch.DTYPES[qkv.dtype], b, h, w, c3 // 3, num_heads,
+                                    window_size, ctypes.addressof(plan))
+    _launch.check_rc(rc, lib, op)
+    return tuple(plan)
+
+
+def forward_plan(qkv, window_size: int, num_heads: int):
+    """The grid the forward kernel launches for qkv (B, H, W, 3C) on its
     card: (units, samples a unit, blocks an SM, SMs, stages); a unit is one
     thread block for a (window position, head, group of samples), stages the
-    samples' buffers it holds (2: the next one's copy overlaps the work)."""
-    b, h, w, c3 = qkv.shape
-    lib = _checked_lib('window_attention_bwd', qkv.dtype, c3 // 3, num_heads, window_size,
-                       qkv.device)
-    plan = (ctypes.c_int * 5)()
-    rc = lib.window_attention_bwd_plan(_launch.DTYPES[qkv.dtype], b, h, w, c3 // 3, num_heads,
-                                       window_size, ctypes.addressof(plan))
-    _launch.check_rc(rc, lib, 'window_attention_bwd')
-    return tuple(plan)
+    samples' buffers it holds (2: the next one's copy overlaps the work).
+    The kernel keeps the plan of each shape after its first launch."""
+    return _plan('window_attention_fwd', qkv, window_size, num_heads)
+
+
+def backward_plan(qkv, window_size: int, num_heads: int):
+    """The same for the backward kernel."""
+    return _plan('window_attention_bwd', qkv, window_size, num_heads)
 
 
 def _operands(op, qkv, bias, window_size, num_heads):

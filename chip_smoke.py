@@ -20,14 +20,19 @@ nonzero exit code and no result line:
    name, and where their tiles are padded: the attention kernels at
    SwinIR-light's widths, a window of 4 and heads of 48, the MLP kernels at
    SwinIR-light's widths and at 480 tokens (not a multiple of their
-   64-token tile); the window-attention kernels at the shapes of the
+   64-token tile), and both forward kernels at the eval route's widths past
+   the joint kernel's (C=180 in 3 heads of 60, C=240 in 8 heads of 30); the
+   attention forward, which adds nothing atomically, must repeat bit for
+   bit, and its two launches' device time is read by ``torch.profiler``;
+   the window-attention kernels at the shapes of the
    ResShift UNet (C=192, 6 heads of 32, window 8; maps of 64, 32, 16 and 8;
    batch 1 and the training batch; with the shift mask and without), at
    window 9 on the latents of ``train_ResShift_L2S288.yml`` (maps of 72, 36
    and 18 shifted by 4, and 9 as one window; its batch 32 in bfloat16, 16 in
    float32) and at C=180 with heads of 30, beside
    ``F.scaled_dot_product_attention`` (and its backward by autograd) as a
-   yardstick, with the backward kernel's grid and fill;
+   yardstick, with each kernel's grid and fill (units, samples a unit,
+   blocks an SM, stages) and, for the forward at batch 1, its device time;
    the deformable sampler's kernels (3d) at the shapes EDVR-M gives them
    (64 channels in 8 groups, nine taps; training batch 4 x 5 frames of 64x64
    and a served window of 5 frames of 180x320, all three pyramid levels) and
@@ -123,10 +128,9 @@ nonzero exit code and no result line:
 21. trains SwinIR-M x4 for 4 steps with ``SWIN_JOINT_TRAIN=1``: launch
     counts per step, gradients against the split route, step time;
 22. serves SwinIR (depths [2, 2], LQ 64x64, eval) at widths past the joint
-    kernel's: C=180 in 3 heads of 60 through the attention and MLP branch
-    forward kernels, no joint launch, against its plain forward; C=240 in 8
-    heads, whose blocks need more shared memory than those kernels have,
-    refused before any launch.
+    kernel's: C=180 in 3 heads of 60 and SwinIR-L's C=240 in 8 heads of 30
+    through the attention and MLP branch forward kernels, no joint launch,
+    against its plain forward; a width refused fails the phase.
 
 ``python3 chip_smoke.py kernels`` stops after phase 3; ``python3 chip_smoke.py
 serving`` runs phases 3a, 3e, 3f, 4, 4b and 17 to 22 alone. The line before the
@@ -257,12 +261,14 @@ def bound_ms(flop, nbytes, dtype):
 
 M_WIDTHS = (C, HEADS, WS, HIDDEN)
 LIGHT_WIDTHS = (60, 6, 8, 120)   # SwinIR-light: embed 60, 6 heads of 10, mlp 2
+# past the joint kernel's widths: heads of 60, and SwinIR-L's 240 in 8 heads of 30; mlp 2
+WIDE_WIDTHS = ((180, 3, 8, 360), (240, 8, 8, 480))
 ROUTE = {torch.float32: '3xTF32 at 495 TFLOP/s', torch.bfloat16: 'bfloat16 at 989 TFLOP/s'}
 
 
 def tensor_core_bound_ms(flop, nbytes, dtype):
     """(bound ms, by what) of a kernel whose products all run on the tensor
-    cores (K1, K3, K10): float32 as three TF32 products (3xTF32) at the TF32
+    cores (all but K4, K8, K9): float32 as three TF32 products (3xTF32) at the TF32
     peak, bfloat16 at the bfloat16 peak; and the float32 CUDA-core bound
     (their first route) beside it."""
     peak, products = (PEAK_FLOPS_TF32, 3) if dtype == torch.float32 else (PEAK_FLOPS_BF16, 1)
@@ -405,6 +411,9 @@ def check_branch_kernels():
     # (480, the last tile half full and across two samples): not whole
     # windows, so the MLP kernels alone
     cases += [((2, 20, 12), dt, 0, 'scaled', M_WIDTHS) for dt in both]
+    # SwinIR's eval blocks past the joint kernel's widths (phase 22): the
+    # forward kernels alone
+    cases += [((2, 64, 64), dt, 4, 'scaled', widths) for widths in WIDE_WIDTHS for dt in both]
     padded_s = 0.
     summary = {name: {'max_abs_err': 0.} for name in
                ('swin_attn_block_fwd', 'swin_attn_block_bwd', 'mlp_block_fwd', 'mlp_block_bwd')}
@@ -436,6 +445,8 @@ def check_branch_kernels():
         padded = widths != M_WIDTHS or h % ws or w % ws
         if h % ws or w % ws:
             runs = runs[2:]
+        elif widths in WIDE_WIDTHS:   # the eval route: the forward kernels
+            runs = runs[0:1] + runs[2:3]
         elif widths not in (M_WIDTHS, LIGHT_WIDTHS):   # the MLP kernels' tiles are not padded
             runs = runs[:2]
         tag = (f'B={b} {h}x{w} {str(dt)[6:]:8s} shift={shift} {mode:8s}'
@@ -467,7 +478,7 @@ def check_branch_kernels():
             kernel_ms, plain_ms = time_pair(lambda: plain(*args), lambda: kernel(*args))
             flop, nbytes = kernel_work(name, b, h, w, dt, shift, widths)
             cuda_cores = None
-            if name in ('swin_attn_block_bwd', 'mlp_block_bwd'):   # K3, K5: on the tensor cores
+            if name != 'mlp_block_fwd':   # K2, K3, K5: on the tensor cores
                 (bound, by), cuda_cores = tensor_core_bound_ms(flop, nbytes, dt)
                 route = (f'bound {bound:.4f} ms by {by} on its route ({ROUTE[dt]}; on the CUDA '
                          f'cores {cuda_cores:.4f} ms)')
@@ -482,6 +493,14 @@ def check_branch_kernels():
                                      bound_by=by)
                 if cuda_cores is not None:
                     summary[name]['cuda_core_bound_ms'] = cuda_cores
+                if name == 'swin_attn_block_fwd':   # device time of its two launches
+                    with torch.no_grad():
+                        split = {part: kernel_device_ms(lambda: kernel(*args),
+                                                        only=f'swin_attn_fwd_{part}_kernel')
+                                 for part in ('head', 'proj')}
+                    print(f'{name:20s} {tag}: device time of the (window, head) units '
+                          f'{show_ms(split["head"])}, of proj {show_ms(split["proj"])}', flush=True)
+                    summary[name].update({f'{part}_device_ms': ms for part, ms in split.items()})
                 if name.endswith('bwd'):   # atomicAdd sums: reported, not required
                     with torch.no_grad():
                         again = kernel(*args)
@@ -489,6 +508,13 @@ def check_branch_kernels():
                           'for bit: ' + ', '.join(
                               f'{o} {"yes" if torch.equal(g, a) else "no"}'
                               for o, g, a in zip(outputs, got, again)), flush=True)
+            if name == 'swin_attn_block_fwd' and mode == 'scaled':   # no atomics: required
+                with torch.no_grad():
+                    again = kernel(*args)
+                if not torch.equal(got[0], again):
+                    fail(f'{name}: a second launch on the same inputs differs at {tag}')
+                print(f'{name:20s} {tag}: a second launch on the same inputs repeats bit for bit',
+                      flush=True)
         if padded:
             padded_s += time.perf_counter() - t_case
     print(f'phase 3b: {time.perf_counter() - t0:.1f} s, of which {padded_s:.1f} s for the '
@@ -616,18 +642,15 @@ def check_attention_kernels(train_batch, l2s_batch):
             with torch.no_grad():
                 kernel_ms, plain_ms = time_pair(lambda: plain(*call), lambda: kernel(*call))
             flop, nbytes = attention_work(name, b, size, size, c, heads, nwb, dt, ws)
-            if name == 'window_attention_fwd':
-                bound, by = bound_ms(flop, nbytes, dt)
-                line = (f'{name:20s} {tag}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, '
-                        f'bound {bound:.4f} ms by {by}')
-            else:   # every product on the tensor cores
-                (bound, by), cuda_cores = tensor_core_bound_ms(flop, nbytes, dt)
-                units, group, per_sm, sms, stages = A.backward_plan(qkv, ws, heads)
-                waves = -(-units // (per_sm * sms))
-                line = (f'{name:20s} {tag}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, '
-                        f'bound {bound:.4f} ms by {by} ({ROUTE[dt]}; CUDA-core {cuda_cores:.4f}); '
-                        f'{units} units of {group} samples, {per_sm} an SM ({stages} stages): '
-                        f'{waves} waves, {100 * units / (waves * per_sm * sms):.1f}% filled')
+            # every product on the tensor cores; the unit plan the kernel launched
+            (bound, by), cuda_cores = tensor_core_bound_ms(flop, nbytes, dt)
+            plan = A.forward_plan if name == 'window_attention_fwd' else A.backward_plan
+            units, group, per_sm, sms, stages = plan(qkv, ws, heads)
+            waves = -(-units // (per_sm * sms))
+            line = (f'{name:20s} {tag}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, '
+                    f'bound {bound:.4f} ms by {by} ({ROUTE[dt]}; CUDA-core {cuda_cores:.4f}); '
+                    f'{units} units of {group} samples, {per_sm} an SM ({stages} stages): '
+                    f'{waves} waves, {100 * units / (waves * per_sm * sms):.1f}% filled')
             library_ms = None
             if name == 'window_attention_fwd':
                 windows = (size // ws)**2
@@ -642,8 +665,11 @@ def check_attention_kernels(train_batch, l2s_batch):
                         lambda: sdpa_window_attention(qkv, mask, ws, heads, scale))
                 line += (f', library (SDPA + partition/reverse copies, {b * windows} windows) '
                          f'{library_ms:.4f} ms')
-                if case == l2s_case:
-                    summary[name].update(window9_ms=kernel_ms, window9_library_ms=library_ms)
+                key = {l2s_case: 'window9_', l2s_bf16_case: 'window9_bf16_', train_case: 'train_',
+                       bf16_case: 'bf16_'}.get(case)
+                if key:
+                    summary[name].update({f'{key}ms': kernel_ms, f'{key}bound_ms': bound,
+                                          f'{key}library_ms': library_ms})
             elif case in library_backward:   # the backward of that call, the forward untimed
                 lib_grads, backward = sdpa_window_attention_backward(*args_b)
                 for out_name, g_, w_ in zip(outputs, lib_grads, want):
@@ -660,6 +686,13 @@ def check_attention_kernels(train_batch, l2s_batch):
                 if key:
                     summary[name].update({f'{key}ms': kernel_ms, f'{key}bound_ms': bound,
                                           f'{key}library_ms': library_ms})
+            if case == serve_case and name == 'window_attention_fwd':   # a call of a request
+                with torch.no_grad():
+                    device_ms = kernel_device_ms(lambda: kernel(*call),
+                                                 only='window_attention_fwd_kernel')
+                    call_us = host_us(lambda: kernel(*call))
+                line += f'; device {show_ms(device_ms)}, host {call_us:.1f} us a call'
+                summary[name].update(device_ms=device_ms, host_us=call_us)
             print(line + ' | max abs err (of max|plain|): ' + ', '.join(worst), flush=True)
             main_case = serve_case if name == 'window_attention_fwd' else train_case
             if case == main_case:
@@ -1414,8 +1447,9 @@ def profile_training_steps(model, batch, steps=3):
     model.lq, model.gt = batch
     for _ in range(2):
         model.optimize_parameters(0)
-    ours = ('swin_attn_block_fwd', 'swin_attn_block_bwd', 'mlp_block_fwd', 'mlp_block_bwd',
-            'swin_block_joint_fwd', 'branch_ln_bwd')   # the last: K3's and K5's LayerNorm launch
+    # K2's two launches by their kernels' names; the last: K3's and K5's LayerNorm launch
+    ours = ('swin_attn_fwd_head', 'swin_attn_fwd_proj', 'swin_attn_block_bwd', 'mlp_block_fwd',
+            'mlp_block_bwd', 'swin_block_joint_fwd', 'branch_ln_bwd')
     profile_device_time(lambda: model.optimize_parameters(0), steps, 'step', ours,
                         'train_step_profile.json')
 
@@ -3046,9 +3080,9 @@ WIDE_SWINIR = [(180, 3), (240, 8)]   # (embed, heads): heads of 60; SwinIR-L's 2
 def serve_wide_swinir():
     """Phase 22: SwinIR in eval at widths past the joint kernel's (C > 192 or
     heads wider than 32), depths [2, 2], LQ 64x64, seed-0 weights: each block
-    through K2 + K4, no K1, against the plain forward. A width whose K2 or
-    K4 block needs more shared memory than the card has must raise before
-    any launch. Returns the launches of K2 and K4."""
+    through K2 + K4, no K1, against the plain forward. Every width must run:
+    a refusal (a block needing more shared memory than the card has) fails
+    the phase. Returns the launches of K2 and K4."""
     from basicsr4rs_torch.archs.swinir_arch import SwinIR
     from basicsr4rs_torch.ops import _launch
     from basicsr4rs_torch.ops import mlp_block as M
@@ -3066,22 +3100,14 @@ def serve_wide_swinir():
                      depths=depths, embed_dim=embed, num_heads=[heads] * len(depths),
                      mlp_ratio=2., upsampler='pixelshuffle', resi_connection='1conv',
                      generator=gen).cuda().eval()
-        need = {'K2': S._lib('swin_attn_block_fwd').swin_attn_block_fwd_smem_bytes(embed, heads),
+        k2a, k2b = S.attn_forward_shared_memory(torch.float32, embed, heads)
+        need = {'K2 (window, head) units': k2a, 'K2 proj tiles': k2b,
                 'K4': M._lib('mlp_block_fwd').mlp_block_fwd_smem_bytes(embed)}
         tag = f'C={embed}, {heads} heads of {embed // heads}'
+        if max(need.values()) > limit:
+            fail(f'{tag}: a block needs {need} bytes of shared memory, the card has {limit}')
         for f in counters:
             f.launches = 0
-        if max(need.values()) > limit:   # refused before any launch
-            try:
-                with torch.no_grad():
-                    net(lq)
-            except ValueError as e:
-                if 'shared memory' not in str(e) or any(f.launches for f in counters):
-                    fail(f'{tag}: refused for another reason: {e}')
-                print(f'{tag}: refused before any launch, as it must be: shared memory a block '
-                      f'{need} bytes, the card has {limit} ({e})')
-                continue
-            fail(f'{tag}: ran although a block needs {need} bytes of shared memory')
         with torch.no_grad():
             out_k = net(lq)
         torch.cuda.synchronize()
@@ -3105,8 +3131,8 @@ def serve_wide_swinir():
             fail(f'{tag}: the plain forward launched a kernel')
         err = (out_k - out_p).abs().max().item()
         print(f'{tag}: K1 0, K2 {blocks}, K4 {blocks} launches; shared memory a block {need} '
-              f'bytes; output max abs difference from the plain forward {err:.3e} (max|plain| '
-              f'{out_p.abs().max().item():.3e}, tolerance {MODEL_TOLERANCE})')
+              f'bytes (the card {limit}); output max abs difference from the plain forward '
+              f'{err:.3e} (max|plain| {out_p.abs().max().item():.3e}, tolerance {MODEL_TOLERANCE})')
         if not err <= MODEL_TOLERANCE:
             fail(f'{tag}: the output disagrees with the plain forward')
     return launches

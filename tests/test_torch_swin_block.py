@@ -19,13 +19,13 @@ B, H, W, C, HEADS, HIDDEN = 2, 16, 16, 18, 3, 36   # head_dim 6: not a multiple 
 SCALE = (C // HEADS)**-0.5
 
 
-def _case(window_size, shifted, seed, C=C, HIDDEN=HIDDEN, heads=HEADS):
-    """Inputs in the port's layout (nn.Linear (out, in) weights, separate
-    relative-position bias and shift mask), as numpy."""
+def _case(window_size, shifted, seed, C=C, HIDDEN=HIDDEN, heads=HEADS, B=B, wstd=0.2):
+    """Inputs in the port's layout (nn.Linear (out, in) weights of std wstd,
+    separate relative-position bias and shift mask), as numpy."""
     rng = np.random.RandomState(seed)
     n = window_size * window_size
 
-    def r(*shape, std=0.2):
+    def r(*shape, std=wstd):
         return (rng.randn(*shape) * std).astype(np.float32)
 
     case = dict(x=r(B, H, W, C, std=1.), ln1_weight=1 + r(C, std=.1), ln1_bias=r(C, std=.1),
@@ -156,7 +156,8 @@ def bound_types(monkeypatch, module, name):
             (c_signature(name), [ctypes.c_int] * len(smem.split(','))))
 
 
-@pytest.mark.parametrize('name', ['swin_block_joint_fwd', 'swin_attn_block_bwd', 'mlp_block_bwd'])
+@pytest.mark.parametrize('name', ['swin_block_joint_fwd', 'swin_attn_block_fwd',
+                                  'swin_attn_block_bwd', 'mlp_block_fwd', 'mlp_block_bwd'])
 def test_binding_matches_the_c_signature(monkeypatch, name):
     """The wrapper's ctypes types are the kernel's C parameters, one for
     one, for the launch and for its shared-memory query: a count that
@@ -172,33 +173,36 @@ ATTN_NAMES = ('x', 'ln1_weight', 'ln1_bias', 'qkv_weight', 'qkv_bias', 'proj_wei
 ATTN_MODES = ['branch', 'residual', 'scaled']
 
 
-def _attn_mode_kwargs(mode, lib):
-    if mode == 'scaled':   # DropPath's mask / keep: the first sample dropped
-        return dict(residual_scale=lib(np.array([0., 1.25], np.float32)))
+def _attn_mode_kwargs(mode, lib, batch=B):
+    if mode == 'scaled':   # DropPath's mask / keep: the first sample dropped (unless alone)
+        return dict(residual_scale=lib(np.array([0., 1.25][-batch:], np.float32)))
     return dict(add_residual=mode == 'residual')
 
 
-def _port_attn_run(case, dz, window_size, mode):
+def _port_attn_run(case, dz, window_size, mode, heads=HEADS):
     args = [torch.from_numpy(case[k]).requires_grad_() for k in ATTN_NAMES]
     mask = None if case['mask'] is None else torch.from_numpy(case['mask'])
-    out = port.fused_swin_attn_block(*args, mask, window_size, HEADS, SCALE,
-                                     **_attn_mode_kwargs(mode, torch.from_numpy))
+    scale = (case['x'].shape[-1] // heads)**-0.5
+    out = port.fused_swin_attn_block(*args, mask, window_size, heads, scale,
+                                     **_attn_mode_kwargs(mode, torch.from_numpy, len(dz)))
     out.backward(torch.from_numpy(dz))
     return out.detach().numpy(), [a.grad.numpy() for a in args]
 
 
-def _jax_attn_run(case, dz, window_size, mode, fn):
+def _jax_attn_run(case, dz, window_size, mode, fn, heads=HEADS):
     """Output and gradients of a JAX attention-branch function in the port's
     layout: weights transposed back, the gradient of the summed (nW | 1,
     heads, n, n) bias summed over its windows into d rel_bias."""
     args = [jnp.asarray(case[k].T if k.endswith('_weight') and case[k].ndim == 2 else case[k])
             for k in ATTN_NAMES[:-1]]
     mask = case['mask']
+    scale = (case['x'].shape[-1] // heads)**-0.5
 
     def f(*a):
         *params, rel_bias = a
         bias = rel_bias[None] if mask is None else rel_bias[None] + jnp.asarray(mask)[:, None]
-        return fn(*params, bias, window_size, HEADS, SCALE, **_attn_mode_kwargs(mode, jnp.asarray))
+        return fn(*params, bias, window_size, heads, scale,
+                  **_attn_mode_kwargs(mode, jnp.asarray, len(dz)))
 
     out, vjp = jax.vjp(f, *args, jnp.asarray(case['rel_bias']))
     grads = [np.asarray(g) for g in vjp(jnp.asarray(dz))]
@@ -213,25 +217,41 @@ def _jax_attn_reference(x, *params_and_geometry, add_residual=False, residual_sc
     return x + z if add_residual else z
 
 
-@pytest.mark.parametrize('mode', ATTN_MODES)
-@pytest.mark.parametrize('shifted', [False, True], ids=['no_shift', 'shift_mask'])
-@pytest.mark.parametrize('window_size', [4, 8])
-def test_attn_block_matches_jax_kernels_and_reference(window_size, shifted, mode):
+# (window, shifted, mode, widths): SwinIR-M-like blocks at B=2 (C=18 in 3
+# heads of 6), and SwinIR's eval blocks past the joint kernel's widths at B=1
+# (C=240 in 8 heads of 30, SwinIR-L's; C=180 in 3 heads of 60)
+WIDE = {'C240-8heads': (240, 8), 'C180-3heads': (180, 3)}
+ATTN_CASES = [pytest.param(ws, shifted, mode, None, id=f'{ws}-{tag}-{mode}')
+              for mode in ATTN_MODES for shifted, tag in ((False, 'no_shift'), (True, 'shift_mask'))
+              for ws in (4, 8)]
+ATTN_CASES += [pytest.param(8, True, mode, wide, id=f'8-shift_mask-{mode}-{wide}')
+               for wide in WIDE for mode in ('residual', 'scaled')]
+
+
+@pytest.mark.parametrize('window_size, shifted, mode, wide', ATTN_CASES)
+def test_attn_block_matches_jax_kernels_and_reference(window_size, shifted, mode, wide):
     """K2 and K3's semantics: forward and all eight gradients of
     ``fused_swin_attn_block`` in the three output modes against the Pallas
-    kernels (interpret mode) and the XLA reference. Tolerance: the JAX
-    package's own for its kernels against its reference
+    kernels (interpret mode) and the XLA reference, also at the widths the
+    eval route sends to K2 past the joint kernel's (B=1 16x16). Tolerance:
+    the JAX package's own for its kernels against its reference
     (tests/test_ops/test_swin_block.py: forward atol 5e-5, rtol 1e-4;
-    gradients atol 2e-4, rtol 1e-3), float32 sums in another order."""
-    case = _case(window_size, shifted, seed=20 + window_size + shifted)
-    dz = np.random.RandomState(3).randn(B, H, W, C).astype(np.float32)
+    gradients atol 2e-4, rtol 1e-3), float32 sums in another order. The
+    wide blocks' weights keep the std a fan-in of C=18 gives 0.2 (0.2 (18 /
+    C)^0.5, as an nn.Linear's init scales), so that their activations stay
+    in the range the tolerance was set for."""
+    c, heads = WIDE[wide] if wide else (C, HEADS)
+    batch = 1 if wide else B
+    case = _case(window_size, shifted, seed=20 + window_size + shifted, C=c, HIDDEN=2 * c,
+                 heads=heads, B=batch, wstd=0.2 * (C / c)**0.5)
+    dz = np.random.RandomState(3).randn(batch, H, W, c).astype(np.float32)
     launches = (port.swin_attn_block_forward.launches, port.swin_attn_block_backward.launches)
-    out, grads = _port_attn_run(case, dz, window_size, mode)
+    out, grads = _port_attn_run(case, dz, window_size, mode, heads)
     assert (port.swin_attn_block_forward.launches,
             port.swin_attn_block_backward.launches) == launches
     for fn in (lambda *a, **k: ref.fused_swin_attn_block(*a, interpret=True, **k),
                _jax_attn_reference):
-        want, want_grads = _jax_attn_run(case, dz, window_size, mode, fn)
+        want, want_grads = _jax_attn_run(case, dz, window_size, mode, fn, heads)
         np.testing.assert_allclose(out, want, atol=5e-5, rtol=1e-4)
         for name, g, w in zip(ATTN_NAMES, grads, want_grads):
             np.testing.assert_allclose(g, w, atol=2e-4, rtol=1e-3, err_msg=f'd {name}')

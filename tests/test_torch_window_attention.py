@@ -124,9 +124,9 @@ def test_unsupported_shapes_raise(kwargs, message):
 @pytest.mark.parametrize('op', ['window_attention_fwd', 'window_attention_bwd'])
 def test_binding_matches_the_c_signature(monkeypatch, op):
     """The wrapper's ctypes types are the kernel's C parameters, one for one:
-    the launch, the shared-memory query (the backward's takes the dtype
-    first) and the backward's grid query. A count that differs passes a
-    pointer as an int, or fails at the first launch on the card."""
+    the launch, the shared-memory query (the dtype first) and the grid query
+    of each kernel. A count that differs passes a pointer as an int, or fails
+    at the first launch on the card."""
     import ctypes
     import re
     import types
@@ -155,5 +155,4 @@ def test_binding_matches_the_c_signature(monkeypatch, op):
 
     assert list(getattr(fake, op).argtypes) == declared(op, 'int')
     assert list(getattr(fake, f'{op}_smem_bytes').argtypes) == declared(f'{op}_smem_bytes', 'size_t')
-    if op == 'window_attention_bwd':
-        assert list(fake.window_attention_bwd_plan.argtypes) == declared(f'{op}_plan', 'int')
+    assert list(getattr(fake, f'{op}_plan').argtypes) == declared(f'{op}_plan', 'int')
