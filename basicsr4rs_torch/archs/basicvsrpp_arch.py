@@ -116,7 +116,9 @@ class BasicVSRPlusPlus(nn.Module):
         self.pixel_shuffle = nn.PixelShuffle(2)
         self.conv_hr = nn.Conv2d(64, 64, 3, 1, 1)
         self.conv_last = nn.Conv2d(64, 3, 3, 1, 1)
-        self.lrelu = nn.LeakyReLU(negative_slope=0.1, inplace=False)
+        # in place, as BasicSR's: the head runs every frame at 4x at once, and
+        # an activation's own output was a third HR tensor at its peak
+        self.lrelu = nn.LeakyReLU(negative_slope=0.1, inplace=True)
 
     def compute_flow(self, lqs):
         """(flows_forward, flows_backward), each (N, T-1, 2, H, W), from one

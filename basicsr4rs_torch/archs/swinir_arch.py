@@ -12,7 +12,9 @@ block wider than that kernel takes (``joint_block_takes``: C or the head dim
 past ``JOINT_MAX_CHANNELS`` / ``JOINT_MAX_HEAD_DIM``) runs the training
 route's forward pair instead, decided by its shape before any launch; inside
 a ``quantized_inference(..., swin_kernels=True)`` scope every block is the
-W8A8 kernel, which raises past those widths. In ``train()`` it is the
+W8A8 kernel, which takes C up to 256 and heads of up to 64 features
+(``int8_block_takes``; SwinIR-L's C = 240 among them) and raises past them.
+In ``train()`` it is the
 differentiable pair ``fused_swin_attn_block`` + ``fused_mlp_block`` (a
 forward and a backward kernel each), with the residual adds and DropPath's
 per-sample scales folded into the kernels, or, with ``SWIN_JOINT_TRAIN=1``,

@@ -62,6 +62,38 @@ __device__ __forceinline__ void set2(uint32_t* X, int ld, int t, int c, float v0
     X[t * ld + c / 2] = pack_bf16(v0, v1);
 }
 
+// LN of the n token rows of X (pitch ld words) in place, rounded to T, a
+// warp a token (var = E[x^2] - mean^2, eps 1e-5); lw, lb: this lane's
+// LayerNorm parameters, features lane + 32 i (zero past C).
+template <typename T>
+__device__ __forceinline__ void layer_norm_rows(uint32_t* X, int ld, int n, int C,
+                                                const float (&lw)[kMaxC / 32],
+                                                const float (&lb)[kMaxC / 32]) {
+  constexpr int kI = kMaxC / 32;
+  const int lane = threadIdx.x & 31;
+  for (int t = threadIdx.x >> 5; t < n; t += kWarps) {
+    float v[kI], sum = 0.f, ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < kI; ++i) {
+      const int c = lane + 32 * i;
+      v[i] = c < C ? get1<T>(X, ld, t, c) : 0.f;
+      sum += v[i];
+      ss += v[i] * v[i];
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      ss += __shfl_xor_sync(0xffffffffu, ss, o);
+    }
+    const float mean = sum / C, inv = rsqrtf(ss / C - mean * mean + 1e-5f);
+#pragma unroll
+    for (int i = 0; i < kI; ++i) {
+      const int c = lane + 32 * i;
+      if (c < C) set1<T>(X, ld, t, c, round_to<T>((v[i] - mean) * inv * lw[i] + lb[i]));
+    }
+  }
+}
+
 // ----------------------------------------------------------------- fragments
 // A fragment (rows m0 .. m0 + 15, words kw .. kw + 7 of K) of a matrix
 // stored with its rows along M, by one ldmatrix: matrix j is rows m0 + 8 (j

@@ -234,28 +234,7 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_block_bwd_kernel(const Params
                              : 1.f;
   cp_async_wait<1>();   // x's rows; dz's land during fc1
   __syncthreads();
-  // LN(x) in place of x, rounded, a warp a token
-  for (int t = warp; t < n; t += kWarps) {
-    float v[kI], sum = 0.f, ss = 0.f;
-#pragma unroll
-    for (int i = 0; i < kI; ++i) {
-      const int c = lane + 32 * i;
-      v[i] = c < C ? get1<T>(Rb, ldR, t, c) : 0.f;
-      sum += v[i];
-      ss += v[i] * v[i];
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      ss += __shfl_xor_sync(0xffffffffu, ss, o);
-    }
-    const float mean = sum / C, inv = rsqrtf(ss / C - mean * mean + 1e-5f);
-#pragma unroll
-    for (int i = 0; i < kI; ++i) {
-      const int c = lane + 32 * i;
-      if (c < C) set1<T>(Rb, ldR, t, c, round_to<T>((v[i] - mean) * inv * lw[i] + lb[i]));
-    }
-  }
+  layer_norm_rows<T>(Rb, ldR, n, C, lw, lb);   // LN(x) in place of x, rounded
 
   // h = LN(x) W1[chunk]^T + b1, kept in registers; g = GELU(h) into H. A
   // warp owns tokens m0 .. m0 + 15 and the n8 tiles wn + 4 jj in this and dh.

@@ -59,7 +59,9 @@
 // - LN1 takes a warp a token, its statistics by shuffles; the bias (+ mask)
 //   of a head is loaded as the head starts, so that the loads overlap qkv.
 // Head dim <= 32; a window of n < 64 tokens (ws < 8) pads its tile with
-// zero tokens, and its keys past n drop out of the softmax.
+// zero tokens, and its keys past n drop out of the softmax. Past C = 192 or
+// heads of 32 the int8 kernel runs its wide variant (Dims<true>, below; C
+// <= 256, heads of up to 64): the same integers, by the same rounding.
 //
 // What holds it back (clock64 of every warp of one block, on an NVIDIA H100
 // 80GB HBM3 at 700 W, B=1 128x128 SwinIR-M): the warps are in step (each
@@ -89,6 +91,35 @@ constexpr int kHid = 96;      // MLP hidden columns a chunk: 4 warps x 3 n8 tile
 constexpr int kMaxHeadDim = 32;
 constexpr int kRed = 2 * 4 * kTok;   // floats of cross-warp partial sums
 
+// The int8 kernel's wide variant (kWide), for blocks past those widths:
+// SwinIR-L's C = 240 in heads of 30, heads of 60 (C = 180 in 3). C <= 256
+// (8 n8 tiles a warp), heads padded to 64 features (qkv 6 n8 tiles a warp,
+// p.v 2), v's rows of kLdV + 32 words, P over q and k's rows, weight stages
+// of 256 rows by 32 words, and fc1 run twice over the hidden chunks: once
+// for fc2's absmax over the whole window, once to quantise each chunk for
+// fc2, whose int32 sums add up over the chunks. So GELU's output is never
+// held whole (480 float rows at C = 240 took 138 KB).
+constexpr int kWideMaxN = 256;
+constexpr int kWideMaxHeadDim = 64;
+
+template <bool kWide>
+struct Dims {
+  static constexpr int kNc = kWide ? 8 : 6;           // n8 tiles a warp of a C-wide output
+  static constexpr int kNq = kWide ? 6 : 3;           // of q | k | v of a head
+  static constexpr int kPv = kWide ? 2 : 1;           // of a head's output
+  static constexpr int kRows = kWide ? kWideMaxN : kMaxN;   // rows a weight stage holds
+  static constexpr int kLdVw = kWide ? kLdV + 32 : kLdV;    // words a row of v
+};
+
+// The widths each kernel takes (K1 and the int8 kernel; the int8 kernel's
+// wide variant past them).
+__host__ __device__ inline bool joint_takes(int channels, int heads) {
+  return channels <= kMaxN && channels / heads <= kMaxHeadDim;
+}
+__host__ __device__ inline bool wide_takes(int channels, int heads) {
+  return channels <= kWideMaxN && channels / heads <= kWideMaxHeadDim;
+}
+
 enum Route { kTF32x3, kBF16, kS8 };
 template <Route R>
 using Acc = typename std::conditional<R == kS8, int, float>::type;
@@ -110,31 +141,38 @@ struct Layout {
 };
 
 // Words of K a weight stage holds: a whole C-deep product in bfloat16 (C <=
-// 192) and in int8, where shared memory allows it; 32 in float32. A staged
-// row takes 4 words more (= 4 mod 8: a fragment's loads hit 32 banks).
-__host__ __device__ constexpr int stage_words(bool int8, int P) {
-  return int8 ? 48 : P == 2 ? 96 : 32;
+// 192) and in int8, where shared memory allows it; 32 in float32 and in the
+// wide variant. A staged row takes 4 words more (= 4 mod 8: a fragment's
+// loads hit 32 banks).
+__host__ __device__ constexpr int stage_words(bool int8, int P, bool wide = false) {
+  return wide ? 32 : int8 ? 48 : P == 2 ? 96 : 32;
 }
 
+// wide: the int8 kernel's wide variant, whose P shares q and k's rows and
+// whose quantised activations are C-wide (GELU's a chunk at a time, over XN)
 __host__ __device__ inline Layout joint_layout(int channels, int heads, int hidden, bool int8,
-                                               int P) {
+                                               int P, bool wide = false) {
   const int hdw = round_up16(channels / heads) / P;
-  const int attn = 2 * hdw * kLdA + kTok / P * kLdV + kTok / P * kLdA;
+  const int attn = wide ? imax(2 * hdw, kTok / P) * kLdA + kTok / P * (kLdV + 32)
+                        : 2 * hdw * kLdA + kTok / P * kLdV + kTok / P * kLdA;
   Layout l;
   l.ao = (int8 ? channels : channels / P) * kLdA;
   l.attn = l.ao + (int8 ? 0 : channels / P * kLdA);
   int region = l.attn + imax(attn, int8 ? 0 : kHid / P * kLdA);
-  if (int8) region = imax(region, hidden * kLdA);
+  if (int8 && !wide) region = imax(region, hidden * kLdA);
   l.q8 = region;
-  l.stages = l.q8 + (int8 ? round_up16(imax(channels, hidden)) / 4 * kLdA : 0);
-  l.red = l.stages + 2 * kMaxN * (stage_words(int8, P) + 4);
+  l.stages = l.q8 + (int8 ? round_up16(wide ? channels : imax(channels, hidden)) / 4 * kLdA : 0);
+  l.red = l.stages + 2 * (wide ? kWideMaxN : kMaxN) * (stage_words(int8, P, wide) + 4);
   l.words = l.red + kRed;
   return l;
 }
 
-// Dynamic shared memory of a block; dtype 0 float32, 1 bfloat16.
+// Dynamic shared memory of a block; dtype 0 float32, 1 bfloat16. The int8
+// kernel past joint_takes' widths runs its wide variant.
 inline size_t joint_smem_bytes(int dtype, int channels, int heads, int hidden, bool int8) {
-  return static_cast<size_t>(joint_layout(channels, heads, hidden, int8, dtype + 1).words) * 4;
+  const bool wide = int8 && !joint_takes(channels, heads);
+  return static_cast<size_t>(
+             joint_layout(channels, heads, hidden, int8, dtype + 1, wide).words) * 4;
 }
 
 struct JointParams {
@@ -195,13 +233,13 @@ __device__ __forceinline__ void put2(uint32_t* X, int c, int t, float v0, float 
   }
 }
 
-// v[key][d], v[key][d + 1] (d even): one row of kLdV words per word of keys
-template <typename T>
+// v[key][d], v[key][d + 1] (d even): one row of kLd words per word of keys
+template <typename T, int kLd = kLdV>
 __device__ __forceinline__ void put_v(uint32_t* V, int key, int d, float v0, float v1) {
   if constexpr (sizeof(T) == 4) {
-    *reinterpret_cast<float2*>(V + key * kLdV + d) = make_float2(v0, v1);
+    *reinterpret_cast<float2*>(V + key * kLd + d) = make_float2(v0, v1);
   } else {
-    __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(V) + (key / 2 * kLdV + d) * 2 + (key & 1);
+    __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(V) + (key / 2 * kLd + d) * 2 + (key & 1);
     e[0] = __float2bfloat16(v0);
     e[2] = __float2bfloat16(v1);
   }
@@ -290,7 +328,7 @@ __device__ __forceinline__ void mma_tile_raw(Acc<R> (&c)[4], const uint32_t (&a)
 // prefetch() issues the first stage (one commit group) as soon as the
 // stages are free: the load then overlaps whatever the block does before
 // the product runs, which issues no other cp.async.
-template <int kK, int kCopy, class Row>
+template <int kK, int kCopy, class Row, int kRows = kMaxN>
 struct WeightStream {
   static constexpr int kLd = kK + 4;
   int Kw, N, steps;
@@ -302,7 +340,7 @@ struct WeightStream {
       : Kw(kw), N(n), steps((kw + kK - 1) / kK), row(r), stages(st), any(a) {}
 
   __device__ __forceinline__ uint32_t* stage(int step) const {
-    return stages + (step & 1) * kMaxN * kLd;
+    return stages + (step & 1) * kRows * kLd;
   }
 
   __device__ __forceinline__ void stage_in(int step) const {   // empty past the last step
@@ -326,11 +364,11 @@ struct WeightStream {
 
 };
 
-template <int kK, int kCopy, class Row>
-__device__ __forceinline__ WeightStream<kK, kCopy, Row> weights(int Kw, int N, Row row,
-                                                                uint32_t* stages,
-                                                                const void* any) {
-  return WeightStream<kK, kCopy, Row>(Kw, N, row, stages, any);
+template <int kK, int kCopy, int kRows = kMaxN, class Row>
+__device__ __forceinline__ WeightStream<kK, kCopy, Row, kRows> weights(int Kw, int N, Row row,
+                                                                      uint32_t* stages,
+                                                                      const void* any) {
+  return WeightStream<kK, kCopy, Row, kRows>(Kw, N, row, stages, any);
 }
 
 // acc[jj] += A . W^T for this warp's 16 tokens (rows 16 (warp % 4) ...) and
@@ -339,10 +377,10 @@ __device__ __forceinline__ WeightStream<kK, kCopy, Row> weights(int Kw, int N, R
 // reads them: a pass over each stage and a barrier cost more than the
 // conversions. Begins with the block in step on A and ends with every warp
 // done with A and the stages.
-template <Route R, int NT, int kK, int kCopy, class Row>
+template <Route R, int NT, int kK, int kCopy, class Row, int kRows>
 __device__ __forceinline__ void weight_product(Acc<R> (&acc)[NT][4], const uint32_t* A,
-                                               const WeightStream<kK, kCopy, Row>& w) {
-  constexpr int kLd = WeightStream<kK, kCopy, Row>::kLd;
+                                               const WeightStream<kK, kCopy, Row, kRows>& w) {
+  constexpr int kLd = WeightStream<kK, kCopy, Row, kRows>::kLd;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3, m0 = (warp & 3) * 16, ni = warp >> 2;
   for (int step = 0; step < w.steps; ++step) {
@@ -397,6 +435,25 @@ __device__ __forceinline__ void for_each_pair(const V (&acc)[NT][4], int N, F f)
 }
 
 // ------------------------------------------------------ per-token reductions
+// The window's scale max(absmax, 1e-12) / 127 from each thread's share m of
+// the absmax, to every thread; red: kWarps floats of scratch, free for
+// writes after the block's next barrier.
+__device__ __forceinline__ float window_scale(float m, float* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = m;
+  __syncthreads();
+  m = red[0];
+#pragma unroll
+  for (int i = 1; i < kWarps; ++i) m = fmaxf(m, red[i]);
+  return fmaxf(m, 1e-12f) * (1.f / 127.f);
+}
+
+// v's integer at scale 1 / inv: rint (half to even), clipped to +-127
+__device__ __forceinline__ int quantize(float v, float inv) {
+  return static_cast<int>(fminf(fmaxf(rintf(v * inv), -127.f), 127.f));
+}
+
 // Symmetric int8 quantisation of the `rows` float features of the window's
 // n tokens in the feature-major A, with one dynamic scale for the window:
 // s = max(absmax, 1e-12) / 127, q = clip(rint(v * (1 / s)), -127, 127)
@@ -411,14 +468,7 @@ __device__ inline float quantize_window(const uint32_t* A, int rows, int rows_p,
     const int t = e % kTok;
     if (t < n) m = fmaxf(m, fabsf(__uint_as_float(A[(e / kTok) * kLdA + t])));
   }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = m;
-  __syncthreads();
-  m = red[0];
-#pragma unroll
-  for (int i = 1; i < kWarps; ++i) m = fmaxf(m, red[i]);
-  const float s = fmaxf(m, 1e-12f) * (1.f / 127.f);
+  const float s = window_scale(m, red);
   const float inv = 1.f / s;
   for (int e = threadIdx.x; e < (rows_p / 4) * kTok; e += kThreads) {
     const int w = e / kTok, t = e % kTok;
@@ -427,8 +477,7 @@ __device__ inline float quantize_window(const uint32_t* A, int rows, int rows_p,
     for (int i = 0; i < 4; ++i) {
       const int r = 4 * w + i;
       const float v = r < rows && t < n ? __uint_as_float(A[r * kLdA + t]) : 0.f;
-      const int q = static_cast<int>(fminf(fmaxf(rintf(v * inv), -127.f), 127.f));
-      word |= static_cast<unsigned>(q & 0xff) << (8 * i);
+      word |= static_cast<unsigned>(quantize(v, inv) & 0xff) << (8 * i);
     }
     Q[w * kLdA + t] = word;
   }
@@ -484,8 +533,10 @@ __device__ __forceinline__ void row_stats(const float (&y)[NT][4], int C, float*
 }
 
 // ------------------------------------------------------------------ the block
-template <typename T, bool kInt8>
+template <typename T, bool kInt8, bool kWide = false>
 __global__ void __launch_bounds__(kThreads, 1) swin_block_joint_kernel(const JointParams p) {
+  static_assert(kInt8 || !kWide, "the wide variant is the int8 kernel's");
+  using D = Dims<kWide>;
   constexpr Route kAttn = sizeof(T) == 4 ? kTF32x3 : kBF16;   // q.k, p.v
   constexpr Route kW = kInt8 ? kS8 : kAttn;                    // qkv, proj, fc1, fc2
   constexpr int P = 4 / sizeof(T);                             // features of T a word
@@ -494,7 +545,7 @@ __global__ void __launch_bounds__(kThreads, 1) swin_block_joint_kernel(const Joi
   // rows of T in device memory: 16-byte copies for float32, 8 for bfloat16
   // (int8 rows are padded to 16 bytes)
   constexpr int kCopyRows = kInt8 || P == 1 ? 4 : 2;
-  constexpr int kK = stage_words(kInt8, P);
+  constexpr int kK = stage_words(kInt8, P, kWide);
   extern __shared__ __align__(16) uint32_t smem[];
 
   const int H = p.height, W = p.width, C = p.channels, heads = p.heads, hidden = p.hidden;
@@ -512,14 +563,16 @@ __global__ void __launch_bounds__(kThreads, 1) swin_block_joint_kernel(const Joi
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, tq = lane & 3, m0 = (warp & 3) * 16, ni = warp >> 2;
 
-  const Layout L = joint_layout(C, heads, hidden, kInt8, P);
+  const Layout L = joint_layout(C, heads, hidden, kInt8, P, kWide);
   const int hdw = hdp / P;
   uint32_t* XN = smem;                  // LN1(x); attention output (int8); LN2(y); GELU (int8)
   uint32_t* AO = kInt8 ? XN : smem + L.ao;   // the attention output of every head
   uint32_t* Qh = smem + L.attn;         // q (scaled) of one head, feature-major
   uint32_t* Kh = Qh + hdw * kLdA;       // k, feature-major
-  uint32_t* Vh = Kh + hdw * kLdA;       // v, a row a word of keys
-  uint32_t* Pm = Vh + kTok / P * kLdV;  // probabilities, feature-major over keys
+  // v, a row a word of keys; the probabilities, feature-major over keys
+  // (the wide variant's over q and k, which are read by then)
+  uint32_t* Vh = kWide ? Qh + imax(2 * hdw, kTok / P) * kLdA : Kh + hdw * kLdA;
+  uint32_t* Pm = kWide ? Qh : Vh + kTok / P * kLdV;
   uint32_t* HB = smem + L.attn;         // a chunk of GELU(fc1) (float kernel)
   uint32_t* Q8 = smem + L.q8;           // a quantised activation (int8 kernel)
   uint32_t* stages = smem + L.stages;
@@ -530,14 +583,15 @@ __global__ void __launch_bounds__(kThreads, 1) swin_block_joint_kernel(const Joi
   auto offset = [&](int t) {
     return ((static_cast<size_t>(img) * H + row0 + t / ws) * W + col0 + t % ws) * C;
   };
-  // product `stage` (0 qkv, 1 proj, 2 fc1, 3 fc2) read the `rows` features in Q8 at scale s
-  auto keep_quantised = [&](int stage, int rows, float s) {
+  // product `stage` (0 qkv, 1 proj, 2 fc1, 3 fc2) read the `rows` features
+  // at scale s; Q holds features r0 .. r0 + rn - 1 of them
+  auto keep_quantised = [&](int stage, int rows, float s, const uint32_t* Q, int r0, int rn) {
     if (p.quant_q == nullptr) return;
     int8_t* dst = p.quant_q + static_cast<size_t>(stage) * p.batch * H * W * C;
-    for (int e = threadIdx.x; e < n * rows; e += kThreads) {
-      const int t = e / rows, r = e % rows;
-      const uint32_t word = Q8[(r >> 2) * kLdA + t];
-      dst[offset(t) / C * rows + r] = static_cast<int8_t>((word >> (8 * (r & 3))) & 0xff);
+    for (int e = threadIdx.x; e < n * rn; e += kThreads) {
+      const int t = e / rn, r = e % rn;
+      const uint32_t word = Q[(r >> 2) * kLdA + t];
+      dst[offset(t) / C * rows + r0 + r] = static_cast<int8_t>((word >> (8 * (r & 3))) & 0xff);
     }
     if (threadIdx.x == 0) p.quant_s[stage * gridDim.x + blockIdx.x] = s;
   };
@@ -558,16 +612,16 @@ __global__ void __launch_bounds__(kThreads, 1) swin_block_joint_kernel(const Joi
     return o - part * hdp;
   };
   auto qkv_rows = [&](int h) {
-    return weights<kK, kCopyRows>(Kc, 3 * hdp, [&, h](int o) -> const uint32_t* {
+    return weights<kK, kCopyRows, D::kRows>(Kc, 3 * hdp, [&, h](int o) -> const uint32_t* {
       int part;
       const int d = qkv_part(o, part);
       return d < hd ? wrow(p.wqkv, part * C + h * hd + d, kInt8 ? Cp : C) : nullptr;
     }, stages, p.x);
   };
-  const auto proj_rows = weights<kK, kCopyRows>(
+  const auto proj_rows = weights<kK, kCopyRows, D::kRows>(
       Kc, C, [&](int o) { return wrow(p.wproj, o, kInt8 ? Cp : C); }, stages, p.x);
   auto fc1_rows = [&](int j0) {
-    return weights<kK, kCopyRows>(Kc, min(kHid, hidden - j0), [&, j0](int o) {
+    return weights<kK, kCopyRows, D::kRows>(Kc, min(kHid, hidden - j0), [&, j0](int o) {
       return wrow(p.w1, j0 + o, kInt8 ? Cp : C);
     }, stages, p.x);
   };
@@ -576,7 +630,7 @@ __global__ void __launch_bounds__(kThreads, 1) swin_block_joint_kernel(const Joi
   // LN1(x) into XN, a warp a token, the loads of its four tokens issued
   // together (tokens past n are zero)
   {
-    constexpr int kPer = kTok / kWarps, kCols = kMaxN / 32;
+    constexpr int kPer = kTok / kWarps, kCols = D::kNc;   // C / 32 a lane
     float v[kPer][kCols];
 #pragma unroll
     for (int k = 0; k < kPer; ++k) {
@@ -614,7 +668,7 @@ __global__ void __launch_bounds__(kThreads, 1) swin_block_joint_kernel(const Joi
   float sx = 0.f;
   if constexpr (kInt8) {
     sx = quantize_window(XN, C, Cp, n, Q8, red);
-    keep_quantised(0, C, sx);
+    keep_quantised(0, C, sx, Q8, 0, C);
   }
 
   for (int h = 0; h < heads; ++h) {
@@ -632,13 +686,13 @@ __global__ void __launch_bounds__(kThreads, 1) swin_block_joint_kernel(const Joi
                              : 0.f;
       }
     {  // q (scaled), k, v of head h
-      AccW acc[3][4] = {};
+      AccW acc[D::kNq][4] = {};
       weight_product<kW>(acc, kInt8 ? Q8 : XN, qkv_rows(h));
       if (h + 1 < heads)
         qkv_rows(h + 1).prefetch();
       else
         proj_rows.prefetch();
-      for_each_pair<3>(acc, 3 * hdp, [&](int m, int o, AccW v0, AccW v1) {
+      for_each_pair<D::kNq>(acc, 3 * hdp, [&](int m, int o, AccW v0, AccW v1) {
         int part;
         const int d = qkv_part(o, part);
         float f0 = 0.f, f1 = 0.f;   // zero in the padded head features
@@ -657,7 +711,7 @@ __global__ void __launch_bounds__(kThreads, 1) swin_block_joint_kernel(const Joi
           }
         }
         if (part == 2)
-          put_v<T>(Vh, m, d, f0, f1);
+          put_v<T, D::kLdVw>(Vh, m, d, f0, f1);
         else
           put2<T>(part == 0 ? Qh : Kh, d, m, f0, f1);
       });
@@ -729,19 +783,23 @@ __global__ void __launch_bounds__(kThreads, 1) swin_block_joint_kernel(const Joi
                   round_to<T>(sc[jt][2 * i] / sum[i]), round_to<T>(sc[jt][2 * i + 1] / sum[i]));
     }
     __syncthreads();
-    if (8 * ni < hdp) {  // the head's output: 16 queries by head features 8 ni .. 8 ni + 7
+    // the head's output: 16 queries by head features d0 .. d0 + 7, d0 = 8 ni (+ 32)
+#pragma unroll
+    for (int pv = 0; pv < D::kPv; ++pv) {
+      const int d0 = 8 * ni + 32 * pv;
+      if (d0 >= hdp) break;
       float oo[2][4] = {};   // even and odd k-steps
 #pragma unroll
       for (int ks = 0; ks < kTok / P; ks += 8) {
         uint32_t a[4], al[4];
         load_a<kAttn>(a, al, Pm, m0, ks, kTok / P);
-        const int at = (ks + tq) * kLdV + 8 * ni + g;
-        mma_tile_raw<kAttn>(oo[(ks >> 3) & 1], a, al, Vh[at], Vh[at + 4 * kLdV]);
+        const int at = (ks + tq) * D::kLdVw + d0 + g;
+        mma_tile_raw<kAttn>(oo[(ks >> 3) & 1], a, al, Vh[at], Vh[at + 4 * D::kLdVw]);
       }
       float o[4];
 #pragma unroll
       for (int r = 0; r < 4; ++r) o[r] = oo[0][r] + oo[1][r];
-      const int d = 8 * ni + 2 * tq;
+      const int d = d0 + 2 * tq;
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         if (d < hd)
@@ -752,17 +810,17 @@ __global__ void __launch_bounds__(kThreads, 1) swin_block_joint_kernel(const Joi
   }
 
   // y = x + s1 * (proj + bproj), in registers
-  AccW accp[6][4] = {};
+  AccW accp[D::kNc][4] = {};
   float sa = 0.f;
   if constexpr (kInt8) {
     sa = quantize_window(XN, C, Cp, n, Q8, red);
-    keep_quantised(1, C, sa);
+    keep_quantised(1, C, sa, Q8, 0, C);
   }
   weight_product<kW>(accp, kInt8 ? Q8 : AO, proj_rows);
   fc1_rows(0).prefetch();
-  float y[6][4];
+  float y[D::kNc][4];
 #pragma unroll
-  for (int jj = 0; jj < 6; ++jj)
+  for (int jj = 0; jj < D::kNc; ++jj)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int o = 8 * (ni + 4 * jj) + 2 * tq, m = m0 + g + 8 * i;
@@ -785,9 +843,9 @@ __global__ void __launch_bounds__(kThreads, 1) swin_block_joint_kernel(const Joi
     }
   {  // LN2(y) into XN
     float mu[2], inv[2];
-    row_stats<6>(y, C, red, mu, inv);
+    row_stats<D::kNc>(y, C, red, mu, inv);
 #pragma unroll
-    for (int jj = 0; jj < 6; ++jj) {
+    for (int jj = 0; jj < D::kNc; ++jj) {
       const int o = 8 * (ni + 4 * jj) + 2 * tq;
       if (o >= C) continue;
 #pragma unroll
@@ -799,13 +857,52 @@ __global__ void __launch_bounds__(kThreads, 1) swin_block_joint_kernel(const Joi
   }
   __syncthreads();
 
-  AccW acc2[6][4] = {};   // fc2
+  AccW acc2[D::kNc][4] = {};   // fc2
   float sh = 0.f;
-  if constexpr (kInt8) {
+  if constexpr (kWide) {
+    // fc1 twice over the hidden chunks: for GELU's absmax over the window,
+    // then to quantise each chunk at sh into XN's dead rows for its part of
+    // fc2 (exact int32 sums, whatever the chunks)
+    const float sy = quantize_window(XN, C, Cp, n, Q8, red);
+    keep_quantised(2, C, sy, Q8, 0, C);
+    auto gelu_at = [&](int r, int v) { return gelu(dequant(v, sy * p.sw1[r]) + b1[r]); };
+    float mx = 0.f;
+    for (int j0 = 0; j0 < hidden; j0 += kHid) {
+      int acc1[3][4] = {};
+      weight_product<kS8>(acc1, Q8, fc1_rows(j0));
+      fc1_rows(j0 + kHid < hidden ? j0 + kHid : 0).prefetch();
+      for_each_pair<3>(acc1, min(kHid, hidden - j0), [&](int m, int o, int v0, int v1) {
+        if (m < n)
+          mx = fmaxf(mx, fmaxf(fabsf(gelu_at(j0 + o, v0)), fabsf(gelu_at(j0 + o + 1, v1))));
+      });
+    }
+    sh = window_scale(mx, red);
+    const float inv = 1.f / sh;
+    uint32_t* QG = XN;   // a chunk's quantised words: kHid / 4 rows
+    for (int j0 = 0; j0 < hidden; j0 += kHid) {
+      const int hc = min(kHid, hidden - j0);
+      const auto fc2_rows = weights<kK, 4, D::kRows>(hc / 4, C, [&, j0](int o) {
+        return wrow(p.w2, o, Hp) + j0 / 4;
+      }, stages, p.x);
+      int acc1[3][4] = {};
+      weight_product<kS8>(acc1, Q8, fc1_rows(j0));
+      fc2_rows.prefetch();
+      for_each_pair<3>(acc1, hc, [&](int m, int o, int v0, int v1) {   // tokens >= n: zero
+        const int q0 = m < n ? quantize(gelu_at(j0 + o, v0), inv) : 0;
+        const int q1 = m < n ? quantize(gelu_at(j0 + o + 1, v1), inv) : 0;
+        reinterpret_cast<uint16_t*>(QG)[((o >> 2) * kLdA + m) * 2 + ((o >> 1) & 1)] =
+            static_cast<uint16_t>((q0 & 0xff) | (q1 & 0xff) << 8);
+      });
+      __syncthreads();
+      keep_quantised(3, hidden, sh, QG, j0, hc);
+      weight_product<kS8>(acc2, QG, fc2_rows);
+      if (j0 + kHid < hidden) fc1_rows(j0 + kHid).prefetch();
+    }
+  } else if constexpr (kInt8) {
     const auto fc2_rows = weights<kK, 4>(Hp / 4, C, [&](int o) { return wrow(p.w2, o, Hp); },
                                          stages, p.x);
     const float sy = quantize_window(XN, C, Cp, n, Q8, red);
-    keep_quantised(2, C, sy);
+    keep_quantised(2, C, sy, Q8, 0, C);
     for (int j0 = 0; j0 < hidden; j0 += kHid) {   // GELU(fc1), all hidden rows, over XN
       int acc1[3][4] = {};
       weight_product<kS8>(acc1, Q8, fc1_rows(j0));
@@ -821,7 +918,7 @@ __global__ void __launch_bounds__(kThreads, 1) swin_block_joint_kernel(const Joi
     }
     __syncthreads();
     sh = quantize_window(XN, hidden, Hp, n, Q8, red);
-    keep_quantised(3, hidden, sh);
+    keep_quantised(3, hidden, sh, Q8, 0, hidden);
     weight_product<kS8>(acc2, Q8, fc2_rows);
   } else {
     for (int j0 = 0; j0 < hidden; j0 += kHid) {
@@ -844,7 +941,7 @@ __global__ void __launch_bounds__(kThreads, 1) swin_block_joint_kernel(const Joi
 
   // out = y + s2 * (fc2 + b2)
 #pragma unroll
-  for (int jj = 0; jj < 6; ++jj)
+  for (int jj = 0; jj < D::kNc; ++jj)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int o = 8 * (ni + 4 * jj) + 2 * tq, m = m0 + g + 8 * i;
@@ -863,26 +960,33 @@ __global__ void __launch_bounds__(kThreads, 1) swin_block_joint_kernel(const Joi
     }
 }
 
-template <typename T, bool kInt8>
+template <typename T, bool kInt8, bool kWide>
 int launch_joint(const JointParams& p, cudaStream_t stream) {
   const size_t smem = joint_smem_bytes(sizeof(T) == 4 ? 0 : 1, p.channels, p.heads, p.hidden, kInt8);
-  cudaError_t err = cudaFuncSetAttribute(swin_block_joint_kernel<T, kInt8>,
+  cudaError_t err = cudaFuncSetAttribute(swin_block_joint_kernel<T, kInt8, kWide>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = p.batch * (p.height / p.window) * (p.width / p.window);
-  swin_block_joint_kernel<T, kInt8><<<blocks, kThreads, smem, stream>>>(p);
+  swin_block_joint_kernel<T, kInt8, kWide><<<blocks, kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, bool kInt8>
+int launch_joint(const JointParams& p, cudaStream_t stream) {
+  if (joint_takes(p.channels, p.heads)) return launch_joint<T, kInt8, false>(p, stream);
+  if constexpr (kInt8) return launch_joint<T, true, true>(p, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 // dtype: 0 float32, 1 bfloat16. Returns the cudaError_t of the launch (0 on
-// success); cudaErrorInvalidValue for a shape the kernel does not take (C >
-// kMaxN, a head dim over kMaxHeadDim, a window over kTok tokens).
+// success); cudaErrorInvalidValue for a shape the kernel does not take (past
+// joint_takes' widths, the int8 kernel's past wide_takes', a window over
+// kTok tokens).
 template <bool kInt8>
 int launch_joint(int dtype, const JointParams& p, void* stream) {
-  if (p.channels > kMaxN || p.channels / p.heads > kMaxHeadDim ||
-      p.window * p.window > kTok)
-    return static_cast<int>(cudaErrorInvalidValue);
+  const bool takes = kInt8 ? wide_takes(p.channels, p.heads) : joint_takes(p.channels, p.heads);
+  if (!takes || p.window * p.window > kTok) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_joint<float, kInt8>(p, s);
   if (dtype == 1) return launch_joint<__nv_bfloat16, kInt8>(p, s);

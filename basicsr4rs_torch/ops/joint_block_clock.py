@@ -1,20 +1,21 @@
 """Where a window's time goes in the joint Swin block kernels (K1, K11), a
 (window, head) unit's in the attention branch's forward (K2, its first
-launch) and backward (K3), a (token tile, hidden chunk) unit's in the MLP
-branch's backward (K5), or a block's in the window-attention forward (K6)
-and backward (K7).
+launch) and backward (K3), a (token tile, part of the hidden chunks) unit's
+in the MLP branch's forward (K4), a (token tile, hidden chunk) unit's in its
+backward (K5), or a block's in the window-attention forward (K6) and
+backward (K7).
 
     python -m basicsr4rs_torch.ops.joint_block_clock [--dtype float32|bfloat16]
     python -m basicsr4rs_torch.ops.joint_block_clock \
-        --kernel attn_fwd|attn_bwd|mlp_bwd|wattn_fwd|wattn_bwd [--csrc DIR]
+        --kernel attn_fwd|attn_bwd|mlp_fwd|mlp_bwd|wattn_fwd|wattn_bwd [--csrc DIR]
 
 On one CUDA card. Builds a copy of ``csrc/`` under ``build/`` in which every
 barrier of ``swin_block_joint.cuh`` (K1, K11), or of the kernel's block
 kernel (the first of its ``.cu``) and the ``swin_common.cuh`` and
-``branch_bwd.cuh`` helpers it calls (K2, K3, K5, K6, K7), reads
+``branch_bwd.cuh`` helpers it calls (K2 to K7), reads
 ``clock64()`` on the first lane of each warp of block 0. K1 and K11 run on
 a SwinIR-M block (C=180, 6 heads, window 8, hidden 360; B=1 128x128,
-shifted), K2, K3 and K5 on their training call (B=4 48x48, shifted,
+shifted), K2 to K5 on their training call (B=4 48x48, shifted,
 DropPath's scales), weights of std 1/sqrt(fan_in) from a seed; K6 and K7 on
 the ResShift UNet's largest call (B=16 64x64, C=192 in 6 heads of 32, window
 8, shifted), from a seed. It prints, for each barrier, the work each warp
@@ -22,8 +23,8 @@ did since the one before: the slowest warp's, the mean and the fastest over
 the warps that ran, averaged over 10 launches. The kernel is
 barrier-synchronised, so the slowest warps' work summed over the barriers
 is the block's time. ``--csrc`` instruments another checkout's kernel
-sources (an earlier K2, K3, K5, K6 or K7, whose C interface may differ), as
-they stand. The kernels in ``csrc/`` are untouched.
+sources (an earlier K2 to K7, whose C interface may differ), as they
+stand. The kernels in ``csrc/`` are untouched.
 """
 
 from __future__ import annotations
@@ -81,7 +82,7 @@ def kernel_body(text, signature):
 
 
 UNITS = {'attn_fwd': 'swin_attn_block_fwd', 'attn_bwd': 'swin_attn_block_bwd',   # K2, K3
-         'mlp_bwd': 'mlp_block_bwd',                                              # K5
+         'mlp_fwd': 'mlp_block_fwd', 'mlp_bwd': 'mlp_block_bwd',                  # K4, K5
          'wattn_fwd': 'window_attention_fwd', 'wattn_bwd': 'window_attention_bwd'}   # K6, K7
 KERNEL = '__global__ void __launch_bounds__('   # the block kernel: the first of the .cu
 LN_LAUNCH = '// ------------------------------------------------------- the LayerNorm backward'
@@ -254,14 +255,15 @@ def clock_window(kernel, dtype, src_dir):
 
 
 def clock_branch(kernel, dtype, src_dir):
-    """K2, K3 or K5 at its training call, instrumented from ``src_dir``,
+    """K2, K3, K4 or K5 at its training call, instrumented from ``src_dir``,
     called through its C interface as that source declares it (an earlier
-    one had no scratch buffer, and no dtype in its shared-memory query)."""
+    one had no scratch buffer, no dtype in its shared-memory query, and K4
+    no plan)."""
     name = UNITS[kernel]
     lib, lines = instrumented_library(kernel, src_dir)
     source = (src_dir / f'{name}.cu').read_text()
     b, hw = 4, 48
-    (x, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, rel, mask, ln2_w, ln2_b, w1, b1, w2, _, ws,
+    (x, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, rel, mask, ln2_w, ln2_b, w1, b1, w2, b2, ws,
      heads, scale) = block_inputs(dtype, torch.Generator().manual_seed(0), b=b, h=hw)
     c, hidden = x.shape[-1], w1.shape[0]
     dz = torch.randn(x.shape, generator=torch.Generator().manual_seed(1)).cuda().to(dtype)
@@ -270,7 +272,20 @@ def clock_branch(kernel, dtype, src_dir):
     dt = 0 if dtype == torch.float32 else 1
     scratch = [torch.empty_like(x) if kernel == 'attn_fwd' else
                torch.empty(x.numel(), device='cuda')] if 'scratch' in source else []
-    if kernel == 'attn_fwd':
+    plan = ''
+    if kernel == 'mlp_fwd':
+        args = [dt, x, torch.empty_like(x), b * hw * hw, c, hidden, hw * hw, ln2_w, ln2_b,
+                w1.to(dtype), b1, w2.to(dtype), b2, 2, s]
+        if f'{name}_plan' in source:   # the parts of the plan, their sums and counters
+            query = getattr(lib, f'{name}_plan')
+            query.argtypes, query.restype = [ctypes.c_int] * 4 + [ctypes.c_void_p], ctypes.c_int
+            grid = (ctypes.c_int * 5)()
+            if query(dt, b * hw * hw, c, hidden, ctypes.addressof(grid)):
+                raise SystemExit(f'{name}: its plan query failed')
+            parts = grid[1]
+            args += [parts, torch.empty(grid[4], device='cuda') if grid[4] else None]
+            plan = f'; {grid[0]} units of {parts} part(s), {grid[2]} block(s) an SM'
+    elif kernel == 'attn_fwd':
         args = [dt, x, torch.empty_like(x), b, hw, hw, c, heads, ws, ln1_w, ln1_b,
                 wqkv.to(dtype), bqkv, wproj.to(dtype), bproj, rel, mask, 2, s, scale] + scratch
     else:
@@ -289,8 +304,8 @@ def clock_branch(kernel, dtype, src_dir):
         args += scratch
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     launch = getattr(lib, name)
-    launch.argtypes = [p if isinstance(v, torch.Tensor) else f if isinstance(v, float) else i
-                       for v in args] + [p]
+    launch.argtypes = [p if v is None or isinstance(v, torch.Tensor) else
+                       f if isinstance(v, float) else i for v in args] + [p]
     values = [v.data_ptr() if isinstance(v, torch.Tensor) else v for v in args]
     # the shared-memory query by its parameters' names (of the unit launch)
     params = re.search(rf'size_t {name}_smem_bytes\(([^)]*)\)', source).group(1)
@@ -304,9 +319,9 @@ def clock_branch(kernel, dtype, src_dir):
         if rc:
             raise SystemExit(f'{name}: CUDA error {rc}')
 
-    what = 'scaled' if kernel == 'mlp_bwd' else 'shifted, scaled'
+    what = 'scaled' if kernel.startswith('mlp') else 'shifted, scaled'
     print(torch.cuda.get_device_name(0), str(dtype)[6:], f'B={b} {hw}x{hw} {what}, '
-          f'SwinIR-M; {src_dir}; {smem} bytes of shared memory a block')
+          f'SwinIR-M; {src_dir}; {smem} bytes of shared memory a block{plan}')
     run_clocked(lib, run, lines, src_dir, f'{name} block 0')
 
 

@@ -25,7 +25,9 @@ import torch.nn.functional as F
 from . import _launch
 
 LN_EPS = 1e-5
-MLP_BWD_MAX_CHANNELS = 256   # the backward kernel's LayerNorm launch: 8 features a lane
+# both kernels: 8 n8 tiles of fc2's sums a warp (forward), 8 features a lane
+# in the LayerNorm launch (backward)
+MLP_MAX_CHANNELS = 256
 
 
 def layer_norm_f32(x: torch.Tensor, weight: torch.Tensor,
@@ -152,9 +154,36 @@ def fused_mlp_block(x, ln_weight, ln_bias, fc1_weight, fc1_bias, fc2_weight, fc2
 def _lib(name: str) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     if name == 'mlp_block_fwd':
-        return _launch.bind(name, [i, p, p] + [i] * 4 + [p] * 6 + [i, p, p], [i])
+        lib = _launch.bind(name, [i, p, p] + [i] * 4 + [p] * 6 + [i, p, i, p, p], [i, i])
+        lib.mlp_block_fwd_plan.argtypes = [i] * 4 + [p]
+        lib.mlp_block_fwd_plan.restype = ctypes.c_int
+        return lib
     return _launch.bind(name, [i, p, p, p] + [i] * 4 + [p] * 5 + [i, p, p, p, p], [i, i],
                         [i, i])
+
+
+def forward_plan(x, hidden: int):
+    """The grid the forward kernel launches for x (B, ..., C) and ``hidden``
+    columns on x's card: (units, parts, blocks an SM, SMs, floats of
+    scratch); a unit is one thread block for a tile of 64 tokens and one of
+    ``parts`` (1 or 2) runs of its hidden chunks; of two, the first to finish
+    hands its sums to the other through the scratch."""
+    return _forward_plan(x.device, x.dtype, x.numel() // x.shape[-1], x.shape[-1], hidden)
+
+
+@functools.lru_cache(maxsize=None)
+def _forward_plan(device, dtype, tokens, c, hidden):
+    """forward_plan of a shape, kept: the launch asks for it every call. Its
+    block's shared memory is checked against the device first."""
+    op = 'mlp_block_fwd'
+    lib = _lib(op)
+    dt = _launch.DTYPES[dtype]
+    _launch.check_shared_memory(lib.mlp_block_fwd_smem_bytes(dt, c), device, op)
+    plan = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        rc = lib.mlp_block_fwd_plan(dt, tokens, c, hidden, ctypes.addressof(plan))
+    _launch.check_rc(rc, lib, op)
+    return tuple(plan)
 
 
 def _prepare(op, x, ln_weight, ln_bias, fc1_weight, fc1_bias, fc2_weight, residual_scale):
@@ -166,6 +195,8 @@ def _prepare(op, x, ln_weight, ln_bias, fc1_weight, fc1_bias, fc2_weight, residu
     c, hidden = x.shape[-1], fc1_weight.shape[0]
     if c % 4 or hidden % 4:
         raise ValueError(f'{op}: needs C % 4 == 0 and hidden % 4 == 0 (C={c}, hidden={hidden})')
+    if c > MLP_MAX_CHANNELS:
+        raise ValueError(f'{op}: takes C <= {MLP_MAX_CHANNELS} (C={c})')
     dev, f32 = x.device, torch.float32
     ops = [_launch.operand(ln_weight, 'ln_weight', (c,), f32, dev),
            _launch.operand(ln_bias, 'ln_bias', (c,), f32, dev),
@@ -184,14 +215,16 @@ def _launch_forward(x, ln_weight, ln_bias, fc1_weight, fc1_bias, fc2_weight, fc2
         op, x, ln_weight, ln_bias, fc1_weight, fc1_bias, fc2_weight, residual_scale)
     ops.append(_launch.operand(fc2_bias, 'fc2_bias', (c,), torch.float32, x.device))
     lib = _lib(op)
-    _launch.check_shared_memory(lib.mlp_block_fwd_smem_bytes(c), x.device, op)
     out = torch.empty_like(x)
     if tokens == 0:
         return out
+    _, parts, _, _, floats = forward_plan(x, hidden)
+    scratch = torch.empty(floats, dtype=torch.float32, device=x.device) if floats else None
     rc = lib.mlp_block_fwd(
         _launch.DTYPES[x.dtype], x.data_ptr(), out.data_ptr(), tokens, c, hidden, per_sample,
         *_launch.pointers(ops), _launch.mode_of(add_residual, residual_scale),
-        *_launch.pointers([scale]), _launch.current_stream(x.device))
+        *_launch.pointers([scale]), parts, *_launch.pointers([scratch]),
+        _launch.current_stream(x.device))
     _launch.check_rc(rc, lib, op)
     return out
 
@@ -204,8 +237,6 @@ def _launch_backward(x, dz, ln_weight, ln_bias, fc1_weight, fc1_bias, fc2_weight
     _launch.check_activation(dz, 'dz', op)
     if dz.shape != x.shape or dz.dtype != x.dtype or dz.device != x.device:
         raise ValueError(f'{op}: dz must match x in shape, dtype and device')
-    if c > MLP_BWD_MAX_CHANNELS:
-        raise ValueError(f'{op}: takes C <= {MLP_BWD_MAX_CHANNELS} (C={c})')
     lib = _lib(op)
     dtype = _launch.DTYPES[x.dtype]
     _launch.check_shared_memory(lib.mlp_block_bwd_smem_bytes(dtype, c), x.device, op)

@@ -52,12 +52,21 @@ MAX_TOKENS_PER_WINDOW = 64
 # the joint kernels hold proj's and fc2's outputs in registers, 6 n8 tiles a
 # warp (csrc/swin_block_joint.cuh: kMaxN), and pad a head to 32 features
 JOINT_MAX_CHANNELS, JOINT_MAX_HEAD_DIM = 192, 32
+# past them the int8 kernel runs its wide variant: 8 n8 tiles a warp, heads
+# padded to 64 features (kWideMaxN, kWideMaxHeadDim)
+INT8_MAX_CHANNELS, INT8_MAX_HEAD_DIM = 256, 64
 
 
 def joint_block_takes(channels: int, num_heads: int) -> bool:
-    """Whether the joint kernels (float and int8) take a block of this width:
+    """Whether the float joint kernel takes a block of this width:
     C <= JOINT_MAX_CHANNELS and a head dim <= JOINT_MAX_HEAD_DIM."""
     return channels <= JOINT_MAX_CHANNELS and channels // num_heads <= JOINT_MAX_HEAD_DIM
+
+
+def int8_block_takes(channels: int, num_heads: int) -> bool:
+    """Whether the int8 joint kernel takes a block of this width:
+    C <= INT8_MAX_CHANNELS and a head dim <= INT8_MAX_HEAD_DIM."""
+    return channels <= INT8_MAX_CHANNELS and channels // num_heads <= INT8_MAX_HEAD_DIM
 # the attention backward holds dL/dLN(x)'s outputs in registers, 8 n8 tiles a
 # warp, and dO's, 3 a warp (csrc/swin_attn_block_bwd.cu): wider blocks than
 # any whose shared memory its first route could hold
@@ -391,8 +400,9 @@ def swin_block_full_int8(x, ln1_weight, ln1_bias, qkv_weight, qkv_bias,
                          window_size: int, num_heads: int, scale: float, quantised=None):
     """The whole Swin block with qkv, proj, fc1 and fc2 as int8 x int8 ->
     int32 products, for x (B, H, W, C) already rolled, in one kernel launch
-    (``swin_block_full_int8.launches``); serving only, it raises when
-    autograd needs a gradient.
+    (``swin_block_full_int8.launches``) for C <= 256 and heads of up to 64
+    features (``int8_block_takes``); serving only, it raises when autograd
+    needs a gradient.
 
     Weights are quantised per output channel (absmax / 127) outside the
     kernel, once until a weight changes. The activation entering each
@@ -489,9 +499,10 @@ def _attention_operands(op, x, ln_weight, ln_bias, qkv_weight, qkv_bias, proj_we
 
 def _joint_operands(op, x, ln1_weight, ln1_bias, qkv_weight, qkv_bias, proj_weight, proj_bias,
                     rel_bias, mask, ln2_weight, ln2_bias, fc1_weight, fc1_bias, fc2_weight,
-                    fc2_bias, window_size, num_heads):
+                    fc2_bias, window_size, num_heads, int8=False):
     """Checked operands of the whole block in the kernels' order, weights in
-    x's dtype."""
+    x's dtype; raises past the widths of the float kernel, or of the int8
+    kernel with ``int8``."""
     attn, rel_bias, mask = _attention_operands(op, x, ln1_weight, ln1_bias, qkv_weight,
                                                qkv_bias, proj_weight, rel_bias, mask,
                                                window_size, num_heads)
@@ -499,9 +510,11 @@ def _joint_operands(op, x, ln1_weight, ln1_bias, qkv_weight, qkv_bias, proj_weig
     hidden = fc1_weight.shape[0]
     if hidden % 4:
         raise ValueError(f'{op}: needs hidden % 4 == 0 (hidden={hidden})')
-    if not joint_block_takes(c, num_heads):
-        raise ValueError(f'{op}: takes C <= {JOINT_MAX_CHANNELS} and a head dim <= '
-                         f'{JOINT_MAX_HEAD_DIM} (C={c}, heads={num_heads})')
+    takes, limits = ((int8_block_takes, (INT8_MAX_CHANNELS, INT8_MAX_HEAD_DIM)) if int8 else
+                     (joint_block_takes, (JOINT_MAX_CHANNELS, JOINT_MAX_HEAD_DIM)))
+    if not takes(c, num_heads):
+        raise ValueError(f'{op}: takes C <= {limits[0]} and a head dim <= {limits[1]} '
+                         f'(C={c}, heads={num_heads})')
     dev, f32 = x.device, torch.float32
     return attn + [
         _launch.operand(proj_bias, 'proj_bias', (c,), f32, dev), rel_bias, mask,
@@ -548,7 +561,7 @@ def _launch_joint_int8(x, ln1_weight, ln1_bias, qkv_weight, qkv_bias, proj_weigh
      fc1_bias, _, fc2_bias) = _joint_operands(
          op, x, ln1_weight, ln1_bias, qkv_weight, qkv_bias, proj_weight, proj_bias, rel_bias,
          mask, ln2_weight, ln2_bias, fc1_weight, fc1_bias, fc2_weight, fc2_bias, window_size,
-         num_heads)
+         num_heads, int8=True)
     b, h, w, c = x.shape
     hidden = fc1_weight.shape[0]
     qkv_q, qkv_s, proj_q, proj_s, fc1_q, fc1_s, fc2_q, fc2_s = quantized_block_weights(

@@ -22,8 +22,10 @@ nonzero exit code and no result line:
    SwinIR-light's widths and at 480 tokens (not a multiple of their
    64-token tile), and both forward kernels at the eval route's widths past
    the joint kernel's (C=180 in 3 heads of 60, C=240 in 8 heads of 30); the
-   attention forward, which adds nothing atomically, must repeat bit for
-   bit, and its two launches' device time is read by ``torch.profiler``;
+   two forward kernels, which add nothing atomically, must repeat bit for
+   bit, the attention forward's two launches' device time is read by
+   ``torch.profiler``, and the MLP forward's grid is printed (units, parts
+   of the hidden chunks, blocks an SM, how full the waves are);
    the window-attention kernels at the shapes of the
    ResShift UNet (C=192, 6 heads of 32, window 8; maps of 64, 32, 16 and 8;
    batch 1 and the training batch; with the shift mask and without), at
@@ -48,7 +50,9 @@ nonzero exit code and no result line:
    epilogues in both types, beside ``F.conv2d`` + its epilogue, and its
    gradients; the
    W8A8 joint block (3f) against its plain version by the rule stated there,
-   against the float block by SNR, and timed beside the float kernel;
+   against the float block by SNR, and timed beside the float kernel, also
+   past the float kernel's widths (C=180 in 3 heads of 60, C=240 in 8 heads
+   of 30, B=2 64x64: its wide variant);
 4. serves SwinIR-M x4 through ``basicsr4rs_torch.test`` (the code path of
    ``python -m basicsr4rs_torch.test -opt options/test/SwinIR/
    test_SwinIR_M_x4_synthetic.yml``) on 4 synthetic image pairs and random
@@ -105,7 +109,8 @@ nonzero exit code and no result line:
     and through the plain versions and compares every gradient;
 14. to 16. the same three for BasicVSR++ (``options/test/BasicVSRPP/
     test_BasicVSRPP_x4_synthetic.yml``: one clip of 30 frames of 180x320 in
-    one forward, 462 launches; ``options/train/BasicVSRPP/
+    one forward, 462 launches, and its device memory stage by stage;
+    ``options/train/BasicVSRPP/
     train_BasicVSRPP_x4_synthetic.yml``: ``REDSRecurrentDataset``, batch 1 of
     30 frames, 462 forward and 461 backward launches a step, SpyNet frozen
     before iteration 4);
@@ -124,13 +129,17 @@ nonzero exit code and no result line:
     (``-opt options/train/SRResNet_SRGAN/train_MSRResNet_x4_synthetic.yml``);
 20. runs ``basicsr4rs_torch.inference.inference_swinir --tile 128`` on one LQ
     512x512 image (16 tiles in one batch) and holds it against the untiled
-    forward; MSRResNet tiled with a pad that covers its receptive field;
+    forward, with the device memory of both (and of the tiled one with
+    ``SWIN_FUSED_CONV=1``) stage by stage; MSRResNet tiled with a pad that
+    covers its receptive field;
 21. trains SwinIR-M x4 for 4 steps with ``SWIN_JOINT_TRAIN=1``: launch
     counts per step, gradients against the split route, step time;
 22. serves SwinIR (depths [2, 2], LQ 64x64, eval) at widths past the joint
     kernel's: C=180 in 3 heads of 60 and SwinIR-L's C=240 in 8 heads of 30
     through the attention and MLP branch forward kernels, no joint launch,
-    against its plain forward; a width refused fails the phase.
+    against its plain forward; then, with the blocks' linears at full scale,
+    under ``swin_kernels=True``: the W8A8 block alone, against the float
+    forward by phase 18's SNR bound; a width refused fails the phase.
 
 ``python3 chip_smoke.py kernels`` stops after phase 3; ``python3 chip_smoke.py
 serving`` runs phases 3a, 3e, 3f, 4, 4b and 17 to 22 alone. The line before the
@@ -268,7 +277,7 @@ ROUTE = {torch.float32: '3xTF32 at 495 TFLOP/s', torch.bfloat16: 'bfloat16 at 98
 
 def tensor_core_bound_ms(flop, nbytes, dtype):
     """(bound ms, by what) of a kernel whose products all run on the tensor
-    cores (all but K4, K8, K9): float32 as three TF32 products (3xTF32) at the TF32
+    cores (all but K8, K9): float32 as three TF32 products (3xTF32) at the TF32
     peak, bfloat16 at the bfloat16 peak; and the float32 CUDA-core bound
     (their first route) beside it."""
     peak, products = (PEAK_FLOPS_TF32, 3) if dtype == torch.float32 else (PEAK_FLOPS_BF16, 1)
@@ -477,22 +486,24 @@ def check_branch_kernels():
                     fail(f'{name}: the dropped sample is not passed through at {tag}')
             kernel_ms, plain_ms = time_pair(lambda: plain(*args), lambda: kernel(*args))
             flop, nbytes = kernel_work(name, b, h, w, dt, shift, widths)
-            cuda_cores = None
-            if name != 'mlp_block_fwd':   # K2, K3, K5: on the tensor cores
-                (bound, by), cuda_cores = tensor_core_bound_ms(flop, nbytes, dt)
-                route = (f'bound {bound:.4f} ms by {by} on its route ({ROUTE[dt]}; on the CUDA '
-                         f'cores {cuda_cores:.4f} ms)')
-            else:
-                bound, by = bound_ms(flop, nbytes, dt)
-                route = f'bound {bound:.4f} ms by {by}'
+            (bound, by), cuda_cores = tensor_core_bound_ms(flop, nbytes, dt)
+            route = (f'bound {bound:.4f} ms by {by} on its route ({ROUTE[dt]}; on the CUDA '
+                     f'cores {cuda_cores:.4f} ms)')
             print(f'{name:20s} {tag}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, '
                   f'{route} | max abs err (of max|plain|): ' + ', '.join(worst), flush=True)
-            if ((b, h, w), dt, shift, mode, widths) == (TRAIN_SHAPE, torch.float32, 4, 'scaled',
-                                                        M_WIDTHS):
+            main_case = ((b, h, w), shift, mode, widths) == (TRAIN_SHAPE, 4, 'scaled', M_WIDTHS)
+            if main_case and dt == torch.bfloat16:
+                summary[name].update(bf16_ms=kernel_ms, bf16_bound_ms=bound)
+            if main_case and dt == torch.float32:
                 summary[name].update(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound,
-                                     bound_by=by)
-                if cuda_cores is not None:
-                    summary[name]['cuda_core_bound_ms'] = cuda_cores
+                                     bound_by=by, cuda_core_bound_ms=cuda_cores)
+                if name == 'mlp_block_fwd':   # its grid: units, parts, blocks an SM, SMs
+                    units, parts, per_sm, sms, _ = M.forward_plan(x, hidden)
+                    fill = units / (-(-units // (per_sm * sms)) * per_sm * sms)
+                    print(f'{name:20s} {tag}: grid {units} units (64-token tiles x {parts} '
+                          f'parts of the hidden chunks), {per_sm} block(s) an SM on {sms} SMs, '
+                          f'{100 * fill:.1f}% of the waves\' slots filled', flush=True)
+                    summary[name].update(units=units, parts=parts, fill=fill)
                 if name == 'swin_attn_block_fwd':   # device time of its two launches
                     with torch.no_grad():
                         split = {part: kernel_device_ms(lambda: kernel(*args),
@@ -508,7 +519,7 @@ def check_branch_kernels():
                           'for bit: ' + ', '.join(
                               f'{o} {"yes" if torch.equal(g, a) else "no"}'
                               for o, g, a in zip(outputs, got, again)), flush=True)
-            if name == 'swin_attn_block_fwd' and mode == 'scaled':   # no atomics: required
+            if name.endswith('fwd') and mode == 'scaled':   # K2, K4: no atomics, required
                 with torch.no_grad():
                     again = kernel(*args)
                 if not torch.equal(got[0], again):
@@ -2101,6 +2112,20 @@ def serve_video(name, number):
               f'{latencies[-1] / frames_out:.3f} ms an output frame')
     print(f'request latency: mean {sum(latencies) / len(latencies):.3f} ms of {len(latencies)}; '
           f'peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB')
+    if name == 'BasicVSR++':   # F4: where the request's memory goes
+        net = getattr(model.net_g, 'module', model.net_g)
+        stages = [('feat_extract', net.feat_extract, 'forward'),
+                  ('compute_flow (SpyNet)', net, 'compute_flow'),
+                  (lambda feats, flows, module: f'propagate {module}', net, 'propagate'),
+                  ('upsample', net, 'upsample')]
+        stages += [(f'  {name}', getattr(net, name), 'forward') for name in (
+            'reconstruction', 'upconv1', 'upconv2', 'pixel_shuffle', 'conv_hr', 'lrelu',
+            'conv_last')]
+        model.feed_data(loader[0])
+        torch.cuda.empty_cache()
+        with MemoryMarks(stages) as marks:
+            model.test()
+        marks.show(f'{name} request of {loader[0]["lq"].shape[1]} frames')
 
     # one request through the kernels and through the plain versions
     before = wrappers['deform_sample_fwd'].launches
@@ -2491,13 +2516,14 @@ def check_conv_kernel():
     return {'conv3x3_fwd': summary}
 
 
-def int8_block_work(b, h, w, dtype, shifted):
+def int8_block_work(b, h, w, dtype, shifted, widths=M_WIDTHS):
     """(int8 operations, model-dtype operations, bytes) of one W8A8 block:
     the four weight products in int8, q.k and p.v in the model dtype; x in, out back,
     int8 weights, scales and the small float operands once."""
-    t, c, hid, n, es = b * h * w, C, HIDDEN, WS * WS, torch.finfo(dtype).bits // 8
-    small = 4 * (8 * c + hid) + 4 * HEADS * n * n + 4 * (5 * c + hid)
-    mask = 4 * (h // WS) * (w // WS) * n * n if shifted else 0
+    c, heads, ws, hid = widths
+    t, n, es = b * h * w, ws * ws, torch.finfo(dtype).bits // 8
+    small = 4 * (8 * c + hid) + 4 * heads * n * n + 4 * (5 * c + hid)
+    mask = 4 * (h // ws) * (w // ws) * n * n if shifted else 0
     return (t * (8 * c * c + 4 * c * hid), t * 4 * n * c,
             2 * t * c * es + 4 * c * c + 2 * c * hid + small + mask)
 
@@ -2544,8 +2570,8 @@ def check_int8_flips(got, rec, plain_rec, forced, want, want_rec, dt, weights, t
     if f32:
         err = (got - want).abs()
         off = err > F32_TOL[0] + F32_TOL[1] * want.abs()
-        windows = off.reshape(b, hw, WS, ww, WS, C).any(5).any(4).any(2)
-        worst = err.reshape(b, hw, WS, ww, WS, C).amax(dim=(2, 4, 5))
+        windows = off.reshape(b, hw, WS, ww, WS, -1).any(5).any(4).any(2)
+        worst = err.reshape(b, hw, WS, ww, WS, -1).amax(dim=(2, 4, 5))
         ratio = (worst[windows] / reach[windows]).max().item() if windows.any() else 0.
         line += (f'; against the plain version on its own: {int(windows.sum())} of '
                  f'{windows.numel()} windows beyond F32_TOL, {int((reach > 0).sum())} hold a '
@@ -2570,74 +2596,82 @@ def check_int8_block_kernel():
           f'{INT8_BLOCK_MAX_DEV} of the range')
     gen = torch.Generator().manual_seed(6)
     summary = {'max_abs_err': 0.}
-    for b, h, w in ((1, 128, 128), (16, 64, 64)):
-        for dt in (torch.float32, torch.bfloat16):
-            for shift in (0, 4):
-                args = block_inputs(b, h, w, dt, shift, gen)
-                weights = [args[i].abs().max().item() for i in (3, 5, 11, 13)]
-                rec, plain_rec, want_rec = [], [], []
-                with torch.no_grad():
-                    got = S.swin_block_full_int8(*args, quantised=rec)
-                    forced = S.reference_swin_block_full_int8(*args, given=rec,
-                                                              quantised=plain_rec)
-                    want = S.reference_swin_block_full_int8(*args, quantised=want_rec)
-                    flo = S.reference_swin_block_full(*args)
-                    plainly = S.swin_block_full_int8(*args)
-                torch.cuda.synchronize()
-                tag = f'B={b} {h}x{w} {str(dt)[6:]:8s} shift={shift}'
-                if not torch.isfinite(got).all():
-                    fail(f'K11 output is not finite at {tag}')
-                if not torch.equal(got, plainly):
-                    fail(f'K11 {tag}: writing out the integers changed the output')
-                line, max_abs = check_int8_flips(got.float(), rec, plain_rec, forced.float(),
-                                                 want.float(), want_rec, dt, weights, tag)
-                del rec, plain_rec, want_rec, forced
-                if dt == torch.float32:
-                    summary['max_abs_err'] = max(summary['max_abs_err'], max_abs)
-                else:
-                    ok, max_abs, max_rel, tolerance = compare(got, want, dt, 'elementwise')
-                    line += (f'; against the plain version on its own max_rel_err={max_rel:.3e} '
-                             f'({tolerance})')
-                    if not ok:
-                        print(line)
-                        fail(f'K11 and plain version disagree at {tag}')
-                snr = snr_db(flo.float(), got.float())
-                dev = (got.float() - flo.float()).abs().max().item() / flo.float().abs().max().item()
-                line += f' | vs float block: SNR {snr:.2f} dB, max deviation {dev:.4f} of the range'
-                if snr <= INT8_BLOCK_SNR_DB or dev >= INT8_BLOCK_MAX_DEV:
-                    print(line)
-                    fail(f'K11 is too far from the float block at {tag}')
-                if dt == torch.bfloat16:
-                    with torch.no_grad():
-                        flo32 = S.reference_swin_block_full(
-                            *[a.float() if torch.is_tensor(a) else a for a in args])
-                    snr32 = snr_db(flo32, got.float())
-                    line += (f', vs the float32 float block SNR {snr32:.2f} dB (bound '
-                             f'{INT8_BLOCK_SNR_BF16_DB})')
-                    del flo32
-                    if snr32 <= INT8_BLOCK_SNR_BF16_DB:
-                        print(line)
-                        fail(f'bfloat16 K11 is too far from the float32 block at {tag}')
-                with torch.no_grad():
-                    kernel_ms, plain_ms = time_pair(
-                        lambda: S.reference_swin_block_full_int8(*args),
-                        lambda: S.swin_block_full_int8(*args))
-                    k1_ms = cuda_time_ms(lambda: S.swin_block_full_forward(*args))
-                ops8, ops_attn, nbytes = int8_block_work(b, h, w, dt, shift)
-                (attn_ms, _), attn_core_ms = tensor_core_bound_ms(ops_attn, 0, dt)
-                by_bytes = nbytes / PEAK_BYTES * 1e3
-                by_ops = ops8 / PEAK_OPS_INT8 * 1e3 + attn_ms
-                bound, by = max((by_ops, 'operations'), (by_bytes, 'bytes'))
-                # on the CUDA cores: __dp4a (four int8 products an instruction) and float32
-                core_bound = max((ops8 / (4 * PEAK_FLOPS_F32)) * 1e3 + attn_core_ms, by_bytes)
-                line += (f' | kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, float kernel '
-                         f'(K1) {k1_ms:.4f} ms, bound {bound:.4f} ms by {by} (int8 products at '
-                         f'{PEAK_OPS_INT8 / 1e12:.0f} TOP/s, q.k and p.v {ROUTE[dt]}; on the CUDA '
-                         f'cores {core_bound:.4f} ms)')
-                print(line, flush=True)
-                if (b, dt, shift) == (1, torch.float32, 4):
-                    summary.update(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                                   k1_ms=k1_ms, cuda_core_bound_ms=core_bound)
+    both = (torch.float32, torch.bfloat16)
+    cases = [(b, h, w, dt, shift, M_WIDTHS) for b, h, w in ((1, 128, 128), (16, 64, 64))
+             for dt in both for shift in (0, 4)]
+    # past the float joint kernel's widths: the wide variant (phase 22's widths)
+    cases += [(2, 64, 64, dt, shift, widths) for widths in WIDE_WIDTHS for dt in both
+              for shift in (0, 4)]
+    for b, h, w, dt, shift, widths in cases:
+        args = block_inputs(b, h, w, dt, shift, gen, *widths)
+        weights = [args[i].abs().max().item() for i in (3, 5, 11, 13)]
+        rec, plain_rec, want_rec = [], [], []
+        with torch.no_grad():
+            got = S.swin_block_full_int8(*args, quantised=rec)
+            forced = S.reference_swin_block_full_int8(*args, given=rec,
+                                                      quantised=plain_rec)
+            want = S.reference_swin_block_full_int8(*args, quantised=want_rec)
+            flo = S.reference_swin_block_full(*args)
+            plainly = S.swin_block_full_int8(*args)
+        torch.cuda.synchronize()
+        tag = f'B={b} {h}x{w} {str(dt)[6:]:8s} shift={shift}' + (
+            '' if widths == M_WIDTHS else f' C={widths[0]} heads={widths[1]}')
+        if not torch.isfinite(got).all():
+            fail(f'K11 output is not finite at {tag}')
+        if not torch.equal(got, plainly):
+            fail(f'K11 {tag}: writing out the integers changed the output')
+        line, max_abs = check_int8_flips(got.float(), rec, plain_rec, forced.float(),
+                                         want.float(), want_rec, dt, weights, tag)
+        del rec, plain_rec, want_rec, forced
+        if dt == torch.float32:
+            summary['max_abs_err'] = max(summary['max_abs_err'], max_abs)
+        else:
+            ok, max_abs, max_rel, tolerance = compare(got, want, dt, 'elementwise')
+            line += (f'; against the plain version on its own max_rel_err={max_rel:.3e} '
+                     f'({tolerance})')
+            if not ok:
+                print(line)
+                fail(f'K11 and plain version disagree at {tag}')
+        snr = snr_db(flo.float(), got.float())
+        dev = (got.float() - flo.float()).abs().max().item() / flo.float().abs().max().item()
+        line += f' | vs float block: SNR {snr:.2f} dB, max deviation {dev:.4f} of the range'
+        if snr <= INT8_BLOCK_SNR_DB or dev >= INT8_BLOCK_MAX_DEV:
+            print(line)
+            fail(f'K11 is too far from the float block at {tag}')
+        if dt == torch.bfloat16:
+            with torch.no_grad():
+                flo32 = S.reference_swin_block_full(
+                    *[a.float() if torch.is_tensor(a) else a for a in args])
+            snr32 = snr_db(flo32, got.float())
+            line += (f', vs the float32 float block SNR {snr32:.2f} dB (bound '
+                     f'{INT8_BLOCK_SNR_BF16_DB})')
+            del flo32
+            if snr32 <= INT8_BLOCK_SNR_BF16_DB:
+                print(line)
+                fail(f'bfloat16 K11 is too far from the float32 block at {tag}')
+        with torch.no_grad():
+            kernel_ms, plain_ms = time_pair(
+                lambda: S.reference_swin_block_full_int8(*args),
+                lambda: S.swin_block_full_int8(*args))
+            # K1 beside it where it takes the width
+            k1_ms = (cuda_time_ms(lambda: S.swin_block_full_forward(*args))
+                     if widths == M_WIDTHS else None)
+        ops8, ops_attn, nbytes = int8_block_work(b, h, w, dt, shift, widths)
+        (attn_ms, _), attn_core_ms = tensor_core_bound_ms(ops_attn, 0, dt)
+        by_bytes = nbytes / PEAK_BYTES * 1e3
+        by_ops = ops8 / PEAK_OPS_INT8 * 1e3 + attn_ms
+        bound, by = max((by_ops, 'operations'), (by_bytes, 'bytes'))
+        # on the CUDA cores: __dp4a (four int8 products an instruction) and float32
+        core_bound = max((ops8 / (4 * PEAK_FLOPS_F32)) * 1e3 + attn_core_ms, by_bytes)
+        line += (f' | kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, '
+                 + ('' if k1_ms is None else f'float kernel (K1) {k1_ms:.4f} ms, ')
+                 + f'bound {bound:.4f} ms by {by} (int8 products at '
+                 f'{PEAK_OPS_INT8 / 1e12:.0f} TOP/s, q.k and p.v {ROUTE[dt]}; on the CUDA '
+                 f'cores {core_bound:.4f} ms)')
+        print(line, flush=True)
+        if (b, dt, shift) == (1, torch.float32, 4):
+            summary.update(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                           k1_ms=k1_ms, cuda_core_bound_ms=core_bound)
     check_int8_half_rounding(gen)
     return {'swin_block_joint_int8_fwd': summary}
 
@@ -2930,6 +2964,68 @@ def serve_and_train_msrresnet():
                              os.path.join(exp_dir, 'models', f'net_g_{total_iter}.pth'))
 
 
+class MemoryMarks:
+    """Device memory of one run, stage by stage: each wrapped callable
+    (``(label, owner, attribute)``: a module's forward, a method, a module's
+    function; ``label`` may be a function of the call's arguments) marks its
+    start and its return with the memory allocated then and the most
+    allocated since the previous mark. Marks of nested stages split the
+    outer stage's intervals."""
+
+    def __init__(self, stages):
+        self.stages, self.rows = stages, []
+
+    def mark(self, what):
+        self.rows.append((what, torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()))
+        torch.cuda.reset_peak_memory_stats()
+
+    def __enter__(self):
+        self.kept = []
+        for label, owner, attr in self.stages:
+            own = attr in vars(owner)
+            inner = getattr(owner, attr)
+
+            def wrapped(*args, _inner=inner, _label=label, **kwargs):
+                what = _label(*args) if callable(_label) else _label
+                self.mark(f'{what} starts')
+                out = _inner(*args, **kwargs)
+                self.mark(f'{what} returns')
+                return out
+
+            self.kept.append((owner, attr, inner if own else None))
+            setattr(owner, attr, wrapped)
+        self.mark('the run starts')
+        return self
+
+    def __exit__(self, *exc):
+        self.mark('the run ends')
+        for owner, attr, inner in reversed(self.kept):
+            if inner is None:
+                delattr(owner, attr)
+            else:
+                setattr(owner, attr, inner)
+
+    def show(self, title):
+        """Prints the marks; returns the largest peak."""
+        print(f'{title}: device memory at each mark (allocated then; most allocated since the '
+              'previous mark), MiB')
+        for what, live, peak in self.rows:
+            print(f'  {live / 2**20:10.1f} {peak / 2**20:10.1f}  {what}')
+        return max(peak for _, _, peak in self.rows)
+
+
+def swinir_memory_stages(net):
+    """The stages of a SwinIR forward for ``MemoryMarks``."""
+    from basicsr4rs_torch.archs import swinir_arch
+    stages = [('SwinIR forward', net, 'forward'), ('conv_first', net.conv_first, 'forward')]
+    stages += [(f'RSTB {i}', layer, 'forward') for i, layer in enumerate(net.layers)]
+    names = {id(m): n for n, m in net.named_modules()}
+    stages += [(lambda conv, *_: f'3x3 conv {names.get(id(conv), "?")}', swinir_arch, 'conv3x3'),
+               ('norm', net.norm, 'forward'), ('upsample', net.upsample, 'forward'),
+               ('conv_last', net.conv_last, 'forward')]
+    return stages
+
+
 def serve_tiled():
     import cv2
     import numpy as np
@@ -2987,7 +3083,21 @@ def serve_tiled():
           f'tolerance {TILE_APPROX_TOLERANCE})')
     if not err.max().item() < TILE_APPROX_TOLERANCE:
         fail('tiled SwinIR is too far from the untiled forward')
-    del net, tiled, whole
+    del tiled, whole
+    # F4: where the memory of the tiled request goes, beside the untiled forward's
+    peaks = {}
+    for what, run, fused in (('tiled', lambda: apply(x), '0'),
+                             ('untiled', lambda: inference_swinir.build_apply(net, SCALE, 8)(x),
+                              '0'),
+                             ('tiled, SWIN_FUSED_CONV=1', lambda: apply(x), '1')):
+        torch.cuda.empty_cache()
+        with mock.patch.dict(os.environ, {'SWIN_FUSED_CONV': fused}), \
+                MemoryMarks(swinir_memory_stages(net)) as marks:
+            run()
+        peaks[what] = marks.show(f'SwinIR-M x4 LQ {TILED_LQ}x{TILED_LQ} {what}')
+    print('peak device memory: ' + ', '.join(f'{what} {peak / 2**20:.1f} MiB'
+                                             for what, peak in peaks.items()))
+    del net
     # MSRResNet: 34 convolutions at LQ size, one at 2x, two at 4x: a receptive
     # field of 36 LQ pixels each way, covered by a pad of 40
     net_opt = dict(yaml_load(MS_CONFIG)['network_g'])
@@ -3080,19 +3190,28 @@ WIDE_SWINIR = [(180, 3), (240, 8)]   # (embed, heads): heads of 60; SwinIR-L's 2
 def serve_wide_swinir():
     """Phase 22: SwinIR in eval at widths past the joint kernel's (C > 192 or
     heads wider than 32), depths [2, 2], LQ 64x64, seed-0 weights: each block
-    through K2 + K4, no K1, against the plain forward. Every width must run:
-    a refusal (a block needing more shared memory than the card has) fails
-    the phase. Returns the launches of K2 and K4."""
+    through K2 + K4, no K1, against the plain forward; then, with the
+    blocks' linears redrawn at full scale as in phase 18, under
+    ``quantized_inference(net, min_channels=10**9, swin_kernels=True)``:
+    each block through K11 (its wide variant) and nothing else, against the
+    float forward by SNR (phase 18's bound) and against the plain int8
+    route. Every width must run: a refusal (a block needing more shared
+    memory than the card has, or past a gate) fails the phase. Returns the
+    launches of K2, K4 and K11."""
+    from basicsr4rs_torch.archs import swinir_arch
     from basicsr4rs_torch.archs.swinir_arch import SwinIR
     from basicsr4rs_torch.ops import _launch
     from basicsr4rs_torch.ops import mlp_block as M
     from basicsr4rs_torch.ops import swin_block as S
+    from basicsr4rs_torch.ops.quant import quantized_inference
     phase('22. SwinIR past the joint kernel\'s widths (' + ', '.join(
-        f'C={c} in {h} heads of {c // h}' for c, h in WIDE_SWINIR) + '), eval: K2 + K4 a block')
+        f'C={c} in {h} heads of {c // h}' for c, h in WIDE_SWINIR) + '), eval: K2 + K4 a block; '
+        'under swin_kernels=True: K11 a block')
     gen = torch.Generator().manual_seed(0)
     lq = torch.rand(1, 3, 64, 64, generator=gen).cuda()
-    counters = (S.fused_swin_block_full, S.swin_attn_block_forward, M.mlp_block_forward)
-    launches = {'swin_attn_block_fwd': 0, 'mlp_block_fwd': 0}
+    counters = (S.fused_swin_block_full, S.swin_attn_block_forward, M.mlp_block_forward,
+                S.swin_block_full_int8)
+    launches = {'swin_attn_block_fwd': 0, 'mlp_block_fwd': 0, 'swin_block_joint_int8_fwd': 0}
     limit = _launch.shared_memory_limit(lq.device)
     for embed, heads in WIDE_SWINIR:
         depths = [2, 2]
@@ -3102,7 +3221,9 @@ def serve_wide_swinir():
                      generator=gen).cuda().eval()
         k2a, k2b = S.attn_forward_shared_memory(torch.float32, embed, heads)
         need = {'K2 (window, head) units': k2a, 'K2 proj tiles': k2b,
-                'K4': M._lib('mlp_block_fwd').mlp_block_fwd_smem_bytes(embed)}
+                'K4': M._lib('mlp_block_fwd').mlp_block_fwd_smem_bytes(0, embed),
+                'K11': S._lib('swin_block_joint_int8_fwd').swin_block_joint_int8_fwd_smem_bytes(
+                    0, embed, heads, 2 * embed)}
         tag = f'C={embed}, {heads} heads of {embed // heads}'
         if max(need.values()) > limit:
             fail(f'{tag}: a block needs {need} bytes of shared memory, the card has {limit}')
@@ -3113,8 +3234,8 @@ def serve_wide_swinir():
         torch.cuda.synchronize()
         counts = [f.launches for f in counters]
         blocks = sum(depths)
-        if counts != [0, blocks, blocks]:
-            fail(f'{tag}: launches K1, K2, K4 {counts}, expected [0, {blocks}, {blocks}]')
+        if counts != [0, blocks, blocks, 0]:
+            fail(f'{tag}: launches K1, K2, K4, K11 {counts}, expected [0, {blocks}, {blocks}, 0]')
         launches['swin_attn_block_fwd'] += blocks
         launches['mlp_block_fwd'] += blocks
         plain = [mock.patch.object(S, 'swin_attn_block_forward', S.reference_swin_attn_block),
@@ -3135,6 +3256,35 @@ def serve_wide_swinir():
               f'{err:.3e} (max|plain| {out_p.abs().max().item():.3e}, tolerance {MODEL_TOLERANCE})')
         if not err <= MODEL_TOLERANCE:
             fail(f'{tag}: the output disagrees with the plain forward')
+        linears = [p for name, p in net.named_parameters() if p.dim() == 2 and name.endswith(
+            ('qkv.weight', 'proj.weight', 'fc1.weight', 'fc2.weight'))]
+        with torch.no_grad():   # at full scale, so that their error shows: see INT8_MODEL_SNR_DB
+            for p in linears:
+                p.copy_(torch.randn(p.shape, generator=gen) * p.shape[1]**-.5)
+            flo = net(lq)
+        for f in counters:
+            f.launches = 0
+        with quantized_inference(net, min_channels=10**9, swin_kernels=True), torch.no_grad():
+            got = net(lq)
+            counts = [f.launches for f in counters]
+            with mock.patch.object(swinir_arch, 'swin_block_full_int8',
+                                   S.reference_swin_block_full_int8):
+                plain_route = net(lq)
+        torch.cuda.synchronize()
+        if counts != [0, 0, 0, blocks]:
+            fail(f'{tag}, int8: launches K1, K2, K4, K11 {counts}, expected [0, 0, 0, {blocks}]')
+        launches['swin_block_joint_int8_fwd'] += blocks
+        if got.shape != flo.shape or not torch.isfinite(got).all():
+            fail(f'{tag}, int8: output {tuple(got.shape)}')
+        snr, routes = snr_db(flo, got), snr_db(plain_route, got)
+        print(f'{tag}, under swin_kernels=True: K11 {blocks} launches, no other block kernel; '
+              f'SNR of int8 against float {snr:.2f} dB (bound {INT8_MODEL_SNR_DB}), kernel route '
+              f'against plain route {routes:.2f} dB SNR', flush=True)
+        if snr < INT8_MODEL_SNR_DB:
+            fail(f'{tag}: the int8 output is {snr:.2f} dB from the float output')
+        if routes < snr:
+            fail(f'{tag}: K11 route and plain route agree to {routes:.2f} dB only: further '
+                 'apart than int8 is from float')
     return launches
 
 

@@ -333,21 +333,37 @@ def test_selfensemble_matches_jax(tmp_path, batched):
 
 
 # ------------------------------------------------------- the int8 joint block
-@pytest.mark.parametrize('shifted', [False, True], ids=['no_shift', 'shift_mask'])
-def test_int8_block_against_jax_kernel_and_float_block(shifted):
+# (shifted, widths): C=18 in 3 heads of 6 at B=2; the widths the int8 kernel
+# takes past the float joint kernel's, at B=1: SwinIR-L's C=240 in 8 heads
+# of 30, and C=180 in 3 heads of 60
+INT8_CASES = [pytest.param(False, None, id='no_shift'), pytest.param(True, None, id='shift_mask'),
+              pytest.param(True, (240, 8), id='C240-8heads'),
+              pytest.param(False, (180, 3), id='C180-3heads')]
+
+
+@pytest.mark.parametrize('shifted, widths', INT8_CASES)
+def test_int8_block_against_jax_kernel_and_float_block(shifted, widths):
     """The W8A8 joint block. Against the float block: the JAX test's own
     criterion (SNR > 30 dB, max deviation < 0.1 of the range). Against the
     JAX int8 kernel in interpret mode: by SNR only (> 30 dB, and no further
     from it than from the float block), because the activation scale's tile
     differs: one window here, a row of windows chosen for VMEM there, so the
-    two quantise the same values with different scales."""
-    case = _case(8, shifted, seed=21)
+    two quantise the same values with different scales. The wide blocks'
+    weights keep the std a fan-in of C=18 gives 0.2 (0.2 (18 / C)^0.5), as
+    in test_torch_swin_block.py's wide cases."""
+    if widths is None:
+        case, heads, scale = _case(8, shifted, seed=21), HEADS, SCALE
+    else:
+        c, heads = widths
+        case = _case(8, shifted, seed=21, C=c, HIDDEN=2 * c, heads=heads, B=1,
+                     wstd=0.2 * (18 / c)**0.5)
+        scale = (c // heads)**-0.5
     args = _port_args(case)
-    got = port_block.fused_swin_block_full(*args, 8, HEADS, SCALE, quant_int8=True).numpy()
-    flo = port_block.fused_swin_block_full(*args, 8, HEADS, SCALE).numpy()
+    got = port_block.fused_swin_block_full(*args, 8, heads, scale, quant_int8=True).numpy()
+    flo = port_block.fused_swin_block_full(*args, 8, heads, scale).numpy()
     assert snr_db(flo, got) > 30
     assert np.abs(got - flo).max() < 0.1 * np.abs(flo).max()
-    jgot = np.asarray(jax_block.fused_swin_block_full(*_jax_args(case), 8, HEADS, SCALE,
+    jgot = np.asarray(jax_block.fused_swin_block_full(*_jax_args(case), 8, heads, scale,
                                                       interpret=True, quant_int8=True))
     assert snr_db(jgot, got) > 30
     assert snr_db(jgot, got) > snr_db(flo, got) - 3
@@ -422,12 +438,13 @@ def test_int8_block_binding_matches_the_c_signature(monkeypatch):
     assert bound == declared
 
 
-@pytest.mark.parametrize('channels, heads', [(208, 8), (96, 2)], ids=['C208', 'head_dim48'])
+@pytest.mark.parametrize('channels, heads', [(272, 8), (144, 2)], ids=['C272', 'head_dim72'])
 def test_int8_block_rejects_widths_past_the_register_tiles(channels, heads):
-    """As the float block: C <= 192 and heads of at most 32 features, checked
-    before the weights are quantised or anything is built."""
+    """The wide variant's register tiles: C <= 256 and heads of at most 64
+    features, checked before the weights are quantised or anything is
+    built."""
     args = _port_args(_case(8, False, seed=5, C=channels, HIDDEN=2 * channels, heads=heads))
-    with pytest.raises(ValueError, match='takes C <= 192 and a head dim <= 32'):
+    with pytest.raises(ValueError, match='takes C <= 256 and a head dim <= 64'):
         port_block._launch_joint_int8(*args, 8, heads, (channels // heads)**-.5)
 
 

@@ -133,16 +133,17 @@ def test_launch_takes_the_widest_block():
 
 
 def bound_types(monkeypatch, module, name):
-    """The ctypes types ``module._lib`` gives ``name`` and ``<name>_smem_bytes``,
-    with the library's load replaced by a stand-in (no kernel is built), and
-    the C parameters of both in ``csrc/<name>.cu``."""
+    """The ctypes types ``module._lib`` gives ``name``, ``<name>_smem_bytes``
+    and, where the kernel has one, its grid query ``<name>_plan``, with the
+    library's load replaced by a stand-in (no kernel is built), and the C
+    parameters of those in ``csrc/<name>.cu``."""
     import ctypes
     import re
     import types
     from basicsr4rs_torch.ops import _build, _launch
     from test_torch_conv3x3 import c_signature
     fake = types.SimpleNamespace(**{n: types.SimpleNamespace() for n in (
-        name, f'{name}_error', f'{name}_smem_bytes', f'{name}_grad_floats')})
+        name, f'{name}_error', f'{name}_smem_bytes', f'{name}_grad_floats', f'{name}_plan')})
     monkeypatch.setattr(_launch, 'load_library', lambda _: fake)
     module._lib.cache_clear()
     try:
@@ -152,17 +153,21 @@ def bound_types(monkeypatch, module, name):
     source = (_build.CSRC_DIR / f'{name}.cu').read_text()
     smem = re.search(rf'\bsize_t {name}_smem_bytes\(([^)]*)\)', source).group(1)
     assert all(p.split()[0] == 'int' for p in smem.split(','))
-    return ((list(getattr(fake, name).argtypes), list(getattr(fake, f'{name}_smem_bytes').argtypes)),
-            (c_signature(name), [ctypes.c_int] * len(smem.split(','))))
+    plan = re.search(rf'\bint {name}_plan\(([^)]*)\)', source)
+    declared_plan = [ctypes.c_void_p if '*' in p else ctypes.c_int
+                     for p in plan.group(1).split(',')] if plan else None
+    return ((list(getattr(fake, name).argtypes), list(getattr(fake, f'{name}_smem_bytes').argtypes),
+             getattr(getattr(fake, f'{name}_plan'), 'argtypes', None)),
+            (c_signature(name), [ctypes.c_int] * len(smem.split(',')), declared_plan))
 
 
 @pytest.mark.parametrize('name', ['swin_block_joint_fwd', 'swin_attn_block_fwd',
                                   'swin_attn_block_bwd', 'mlp_block_fwd', 'mlp_block_bwd'])
 def test_binding_matches_the_c_signature(monkeypatch, name):
     """The wrapper's ctypes types are the kernel's C parameters, one for
-    one, for the launch and for its shared-memory query: a count that
-    differs passes a pointer as an int or fails at the first launch on the
-    card."""
+    one, for the launch, its shared-memory query and (K4) its grid query: a
+    count that differs passes a pointer as an int or fails at the first
+    launch on the card."""
     bound, declared = bound_types(monkeypatch, mlp_port if name.startswith('mlp') else port, name)
     assert bound == declared
 

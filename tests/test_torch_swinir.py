@@ -178,17 +178,25 @@ def test_eval_route_is_chosen_by_the_width(embed, heads, joint):
 
 def test_int8_route_keeps_refusing_past_the_joint_widths():
     """Under ``swin_kernels=True`` every block stays on the W8A8 joint block,
-    whose launch refuses C = 240 before anything is built (the split pair
-    has no int8 route)."""
+    also past the float joint kernel's widths. Its own gate takes SwinIR-L's
+    C = 240 in heads of 30 and C = 180 in heads of 60: their launch passes
+    every check and fails only for want of a card. Past its limit (C <= 256,
+    heads of at most 64 features) it refuses, with that limit, before
+    anything is built."""
     from basicsr4rs_torch.ops import swin_block as S
-    net = port_arch.SwinIR(**_wide_config(240, 8)).eval()
-    with mock.patch.object(port_arch, 'swin_kernels_int8', return_value=True), \
-            mock.patch.object(port_arch, 'swin_block_full_int8',
-                              wraps=port_arch.swin_block_full_int8) as int8, \
-            mock.patch.object(port_arch, 'fused_swin_attn_block') as attn:
-        with torch.no_grad():
-            net(torch.rand(1, 3, 16, 16))
-    assert int8.call_count == 2 and attn.call_count == 0
-    x, *block = int8.call_args.args[:15]
-    with pytest.raises(ValueError, match='takes C <= 192 and a head dim <= 32'):
-        S._launch_joint_int8(x, *block, 8, 8, 30**-.5)
+    for embed, heads, takes in ((240, 8, True), (180, 3, True), (272, 8, False)):
+        assert S.int8_block_takes(embed, heads) == takes
+        assert not S.joint_block_takes(embed, heads)
+        net = port_arch.SwinIR(**_wide_config(embed, heads)).eval()
+        with mock.patch.object(port_arch, 'swin_kernels_int8', return_value=True), \
+                mock.patch.object(port_arch, 'swin_block_full_int8',
+                                  wraps=port_arch.swin_block_full_int8) as int8, \
+                mock.patch.object(port_arch, 'fused_swin_attn_block') as attn:
+            with torch.no_grad():
+                net(torch.rand(1, 3, 16, 16))
+        assert int8.call_count == 2 and attn.call_count == 0
+        x, *block = int8.call_args.args[:15]
+        error, match = ((RuntimeError, 'nvcc|CUDA') if takes else
+                        (ValueError, 'takes C <= 256 and a head dim <= 64'))
+        with pytest.raises(error, match=match):
+            S._launch_joint_int8(x, *block, 8, heads, (embed // heads)**-.5)
