@@ -11,13 +11,9 @@
 // the border rule). (N, C * K, Ho * Wo) is the layout the convolution's GEMM
 // with the weight (Cout, C * K) wants; with K = 1 it is the warped map.
 //
-// The offsets are read through strides (OffsetLayout): the (dy, dx) pair of
-// sample n, deform group g, tap k and output pixel p = ho * Wo + wo has dy
-// at start + n * batch + (g * K + k) * tap + p * pixel and dx `pair`
-// elements from it. BasicSR's offset (N, G * 2K, Ho, Wo) is (0, G * 2K * P,
-// 2P, P, 1); a flow (N, H, W, 2) with last dimension (dx, dy), in any
-// strides whose pixels flatten, is (s_c, s_n, 0, -s_c, s_w), so flow_warp
-// hands it over as it is and the position is base + flow in one rounding.
+// The offsets are read through strides (OffsetLayout, deform_sample.cuh), so
+// flow_warp hands a flow over as it is and the position is base + flow in
+// one rounding.
 //
 // The TPU kernel keeps a zero-padded slab of the map in fast memory and
 // turns the gather into two products with hat-function matrices, because
@@ -46,10 +42,6 @@
 namespace {
 
 using namespace dsample;
-
-struct OffsetLayout {
-  int start, batch, tap, pair, pixel;   // in float32 elements
-};
 
 // a block's output pixels: a warp is one row of 32, its stores 128-byte lines
 constexpr int kTileW = 32, kTileH = kThreads / kTileW;

@@ -12,15 +12,18 @@ group g and tap k = i * kw + j of K = kh * kw.
   (N, G * K, Ho, Wo) the column tensor (N, C, K, Ho, Wo) of bilinear samples,
   zero outside the map, times the mask;
 - ``deform_sample_backward`` is one launch of ``csrc/deform_sample_bwd.cu``:
-  from the column tensor's cotangent, dx (summed with float32 atomics, so
-  not bit for bit the same from run to run), doffset and dmask;
+  from the column tensor's cotangent, in one pass, dx (summed in a window
+  of shared memory and by float32 atomics, so not bit for bit the same from
+  run to run), doffset (in the offset's layout, a flow's too) and dmask;
+  ``backward_plan`` is the window and the grid it launches;
 - ``deform_sample`` is the ``torch.autograd.Function`` over the two;
 - ``modulated_deform_conv`` is the sampler and one (grouped) matrix product
   with the weight, which stays ``torch.matmul``;
 - ``bilinear_warp`` is the sampler with one tap, the whole channel dimension
   as one deform group: the warped map itself; ``warp_by_flow`` the same for
-  a flow (N, H, W, 2), which the kernel reads through its strides
-  (``offset_layout``), so ``flow_warp`` builds no grid and no offset.
+  a flow (N, H, W, 2), which both kernels read through its strides
+  (``offset_layout``), so ``flow_warp`` builds no grid and no offset, and
+  the backward writes d flow in the flow's own layout.
 
 Every wrapper sends a CUDA tensor to its kernel and a CPU tensor to its plain
 PyTorch version (``reference_*``), and counts its launches in ``.launches``.
@@ -206,8 +209,9 @@ deform_sample_forward.launches = 0
 def deform_sample_backward(x, offset, mask, dcol, geo: SampleGeometry, need_dx: bool = True,
                            need_doffset: bool = True):
     """(dx, doffset, dmask) from the column tensor's cotangent in one kernel
-    launch: dx in x's type, doffset and dmask float32; a gradient that is not
-    needed (and dmask without a mask) is None."""
+    launch: dx in x's type, doffset and dmask float32, doffset of the
+    offset's shape (for ``geo.flow`` a flow's (N, H, W, 2), (dx, dy) last);
+    a gradient that is not needed (and dmask without a mask) is None."""
     if x.device.type == 'cpu':
         return reference_deform_sample_backward(x, offset, mask, dcol, geo, need_dx,
                                                 need_doffset)
@@ -313,13 +317,11 @@ class _FlowWarp(torch.autograd.Function):
     def backward(ctx, dout):
         x, flow = ctx.saved_tensors
         need_x, need_flow = ctx.needs_input_grad
-        # K9 takes the offset as a contiguous (N, 2, H, W), built once here
-        offset = offset_pairs(flow_operand(flow), FLOW_WARP).contiguous()
-        dx, doffset, _ = deform_sample_backward(
-            x, offset, None, dout.to(x.dtype).contiguous().unsqueeze(2), WARP, need_dx=need_x,
-            need_doffset=need_flow)
-        dflow = None if doffset is None else doffset.flip(1).permute(0, 2, 3, 1).to(flow.dtype)
-        return dx, dflow
+        # the kernel reads the flow through its strides and writes d flow in its layout
+        dx, dflow, _ = deform_sample_backward(
+            x, flow, None, dout.to(x.dtype).contiguous().unsqueeze(2), FLOW_WARP,
+            need_dx=need_x, need_doffset=need_flow)
+        return dx, None if dflow is None else dflow.to(flow.dtype)
 
 
 def warp_by_flow(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
@@ -389,10 +391,15 @@ class DCNv2Pack(ModulatedDeformConvPack):
 # ------------------------------------------------------------------ launches
 @functools.lru_cache(maxsize=None)
 def _lib(op: str) -> ctypes.CDLL:
+    """The kernel's library with its C functions' types set; the integers
+    of a launch go as one array (``_forward_dims``, ``_backward_dims``)."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    if op == 'deform_sample_fwd':   # the integers as one array (_forward_dims)
+    if op == 'deform_sample_fwd':
         return _launch.bind(op, [i] + [p] * 6, None)
-    return _launch.bind(op, [i] + [p] * 7 + [i] * 12 + [p], None)
+    lib = _launch.bind(op, [i] + [p] * 10, None)
+    plan = getattr(lib, f'{op}_plan')
+    plan.argtypes, plan.restype = [i, p, i, p], ctypes.c_int
+    return lib
 
 
 def _check_activation(t, name: str, op: str) -> None:
@@ -454,18 +461,117 @@ def _operands(op: str, x, offset, mask, geo: SampleGeometry):
     return offset, mask, ints, col_shape
 
 
+def _checked_layout(op: str, shape, stride, flow: bool) -> OffsetLayout:
+    """The layout of an offset (or its gradient) of ``shape`` and ``stride``;
+    raises unless its reach indexes in 32 bits."""
+    layout = _layout_of(shape, stride, flow)
+    reach = max(layout.start, layout.start + layout.pair) + sum(
+        (size - 1) * step for size, step in zip(shape, stride))
+    if reach >= 2**31:
+        raise ValueError(f'{op}: the offset is too large for 32-bit indices')
+    return layout
+
+
 @functools.lru_cache(maxsize=256)
 def _forward_dims(shape, geo: SampleGeometry, offset_shape, offset_stride):
     """The forward launch's integers, the geometry and then the offset's
     layout, as one C array made once per shape and layout, and its address
     (valid while the caller holds the array)."""
-    layout = _layout_of(offset_shape, offset_stride, geo.flow)
-    reach = max(layout.start, layout.start + layout.pair) + sum(
-        (size - 1) * stride for size, stride in zip(offset_shape, offset_stride))
-    if reach >= 2**31:
-        raise ValueError('deform_sample_fwd: the offset is too large for 32-bit indices')
-    dims = (ctypes.c_int * 17)(*_plan('deform_sample_fwd', shape, geo)[0], *layout)
+    op = 'deform_sample_fwd'
+    layout = _checked_layout(op, offset_shape, offset_stride, geo.flow)
+    dims = (ctypes.c_int * 17)(*_plan(op, shape, geo)[0], *layout)
     return dims, ctypes.addressof(dims)
+
+
+@functools.lru_cache(maxsize=256)
+def _backward_dims(shape, geo: SampleGeometry, offset_shape, offset_stride, grad_stride):
+    """The backward launch's integers: the geometry, the offset's layout and
+    that of its gradient (``grad_stride``), as one C array made once per
+    shape and layouts, and its address."""
+    op = 'deform_sample_bwd'
+    layouts = [_checked_layout(op, offset_shape, s, geo.flow) for s in (offset_stride, grad_stride)]
+    dims = (ctypes.c_int * 22)(*_plan(op, shape, geo)[0], *layouts[0], *layouts[1])
+    return dims, ctypes.addressof(dims)
+
+
+# what the backward kernel's block holds (csrc/deform_sample_bwd.cu)
+_BWD_THREADS, _BWD_TILE_W = 256, 32
+
+
+class BackwardWindow(NamedTuple):
+    """A backward block's share and its window of dx: the group's channels
+    split between ``slices`` warps of a pixel row, a tile of 32 x ``rows``
+    output pixels, a float32 window of ``height`` x ``width`` pixels a
+    channel, and the block's shared memory in bytes."""
+    slices: int
+    rows: int
+    height: int
+    width: int
+    smem_bytes: int
+
+
+def backward_window(shape, geo: SampleGeometry, halo: int,
+                    need_dx: bool = True) -> BackwardWindow:
+    """The backward kernel's block for x of ``shape`` under ``geo`` with a
+    window ``halo`` pixels past the tile's footprint on each side, as its
+    plan computes it (``window_for`` in the source): no window without dx.
+    The kernel's plan takes the largest halo up to 8 that keeps the blocks
+    an SM of halo 0 on its card (``backward_plan``)."""
+    lanes = _BWD_THREADS // _BWD_TILE_W
+    cpg = shape[1] // geo.deform_groups
+    slices = 1
+    while slices < lanes and -(-cpg // slices) > 8:
+        slices *= 2
+    rows = lanes // slices
+    span_y = (rows - 1) * geo.stride + (geo.kh - 1) * geo.dilation
+    span_x = (_BWD_TILE_W - 1) * geo.stride + (geo.kw - 1) * geo.dilation
+    height = span_y + 2 * halo + 2 if need_dx else 0
+    width = (span_x + 2 * halo + 8) // 4 * 4 if need_dx else 0
+    smem = 4 * (cpg * height * width + 3 * _BWD_THREADS + 3 * lanes)
+    return BackwardWindow(slices, rows, height, width, smem)
+
+
+class BackwardPlan(NamedTuple):
+    """The backward launch on a card (``deform_sample_bwd_plan``): the
+    window's halo, the block (``backward_window``), taps a block, the grid,
+    blocks an SM and SMs."""
+    halo: int
+    window: BackwardWindow
+    taps_per_z: int
+    grid: Tuple[int, int, int]
+    blocks_per_sm: int
+    sms: int
+
+
+def backward_plan(x: torch.Tensor, geo: SampleGeometry, need_dx: bool = True) -> BackwardPlan:
+    """The plan the backward kernel launches for the CUDA map ``x`` under
+    ``geo``, from the occupancy its card reports; the kernel keeps it per
+    shape and device after its first call. Raises for a CPU tensor, which
+    has no such plan, and for a group whose window fits no block."""
+    op = 'deform_sample_bwd'
+    if not x.is_cuda:
+        raise ValueError(f'{op}: the plan is made on a card; {x.device} has none')
+    _check_backward_window(op, x, geo, need_dx)
+    lib = _lib(op)
+    dims = (ctypes.c_int * 22)(*_plan(op, x.shape, geo)[0])
+    plan = (ctypes.c_int * 12)()
+    with torch.cuda.device(x.device):
+        rc = lib.deform_sample_bwd_plan(_launch.DTYPES[x.dtype], ctypes.addressof(dims),
+                                        int(need_dx), ctypes.addressof(plan))
+    _launch.check_rc(rc, lib, op)
+    p = tuple(plan)
+    return BackwardPlan(p[0], BackwardWindow(p[1], p[2], p[3], p[4], p[11]), p[5],
+                        (p[6], p[7], p[8]), p[9], p[10])
+
+
+def _check_backward_window(op: str, x, geo: SampleGeometry, need_dx: bool) -> None:
+    """Raise where even a window of halo 0 does not fit the device's block."""
+    _check_window_fits(op, x.shape, geo, need_dx, x.device)
+
+
+@functools.lru_cache(maxsize=256)
+def _check_window_fits(op: str, shape, geo: SampleGeometry, need_dx: bool, device) -> None:
+    _launch.check_shared_memory(backward_window(shape, geo, 0, need_dx).smem_bytes, device, op)
 
 
 def _launch_forward(x, offset, mask, geo: SampleGeometry):
@@ -483,23 +589,30 @@ def _launch_forward(x, offset, mask, geo: SampleGeometry):
     return col
 
 
-def _launch_backward(x, offset, mask, dcol, geo: SampleGeometry, need_dx, need_doffset):
+def _launch_backward(x, offset, mask, dcol, geo: SampleGeometry, need_dx, need_doffset,
+                     corners: Optional[torch.Tensor] = None):
+    """The backward launch. ``corners``, an int64 CUDA tensor of two zeros
+    or None, gets the counts of corners summed in the kernel's window and in
+    device memory added to it."""
     op = 'deform_sample_bwd'
-    if geo.flow:
-        raise ValueError(f'{op}: takes BasicSR\'s offset; a flow goes through offset_pairs')
-    offset, mask, ints, want = _operands(op, x, offset, mask, geo)
+    offset, mask, _, want = _operands(op, x, offset, mask, geo)
     _check_activation(dcol, 'dcol', op)
     if tuple(dcol.shape) != want or dcol.dtype != x.dtype or dcol.device != x.device:
         raise ValueError(f'{op}: dcol must be {want} in x\'s dtype and on its device')
+    _check_backward_window(op, x, geo, need_dx)
     lib = _lib(op)
-    # the op zeroes dx on the stream before the kernel adds to it
+    # the op zeroes dx on the stream before the kernel adds to it; doffset
+    # takes the offset's strides where they are dense (a flow's), and the
+    # kernel writes it through its own layout
     dx = torch.empty(x.shape, dtype=torch.float32, device=x.device) if need_dx else None
     doffset = torch.empty_like(offset) if need_doffset else None
     dmask = torch.empty_like(mask) if need_doffset and mask is not None else None
     if x.numel() == 0 or dcol.numel() == 0:
         return tuple(None if t is None else t.zero_() for t in (dx, doffset, dmask))
+    dims, address = _backward_dims(x.shape, geo, offset.shape, offset.stride(),
+                                   offset.stride() if doffset is None else doffset.stride())
     rc = lib.deform_sample_bwd(
         _launch.DTYPES[x.dtype], *_launch.pointers([x, offset, mask, dcol, dx, doffset, dmask]),
-        *ints, _launch.current_stream(x.device))
+        address, None if corners is None else corners.data_ptr(), _launch.stream_of(x))
     _launch.check_rc(rc, lib, op)
     return (None if dx is None else dx.to(x.dtype)), doffset, dmask

@@ -40,7 +40,11 @@ nonzero exit code and no result line:
    and a served window of 5 frames of 180x320, all three pyramid levels) and
    BasicVSR++ (128 channels in 16 groups; one tap on 64-, 3- and 2-channel
    maps for the flow warps, also with ``border``), with offsets small and
-   large enough to leave the map and whole positions among them, beside
+   large enough to leave the map and whole positions among them (for the
+   backward also offsets that send most corners past its window and
+   whole-number offsets on the window's edges; per case its plan, the share
+   of corners it summed in device memory, and d offset and d mask repeating
+   bit for bit), beside
    ``F.grid_sample`` as the one-tap yardstick, and the warps as ``flow_warp``
    runs them (the flow read through its strides; call time and device time
    beside ``F.grid_sample``'s; gradients); the 3x3 convolution kernel
@@ -743,14 +747,39 @@ def deform_work(kernel, n, c, h, w, taps, groups, with_mask, dtype):
 
 def deform_inputs(n, c, h, w, taps, groups, with_mask, dtype, spread, gen):
     """A map, offsets and a mask on the card. ``spread`` is the offsets'
-    standard deviation in pixels; the first sample's offsets are whole
-    numbers, a tenth of them zero."""
+    standard deviation in pixels, and the first sample's offsets are whole
+    numbers, a tenth of them zero; or ``('scatter', d)``: +-d pixels, the
+    sign alternating by column for dy and by row for dx, plus a random
+    tenth of a pixel, so that most corners fall outside K9's window; or
+    ``('edge', halo)``: a whole-number shift of 3 plus deviations of 0,
+    +-halo, +-(halo + 1) and +-1 pixels by column (dx's three columns on),
+    balanced over every 8 columns, so that a tile's mean offset is the shift
+    and whole-number corners land on both sides of each edge of K9's
+    window."""
     from basicsr4rs_torch.ops.dcn import SampleGeometry
     k = 3 if taps == 9 else 1
     geo = SampleGeometry(k, k, 1, k // 2, 1, groups)
     x = torch.randn(n, c, h, w, generator=gen).cuda().to(dtype)
-    offset = torch.randn(n, groups * 2 * taps, h, w, generator=gen) * spread
-    offset[0] = offset[0].round() * (torch.rand(offset[0].shape, generator=gen) > .1)
+    shape = (n, groups * taps, h, w)
+    if isinstance(spread, tuple) and spread[0] == 'scatter':
+        d = spread[1]
+        sign_y = 1 - 2 * (torch.arange(w) % 2).view(1, 1, 1, w).float()
+        sign_x = 1 - 2 * (torch.arange(h) % 2).view(1, 1, h, 1).float()
+        pairs = [d * sign_y + .1 * torch.randn(shape, generator=gen),
+                 d * sign_x + .1 * torch.randn(shape, generator=gen)]
+    elif isinstance(spread, tuple) and spread[0] == 'edge':
+        halo = spread[1]
+        steps = torch.tensor([0, halo, -halo, halo + 1, -halo - 1, 1, -1, 0]).float()
+        cols = torch.arange(w)
+        pairs = [3 + steps[cols % 8].view(1, 1, 1, w).expand(shape),
+                 3 + steps[(cols + 3) % 8].view(1, 1, 1, w).expand(shape)]
+    else:
+        pairs = None
+    if pairs is None:
+        offset = torch.randn(n, groups * 2 * taps, h, w, generator=gen) * spread
+        offset[0] = offset[0].round() * (torch.rand(offset[0].shape, generator=gen) > .1)
+    else:
+        offset = torch.stack(pairs, dim=2).reshape(n, groups * 2 * taps, h, w).contiguous()
     mask = torch.rand(n, groups * taps, h, w, generator=gen).cuda() if with_mask else None
     dcol = torch.randn(n, c, taps, h, w, generator=gen).cuda().to(dtype)
     return x, offset.cuda(), mask, dcol, geo
@@ -776,13 +805,18 @@ def check_deform_kernels():
     tb, tl, (sh, sw) = EDVR_TRAIN_BATCH * EDVR_FRAMES, EDVR_TRAIN_LQ, VIDEO_LQ
     edvr = (EDVR_FEAT, 9, EDVR_GROUPS, True)
     pp = (2 * PP_FEAT, 9, PP_GROUPS, True)
-    # (tag, N, H, W, (C, taps, deform groups, mask), dtype, offset spread, timed)
+    # (tag, N, H, W, (C, taps, deform groups, mask), dtype, offsets (deform_inputs), timed)
     train_case = ('EDVR train L1', tb, tl, tl, edvr, f32, 2., True)
     warp_case = ('warp 64ch zeros', 1, 64, 64, (PP_FEAT, 1, 1, False), f32, 3., True)
     cases = [train_case,
              ('EDVR train L2', tb, tl // 2, tl // 2, edvr, f32, 2., False),
              ('EDVR train L3', tb, tl // 4, tl // 4, edvr, f32, 12., False),
-             ('EDVR train L1 bf16', tb, tl, tl, edvr, bf16, 2., False),
+             ('EDVR train L1 bf16', tb, tl, tl, edvr, bf16, 2., True),
+             # K9: most corners outside its window (device-memory atomics), and
+             # whole-number offsets on the window's edges (the halo is the plan's)
+             ('EDVR train scattered', 4, tl, tl, edvr, f32, ('scatter', 24.), False),
+             ('EDVR train edge', 4, tl, tl, edvr, f32, ('edge', None), False),
+             ('warp 64ch edge', 1, 64, 64, (PP_FEAT, 1, 1, False), f32, ('edge', None), False),
              ('EDVR serve L1', EDVR_FRAMES, sh, sw, edvr, f32, 2., True),
              ('EDVR serve L2', EDVR_FRAMES, sh // 2, sw // 2, edvr, f32, 40., False),
              ('EDVR serve L3', EDVR_FRAMES, sh // 4, sw // 4, edvr, f32, 2., False),
@@ -799,6 +833,10 @@ def check_deform_kernels():
     summary = {name: {'max_abs_err': 0., 'library_ms': None} for name in DEFORM_KERNELS}
     for case in cases:
         tag, n, h, w, (c, taps, groups, with_mask), dt, spread, timed = case
+        if spread == ('edge', None):   # the halo K9's plan gives this shape
+            k = 3 if taps == 9 else 1
+            spread = ('edge', D.backward_plan(torch.empty(n, c, h, w, device='cuda', dtype=dt),
+                                              D.SampleGeometry(k, k, 1, k // 2, 1, groups)).halo)
         x, offset, mask, dcol, geo = deform_inputs(n, c, h, w, taps, groups, with_mask, dt,
                                                    spread, gen)
         outside = 1 - D.reference_deform_sample(torch.ones(n, groups, h, w, device='cuda'),
@@ -873,18 +911,39 @@ def check_deform_kernels():
                 if case == train_case:
                     summary[name].update(times)
             print(line, flush=True)
-            if name == 'deform_sample_bwd' and timed:
-                with torch.no_grad():   # atomicAdd sums: reported, not required
-                    first, again = kernel(), kernel()
-                print(f'{name:18s} {tag}: a second launch on the same inputs repeats bit for '
-                      'bit: ' + ', '.join(f'{o} {"yes" if torch.equal(a, b) else "no"}'
-                                          for o, a, b in zip(outputs, first, again)
-                                          if a is not None), flush=True)
+            if name == 'deform_sample_bwd':
+                check_deform_backward(D, x, offset, mask, dcol, geo, tag, kernel, outputs)
         del x, offset, mask, dcol
         torch.cuda.empty_cache()
     check_flow_warps(gen, summary)
     check_border_warp(gen)
     return summary
+
+
+def check_deform_backward(D, x, offset, mask, dcol, geo, tag, kernel, outputs):
+    """K9 beyond its values: its plan (the window the card's occupancy gives,
+    as ``backward_window`` computes it), the share of corners it summed in
+    device memory rather than in its window, and d offset and d mask
+    repeating bit for bit (one writer each; dx's atomic sums need not)."""
+    name = 'deform_sample_bwd'
+    plan = D.backward_plan(x, geo)
+    window = D.backward_window(x.shape, geo, plan.halo)
+    if plan.window != window:
+        fail(f'{name}: the plan\'s window {plan.window} is not backward_window\'s {window}')
+    counts = torch.zeros(2, dtype=torch.int64, device='cuda')
+    with torch.no_grad():
+        D._launch_backward(x, offset, mask, dcol, geo, True, True, corners=counts)
+        first, again = kernel(), kernel()
+    near, far = counts.tolist()
+    same = {o: torch.equal(a, b) for o, a, b in zip(outputs, first, again) if a is not None}
+    print(f'{name:18s} {tag}: plan halo {plan.halo}, window {window.height}x{window.width} '
+          f'({window.smem_bytes} bytes a block), {window.slices} slice(s) of 32x{window.rows} '
+          f'pixels, {plan.taps_per_z} tap(s) a block, grid {plan.grid}, {plan.blocks_per_sm} '
+          f'blocks an SM; corners summed in device memory: {far} of {near + far} '
+          f'({100 * far / max(near + far, 1):.2f}%); a second launch repeats bit for bit: '
+          + ', '.join(f'{o} {"yes" if v else "no"}' for o, v in same.items()), flush=True)
+    if not all(v for o, v in same.items() if o != 'dx'):
+        fail(f'{name}: d offset or d mask differs between two launches at {tag}')
 
 
 def kernel_device_ms(fn, iters=20, only=None):
@@ -1383,8 +1442,9 @@ def train():
 def device_time_by_group(prof, ours):
     """(rows, groups, busy ms) of a ``torch.profiler`` trace: every device
     kernel and memory operation as (name, ms, count), and their sums by
-    group: each of our kernels (``ours``, matched by name), cuDNN
-    convolutions, GroupNorm, library GEMMs, memory operations, the rest."""
+    group: each of our kernels (``ours``, names that a kernel's name holds,
+    or {group: such a name}, the first that matches), cuDNN convolutions,
+    GroupNorm, library GEMMs, memory operations, the rest."""
     from torch.autograd import DeviceType
     # kernels and memory operations only: a host annotation (Optimizer.step#...)
     # also shows on the device timeline, over the kernels it spans
@@ -1392,8 +1452,9 @@ def device_time_by_group(prof, ours):
             if e.device_type == DeviceType.CUDA and not e.is_user_annotation
             and '#' not in e.key]
     groups = {}
+    ours = ours if isinstance(ours, dict) else {k: k for k in ours}
     for key, ms, count in rows:
-        group = next((k for k in ours if k in key), None)
+        group = next((k for k, needle in ours.items() if needle in key), None)
         if group is None:
             low = key.lower()
             group = ('memset / memcpy' if low.startswith('mem') else
@@ -1949,7 +2010,13 @@ def sampler_wrappers():
             'deform_sample_bwd': D.deform_sample_backward}
 
 
-SAMPLER_DEVICE_KERNELS = ('deform_sample_fwd', 'deform_sample_dx', 'deform_sample_doffset')
+# groups of device time by kernel name: K9's launches by its template's
+# one-tap flag (a warp, or a deformable convolution's nine taps)
+SAMPLER_DEVICE_KERNELS = {
+    'deform_sample_fwd': 'deform_sample_fwd',
+    'deform_sample_bwd nine taps': 'deform_sample_bwd_kernel<float, false>',
+    'deform_sample_bwd one tap': 'deform_sample_bwd_kernel<float, true>',
+    'deform_sample_bwd, other': 'deform_sample_bwd'}
 
 
 def plain_sampler():

@@ -343,9 +343,158 @@ def test_flow_offset_strides(layout):
 
 @pytest.mark.parametrize('op', ['deform_sample_fwd', 'deform_sample_bwd'])
 def test_binding_matches_the_c_signature(monkeypatch, op):
-    """The sampler's ctypes types are its kernels' C parameters, one for one."""
-    from test_torch_conv3x3 import bound_argtypes, c_signature
-    assert bound_argtypes(monkeypatch, port, op, op) == c_signature(op)
+    """The sampler's ctypes types are its kernels' C parameters, one for one:
+    the launch, and the backward's plan query."""
+    import ctypes
+    import re
+    import types
+
+    from basicsr4rs_torch.ops import _build, _launch
+    from test_torch_conv3x3 import c_signature
+    fake = types.SimpleNamespace(**{n: types.SimpleNamespace() for n in (
+        op, f'{op}_error', f'{op}_plan')})
+    monkeypatch.setattr(_launch, 'load_library', lambda _: fake)
+    port._lib.cache_clear()
+    try:
+        port._lib(op)
+    finally:
+        port._lib.cache_clear()
+    assert list(getattr(fake, op).argtypes) == c_signature(op)
+    if op == 'deform_sample_bwd':
+        source = (_build.CSRC_DIR / f'{op}.cu').read_text()
+        params = re.search(rf'\bint {op}_plan\(([^)]*)\)', source).group(1).split(',')
+        assert list(fake.deform_sample_bwd_plan.argtypes) == [
+            ctypes.c_void_p if '*' in p else ctypes.c_int for p in params]
+
+
+@pytest.mark.parametrize('layout', ['contiguous', 'permuted'])
+def test_backward_gives_dflow_in_the_flow_layout(layout):
+    """``deform_sample_backward`` under ``FLOW_WARP`` takes the flow as it is
+    and returns d flow (N, H, W, 2) with (dx, dy) last, equal to autograd
+    through ``warp_by_flow``, to autograd through ``bilinear_warp`` on the
+    positions (h + dy, w + dx), and to the JAX ``flow_warp``'s VJP."""
+    x, flow = _warp_case(seed=3, n=2, h=6, w=9, c=3)
+    weights = np.sin(np.arange(x.size, dtype=np.float32)).reshape(x.shape)
+    with dispatch.force_interpret():
+        _, vjp = jax.vjp(lambda b: ref_util.flow_warp(jnp.asarray(x), b), jnp.asarray(flow))
+        want = np.asarray(vjp(jnp.asarray(weights))[0])
+    tx, dout = torch.from_numpy(_nchw(x)), torch.from_numpy(_nchw(weights))
+    tf = _flow_as(flow, layout)
+    _, dflow, dmask = port.deform_sample_backward(tx, tf, None, dout.unsqueeze(2),
+                                                  port.FLOW_WARP, need_dx=False)
+    assert dflow.shape == tf.shape and dmask is None
+    np.testing.assert_allclose(dflow.numpy(), want, rtol=GRAD_TOL, atol=GRAD_TOL)
+    leaf = tf.clone().requires_grad_()
+    through_warp, = torch.autograd.grad(port.warp_by_flow(tx, leaf), leaf, dout)
+    assert torch.equal(through_warp, dflow)
+    leaf = tf.clone().requires_grad_()
+    grid_y = torch.arange(6, dtype=torch.float32).view(1, 6, 1)
+    grid_x = torch.arange(9, dtype=torch.float32).view(1, 1, 9)
+    out = port.bilinear_warp(tx, grid_y + leaf[..., 1], grid_x + leaf[..., 0])
+    through_positions, = torch.autograd.grad(out, leaf, dout)
+    np.testing.assert_allclose(through_positions.numpy(), dflow.numpy(), rtol=GRAD_TOL,
+                               atol=GRAD_TOL)
+
+
+def test_flow_warp_backward_hands_over_the_flow_as_it_is(monkeypatch):
+    """``_FlowWarp.backward`` gives the sampler the saved flow itself under
+    ``FLOW_WARP`` (no BasicSR offset built, no d offset flipped back): one
+    call, on the flow's storage, and d flow comes back in the flow's type."""
+    asked = []
+    real = port.deform_sample_backward
+
+    def spy(x, offset, mask, dcol, geo, **kwargs):
+        asked.append((offset.data_ptr(), tuple(offset.shape), offset.stride(), geo))
+        return real(x, offset, mask, dcol, geo, **kwargs)
+
+    monkeypatch.setattr(port, 'deform_sample_backward', spy)
+    x, flow = _warp_case(seed=4, n=1, h=5, w=7, c=2)
+    tf = _flow_as(flow, 'permuted').double().float().requires_grad_()
+    tx = torch.from_numpy(_nchw(x)).requires_grad_()
+    port.warp_by_flow(tx, tf).sum().backward()
+    assert asked == [(tf.data_ptr(), (1, 5, 7, 2), tf.stride(), port.FLOW_WARP)]
+    assert tf.grad.shape == tf.shape and tf.grad.dtype == tf.dtype
+
+
+@pytest.mark.parametrize('layout', ['contiguous', 'permuted', 'sliced'])
+def test_backward_dims_write_dflow_through_its_layout(layout):
+    """The backward launch's integers carry the flow's layout and that of
+    its gradient (``empty_like``: the flow's strides where they are dense,
+    contiguous where not, as for a frame sliced from a clip's flows);
+    writing (dy, dx) at the kernel's indices through the second layout gives
+    the flow's (N, H, W, 2) with (dx, dy) last."""
+    n, h, w = 2, 3, 5
+    flows = torch.arange(n * 3 * 2 * h * w, dtype=torch.float32).reshape(n, 3, 2, h, w)
+    flow = {'contiguous': flows[:, 0].permute(0, 2, 3, 1).contiguous(),
+            'permuted': flows[:, 0].contiguous().permute(0, 2, 3, 1),
+            'sliced': flows[:, 1].permute(0, 2, 3, 1)}[layout]
+    flow = port.flow_operand(flow)
+    grad = torch.empty_like(flow)
+    assert (grad.stride() == flow.stride()) == (layout != 'sliced')
+    dims, _ = port._backward_dims((n, 4, h, w), port.FLOW_WARP, flow.shape, flow.stride(),
+                                  grad.stride())
+    read, write = port.OffsetLayout(*dims[12:17]), port.OffsetLayout(*dims[17:22])
+    flat_in = flow.as_strided((flow.untyped_storage().nbytes() // 4,), (1,), 0)
+    flat_out = torch.zeros(grad.untyped_storage().nbytes() // 4)
+    for b in range(n):
+        for p in range(h * w):
+            at = read.start + b * read.batch + p * read.pixel
+            back = write.start + b * write.batch + p * write.pixel
+            flat_out[back] = flat_in[flow.storage_offset() + at]
+            flat_out[back + write.pair] = flat_in[flow.storage_offset() + at + read.pair]
+    assert torch.equal(torch.as_strided(flat_out, grad.shape, grad.stride()), flow)
+
+
+@pytest.mark.parametrize('shape, geo, halo, want', [
+    # EDVR-M's and BasicVSR++'s deformable convolutions: 8 channels a group, nine taps
+    ((20, 64, 64, 64), port.SampleGeometry(3, 3, 1, 1, 1, 8), 4, (1, 8, 19, 48, 32352)),
+    ((1, 128, 64, 64), port.SampleGeometry(3, 3, 1, 1, 1, 16), 0, (1, 8, 11, 40, 17248)),
+    # the one-tap warps: BasicVSR++'s 64-channel maps, the flow, SpyNet's images
+    ((1, 64, 64, 64), port.WARP, 1, (8, 1, 4, 40, 44128)),
+    ((1, 2, 64, 64), port.WARP, 8, (1, 8, 25, 52, 13568)),
+    ((58, 3, 64, 64), port.WARP, 8, (1, 8, 25, 52, 18768)),
+    # 16 and 32 channels a group; stride 2 and dilation 2 widen the footprint
+    ((2, 32, 16, 16), port.SampleGeometry(3, 3, 2, 1, 1, 2), 2, (2, 4, 14, 76, 71264)),
+    ((2, 32, 16, 16), port.SampleGeometry(3, 3, 1, 1, 2, 1), 0, (4, 2, 7, 40, 39008)),
+], ids=['edvr', 'basicvsrpp', 'warp-64ch', 'warp-flow', 'warp-spynet', 'stride2',
+        'dilation2'])
+def test_backward_window(shape, geo, halo, want):
+    """The backward block's share and window: the group's channels in
+    slices of at most 8, a 32 x rows tile, the footprint of its taps plus
+    the bottom and right corners, the halo on each side and the left edge
+    rounded down to a multiple of 4; shared memory for the window and the
+    block's sums. Without dx there is no window."""
+    assert tuple(port.backward_window(shape, geo, halo)) == want
+    no_dx = port.backward_window(shape, geo, halo, need_dx=False)
+    assert (no_dx.height, no_dx.width, no_dx.smem_bytes) == (0, 0, 4 * (3 * 256 + 3 * 8))
+
+
+def test_backward_refuses_a_group_no_window_fits(monkeypatch):
+    """A group whose halo-0 window passes the block's shared memory is
+    refused before the kernel is built; without dx it needs no window;
+    a CPU tensor has no plan."""
+    from basicsr4rs_torch.ops import _launch
+    monkeypatch.setattr(_launch, 'shared_memory_limit', lambda device: 232448)
+    port._check_window_fits.cache_clear()
+    fits, too_wide = torch.empty(1, 256, 8, 8), torch.empty(1, 512, 8, 8)
+    geo = port.SampleGeometry(3, 3, 1, 1, 1, 1)
+    port._check_backward_window('deform_sample_bwd', fits, geo, True)
+    port._check_backward_window('deform_sample_bwd', too_wide, geo, False)
+    with pytest.raises(ValueError, match='shared memory'):
+        port._check_backward_window('deform_sample_bwd', too_wide, geo, True)
+    with pytest.raises(ValueError, match='card'):
+        port.backward_plan(fits, geo)
+
+
+def test_sweep_variants_apply_to_the_kernel_source():
+    """Each variant of ``ops/deform_sample_sweep.py`` finds the text it
+    changes in K9's source, once, so an edit of the kernel cannot leave a
+    variant timing the kernel as built under another name."""
+    from basicsr4rs_torch.ops import _build, deform_sample_sweep as sweep
+    source = (_build.CSRC_DIR / 'deform_sample_bwd.cu').read_text()
+    for name, changes in sweep.VARIANTS.items():
+        for old, new in changes:
+            assert source.count(old) == 1 and old != new, name
 
 
 def test_flow_warp_rejects_other_modes():
