@@ -90,3 +90,21 @@ def calculate_ssim(img: np.ndarray, img2: np.ndarray, crop_border: int,
     """SSIM of [0, 255]-range images, averaged over channels."""
     img, img2 = _prepare(img, img2, crop_border, input_order, test_y_channel)
     return float(np.mean([_ssim(img[..., i], img2[..., i]) for i in range(img.shape[2])]))
+
+
+@METRIC_REGISTRY.register()
+def calculate_psnr_band(img, img2, crop_border, band: int = 0, input_order='HWC',
+                        **kwargs) -> float:
+    """PSNR of one spectral band of two multispectral images."""
+    img = reorder_image(np.asarray(img), input_order=input_order)
+    img2 = reorder_image(np.asarray(img2), input_order=input_order)
+    return calculate_psnr(img[..., band:band + 1], img2[..., band:band + 1], crop_border)
+
+
+@METRIC_REGISTRY.register()
+def calculate_ssim_band(img, img2, crop_border, band: int = 0, input_order='HWC',
+                        **kwargs) -> float:
+    """SSIM of one spectral band of two multispectral images."""
+    img = reorder_image(np.asarray(img), input_order=input_order)
+    img2 = reorder_image(np.asarray(img2), input_order=input_order)
+    return calculate_ssim(img[..., band:band + 1], img2[..., band:band + 1], crop_border)

@@ -14,14 +14,21 @@ nonzero exit code and no result line:
    SwinIR-M block shapes (C=180, 6 heads, window 8, hidden 360), without
    and with the shift mask, in float32 and bfloat16, and times both: the
    joint forward kernel also at the shapes of the served requests, at
-   SwinIR-light's widths (C=60, heads of 10) and with a window of 4; the
+   SwinIR-light's widths (C=60, heads of 10), with a window of 4 and at
+   SwinIR-L2S's block (window 6: 36 tokens in each 64-row tile, shifted by
+   3 under a mask of 256 x 36 x 36, B=1 and the training batch of 8 of
+   96x96, the latter under DropPath's scales); the
    attention and MLP branch kernels, forward and backward, at the training
    shape (batch 4 of 48x48) in their three output modes, every gradient by
    name, and where their tiles are padded: the attention kernels at
    SwinIR-light's widths, a window of 4 and heads of 48, the MLP kernels at
    SwinIR-light's widths and at 480 tokens (not a multiple of their
    64-token tile), and both forward kernels at the eval route's widths past
-   the joint kernel's (C=180 in 3 heads of 60, C=240 in 8 heads of 30); the
+   the joint kernel's (C=180 in 3 heads of 60, C=240 in 8 heads of 30), and
+   all four at SwinIR-L2S's training batch (window 6, both dtypes, shifted
+   and not, with DropPath's scales and without; timed shifted with them,
+   the attention kernels with the share of their window units' tile rows
+   that are padding); the
    two forward kernels, which add nothing atomically, must repeat bit for
    bit, the attention forward's two launches' device time is read by
    ``torch.profiler``, and the MLP forward's grid is printed (units, parts
@@ -143,7 +150,33 @@ nonzero exit code and no result line:
     through the attention and MLP branch forward kernels, no joint launch,
     against its plain forward; then, with the blocks' linears at full scale,
     under ``swin_kernels=True``: the W8A8 block alone, against the float
-    forward by phase 18's SNR bound; a width refused fails the phase.
+    forward by phase 18's SNR bound; a width refused fails the phase;
+23. writes a synthetic Landsat -> Sentinel tree (``results/chip_smoke/l2s``:
+    40 windows of uint16 TIFFs, Landsat a 3x area average of Sentinel) and
+    trains SwinIR-L2S x3 through ``basicsr4rs_torch.train`` (``-opt
+    options/train/SwinIR/train_SwinIR_L2S288_synthetic.yml``: 6 bands,
+    window 6, batch 8 at GT 288, ``use_amp``) for 8 steps: 36 launches of
+    K2 to K5 a step, the dtype the blocks are handed (float32 alone, or the
+    phase fails), a loss that falls on the first batch, one validation on ``net_g_ema`` (per-image CSV of band
+    PSNR/SSIM and NIQE, RGB and NSS PNGs), EMA and checkpoint, step time,
+    peak memory, and 2 steps by kernel with ``torch.profiler``;
+24. holds that model's output, loss and every gradient against the plain
+    versions on one training batch in float32, the dtype its blocks get
+    under ``use_amp``;
+25. serves it through ``basicsr4rs_torch.test`` (``-opt
+    options/test/SwinIR/test_SwinIR_L2S288_synthetic.yml``, LQ 96x96): 36 K1
+    launches a request, latency, where a validation item's host time goes,
+    and one request of ``SwinIRHMModel`` on ``SwinIR_StyleCNN`` with both
+    outputs scored;
+26. trains ResShift-L2S x3 (``-opt
+    options/train/ResShift/train_ResShift_L2S288_synthetic.yml``: window 9,
+    72x72 latents of 6 bands, batch 32, ``use_amp``) for 8 steps: 18
+    launches of K6 and of K7 a step in bfloat16, step time, peak memory, the
+    device time of 2 steps by kernel;
+27. samples it through ``basicsr4rs_torch.test`` (``-opt
+    options/test/ResShift/test_ResShift_L2S288_synthetic.yml``): 2 requests
+    of 15 reverse steps, 270 K6 launches each, latency, the device time of a
+    request by kernel.
 
 ``python3 chip_smoke.py kernels`` stops after phase 3; ``python3 chip_smoke.py
 serving`` runs phases 3a, 3e, 3f, 4, 4b and 17 to 22 alone. The line before the
@@ -153,6 +186,7 @@ last is a JSON summary of the kernels; the last line is
 
 import collections
 import json
+import math
 import os
 import subprocess
 import sys
@@ -192,7 +226,7 @@ def fail(msg):
 
 
 def phase(title):
-    print(f'\n== {title}', flush=True)
+    print(f'\n== {title} [at {time.perf_counter() - T0:.1f} s]', flush=True)
 
 
 def cuda_time_ms(fn, iters=10):
@@ -276,6 +310,21 @@ M_WIDTHS = (C, HEADS, WS, HIDDEN)
 LIGHT_WIDTHS = (60, 6, 8, 120)   # SwinIR-light: embed 60, 6 heads of 10, mlp 2
 # past the joint kernel's widths: heads of 60, and SwinIR-L's 240 in 8 heads of 30; mlp 2
 WIDE_WIDTHS = ((180, 3, 8, 360), (240, 8, 8, 480))
+# SwinIR-L2S (train_SwinIR_L2S288_scratch.yml): 6 heads of 30, window 6 (36
+# tokens, shifted by 3), mlp 2; its training batch is 8 LQ patches of 96x96
+L2S_WIDTHS = (180, 6, 6, 360)
+L2S_SHAPE = (8, 96, 96)
+
+
+def padded_rows(ws):
+    """The share of the window units' tile rows that are padding: K1 to K3
+    hold a window of ws^2 tokens in a tile of the Swin kernels' largest
+    window (K2's proj launch, K3's LayerNorm backward and the MLP kernels
+    tile the tokens themselves, which the shapes here fill)."""
+    from basicsr4rs_torch.ops.swin_block import MAX_TOKENS_PER_WINDOW
+    return 1 - ws * ws / MAX_TOKENS_PER_WINDOW
+
+
 ROUTE = {torch.float32: '3xTF32 at 495 TFLOP/s', torch.bfloat16: 'bfloat16 at 989 TFLOP/s'}
 
 
@@ -339,7 +388,7 @@ def time_pair(plain, kernel):
 def check_joint_kernel():
     from basicsr4rs_torch.ops.swin_block import fused_swin_block_full, reference_swin_block_full
     phase('3a. joint forward kernel vs plain version (SwinIR-M block: C=180, 6 heads, '
-          'window 8, hidden 360)')
+          'window 8, hidden 360; and SwinIR-L2S\'s, window 6)')
     gen = torch.Generator().manual_seed(0)
     both = (torch.float32, torch.bfloat16)
     cases = [(2, 64, 64, dt, shift, False) for dt in both for shift in (0, 4)]
@@ -352,8 +401,17 @@ def check_joint_kernel():
     cases += [(2, 64, 64, dt, shift, False, LIGHT_WIDTHS) for dt in both for shift in (0, 4)]
     cases += [(2, 32, 32, dt, shift, False, (C, HEADS, 4, HIDDEN))
               for dt in both for shift in (0, 2)]
+    # SwinIR-L2S's block: its request (B=1 96x96) and its training batch under
+    # DropPath's scales (the joint training route), mask of 256 x 36 x 36
+    l2s = [(1, 96, 96, dt, shift, False, L2S_WIDTHS) for dt in both for shift in (0, 3)]
+    l2s += [(*L2S_SHAPE, dt, shift, True, L2S_WIDTHS) for dt in both for shift in (0, 3)]
+    cases += l2s
+    # timed: all but the L2S cases that only check (the request both ways and
+    # the float32 batch, shifted)
+    untimed = {case for case in l2s if case[4] == 0 or (case[0] == 8 and case[3] != torch.float32)}
     summary = {'max_abs_err': 0.}
-    for b, h, w, dt, shift, scaled, (c, heads, ws, hidden) in cases:
+    for case in cases:
+        b, h, w, dt, shift, scaled, (c, heads, ws, hidden) = case
         args = block_inputs(b, h, w, dt, shift, gen, c, heads, ws, hidden)
         scales = None
         if scaled:   # mask / keep per sample and branch: sample 1 loses both, sample 2 one
@@ -372,11 +430,28 @@ def check_joint_kernel():
         line = (f'B={b} {h}x{w}{widths} {str(dt)[6:]:8s} shift={shift}{" scaled" if scaled else ""}: '
                 f'max_abs_err={max_abs:.3e} '
                 f'max_rel_err={max_rel:.3e} (max|err| / max|plain|), tolerance {tolerance}')
+        if not ok:
+            print(line, flush=True)
+            fail(f'joint kernel and plain version disagree at {(b, h, w, dt, shift, scaled)}')
+        if dt == torch.float32:
+            summary['max_abs_err'] = max(summary['max_abs_err'], max_abs)
+        if case in untimed:
+            print(line, flush=True)
+            continue
         with torch.no_grad():
             kernel_ms, plain_ms = time_pair(
                 lambda: reference_swin_block_full(*args, residual_scales=scales),
                 lambda: fused_swin_block_full(*args, residual_scales=scales))
         line += f' | kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms'
+        if (c, heads, ws, hidden) == L2S_WIDTHS:
+            flop, nbytes = kernel_work('swin_block_joint_fwd', b, h, w, dt, shift, L2S_WIDTHS)
+            (bound, by), _ = tensor_core_bound_ms(flop, nbytes, dt)
+            line += (f', bound {bound:.4f} ms by {by} on its route ({ROUTE[dt]}); '
+                     f'{100 * padded_rows(ws):.2f}% of its tile rows padding')
+            key = f'ws6_{"bf16_" if dt != torch.float32 else ""}{"b8_" if b == 8 else ""}'
+            summary.update({key + 'ms': kernel_ms, key + 'bound_ms': bound})
+            if key == 'ws6_':
+                summary['ws6_plain_ms'] = plain_ms
         if (c, heads, ws, hidden) == M_WIDTHS and (
                 (b, h, w) == (1, 128, 128) or (b, h, w, dt) == (2, 64, 64, torch.bfloat16)):
             flop, nbytes = kernel_work('swin_block_joint_fwd', b, h, w, dt, shift)
@@ -387,10 +462,6 @@ def check_joint_kernel():
                 summary.update(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                                cuda_core_bound_ms=cuda_cores)
         print(line, flush=True)
-        if not ok:
-            fail(f'joint kernel and plain version disagree at {(b, h, w, dt, shift, scaled)}')
-        if dt == torch.float32:
-            summary['max_abs_err'] = max(summary['max_abs_err'], max_abs)
     return summary
 
 
@@ -427,7 +498,13 @@ def check_branch_kernels():
     # SwinIR's eval blocks past the joint kernel's widths (phase 22): the
     # forward kernels alone
     cases += [((2, 64, 64), dt, 4, 'scaled', widths) for widths in WIDE_WIDTHS for dt in both]
-    padded_s = 0.
+    # SwinIR-L2S's training batch: window 6 (36 tokens in each 64-row tile of
+    # K2's and K3's units), shifted by 3 with the 256 x 36 x 36 mask and not,
+    # with DropPath's scales and without; timed where shifted and scaled
+    l2s = [(L2S_SHAPE, dt, shift, mode, L2S_WIDTHS) for dt in both for shift in (0, 3)
+           for mode in ('residual', 'scaled')]
+    cases += l2s
+    padded_s = l2s_s = 0.
     summary = {name: {'max_abs_err': 0.} for name in
                ('swin_attn_block_fwd', 'swin_attn_block_bwd', 'mlp_block_fwd', 'mlp_block_bwd')}
     for (b, h, w), dt, shift, mode, widths in cases:
@@ -455,13 +532,14 @@ def check_branch_kernels():
             ('mlp_block_bwd', M.mlp_block_backward, M.reference_mlp_block_backward, mlp_b,
              MLP_GRADS),
         ]
-        padded = widths != M_WIDTHS or h % ws or w % ws
+        padded = widths not in (M_WIDTHS, L2S_WIDTHS) or h % ws or w % ws
         if h % ws or w % ws:
             runs = runs[2:]
         elif widths in WIDE_WIDTHS:   # the eval route: the forward kernels
             runs = runs[0:1] + runs[2:3]
-        elif widths not in (M_WIDTHS, LIGHT_WIDTHS):   # the MLP kernels' tiles are not padded
+        elif widths not in (M_WIDTHS, LIGHT_WIDTHS, L2S_WIDTHS):   # MLP tiles not padded
             runs = runs[:2]
+        is_l2s = widths == L2S_WIDTHS
         tag = (f'B={b} {h}x{w} {str(dt)[6:]:8s} shift={shift} {mode:8s}'
                + ('' if widths == M_WIDTHS else f' C={c} heads={heads} ws={ws}'))
         for name, kernel, plain, args, outputs in runs:
@@ -488,11 +566,27 @@ def check_branch_kernels():
                 through = dz if name.endswith('bwd') else x
                 if not torch.equal(got[0][1], through[1]):
                     fail(f'{name}: the dropped sample is not passed through at {tag}')
+            if is_l2s and not (shift and mode == 'scaled'):
+                print(f'{name:20s} {tag}: max abs err (of max|plain|): ' + ', '.join(worst),
+                      flush=True)
+                continue
             kernel_ms, plain_ms = time_pair(lambda: plain(*args), lambda: kernel(*args))
             flop, nbytes = kernel_work(name, b, h, w, dt, shift, widths)
             (bound, by), cuda_cores = tensor_core_bound_ms(flop, nbytes, dt)
             route = (f'bound {bound:.4f} ms by {by} on its route ({ROUTE[dt]}; on the CUDA '
                      f'cores {cuda_cores:.4f} ms)')
+            if is_l2s:
+                if name.startswith('swin_attn'):
+                    route += (f'; {100 * padded_rows(ws):.2f}% of its (window, head) units\' '
+                              'tile rows padding')
+                key = 'ws6_' if dt == torch.float32 else 'ws6_bf16_'
+                summary[name].update({key + 'ms': kernel_ms, key + 'bound_ms': bound})
+                if dt == torch.float32:
+                    summary[name]['ws6_plain_ms'] = plain_ms
+                if name == 'mlp_block_fwd':   # the plan it picks at 73,728 tokens
+                    units, parts, per_sm, sms, _ = M.forward_plan(x, hidden)
+                    route += (f'; grid {units} units ({parts} parts a tile), {per_sm} block(s) '
+                              f'an SM on {sms} SMs')
             print(f'{name:20s} {tag}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, '
                   f'{route} | max abs err (of max|plain|): ' + ', '.join(worst), flush=True)
             main_case = ((b, h, w), shift, mode, widths) == (TRAIN_SHAPE, 4, 'scaled', M_WIDTHS)
@@ -532,8 +626,11 @@ def check_branch_kernels():
                       flush=True)
         if padded:
             padded_s += time.perf_counter() - t_case
+        if is_l2s:
+            l2s_s += time.perf_counter() - t_case
     print(f'phase 3b: {time.perf_counter() - t0:.1f} s, of which {padded_s:.1f} s for the '
-          'padded shapes (C=60, window 4, C=96, 20x12)')
+          f'padded shapes (C=60, window 4, C=96, 20x12) and {l2s_s:.1f} s for SwinIR-L2S\'s '
+          'window 6')
     return summary
 
 
@@ -1200,6 +1297,33 @@ def serve():
     return model, loader, launches
 
 
+def request_latencies(model, items, want, launches=None):
+    """ms of the model's own test() on each of ``items``, after a warm-up
+    request, with the peak memory counted from the first timed one;
+    ``want(item)``: the output's shape; ``launches``: (wrapper, count), the
+    launches of a kernel each request must make."""
+    model.feed_data(items[0])
+    model.test()
+    torch.cuda.reset_peak_memory_stats()
+    latencies = []
+    for item in items:
+        model.feed_data(item)
+        before = launches[0].launches if launches else 0
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        model.test()
+        end.record()
+        torch.cuda.synchronize()
+        out = model.output
+        if tuple(out.shape) != tuple(want(item)) or not torch.isfinite(out).all():
+            fail(f'request: output {tuple(out.shape)}, expected {tuple(want(item))}')
+        if launches and launches[0].launches - before != launches[1]:
+            fail(f'a request launched {getattr(launches[0], "__name__", "a kernel")} '
+                 f'{launches[0].launches - before} times, expected {launches[1]}')
+        latencies.append(start.elapsed_time(end))
+    return latencies
+
+
 def profile_requests(model, loader):
     """Phase 4b: where the device time of the SwinIR-M requests goes, by
     kernel group, two requests of each served size."""
@@ -1318,11 +1442,58 @@ def run_train_pipeline(extra_args, record, config=None, model_cls=None, loss_key
         sys.argv = argv
 
 
+def fresh_run(opt, wrappers):
+    """A clean start for a training phase: the experiment's folders gone (no
+    archived copies, no resume), the kernels' counts at 0 and the peak
+    memory counter reset. Returns the experiment's folder."""
+    import glob
+    import shutil
+    exp_dir = os.path.join('experiments', opt['name'])
+    for old in glob.glob(exp_dir + '*'):
+        shutil.rmtree(old)
+    for wr in wrappers.values():
+        wr.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    return exp_dir
+
+
+def check_steps(steps, total_iter, loss_key, per_step):
+    """Print each step's record; fail unless steps 1..total_iter ran, each
+    with a finite loss and ``per_step[kernel]`` launches of each kernel
+    named. Returns the mean ms of steps 3..total_iter."""
+    for st in steps:
+        print(f'step {st["iter"]}: {st["ms"]:.3f} ms, {loss_key} {st[loss_key]:.6f}, launches '
+              + ' '.join(f'{k}={v}' for k, v in st['launches'].items() if v))
+    if [st['iter'] for st in steps] != list(range(1, total_iter + 1)):
+        fail(f'expected steps 1..{total_iter}, ran {[st["iter"] for st in steps]}')
+    for st in steps:
+        if not math.isfinite(st[loss_key]):
+            fail(f'{loss_key} is not finite at step {st["iter"]}')
+        for name, count in per_step.items():
+            if st['launches'][name] != count:
+                fail(f'step {st["iter"]}: {st["launches"][name]} launches of {name}, '
+                     f'expected {count}')
+    timed = [st['ms'] for st in steps[2:]]
+    step_ms = sum(timed) / len(timed)
+    print(f'training step: {step_ms:.3f} ms mean of steps 3..{total_iter} (min {min(timed):.3f}, '
+          f'max {max(timed):.3f}; CUDA events around optimize_parameters, after 2 warm-up '
+          f'steps); peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB')
+    return step_ms
+
+
+SPLIT_KERNELS = ('swin_attn_block_fwd', 'swin_attn_block_bwd', 'mlp_block_fwd', 'mlp_block_bwd')
+
+
 def follow_first_batch(model, record):
     """Keep SwinIR's first batch: the loss is followed on it."""
     if 'fixed' not in record:
         record['fixed'] = (model.lq.clone(), model.gt.clone())
         record['fixed_loss_before'] = fixed_batch_loss(model, record['fixed'])
+
+
+def keep_first_batch(model, record):
+    """Keep a diffusion model's first batch: its profile runs on it."""
+    record.setdefault('batch', (model.lq.clone(), model.gt.clone()))
 
 
 def fixed_batch_loss(model, batch):
@@ -1357,9 +1528,6 @@ def check_ema_and_checkpoint(model, fresh, ckpt_path):
 
 
 def train():
-    import glob
-    import shutil
-
     from basicsr4rs_torch.archs.swinir_arch import SwinIR
     from basicsr4rs_torch.utils.options import yaml_load
     phase('6. train SwinIR-M x4 through basicsr4rs_torch.train on cuda:0 '
@@ -1368,13 +1536,8 @@ def train():
     opt = yaml_load(TRAIN_CONFIG)
     total_iter = opt['train']['total_iter']
     blocks = sum(opt['network_g']['depths'])
-    exp_dir = os.path.join('experiments', opt['name'])
-    for old in glob.glob(exp_dir + '*'):   # a clean start: no archived copies, no resume
-        shutil.rmtree(old)
     wrappers = training_kernels()
-    for w in wrappers.values():
-        w.launches = 0
-    torch.cuda.reset_peak_memory_stats()
+    exp_dir = fresh_run(opt, wrappers)
     record = {'steps': []}
     t0 = time.perf_counter()
     model = run_train_pipeline([], record)
@@ -1389,29 +1552,13 @@ def train():
     validations = total_iter // opt['val']['val_freq'] + 1
     print(f'pipeline wall time {wall:.3f} s for {len(steps)} steps, {validations} validations, '
           'checkpoints')
-    for st in steps:
-        print(f'step {st["iter"]}: {st["ms"]:.3f} ms, l_pix {st["l_pix"]:.6f}, launches '
-              + ' '.join(f'{k}={v}' for k, v in st['launches'].items() if v))
-    if [st['iter'] for st in steps] != list(range(1, total_iter + 1)):
-        fail(f'expected steps 1..{total_iter}, ran {[st["iter"] for st in steps]}')
-    for st in steps:
-        if not torch.isfinite(torch.tensor(st['l_pix'])):
-            fail(f'l_pix is not finite at step {st["iter"]}')
-        for name in ('swin_attn_block_fwd', 'swin_attn_block_bwd', 'mlp_block_fwd',
-                     'mlp_block_bwd'):
-            if st['launches'][name] != blocks:
-                fail(f'step {st["iter"]}: {st["launches"][name]} launches of {name}, '
-                     f'expected {blocks}')
+    step_ms = check_steps(steps, total_iter, 'l_pix', dict.fromkeys(SPLIT_KERNELS, blocks))
     # each validation image, and the fixed batch before step 1, is one forward
     # of the joint kernel per block
     if launches['swin_block_joint_fwd'] != blocks * (validations + 1):
         fail(f'{launches["swin_block_joint_fwd"]} launches of the joint kernel, expected '
              f'{blocks} x ({validations} validation images + 1 fixed batch)')
     print('launches in the run: ' + ' '.join(f'{k}={v}' for k, v in launches.items()))
-    timed = [st['ms'] for st in steps[2:]]
-    print(f'training step: {sum(timed) / len(timed):.3f} ms mean of steps 3..{total_iter} '
-          f'(min {min(timed):.3f}, max {max(timed):.3f}; CUDA events around '
-          f'optimize_parameters, after 2 warm-up steps); peak device memory {peak:.1f} MiB')
     loss_after = fixed_batch_loss(model, record['fixed'])
     print(f'l_pix on the first batch, eval mode: {record["fixed_loss_before"]:.6f} before '
           f'step 1, {loss_after:.6f} after step {total_iter} '
@@ -1436,7 +1583,7 @@ def train():
     if iters != list(range(total_iter + 1, total_iter + RESUME_ITERS + 1)):
         fail(f'resume should continue at step {total_iter + 1}, ran {iters}')
     profile_training_steps(model, record['fixed'])
-    return launches, sum(timed) / len(timed), peak
+    return launches, step_ms, peak
 
 
 def device_time_by_group(prof, ours):
@@ -1545,43 +1692,57 @@ def compare_gradients(what, loss_k, grads_k, loss_p, grads_p):
         fail(f'{what}: loss or gradients disagree between kernels and plain versions')
 
 
-def check_model_gradients():
+def check_model_gradients(number='7', config=TRAIN_CONFIG, lq_shape=(4, 3, 48, 48)):
+    """One training batch of the SwinIR of ``config`` forward and backward
+    through the kernels and through their plain versions, in float32, with
+    the same DropPath masks: the output, the loss and every parameter's
+    gradient."""
     from basicsr4rs_torch.archs.swinir_arch import SwinIR
     from basicsr4rs_torch.ops import mlp_block as M
     from basicsr4rs_torch.ops import swin_block as S
     from basicsr4rs_torch.utils.options import yaml_load
-    phase('7. whole model, forward and backward: kernels vs plain versions, one training batch')
-    net_opt = dict(yaml_load(TRAIN_CONFIG)['network_g'])
+    net_opt = dict(yaml_load(config)['network_g'])
     net_opt.pop('type')
+    b, c, h, w = lq_shape
+    phase(f'{number}. whole model, forward and backward: kernels vs plain versions, one training '
+          f'batch ({os.path.basename(config)}: {b} x {c} x {h}x{w})')
     net = SwinIR(**net_opt, generator=torch.Generator().manual_seed(0)).cuda().train()
     gen = torch.Generator().manual_seed(2)
-    lq = torch.rand(4, 3, 48, 48, generator=gen).cuda()
-    gt = torch.rand(4, 3, 192, 192, generator=gen).cuda()
+    scale = net_opt['upscale']
+    lq = torch.rand(lq_shape, generator=gen).cuda()
+    gt = torch.rand(b, c, scale * h, scale * w, generator=gen).cuda()
 
     def loss_and_grads():
         net.seed_drop_path(123, 'cuda')   # the same DropPath masks in both runs
         net.zero_grad(set_to_none=True)
-        loss = (net(lq) - gt).abs().mean()
+        out = net(lq)
+        loss = (out - gt).abs().mean()
         loss.backward()
-        return loss.item(), {k: p.grad.clone() for k, p in net.named_parameters()}
+        return out.detach(), loss.item(), {k: p.grad.clone() for k, p in net.named_parameters()}
 
-    loss_k, grads_k = loss_and_grads()
+    out_k, loss_k, grads_k = loss_and_grads()
     plain = [(S, 'swin_attn_block_forward', S.reference_swin_attn_block),
              (S, 'swin_attn_block_backward', S.reference_swin_attn_block_backward),
              (M, 'mlp_block_forward', M.reference_mlp_block),
              (M, 'mlp_block_backward', M.reference_mlp_block_backward)]
-    counts = {k: w.launches for k, w in training_kernels().items()}
+    counts = {k: wr.launches for k, wr in training_kernels().items()}
     patches = [mock.patch.object(mod, name, fn) for mod, name, fn in plain]
     for p in patches:
         p.start()
     try:
-        loss_p, grads_p = loss_and_grads()
+        out_p, loss_p, grads_p = loss_and_grads()
     finally:
         for p in patches:
             p.stop()
-    if counts != {k: w.launches for k, w in training_kernels().items()}:
+    if counts != {k: wr.launches for k, wr in training_kernels().items()}:
         fail('the plain run launched a kernel')
-    compare_gradients('SwinIR', loss_k, grads_k, loss_p, grads_p)
+    err = (out_k - out_p).abs().max().item()
+    print(f'output {tuple(out_k.shape)}: max abs difference {err:.3e} (max|plain| '
+          f'{out_p.abs().max().item():.3e}; tolerance {MODEL_TOLERANCE})')
+    if not err <= MODEL_TOLERANCE:
+        fail('whole-model outputs disagree between kernels and plain versions')
+    compare_gradients(os.path.basename(config), loss_k, grads_k, loss_p, grads_p)
+    del net, grads_k, grads_p
 
 
 # ------------------------------------------------------------------ ResShift
@@ -1709,26 +1870,11 @@ def serve_resshift():
     dataset_opt = model.opt['datasets']['test_1']
     from basicsr4rs_torch.data import build_dataloader, build_dataset
     loader = list(build_dataloader(build_dataset(dataset_opt), dataset_opt))
-    model.feed_data(loader[0])
-    model.test()
-    torch.cuda.reset_peak_memory_stats()
-    latencies = []
-    for item in loader:
-        model.feed_data(item)
-        before = wrappers['window_attention_fwd'].launches
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        model.test()
-        end.record()
-        torch.cuda.synchronize()
-        out = model.output
-        if out.shape != (1, 3, size, size) or not torch.isfinite(out).all():
-            fail(f'request: output {tuple(out.shape)}')
-        if wrappers['window_attention_fwd'].launches - before != per_request:
-            fail(f'a request did not launch the forward kernel {per_request} times')
-        latencies.append(start.elapsed_time(end))
-        print(f'request LQ {RS_LQ}x{RS_LQ} -> {size}x{size}: {latencies[-1]:.3f} ms '
-              f'({latencies[-1] / steps:.3f} ms a reverse step, decode included)')
+    latencies = request_latencies(model, loader, lambda item: (1, 3, size, size),
+                                  (wrappers['window_attention_fwd'], per_request))
+    for ms in latencies:
+        print(f'request LQ {RS_LQ}x{RS_LQ} -> {size}x{size}: {ms:.3f} ms '
+              f'({ms / steps:.3f} ms a reverse step, decode included)')
     print(f'request latency: mean {sum(latencies) / len(latencies):.3f} ms of {len(latencies)}; '
           f'peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB')
 
@@ -1791,9 +1937,6 @@ def serve_resshift():
 
 
 def train_resshift():
-    import glob
-    import shutil
-
     from basicsr4rs_torch.models.resshift_model import ResShiftModel
     from basicsr4rs_torch.ops import window_attention as A
     opt, steps, per_forward = resshift_options(RS_TRAIN_CONFIG)
@@ -1801,18 +1944,9 @@ def train_resshift():
     phase(f'9. train ResShift x4 through basicsr4rs_torch.train on cuda:0 (batch {batch}, '
           'GT 256 -> latent 64x64, float32)')
     total_iter = opt['train']['total_iter']
-    exp_dir = os.path.join('experiments', opt['name'])
-    for old in glob.glob(exp_dir + '*'):   # a clean start: no archived copies, no resume
-        shutil.rmtree(old)
     wrappers = attention_wrappers()
-    for w in wrappers.values():
-        w.launches = 0
-    torch.cuda.reset_peak_memory_stats()
+    exp_dir = fresh_run(opt, wrappers)
     record = {'steps': []}
-
-    def keep_first_batch(model, record):
-        record.setdefault('batch', (model.lq.clone(), model.gt.clone()))
-
     common = dict(config=RS_TRAIN_CONFIG, model_cls=ResShiftModel, loss_key='loss',
                   wrappers=wrappers, before_first_step=keep_first_batch)
     t0 = time.perf_counter()
@@ -1820,23 +1954,13 @@ def train_resshift():
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: w.launches for k, w in wrappers.items()}
-    peak = torch.cuda.max_memory_allocated() / 2**20
     if model.device.type != 'cuda' or next(model.net_g.parameters()).device.type != 'cuda':
         fail(f'the model trained on {model.device}')
     run = record['steps']
     validations = total_iter // opt['val']['val_freq'] + 1
     print(f'pipeline wall time {wall:.3f} s for {len(run)} steps, {validations} validations '
-          f'(one image, {steps} reverse steps each), checkpoints')
-    for st in run:
-        print(f'step {st["iter"]}: {st["ms"]:.3f} ms, loss {st["loss"]:.6f}, launches '
-              + ' '.join(f'{k}={v}' for k, v in st['launches'].items()))
-    if [st['iter'] for st in run] != list(range(1, total_iter + 1)):
-        fail(f'expected steps 1..{total_iter}, ran {[st["iter"] for st in run]}')
-    for st in run:
-        if not torch.isfinite(torch.tensor(st['loss'])):
-            fail(f'the loss is not finite at step {st["iter"]}')
-        if set(st['launches'].values()) != {per_forward}:
-            fail(f'step {st["iter"]}: launches {st["launches"]}, expected {per_forward} of each')
+          f'(one image, {steps} reverse steps each), checkpoints; batch {batch}')
+    check_steps(run, total_iter, 'loss', dict.fromkeys(wrappers, per_forward))
     if model.skipped_steps:
         fail(f'{model.skipped_steps} steps were skipped as non-finite')
     want = {'window_attention_fwd': per_forward * (total_iter + steps * validations),
@@ -1844,11 +1968,6 @@ def train_resshift():
     if launches != want:
         fail(f'launches in the run {launches}, expected {want}')
     print('launches in the run: ' + ' '.join(f'{k}={v}' for k, v in launches.items()))
-    timed = [st['ms'] for st in run[2:]]
-    step_ms = sum(timed) / len(timed)
-    print(f'training step: {step_ms:.3f} ms mean of steps 3..{total_iter} (min {min(timed):.3f}, '
-          f'max {max(timed):.3f}; CUDA events around optimize_parameters, after 2 warm-up '
-          f'steps); peak device memory {peak:.1f} MiB at batch {batch}')
 
     check_ema_and_checkpoint(model, random_resshift_weights(opt, seed=1)[0],
                              os.path.join(exp_dir, 'models', f'net_g_{total_iter}.pth'))
@@ -2003,6 +2122,460 @@ def check_l2s_unet():
     return launches
 
 
+# ------------------------------------------ the Landsat -> Sentinel (L2S) path
+L2S_DIR = 'results/chip_smoke/l2s'
+L2S_SWINIR_TRAIN = 'options/train/SwinIR/train_SwinIR_L2S288_synthetic.yml'
+L2S_SWINIR_TEST = 'options/test/SwinIR/test_SwinIR_L2S288_synthetic.yml'
+L2S_HM_CONFIG = 'options/train/SwinIR/train_SwinIR_StyleCNN_L2S288_scratch.yml'
+L2S_RS_TRAIN = 'options/train/ResShift/train_ResShift_L2S288_synthetic.yml'
+L2S_RS_TEST = 'options/test/ResShift/test_ResShift_L2S288_synthetic.yml'
+# 5 tiles of 8 windows: 40 samples, of which the configs' split gives 32 to
+# training (ResShift-L2S's batch) and 8 to validation
+L2S_TILES, L2S_WINDOWS = 5, 8
+L2S_BANDS = ('red', 'green', 'blue', 'nir08', 'swir16', 'swir22')
+# the validations and the served runs take 2 of them: a split of 38 and 2
+L2S_VAL_IMAGES = 2
+L2S_VAL_SPLIT = f'split_percent=[{L2S_TILES * L2S_WINDOWS - L2S_VAL_IMAGES},{L2S_VAL_IMAGES}]'
+
+
+def l2s_output(item):
+    """The shape of an L2S request's output: its 6 bands on the 288x288 grid."""
+    return (1, 6, 288, 288)
+
+
+def write_l2s_tree():
+    """The synthetic L2S tree the four ``*_L2S288_synthetic.yml`` configs
+    read: per window a smooth random reflectance field of each band at 10 m
+    (300x300), Sentinel's RGB at 10 m and its NSS group at 20 m (150x150),
+    ``sentinel_hm`` the same, and Landsat at 30 m (100x100), each an area
+    average of the field, so that Landsat is a 3x downscale of Sentinel and
+    the task can be learnt; uint16 digital numbers through the inverses of
+    the datasets' norms (Sentinel reflectance x 1e4, Landsat (reflectance +
+    0.2) / 2.75e-5), reflectance up to 0.27 in RGB and 0.45 in NSS (the norms
+    map 0.3 and 0.5 to 1). Every window scores PSNR 30, SSIM 0.9 in
+    ``metric.json`` and ``metric_hm.json``."""
+    import shutil
+
+    import cv2
+    import numpy as np
+    if os.path.isdir(L2S_DIR):
+        shutil.rmtree(L2S_DIR)
+    rng = np.random.RandomState(5)
+    top = (0.3,) * 3 + (0.5,) * 3
+    for t in range(L2S_TILES):
+        metrics = {}
+        for i in range(L2S_WINDOWS):
+            window = os.path.join(L2S_DIR, f'tile{t}', f'w{i}', 't0')
+            metrics[f'w{i}'] = {'t0': {'psnr': 30.0, 'ssim': 0.9}}
+            for src in ('sentinel', 'sentinel_hm', 'landsat'):
+                os.makedirs(os.path.join(window, src), exist_ok=True)
+            for b, (band, hi) in enumerate(zip(L2S_BANDS, top)):
+                coarse = rng.rand(300 // 16 + 2, 300 // 16 + 2).astype(np.float32)
+                field = np.clip(cv2.resize(coarse, (300, 300), interpolation=cv2.INTER_CUBIC),
+                                0, 1) * 0.9 * hi
+                sentinel = field if b < 3 else cv2.resize(field, (150, 150),
+                                                          interpolation=cv2.INTER_AREA)
+                landsat = cv2.resize(field, (100, 100), interpolation=cv2.INTER_AREA)
+                dn_sentinel = np.round(sentinel / 1e-4).astype(np.uint16)
+                dn_landsat = np.round((landsat + 0.2) / 2.75e-5).astype(np.uint16)
+                for src, dn in (('sentinel', dn_sentinel), ('sentinel_hm', dn_sentinel),
+                                ('landsat', dn_landsat)):
+                    cv2.imwrite(os.path.join(window, src, f'{band}.tif'), dn)
+        for name in ('metric.json', 'metric_hm.json'):
+            with open(os.path.join(L2S_DIR, f'tile{t}', name), 'w') as f:
+                json.dump(metrics, f)
+
+
+def check_band_outputs(vis, dataset, names, size):
+    """Each image's ``result.png`` under ``RGB/`` and ``NSS/``, three bands of
+    ``size`` each."""
+    import cv2
+    for name in names:
+        for group in ('RGB', 'NSS'):
+            path = os.path.join(vis, group, dataset, name, 'result.png')
+            img = cv2.imread(path)
+            if img is None or img.shape != (size, size, 3):
+                fail(f'{path}: {None if img is None else img.shape}')
+
+
+def check_metric_csv(path, metrics, rows):
+    """``rows`` images of finite scores in a per-image metric CSV; returns
+    the image names."""
+    import csv
+    with open(path, newline='') as f:
+        lines = list(csv.reader(f))
+    if lines[0] != [''] + list(metrics) or len(lines) != rows + 1:
+        fail(f'{path}: header {lines[0]}, {len(lines) - 1} rows, expected {rows}')
+    for line in lines[1:]:
+        if not all(math.isfinite(float(v)) for v in line[1:]):
+            fail(f'{path}: a score is not finite in {line}')
+    return [line[0] for line in lines[1:]]
+
+
+def train_swinir_l2s():
+    """Phase 23: SwinIR-L2S x3 through ``basicsr4rs_torch.train`` at the
+    published batch, GT and use_amp. Returns the kernels' launches."""
+    import glob
+
+    from basicsr4rs_torch.archs.swinir_arch import SwinIR
+    from basicsr4rs_torch.models.swinir_model import SwinIRL2sModel
+    from basicsr4rs_torch.ops import swin_block as S
+    from basicsr4rs_torch.utils.options import yaml_load
+    opt = yaml_load(L2S_SWINIR_TRAIN)
+    train_opt = opt['datasets']['train']
+    batch, gt_size = train_opt['batch_size_per_gpu'], train_opt['gt_size']
+    phase(f'23. train SwinIR-L2S x3 through basicsr4rs_torch.train on cuda:0 (batch {batch}, '
+          f'GT {gt_size} from LQ {gt_size // 3} of 6 bands, window 6, use_amp: bfloat16 '
+          f'autocast; {batch * (gt_size // 3)**2} tokens a block)')
+    write_l2s_tree()
+    total_iter = opt['train']['total_iter']
+    blocks = sum(opt['network_g']['depths'])
+    wrappers = training_kernels()
+    exp_dir = fresh_run(opt, wrappers)
+    dtypes = collections.Counter()   # what the attention forward kernel is handed under use_amp
+
+    def spy(x, *args, _inner=S._launch_attn_forward):
+        dtypes[str(x.dtype)] += 1
+        return _inner(x, *args)
+
+    record = {'steps': []}
+    t0 = time.perf_counter()
+    with mock.patch.object(S, '_launch_attn_forward', spy):
+        model = run_train_pipeline(['--force_yml', f'datasets:val:{L2S_VAL_SPLIT}'], record,
+                                   config=L2S_SWINIR_TRAIN, model_cls=SwinIRL2sModel,
+                                   wrappers=wrappers)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: wr.launches for k, wr in wrappers.items()}
+    if model.device.type != 'cuda' or not model.use_amp:
+        fail(f'the model trained on {model.device}, use_amp {model.use_amp}')
+    steps = record['steps']
+    val_images = L2S_VAL_IMAGES
+    print(f'pipeline wall time {wall:.3f} s for {len(steps)} steps and one validation of '
+          f'{val_images} images (LQ 96x96) on net_g_ema')
+    check_steps(steps, total_iter, 'l_pix', dict.fromkeys(SPLIT_KERNELS, blocks))
+    # each validation image, and the fixed batch before step 1, is one forward
+    # of the joint kernel per block
+    if launches['swin_block_joint_fwd'] != blocks * (val_images + 1):
+        fail(f'{launches["swin_block_joint_fwd"]} launches of the joint kernel, expected '
+             f'{blocks} x ({val_images} validation images + 1 fixed batch)')
+    print('launches in the run: ' + ' '.join(f'{k}={v}' for k, v in launches.items()))
+    print(f'the attention forward kernel was handed x in {dict(dtypes)} under use_amp '
+          '(LayerNorm runs in float32 under autocast; the RSTB adds its bfloat16 '
+          'convolution to the float32 stream)')
+    if set(dtypes) != {'torch.float32'}:   # phase 24 holds the whole model in float32
+        fail(f'under use_amp the Swin blocks were handed {dict(dtypes)}, not float32 alone')
+    loss_after = fixed_batch_loss(model, record['fixed'])
+    joint = wrappers['swin_block_joint_fwd'].launches
+    if joint != launches['swin_block_joint_fwd'] + blocks:   # the fixed batch, once more
+        fail(f'the loss on the fixed batch took {joint - launches["swin_block_joint_fwd"]} '
+             f'joint kernel launches, expected {blocks}')
+    launches['swin_block_joint_fwd'] = joint
+    print(f'l_pix on the first batch, eval mode: {record["fixed_loss_before"]:.6f} before '
+          f'step 1, {loss_after:.6f} after step {total_iter}')
+    if not loss_after < record['fixed_loss_before']:
+        fail('the loss on the fixed batch did not fall')
+
+    vis = model.opt['path']['visualization']
+    csvs = glob.glob(os.path.join(vis, 'L2S_single_val_*.csv'))
+    if len(csvs) != 1:
+        fail(f'expected one metric CSV under {vis}, found {csvs}')
+    names = check_metric_csv(csvs[0], opt['val']['metrics'], val_images)
+    check_band_outputs(vis, 'L2S_single_val', names, gt_size)
+    print(f'{csvs[0]}: {val_images} rows of {len(opt["val"]["metrics"])} finite metrics; RGB and '
+          'NSS PNGs of each: ' + ', '.join(f'{k} {v:.4f}' for k, v in model.metric_results.items()
+                                         if k in ('psnr', 'psnr_nir', 'ssim', 'niqe_red',
+                                                  'niqe_swir22')))
+    net_opt = dict(opt['network_g'])
+    net_opt.pop('type')
+    check_ema_and_checkpoint(model, SwinIR(**net_opt),
+                             os.path.join(exp_dir, 'models', f'net_g_{total_iter}.pth'))
+
+    phase('23b. device time of 2 SwinIR-L2S training steps by kernel (torch.profiler)')
+    model.lq, model.gt = record['fixed']
+    counts = {k: wr.launches for k, wr in wrappers.items()}
+    model.optimize_parameters(0)
+    ours = ('swin_attn_fwd_head', 'swin_attn_fwd_proj', 'swin_attn_block_bwd', 'mlp_block_fwd',
+            'mlp_block_bwd', 'branch_ln_bwd')
+    profile_device_time(lambda: model.optimize_parameters(0), 2, 'step', ours,
+                        'swinir_l2s_train_step_profile.json')
+    for k, wr in wrappers.items():   # the profiled steps belong to no main path's count
+        wr.launches = counts[k]
+    del model
+    return launches
+
+
+def serve_swinir_l2s():
+    """Phase 25: SwinIR-L2S x3 served through ``basicsr4rs_torch.test``, then
+    one request of ``SwinIRHMModel`` on ``SwinIR_StyleCNN``. Returns K1's
+    launches."""
+    import copy
+
+    import numpy as np
+
+    import basicsr4rs_torch.test as entry
+    from basicsr4rs_torch.archs.swinir_arch import SwinIR
+    from basicsr4rs_torch.data import build_dataloader, build_dataset, default_collate
+    from basicsr4rs_torch.metrics import calculate_metric
+    from basicsr4rs_torch.models import build_model
+    from basicsr4rs_torch.ops.swin_block import fused_swin_block_full
+    from basicsr4rs_torch.utils.img_util import minusone_one_tensor_to_ubyte_numpy
+    from basicsr4rs_torch.utils.options import yaml_load
+    phase('25. serve SwinIR-L2S x3 through basicsr4rs_torch.test on cuda:0 (LQ 96x96 of 6 '
+          'bands -> 288x288, batch 1, window 6)')
+    opt = yaml_load(L2S_SWINIR_TEST)
+    net_opt = dict(opt['network_g'])
+    net_opt.pop('type')
+    blocks = sum(net_opt['depths'])
+    weights = opt['path']['pretrain_network_g']
+    os.makedirs(os.path.dirname(weights), exist_ok=True)
+    torch.save({'params': SwinIR(**net_opt, generator=torch.Generator().manual_seed(0))
+                .state_dict()}, weights)
+    fused_swin_block_full.launches = 0
+    argv = sys.argv
+    sys.argv = ['basicsr4rs_torch.test', '-opt', L2S_SWINIR_TEST, '--force_yml',
+                f'datasets:test_1:{L2S_VAL_SPLIT}']
+    t0 = time.perf_counter()
+    try:
+        model = entry.test_pipeline(ROOT)
+    finally:
+        sys.argv = argv
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fused_swin_block_full.launches
+    dataset_opt = model.opt['datasets']['test_1']
+    loader = list(build_dataloader(build_dataset(dataset_opt), dataset_opt))
+    print(f'pipeline wall time {wall:.3f} s ({len(loader)} requests, '
+          f'{len(opt["val"]["metrics"])} metrics each, 6 of them NIQE, image writes); joint '
+          f'kernel launches {launches} = {launches / len(loader):g} per request')
+    if model.device.type != 'cuda' or launches != blocks * len(loader):
+        fail(f'expected {blocks} joint kernel launches per request on cuda, counted {launches} '
+             f'over {len(loader)} requests on {model.device}')
+    vis = model.opt['path']['visualization']
+    names = check_metric_csv(os.path.join(vis, f'L2S_single_val_{model.opt["name"]}.csv'),
+                             opt['val']['metrics'], len(loader))
+    check_band_outputs(vis, 'L2S_single_val', names, 288)
+    print('metrics (random weights): ' + ', '.join(f'{k} {v:.4f}'
+                                                  for k, v in model.metric_results.items()))
+    # where the host time of one validation item goes
+    dataset = build_dataset(dataset_opt)
+    marks = [time.perf_counter()]
+    item = dataset[0]
+    marks.append(time.perf_counter())
+    model.feed_data(default_collate([item]))
+    model.test()
+    visuals = {k: minusone_one_tensor_to_ubyte_numpy(v, rgb2bgr=False)
+               for k, v in model.get_current_visuals().items()}
+    marks.append(time.perf_counter())
+    by_type = collections.Counter()
+    for metric in opt['val']['metrics'].values():
+        t_metric = time.perf_counter()
+        calculate_metric({'img': visuals['result'], 'img2': visuals['gt']}, metric)
+        by_type[metric['type']] += time.perf_counter() - t_metric
+    marks.append(time.perf_counter())
+    model._save_visuals('host_time', 'one', visuals)
+    marks.append(time.perf_counter())
+    parts = ('reading and cropping its 12 TIFFs', 'feed, forward and the three visuals',
+             f'the {len(opt["val"]["metrics"])} metrics', 'six PNGs')
+    print('host time of one validation item: ' + ', '.join(
+        f'{name} {1e3 * (b - a):.1f} ms' for name, a, b in zip(parts, marks, marks[1:]))
+        + '; the metrics by type: ' + ', '.join(f'{k} {1e3 * v:.1f} ms' for k, v in
+                                               by_type.most_common())
+        + f' ({os.cpu_count()} CPUs, torch {torch.get_num_threads()} threads)')
+    latencies = request_latencies(model, loader[:4], l2s_output)
+    print(f'request latency: ' + ', '.join(f'{ms:.3f}' for ms in latencies) + ' ms; mean '
+          f'{sum(latencies) / len(latencies):.3f} ms, '
+          f'{288 * 288 / (sum(latencies) / len(latencies)) / 1e3:.3f} output MP/s; peak device '
+          f'memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB')
+    launches = fused_swin_block_full.launches
+    hm_opt = yaml_load(L2S_HM_CONFIG)
+    parsed = copy.deepcopy(model.opt)
+    del model
+
+    # SwinIRHMModel on SwinIR_StyleCNN (the network of the published StyleCNN
+    # config; random weights from seed 0): one request, both branches scored
+    parsed.update(model_type='SwinIRHMModel', network_g=hm_opt['network_g'],
+                  hm_loss_weight=hm_opt['hm_loss_weight'], gt_loss_weight=hm_opt['gt_loss_weight'])
+    parsed['path']['pretrain_network_g'] = None
+    torch.manual_seed(0)
+    hm_model = build_model(parsed)
+    before = fused_swin_block_full.launches
+    latency = request_latencies(hm_model, loader[:1], l2s_output)[0]
+    if fused_swin_block_full.launches - before != 2 * blocks:   # the warm-up and the request
+        fail(f'SwinIRHMModel: {fused_swin_block_full.launches - before} joint kernel launches '
+             f'for 2 requests, expected {2 * blocks}')
+    gt = minusone_one_tensor_to_ubyte_numpy(hm_model.gt.detach().cpu(), rgb2bgr=False)
+    scores = {}
+    for branch in ('output', 'output_hm'):
+        out = getattr(hm_model, branch)
+        if out.shape != (1, 6, 288, 288) or not torch.isfinite(out).all():
+            fail(f'SwinIRHMModel {branch}: {tuple(out.shape)}')
+        img = minusone_one_tensor_to_ubyte_numpy(out.detach().cpu(), rgb2bgr=False)
+        for metric in ('psnr_nir', 'ssim_red', 'niqe_swir16'):
+            scores[f'{branch} {metric}'] = calculate_metric(
+                {'img': img, 'img2': gt}, opt['val']['metrics'][metric])
+    if not all(np.isfinite(v) for v in scores.values()):
+        fail(f'SwinIRHMModel: a metric is not finite: {scores}')
+    print(f'SwinIRHMModel (SwinIR_StyleCNN, {os.path.basename(L2S_HM_CONFIG)}): one request '
+          f'{latency:.3f} ms; ' + ', '.join(f'{k} {v:.4f}' for k, v in scores.items()))
+    launches += fused_swin_block_full.launches - before
+    del hm_model
+    return launches
+
+
+def train_resshift_l2s():
+    """Phase 26: ResShift-L2S x3 through ``basicsr4rs_torch.train`` at the
+    published batch, GT, window and use_amp. Returns the kernels' launches."""
+    import glob
+
+    from basicsr4rs_torch.models.resshift_l2s_model import ResShiftL2SModel
+    from basicsr4rs_torch.ops import window_attention as A
+    opt, steps, per_forward = resshift_options(L2S_RS_TRAIN)
+    train_opt = opt['datasets']['train']
+    batch, gt_size = train_opt['batch_size_per_gpu'], train_opt['gt_size']
+    latent = gt_size // 4
+    phase(f'26. train ResShift-L2S x3 through basicsr4rs_torch.train on cuda:0 (batch {batch}, '
+          f'GT {gt_size} of 6 bands -> latents {latent}x{latent}, window '
+          f'{opt["network_g"]["window_size"]}, use_amp: bfloat16 autocast)')
+    total_iter = opt['train']['total_iter']
+    wrappers = attention_wrappers()
+    fresh_run(opt, wrappers)
+    dtypes = collections.Counter()
+    spies = []
+    for attr in ('_launch_forward', '_launch_backward'):
+        def spy(qkv, *args, _inner=getattr(A, attr), _attr=attr):
+            dtypes[(_attr, str(qkv.dtype))] += 1   # the dtype each launch is made in
+            return _inner(qkv, *args)
+        spies.append(mock.patch.object(A, attr, spy))
+    record = {'steps': []}
+    t0 = time.perf_counter()
+    for sp in spies:
+        sp.start()
+    try:
+        model = run_train_pipeline(['--force_yml', f'datasets:val:{L2S_VAL_SPLIT}'], record,
+                                   config=L2S_RS_TRAIN, model_cls=ResShiftL2SModel,
+                                   loss_key='loss', wrappers=wrappers,
+                                   before_first_step=keep_first_batch)
+    finally:
+        for sp in spies:
+            sp.stop()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: wr.launches for k, wr in wrappers.items()}
+    if model.device.type != 'cuda' or not model.use_amp:
+        fail(f'the model trained on {model.device}, use_amp {model.use_amp}')
+    run = record['steps']
+    print(f'pipeline wall time {wall:.3f} s for {len(run)} steps and one validation of '
+          f'{L2S_VAL_IMAGES} images ({steps} reverse steps each); batch {batch}')
+    check_steps(run, total_iter, 'loss', dict.fromkeys(wrappers, per_forward))
+    if model.skipped_steps:
+        fail(f'{model.skipped_steps} steps were skipped as non-finite')
+    want = {'window_attention_fwd': per_forward * (total_iter + steps * L2S_VAL_IMAGES),
+            'window_attention_bwd': per_forward * total_iter}
+    if launches != want:
+        fail(f'launches in the run {launches}, expected {want}')
+    print('launches in the run: ' + ' '.join(f'{k}={v}' for k, v in launches.items())
+          + f'; made in {dict(dtypes)}')
+    if any(dt != 'torch.bfloat16' for _, dt in dtypes):
+        fail('under use_amp the attention kernels should run in bfloat16')
+    vis = model.opt['path']['visualization']
+    csvs = glob.glob(os.path.join(vis, 'L2S_single_val_*.csv'))
+    if len(csvs) != 1:
+        fail(f'expected one metric CSV under {vis}, found {csvs}')
+    names = check_metric_csv(csvs[0], opt['val']['metrics'], L2S_VAL_IMAGES)
+    check_band_outputs(vis, 'L2S_single_val', names, gt_size)
+
+    phase('26b. device time of 2 ResShift-L2S training steps by kernel (torch.profiler)')
+    model.lq, model.gt = record['batch']
+    model.tt = model.noise = None
+    counts = {k: wr.launches for k, wr in wrappers.items()}
+    model.optimize_parameters(0)
+    profile_device_time(lambda: model.optimize_parameters(0), 2, 'step', tuple(wrappers),
+                        'resshift_l2s_train_step_profile.json')
+    for k, wr in wrappers.items():   # the profiled steps belong to no main path's count
+        wr.launches = counts[k]
+    del model
+    return launches
+
+
+def serve_resshift_l2s():
+    """Phase 27: ResShift-L2S x3 sampled through ``basicsr4rs_torch.test``, 2
+    requests of 15 reverse steps. Returns K6's launches."""
+    import numpy as np
+
+    import basicsr4rs_torch.test as entry
+    from basicsr4rs_torch.data import build_dataloader, build_dataset
+    opt, steps, per_forward = resshift_options(L2S_RS_TEST)
+    phase(f'27. serve ResShift-L2S x3 through basicsr4rs_torch.test on cuda:0 (LQ 96x96 of 6 '
+          f'bands, batch 1, {steps} reverse steps on a 72x72x6 latent, VQ-f4 decode 3 bands at '
+          'a time to 288x288)')
+    net, stage = random_resshift_weights(opt)
+    for module, key in ((net, 'pretrain_network_g'), (stage, 'pretrain_network_ae')):
+        os.makedirs(os.path.dirname(opt['path'][key]), exist_ok=True)
+        torch.save({'params': module.state_dict()}, opt['path'][key])
+    del net, stage
+    wrappers = attention_wrappers()
+    for wr in wrappers.values():
+        wr.launches = 0
+    argv = sys.argv
+    sys.argv = ['basicsr4rs_torch.test', '-opt', L2S_RS_TEST, '--force_yml',
+                f'datasets:test_1:{L2S_VAL_SPLIT}']
+    t0 = time.perf_counter()
+    try:
+        model = entry.test_pipeline(ROOT)
+    finally:
+        sys.argv = argv
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    per_request = per_forward * steps
+    launches = wrappers['window_attention_fwd'].launches
+    print(f'pipeline wall time {wall:.3f} s (model build, weight load, {L2S_VAL_IMAGES} '
+          f'requests, metrics, image writes); window_attention_fwd launches {launches} = '
+          f'{launches / L2S_VAL_IMAGES:g} per request')
+    if model.device.type != 'cuda' or launches != per_request * L2S_VAL_IMAGES \
+            or wrappers['window_attention_bwd'].launches:
+        fail(f'expected {per_request} forward launches per request on cuda and no backward '
+             f'launch, counted {launches} on {model.device}')
+    vis = model.opt['path']['visualization']
+    names = check_metric_csv(os.path.join(vis, f'L2S_single_val_{model.opt["name"]}.csv'),
+                             opt['val']['metrics'], L2S_VAL_IMAGES)
+    check_band_outputs(vis, 'L2S_single_val', names, 288)
+    print('metrics (random weights): ' + ', '.join(f'{k} {v:.4f}'
+                                                  for k, v in model.metric_results.items()))
+    dataset_opt = model.opt['datasets']['test_1']
+    loader = list(build_dataloader(build_dataset(dataset_opt), dataset_opt))
+    latencies = request_latencies(model, loader, l2s_output,
+                                  (wrappers['window_attention_fwd'], per_request))
+    print(f'request latency: ' + ', '.join(f'{ms:.3f}' for ms in latencies) + ' ms (mean '
+          f'{np.mean(latencies):.3f}, {np.mean(latencies) / steps:.3f} ms a reverse step, decode '
+          f'included); peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB')
+    launches = wrappers['window_attention_fwd'].launches
+
+    phase('27b. device time of a ResShift-L2S request by kernel (torch.profiler)')
+
+    def request():
+        model.feed_data(loader[0])
+        model.test()
+
+    profile_device_time(request, 1, 'request', tuple(wrappers),
+                        'resshift_l2s_request_profile.json')
+    del model
+    return launches
+
+
+def l2s_paths(launches):
+    """Phases 23 to 27: the L2S path. Their launches are added to
+    ``launches``."""
+    for name, count in train_swinir_l2s().items():
+        launches[name] += count
+    # the Swin blocks get float32 under use_amp (phase 23): the whole model in float32
+    check_model_gradients('24', L2S_SWINIR_TRAIN, (L2S_SHAPE[0], 6) + L2S_SHAPE[1:])
+    launches['swin_block_joint_fwd'] += serve_swinir_l2s()
+    for name, count in train_resshift_l2s().items():
+        launches[name] += count
+    launches['window_attention_fwd'] += serve_resshift_l2s()
+
+
 # ------------------------------------------------------------ the video path
 def sampler_wrappers():
     from basicsr4rs_torch.ops import dcn as D
@@ -2155,28 +2728,16 @@ def serve_video(name, number):
         fail(f'{saved} images saved, expected {frames}')
 
     # latency of the model's own test(), after a warm-up request
-    model.feed_data(loader[0])
-    model.test()
-    torch.cuda.reset_peak_memory_stats()
-    latencies = []
-    for item in loader[:4]:
-        model.feed_data(item)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        model.test()
-        end.record()
-        torch.cuda.synchronize()
-        out = model.output
-        t = item['lq'].shape[1]
-        want = (1, t, 3) if out.dim() == 5 else (1, 3)
-        want += (SCALE * lq_size[0], SCALE * lq_size[1])
-        if tuple(out.shape) != want or not torch.isfinite(out).all():
-            fail(f'request: output {tuple(out.shape)}, expected {want}')
-        latencies.append(start.elapsed_time(end))
-        frames_out = t if out.dim() == 5 else 1
+    def want(item):   # BasicVSR++ returns every frame, EDVR the centre one
+        frames = (item['lq'].shape[1], 3) if name == 'BasicVSR++' else (3,)
+        return (1,) + frames + (SCALE * lq_size[0], SCALE * lq_size[1])
+
+    latencies = request_latencies(model, loader[:4], want)
+    for item, ms in zip(loader, latencies):
+        t, shape = item['lq'].shape[1], want(item)
+        frames_out = t if len(shape) == 5 else 1
         print(f'request of {t} LQ frames {lq_size[0]}x{lq_size[1]} -> {frames_out} frames '
-              f'{want[-2]}x{want[-1]}: {latencies[-1]:.3f} ms, '
-              f'{latencies[-1] / frames_out:.3f} ms an output frame')
+              f'{shape[-2]}x{shape[-1]}: {ms:.3f} ms, {ms / frames_out:.3f} ms an output frame')
     print(f'request latency: mean {sum(latencies) / len(latencies):.3f} ms of {len(latencies)}; '
           f'peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB')
     if name == 'BasicVSR++':   # F4: where the request's memory goes
@@ -3441,6 +4002,7 @@ def main():
         launches['deform_sample_fwd'] += served + trained['deform_sample_fwd']
         launches['deform_sample_bwd'] += trained['deform_sample_bwd']
     serving_modes(launches, split_step_ms)
+    l2s_paths(launches)
     for name, count in launches.items():
         if count == 0:
             fail(f'{name} was never launched on the main paths')

@@ -24,7 +24,8 @@ setup(
     packages=find_packages(exclude=('options', 'datasets', 'experiments',
                                     'results', 'tests', 'scripts', 'inference')),
     package_data={'basicsr4rs_tpu': ['metrics/niqe_pris_params.npz'],
-                  'basicsr4rs_torch': ['csrc/*.cu', 'csrc/*.cuh']},
+                  'basicsr4rs_torch': ['csrc/*.cu', 'csrc/*.cuh',
+                                       'metrics/niqe_pris_params.npz']},
     classifiers=[
         'Development Status :: 4 - Beta',
         'License :: OSI Approved :: Apache Software License',
