@@ -69,6 +69,51 @@ class ResidualBlockNoBN(nn.Module):
         return x + self.conv2(F.relu(self.conv1(x))) * self.res_scale
 
 
+class ChannelAttention(nn.Module):
+    """Squeeze-and-excitation: the global mean of each channel through a
+    1x1-conv bottleneck (keys ``squeeze``, ``excite``) gates the map."""
+
+    def __init__(self, num_feat: int, squeeze_factor: int = 16):
+        super().__init__()
+        self.squeeze = nn.Conv2d(num_feat, max(1, num_feat // squeeze_factor), 1)
+        self.excite = nn.Conv2d(max(1, num_feat // squeeze_factor), num_feat, 1)
+
+    def forward(self, x):
+        y = self.excite(F.relu(self.squeeze(x.mean(dim=(2, 3), keepdim=True))))
+        return x * torch.sigmoid(y)
+
+
+class CAM(nn.Module):
+    """CBAM-style channel attention: one MLP (``linear_max``: Linear, ReLU,
+    Linear) on the channels' max and on their mean, the two summed into a
+    sigmoid gate. The reference's forward calls a ``self.linear`` that does
+    not exist; the JAX package, and this, apply the ``linear_max`` MLP to
+    both descriptors."""
+
+    def __init__(self, channels: int, r: int = 2):
+        super().__init__()
+        self.linear_max = nn.Sequential(nn.Linear(channels, channels // r), nn.ReLU(),
+                                        nn.Linear(channels // r, channels))
+
+    def forward(self, x):
+        gate = torch.sigmoid(self.linear_max(x.amax(dim=(2, 3)))
+                             + self.linear_max(x.mean(dim=(2, 3))))
+        return x * gate[:, :, None, None]
+
+
+class CAB(nn.Module):
+    """Channel-attention block: a ``ResidualBlockNoBN`` (key ``conv_block``)
+    followed by ``CAM`` (key ``cam``)."""
+
+    def __init__(self, num_feat: int, res_scale: float = 1., r: int = 2):
+        super().__init__()
+        self.conv_block = ResidualBlockNoBN(num_feat, res_scale)
+        self.cam = CAM(num_feat, r)
+
+    def forward(self, x):
+        return self.cam(self.conv_block(x))
+
+
 class Upsample(nn.Sequential):
     """Pixel-shuffle upsampler for scales 2^n and 3: (conv, PixelShuffle)
     per stage, so the convs are keys ``0``, ``2``, ... With

@@ -4,12 +4,13 @@
 from copy import deepcopy
 
 from ..utils.registry import METRIC_REGISTRY
+from .lpips import calculate_lpips_band, calculate_lpips_none
 from .niqe import calculate_niqe, calculate_niqe_band, calculate_niqe_none, calculate_rs_niqe
 from .psnr_ssim import calculate_psnr, calculate_psnr_band, calculate_ssim, calculate_ssim_band
 
 __all__ = ['calculate_metric', 'calculate_psnr', 'calculate_ssim', 'calculate_psnr_band',
            'calculate_ssim_band', 'calculate_niqe', 'calculate_rs_niqe', 'calculate_niqe_band',
-           'calculate_niqe_none']
+           'calculate_niqe_none', 'calculate_lpips_band', 'calculate_lpips_none']
 
 
 def calculate_metric(data, opt):

@@ -147,21 +147,22 @@ class GaussianDiffusion:
                 x = x.clamp(-1, 1)
             return x
 
-        if self.model_mean_type == ModelMeanType.START_X:
-            pred_xstart = process_xstart(model_output)
-        elif self.model_mean_type == ModelMeanType.RESIDUAL:
-            pred_xstart = process_xstart(self._predict_xstart_from_residual(y, model_output))
-        elif self.model_mean_type == ModelMeanType.EPSILON:
-            pred_xstart = process_xstart(self._predict_xstart_from_eps(x_t, y, t, model_output))
-        elif self.model_mean_type == ModelMeanType.EPSILON_SCALE:
-            pred_xstart = process_xstart(
-                self._predict_xstart_from_eps_scale(x_t, y, t, model_output))
-        else:
-            raise ValueError(f'Unknown Mean type: {self.model_mean_type}')
-
+        pred_xstart = process_xstart(self._predict_xstart(x_t, y, t, model_output))
         model_mean, _, _ = self.q_posterior_mean_variance(pred_xstart, x_t, t)
         return {'mean': model_mean, 'variance': model_variance,
                 'log_variance': model_log_variance, 'pred_xstart': pred_xstart}
+
+    def _predict_xstart(self, x_t, y, t, model_output):
+        """x_0 from the model's output, by what the model predicts."""
+        if self.model_mean_type == ModelMeanType.START_X:
+            return model_output
+        if self.model_mean_type == ModelMeanType.RESIDUAL:
+            return self._predict_xstart_from_residual(y, model_output)
+        if self.model_mean_type == ModelMeanType.EPSILON:
+            return self._predict_xstart_from_eps(x_t, y, t, model_output)
+        if self.model_mean_type == ModelMeanType.EPSILON_SCALE:
+            return self._predict_xstart_from_eps_scale(x_t, y, t, model_output)
+        raise ValueError(f'Unknown Mean type: {self.model_mean_type}')
 
     def _predict_xstart_from_eps(self, x_t, y, t, eps):
         return ((x_t - _extract(self.sqrt_etas, t, x_t.dim()) * self.kappa * eps
@@ -225,6 +226,7 @@ class GaussianDiffusion:
         gradients through the first stage's weights."""
         if first_stage_model is None:
             return z_sample
+        self._check_scale_factor()
         z_sample = z_sample / self.scale_factor
         c = z_sample.shape[1]
         if c % split_channels:
@@ -238,12 +240,20 @@ class GaussianDiffusion:
             y = resize_bicubic(y, float(self.sf))
         if first_stage_model is None:
             return y
+        self._check_scale_factor()
         c = y.shape[1]
         if c % split_channels:
             raise ValueError(f'channels {c} not divisible by {split_channels}')
         encoded = [first_stage_model.encode(chunk) * self.scale_factor
                    for chunk in y.split(split_channels, 1)]
         return torch.cat(encoded, dim=1)
+
+    def _check_scale_factor(self):
+        """A first stage scales its latents by ``scale_factor``: without one
+        (``None``) the coding stops here, where the JAX package's stops at the
+        multiplication."""
+        if self.scale_factor is None:
+            raise TypeError('the diffusion has a first stage but its scale_factor is None')
 
     def prior_sample(self, y, noise):
         """A sample of q(x_T | y)."""
@@ -255,14 +265,16 @@ class GaussianDiffusion:
                         model_kwargs=None, noise=None):
         """(loss_dict, z_t, pred_zstart); ``loss_dict['mse']`` is per sample.
         The first stage encodes without gradients."""
-        model_kwargs = model_kwargs or {}
         with torch.no_grad():
             z_y = self.encode_first_stage(y, first_stage_model, up_sample=True)
             z_start = self.encode_first_stage(x_start, first_stage_model, up_sample=False)
             if noise is None:
                 noise = _randn_like(z_start, generator)
             z_t = self.q_sample(z_start, z_y, t, noise)
+        return self._losses(model, z_t, z_y, z_start, noise, t, model_kwargs or {})
 
+    def _losses(self, model, z_t, z_y, z_start, noise, t, model_kwargs):
+        """(loss_dict, z_t, pred_zstart) of the model's output at z_t."""
         loss_dict = OrderedDict()
         model_output = model(self._scale_input(z_t, t), t, **model_kwargs)
         target = {
@@ -278,16 +290,7 @@ class GaussianDiffusion:
         if self.loss_type == LossType.WEIGHTED_MSE:
             mse = mse * _extract(self.weight_loss_mse, t, 1)
         loss_dict['mse'] = mse
-
-        if self.model_mean_type == ModelMeanType.START_X:
-            pred_zstart = model_output
-        elif self.model_mean_type == ModelMeanType.EPSILON:
-            pred_zstart = self._predict_xstart_from_eps(z_t, z_y, t, model_output)
-        elif self.model_mean_type == ModelMeanType.RESIDUAL:
-            pred_zstart = self._predict_xstart_from_residual(z_y, model_output)
-        else:
-            pred_zstart = self._predict_xstart_from_eps_scale(z_t, z_y, t, model_output)
-        return loss_dict, z_t, pred_zstart
+        return loss_dict, z_t, self._predict_xstart(z_t, z_y, t, model_output)
 
     def _scale_input(self, inputs, t):
         if not self.normalize_input:
@@ -323,7 +326,8 @@ def space_timesteps(num_timesteps: int, sample_timesteps: int):
 def create_gaussian_diffusion(*, normalize_input, schedule_name, sf=4, min_noise_level=0.01,
                               steps=1000, kappa=1, etas_end=0.99, schedule_kwargs=None,
                               weighted_mse=False, predict_type='xstart',
-                              timestep_respacing=None, scale_factor=None, latent_flag=True):
+                              timestep_respacing=None, scale_factor=None, latent_flag=True,
+                              diffusion_class=SpacedDiffusion):
     sqrt_etas = get_named_eta_schedule(schedule_name, num_diffusion_timesteps=steps,
                                        min_noise_level=min_noise_level, etas_end=etas_end,
                                        kappa=kappa, kwargs=schedule_kwargs)
@@ -337,7 +341,7 @@ def create_gaussian_diffusion(*, normalize_input, schedule_name, sf=4, min_noise
         'epsilon_scale': ModelMeanType.EPSILON_SCALE,
         'residual': ModelMeanType.RESIDUAL,
     }[predict_type]
-    return SpacedDiffusion(
+    return diffusion_class(
         use_timesteps=space_timesteps(steps, timestep_respacing),
         sqrt_etas=sqrt_etas, kappa=kappa, model_mean_type=model_mean_type,
         loss_type=LossType.WEIGHTED_MSE if weighted_mse else LossType.MSE,

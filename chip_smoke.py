@@ -38,7 +38,9 @@ nonzero exit code and no result line:
    batch 1 and the training batch; with the shift mask and without), at
    window 9 on the latents of ``train_ResShift_L2S288.yml`` (maps of 72, 36
    and 18 shifted by 4, and 9 as one window; its batch 32 in bfloat16, 16 in
-   float32) and at C=180 with heads of 30, beside
+   float32), at the joint align-diffusion model's middle block (B=12 of
+   8x8: one window of 64 tokens, no shift; both dtypes) and at C=180 with
+   heads of 30, beside
    ``F.scaled_dot_product_attention`` (and its backward by autograd) as a
    yardstick, with each kernel's grid and fill (units, samples a unit,
    blocks an SM, stages) and, for the forward at batch 1, its device time;
@@ -176,7 +178,34 @@ nonzero exit code and no result line:
 27. samples it through ``basicsr4rs_torch.test`` (``-opt
     options/test/ResShift/test_ResShift_L2S288_synthetic.yml``): 2 requests
     of 15 reverse steps, 270 K6 launches each, latency, the device time of a
-    request by kernel.
+    request by kernel;
+28. writes random LPIPS weights (``results/chip_smoke/lpips``) and trains
+    the registration autoencoder (``-opt options/train/AlignAutoencoder/
+    train_Registration_L2S_Square192_synthetic.yml``: ``RegistrationModel``
+    on ``StyleResNet``, 12 -> 6 bands, 64 features, 8 blocks, batch 12 at
+    GT 192, ``use_amp``) for 8 steps from seed-0 weights with its channel
+    gates opened: step time, peak memory, a loss that falls on the first
+    batch, one validation of its 26 metrics (CSV, RGB and NSS PNGs) and
+    the host time of each metric type on one item, LPIPS's on the card,
+    and 2 steps by kernel (28b);
+29. trains the joint align-diffusion model (``-opt options/train/
+    AlignResDiff/train_AlignResDiff_3loss_L2S_Square192_synthetic.yml``:
+    ``AlignJointDiffModel`` on ``ResNetAE_SwinUNet``, the published widths,
+    batch 12 at GT 66, ``use_amp``) for 8 steps: the K6 and K7 launches of
+    each step, counted from the UNet's Swin blocks (2 and 2) and read back,
+    the dtype they are made in (bfloat16 alone, or the phase fails), step
+    time, peak memory, one validation, 2 steps by kernel with
+    ``torch.profiler`` (29b, as 28b for phase 28); 29c holds it in float32
+    against the plain versions on seed-0 weights: one batch's loss and every
+    gradient, and a request's output from the same noises;
+30. serves it through ``basicsr4rs_torch.test`` (``-opt options/test/
+    AlignResDiff/test_AlignResDiff_3loss_L2S_Square192_synthetic.yml``,
+    seed-0 weights it writes first): 30 K6 launches a request, latency, the
+    device time of a request by kernel;
+31. trains SRCNN x3 on 6 bands (``-opt options/train/SRCNN/
+    train_SRCNN_L2S288_synthetic.yml``: ``L2SSingleModel``, batch 8 at GT
+    288, ``use_amp``) for 8 steps: a loss that falls on the first batch,
+    one validation.
 
 ``python3 chip_smoke.py kernels`` stops after phase 3; ``python3 chip_smoke.py
 serving`` runs phases 3a, 3e, 3f, 4, 4b and 17 to 22 alone. The line before the
@@ -687,16 +716,19 @@ def sdpa_window_attention_backward(qkv, bias, dout, ws, heads, scale):
     return backward(), backward
 
 
-def check_attention_kernels(train_batch, l2s_batch):
+def check_attention_kernels(train_batch, l2s_batch, align_batch):
     """The window-attention kernels, forward and backward, against their
     plain versions at the shapes the ResShift UNets give them: window 8
     (the published RGB config) and window 9 (``L2S_CONFIG``, whose batch under
-    use_amp is ``l2s_batch``; float32 at half of it)."""
+    use_amp is ``l2s_batch``; float32 at half of it); and the joint
+    align-diffusion model's middle block (``ALIGN_JOINT_TRAIN``: its batch of
+    ``align_batch`` 8x8 maps, one window of 64 tokens, no shift)."""
     from basicsr4rs_torch.archs.unet_arch import shift_attn_mask_resshift
     from basicsr4rs_torch.ops import window_attention as A
     phase('3c. window attention kernels, forward and backward, vs plain versions '
           f'(C={RS_C}, {RS_HEADS} heads; window {WS}, and window 9 on the 72x72 latents of '
-          f'{os.path.basename(L2S_CONFIG)}; and C={C}, head_dim {C // HEADS})')
+          f'{os.path.basename(L2S_CONFIG)}; B={align_batch} 8x8 of the joint align-diffusion '
+          f'model; and C={C}, head_dim {C // HEADS})')
     gen = torch.Generator().manual_seed(3)
     f32, bf16 = torch.float32, torch.bfloat16
     # (B, H = W, C, dtype, shifted, window)
@@ -711,8 +743,11 @@ def check_attention_kernels(train_batch, l2s_batch):
              (2, 64, C, f32, True, WS), (2, 64, C, bf16, False, WS)]
     for b, dt in ((l2s_batch // 2, f32), (l2s_batch, bf16)):   # 72, 36, 18 shifted by 4; 9 alone
         cases += [(b, size, RS_C, dt, size > 9, 9) for size in (72, 36, 18, 9)]
+    align_case, align_bf16_case = ((align_batch, 8, RS_C, dt, False, WS) for dt in (f32, bf16))
+    cases += [align_case, align_bf16_case]
     library_backward = {train_case: '', bf16_case: 'bf16_', l2s_case: 'window9_',
-                        l2s_bf16_case: 'window9_bf16_'}
+                        l2s_bf16_case: 'window9_bf16_', align_case: 'align_',
+                        align_bf16_case: 'align_bf16_'}
     summary = {name: {'max_abs_err': 0., 'library_ms': None} for name in ATTENTION_KERNELS}
     t0 = time.perf_counter()
     for case in cases:
@@ -778,7 +813,8 @@ def check_attention_kernels(train_batch, l2s_batch):
                 line += (f', library (SDPA + partition/reverse copies, {b * windows} windows) '
                          f'{library_ms:.4f} ms')
                 key = {l2s_case: 'window9_', l2s_bf16_case: 'window9_bf16_', train_case: 'train_',
-                       bf16_case: 'bf16_'}.get(case)
+                       bf16_case: 'bf16_', align_case: 'align_',
+                       align_bf16_case: 'align_bf16_'}.get(case)
                 if key:
                     summary[name].update({f'{key}ms': kernel_ms, f'{key}bound_ms': bound,
                                           f'{key}library_ms': library_ms})
@@ -1491,9 +1527,25 @@ def follow_first_batch(model, record):
         record['fixed_loss_before'] = fixed_batch_loss(model, record['fixed'])
 
 
-def keep_first_batch(model, record):
-    """Keep a diffusion model's first batch: its profile runs on it."""
-    record.setdefault('batch', (model.lq.clone(), model.gt.clone()))
+def keep_fed_batch(model, record):
+    """Keep the first batch as fed (``lq``, ``gt`` and what ``feed_data``
+    made of them): a profile of the model's steps runs on it."""
+    record.setdefault('batch', {k: v.clone() for k, v in vars(model).items()
+                                if k in ('lq', 'gt', 'lq_up', 'reg_input')})
+
+
+def profile_fed_steps(model, record, wrappers, json_name):
+    """2 training steps of ``model`` on the kept batch, device time by
+    kernel; the launches they make belong to no main path's count."""
+    for key, value in record['batch'].items():
+        setattr(model, key, value)
+    model.tt = model.noise = None
+    counts = {k: wr.launches for k, wr in wrappers.items()}
+    model.optimize_parameters(0)
+    profile_device_time(lambda: model.optimize_parameters(0), 2, 'step', tuple(wrappers),
+                        json_name)
+    for k, wr in wrappers.items():
+        wr.launches = counts[k]
 
 
 def fixed_batch_loss(model, batch):
@@ -1763,6 +1815,20 @@ def attention_wrappers():
             'window_attention_bwd': A.window_attention_backward}
 
 
+def attention_dtype_spies():
+    """The attention kernels' wrappers, and patches that count the dtype
+    each launch is made in."""
+    from basicsr4rs_torch.ops import window_attention as A
+    dtypes = collections.Counter()
+    spies = []
+    for attr in ('_launch_forward', '_launch_backward'):
+        def spy(qkv, *args, _inner=getattr(A, attr), _attr=attr):
+            dtypes[(_attr, str(qkv.dtype))] += 1
+            return _inner(qkv, *args)
+        spies.append(mock.patch.object(A, attr, spy))
+    return attention_wrappers(), dtypes, spies
+
+
 def resshift_options(config):
     from basicsr4rs_torch.utils.options import yaml_load
     opt = yaml_load(config)
@@ -1938,7 +2004,6 @@ def serve_resshift():
 
 def train_resshift():
     from basicsr4rs_torch.models.resshift_model import ResShiftModel
-    from basicsr4rs_torch.ops import window_attention as A
     opt, steps, per_forward = resshift_options(RS_TRAIN_CONFIG)
     batch = opt['datasets']['train']['batch_size_per_gpu']
     phase(f'9. train ResShift x4 through basicsr4rs_torch.train on cuda:0 (batch {batch}, '
@@ -1948,7 +2013,7 @@ def train_resshift():
     exp_dir = fresh_run(opt, wrappers)
     record = {'steps': []}
     common = dict(config=RS_TRAIN_CONFIG, model_cls=ResShiftModel, loss_key='loss',
-                  wrappers=wrappers, before_first_step=keep_first_batch)
+                  wrappers=wrappers, before_first_step=keep_fed_batch)
     t0 = time.perf_counter()
     model = run_train_pipeline([], record, **common)
     torch.cuda.synchronize()
@@ -1982,21 +2047,11 @@ def train_resshift():
         fail(f'resume should continue at step {total_iter + 1}, ran {iters}')
 
     phase('9b. device time of 2 training steps by kernel (torch.profiler)')
-    model.feed_data(dict(zip(('lq', 'gt'), record['batch'])))
-    model.optimize_parameters(0)
-    profile_device_time(lambda: model.optimize_parameters(0), 2, 'step', tuple(wrappers),
-                        'resshift_train_step_profile.json')
+    profile_fed_steps(model, record, wrappers, 'resshift_train_step_profile.json')
     del model
 
     phase(f'9c. {RS_AMP_ITERS} training steps under use_amp: true (bfloat16 autocast)')
-    dtypes = {name: [] for name in wrappers}
-    spies = []
-    for name, attr in (('window_attention_fwd', '_launch_forward'),
-                       ('window_attention_bwd', '_launch_backward')):
-        def spy(qkv, *args, _inner=getattr(A, attr), _name=name):
-            dtypes[_name].append(qkv.dtype)   # the dtype each launch is made in
-            return _inner(qkv, *args)
-        spies.append(mock.patch.object(A, attr, spy))
+    _, dtypes, spies = attention_dtype_spies()
     amp = {'steps': []}
     for sp in spies:
         sp.start()
@@ -2013,11 +2068,12 @@ def train_resshift():
         if not torch.isfinite(torch.tensor(st['loss'])):
             fail(f'the loss under use_amp is not finite at step {st["iter"]}')
     # the steps, then the validation after the loop in forward launches
-    bf16 = {k: sum(d == torch.bfloat16 for d in v) for k, v in dtypes.items()}
+    bf16 = {name: dtypes[(attr, 'torch.bfloat16')] for name, attr in (
+        ('window_attention_fwd', '_launch_forward'), ('window_attention_bwd', '_launch_backward'))}
     print(f'bfloat16 launches: {bf16}')
     if (bf16['window_attention_bwd'] != per_forward * RS_AMP_ITERS
             or bf16['window_attention_fwd'] < per_forward * RS_AMP_ITERS
-            or any(d != torch.bfloat16 for v in dtypes.values() for d in v)):
+            or any(dt != 'torch.bfloat16' for _, dt in dtypes)):
         fail(f'under use_amp the attention kernels should run in bfloat16: {bf16}')
     return launches
 
@@ -2215,8 +2271,6 @@ def check_metric_csv(path, metrics, rows):
 def train_swinir_l2s():
     """Phase 23: SwinIR-L2S x3 through ``basicsr4rs_torch.train`` at the
     published batch, GT and use_amp. Returns the kernels' launches."""
-    import glob
-
     from basicsr4rs_torch.archs.swinir_arch import SwinIR
     from basicsr4rs_torch.models.swinir_model import SwinIRL2sModel
     from basicsr4rs_torch.ops import swin_block as S
@@ -2276,16 +2330,7 @@ def train_swinir_l2s():
     if not loss_after < record['fixed_loss_before']:
         fail('the loss on the fixed batch did not fall')
 
-    vis = model.opt['path']['visualization']
-    csvs = glob.glob(os.path.join(vis, 'L2S_single_val_*.csv'))
-    if len(csvs) != 1:
-        fail(f'expected one metric CSV under {vis}, found {csvs}')
-    names = check_metric_csv(csvs[0], opt['val']['metrics'], val_images)
-    check_band_outputs(vis, 'L2S_single_val', names, gt_size)
-    print(f'{csvs[0]}: {val_images} rows of {len(opt["val"]["metrics"])} finite metrics; RGB and '
-          'NSS PNGs of each: ' + ', '.join(f'{k} {v:.4f}' for k, v in model.metric_results.items()
-                                         if k in ('psnr', 'psnr_nir', 'ssim', 'niqe_red',
-                                                  'niqe_swir22')))
+    check_validation(model, opt, 'L2S_single_val', gt_size)
     net_opt = dict(opt['network_g'])
     net_opt.pop('type')
     check_ema_and_checkpoint(model, SwinIR(**net_opt),
@@ -2426,10 +2471,7 @@ def serve_swinir_l2s():
 def train_resshift_l2s():
     """Phase 26: ResShift-L2S x3 through ``basicsr4rs_torch.train`` at the
     published batch, GT, window and use_amp. Returns the kernels' launches."""
-    import glob
-
     from basicsr4rs_torch.models.resshift_l2s_model import ResShiftL2SModel
-    from basicsr4rs_torch.ops import window_attention as A
     opt, steps, per_forward = resshift_options(L2S_RS_TRAIN)
     train_opt = opt['datasets']['train']
     batch, gt_size = train_opt['batch_size_per_gpu'], train_opt['gt_size']
@@ -2438,15 +2480,8 @@ def train_resshift_l2s():
           f'GT {gt_size} of 6 bands -> latents {latent}x{latent}, window '
           f'{opt["network_g"]["window_size"]}, use_amp: bfloat16 autocast)')
     total_iter = opt['train']['total_iter']
-    wrappers = attention_wrappers()
+    wrappers, dtypes, spies = attention_dtype_spies()
     fresh_run(opt, wrappers)
-    dtypes = collections.Counter()
-    spies = []
-    for attr in ('_launch_forward', '_launch_backward'):
-        def spy(qkv, *args, _inner=getattr(A, attr), _attr=attr):
-            dtypes[(_attr, str(qkv.dtype))] += 1   # the dtype each launch is made in
-            return _inner(qkv, *args)
-        spies.append(mock.patch.object(A, attr, spy))
     record = {'steps': []}
     t0 = time.perf_counter()
     for sp in spies:
@@ -2455,7 +2490,7 @@ def train_resshift_l2s():
         model = run_train_pipeline(['--force_yml', f'datasets:val:{L2S_VAL_SPLIT}'], record,
                                    config=L2S_RS_TRAIN, model_cls=ResShiftL2SModel,
                                    loss_key='loss', wrappers=wrappers,
-                                   before_first_step=keep_first_batch)
+                                   before_first_step=keep_fed_batch)
     finally:
         for sp in spies:
             sp.stop()
@@ -2478,22 +2513,10 @@ def train_resshift_l2s():
           + f'; made in {dict(dtypes)}')
     if any(dt != 'torch.bfloat16' for _, dt in dtypes):
         fail('under use_amp the attention kernels should run in bfloat16')
-    vis = model.opt['path']['visualization']
-    csvs = glob.glob(os.path.join(vis, 'L2S_single_val_*.csv'))
-    if len(csvs) != 1:
-        fail(f'expected one metric CSV under {vis}, found {csvs}')
-    names = check_metric_csv(csvs[0], opt['val']['metrics'], L2S_VAL_IMAGES)
-    check_band_outputs(vis, 'L2S_single_val', names, gt_size)
+    check_validation(model, opt, 'L2S_single_val', gt_size)
 
     phase('26b. device time of 2 ResShift-L2S training steps by kernel (torch.profiler)')
-    model.lq, model.gt = record['batch']
-    model.tt = model.noise = None
-    counts = {k: wr.launches for k, wr in wrappers.items()}
-    model.optimize_parameters(0)
-    profile_device_time(lambda: model.optimize_parameters(0), 2, 'step', tuple(wrappers),
-                        'resshift_l2s_train_step_profile.json')
-    for k, wr in wrappers.items():   # the profiled steps belong to no main path's count
-        wr.launches = counts[k]
+    profile_fed_steps(model, record, wrappers, 'resshift_l2s_train_step_profile.json')
     del model
     return launches
 
@@ -2574,6 +2597,410 @@ def l2s_paths(launches):
     for name, count in train_resshift_l2s().items():
         launches[name] += count
     launches['window_attention_fwd'] += serve_resshift_l2s()
+
+
+# ------------------------------------------------- the RS alignment stack
+ALIGN_REG_TRAIN = 'options/train/AlignAutoencoder/train_Registration_L2S_Square192_synthetic.yml'
+ALIGN_JOINT_TRAIN = 'options/train/AlignResDiff/train_AlignResDiff_3loss_L2S_Square192_synthetic.yml'
+ALIGN_JOINT_TEST = 'options/test/AlignResDiff/test_AlignResDiff_3loss_L2S_Square192_synthetic.yml'
+SRCNN_TRAIN = 'options/train/SRCNN/train_SRCNN_L2S288_synthetic.yml'
+LPIPS_DIR = 'results/chip_smoke/lpips'   # the random weights the synthetic configs name
+
+
+def write_lpips_weights():
+    """Random AlexNet features (std 1/sqrt(fan-in)) and non-negative linear
+    heads from seed 0, in the two published files' key layouts, where the
+    synthetic configs' LPIPS metrics read them: the repository holds neither."""
+    from basicsr4rs_torch.metrics.lpips import _ALEX_CONVS
+    gen = torch.Generator().manual_seed(0)
+    alex, lins = {}, {}
+    for n, (i, cin, cout, k, _, _) in enumerate(_ALEX_CONVS):
+        alex[f'features.{i}.weight'] = torch.randn(cout, cin, k, k, generator=gen) * (
+            cin * k * k)**-0.5
+        alex[f'features.{i}.bias'] = torch.randn(cout, generator=gen) * 0.05
+        lins[f'lin{n}.model.1.weight'] = torch.rand(1, cout, 1, 1, generator=gen)
+    os.makedirs(LPIPS_DIR, exist_ok=True)
+    torch.save(alex, os.path.join(LPIPS_DIR, 'alexnet-owt.pth'))
+    torch.save(lins, os.path.join(LPIPS_DIR, 'lpips_alex_v0.1.pth'))
+
+
+def check_validation(model, opt, dataset, size):
+    """The per-image CSV of every metric the config names (L2S_VAL_IMAGES
+    rows of finite scores) and the RGB and NSS PNGs of each image."""
+    import glob
+    vis = model.opt['path']['visualization']
+    csvs = glob.glob(os.path.join(vis, f'{dataset}_*.csv'))
+    if len(csvs) != 1:
+        fail(f'expected one metric CSV under {vis}, found {csvs}')
+    names = check_metric_csv(csvs[0], opt['val']['metrics'], L2S_VAL_IMAGES)
+    check_band_outputs(vis, dataset, names, size)
+    print(f'{csvs[0]}: {L2S_VAL_IMAGES} rows of {len(opt["val"]["metrics"])} finite metrics; RGB '
+          'and NSS PNGs of each: ' + ', '.join(f'{k} {v:.4f}' for k, v in
+                                              model.metric_results.items()
+                                              if k in ('psnr', 'ssim', 'psnr_nir', 'niqe_red',
+                                                       'niqe_swir22', 'lpips_red',
+                                                       'lpips_swir22')))
+
+
+def metric_host_time(model, opt):
+    """Seconds of each metric type on the first validation item, its
+    output and GT as validation scores them."""
+    from basicsr4rs_torch.data import build_dataset, default_collate
+    from basicsr4rs_torch.metrics import calculate_metric
+    from basicsr4rs_torch.utils.img_util import minusone_one_tensor_to_ubyte_numpy
+    model.feed_data(default_collate([build_dataset(model.opt['datasets']['val'])[0]]))
+    model.test()
+    visuals = {k: minusone_one_tensor_to_ubyte_numpy(v, rgb2bgr=False)
+               for k, v in model.get_current_visuals().items()}
+    by_type = collections.Counter()
+    for metric in opt['val']['metrics'].values():
+        t0 = time.perf_counter()
+        calculate_metric({'img': visuals['result'], 'img2': visuals['gt']}, metric)
+        by_type[metric['type']] += time.perf_counter() - t0
+    return by_type
+
+
+def open_channel_gates(net):
+    """Each CAB's gate (CAM) starts near sigmoid(0) = 1/2 under torch's
+    initialisation, so the 16 of an AlignAutoencoder scale its output by
+    about 2^-16: every band of the image then rounds to one uint8 level,
+    which NIQE cannot score (in either package). A bias of 3 on each gate's
+    last Linear opens it (sigmoid(6), the max and mean descriptors' sum)."""
+    from basicsr4rs_torch.archs.arch_util import CAM
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, CAM):
+                m.linear_max[2].bias.fill_(3.)
+    return net
+
+
+def train_registration():
+    """Phase 28: the registration autoencoder (RegistrationModel on
+    StyleResNet) through ``basicsr4rs_torch.train`` at the published widths,
+    batch, GT and use_amp, with one validation of the 26 metrics."""
+    from basicsr4rs_torch.models.align_single_model import AlignSingleModel, center_crop_to
+    from basicsr4rs_torch.utils.options import yaml_load
+    opt = yaml_load(ALIGN_REG_TRAIN)
+    train_opt = opt['datasets']['train']
+    batch, gt_size = train_opt['batch_size_per_gpu'], train_opt['gt_size']
+    val_size = opt['datasets']['val']['gt_size']
+    net = opt['network_g']
+    phase(f'28. train the registration autoencoder through basicsr4rs_torch.train on cuda:0 '
+          f'({net["type"]}: {net["num_in_ch"]} -> {net["num_out_ch"]} bands, {net["num_feat"]} '
+          f'features, {net["num_block"]} blocks; batch {batch}, GT {gt_size}, use_amp; from '
+          'seed-0 weights with its channel gates opened; no TPU kernel on this path)')
+    if not os.path.isdir(L2S_DIR):
+        write_l2s_tree()
+    write_lpips_weights()
+    from basicsr4rs_torch.archs.alignae_arch import AlignAutoencoder
+    torch.manual_seed(0)   # torch's initialisation from seed 0, its channel gates opened
+    init = 'experiments/Registration_L2S_Square192_synthetic/net_g_seed0.pth'
+    os.makedirs(os.path.dirname(init), exist_ok=True)
+    torch.save({'params': open_channel_gates(AlignAutoencoder(
+        **{k: v for k, v in net.items() if k != 'type'})).state_dict()}, init)
+    total_iter = opt['train']['total_iter']
+    wrappers = attention_wrappers()
+    fresh_run(opt, wrappers)
+
+    def fixed_loss(model, batch):
+        """Stage 1 + stage 2 of the training network in eval mode on a batch."""
+        reg_input, lq_up, gt = batch
+        model.net_g.eval()
+        with torch.no_grad(), model.autocast():
+            out = model.net_g(reg_input)
+        model.net_g.train()
+        return float(model.stage1_loss(center_crop_to(out['stage1'].float(), *lq_up.shape[-2:]),
+                                       lq_up)
+                     + model.stage2_loss(center_crop_to(out['stage2'].float(), *gt.shape[-2:]),
+                                         gt))
+
+    def keep_batch(model, record):
+        keep_fed_batch(model, record)
+        record['fixed'] = tuple(record['batch'][k] for k in ('reg_input', 'lq_up', 'gt'))
+        record['fixed_loss_before'] = fixed_loss(model, record['fixed'])
+
+    record = {'steps': []}
+    t0 = time.perf_counter()
+    model = run_train_pipeline(['--force_yml', f'datasets:val:{L2S_VAL_SPLIT}',
+                                f'path:pretrain_network_g={init}'], record,
+                               config=ALIGN_REG_TRAIN, model_cls=AlignSingleModel,
+                               loss_key='stage2_loss', wrappers=wrappers,
+                               before_first_step=keep_batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if model.device.type != 'cuda' or not model.use_amp:
+        fail(f'the model trained on {model.device}, use_amp {model.use_amp}')
+    print(f'pipeline wall time {wall:.3f} s for {len(record["steps"])} steps and one validation '
+          f'of {L2S_VAL_IMAGES} images (GT {val_size}, {len(opt["val"]["metrics"])} metrics) on '
+          'net_g_ema')
+    check_steps(record['steps'], total_iter, 'stage2_loss', {})
+    if model.skipped_steps:
+        fail(f'{model.skipped_steps} steps were skipped as non-finite')
+    after = fixed_loss(model, record['fixed'])
+    print(f'stage1 + stage2 loss on the first batch, eval mode: {record["fixed_loss_before"]:.6f} '
+          f'before step 1, {after:.6f} after step {total_iter}')
+    if not after < record['fixed_loss_before']:
+        fail('the loss on the fixed batch did not fall')
+    check_validation(model, opt, 'L2S_square_val', val_size)
+    by_type = metric_host_time(model, opt)
+    lpips = sum(1 for m in opt['val']['metrics'].values() if m['type'] == 'calculate_lpips_band')
+    print(f'one validation item: the {lpips} LPIPS bands '
+          f'{by_type["calculate_lpips_band"]:.3f} s (AlexNet on the card), all '
+          f'{len(opt["val"]["metrics"])} metrics {sum(by_type.values()):.3f} s; by type: '
+          + ', '.join(f'{k} {v:.3f} s' for k, v in by_type.most_common()))
+
+    phase('28b. device time of 2 registration training steps by kernel (torch.profiler)')
+    profile_fed_steps(model, record, {}, 'registration_train_step_profile.json')
+    del model
+
+
+def swin_blocks(unet):
+    from basicsr4rs_torch.archs.unet_arch import SwinBlockGN
+    return sum(isinstance(m, SwinBlockGN) for m in unet.modules())
+
+
+def random_joint_weights(net_opt, seed=0):
+    """ResNetAE_SwinUNet from ``seed`` with the UNet's zero-initialised
+    convolutions redrawn (a fresh UNet answers 0 to everything) and the
+    align networks' channel gates opened (``open_channel_gates``)."""
+    from basicsr4rs_torch.archs.alignae_unet_arch import ResNetAE_SwinUNet
+    from basicsr4rs_torch.archs.arch_util import default_conv_init_
+    gen = torch.Generator().manual_seed(seed)
+    torch.manual_seed(seed)
+    net = ResNetAE_SwinUNet(**{k: v for k, v in net_opt.items() if k != 'type'})
+    with torch.no_grad():
+        for m in net.unet.modules():
+            if getattr(m, 'zero_init', False):
+                default_conv_init_(m, gen)
+    return open_channel_gates(net)
+
+
+def train_joint_align():
+    """Phase 29: the joint align-diffusion model through
+    ``basicsr4rs_torch.train`` at the published widths, batch and use_amp
+    (GT 66). Returns the model and the attention kernels' launches."""
+    from basicsr4rs_torch.models.align_joint_diff_model import AlignJointDiffModel
+    from basicsr4rs_torch.utils.options import yaml_load
+    opt = yaml_load(ALIGN_JOINT_TRAIN)
+    train_opt, unet = opt['datasets']['train'], opt['network_g']['unet_args']
+    batch, gt_size = train_opt['batch_size_per_gpu'], train_opt['gt_size']
+    steps = opt['diffusion']['steps']
+    phase(f'29. train the joint align-diffusion model through basicsr4rs_torch.train on cuda:0 '
+          f'(ResNetAE_SwinUNet: UNet {unet["model_channels"]} x {unet["channel_mult"]}, Swin '
+          f'{unet["swin_embed_dim"]} in heads of {unet["num_head_channels"]}, window '
+          f'{unet["window_size"]}, image_size {unet["image_size"]}; batch {batch}, GT {gt_size}, '
+          'use_amp)')
+    total_iter = opt['train']['total_iter']
+    wrappers, dtypes, spies = attention_dtype_spies()
+    fresh_run(opt, wrappers)
+    record = {'steps': []}
+    t0 = time.perf_counter()
+    for sp in spies:
+        sp.start()
+    try:
+        model = run_train_pipeline(['--force_yml', f'datasets:val:{L2S_VAL_SPLIT}'], record,
+                                   config=ALIGN_JOINT_TRAIN, model_cls=AlignJointDiffModel,
+                                   loss_key='loss', wrappers=wrappers,
+                                   before_first_step=keep_fed_batch)
+    finally:
+        for sp in spies:
+            sp.stop()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: wr.launches for k, wr in wrappers.items()}
+    if model.device.type != 'cuda' or not model.use_amp:
+        fail(f'the model trained on {model.device}, use_amp {model.use_amp}')
+    per_forward = swin_blocks(model.net_g.unet)
+    print(f'pipeline wall time {wall:.3f} s for {len(record["steps"])} steps and one validation '
+          f'of {L2S_VAL_IMAGES} images ({steps} reverse steps each); {per_forward} Swin blocks '
+          'in the UNet (its middle block: 8x8, one window of 64 tokens, no shift)')
+    check_steps(record['steps'], total_iter, 'loss', dict.fromkeys(wrappers, per_forward))
+    if model.skipped_steps:
+        fail(f'{model.skipped_steps} steps were skipped as non-finite')
+    print('losses of the last step: ' + ', '.join(f'{k} {float(v):.6f}'
+                                                 for k, v in model.log_dict.items()))
+    want = {'window_attention_fwd': per_forward * (total_iter + steps * L2S_VAL_IMAGES),
+            'window_attention_bwd': per_forward * total_iter}
+    if launches != want:
+        fail(f'launches in the run {launches}, expected {want}')
+    print('launches in the run: ' + ' '.join(f'{k}={v}' for k, v in launches.items())
+          + f'; made in {dict(dtypes)} (use_amp: the qkv Linear runs in bfloat16 under autocast)')
+    if {dt for _, dt in dtypes} != {'torch.bfloat16'}:
+        fail(f'under use_amp the attention kernels were handed {dict(dtypes)}')
+    check_validation(model, opt, 'L2S_square_val', gt_size)
+
+    phase('29b. device time of 2 joint align-diffusion training steps by kernel (torch.profiler)')
+    profile_fed_steps(model, record, wrappers, 'align_joint_train_step_profile.json')
+    return model, launches
+
+
+def check_joint_model(model):
+    """Phase 29c: the joint model in float32 with the kernels and with their
+    plain versions, on seed-0 weights and one training batch: the four
+    losses' sum and every gradient of one step, and a sampled request
+    (the same noises)."""
+    from basicsr4rs_torch.archs import swinir_arch
+    from basicsr4rs_torch.ops import window_attention as A
+    opt = model.opt
+    batch, gt_size = opt['datasets']['train']['batch_size_per_gpu'], opt['datasets']['train'][
+        'gt_size']
+    phase(f'29c. the joint model in float32, kernels vs plain versions: one training batch of '
+          f'{batch} (GT {gt_size}) forward and backward, and one request')
+    weights = random_joint_weights(opt['network_g']).state_dict()
+    model.net_g.load_state_dict(weights)
+    model.net_g_ema.load_state_dict(weights)   # test() samples with the EMA network
+    model.use_amp = False
+    gen = torch.Generator().manual_seed(6)
+    lq = torch.rand(batch, 6, gt_size // 3, gt_size // 3, generator=gen) * 2 - 1
+    gt = torch.rand(batch, 6, gt_size, gt_size, generator=gen) * 2 - 1
+    size = opt['network_g']['unet_args']['image_size']
+    steps = model.base_diffusion.num_timesteps
+
+    def groups(lq, gt):   # the L2S layout: the GT's NSS on half the grid
+        return {'lq': {'rgb': lq[:, :3], 'nss': lq[:, 3:]},
+                'gt': {'rgb': gt[:, :3], 'nss': gt[:, 3:, ::2, ::2]}}
+
+    train_batch = dict(groups(lq, gt), tt=torch.randint(0, steps, (batch,), generator=gen),
+                       noise=torch.randn(batch, 6, size, size, generator=gen))
+    request = groups(lq[:1], gt[:1])
+
+    def step_and_request():
+        model.feed_data(train_batch)
+        model.net_g.zero_grad(set_to_none=True)
+        loss, _ = model.compute_losses()
+        loss.backward()
+        grads = {k: p.grad.clone() for k, p in model.net_g.named_parameters()}
+        model.feed_data(request)
+        model.generator.manual_seed(7)   # the same noises in both runs
+        model.test()
+        return model.output.detach().clone(), loss.item(), grads
+
+    wrappers = attention_wrappers()
+    counts = {k: w.launches for k, w in wrappers.items()}
+    out_k, loss_k, grads_k = step_and_request()
+    made = {k: w.launches - counts[k] for k, w in wrappers.items()}
+    per_forward = swin_blocks(model.net_g.unet)
+    if made != {'window_attention_fwd': per_forward * (1 + steps),
+                'window_attention_bwd': per_forward}:
+        fail(f'the kernel run made {made} launches')
+    counts = {k: w.launches for k, w in wrappers.items()}
+    with mock.patch.object(swinir_arch, 'fused_window_attention', A.reference_window_attention):
+        out_p, loss_p, grads_p = step_and_request()
+    if counts != {k: w.launches for k, w in wrappers.items()}:
+        fail('the plain run launched a kernel')
+    err = (out_k - out_p).abs().max().item()
+    print(f'request output {tuple(out_k.shape)} ({steps} reverse steps, decoded): max abs '
+          f'difference {err:.3e} (max|plain| {out_p.abs().max().item():.3e}; tolerance '
+          f'{MODEL_TOLERANCE})')
+    if not err <= MODEL_TOLERANCE:
+        fail('the joint model: the sampled outputs disagree')
+    compare_gradients('the joint model', loss_k, grads_k, loss_p, grads_p)
+    model.use_amp = True
+
+
+def serve_joint_align():
+    """Phase 30: the joint model sampled through ``basicsr4rs_torch.test``
+    on seed-0 weights: a request is the LR encoder, 15 reverse steps of the
+    UNet, and the decoder. Returns K6's launches."""
+    import numpy as np
+
+    import basicsr4rs_torch.test as entry
+    from basicsr4rs_torch.data import build_dataloader, build_dataset
+    from basicsr4rs_torch.utils.options import yaml_load
+    opt = yaml_load(ALIGN_JOINT_TEST)
+    steps, gt_size = opt['diffusion']['steps'], opt['datasets']['test_1']['gt_size']
+    phase(f'30. serve the joint align-diffusion model through basicsr4rs_torch.test on cuda:0 '
+          f'(LQ {gt_size // 3}x{gt_size // 3} of 6 bands -> {gt_size}x{gt_size}, batch 1, '
+          f'{steps} reverse steps on the 64x64 latent, use_amp)')
+    weights = opt['path']['pretrain_network_g']
+    os.makedirs(os.path.dirname(weights), exist_ok=True)
+    torch.save({'params': random_joint_weights(opt['network_g']).state_dict()}, weights)
+    wrappers = attention_wrappers()
+    for wr in wrappers.values():
+        wr.launches = 0
+    argv = sys.argv
+    sys.argv = ['basicsr4rs_torch.test', '-opt', ALIGN_JOINT_TEST, '--force_yml',
+                f'datasets:test_1:{L2S_VAL_SPLIT}']
+    t0 = time.perf_counter()
+    try:
+        model = entry.test_pipeline(ROOT)
+    finally:
+        sys.argv = argv
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    per_request = swin_blocks(model.net_g.unet) * steps
+    launches = wrappers['window_attention_fwd'].launches
+    print(f'pipeline wall time {wall:.3f} s ({L2S_VAL_IMAGES} requests, '
+          f'{len(opt["val"]["metrics"])} metrics each, image writes); window_attention_fwd '
+          f'launches {launches} = {launches / L2S_VAL_IMAGES:g} per request')
+    if model.device.type != 'cuda' or launches != per_request * L2S_VAL_IMAGES \
+            or wrappers['window_attention_bwd'].launches:
+        fail(f'expected {per_request} forward launches per request on cuda and no backward '
+             f'launch, counted {launches} on {model.device}')
+    vis = model.opt['path']['visualization']
+    names = check_metric_csv(os.path.join(vis, f'L2S_square_val_{model.opt["name"]}.csv'),
+                             opt['val']['metrics'], L2S_VAL_IMAGES)
+    check_band_outputs(vis, 'L2S_square_val', names, gt_size)
+    dataset_opt = model.opt['datasets']['test_1']
+    loader = list(build_dataloader(build_dataset(dataset_opt), dataset_opt))
+    latencies = request_latencies(model, loader, lambda item: (1, 6, gt_size, gt_size),
+                                  (wrappers['window_attention_fwd'], per_request))
+    print(f'request latency: ' + ', '.join(f'{ms:.3f}' for ms in latencies) + ' ms (mean '
+          f'{np.mean(latencies):.3f}, {np.mean(latencies) / steps:.3f} ms a reverse step, '
+          f'encoders and decoder included); peak device memory '
+          f'{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB')
+    launches = wrappers['window_attention_fwd'].launches
+
+    phase('30b. device time of a joint align-diffusion request by kernel (torch.profiler)')
+
+    def request():
+        model.feed_data(loader[0])
+        model.test()
+
+    profile_device_time(request, 2, 'request', tuple(wrappers),
+                        'align_joint_request_profile.json')
+    del model
+    return launches
+
+
+def train_srcnn():
+    """Phase 31: SRCNN x3 on 6 bands through ``basicsr4rs_torch.train``
+    (``L2SSingleModel``) at the published batch, GT and use_amp."""
+    from basicsr4rs_torch.models.srrs_l2s_model import L2SSingleModel
+    from basicsr4rs_torch.utils.options import yaml_load
+    opt = yaml_load(SRCNN_TRAIN)
+    train_opt = opt['datasets']['train']
+    phase(f'31. train SRCNN x3 on 6 bands through basicsr4rs_torch.train on cuda:0 (batch '
+          f'{train_opt["batch_size_per_gpu"]}, GT {train_opt["gt_size"]}, use_amp; no TPU kernel '
+          'on this path)')
+    wrappers = attention_wrappers()
+    fresh_run(opt, wrappers)
+    record = {'steps': []}
+    model = run_train_pipeline(['--force_yml', f'datasets:val:{L2S_VAL_SPLIT}'], record,
+                               config=SRCNN_TRAIN, model_cls=L2SSingleModel, wrappers=wrappers)
+    if model.device.type != 'cuda' or not model.use_amp:
+        fail(f'the model trained on {model.device}, use_amp {model.use_amp}')
+    check_steps(record['steps'], opt['train']['total_iter'], 'l_pix', {})
+    after = fixed_batch_loss(model, record['fixed'])
+    print(f'l_pix on the first batch, eval mode: {record["fixed_loss_before"]:.6f} before step 1, '
+          f'{after:.6f} after step {opt["train"]["total_iter"]}')
+    if not after < record['fixed_loss_before']:
+        fail('the loss on the fixed batch did not fall')
+    check_validation(model, opt, 'L2S_single_val', train_opt['gt_size'])
+    del model
+
+
+def align_paths(launches):
+    """Phases 28 to 31: the registration autoencoder, the joint
+    align-diffusion model (trained, checked against the plain versions,
+    served) and SRCNN. K6's and K7's launches are added to ``launches``."""
+    train_registration()
+    model, trained = train_joint_align()
+    check_joint_model(model)
+    del model
+    launches['window_attention_fwd'] += trained['window_attention_fwd'] + serve_joint_align()
+    launches['window_attention_bwd'] += trained['window_attention_bwd']
+    train_srcnn()
 
 
 # ------------------------------------------------------------ the video path
@@ -3952,12 +4379,14 @@ def serving_modes(launches, split_step_ms):
 def main():
     if not torch.cuda.is_available():
         fail('no CUDA device')
+    from basicsr4rs_torch.utils.options import yaml_load
     os.chdir(ROOT)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_info()
     rs_batch = resshift_options(RS_TRAIN_CONFIG)[0]['datasets']['train']['batch_size_per_gpu']
     l2s_batch = resshift_options(L2S_CONFIG)[0]['datasets']['train']['batch_size_per_gpu']
+    align_batch = yaml_load(ALIGN_JOINT_TRAIN)['datasets']['train']['batch_size_per_gpu']
     build_kernels()
     if sys.argv[1:] == ['serving']:   # development: the serving modes' kernels and paths alone
         print(json.dumps({'swin_block_joint_fwd': check_joint_kernel(), **check_conv_kernel(),
@@ -3968,7 +4397,7 @@ def main():
         return
     kernels = {'swin_block_joint_fwd': check_joint_kernel()}
     kernels.update(check_branch_kernels())
-    kernels.update(check_attention_kernels(rs_batch, l2s_batch))
+    kernels.update(check_attention_kernels(rs_batch, l2s_batch, align_batch))
     kernels.update(check_deform_kernels())
     kernels.update(check_conv_kernel())
     kernels.update(check_int8_block_kernel())
@@ -4003,6 +4432,7 @@ def main():
         launches['deform_sample_bwd'] += trained['deform_sample_bwd']
     serving_modes(launches, split_step_ms)
     l2s_paths(launches)
+    align_paths(launches)
     for name, count in launches.items():
         if count == 0:
             fail(f'{name} was never launched on the main paths')

@@ -21,8 +21,8 @@ def port_modules():
 
 
 def test_port_imports_without_jax():
-    """Every module of the port (the diffusion, video and serving-mode
-    slices' among them) imports with JAX and the JAX package blocked, and none of them is in
+    """Every module of the port (the diffusion, video, serving-mode and
+    alignment slices' among them) imports with JAX and the JAX package blocked, and none of them is in
     ``sys.modules`` afterwards."""
     modules = port_modules()
     for expected in ('basicsr4rs_torch.ops.window_attention', 'basicsr4rs_torch.archs.unet_arch',
@@ -40,7 +40,15 @@ def test_port_imports_without_jax():
                      'basicsr4rs_torch.models.video_recurrent_model',
                      'basicsr4rs_torch.ops.conv3x3', 'basicsr4rs_torch.ops.quant',
                      'basicsr4rs_torch.ops.tile', 'basicsr4rs_torch.archs.srresnet_arch',
-                     'basicsr4rs_torch.inference.inference_swinir'):
+                     'basicsr4rs_torch.inference.inference_swinir',
+                     'basicsr4rs_torch.archs.alignae_arch',
+                     'basicsr4rs_torch.archs.alignae_unet_arch',
+                     'basicsr4rs_torch.archs.srcnn_arch', 'basicsr4rs_torch.losses.align_loss',
+                     'basicsr4rs_torch.metrics.lpips',
+                     'basicsr4rs_torch.utils.gaussian_diffusion_align',
+                     'basicsr4rs_torch.models.align_single_model',
+                     'basicsr4rs_torch.models.align_frozen_diff_model',
+                     'basicsr4rs_torch.models.align_joint_diff_model'):
         assert expected in modules
     code = ('import importlib, sys\n'
             f'for name in {BLOCKED!r}:\n'
