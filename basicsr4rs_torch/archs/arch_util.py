@@ -71,16 +71,21 @@ class ResidualBlockNoBN(nn.Module):
 
 class ChannelAttention(nn.Module):
     """Squeeze-and-excitation: the global mean of each channel through a
-    1x1-conv bottleneck (keys ``squeeze``, ``excite``) gates the map."""
+    1x1-conv bottleneck gates the map. BasicSR's layout (RCAN's and
+    RIDNet's): ``attention`` = (pool, conv, ReLU, conv, sigmoid), so the
+    convolutions are keys ``attention.1`` and ``attention.3``."""
+
+    # the JAX module's ``squeeze`` and ``excite``, wherever the block sits
+    JAX_KEY_RULES = ((r'(^|\.)squeeze\.', r'\1attention.1.'), (r'(^|\.)excite\.', r'\1attention.3.'))
 
     def __init__(self, num_feat: int, squeeze_factor: int = 16):
         super().__init__()
-        self.squeeze = nn.Conv2d(num_feat, max(1, num_feat // squeeze_factor), 1)
-        self.excite = nn.Conv2d(max(1, num_feat // squeeze_factor), num_feat, 1)
+        mid = max(1, num_feat // squeeze_factor)
+        self.attention = nn.Sequential(nn.AdaptiveAvgPool2d(1), nn.Conv2d(num_feat, mid, 1),
+                                       nn.ReLU(), nn.Conv2d(mid, num_feat, 1), nn.Sigmoid())
 
     def forward(self, x):
-        y = self.excite(F.relu(self.squeeze(x.mean(dim=(2, 3), keepdim=True))))
-        return x * torch.sigmoid(y)
+        return x * self.attention(x)
 
 
 class CAM(nn.Module):
@@ -118,6 +123,9 @@ class Upsample(nn.Sequential):
     """Pixel-shuffle upsampler for scales 2^n and 3: (conv, PixelShuffle)
     per stage, so the convs are keys ``0``, ``2``, ... With
     ``SWIN_FUSED_CONV=1`` the convs run through ``fused_conv3x3``."""
+
+    # the JAX module's ``conv<i>`` of an upsampler named ``upsample``
+    JAX_KEY_RULES = ((r'^upsample\.conv(\d+)\.', lambda m: f'upsample.{2 * int(m.group(1))}.'),)
 
     def __init__(self, scale: int, num_feat: int):
         m = []

@@ -10,7 +10,8 @@ Validation: each item of the loader is one request, run forward under
 (``ops/quant.py``): dynamic activation scales, or scales calibrated on the
 first evaluation batch and static from then on.
 ``val.selfensemble_testing`` averages the x8 flip / transpose ensemble.
-Perceptual losses are not ported yet.
+Training losses: ``pixel_opt`` and ``perceptual_opt`` (a VGG feature loss
+and its style term), either or both.
 """
 
 from __future__ import annotations
@@ -68,9 +69,9 @@ class SRModel(BaseModel):
 
         self.cri_pix = (build_loss(train_opt['pixel_opt']).to(self.device)
                         if train_opt.get('pixel_opt') else None)
-        if train_opt.get('perceptual_opt'):
-            raise NotImplementedError('SRModel: the perceptual loss is not ported yet')
-        if self.cri_pix is None:
+        self.cri_perceptual = (build_loss(train_opt['perceptual_opt']).to(self.device)
+                               if train_opt.get('perceptual_opt') else None)
+        if self.cri_pix is None and self.cri_perceptual is None:
             raise ValueError('Both pixel and perceptual losses are None.')
 
         if train_opt.get('log_dcn_offset'):
@@ -131,13 +132,26 @@ class SRModel(BaseModel):
         if 'gt' in data:
             self.gt = data['gt'].to(self.device, non_blocking=True)
 
+    def pixel_and_perceptual_losses(self, output, target, loss_dict, names=('l_pix', 'l_percep',
+                                                                              'l_style')):
+        """The sum of the pixel loss, the perceptual loss and its style term
+        that the config asks for, of ``output`` against ``target``; each
+        term goes into ``loss_dict`` under its name in ``names``."""
+        terms = []
+        if self.cri_pix is not None:
+            terms.append((names[0], self.cri_pix(output, target)))
+        if self.cri_perceptual is not None:
+            l_percep, l_style = self.cri_perceptual(output, target)
+            terms += [(name, value) for name, value in zip(names[1:], (l_percep, l_style))
+                      if value is not None]
+        loss_dict.update(terms)
+        return sum(value for _, value in terms)
+
     def optimize_parameters(self, current_iter):
         self.optimizer_g.zero_grad(set_to_none=True)
         self.output = self.net_g(self.lq)
         loss_dict = OrderedDict()
-        l_pix = self.cri_pix(self.output, self.gt)
-        loss_dict['l_pix'] = l_pix
-        l_pix.backward()
+        self.pixel_and_perceptual_losses(self.output, self.gt, loss_dict).backward()
         # a frozen parameter takes part in the step (its moments and step
         # count run from the first iteration, as in the JAX package, which
         # masks the update) and gets its old value back

@@ -5,7 +5,8 @@ basicsr/models/srrs_l2shm_model.py).
 The network returns ``{'hm': ..., 'gt': ...}``: a prediction in the
 histogram-matched Sentinel domain and one in the true Sentinel domain. The
 loss is ``hm_loss_weight`` x the pixel loss of the first against
-``batch['hm']`` plus ``gt_loss_weight`` x that of the second against the GT.
+``batch['hm']`` plus ``gt_loss_weight`` x that of the second against the GT, each with the
+perceptual loss and its style term where the config asks for them.
 No L2S dataset gives ``hm`` (as in the JAX package), so training needs a
 batch that carries it. ``test()`` keeps both outputs: ``output`` is the GT
 branch, ``output_hm`` the other; validation scores and saves the first."""
@@ -43,10 +44,12 @@ class L2SSingleHMModel(SRRSModel):
         out_hm, out_gt = result['hm'].float(), result['gt'].float()
         self.output = out_gt
         losses = OrderedDict()
-        losses['l_pix_hm'] = self.cri_pix(out_hm, self.hm)
-        losses['l_pix_gt'] = self.cri_pix(out_gt, self.gt)
-        total = self.hm_weight * losses['l_pix_hm'] + self.gt_weight * losses['l_pix_gt']
-        return total, losses
+        loss_hm, loss_gt = (
+            self.pixel_and_perceptual_losses(out, target, losses,
+                                             tuple(f'{n}_{tag}' for n in ('l_pix', 'l_percep',
+                                                                          'l_style')))
+            for out, target, tag in ((out_hm, self.hm, 'hm'), (out_gt, self.gt, 'gt')))
+        return self.hm_weight * loss_hm + self.gt_weight * loss_gt, losses
 
     def _eval_forward(self, x):
         """The evaluation forward's outputs in float32: a dict of the two

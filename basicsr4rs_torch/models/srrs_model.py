@@ -52,8 +52,8 @@ class SRRSModel(SRModel):
         """(the loss to differentiate, the losses to log) of the batch fed."""
         with self.autocast():
             self.output = self.net_g(self.lq)
-        l_pix = self.cri_pix(self.output.float(), self.gt)
-        return l_pix, OrderedDict(l_pix=l_pix)
+        loss_dict = OrderedDict()
+        return self.pixel_and_perceptual_losses(self.output.float(), self.gt, loss_dict), loss_dict
 
     def optimize_parameters(self, current_iter):
         self.optimizer_g.zero_grad(set_to_none=True)

@@ -4,9 +4,12 @@ The inverse of ``basicsr4rs_tpu/utils/torch_convert.py``: it takes the nested
 dict of numpy arrays that the JAX package's modules hold and returns the
 BasicSR-keyed ``state_dict`` that the port's ``nn.Module``s load. Rules:
 
-* conv kernel (kH, kW, I, O) -> weight (O, I, kH, kW); 1-d (kW, I, O) -> (O, I, kW)
+* conv kernel (kH, kW, I, O) -> weight (O, I, kH, kW); 1-d (kW, I, O) -> (O, I, kW);
+  ECBSR's ``k0`` and ``k1`` likewise, under their own names
 * dense kernel (in, out)     -> weight (out, in)
-* ``kernel`` and LayerNorm ``scale`` -> ``weight``
+* ``kernel`` and the norms' ``scale`` -> ``weight``
+* BatchNorm ``batch_stats`` (``mean``, ``var``) -> ``running_mean``,
+  ``running_var``, and a ``num_batches_tracked`` of 0 beside them
 * module-list names ``a_0.b`` -> ``a.0.b``
 * then the architecture's own ``rules``: ``(regex, replacement)`` pairs on
   the dotted key: each architecture of the port keeps its own as
@@ -51,7 +54,7 @@ def jax_path_to_torch_key(path: Sequence[str],
 
 def convert_array(leaf: str, arr: np.ndarray) -> np.ndarray:
     """Flax layout -> torch layout for one leaf named ``leaf``."""
-    if leaf == 'kernel':
+    if leaf in ('kernel', 'k0', 'k1'):
         if arr.ndim == 4:   # HWIO -> OIHW
             return np.transpose(arr, (3, 2, 0, 1))
         if arr.ndim == 3:   # conv1d WIO -> OIW
@@ -61,13 +64,21 @@ def convert_array(leaf: str, arr: np.ndarray) -> np.ndarray:
     return arr
 
 
+_STATS = {'mean': 'running_mean', 'var': 'running_var'}
+
+
 def jax_params_to_state_dict(params: Mapping[str, Any],
-                             rules: Optional[Sequence[Tuple[str, Any]]] = None
+                             rules: Optional[Sequence[Tuple[str, Any]]] = None,
+                             batch_stats: Optional[Mapping[str, Any]] = None
                              ) -> 'OrderedDict[str, torch.Tensor]':
-    """Nested Flax params (numpy leaves) -> torch state_dict (CPU tensors)."""
+    """Nested Flax params (numpy leaves), and the ``batch_stats``
+    collection where the network has one, -> torch state_dict (CPU tensors)."""
     state_dict: 'OrderedDict[str, torch.Tensor]' = OrderedDict()
     for path, value in _flatten(params):
         arr = convert_array(path[-1], np.asarray(value))
-        state_dict[jax_path_to_torch_key(path, rules)] = torch.from_numpy(
-            np.ascontiguousarray(arr))
+        state_dict[jax_path_to_torch_key(path, rules)] = torch.from_numpy(np.array(arr))
+    for path, value in _flatten(batch_stats or {}):
+        key = jax_path_to_torch_key(path[:-1] + (_STATS[path[-1]],), rules)
+        state_dict[key] = torch.from_numpy(np.array(value, np.float32))
+        state_dict[key.rsplit('.', 1)[0] + '.num_batches_tracked'] = torch.tensor(0)
     return state_dict

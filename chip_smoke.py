@@ -65,7 +65,10 @@ nonzero exit code and no result line:
    W8A8 joint block (3f) against its plain version by the rule stated there,
    against the float block by SNR, and timed beside the float kernel, also
    past the float kernel's widths (C=180 in 3 heads of 60, C=240 in 8 heads
-   of 30, B=2 64x64: its wide variant);
+   of 30, B=2 64x64: its wide variant); the 3x3 convolution kernel again
+   (3g) at EDSR-L x4's upsampler convolutions in training (B=16, 256 -> 1024
+   on 48x48 and 96x96) and RCAN x2's (B=16, 64 -> 256 on 48x48), float32,
+   beside ``F.conv2d`` with its bias;
 4. serves SwinIR-M x4 through ``basicsr4rs_torch.test`` (the code path of
    ``python -m basicsr4rs_torch.test -opt options/test/SwinIR/
    test_SwinIR_M_x4_synthetic.yml``) on 4 synthetic image pairs and random
@@ -205,10 +208,44 @@ nonzero exit code and no result line:
 31. trains SRCNN x3 on 6 bands (``-opt options/train/SRCNN/
     train_SRCNN_L2S288_synthetic.yml``: ``L2SSingleModel``, batch 8 at GT
     288, ``use_amp``) for 8 steps: a loss that falls on the first batch,
-    one validation.
+    one validation;
+32. writes ``datasets/CNN_x4_synthetic/`` (16 train pairs of GT 256x256, two
+    to serve of LQ 128x128 and 96x160) and a random He-scaled VGG19 in
+    torchvision's layout (``results/chip_smoke/vgg19.pth``, which the
+    perceptual losses read through ``BASICSR4RS_TORCH_VGG19_PATH``), and
+    trains ESRGAN x4 (``-opt options/train/ESRGAN/
+    train_ESRGAN_x4_synthetic.yml``: RRDBNet 64 x 23, VGGStyleDiscriminator
+    64, perceptual, GAN and pixel losses, EMA; batch 16, GT 128) for 6 steps
+    from random weights: every logged loss finite, step time, peak memory,
+    the G phase's discriminator passes keeping its BatchNorm statistics, the
+    EMA moved, the checkpoint reloading to the EMA network's output; 32b
+    breaks 2 steps down by kernel group;
+33. serves RRDBNet x4 through ``basicsr4rs_torch.test`` (``-opt options/
+    test/ESRGAN/test_ESRGAN_x4_synthetic.yml``) and through
+    ``basicsr4rs_torch.inference.inference_esrgan`` from one random
+    ``params_ema`` checkpoint: the same images, latency, and (33b) the
+    device time of a request by kernel group;
+34. serves and trains EDSR-L x4 (``options/{test,train}/EDSR/
+    *_EDSR_Lx4_synthetic.yml``: 256 features, 32 blocks; batch 16, GT 192)
+    with ``SWIN_FUSED_CONV=1`` (2 K10 launches a forward, 256 -> 1024) and
+    without: the two routes' outputs, latency, step time; then RCAN x2 as
+    published (10 groups x 20 RCABs, batch 16, GT 96) forward and backward
+    with K10 (64 -> 256) and without: the output and every gradient, and
+    an EDSR-M x4 forward (64 -> 256 twice) with K10 and without;
+35. trains MSRGAN x4 (``-opt options/train/SRResNet_SRGAN/
+    train_MSRGAN_x4_synthetic.yml``: SRGANModel, MSRResNet 64 x 16,
+    VGGStyleDiscriminator) for 6 steps, then the same with
+    ``UNetDiscriminatorSN`` (64 features) at GT 256: the exact spectral norm
+    on the card;
+36. trains ECBSR x4 m4c16 PReLU on the Y channel (``-opt options/train/
+    ECBSR/train_ECBSR_x4_m4c16_prelu_synthetic.yml``: batch 32, GT 256) for
+    6 steps and validates it re-parameterised, holds that forward against
+    the branched one, and runs SRVGGNetCompact and RIDNet at their default
+    widths.
 
 ``python3 chip_smoke.py kernels`` stops after phase 3; ``python3 chip_smoke.py
-serving`` runs phases 3a, 3e, 3f, 4, 4b and 17 to 22 alone. The line before the
+serving`` runs phases 3a, 3e, 3f, 4, 4b and 17 to 22 alone; ``python3
+chip_smoke.py cnn`` runs phases 3g and 32 to 36 alone. The line before the
 last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -4343,6 +4380,485 @@ def serve_wide_swinir():
     return launches
 
 
+# --------------------------------------------------- the classic CNN and GAN paths
+CNN_DIR = 'datasets/CNN_x4_synthetic'
+CNN_TRAIN_IMAGES, CNN_TRAIN_GT = 16, 256
+CNN_VAL_LQ = [(128, 128), (96, 160)]
+ESRGAN_TRAIN = 'options/train/ESRGAN/train_ESRGAN_x4_synthetic.yml'
+ESRGAN_TEST = 'options/test/ESRGAN/test_ESRGAN_x4_synthetic.yml'
+EDSR_TRAIN = 'options/train/EDSR/train_EDSR_Lx4_synthetic.yml'
+EDSR_TEST = 'options/test/EDSR/test_EDSR_Lx4_synthetic.yml'
+MSRGAN_TRAIN = 'options/train/SRResNet_SRGAN/train_MSRGAN_x4_synthetic.yml'
+ECBSR_TRAIN = 'options/train/ECBSR/train_ECBSR_x4_m4c16_prelu_synthetic.yml'
+RCAN_TRAIN = 'options/train/RCAN/train_RCAN_x2.yml'   # its network and GT size, as published
+VGG_WEIGHTS = 'results/chip_smoke/vgg19.pth'
+CNN_ITERS = 6
+CNN_CONV_SHAPES = [        # (B, Cin, Cout, H, W): how EDSR-L x4 and RCAN x2 train through K10
+    (16, 256, 1024, 48, 48),   # EDSR-L's first upsampler conv, GT 192
+    (16, 256, 1024, 96, 96),   # its second
+    (16, 64, 256, 48, 48),     # RCAN x2's one, GT 96
+]
+
+
+def check_conv_kernel_cnn():
+    """Phase 3g: K10 at the upsampler convolutions of EDSR-L x4 and RCAN x2
+    in training, float32: against its plain version, timed beside it and
+    beside ``F.conv2d`` with its bias. Returns the summary by shape."""
+    import torch.nn.functional as F
+
+    from basicsr4rs_torch.ops.conv3x3 import fused_conv3x3, reference_conv3x3
+    phase('3g. K10 at EDSR-L x4\'s and RCAN x2\'s upsampler convolutions (B=16, float32) vs '
+          'plain version and F.conv2d + bias')
+    gen = torch.Generator().manual_seed(6)
+    summary = {}
+    for b, cin, cout, h, w in CNN_CONV_SHAPES:
+        x = torch.randn(b, cin, h, w, generator=gen).cuda()
+        weight = (torch.randn(cout, cin, 3, 3, generator=gen) * (9 * cin)**-.5).cuda()
+        bias = (torch.randn(cout, generator=gen) * .1).cuda()
+        with torch.no_grad():
+            got = fused_conv3x3(x, weight, bias)
+            want = reference_conv3x3(x, weight, bias)
+            torch.cuda.synchronize()
+            ok, max_abs, max_rel, tolerance = compare(got, want, torch.float32, 'elementwise')
+            del got, want
+            kernel_ms, library_ms = time_pair(lambda: F.conv2d(x, weight, bias, padding=1),
+                                              lambda: fused_conv3x3(x, weight, bias))
+            plain_ms = cuda_time_ms(lambda: reference_conv3x3(x, weight, bias), iters=5)
+        flop = 2 * 9 * cin * cout * b * h * w
+        nbytes = (b * h * w * (cin + cout) + 9 * cin * cout + cout) * 4
+        (bound, by), core_bound = tensor_core_bound_ms(flop, nbytes, torch.float32)
+        tag = f'B={b} {cin}->{cout} {h}x{w}'
+        print(f'{tag}: max_abs_err={max_abs:.3e} max_rel_err={max_rel:.3e} ({tolerance}) | '
+              f'kernel {kernel_ms:.3f} ms, F.conv2d + bias {library_ms:.3f} ms (ratio '
+              f'{kernel_ms / library_ms:.2f}{", K10 loses" if kernel_ms > library_ms else ""}), '
+              f'plain {plain_ms:.3f} ms, bound {bound:.3f} ms by {by} on the route '
+              f'({100 * bound / kernel_ms:.0f}%), CUDA-core bound {core_bound:.3f} ms; '
+              f'{flop / 1e9:.1f} GFLOP', flush=True)
+        if not ok:
+            fail(f'K10 and plain version disagree at {tag}')
+        summary[tag] = dict(max_abs_err=max_abs, ms=kernel_ms, plain_ms=plain_ms,
+                            library_ms=library_ms, bound_ms=bound, bound_by=by)
+        del x
+    return summary
+
+
+def write_cnn_inputs():
+    """16 GT 256x256 pairs to train on and two to validate and serve (LQ
+    128x128 and 96x160), LQ the bicubic x4 downscale; and a random VGG19
+    in torchvision's layout (He-scaled, seed 0), which the perceptual
+    losses read through ``BASICSR4RS_TORCH_VGG19_PATH``."""
+    import cv2
+    import numpy as np
+
+    from basicsr4rs_torch.archs.vgg_arch import _CFG, vgg_layer_names
+    rng = np.random.RandomState(4)
+    sets = [('GT', 'LQ', [(CNN_TRAIN_GT, CNN_TRAIN_GT)] * CNN_TRAIN_IMAGES),
+            ('val_GT', 'val_LQ', [(SCALE * h, SCALE * w) for h, w in CNN_VAL_LQ])]
+    for gt_dir, lq_dir, sizes in sets:
+        for sub in (gt_dir, lq_dir):
+            os.makedirs(os.path.join(CNN_DIR, sub), exist_ok=True)
+        for i, (h, w) in enumerate(sizes):
+            gt = smooth_image(rng, h, w)
+            lq = cv2.resize(gt, (w // SCALE, h // SCALE), interpolation=cv2.INTER_CUBIC)
+            cv2.imwrite(os.path.join(CNN_DIR, gt_dir, f'{i:04d}.png'), gt)
+            cv2.imwrite(os.path.join(CNN_DIR, lq_dir, f'{i:04d}.png'), lq)
+    gen = torch.Generator().manual_seed(0)
+    state, cin = {}, 3
+    channels = iter(c for c in _CFG['vgg19'] if c != 'M')
+    for i, name in enumerate(vgg_layer_names('vgg19')):
+        if name.startswith('conv'):
+            cout = next(channels)
+            state[f'features.{i}.weight'] = torch.randn(cout, cin, 3, 3, generator=gen) * (
+                2 / (9 * cin))**.5
+            state[f'features.{i}.bias'] = torch.zeros(cout)
+            cin = cout
+    os.makedirs(os.path.dirname(VGG_WEIGHTS), exist_ok=True)
+    torch.save(state, VGG_WEIGHTS)
+    os.environ['BASICSR4RS_TORCH_VGG19_PATH'] = VGG_WEIGHTS
+
+
+def short_run(iters=CNN_ITERS, *more):
+    """One ``--force_yml`` that cuts a published run to ``iters`` steps (the
+    validation and the checkpoint then come once, at the end: ``latest``),
+    logs every other step and leaves TensorBoard off; ``more`` overrides
+    besides."""
+    return ['--force_yml', f'train:total_iter={iters}', f'val:val_freq={10**6}',
+            f'logger:save_checkpoint_freq={10**6}', 'logger:print_freq=2',
+            'logger:use_tb_logger=false', *more]
+
+
+def run_test_pipeline(config, extra_args):
+    import basicsr4rs_torch.test as entry
+    argv = sys.argv
+    sys.argv = ['basicsr4rs_torch.test', '-opt', config] + extra_args
+    try:
+        return entry.test_pipeline(ROOT)
+    finally:
+        sys.argv = argv
+
+
+def keep_logs(model, step):
+    step['logs'] = {k: float(v) for k, v in model.log_dict.items()}
+
+
+def check_logs_finite(steps):
+    for st in steps:
+        bad = [k for k, v in st['logs'].items() if not math.isfinite(v)]
+        if bad:
+            fail(f'step {st["iter"]}: {bad} not finite')
+    print('last step: ' + ', '.join(f'{k} {v:.5f}' for k, v in steps[-1]['logs'].items()))
+
+
+def net_options(opt, key='network_g'):
+    return {k: v for k, v in opt[key].items() if k != 'type'}
+
+
+def train_gan(config, model_cls, number, title, extra=()):
+    """A GAN model trained ``CNN_ITERS`` steps through the training entry
+    point on the synthetic tree: every logged loss finite at every step,
+    the step time and the peak memory. Returns (model, record, options)."""
+    from basicsr4rs_torch.utils.options import yaml_load
+    opt = yaml_load(config)
+    forced = dict(e.split('=', 1) for e in extra)
+    train_opt = opt['datasets']['train']
+    gt_size = forced.get('datasets:train:gt_size', train_opt['gt_size'])
+    phase(f'{number}. {title} through basicsr4rs_torch.train on cuda:0 (batch '
+          f'{train_opt["batch_size_per_gpu"]}, GT {gt_size}; no TPU kernel on this path)')
+    name = forced.get('name', opt['name'])
+    fresh_run(dict(opt, name=name), {})
+    record = {'steps': []}
+    t0 = time.perf_counter()
+    model = run_train_pipeline(short_run(CNN_ITERS, *extra), record, config=config,
+                               model_cls=model_cls, loss_key='l_g_total', wrappers={},
+                               before_first_step=keep_fed_batch, after_step=keep_logs)
+    torch.cuda.synchronize()
+    if model.device.type != 'cuda':
+        fail(f'the model trained on {model.device}')
+    print(f'pipeline wall time {time.perf_counter() - t0:.3f} s for {CNN_ITERS} steps, one '
+          'validation and a checkpoint at the end')
+    check_steps(record['steps'], CNN_ITERS, 'l_g_total', {})
+    check_logs_finite(record['steps'])
+    return model, record, dict(opt, name=name)
+
+
+def train_esrgan():
+    """Phase 32: ESRGAN x4 as published (RRDBNet 64 x 23, VGGStyleDiscriminator
+    64, perceptual on conv5_4, vanilla GAN 0.005, L1 0.01, EMA 0.999, Adam
+    1e-4 at batch 16, GT 128) from random weights: the G phase's
+    discriminator passes keep its BatchNorm statistics, the EMA moved, the
+    checkpoint reloads and gives the EMA network's output; and two steps
+    by kernel group."""
+    from basicsr4rs_torch.archs.discriminator_arch import VGGStyleDiscriminator
+    from basicsr4rs_torch.archs.rrdbnet_arch import RRDBNet
+    from basicsr4rs_torch.models.esrgan_model import ESRGANModel
+    write_cnn_inputs()
+    model, record, opt = train_gan(ESRGAN_TRAIN, ESRGANModel, '32', 'train ESRGAN x4 '
+                                   '(RRDBNet 64 features, 23 blocks; VGGStyleDiscriminator 64)')
+    batch = record['batch']
+    model.lq, model.gt = batch['lq'], batch['gt']
+    before = {k: v.clone() for k, v in model.net_d.named_buffers()}
+    with torch.no_grad():
+        model._g_losses(model.net_g(model.lq))
+        kept = all(torch.equal(v, before[k]) for k, v in model.net_d.named_buffers())
+        model.net_d(model.gt)   # a pass outside the G phase does move them
+        moved = not all(torch.equal(v, before[k]) for k, v in model.net_d.named_buffers())
+        for k, v in model.net_d.named_buffers():
+            v.copy_(before[k])
+    print(f'G-phase discriminator passes kept its {len(before)} BatchNorm buffers: {kept}; a '
+          f'train-mode pass outside it moved them: {moved}')
+    if not (kept and moved):
+        fail('the G phase changed the discriminator\'s running statistics, or a D pass did not')
+    ema_diff = max((p - e).abs().max().item() for p, e in
+                   zip(model.net_g.parameters(), model.net_g_ema.parameters()))
+    models_dir = os.path.join('experiments', opt['name'], 'models')
+    net = RRDBNet(**net_options(opt)).cuda().eval()
+    model.load_network(net, os.path.join(models_dir, 'net_g_latest.pth'), True, 'params_ema')
+    d_net = VGGStyleDiscriminator(**net_options(opt, 'network_d'))
+    model.load_network(d_net, os.path.join(models_dir, 'net_d_latest.pth'), True)
+    with torch.no_grad():
+        err = (net(batch['lq'][:2]) - model.net_g_ema(batch['lq'][:2])).abs().max().item()
+    print(f'max |net_g - net_g_ema| {ema_diff:.3e}; net_g_latest.pth (params_ema) reloaded: '
+          f'output max abs difference from net_g_ema {err:.3e}; net_d_latest.pth loads')
+    if not ema_diff > 0 or err > 1e-5:
+        fail('the EMA did not move, or the checkpoint does not give the EMA network\'s output')
+    phase('32b. device time of 2 ESRGAN training steps by kernel group (torch.profiler)')
+    model.optimize_parameters(CNN_ITERS + 1)
+    profile_device_time(lambda: model.optimize_parameters(CNN_ITERS + 1), 2, 'step', {},
+                        'esrgan_train_step_profile.json')
+    del model, net
+
+
+def serve_rrdbnet():
+    """Phase 33: RRDBNet x4 (ESRGAN's generator) served through the test
+    entry point and through ``inference_esrgan`` from one random
+    ``params_ema`` checkpoint: the same images; latency and device time."""
+    import cv2
+
+    from basicsr4rs_torch.archs.rrdbnet_arch import RRDBNet
+    from basicsr4rs_torch.inference import inference_esrgan
+    from basicsr4rs_torch.utils.options import yaml_load
+    phase('33. serve RRDBNet x4 through basicsr4rs_torch.test (test_ESRGAN_x4_synthetic.yml) '
+          'and basicsr4rs_torch.inference.inference_esrgan from one random params_ema checkpoint')
+    opt = yaml_load(ESRGAN_TEST)
+    torch.manual_seed(0)
+    ckpt = 'experiments/ESRGAN_x4_synthetic/net_g_seed0.pth'
+    os.makedirs(os.path.dirname(ckpt), exist_ok=True)
+    torch.save({'params_ema': RRDBNet(**net_options(opt)).state_dict()}, ckpt)
+    model = run_test_pipeline(ESRGAN_TEST, ['--force_yml', f'path:pretrain_network_g={ckpt}',
+                                            'path:param_key_g=params_ema'])
+    if model.device.type != 'cuda':
+        fail(f'RRDBNet ran on {model.device}')
+    out_dir = 'results/chip_smoke/esrgan'
+    inference_esrgan.main(['--model_path', ckpt, '--input', os.path.join(CNN_DIR, 'val_LQ'),
+                           '--output', out_dir])
+    vis = os.path.join(model.opt['path']['visualization'], opt['datasets']['test_1']['name'])
+    for i, (h, w) in enumerate(CNN_VAL_LQ):
+        a = cv2.imread(os.path.join(vis, f'{i:04d}_{model.opt["name"]}.png'))
+        b = cv2.imread(os.path.join(out_dir, f'{i:04d}_ESRGAN.png'))
+        if a is None or b is None or a.shape != (SCALE * h, SCALE * w, 3) or a.shape != b.shape:
+            fail(f'image {i}: {None if a is None else a.shape}, {None if b is None else b.shape}')
+        diff = abs(a.astype(int) - b.astype(int))
+        print(f'image {i} ({SCALE * h}x{SCALE * w}): test.py and inference_esrgan differ in '
+              f'{int((diff > 0).sum())} values, by at most {int(diff.max())} levels')
+        if diff.max() > 1:
+            fail('test.py and inference_esrgan give different images')
+    items = list(model_loader(model))
+    lat = request_latencies(model, items, lambda it: (1, 3, SCALE * it['lq'].shape[2],
+                                                      SCALE * it['lq'].shape[3]))
+    print('request latency: ' + ', '.join(f'LQ {h}x{w} {ms:.3f} ms' for (h, w), ms in
+                                          zip(CNN_VAL_LQ, lat))
+          + f'; peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB')
+    phase('33b. device time of 2 RRDBNet x4 requests (LQ 128x128) by kernel group '
+          '(torch.profiler)')
+    model.feed_data(items[0])
+    profile_device_time(model.test, 2, 'request', {}, 'rrdbnet_request_profile.json')
+    del model
+
+
+def edsr_paths():
+    """Phase 34: EDSR-L x4 served and trained through the entry points with
+    ``SWIN_FUSED_CONV=1`` (K10 for its two upsampler convs, 256 -> 1024)
+    and without: K10's launches, the two routes' outputs, latency and step
+    time; then RCAN x2 as published, one training batch through K10 (64 ->
+    256) and without, output and gradients; and an EDSR-M x4 forward with
+    and without. Returns K10's launches on the entry points' runs."""
+    from basicsr4rs_torch.archs.edsr_arch import EDSR
+    from basicsr4rs_torch.archs.rcan_arch import RCAN
+    from basicsr4rs_torch.models.sr_model import SRModel
+    from basicsr4rs_torch.ops.conv3x3 import fused_conv3x3
+    from basicsr4rs_torch.utils.options import yaml_load
+    opt = yaml_load(EDSR_TEST)
+    net_opt = net_options(opt)
+    phase(f'34. EDSR-L x4 ({net_opt["num_feat"]} features, {net_opt["num_block"]} blocks) '
+          'through basicsr4rs_torch.test and .train with SWIN_FUSED_CONV=1 (K10: the two '
+          'upsampler convs) and without; RCAN x2 with and without')
+    torch.manual_seed(0)
+    ckpt = 'experiments/EDSR_Lx4_synthetic/net_g_seed0.pth'
+    os.makedirs(os.path.dirname(ckpt), exist_ok=True)
+    torch.save({'params': EDSR(**net_opt).state_dict()}, ckpt)
+    launches, outputs, latency, step_ms = 0, {}, {}, {}
+    try:
+        for knob in ('1', '0'):
+            os.environ['SWIN_FUSED_CONV'] = knob
+            per_forward = 2 if knob == '1' else 0
+            fused_conv3x3.launches = 0
+            model = run_test_pipeline(EDSR_TEST, ['--force_yml',
+                                                  f'path:pretrain_network_g={ckpt}'])
+            torch.cuda.synchronize()
+            if fused_conv3x3.launches != per_forward * len(CNN_VAL_LQ):
+                fail(f'SWIN_FUSED_CONV={knob}: {fused_conv3x3.launches} K10 launches for '
+                     f'{len(CNN_VAL_LQ)} requests, expected {per_forward} each')
+            launches += fused_conv3x3.launches
+            items = list(model_loader(model))
+            latency[knob] = request_latencies(
+                model, items, lambda it: (1, 3, SCALE * it['lq'].shape[2],
+                                          SCALE * it['lq'].shape[3]),
+                (fused_conv3x3, per_forward))
+            model.feed_data(items[0])
+            model.test()
+            outputs[knob] = model.output.float().clamp(0, 1)
+            del model
+
+            topt = yaml_load(EDSR_TRAIN)
+            fresh_run(topt, {'conv3x3_fwd': fused_conv3x3})
+            record = {'steps': []}
+            model = run_train_pipeline(short_run(), record, config=EDSR_TRAIN, model_cls=SRModel,
+                                       wrappers={'conv3x3_fwd': fused_conv3x3})
+            torch.cuda.synchronize()
+            print(f'SWIN_FUSED_CONV={knob}, training:')
+            step_ms[knob] = check_steps(record['steps'], CNN_ITERS, 'l_pix',
+                                        {'conv3x3_fwd': per_forward})
+            launches += fused_conv3x3.launches
+            print(f'K10 launches in the run (steps, the validation, the fixed batch): '
+                  f'{fused_conv3x3.launches}; l_pix on the first batch, eval mode '
+                  f'{record["fixed_loss_before"]:.6f} before step 1, '
+                  f'{fixed_batch_loss(model, record["fixed"]):.6f} after')
+            del model
+    finally:
+        os.environ.pop('SWIN_FUSED_CONV', None)
+    err = (outputs['1'] - outputs['0']).abs().max().item()
+    print(f'EDSR-L x4 request LQ {CNN_VAL_LQ[0][0]}x{CNN_VAL_LQ[0][1]}: SWIN_FUSED_CONV=1 against '
+          f'the cuDNN route max abs difference {err:.3e} on the [0, 1] output (tolerance '
+          f'{MODEL_TOLERANCE}); latency ' + '; '.join(
+              f'SWIN_FUSED_CONV={k}: ' + ', '.join(f'{ms:.3f}' for ms in v) + ' ms'
+              for k, v in latency.items())
+          + '; step ' + ', '.join(f'SWIN_FUSED_CONV={k} {v:.3f} ms' for k, v in step_ms.items()))
+    if not err <= MODEL_TOLERANCE:
+        fail('EDSR-L: the K10 route disagrees with the cuDNN route')
+
+    ropt = yaml_load(RCAN_TRAIN)
+    b, gt = ropt['datasets']['train']['batch_size_per_gpu'], ropt['datasets']['train']['gt_size']
+    torch.manual_seed(0)
+    net = RCAN(**net_options(ropt)).cuda().train()
+    gen = torch.Generator().manual_seed(3)
+    scale = ropt['network_g']['upscale']
+    lq = torch.rand(b, 3, gt // scale, gt // scale, generator=gen).cuda()
+    target = torch.rand(b, 3, gt, gt, generator=gen).cuda()
+
+    # a smooth loss: an L1 loss's gradient flips sign where the two routes'
+    # outputs straddle the target, which float32 rounding decides
+    def loss_and_grads():
+        net.zero_grad(set_to_none=True)
+        x = lq.clone().requires_grad_()
+        out = net(x)
+        loss = (out - target).square().mean()
+        loss.backward()
+        grads = {k: p.grad.clone() for k, p in net.named_parameters()}
+        return out.detach(), loss.item(), dict(grads, lq=x.grad)
+
+    def forward_backward():
+        (net(lq) - target).square().mean().backward()
+
+    os.environ['SWIN_FUSED_CONV'] = '1'
+    try:
+        fused_conv3x3.launches = 0
+        out_k, loss_k, grads_k = loss_and_grads()
+        rcan_launches = fused_conv3x3.launches
+        step_k = cuda_time_ms(forward_backward, iters=3)
+    finally:
+        os.environ.pop('SWIN_FUSED_CONV')
+    out_p, loss_p, grads_p = loss_and_grads()
+    step_p = cuda_time_ms(forward_backward, iters=3)
+    err = (out_k - out_p).abs().max().item()
+    print(f'RCAN x2 ({ropt["network_g"]["num_group"]} groups x {ropt["network_g"]["num_block"]} '
+          f'RCABs, {ropt["network_g"]["num_feat"]} features), batch {b} of LQ {gt // scale}x'
+          f'{gt // scale}: K10 launches a forward {rcan_launches} (64 -> 256); output max abs '
+          f'difference {err:.3e}; forward and backward {step_k:.3f} ms with K10, {step_p:.3f} '
+          'ms without')
+    if rcan_launches != 1 or err > MODEL_TOLERANCE:
+        fail('RCAN x2: K10 launches or output')
+    compare_gradients('RCAN x2', loss_k, grads_k, loss_p, grads_p)
+    del net, grads_k, grads_p
+
+    mopt = yaml_load('options/test/EDSR/test_EDSR_Mx4.yml')   # its network as published
+    torch.manual_seed(0)
+    net = EDSR(**net_options(mopt)).cuda().eval()
+    lq = torch.rand(1, 3, *CNN_VAL_LQ[0], generator=gen).cuda()
+    os.environ['SWIN_FUSED_CONV'] = '1'
+    try:
+        fused_conv3x3.launches = 0
+        with torch.no_grad():
+            out_k = net(lq)
+            m_launches = fused_conv3x3.launches
+            ms_k = cuda_time_ms(lambda: net(lq), 5)
+    finally:
+        os.environ.pop('SWIN_FUSED_CONV')
+    with torch.no_grad():
+        out_p = net(lq)
+        ms_p = cuda_time_ms(lambda: net(lq), 5)
+    err = (out_k - out_p).abs().max().item()
+    print(f'EDSR-M x4 ({mopt["network_g"]["num_feat"]} features, {mopt["network_g"]["num_block"]} '
+          f'blocks), LQ {CNN_VAL_LQ[0][0]}x{CNN_VAL_LQ[0][1]}: K10 launches a forward {m_launches} '
+          f'(64 -> 256 twice); output max abs difference {err:.3e}; a forward {ms_k:.3f} ms with '
+          f'K10, {ms_p:.3f} ms without')
+    if m_launches != 2 or err > MODEL_TOLERANCE:
+        fail('EDSR-M x4: K10 launches or output')
+    return launches
+
+
+def train_msrgan():
+    """Phase 35: MSRGAN x4 as published (SRGANModel: MSRResNet 64 x 16,
+    VGGStyleDiscriminator 64), then SRGANModel with UNetDiscriminatorSN at
+    Real-ESRGAN's 64 features on GT 256 (the exact spectral norm on the
+    card)."""
+    from basicsr4rs_torch.models.srgan_model import SRGANModel
+    model, _, opt = train_gan(MSRGAN_TRAIN, SRGANModel, '35', 'train MSRGAN x4 (SRGANModel: '
+                              'MSRResNet 64 features, 16 blocks; VGGStyleDiscriminator 64)')
+    del model
+    model, _, _ = train_gan(MSRGAN_TRAIN, SRGANModel, '35b', 'train SRGANModel with '
+                            'UNetDiscriminatorSN (64 features; spectral norm by eigvalsh) at GT '
+                            '256', ('network_d:type=UNetDiscriminatorSN',
+                                    'datasets:train:gt_size=256', f'name={opt["name"]}_unet_d'))
+    if type(model.net_d).__name__ != 'UNetDiscriminatorSN':
+        fail(f'the discriminator is {type(model.net_d).__name__}')
+    del model
+
+
+def train_ecbsr_and_forwards():
+    """Phase 36: ECBSR x4 m4c16 PReLU on the Y channel as published, trained
+    through the entry point; its validation runs each ECB as one conv
+    (re-parameterised), held against the branched forward; then
+    SRVGGNetCompact and RIDNet forwards at their default widths."""
+    from basicsr4rs_torch.archs import build_network
+    from basicsr4rs_torch.data import build_dataset
+    from basicsr4rs_torch.models.sr_model import SRModel
+    from basicsr4rs_torch.utils.options import yaml_load
+    opt = yaml_load(ECBSR_TRAIN)
+    train_opt = opt['datasets']['train']
+    phase(f'36. train ECBSR x4 m4c16 PReLU on the Y channel through basicsr4rs_torch.train on '
+          f'cuda:0 (batch {train_opt["batch_size_per_gpu"]}, GT {train_opt["gt_size"]}), its '
+          're-parameterised inference; SRVGGNetCompact and RIDNet forwards (no TPU kernel on '
+          'these paths)')
+    fresh_run(opt, {})
+    record = {'steps': []}
+    model = run_train_pipeline(short_run(), record, config=ECBSR_TRAIN, model_cls=SRModel,
+                               wrappers={})
+    check_steps(record['steps'], CNN_ITERS, 'l_pix', {})
+    print('validation (re-parameterised ECBs): ' + ', '.join(
+        f'{k} {v:.4f}' for k, v in model.metric_results.items()))
+    if not all(math.isfinite(v) for v in model.metric_results.values()):
+        fail('ECBSR validation metrics not finite')
+    item = build_dataset(model.opt['datasets']['val'])[0]
+    lq = item['lq'][None].cuda()
+    net = model.net_g
+    with torch.no_grad():
+        rep = net.eval()(lq)
+        branched = net.train()(lq)
+        rep_ms = cuda_time_ms(lambda: net.eval()(lq), 5)
+        branched_ms = cuda_time_ms(lambda: net.train()(lq), 5)
+    err = (rep - branched).abs().max().item() / branched.abs().max().item()
+    print(f'ECBSR on LQ {tuple(lq.shape)}: re-parameterised against branched, max abs difference '
+          f'/ max {err:.3e} (tolerance {F32_SUM_TOL}); a forward {rep_ms:.3f} ms '
+          f're-parameterised, {branched_ms:.3f} ms branched')
+    if rep.shape != (1, 1, SCALE * lq.shape[2], SCALE * lq.shape[3]) or err > F32_SUM_TOL:
+        fail('ECBSR: the re-parameterised forward differs from the branched one')
+    del model
+    x = torch.rand(1, 3, 128, 128, generator=torch.Generator().manual_seed(5)).cuda()
+    for opt_ in (dict(type='SRVGGNetCompact'), dict(type='RIDNet')):
+        torch.manual_seed(0)
+        net = build_network(opt_).cuda().eval()
+        with torch.no_grad():
+            out = net(x)
+            ms = cuda_time_ms(lambda: net(x), 5)
+        want = (1, 3, 512, 512) if opt_['type'] == 'SRVGGNetCompact' else (1, 3, 128, 128)
+        print(f'{opt_["type"]} (default widths) on LQ 128x128: output {tuple(out.shape)}, '
+              f'{ms:.3f} ms')
+        if tuple(out.shape) != want or not torch.isfinite(out).all():
+            fail(f'{opt_["type"]}: output {tuple(out.shape)}')
+
+
+def cnn_gan_paths(launches):
+    """Phases 32 to 36: ESRGAN, RRDBNet, EDSR-L (K10's launches added to
+    ``launches``) and RCAN, MSRGAN, ECBSR, SRVGGNetCompact, RIDNet."""
+    t0 = time.perf_counter()
+    train_esrgan()
+    serve_rrdbnet()
+    launches['conv3x3_fwd'] += edsr_paths()
+    train_msrgan()
+    train_ecbsr_and_forwards()
+    print(f'phases 32 to 36: {time.perf_counter() - t0:.1f} s')
+
+
 SUMMARY_KEYS = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
 KERNELS = [
     ('swin_block_joint_fwd', 'basicsr4rs_tpu/ops/swin_block.py:287'),
@@ -4388,6 +4904,12 @@ def main():
     l2s_batch = resshift_options(L2S_CONFIG)[0]['datasets']['train']['batch_size_per_gpu']
     align_batch = yaml_load(ALIGN_JOINT_TRAIN)['datasets']['train']['batch_size_per_gpu']
     build_kernels()
+    if sys.argv[1:] == ['cnn']:   # development: the classic CNN and GAN paths alone
+        print(json.dumps(check_conv_kernel_cnn()))
+        launches = collections.Counter()
+        cnn_gan_paths(launches)
+        print(json.dumps(launches))
+        return
     if sys.argv[1:] == ['serving']:   # development: the serving modes' kernels and paths alone
         print(json.dumps({'swin_block_joint_fwd': check_joint_kernel(), **check_conv_kernel(),
                           **check_int8_block_kernel()}))
@@ -4400,6 +4922,7 @@ def main():
     kernels.update(check_attention_kernels(rs_batch, l2s_batch, align_batch))
     kernels.update(check_deform_kernels())
     kernels.update(check_conv_kernel())
+    kernels['conv3x3_fwd']['cnn_widths'] = check_conv_kernel_cnn()
     kernels.update(check_int8_block_kernel())
     if sys.argv[1:] == ['kernels']:   # development: the kernel phases alone
         print(json.dumps(kernels))
@@ -4433,6 +4956,7 @@ def main():
     serving_modes(launches, split_step_ms)
     l2s_paths(launches)
     align_paths(launches)
+    cnn_gan_paths(launches)
     for name, count in launches.items():
         if count == 0:
             fail(f'{name} was never launched on the main paths')

@@ -90,7 +90,8 @@ def test_channel_attention_blocks_match_jax(which):
                                                     port_util.ChannelAttention, (16, 4)),
                                'CAM': (jax_util.CAM, port_util.CAM, (16,)),
                                'CAB': (jax_util.CAB, port_util.CAB, (16,))}[which]
-    params, sd = jax_init(jax_cls(*args), 1, jnp.asarray(x))
+    params, sd = jax_init(jax_cls(*args), 1, jnp.asarray(x),
+                          rules=getattr(port_cls, 'JAX_KEY_RULES', None))
     want = jax_apply(jax_cls(*args), params, x)
     with torch.no_grad():
         got = port_of(port_cls, sd, *args)(nchw(x))

@@ -21,8 +21,8 @@ def port_modules():
 
 
 def test_port_imports_without_jax():
-    """Every module of the port (the diffusion, video, serving-mode and
-    alignment slices' among them) imports with JAX and the JAX package blocked, and none of them is in
+    """Every module of the port (the diffusion, video, serving-mode,
+    alignment and CNN / GAN slices' among them) imports with JAX and the JAX package blocked, and none of them is in
     ``sys.modules`` afterwards."""
     modules = port_modules()
     for expected in ('basicsr4rs_torch.ops.window_attention', 'basicsr4rs_torch.archs.unet_arch',
@@ -48,7 +48,18 @@ def test_port_imports_without_jax():
                      'basicsr4rs_torch.utils.gaussian_diffusion_align',
                      'basicsr4rs_torch.models.align_single_model',
                      'basicsr4rs_torch.models.align_frozen_diff_model',
-                     'basicsr4rs_torch.models.align_joint_diff_model'):
+                     'basicsr4rs_torch.models.align_joint_diff_model',
+                     'basicsr4rs_torch.archs.edsr_arch', 'basicsr4rs_torch.archs.rcan_arch',
+                     'basicsr4rs_torch.archs.rrdbnet_arch', 'basicsr4rs_torch.archs.vgg_arch',
+                     'basicsr4rs_torch.archs.discriminator_arch',
+                     'basicsr4rs_torch.archs.srvgg_arch', 'basicsr4rs_torch.archs.ridnet_arch',
+                     'basicsr4rs_torch.archs.ecbsr_arch', 'basicsr4rs_torch.losses.gan_loss',
+                     'basicsr4rs_torch.losses.perceptual_loss',
+                     'basicsr4rs_torch.models.srgan_model',
+                     'basicsr4rs_torch.models.esrgan_model',
+                     'basicsr4rs_torch.data.single_image_dataset',
+                     'basicsr4rs_torch.inference.inference_esrgan',
+                     'basicsr4rs_torch.inference.inference_ridnet'):
         assert expected in modules
     code = ('import importlib, sys\n'
             f'for name in {BLOCKED!r}:\n'
