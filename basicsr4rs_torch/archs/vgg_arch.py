@@ -2,8 +2,8 @@
 ``basicsr4rs_tpu/archs/vgg_arch.py``; reference: basicsr/archs/vgg_arch.py).
 
 Weights: a torchvision-format ``.pth`` (``features.<index>.weight``), read
-from ``pretrain_path``, else ``$BASICSR4RS_TORCH_VGG19_PATH``, else
-``$BASICSR4RS_TPU_VGG19_PATH`` (the JAX package's variable), else
+from ``pretrain_path``, else ``$BASICSR4RS_TPU_VGG19_PATH`` (the JAX
+package's variable, read the same way), else
 ``experiments/pretrained_models/vgg19-dcbb9e9d.pth``. Nothing is downloaded:
 when the file is absent the extractor logs a warning and keeps a random
 initialisation drawn from a seed-0 generator, as the JAX package does; the
@@ -53,8 +53,7 @@ def vgg_layer_names(vgg_type: str) -> List[str]:
 
 def vgg_weights_path(pretrain_path: Optional[str] = None) -> str:
     """The VGG weights file the extractor reads (see the module's doc)."""
-    return (pretrain_path or os.environ.get('BASICSR4RS_TORCH_VGG19_PATH')
-            or os.environ.get('BASICSR4RS_TPU_VGG19_PATH') or VGG_DEFAULT_PATH)
+    return pretrain_path or os.environ.get('BASICSR4RS_TPU_VGG19_PATH', VGG_DEFAULT_PATH)
 
 
 @ARCH_REGISTRY.register()

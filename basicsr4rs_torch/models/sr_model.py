@@ -67,10 +67,7 @@ class SRModel(BaseModel):
 
         self._init_ema()
 
-        self.cri_pix = (build_loss(train_opt['pixel_opt']).to(self.device)
-                        if train_opt.get('pixel_opt') else None)
-        self.cri_perceptual = (build_loss(train_opt['perceptual_opt']).to(self.device)
-                               if train_opt.get('perceptual_opt') else None)
+        self.build_pixel_and_perceptual_losses()
         if self.cri_pix is None and self.cri_perceptual is None:
             raise ValueError('Both pixel and perceptual losses are None.')
 
@@ -81,6 +78,15 @@ class SRModel(BaseModel):
 
         self.setup_optimizers()
         self.setup_schedulers()
+
+    def build_pixel_and_perceptual_losses(self):
+        """``cri_pix`` and ``cri_perceptual`` from ``train.pixel_opt`` and
+        ``train.perceptual_opt``, each None when the config leaves it out."""
+        train_opt = self.opt['train']
+        self.cri_pix = (build_loss(train_opt['pixel_opt']).to(self.device)
+                        if train_opt.get('pixel_opt') else None)
+        self.cri_perceptual = (build_loss(train_opt['perceptual_opt']).to(self.device)
+                               if train_opt.get('perceptual_opt') else None)
 
     def _init_ema(self):
         """``net_g_ema``, when ``train.ema_decay`` > 0: a second network, used

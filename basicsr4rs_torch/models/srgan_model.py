@@ -54,12 +54,9 @@ class SRGANModel(SRModel):
                               self.opt['path'].get('param_key_d', 'params'))
         self.net_d.train()
 
-        def loss(key):
-            return build_loss(train_opt[key]).to(self.device) if train_opt.get(key) else None
-
-        self.cri_pix = loss('pixel_opt')
-        self.cri_ldl = loss('ldl_opt')
-        self.cri_perceptual = loss('perceptual_opt')
+        self.build_pixel_and_perceptual_losses()
+        self.cri_ldl = (build_loss(train_opt['ldl_opt']).to(self.device)
+                        if train_opt.get('ldl_opt') else None)
         if self.cri_ldl is not None and self.ema_decay <= 0:
             raise ValueError('ldl_opt requires ema_decay > 0.')   # the map needs net_g_ema
         self.cri_gan = build_loss(train_opt['gan_opt']).to(self.device)
@@ -99,21 +96,14 @@ class SRGANModel(SRModel):
     def _g_losses(self, output):
         """(total, losses): pixel, LDL, perceptual and style, GAN."""
         losses = OrderedDict()
-        total = 0.
-        if self.cri_pix is not None:
-            losses['l_g_pix'] = self.cri_pix(output, self.gt)
-            total = total + losses['l_g_pix']
+        total = self.pixel_and_perceptual_losses(output, self.gt, losses,
+                                                 ('l_g_pix', 'l_g_percep', 'l_g_style'))
         if self.cri_ldl is not None:
             losses['l_g_ldl'] = self._ldl_loss(output)
             total = total + losses['l_g_ldl']
-        if self.cri_perceptual is not None:
-            l_percep, l_style = self.cri_perceptual(output, self.gt)
-            if l_percep is not None:
-                losses['l_g_percep'] = l_percep
-                total = total + l_percep
-            if l_style is not None:
-                losses['l_g_style'] = l_style
-                total = total + l_style
+            for name in ('l_g_percep', 'l_g_style'):   # logged after LDL, as in the JAX package
+                if name in losses:
+                    losses.move_to_end(name)
         with frozen_batch_stats(self.net_d):
             losses['l_g_gan'] = self._g_gan_loss(output)
         total = total + losses['l_g_gan']

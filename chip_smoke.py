@@ -61,14 +61,13 @@ nonzero exit code and no result line:
    64->256 on the LQ and the 2x map, 64->64 on the 4x map, one odd size; and
    180->180 channels-last and as the RSTB's view of its tokens), all four
    epilogues in both types, beside ``F.conv2d`` + its epilogue, and its
-   gradients; the
+   gradients; the same check again (3g) at EDSR-L x4's upsampler
+   convolutions in training (B=16, 256 -> 1024 on 48x48 and 96x96) and
+   RCAN x2's (B=16, 64 -> 256 on 48x48), in float32; the
    W8A8 joint block (3f) against its plain version by the rule stated there,
    against the float block by SNR, and timed beside the float kernel, also
    past the float kernel's widths (C=180 in 3 heads of 60, C=240 in 8 heads
-   of 30, B=2 64x64: its wide variant); the 3x3 convolution kernel again
-   (3g) at EDSR-L x4's upsampler convolutions in training (B=16, 256 -> 1024
-   on 48x48 and 96x96) and RCAN x2's (B=16, 64 -> 256 on 48x48), float32,
-   beside ``F.conv2d`` with its bias;
+   of 30, B=2 64x64: its wide variant);
 4. serves SwinIR-M x4 through ``basicsr4rs_torch.test`` (the code path of
    ``python -m basicsr4rs_torch.test -opt options/test/SwinIR/
    test_SwinIR_M_x4_synthetic.yml``) on 4 synthetic image pairs and random
@@ -212,7 +211,7 @@ nonzero exit code and no result line:
 32. writes ``datasets/CNN_x4_synthetic/`` (16 train pairs of GT 256x256, two
     to serve of LQ 128x128 and 96x160) and a random He-scaled VGG19 in
     torchvision's layout (``results/chip_smoke/vgg19.pth``, which the
-    perceptual losses read through ``BASICSR4RS_TORCH_VGG19_PATH``), and
+    perceptual losses read as their ``pretrain_path``), and
     trains ESRGAN x4 (``-opt options/train/ESRGAN/
     train_ESRGAN_x4_synthetic.yml``: RRDBNet 64 x 23, VGGStyleDiscriminator
     64, perceptual, GAN and pixel losses, EMA; batch 16, GT 128) for 6 steps
@@ -229,9 +228,12 @@ nonzero exit code and no result line:
     *_EDSR_Lx4_synthetic.yml``: 256 features, 32 blocks; batch 16, GT 192)
     with ``SWIN_FUSED_CONV=1`` (2 K10 launches a forward, 256 -> 1024) and
     without: the two routes' outputs, latency, step time; then RCAN x2 as
-    published (10 groups x 20 RCABs, batch 16, GT 96) forward and backward
-    with K10 (64 -> 256) and without: the output and every gradient, and
-    an EDSR-M x4 forward (64 -> 256 twice) with K10 and without;
+    published (10 groups x 20 RCABs, batch 16, GT 96; ``-opt options/train/
+    RCAN/train_RCAN_x2_synthetic.yml`` on ``datasets/CNN_x2_synthetic/``)
+    trained 6 steps with K10 (one launch a forward, 64 -> 256), one batch
+    forward and backward with K10 and without: the output and every
+    gradient, and an EDSR-M x4 forward (64 -> 256 twice) with K10 and
+    without;
 35. trains MSRGAN x4 (``-opt options/train/SRResNet_SRGAN/
     train_MSRGAN_x4_synthetic.yml``: SRGANModel, MSRResNet 64 x 16,
     VGGStyleDiscriminator) for 6 steps, then the same with
@@ -244,7 +246,7 @@ nonzero exit code and no result line:
     widths.
 
 ``python3 chip_smoke.py kernels`` stops after phase 3; ``python3 chip_smoke.py
-serving`` runs phases 3a, 3e, 3f, 4, 4b and 17 to 22 alone; ``python3
+serving`` runs phases 3a, 3e, 3g, 3f, 4, 4b and 17 to 22 alone; ``python3
 chip_smoke.py cnn`` runs phases 3g and 32 to 36 alone. The line before the
 last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -3418,6 +3420,11 @@ CONV_SHAPES = [            # (B, Cin, Cout, H, W, residual, slope): how SwinIR-M
     (1, 64, 64, 512, 512, False, 0.2),      # nearest+conv: conv_hr on the 4x map
     (1, 180, 180, 125, 94, True, None),     # a map that is no multiple of 8
 ]
+CNN_CONV_SHAPES = [        # as CONV_SHAPES: how EDSR-L x4 and RCAN x2 train through K10
+    (16, 256, 1024, 48, 48, False, None),   # EDSR-L's first upsampler conv, GT 192
+    (16, 256, 1024, 96, 96, False, None),   # its second
+    (16, 64, 256, 48, 48, False, None),     # RCAN x2's one, GT 96
+]
 # K11 against its plain version. The integer sums are exact in both, but the
 # values that are quantised come from float32 arithmetic in another order
 # (LayerNorm, softmax, the dequantised products), so a value that sits on a
@@ -3512,22 +3519,27 @@ def conv_operand(t, layout):
     return t.flatten(2).transpose(1, 2).contiguous().transpose(1, 2).reshape(b, c, h, w)
 
 
-def check_conv_kernel():
+def check_conv_kernel(title, shapes, dtypes=(torch.float32, torch.bfloat16), layouts=()):
+    """K10 against its plain version at ``shapes`` (each a row of
+    ``CONV_SHAPES``' layout) in NCHW, the first of them also in each of
+    ``layouts``, in each of ``dtypes``: four epilogues compared, the model's
+    own timed beside ``F.conv2d`` with PyTorch's epilogue and beside the
+    plain version, with its bound and its device and host time. Returns the
+    largest float32 error and each case's times under its tag."""
     import torch.nn.functional as F
 
     from basicsr4rs_torch.ops import conv3x3 as K
     from basicsr4rs_torch.ops.conv3x3 import fused_conv3x3, reference_conv3x3
-    phase('3e. 3x3 convolution kernel (K10) vs plain version, at the shapes SwinIR-M x4 gives it')
+    phase(title)
     lib = K._lib()
     print('K10 (mma.sync: 3xTF32 for float32, bfloat16): shared memory a block ' + ', '.join(
         f'{lib.conv3x3_fwd_smem_bytes(n)} bytes at {n} output channels' for n in K.BLOCK_N)
         + '; registers and spills in phase 2')
     gen = torch.Generator().manual_seed(5)
     summary = {'max_abs_err': 0.}
-    cases = [(shape, 'nchw') for shape in CONV_SHAPES] + [
-        (CONV_SHAPES[0], layout) for layout in CONV_LAYOUTS]
+    cases = [(shape, 'nchw') for shape in shapes] + [(shapes[0], layout) for layout in layouts]
     for (b, cin, cout, h, w, model_res, model_slope), layout in cases:
-        for dt in (torch.float32, torch.bfloat16):
+        for dt in dtypes:
             x = conv_operand(torch.randn(b, cin, h, w, generator=gen).cuda().to(dt), layout)
             weight = (torch.randn(cout, cin, 3, 3, generator=gen) * (9 * cin)**-.5).cuda()
             bias = (torch.randn(cout, generator=gen) * .1).cuda()
@@ -3579,17 +3591,24 @@ def check_conv_kernel():
                   f'{call_us:.1f} us a call', flush=True)
             if dt == torch.float32:
                 summary['max_abs_err'] = max(summary['max_abs_err'], worst)
-            times = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
-                         bound_by=by, device_ms=device_ms, kernel_device_ms=k10_ms,
-                         library_device_ms=library_device_ms)
-            if (b, cin, cout, h) == (1, 180, 180, 128):   # the RSTB tail at LQ 128x128
-                if dt == torch.float32 and layout == 'token view':   # as the main path calls it
-                    summary.update(times)
-                else:
-                    summary[f'{layout} {str(dt)[6:]}'] = times
+            summary[conv_case_tag(b, cin, cout, h, w, layout, dt)] = dict(
+                ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
+                bound_by=by, device_ms=device_ms, kernel_device_ms=k10_ms,
+                library_device_ms=library_device_ms)
             del x, res, got, want
-    # gradients: the backward is PyTorch's library on the kernel's saved output,
-    # with x and the residual channels-last as the RSTB hands them over
+    return summary
+
+
+def conv_case_tag(b, cin, cout, h, w, layout, dt):
+    return f'B={b} {cin}->{cout} {h}x{w} {layout} {str(dt)[6:]}'
+
+
+def check_conv_gradients():
+    """K10's gradients: the backward is PyTorch's library on the kernel's
+    saved output, with x and the residual channels-last as the RSTB hands
+    them over."""
+    from basicsr4rs_torch.ops.conv3x3 import fused_conv3x3, reference_conv3x3
+    gen = torch.Generator().manual_seed(7)
     for layout in ('nchw', 'token view'):
         x = conv_operand(torch.randn(2, 64, 48, 48, generator=gen).cuda(), layout).requires_grad_()
         weight = (torch.randn(64, 64, 3, 3, generator=gen) / 24).cuda().requires_grad_()
@@ -3605,7 +3624,28 @@ def check_conv_kernel():
                   f'max_rel_err={max_rel:.3e} ({tolerance})')
             if not ok:
                 fail(f'K10 gradient {name} disagrees ({layout})')
+
+
+def check_conv_kernels():
+    """Phases 3e and 3g: K10 at the shapes SwinIR-M x4 gives it, its
+    gradients, and at the upsampler convolutions of EDSR-L x4 and RCAN x2.
+    The summary's times are the RSTB tail's at LQ 128x128 in float32 as the
+    main path calls it (the token view); each case's stand beside them."""
+    summary = check_conv_kernel(
+        '3e. 3x3 convolution kernel (K10) vs plain version, at the shapes SwinIR-M x4 gives it',
+        CONV_SHAPES, layouts=CONV_LAYOUTS)
+    check_conv_gradients()
+    worst = summary['max_abs_err']
+    summary.update(summary[conv_case_tag(*CONV_SHAPES[0][:5], 'token view', torch.float32)])
+    summary.update(check_conv_kernel_cnn())
+    summary['max_abs_err'] = max(summary['max_abs_err'], worst)
     return {'conv3x3_fwd': summary}
+
+
+def check_conv_kernel_cnn():
+    return check_conv_kernel(
+        '3g. K10 at EDSR-L x4\'s and RCAN x2\'s upsampler convolutions (B=16, float32) vs '
+        'plain version and F.conv2d + bias', CNN_CONV_SHAPES, dtypes=(torch.float32,))
 
 
 def int8_block_work(b, h, w, dtype, shifted, widths=M_WIDTHS):
@@ -4382,6 +4422,7 @@ def serve_wide_swinir():
 
 # --------------------------------------------------- the classic CNN and GAN paths
 CNN_DIR = 'datasets/CNN_x4_synthetic'
+CNN_X2_DIR = 'datasets/CNN_x2_synthetic'   # the same GT images, LQ at x2 (RCAN x2)
 CNN_TRAIN_IMAGES, CNN_TRAIN_GT = 16, 256
 CNN_VAL_LQ = [(128, 128), (96, 160)]
 ESRGAN_TRAIN = 'options/train/ESRGAN/train_ESRGAN_x4_synthetic.yml'
@@ -4390,78 +4431,33 @@ EDSR_TRAIN = 'options/train/EDSR/train_EDSR_Lx4_synthetic.yml'
 EDSR_TEST = 'options/test/EDSR/test_EDSR_Lx4_synthetic.yml'
 MSRGAN_TRAIN = 'options/train/SRResNet_SRGAN/train_MSRGAN_x4_synthetic.yml'
 ECBSR_TRAIN = 'options/train/ECBSR/train_ECBSR_x4_m4c16_prelu_synthetic.yml'
-RCAN_TRAIN = 'options/train/RCAN/train_RCAN_x2.yml'   # its network and GT size, as published
+RCAN_TRAIN = 'options/train/RCAN/train_RCAN_x2_synthetic.yml'
 VGG_WEIGHTS = 'results/chip_smoke/vgg19.pth'
 CNN_ITERS = 6
-CNN_CONV_SHAPES = [        # (B, Cin, Cout, H, W): how EDSR-L x4 and RCAN x2 train through K10
-    (16, 256, 1024, 48, 48),   # EDSR-L's first upsampler conv, GT 192
-    (16, 256, 1024, 96, 96),   # its second
-    (16, 64, 256, 48, 48),     # RCAN x2's one, GT 96
-]
-
-
-def check_conv_kernel_cnn():
-    """Phase 3g: K10 at the upsampler convolutions of EDSR-L x4 and RCAN x2
-    in training, float32: against its plain version, timed beside it and
-    beside ``F.conv2d`` with its bias. Returns the summary by shape."""
-    import torch.nn.functional as F
-
-    from basicsr4rs_torch.ops.conv3x3 import fused_conv3x3, reference_conv3x3
-    phase('3g. K10 at EDSR-L x4\'s and RCAN x2\'s upsampler convolutions (B=16, float32) vs '
-          'plain version and F.conv2d + bias')
-    gen = torch.Generator().manual_seed(6)
-    summary = {}
-    for b, cin, cout, h, w in CNN_CONV_SHAPES:
-        x = torch.randn(b, cin, h, w, generator=gen).cuda()
-        weight = (torch.randn(cout, cin, 3, 3, generator=gen) * (9 * cin)**-.5).cuda()
-        bias = (torch.randn(cout, generator=gen) * .1).cuda()
-        with torch.no_grad():
-            got = fused_conv3x3(x, weight, bias)
-            want = reference_conv3x3(x, weight, bias)
-            torch.cuda.synchronize()
-            ok, max_abs, max_rel, tolerance = compare(got, want, torch.float32, 'elementwise')
-            del got, want
-            kernel_ms, library_ms = time_pair(lambda: F.conv2d(x, weight, bias, padding=1),
-                                              lambda: fused_conv3x3(x, weight, bias))
-            plain_ms = cuda_time_ms(lambda: reference_conv3x3(x, weight, bias), iters=5)
-        flop = 2 * 9 * cin * cout * b * h * w
-        nbytes = (b * h * w * (cin + cout) + 9 * cin * cout + cout) * 4
-        (bound, by), core_bound = tensor_core_bound_ms(flop, nbytes, torch.float32)
-        tag = f'B={b} {cin}->{cout} {h}x{w}'
-        print(f'{tag}: max_abs_err={max_abs:.3e} max_rel_err={max_rel:.3e} ({tolerance}) | '
-              f'kernel {kernel_ms:.3f} ms, F.conv2d + bias {library_ms:.3f} ms (ratio '
-              f'{kernel_ms / library_ms:.2f}{", K10 loses" if kernel_ms > library_ms else ""}), '
-              f'plain {plain_ms:.3f} ms, bound {bound:.3f} ms by {by} on the route '
-              f'({100 * bound / kernel_ms:.0f}%), CUDA-core bound {core_bound:.3f} ms; '
-              f'{flop / 1e9:.1f} GFLOP', flush=True)
-        if not ok:
-            fail(f'K10 and plain version disagree at {tag}')
-        summary[tag] = dict(max_abs_err=max_abs, ms=kernel_ms, plain_ms=plain_ms,
-                            library_ms=library_ms, bound_ms=bound, bound_by=by)
-        del x
-    return summary
 
 
 def write_cnn_inputs():
     """16 GT 256x256 pairs to train on and two to validate and serve (LQ
-    128x128 and 96x160), LQ the bicubic x4 downscale; and a random VGG19
-    in torchvision's layout (He-scaled, seed 0), which the perceptual
-    losses read through ``BASICSR4RS_TORCH_VGG19_PATH``."""
+    128x128 and 96x160), LQ the bicubic x4 downscale, and the same GT
+    images with their x2 LQ (``CNN_X2_DIR``); and a random VGG19
+    in torchvision's layout (He-scaled, seed 0), which the GAN runs give
+    their perceptual losses as ``pretrain_path``."""
     import cv2
     import numpy as np
 
     from basicsr4rs_torch.archs.vgg_arch import _CFG, vgg_layer_names
-    rng = np.random.RandomState(4)
-    sets = [('GT', 'LQ', [(CNN_TRAIN_GT, CNN_TRAIN_GT)] * CNN_TRAIN_IMAGES),
-            ('val_GT', 'val_LQ', [(SCALE * h, SCALE * w) for h, w in CNN_VAL_LQ])]
-    for gt_dir, lq_dir, sizes in sets:
-        for sub in (gt_dir, lq_dir):
-            os.makedirs(os.path.join(CNN_DIR, sub), exist_ok=True)
-        for i, (h, w) in enumerate(sizes):
-            gt = smooth_image(rng, h, w)
-            lq = cv2.resize(gt, (w // SCALE, h // SCALE), interpolation=cv2.INTER_CUBIC)
-            cv2.imwrite(os.path.join(CNN_DIR, gt_dir, f'{i:04d}.png'), gt)
-            cv2.imwrite(os.path.join(CNN_DIR, lq_dir, f'{i:04d}.png'), lq)
+    for scale, root in ((SCALE, CNN_DIR), (2, CNN_X2_DIR)):
+        rng = np.random.RandomState(4)
+        sets = [('GT', 'LQ', [(CNN_TRAIN_GT, CNN_TRAIN_GT)] * CNN_TRAIN_IMAGES),
+                ('val_GT', 'val_LQ', [(scale * h, scale * w) for h, w in CNN_VAL_LQ])]
+        for gt_dir, lq_dir, sizes in sets:
+            for sub in (gt_dir, lq_dir):
+                os.makedirs(os.path.join(root, sub), exist_ok=True)
+            for i, (h, w) in enumerate(sizes):
+                gt = smooth_image(rng, h, w)
+                lq = cv2.resize(gt, (w // scale, h // scale), interpolation=cv2.INTER_CUBIC)
+                cv2.imwrite(os.path.join(root, gt_dir, f'{i:04d}.png'), gt)
+                cv2.imwrite(os.path.join(root, lq_dir, f'{i:04d}.png'), lq)
     gen = torch.Generator().manual_seed(0)
     state, cin = {}, 3
     channels = iter(c for c in _CFG['vgg19'] if c != 'M')
@@ -4474,7 +4470,6 @@ def write_cnn_inputs():
             cin = cout
     os.makedirs(os.path.dirname(VGG_WEIGHTS), exist_ok=True)
     torch.save(state, VGG_WEIGHTS)
-    os.environ['BASICSR4RS_TORCH_VGG19_PATH'] = VGG_WEIGHTS
 
 
 def short_run(iters=CNN_ITERS, *more):
@@ -4528,7 +4523,8 @@ def train_gan(config, model_cls, number, title, extra=()):
     fresh_run(dict(opt, name=name), {})
     record = {'steps': []}
     t0 = time.perf_counter()
-    model = run_train_pipeline(short_run(CNN_ITERS, *extra), record, config=config,
+    model = run_train_pipeline(short_run(CNN_ITERS, 'train:perceptual_opt:pretrain_path='
+                                         + VGG_WEIGHTS, *extra), record, config=config,
                                model_cls=model_cls, loss_key='l_g_total', wrappers={},
                                before_first_step=keep_fed_batch, after_step=keep_logs)
     torch.cuda.synchronize()
@@ -4639,9 +4635,10 @@ def edsr_paths():
     """Phase 34: EDSR-L x4 served and trained through the entry points with
     ``SWIN_FUSED_CONV=1`` (K10 for its two upsampler convs, 256 -> 1024)
     and without: K10's launches, the two routes' outputs, latency and step
-    time; then RCAN x2 as published, one training batch through K10 (64 ->
-    256) and without, output and gradients; and an EDSR-M x4 forward with
-    and without. Returns K10's launches on the entry points' runs."""
+    time; then RCAN x2 as published trained through the entry point with
+    K10 (64 -> 256), and one training batch through K10 and without,
+    output and gradients; and an EDSR-M x4 forward with and without.
+    Returns K10's launches on the entry points' runs."""
     from basicsr4rs_torch.archs.edsr_arch import EDSR
     from basicsr4rs_torch.archs.rcan_arch import RCAN
     from basicsr4rs_torch.models.sr_model import SRModel
@@ -4651,7 +4648,8 @@ def edsr_paths():
     net_opt = net_options(opt)
     phase(f'34. EDSR-L x4 ({net_opt["num_feat"]} features, {net_opt["num_block"]} blocks) '
           'through basicsr4rs_torch.test and .train with SWIN_FUSED_CONV=1 (K10: the two '
-          'upsampler convs) and without; RCAN x2 with and without')
+          'upsampler convs) and without; RCAN x2 through .train with K10, and a batch with '
+          'and without')
     torch.manual_seed(0)
     ckpt = 'experiments/EDSR_Lx4_synthetic/net_g_seed0.pth'
     os.makedirs(os.path.dirname(ckpt), exist_ok=True)
@@ -4707,6 +4705,27 @@ def edsr_paths():
         fail('EDSR-L: the K10 route disagrees with the cuDNN route')
 
     ropt = yaml_load(RCAN_TRAIN)
+    os.environ['SWIN_FUSED_CONV'] = '1'
+    try:
+        fresh_run(ropt, {'conv3x3_fwd': fused_conv3x3})
+        record = {'steps': []}
+        model = run_train_pipeline(short_run(), record, config=RCAN_TRAIN, model_cls=SRModel,
+                                   wrappers={'conv3x3_fwd': fused_conv3x3})
+        torch.cuda.synchronize()
+    finally:
+        os.environ.pop('SWIN_FUSED_CONV')
+    if model.device.type != 'cuda':
+        fail(f'RCAN x2 trained on {model.device}')
+    print('RCAN x2 through basicsr4rs_torch.train (train_RCAN_x2_synthetic.yml), '
+          'SWIN_FUSED_CONV=1:')
+    check_steps(record['steps'], CNN_ITERS, 'l_pix', {'conv3x3_fwd': 1})
+    launches += fused_conv3x3.launches
+    print(f'K10 launches in the run (steps, the validation, the fixed batch): '
+          f'{fused_conv3x3.launches}; validation (EMA network): ' + ', '.join(
+              f'{k} {v:.4f}' for k, v in model.metric_results.items()))
+    if not all(math.isfinite(v) for v in model.metric_results.values()):
+        fail('RCAN x2 validation metrics not finite')
+    del model
     b, gt = ropt['datasets']['train']['batch_size_per_gpu'], ropt['datasets']['train']['gt_size']
     torch.manual_seed(0)
     net = RCAN(**net_options(ropt)).cuda().train()
@@ -4726,19 +4745,24 @@ def edsr_paths():
         grads = {k: p.grad.clone() for k, p in net.named_parameters()}
         return out.detach(), loss.item(), dict(grads, lq=x.grad)
 
-    def forward_backward():
-        (net(lq) - target).square().mean().backward()
+    def forward_backward(knob):
+        os.environ['SWIN_FUSED_CONV'] = knob
+        try:
+            (net(lq) - target).square().mean().backward()
+        finally:
+            os.environ.pop('SWIN_FUSED_CONV')
 
     os.environ['SWIN_FUSED_CONV'] = '1'
     try:
         fused_conv3x3.launches = 0
         out_k, loss_k, grads_k = loss_and_grads()
         rcan_launches = fused_conv3x3.launches
-        step_k = cuda_time_ms(forward_backward, iters=3)
     finally:
         os.environ.pop('SWIN_FUSED_CONV')
     out_p, loss_p, grads_p = loss_and_grads()
-    step_p = cuda_time_ms(forward_backward, iters=3)
+    # without, with, with, without: the host's load drifts over a few seconds
+    times = [cuda_time_ms(lambda: forward_backward(knob), iters=3) for knob in '0110']
+    step_k, step_p = (times[1] + times[2]) / 2, (times[0] + times[3]) / 2
     err = (out_k - out_p).abs().max().item()
     print(f'RCAN x2 ({ropt["network_g"]["num_group"]} groups x {ropt["network_g"]["num_block"]} '
           f'RCABs, {ropt["network_g"]["num_feat"]} features), batch {b} of LQ {gt // scale}x'
@@ -4911,7 +4935,7 @@ def main():
         print(json.dumps(launches))
         return
     if sys.argv[1:] == ['serving']:   # development: the serving modes' kernels and paths alone
-        print(json.dumps({'swin_block_joint_fwd': check_joint_kernel(), **check_conv_kernel(),
+        print(json.dumps({'swin_block_joint_fwd': check_joint_kernel(), **check_conv_kernels(),
                           **check_int8_block_kernel()}))
         profile_requests(*serve()[:2])
         write_train_inputs()
@@ -4921,8 +4945,7 @@ def main():
     kernels.update(check_branch_kernels())
     kernels.update(check_attention_kernels(rs_batch, l2s_batch, align_batch))
     kernels.update(check_deform_kernels())
-    kernels.update(check_conv_kernel())
-    kernels['conv3x3_fwd']['cnn_widths'] = check_conv_kernel_cnn()
+    kernels.update(check_conv_kernels())
     kernels.update(check_int8_block_kernel())
     if sys.argv[1:] == ['kernels']:   # development: the kernel phases alone
         print(json.dumps(kernels))

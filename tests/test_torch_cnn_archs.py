@@ -286,15 +286,17 @@ SYNTHETIC = {
         'options/train/SRResNet_SRGAN/train_MSRGAN_x4.yml',
     'options/train/ECBSR/train_ECBSR_x4_m4c16_prelu_synthetic.yml':
         'options/train/ECBSR/train_ECBSR_x4_m4c16_prelu.yml',
+    'options/train/RCAN/train_RCAN_x2_synthetic.yml':
+        'options/train/RCAN/train_RCAN_x2.yml',
 }
 
 
 @pytest.mark.parametrize('synthetic', sorted(SYNTHETIC))
 def test_synthetic_config_is_the_published_one(synthetic):
-    """Every key as published but the data roots and ``pretrain_network_g``
-    (null); the test configs keep their first test set only, and ECBSR's
-    training set is a folder on disk (no LMDB backend, no meta-info file)
-    with one validation set."""
+    """Every key as published but the data roots (the synthetic tree of
+    the config's scale) and ``pretrain_network_g`` (null); the test configs
+    keep their first test set only, and ECBSR's training set is a folder on
+    disk (no LMDB backend, no meta-info file) with one validation set."""
     from basicsr4rs_torch.utils.options import yaml_load
     root = os.path.join(os.path.dirname(__file__), '..')
     got = yaml_load(os.path.join(root, synthetic))
@@ -308,7 +310,7 @@ def test_synthetic_config_is_the_published_one(synthetic):
             continue
         ds, ref = got['datasets'][phase], want['datasets'][phase]
         for key in ('dataroot_gt', 'dataroot_lq'):
-            assert ds.pop(key).startswith('datasets/CNN_x4_synthetic/')
+            assert ds.pop(key).startswith(f'datasets/CNN_x{want["scale"]}_synthetic/')
             ref.pop(key)
         if 'ECBSR' in synthetic:
             ref.pop('filename_tmpl' if phase == 'val' else 'meta_info_file')
