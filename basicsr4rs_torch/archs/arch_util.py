@@ -4,6 +4,7 @@ NCHW, BasicSR's module and key layout."""
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Optional, Sequence
 
@@ -67,6 +68,54 @@ class ResidualBlockNoBN(nn.Module):
 
     def forward(self, x):
         return x + self.conv2(F.relu(self.conv1(x))) * self.res_scale
+
+
+class _FlaxBatchStats:
+    """BatchNorm whose running variance takes the batch's biased variance,
+    as Flax's does; momentum 0.1 in torch's sense (Flax's 0.9). While
+    ``update_stats`` is False a train-mode pass normalises by the batch's
+    statistics and leaves the running ones as they are."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1):
+        super().__init__(num_features, eps=eps, momentum=momentum)
+        self.update_stats = True
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        self._check_input_dim(x)
+        out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0., self.eps)
+        if self.update_stats:
+            with torch.no_grad():
+                dims = (0,) + tuple(range(2, x.dim()))
+                var, mean = torch.var_mean(x.float(), dim=dims, unbiased=False)
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var, self.momentum)
+                self.num_batches_tracked.add_(1)
+        return out
+
+
+class BatchNorm2d(_FlaxBatchStats, nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with Flax's running statistics (``_FlaxBatchStats``)."""
+
+
+class BatchNorm3d(_FlaxBatchStats, nn.BatchNorm3d):
+    """``nn.BatchNorm3d`` with Flax's running statistics (``_FlaxBatchStats``)."""
+
+
+@contextlib.contextmanager
+def frozen_batch_stats(net: nn.Module):
+    """Within the block, the train-mode passes of ``net``'s BatchNorms keep
+    their running statistics (they still normalise by the batch's)."""
+    norms = [m for m in net.modules() if isinstance(m, _FlaxBatchStats)]
+    before = [m.update_stats for m in norms]
+    for m in norms:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m, flag in zip(norms, before):
+            m.update_stats = flag
 
 
 class ChannelAttention(nn.Module):

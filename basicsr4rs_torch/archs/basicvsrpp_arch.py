@@ -23,7 +23,7 @@ from torch import nn
 from ..ops.dcn import modulated_deform_conv
 from ..utils.registry import ARCH_REGISTRY
 from .arch_util import flow_warp
-from .basicvsr_arch import ConvResidualBlocks
+from .basicvsr_arch import ConvResidualBlocks, bidirectional_flows
 from .spynet_arch import SpyNet
 
 
@@ -123,13 +123,7 @@ class BasicVSRPlusPlus(nn.Module):
     def compute_flow(self, lqs):
         """(flows_forward, flows_backward), each (N, T-1, 2, H, W), from one
         SpyNet call on both directions."""
-        n, t, c, h, w = lqs.shape
-        lqs_1 = lqs[:, :-1].reshape(-1, c, h, w)
-        lqs_2 = lqs[:, 1:].reshape(-1, c, h, w)
-        flows = self.spynet(torch.cat([lqs_1, lqs_2], dim=0), torch.cat([lqs_2, lqs_1], dim=0))
-        flows_backward, flows_forward = (f.view(n, t - 1, 2, h, w)
-                                         for f in torch.chunk(flows, 2, dim=0))
-        return flows_forward, flows_backward
+        return bidirectional_flows(self.spynet, lqs)
 
     def propagate(self, feats, flows, module_name):
         """One branch: walk the frames (backwards for a ``backward`` branch),
@@ -200,10 +194,7 @@ class BasicVSRPlusPlus(nn.Module):
         feats_ = feats_.view(n, t, -1, dh, dw)
         feats = {'spatial': [feats_[:, i] for i in range(t)]}
 
-        if t > 1:
-            flows_forward, flows_backward = self.compute_flow(lqs_downsample)
-        else:   # no neighbour to align to
-            flows_forward = flows_backward = lqs.new_zeros(n, 0, 2, dh, dw)
+        flows_forward, flows_backward = self.compute_flow(lqs_downsample)
         for module in self.branches:
             feats[module] = []
             flows = flows_backward if 'backward' in module else flows_forward

@@ -12,17 +12,16 @@ the JAX package:
   keeps a running one-step power iteration, a different function. The
   weight is ``weight_orig`` as in BasicSR's checkpoints; their
   ``weight_u`` and ``weight_v`` are read and dropped.
-* The VGG-style discriminator's BatchNorm keeps the batch's *biased*
-  variance in its running variance (Flax's ``BatchNorm``; ``nn.BatchNorm2d``
-  keeps the unbiased one), with Flax's momentum 0.9 (0.1 in torch's sense).
-  ``frozen_batch_stats(net)`` runs passes in train mode that leave the
-  running statistics as they are: a GAN's generator phase, and ESRGAN's
-  constant fake pass.
+* The VGG-style discriminator's BatchNorm is ``arch_util.BatchNorm2d``,
+  which keeps the batch's *biased* variance in its running variance (Flax's
+  ``BatchNorm``; ``nn.BatchNorm2d`` keeps the unbiased one), with Flax's
+  momentum 0.9 (0.1 in torch's sense). ``frozen_batch_stats(net)`` runs
+  passes in train mode that leave the running statistics as they are: a
+  GAN's generator phase, and ESRGAN's constant fake pass.
 """
 
 from __future__ import annotations
 
-import contextlib
 import math
 
 import torch
@@ -30,7 +29,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..utils.registry import ARCH_REGISTRY
-from .arch_util import resize_bilinear
+# BatchNorm2d and frozen_batch_stats live in arch_util; both stay importable here
+from .arch_util import BatchNorm2d, frozen_batch_stats, resize_bilinear  # noqa: F401
 
 
 def spectral_normalize(weight: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -67,44 +67,6 @@ class SNConv(nn.Module):
         for key in ('weight_u', 'weight_v'):   # the power iteration's state
             state_dict.pop(prefix + key, None)
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
-
-
-class BatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` whose running variance takes the batch's biased
-    variance, as Flax's does; momentum 0.1 in torch's sense (Flax's 0.9).
-    While ``update_stats`` is False a train-mode pass normalises by the
-    batch's statistics and leaves the running ones as they are."""
-
-    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1):
-        super().__init__(num_features, eps=eps, momentum=momentum)
-        self.update_stats = True
-
-    def forward(self, x):
-        if not self.training:
-            return super().forward(x)
-        out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0., self.eps)
-        if self.update_stats:
-            with torch.no_grad():
-                var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
-                self.running_mean.lerp_(mean, self.momentum)
-                self.running_var.lerp_(var, self.momentum)
-                self.num_batches_tracked.add_(1)
-        return out
-
-
-@contextlib.contextmanager
-def frozen_batch_stats(net: nn.Module):
-    """Within the block, the train-mode passes of ``net``'s BatchNorms keep
-    their running statistics (they still normalise by the batch's)."""
-    norms = [m for m in net.modules() if isinstance(m, BatchNorm2d)]
-    before = [m.update_stats for m in norms]
-    for m in norms:
-        m.update_stats = False
-    try:
-        yield
-    finally:
-        for m, flag in zip(norms, before):
-            m.update_stats = flag
 
 
 def lrelu(x):

@@ -1,7 +1,7 @@
 """Dataset path helpers (counterpart of ``basicsr4rs_tpu/data/data_util.py``;
-reference: basicsr/data/data_util.py). The folder scan and the video
-helpers are ported; the LMDB and meta-info-file variants of the image pairs
-and DUF's downsampling come with their datasets."""
+reference: basicsr/data/data_util.py). The folder scan, the video helpers
+and DUF's downsampling are ported; the LMDB and meta-info-file variants of
+the image pairs come with their datasets."""
 
 from __future__ import annotations
 
@@ -92,3 +92,46 @@ def paired_paths_from_folder(folders: Sequence[str], keys: Sequence[str],
         paths.append({f'{input_key}_path': osp.join(input_folder, input_name),
                       f'{gt_key}_path': osp.join(gt_folder, gt_path)})
     return paths
+
+
+def generate_gaussian_kernel(kernel_size: int = 13, sigma: float = 1.6) -> np.ndarray:
+    """DUF's Gaussian filter: a Dirac delta smoothed by
+    ``scipy.ndimage.gaussian_filter`` (float64, ``kernel_size`` square)."""
+    from scipy.ndimage import gaussian_filter
+    kernel = np.zeros((kernel_size, kernel_size))
+    kernel[kernel_size // 2, kernel_size // 2] = 1
+    return gaussian_filter(kernel, sigma)
+
+
+def duf_downsample(x, kernel_size: int = 13, scale: int = 4):
+    """DUF's downsampling protocol on the host: each frame reflect-padded by
+    ``kernel_size // 2 + 2 * scale``, blurred by the Gaussian of sigma
+    ``0.4 * scale``, sampled every ``scale`` pixels at the positions of a
+    valid convolution, and cut by 2 samples at each border.
+
+    Args:
+      x: (T, C, H, W) or (C, H, W) float tensor, or the same layouts as a
+        numpy array.
+    Returns the downsampled frames in the input's type and layout.
+    """
+    if scale not in (2, 3, 4):
+        raise ValueError(f'Only support scale (2, 3, 4), but got {scale}.')
+    is_tensor = torch.is_tensor(x)
+    frames = x.detach().cpu().numpy() if is_tensor else np.asarray(x)
+    squeeze = frames.ndim == 3
+    if squeeze:
+        frames = frames[None]
+    pad = kernel_size // 2 + scale * 2
+    half = kernel_size // 2
+    kernel = generate_gaussian_kernel(kernel_size, 0.4 * scale)
+    out = []
+    for frame in frames:
+        frame = np.pad(frame.transpose(1, 2, 0), ((pad, pad), (pad, pad), (0, 0)), mode='reflect')
+        blurred = cv2.filter2D(frame, -1, kernel, borderType=cv2.BORDER_CONSTANT)
+        if blurred.ndim == 2:
+            blurred = blurred[:, :, None]
+        valid = blurred[half:frame.shape[0] - half:scale, half:frame.shape[1] - half:scale]
+        out.append(valid[2:-2, 2:-2].transpose(2, 0, 1))
+    out = np.ascontiguousarray(np.stack(out, axis=0))
+    out = out[0] if squeeze else out
+    return torch.from_numpy(out) if is_tensor else out

@@ -7,8 +7,13 @@ basicsr/data/video_test_dataset.py).
 says) and its GT frame. ``VideoRecurrentTestDataset``: one item per clip, all
 its frames. Clips are the sub-folders of ``dataroot_lq`` / ``dataroot_gt``,
 or those a ``meta_info_file`` lists; ``cache_data`` reads them all at
-construction. Tensors are (T, C, H, W) / (C, H, W) float32 RGB in [0, 1]. The
-Vimeo90K and DUF variants are not ported yet.
+construction. ``VideoTestVimeo90KDataset``: one item per septuplet of a
+meta-info file, ``num_frame`` LQ frames centred on ``im4`` and its GT.
+``VideoTestDUFDataset``: ``VideoTestDataset`` whose LQ window, with
+``use_duf_downsampling``, is made from the GT frames by DUF's Gaussian
+downsampling (``data_util.duf_downsample``) and whose GT is cropped to a
+multiple of ``scale``. Tensors are (T, C, H, W) / (C, H, W) float32 RGB in
+[0, 1].
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ from os import path as osp
 from ..utils.logger import get_root_logger
 from ..utils.misc import scandir
 from ..utils.registry import DATASET_REGISTRY
-from .data_util import generate_frame_indices, read_img_seq
+from .data_util import duf_downsample, generate_frame_indices, read_img_seq
 
 
 @DATASET_REGISTRY.register()
@@ -89,6 +94,69 @@ class VideoTestDataset:
 
     def __len__(self):
         return len(self.data_info['gt_path'])
+
+
+@DATASET_REGISTRY.register()
+class VideoTestVimeo90KDataset:
+
+    def __init__(self, opt):
+        self.opt = opt
+        if opt.get('cache_data', False):
+            raise NotImplementedError('cache_data in Vimeo90K-Test dataset is not implemented.')
+        self.gt_root, self.lq_root = opt['dataroot_gt'], opt['dataroot_lq']
+        self.data_info = {'lq_path': [], 'gt_path': [], 'folder': [], 'idx': [], 'border': []}
+        neighbor_list = [i + (9 - opt['num_frame']) // 2 for i in range(opt['num_frame'])]
+        with open(opt['meta_info_file'], 'r') as fin:
+            subfolders = [line.split(' ')[0].strip() for line in fin if line.strip()]
+        for idx, subfolder in enumerate(subfolders):
+            self.data_info['gt_path'].append(osp.join(self.gt_root, subfolder, 'im4.png'))
+            self.data_info['lq_path'].append(
+                [osp.join(self.lq_root, subfolder, f'im{i}.png') for i in neighbor_list])
+            self.data_info['folder'].append('vimeo90k')
+            self.data_info['idx'].append(f'{idx}/{len(subfolders)}')
+            self.data_info['border'].append(0)
+
+    def __getitem__(self, index):
+        lq_path = self.data_info['lq_path'][index]
+        return {'lq': read_img_seq(lq_path),
+                'gt': read_img_seq([self.data_info['gt_path'][index]])[0],
+                'folder': self.data_info['folder'][index], 'idx': self.data_info['idx'][index],
+                'border': self.data_info['border'][index],
+                'lq_path': lq_path[self.opt['num_frame'] // 2]}
+
+    def __len__(self):
+        return len(self.data_info['gt_path'])
+
+
+@DATASET_REGISTRY.register()
+class VideoTestDUFDataset(VideoTestDataset):
+
+    def __getitem__(self, index):
+        folder = self.data_info['folder'][index]
+        idx, max_idx = map(int, self.data_info['idx'][index].split('/'))
+        select_idx = generate_frame_indices(idx, max_idx, self.opt['num_frame'],
+                                            padding=self.opt.get('padding', 'reflection'))
+        scale = self.opt['scale']
+        duf = self.opt.get('use_duf_downsampling', False)
+        if self.cache_data:
+            if duf:
+                imgs_lq = duf_downsample(self.imgs_gt[folder][select_idx], kernel_size=13,
+                                         scale=scale)
+            else:
+                imgs_lq = self.imgs_lq[folder][select_idx]
+            img_gt = self.imgs_gt[folder][idx]
+        else:
+            if duf:
+                imgs_lq = duf_downsample(
+                    read_img_seq([self.imgs_gt[folder][i] for i in select_idx],
+                                 require_mod_crop=True, scale=scale), kernel_size=13, scale=scale)
+            else:
+                imgs_lq = read_img_seq([self.imgs_lq[folder][i] for i in select_idx])
+            img_gt = read_img_seq([self.imgs_gt[folder][idx]], require_mod_crop=True,
+                                  scale=scale)[0]
+        return {'lq': imgs_lq.float(), 'gt': img_gt, 'folder': folder,
+                'idx': self.data_info['idx'][index], 'border': self.data_info['border'][index],
+                'lq_path': self.data_info['lq_path'][index]}
 
 
 @DATASET_REGISTRY.register()

@@ -54,7 +54,12 @@ class PerceptualLoss(nn.Module):
 
     def forward(self, x: torch.Tensor, gt: torch.Tensor
                 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
-        """(perceptual loss, style loss); either is None at weight 0."""
+        """(perceptual loss, style loss); either is None at weight 0. Clips
+        (N, T, C, H, W) go through the VGG as N * T images: the means are
+        those of the JAX package, whose convolutions take the leading axes
+        as the batch."""
+        if x.dim() == 5:
+            x, gt = x.flatten(0, 1), gt.flatten(0, 1)
         x_features = self.vgg(x)
         with torch.no_grad():
             gt_features = self.vgg(gt.detach())

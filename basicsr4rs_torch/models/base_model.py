@@ -173,9 +173,13 @@ class BaseModel:
                            f'keys: {list(ckpt)[:8]}')
         logger.info(f'Loading {net.__class__.__name__} model from {load_path}, '
                     f'with param key: [{param_key}].')
+        # the network's non-persistent buffers are constants the port makes
+        # (TOFlow's normalisation, which BasicSR stores as ``mean``, ``std``)
+        constants = {k for k, _ in net.named_buffers()} - set(net.state_dict())
         state_dict = OrderedDict(
             (k[len('module.'):] if k.startswith('module.') else k, v)
             for k, v in state_dict.items() if not k.endswith(_COMPUTED_BUFFERS))
+        state_dict = OrderedDict((k, v) for k, v in state_dict.items() if k not in constants)
         net.load_state_dict(state_dict, strict=strict)
 
     # ----------------------------------------------------------- checkpoints

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 from collections import OrderedDict
 
-from ..archs.discriminator_arch import frozen_batch_stats
+from ..archs.arch_util import frozen_batch_stats
 from ..utils.registry import MODEL_REGISTRY
 from .srgan_model import SRGANModel
 

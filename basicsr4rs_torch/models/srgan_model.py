@@ -31,7 +31,7 @@ from collections import OrderedDict
 import torch
 
 from ..archs import build_network
-from ..archs.discriminator_arch import frozen_batch_stats
+from ..archs.arch_util import frozen_batch_stats
 from ..losses import build_loss
 from ..losses.loss_util import get_refined_artifact_map
 from ..utils.registry import MODEL_REGISTRY

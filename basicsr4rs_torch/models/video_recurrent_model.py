@@ -7,7 +7,15 @@ flow network learns at ``train.flow_lr_mul`` times the rate, and before
 iteration ``train.fix_flow`` its updates (and those of a keyframe ``edvr``
 branch) are discarded. Validation runs each clip in one forward, optionally
 averaged with the reversed clip (``val.flip_seq``) or cut to its centre frame
-(``val.center_frame_only``). The GAN variants come with the GAN models.
+(``val.center_frame_only``).
+
+``VideoRecurrentGANModel`` trains as ``SRGANModel`` and validates as
+``VideoRecurrentModel``; the discriminator sees the frames folded into the
+batch. As in the JAX package, whose GAN step has no flow hooks, neither
+``flow_lr_mul`` nor ``fix_flow`` reaches it: the flow network learns at the
+generator's rate from the first iteration (BasicSR's ``lr_flow`` is read by
+neither package). ``VideoGANModel`` is the same GAN over ``VideoBaseModel``'s
+windows.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ from ..metrics import calculate_metric
 from ..utils.img_util import imwrite, tensor2img
 from ..utils.logger import get_root_logger
 from ..utils.registry import MODEL_REGISTRY
+from .srgan_model import SRGANModel
 from .video_base_model import VideoBaseModel
 
 
@@ -75,8 +84,8 @@ class VideoRecurrentModel(VideoBaseModel):
         if self.opt['val'].get('center_frame_only', False):
             # the one frame takes metric row 0
             result = result.unsqueeze(0)
-            if gt is not None:
-                gt = gt[gt.shape[0] // 2].unsqueeze(0)
+            if gt is not None:   # a clip's GT, or one frame's (Vimeo90K's test set)
+                gt = gt.unsqueeze(0) if gt.dim() == 3 else gt[gt.shape[0] // 2].unsqueeze(0)
 
         for frame_idx in range(result.shape[0]):
             metric_data = {'img': tensor2img(result[frame_idx])}
@@ -89,6 +98,35 @@ class VideoRecurrentModel(VideoBaseModel):
                         osp.join(self.opt['path']['visualization'], dataset_name, folder,
                                  f'{frame_idx:08d}_{self.opt["name"]}.png'))
             if with_metrics:
+                # added, as BasicSR does: a Vimeo90K test set's septuplets are
+                # one folder, each item its centre frame in row 0, and the
+                # folder's mean over its rows is then the mean over the items
                 for metric_idx, opt_ in enumerate(self.opt['val']['metrics'].values()):
-                    self.metric_results_per_folder[folder][frame_idx, metric_idx] = (
+                    self.metric_results_per_folder[folder][frame_idx, metric_idx] += (
                         calculate_metric(metric_data, opt_))
+
+
+def _frames(x):
+    """(B, T, C, H, W) -> (B * T, C, H, W) for the frame discriminator."""
+    return x.flatten(0, 1) if x.dim() == 5 else x
+
+
+@MODEL_REGISTRY.register()
+class VideoRecurrentGANModel(SRGANModel, VideoRecurrentModel):
+
+    def lr_multiplier(self, name):
+        return 1.
+
+    def frozen_parameters(self, current_iter):
+        return []
+
+    def _g_gan_loss(self, output):
+        return super()._g_gan_loss(_frames(output))
+
+    def _d_losses(self, real, fake):
+        return super()._d_losses(_frames(real), _frames(fake))
+
+
+@MODEL_REGISTRY.register()
+class VideoGANModel(SRGANModel, VideoBaseModel):
+    """The GAN over the sliding-window model: one output frame an item."""

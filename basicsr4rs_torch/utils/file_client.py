@@ -1,6 +1,7 @@
 """Byte-store backends (counterpart of ``basicsr4rs_tpu/utils/file_client.py``;
-reference: basicsr/utils/file_client.py). The disk backend is ported; the
-LMDB and memcached backends come with the datasets that use them."""
+reference: basicsr/utils/file_client.py). The disk backend, and the LMDB
+backend behind the ``lmdb`` import, as in the JAX package; the memcached
+backend is not ported."""
 
 from __future__ import annotations
 
@@ -13,10 +14,36 @@ class HardDiskBackend:
             return f.read()
 
 
+class LmdbBackend:
+    """Read-only LMDB environments, one a client key; ``lmdb`` is imported
+    when the backend is made, and its absence raises there."""
+
+    def __init__(self, db_paths, client_keys='default', readonly: bool = True,
+                 lock: bool = False, readahead: bool = False, **kwargs):
+        try:
+            import lmdb
+        except ImportError:
+            raise ImportError('Please install lmdb to enable LmdbBackend.')
+        client_keys = [client_keys] if isinstance(client_keys, str) else list(client_keys)
+        db_paths = [str(v) for v in db_paths] if isinstance(db_paths, list) else [str(db_paths)]
+        if len(client_keys) != len(db_paths):
+            raise ValueError('client_keys and db_paths should have the same length, '
+                             f'but received {len(client_keys)} and {len(db_paths)}.')
+        self._client = {key: lmdb.open(path, readonly=readonly, lock=lock, readahead=readahead,
+                                       **kwargs)
+                        for key, path in zip(client_keys, db_paths)}
+
+    def get(self, filepath: str, client_key: str = 'default') -> bytes:
+        if client_key not in self._client:
+            raise KeyError(f'client_key {client_key} is not in lmdb clients.')
+        with self._client[client_key].begin(write=False) as txn:
+            return txn.get(str(filepath).encode('ascii'))
+
+
 class FileClient:
     """Facade over a named backend."""
 
-    _backends = {'disk': HardDiskBackend}
+    _backends = {'disk': HardDiskBackend, 'lmdb': LmdbBackend}
 
     def __init__(self, backend: str = 'disk', **kwargs):
         if backend not in self._backends:
@@ -26,4 +53,6 @@ class FileClient:
         self.client = self._backends[backend](**kwargs)
 
     def get(self, filepath: str, client_key: str = 'default') -> bytes:
+        if self.backend == 'lmdb':
+            return self.client.get(filepath, client_key)
         return self.client.get(filepath)

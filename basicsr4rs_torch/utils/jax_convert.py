@@ -5,7 +5,8 @@ dict of numpy arrays that the JAX package's modules hold and returns the
 BasicSR-keyed ``state_dict`` that the port's ``nn.Module``s load. Rules:
 
 * conv kernel (kH, kW, I, O) -> weight (O, I, kH, kW); 1-d (kW, I, O) -> (O, I, kW);
-  ECBSR's ``k0`` and ``k1`` likewise, under their own names
+  3-d (kD, kH, kW, I, O) -> (O, I, kD, kH, kW); ECBSR's ``k0`` and ``k1``
+  likewise, under their own names
 * dense kernel (in, out)     -> weight (out, in)
 * ``kernel`` and the norms' ``scale`` -> ``weight``
 * BatchNorm ``batch_stats`` (``mean``, ``var``) -> ``running_mean``,
@@ -14,7 +15,8 @@ BasicSR-keyed ``state_dict`` that the port's ``nn.Module``s load. Rules:
 * then the architecture's own ``rules``: ``(regex, replacement)`` pairs on
   the dotted key: each architecture of the port keeps its own as
   ``JAX_KEY_RULES`` (``SwinIR``, the diffusion UNets, the first-stage
-  autoencoders), the inverse of the JAX module's ``TORCH_KEY_RULES``.
+  autoencoders, ``IconVSR``), the inverse of the JAX module's
+  ``TORCH_KEY_RULES``.
 
 Arrays go in as numpy (never JAX arrays), so the port needs no JAX.
 """
@@ -55,6 +57,8 @@ def jax_path_to_torch_key(path: Sequence[str],
 def convert_array(leaf: str, arr: np.ndarray) -> np.ndarray:
     """Flax layout -> torch layout for one leaf named ``leaf``."""
     if leaf in ('kernel', 'k0', 'k1'):
+        if arr.ndim == 5:   # DHWIO -> OIDHW
+            return np.transpose(arr, (4, 3, 0, 1, 2))
         if arr.ndim == 4:   # HWIO -> OIHW
             return np.transpose(arr, (3, 2, 0, 1))
         if arr.ndim == 3:   # conv1d WIO -> OIW

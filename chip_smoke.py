@@ -243,16 +243,30 @@ nonzero exit code and no result line:
     ECBSR/train_ECBSR_x4_m4c16_prelu_synthetic.yml``: batch 32, GT 256) for
     6 steps and validates it re-parameterised, holds that forward against
     the branched one, and runs SRVGGNetCompact and RIDNet at their default
-    widths.
+    widths;
+37 to 46. the recurrent video models at the published widths on synthetic
+    data and seed-0 weights (phase 3h holds the sampler's kernels at their
+    shapes first): BasicVSR and IconVSR served through
+    ``basicsr4rs_torch.test`` on a 30-frame clip of 180x320 (37, 38; 38b by
+    kernel group), IconVSR and EDVR-L on Vimeo90K septuplets (39, 40),
+    BasicVSR trained on REDS and IconVSR on Vimeo90K through
+    ``basicsr4rs_torch.train`` across ``fix_flow`` (41, 42; 42b by kernel
+    group; 41c, 42c one batch's gradients against the plain sampler), the
+    video GAN (43), TOFlow and DUF served (44, 45), and
+    ``inference_basicvsr`` and ``inference_basicvsrpp`` against
+    ``test.py``'s images (46); each request's and step's sampler launches
+    counted.
 
 ``python3 chip_smoke.py kernels`` stops after phase 3; ``python3 chip_smoke.py
 serving`` runs phases 3a, 3e, 3g, 3f, 4, 4b and 17 to 22 alone; ``python3
-chip_smoke.py cnn`` runs phases 3g and 32 to 36 alone. The line before the
+chip_smoke.py cnn`` runs phases 3g and 32 to 36 alone; ``python3 chip_smoke.py
+video`` runs phases 3h and 37 to 46 alone. The line before the
 last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 import collections
+import itertools
 import json
 import math
 import os
@@ -901,6 +915,8 @@ EDVR_FEAT, EDVR_GROUPS, EDVR_FRAMES = 64, 8, 5          # EDVR-M: num_feat, defo
 EDVR_TRAIN_BATCH, EDVR_TRAIN_LQ = 4, 64                 # GT 256 at x4
 VIDEO_LQ = (180, 320)                                   # the REDS4 frame at x4
 PP_FEAT, PP_GROUPS = 64, 16                             # BasicVSR++: mid_channels, deform groups
+EDVR_L_FEAT, ICON_TRAIN_BATCH = 128, 4                  # EDVR-L's num_feat; BasicVSR's batch
+VIMEO_LQ, TOF_SIZE = (64, 112), (256, 448)              # Vimeo90K's 448x256 at x4 and at x1
 
 
 def deform_work(kernel, n, c, h, w, taps, groups, with_mask, dtype):
@@ -965,13 +981,37 @@ def grid_of(offset):
     return torch.stack([2 * xs / (w - 1) - 1, 2 * ys / (h - 1) - 1], dim=-1)
 
 
-def check_deform_kernels():
+def recurrent_deform_cases():
+    """Phase 3h's cases (as 3d's): the shapes BasicVSR, IconVSR, EDVR-L on
+    Vimeo90K and TOFlow give the sampler that 3d does not hold. IconVSR's
+    REDS request runs PCD on one keyframe window of 5 frames at 180x320,
+    90x160 and 45x80: 3d's 'EDVR serve' cases, and BasicVSR's served warp is
+    3d's 'warp 64ch serve'."""
+    from basicsr4rs_torch.archs.basicvsr_arch import keyframes
+    f32 = torch.float32
+    pcd, pcd_l = (EDVR_FEAT, 9, EDVR_GROUPS, True), (EDVR_L_FEAT, 9, EDVR_GROUPS, True)
+    (vh, vw), (th, tw) = VIMEO_LQ, TOF_SIZE
+    icon_train = ICON_TRAIN_BATCH * len(keyframes(14, 5)) * 7   # 4 keyframes x 4 x 7 frames
+    return [('BasicVSR train warp', ICON_TRAIN_BATCH, 64, 64, (EDVR_FEAT, 1, 1, False), f32, 3.,
+             True),
+            ('IconVSR train PCD L1', icon_train, 64, 64, pcd, f32, 2., True),
+            ('IconVSR train PCD L3', icon_train, 16, 16, pcd, f32, 12., False),
+            ('IconVSR Vimeo PCD L1', 4 * 7, vh, vw, pcd, f32, 2., False),
+            ('EDVR-L Vimeo PCD L1', 7, vh, vw, pcd_l, f32, 2., True),
+            ('EDVR-L Vimeo PCD L2', 7, vh // 2, vw // 2, pcd_l, f32, 6., False),
+            ('EDVR-L Vimeo PCD L3', 7, vh // 4, vw // 4, pcd_l, f32, 2., False),
+            ('TOFlow warp 3ch folded', 6, th, tw, (3, 1, 1, False), f32, 3., True)]
+
+
+def check_deform_kernels(number='3d', cases=None):
     """The deformable sampler's kernels against their plain versions at the
-    shapes EDVR-M and BasicVSR++ give them, nine taps and one."""
+    shapes EDVR-M and BasicVSR++ give them, nine taps and one (3d; with the
+    flow warps as ``flow_warp`` runs them), or at ``cases``."""
     import torch.nn.functional as F
 
     from basicsr4rs_torch.ops import dcn as D
-    phase('3d. deformable sampler kernels, forward and backward, vs plain versions')
+    phase(f'{number}. deformable sampler kernels, forward and backward, vs plain versions'
+          + (' at the recurrent video models\' shapes' if cases else ''))
     gen = torch.Generator().manual_seed(4)
     f32, bf16 = torch.float32, torch.bfloat16
     tb, tl, (sh, sw) = EDVR_TRAIN_BATCH * EDVR_FRAMES, EDVR_TRAIN_LQ, VIDEO_LQ
@@ -1001,7 +1041,8 @@ def check_deform_kernels():
              ('warp 64ch serve', 1, sh, sw, (PP_FEAT, 1, 1, False), f32, 3., True),
              ('warp 2ch flow', 1, 64, 64, (2, 1, 1, False), f32, 30., False),
              ('warp 3ch SpyNet', 58, 64, 64, (3, 1, 1, False), f32, 3., False),
-             ('warp 64ch bf16', 1, 64, 64, (PP_FEAT, 1, 1, False), bf16, 3., False)]
+             ('warp 64ch bf16', 1, 64, 64, (PP_FEAT, 1, 1, False), bf16, 3., False)
+             ] if cases is None else cases
     summary = {name: {'max_abs_err': 0., 'library_ms': None} for name in DEFORM_KERNELS}
     for case in cases:
         tag, n, h, w, (c, taps, groups, with_mask), dt, spread, timed = case
@@ -1087,8 +1128,9 @@ def check_deform_kernels():
                 check_deform_backward(D, x, offset, mask, dcol, geo, tag, kernel, outputs)
         del x, offset, mask, dcol
         torch.cuda.empty_cache()
-    check_flow_warps(gen, summary)
-    check_border_warp(gen)
+    if cases is None:
+        check_flow_warps(gen, summary)
+        check_border_warp(gen)
     return summary
 
 
@@ -1372,13 +1414,15 @@ def serve():
     return model, loader, launches
 
 
-def request_latencies(model, items, want, launches=None):
+def request_latencies(model, items, want, launches=None, warm=True):
     """ms of the model's own test() on each of ``items``, after a warm-up
-    request, with the peak memory counted from the first timed one;
-    ``want(item)``: the output's shape; ``launches``: (wrapper, count), the
-    launches of a kernel each request must make."""
-    model.feed_data(items[0])
-    model.test()
+    request (none with ``warm=False``: the pipeline's own requests were),
+    with the peak memory counted from the first timed one; ``want(item)``:
+    the output's shape; ``launches``: (wrapper, count), the launches of a
+    kernel each request must make."""
+    if warm:
+        model.feed_data(items[0])
+        model.test()
     torch.cuda.reset_peak_memory_stats()
     latencies = []
     for item in items:
@@ -1411,8 +1455,9 @@ def profile_requests(model, loader):
 
 
 def model_loader(model):
+    """The loader of the model's (first) test set."""
     from basicsr4rs_torch.data import build_dataloader, build_dataset
-    dataset_opt = model.opt['datasets']['test_1']
+    dataset_opt = next(iter(model.opt['datasets'].values()))
     return build_dataloader(build_dataset(dataset_opt), dataset_opt)
 
 
@@ -1764,22 +1809,31 @@ def profile_training_steps(model, batch, steps=3):
                         'train_step_profile.json')
 
 
-def compare_gradients(what, loss_k, grads_k, loss_p, grads_p):
+def compare_gradients(what, loss_k, grads_k, loss_p, grads_p, scale='tensor'):
     """Hold one batch's loss and parameter gradients through the kernels
     against those through the plain versions: each gradient within
-    GRAD_TOLERANCE of the plain one's largest entry."""
-    floor = 1e-6 * max(g.abs().max().item() for g in grads_p.values())
-    worst, worst_name = 0., ''
+    GRAD_TOLERANCE of the plain one's largest entry (``scale='tensor'``),
+    or of the largest entry of the network's whole plain gradient
+    (``'network'``: the recurrent video networks, whose SpyNet gradients
+    pass through every warp of the clip after them; the per-tensor figure
+    is printed beside it)."""
+    largest = max(g.abs().max().item() for g in grads_p.values())
+    floor = 1e-6 * largest
+    worst, worst_name, worst_net = 0., '', 0.
     for name, g in grads_p.items():
         if not torch.isfinite(grads_k[name]).all():
             fail(f'non-finite gradient of {name}')
-        rel = (grads_k[name] - g).abs().max().item() / max(g.abs().max().item(), floor)
+        diff = (grads_k[name] - g).abs().max().item()
+        rel = diff / max(g.abs().max().item(), floor)
+        worst_net = max(worst_net, diff / largest)
         if rel > worst:
             worst, worst_name = rel, name
+    held = worst if scale == 'tensor' else worst_net
     print(f'loss {loss_k:.7f} (kernels) vs {loss_p:.7f} (plain); {len(grads_p)} parameter '
-          f'gradients, largest max|difference| / max|plain|: {worst:.3e} at {worst_name} '
-          f'(tolerance {GRAD_TOLERANCE})')
-    if abs(loss_k - loss_p) > 1e-5 * abs(loss_p) or worst > GRAD_TOLERANCE:
+          f'gradients, largest max|difference| / max|plain| of the tensor: {worst:.3e} at '
+          f'{worst_name}; of the network: {worst_net:.3e} (tolerance {GRAD_TOLERANCE} '
+          f'{"a tensor" if scale == "tensor" else "of the network"})')
+    if abs(loss_k - loss_p) > 1e-5 * abs(loss_p) or held > GRAD_TOLERANCE:
         fail(f'{what}: loss or gradients disagree between kernels and plain versions')
 
 
@@ -3106,18 +3160,56 @@ def seed0_video_weights(opt, path):
     torch.save({'params': net.state_dict()}, path)
 
 
-def edvr_launches(frames_in_item):
-    """Sampler launches of one EDVR forward: PCD levels 3, 2, 1 and the
-    cascade, the frames folded into the batch."""
+def edvr_launches(shape):
+    """Sampler launches of one EDVR forward on a window (b, t, c, h, w): PCD
+    levels 3, 2, 1 and the cascade, the frames folded into the batch."""
     return 4
 
 
-def basicvsrpp_launches(t):
-    """Sampler launches of one BasicVSR++ forward on t frames: 4 (t - 1)
-    alignments with nine taps; with one tap SpyNet's 6 levels (both
-    directions in one batch), a feature warp a step and branch, and a flow and
-    a feature warp from a branch's third step on."""
+def basicvsrpp_launches(shape):
+    """Sampler launches of one BasicVSR++ forward on a clip of t frames: 4
+    (t - 1) alignments with nine taps; with one tap SpyNet's 6 levels (both
+    directions in one batch), a feature warp a step and branch, and a flow
+    and a feature warp from a branch's third step on."""
+    t = shape[1]
     return 4 * (t - 1) + 6 + 4 * (t - 1) + 8 * (t - 2)
+
+
+def basicvsr_launches(shape):
+    """Sampler launches of one BasicVSR forward on a clip of t frames, all
+    with one tap: SpyNet's 6 levels (both directions in one batch) and a
+    feature warp a step of each branch but its first."""
+    return 6 + 2 * (shape[1] - 1)
+
+
+def iconvsr_launches(net_opt):
+    """IconVSR's forward on a clip (b, t, c, h, w): BasicVSR's warps and 4
+    nine-tap launches (PCD's levels and cascade) an EDVR extractor call, one
+    call a group of keyframes (the port's ``keyframe_groups``)."""
+    def launches(shape):
+        from basicsr4rs_torch.archs.basicvsr_arch import keyframe_groups
+        b, t, _, h, w = shape
+        groups = keyframe_groups(b, t, -(-h // 4) * 4, -(-w // 4) * 4, net_opt['keyframe_stride'],
+                                 net_opt['temporal_padding'])
+        return basicvsr_launches(shape) + 4 * len(groups)
+    return launches
+
+
+def tof_launches(shape):
+    """TOFlow's eval forward: its SpyNet's 4 levels and the frames' warp, the
+    six support frames folded into the batch."""
+    return 5
+
+
+def basicvsrpp_memory_stages(net):
+    """BasicVSR++'s request stage by stage (``MemoryMarks``): where its
+    memory goes."""
+    stages = [('feat_extract', net.feat_extract, 'forward'),
+              ('compute_flow (SpyNet)', net, 'compute_flow'),
+              (lambda feats, flows, module: f'propagate {module}', net, 'propagate'),
+              ('upsample', net, 'upsample')]
+    return stages + [(f'  {name}', getattr(net, name), 'forward') for name in (
+        'reconstruction', 'upconv1', 'upconv2', 'pixel_shuffle', 'conv_hr', 'lrelu', 'conv_last')]
 
 
 VIDEO = {
@@ -3130,7 +3222,7 @@ VIDEO = {
         clips={'test': ({'300': 5, '301': 5}, VIDEO_LQ),
                'train': ({'100': 8, '101': 8}, (80, 80)), 'val': ({'200': 5}, (64, 64))},
         forward_launches=edvr_launches, backward_skipped=0, train_frames=EDVR_FRAMES,
-        boundary_key='tsa_iter', frozen='conv_first.weight', free='fusion.feat_fusion.weight'),
+        boundary_key='tsa_iter', frozen=('conv_first.weight',), free='fusion.feat_fusion.weight'),
     'BasicVSR++': dict(
         test_config='options/test/BasicVSRPP/test_BasicVSRPP_x4_synthetic.yml',
         train_config='options/train/BasicVSRPP/train_BasicVSRPP_x4_synthetic.yml',
@@ -3140,30 +3232,141 @@ VIDEO = {
                'train': ({'100': 32, '101': 32}, (72, 72)), 'val': ({'200': 4}, (64, 64))},
         # SpyNet's first warp has a zero flow and an input image: no backward
         forward_launches=basicvsrpp_launches, backward_skipped=1, train_frames=30,
-        boundary_key='fix_flow', frozen='spynet.basic_module.5.basic_module.0.weight',
-        free='conv_last.weight'),
+        boundary_key='fix_flow', frozen=('spynet.basic_module.5.basic_module.0.weight',),
+        free='conv_last.weight', all_frames=True, memory_stages=basicvsrpp_memory_stages),
 }
+
+
+def write_vimeo(root, seqs, lq_size):
+    """Vimeo90K septuplets: GT ``<root>/GT/<seq>/im1..7.png`` (moving
+    clips), LQ their bicubic x4 downscale under ``BIx4``; ``meta_info_train``
+    lists all, ``meta_info_test`` the first two; and a validation clip of 7
+    frames of 64x64 (``val_GT``, ``val_LQ``)."""
+    import cv2
+    import numpy as np
+    rng = np.random.RandomState(7)
+    h, w = lq_size
+    for seq in seqs:
+        for sub in ('GT', 'BIx4'):
+            os.makedirs(os.path.join(root, sub, seq), exist_ok=True)
+        for i, gt in enumerate(moving_clip(rng, 7, SCALE * h, SCALE * w), start=1):
+            cv2.imwrite(os.path.join(root, 'GT', seq, f'im{i}.png'), gt)
+            cv2.imwrite(os.path.join(root, 'BIx4', seq, f'im{i}.png'),
+                        cv2.resize(gt, (w, h), interpolation=cv2.INTER_CUBIC))
+    for name, listed in (('train', seqs), ('test', seqs[:2])):
+        with open(os.path.join(root, f'meta_info_{name}.txt'), 'w') as f:
+            f.writelines(f'{seq} 7 ({SCALE * h},{SCALE * w},3)\n' for seq in listed)
+    write_clips(root, 'val', {'calendar': 7}, (64, 64))
+
+
+def write_vid_clip(root, lq_dir, gt_size, frames, upsampled):
+    """One clip ``clip`` of GT frames of ``gt_size`` under ``<root>/GT`` and
+    their bicubic x4 downscale under ``<root>/<lq_dir>``, upsampled back to
+    the GT's size by bicubic (TOFlow's ``BIx4up_direct``) when ``upsampled``."""
+    import cv2
+    import numpy as np
+    rng = np.random.RandomState(sum(map(ord, root)))
+    h, w = gt_size
+    for sub in ('GT', lq_dir):
+        os.makedirs(os.path.join(root, sub, 'clip'), exist_ok=True)
+    for i, gt in enumerate(moving_clip(rng, frames, h, w)):
+        lq = cv2.resize(gt, (w // SCALE, h // SCALE), interpolation=cv2.INTER_CUBIC)
+        if upsampled:
+            lq = cv2.resize(lq, (w, h), interpolation=cv2.INTER_CUBIC)
+        cv2.imwrite(os.path.join(root, 'GT', 'clip', f'{i:08d}.png'), gt)
+        cv2.imwrite(os.path.join(root, lq_dir, 'clip', f'{i:08d}.png'), lq)
+
+
+VIMEO_DIR = 'datasets/Vimeo90K_synthetic'
+VIMEO_SEQS = ['00001/0001', '00001/0002', '00002/0001', '00002/0002']
+BASICVSR_REDS = dict(
+    data='datasets/BasicVSR_REDS_synthetic',
+    # one clip of 30 frames at the REDS4 size, one request; training clips
+    # of 16 frames (LQ 72x72: GT 256 crops), a validation clip of 4
+    clips={'test': ({'300': 30}, VIDEO_LQ),
+           'train': ({'100': 16, '101': 16}, (72, 72)), 'val': ({'200': 4}, (64, 64))},
+    backward_skipped=1, all_frames=True, resume=False, profiled=0, warm=False,
+    gradients='network')
+# the recurrent video slice's paths (phases 37 to 44), in VIDEO's terms;
+# ``write``: the test data's writer where the REDS clips do not serve
+RECURRENT = {
+    'BasicVSR': dict(
+        BASICVSR_REDS, test_config='options/test/BasicVSR/test_BasicVSR_REDS_synthetic.yml',
+        train_config='options/train/BasicVSR/train_BasicVSR_REDS_synthetic.yml',
+        forward_launches=basicvsr_launches, train_frames=15, boundary_key='fix_flow',
+        frozen=('spynet.basic_module.5.basic_module.0.weight',), free='conv_last.weight'),
+    'IconVSR': dict(
+        BASICVSR_REDS, test_config='options/test/BasicVSR/test_IconVSR_REDS_synthetic.yml',
+        forward_launches=iconvsr_launches(dict(keyframe_stride=5, temporal_padding=2)),
+        profiled=1),
+    'IconVSR Vimeo90K': dict(
+        test_config='options/test/BasicVSR/test_IconVSR_Vimeo90K_BIx4_synthetic.yml',
+        train_config='options/train/BasicVSR/train_IconVSR_Vimeo90K_BIx4_synthetic.yml',
+        data=VIMEO_DIR, write=lambda: write_vimeo(VIMEO_DIR, VIMEO_SEQS, VIMEO_LQ),
+        clips={'test': ({'vimeo90k': 2}, VIMEO_LQ)},
+        forward_launches=iconvsr_launches(dict(keyframe_stride=5, temporal_padding=3)),
+        backward_skipped=1, train_frames=14, boundary_key='fix_flow',
+        frozen=('spynet.basic_module.5.basic_module.0.weight', 'edvr.conv_first.weight',
+                'edvr.pcd_align.dcn_pack.l1.weight'), free='conv_last.weight', resume=False,
+        profiled=0, profiled_steps=1, warm=False, gradients='network',
+        saved=1),   # the two septuplets' centre frames share a name
+    'EDVR-L Vimeo90K': dict(
+        test_config='options/test/EDVR/test_EDVR_L_x4_SR_Vimeo90K_synthetic.yml',
+        data=VIMEO_DIR, write=lambda: write_vimeo(VIMEO_DIR, VIMEO_SEQS, VIMEO_LQ),
+        clips={'test': ({'vimeo90k': 2}, VIMEO_LQ)}, forward_launches=edvr_launches,
+        profiled=0, warm=False),
+    'TOFlow': dict(
+        test_config='options/test/TOF/test_TOF_synthetic.yml', data='datasets/TOF_synthetic',
+        write=lambda: write_vid_clip('datasets/TOF_synthetic', 'BIx4up_direct', TOF_SIZE, 7,
+                                     True),
+        clips={'test': ({'clip': 7}, TOF_SIZE)}, forward_launches=tof_launches, scale=1,
+        profiled=0, warm=False),
+    'DUF': dict(
+        test_config='options/test/DUF/test_DUF_synthetic.yml', data='datasets/DUF_synthetic',
+        write=lambda: write_vid_clip('datasets/DUF_synthetic', 'BIx4', (576, 720), 7, False),
+        clips={'test': ({'clip': 7}, (144, 180))}, forward_launches=lambda shape: 0,
+        profiled=0, warm=False),
+}
+
+
+def video_spec(name):
+    return VIDEO[name] if name in VIDEO else RECURRENT[name]
+
+
+def iconvsr_memory_stages(net):
+    """IconVSR's request stage by stage: the keyframes' EDVR features, the
+    flows, the head (the branches run between the last two marks)."""
+    return [('keyframe_features (EDVR)', net, 'keyframe_features'),
+            ('SpyNet', net.spynet, 'forward'), ('_head', net, '_head')]
+
+
+RECURRENT['IconVSR']['memory_stages'] = iconvsr_memory_stages
 
 
 def serve_video(name, number):
     """Serve one video model through ``basicsr4rs_torch.test``; then time
-    requests, repeat one on the plain versions, and profile one."""
+    requests, repeat one on the plain versions, and profile one or two."""
     import numpy as np
 
     import basicsr4rs_torch.test as entry
     from basicsr4rs_torch.utils.options import yaml_load
-    spec = VIDEO[name]
+    spec = video_spec(name)
     opt = yaml_load(spec['test_config'])
-    phase(f'{number}. serve {name} x4 through basicsr4rs_torch.test on cuda:0 '
-          f'(LQ {VIDEO_LQ[0]}x{VIDEO_LQ[1]})')
     clips, lq_size = spec['clips']['test']
-    write_clips(spec['data'], 'test', clips, lq_size)
+    scale = spec.get('scale', SCALE)
+    phase(f'{number}. serve {name} x4 through basicsr4rs_torch.test on cuda:0 '
+          f'(LQ {lq_size[0]}x{lq_size[1]})')
+    if 'write' in spec:
+        spec['write']()
+    else:
+        write_clips(spec['data'], 'test', clips, lq_size)
     seed0_video_weights(opt, opt['path']['pretrain_network_g'])
     wrappers = sampler_wrappers()
     for w in wrappers.values():
         w.launches = 0
     argv = sys.argv
     sys.argv = ['basicsr4rs_torch.test', '-opt', spec['test_config']]
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     try:
         model = entry.test_pipeline(ROOT)
@@ -3172,33 +3375,42 @@ def serve_video(name, number):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = wrappers['deform_sample_fwd'].launches
-    loader = [item for item in model_loader(model)]
-    expected = sum(spec['forward_launches'](item['lq'].shape[1]) for item in loader)
-    print(f'pipeline wall time {wall:.3f} s (model build, weight load, {len(loader)} requests, '
+    # the requests to time (the items of a set share a shape: the count is
+    # the first one's for each)
+    requests = len(model_loader(model).dataset)
+    loader = list(itertools.islice(model_loader(model), 4))
+    flip = 2 if opt['val'].get('flip_seq') else 1   # the network sees the clip and its reverse
+    b, t, c, h, w = loader[0]['lq'].shape
+    expected = requests * spec['forward_launches']((b, flip * t, c, h, w))
+    print(f'pipeline wall time {wall:.3f} s (model build, weight load, {requests} requests, '
           f'metrics, image writes); sampler launches {launches}, '
-          f'{launches / len(loader):g} a request')
+          f'{launches / requests:g} a request; peak device memory '
+          f'{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB')
     if model.device.type != 'cuda':
         fail(f'the model ran on {model.device}')
     if launches != expected or wrappers['deform_sample_bwd'].launches != 0:
         fail(f'expected {expected} forward launches of the sampler and no backward, counted '
              f'{launches} and {wrappers["deform_sample_bwd"].launches}')
     for folder, rows in model.metric_results_per_folder.items():
-        print(f'clip {folder}: PSNR {rows[:, 0].mean():.4f} dB over {len(rows)} frames '
-              '(random weights)')
+        print(f'clip {folder}: ' + ', '.join(
+            f'{metric} {rows[:, i].mean():.4f}' for i, metric in
+            enumerate(opt['val']['metrics'])) + f' over {len(rows)} rows (random weights)')
         if not np.isfinite(rows).all():
             fail(f'a metric of clip {folder} is not finite')
-    frames = sum(clips.values())
+    frames = spec.get('saved', sum(clips.values()))
     saved = sum(len(files) for _, _, files in os.walk(
-        os.path.join(model.opt['path']['visualization'], opt['datasets']['test_1']['name'])))
+        os.path.join(model.opt['path']['visualization'],
+                     next(iter(opt['datasets'].values()))['name'])))
     if saved != frames:
         fail(f'{saved} images saved, expected {frames}')
 
     # latency of the model's own test(), after a warm-up request
-    def want(item):   # BasicVSR++ returns every frame, EDVR the centre one
-        frames = (item['lq'].shape[1], 3) if name == 'BasicVSR++' else (3,)
-        return (1,) + frames + (SCALE * lq_size[0], SCALE * lq_size[1])
+    def want(item):   # the recurrent models return every frame, the others the centre one
+        frames = ((item['lq'].shape[1], 3) if spec.get('all_frames')
+                  and not opt['val'].get('center_frame_only') else (3,))
+        return (1,) + frames + (scale * lq_size[0], scale * lq_size[1])
 
-    latencies = request_latencies(model, loader[:4], want)
+    latencies = request_latencies(model, loader, want, warm=spec.get('warm', True))
     for item, ms in zip(loader, latencies):
         t, shape = item['lq'].shape[1], want(item)
         frames_out = t if len(shape) == 5 else 1
@@ -3206,69 +3418,76 @@ def serve_video(name, number):
               f'{shape[-2]}x{shape[-1]}: {ms:.3f} ms, {ms / frames_out:.3f} ms an output frame')
     print(f'request latency: mean {sum(latencies) / len(latencies):.3f} ms of {len(latencies)}; '
           f'peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB')
-    if name == 'BasicVSR++':   # F4: where the request's memory goes
+    if 'memory_stages' in spec:   # where the request's memory goes
         net = getattr(model.net_g, 'module', model.net_g)
-        stages = [('feat_extract', net.feat_extract, 'forward'),
-                  ('compute_flow (SpyNet)', net, 'compute_flow'),
-                  (lambda feats, flows, module: f'propagate {module}', net, 'propagate'),
-                  ('upsample', net, 'upsample')]
-        stages += [(f'  {name}', getattr(net, name), 'forward') for name in (
-            'reconstruction', 'upconv1', 'upconv2', 'pixel_shuffle', 'conv_hr', 'lrelu',
-            'conv_last')]
         model.feed_data(loader[0])
         torch.cuda.empty_cache()
-        with MemoryMarks(stages) as marks:
+        with MemoryMarks(spec['memory_stages'](net)) as marks:
             model.test()
         marks.show(f'{name} request of {loader[0]["lq"].shape[1]} frames')
 
-    # one request through the kernels and through the plain versions
-    before = wrappers['deform_sample_fwd'].launches
-    model.feed_data(loader[-1])
-    model.test()
-    with_kernels = model.output.float().clamp(0, 1)
-    per_request = wrappers['deform_sample_fwd'].launches - before
-    patches = plain_sampler()
-    for p in patches:
-        p.start()
-    try:
+    if expected:   # one request through the kernels and through the plain versions
+        before = wrappers['deform_sample_fwd'].launches
+        model.feed_data(loader[-1])
         model.test()
-    finally:
+        with_kernels = model.output.float().clamp(0, 1)
+        per_request = wrappers['deform_sample_fwd'].launches - before
+        patches = plain_sampler()
         for p in patches:
-            p.stop()
-    if wrappers['deform_sample_fwd'].launches != before + per_request:
-        fail('the plain request launched a kernel')
-    err = (with_kernels - model.output.float().clamp(0, 1)).abs().max().item()
-    print(f'kernels vs plain versions, one request: max abs difference on the [0, 1] output '
-          f'{err:.3e} (tolerance {MODEL_TOLERANCE})')
-    if err > MODEL_TOLERANCE:
-        fail(f'{name}: the request differs between kernels and plain versions')
+            p.start()
+        try:
+            model.test()
+        finally:
+            for p in patches:
+                p.stop()
+        if wrappers['deform_sample_fwd'].launches != before + per_request:
+            fail('the plain request launched a kernel')
+        err = (with_kernels - model.output.float().clamp(0, 1)).abs().max().item()
+        print(f'kernels vs plain versions, one request: max abs difference on the [0, 1] '
+              f'output {err:.3e} (tolerance {MODEL_TOLERANCE})')
+        if err > MODEL_TOLERANCE:
+            fail(f'{name}: the request differs between kernels and plain versions')
 
-    phase(f'{number}b. device time of a {name} request by kernel (torch.profiler)')
-    profile_device_time(model.test, 2, 'request', SAMPLER_DEVICE_KERNELS,
-                        f'{name.lower().replace("+", "p")}_request_profile.json')
+    profiled = spec.get('profiled', 2)
+    if profiled:
+        phase(f'{number}b. device time of {"a" if profiled == 1 else profiled} {name} '
+              f'request{"s" * (profiled > 1)} by kernel (torch.profiler)')
+        model.feed_data(loader[0])
+        profile_device_time(model.test, profiled, 'request', SAMPLER_DEVICE_KERNELS,
+                            f'{tag_of(name)}_request_profile.json')
     del model
     torch.cuda.empty_cache()
     return launches, sum(latencies) / len(latencies)
 
 
+def tag_of(name):
+    """A file name's part for a path's name: 'IconVSR Vimeo90K' ->
+    'iconvsr_vimeo90k', 'BasicVSR++' -> 'basicvsrpp'."""
+    return name.lower().replace('+', 'p').replace(' ', '_').replace('-', '_')
+
+
 def train_video(name, number):
     """Train one video model through ``basicsr4rs_torch.train`` for the
-    config's 8 iterations; then resume for two more and profile a step."""
+    config's 8 iterations; then resume for two more (unless the spec says
+    ``resume=False``) and profile one or two steps."""
     import glob
     import shutil
 
     from basicsr4rs_torch.archs import build_network
     from basicsr4rs_torch.utils.options import yaml_load
     from basicsr4rs_torch.utils.registry import MODEL_REGISTRY
-    spec = VIDEO[name]
+    spec = video_spec(name)
     opt = yaml_load(spec['train_config'])
     total_iter, boundary = opt['train']['total_iter'], opt['train'][spec['boundary_key']]
     train_opt = opt['datasets']['train']
     batch, lq = train_opt['batch_size_per_gpu'], train_opt['gt_size'] // SCALE
     phase(f'{number}. train {name} x4 through basicsr4rs_torch.train on cuda:0 (batch {batch} of '
           f'{spec["train_frames"]} LQ frames {lq}x{lq}; {spec["boundary_key"]}: {boundary})')
-    for part in ('train', 'val'):
-        write_clips(spec['data'], part, *spec['clips'][part])
+    if 'write' in spec:
+        spec['write']()
+    else:
+        for part in ('train', 'val'):
+            write_clips(spec['data'], part, *spec['clips'][part])
     exp_dir = os.path.join('experiments', opt['name'])
     for old in glob.glob(exp_dir + '*'):
         shutil.rmtree(old)
@@ -3276,20 +3495,22 @@ def train_video(name, number):
     wrappers = sampler_wrappers()
     for w in wrappers.values():
         w.launches = 0
-    forward = spec['forward_launches'](spec['train_frames'])
+    forward = spec['forward_launches']((batch, spec['train_frames'], 3, lq, lq))
     backward = forward - spec['backward_skipped']
+    frozen, free = spec['frozen'], spec['free']
 
     def watch(model, record):
-        """Before step 1: keep the first batch and two parameters to follow."""
+        """Before step 1: keep the first batch and the parameters to follow."""
         params = dict(model.net_g.named_parameters())
-        record['watched'] = {k: params[spec[k]] for k in ('frozen', 'free')}
+        record['watched'] = {k: params[k] for k in frozen + (free,)}
         record['previous'] = {k: p.detach().clone() for k, p in record['watched'].items()}
         record['fixed'] = (model.lq.clone(), model.gt.clone())
         record['fixed_loss_before'] = fixed_batch_loss(model, record['fixed'])
 
     def moved(model, step):
+        step['moved'] = {}
         for k, p in record['watched'].items():
-            step[k + '_moved'] = not torch.equal(p, record['previous'][k])
+            step['moved'][k] = not torch.equal(p, record['previous'][k])
             record['previous'][k] = p.detach().clone()
 
     torch.cuda.reset_peak_memory_stats()
@@ -3307,9 +3528,8 @@ def train_video(name, number):
     print(f'pipeline wall time {wall:.3f} s for {len(steps)} steps, validations, checkpoints')
     for st in steps:
         print(f'step {st["iter"]}: {st["ms"]:.3f} ms, l_pix {st["l_pix"]:.6f}, launches '
-              + ' '.join(f'{k}={v}' for k, v in st['launches'].items())
-              + f'; {spec["frozen"]} moved: {st["frozen_moved"]}, {spec["free"]} moved: '
-              f'{st["free_moved"]}')
+              + ' '.join(f'{k}={v}' for k, v in st['launches'].items()) + '; moved: '
+              + ', '.join(f'{k} {v}' for k, v in st['moved'].items()))
     if [st['iter'] for st in steps] != list(range(1, total_iter + 1)):
         fail(f'expected steps 1..{total_iter}, ran {[st["iter"] for st in steps]}')
     for st in steps:
@@ -3319,9 +3539,10 @@ def train_video(name, number):
             fail(f'step {st["iter"]}: launches {st["launches"]}, expected {forward} forward '
                  f'and {backward} backward')
         # the warm-up discards the frozen parameters' updates before its boundary
-        if st['frozen_moved'] != (st['iter'] >= boundary) or not st['free_moved']:
-            fail(f'step {st["iter"]}: the warm-up boundary is at {boundary}, '
-                 f'{spec["frozen"]} moved: {st["frozen_moved"]}')
+        if (any(st['moved'][k] != (st['iter'] >= boundary) for k in frozen)
+                or not st['moved'][free]):
+            fail(f'step {st["iter"]}: the warm-up boundary is at {boundary}, moved: '
+                 f'{st["moved"]}')
     timed = [st['ms'] for st in steps[2:]]
     mean_ms = sum(timed) / len(timed)
     print(f'training step: {mean_ms:.3f} ms mean of steps 3..{total_iter} (min {min(timed):.3f}, '
@@ -3339,23 +3560,26 @@ def train_video(name, number):
     # EMA, checkpoint, resume
     check_ema_and_checkpoint(model, build_network(opt['network_g']),
                              os.path.join(exp_dir, 'models', f'net_g_{total_iter}.pth'))
-    resumed = {'steps': []}
-    run_train_pipeline(['--auto_resume', '--force_yml',
-                        f'train:total_iter={total_iter + RESUME_ITERS}'], resumed,
-                       config=spec['train_config'], model_cls=model_cls, wrappers=wrappers,
-                       before_first_step=lambda model, record: None)
-    iters = [st['iter'] for st in resumed['steps']]
-    print(f'resumed from {total_iter}.state: ran steps {iters}, l_pix '
-          + ' '.join(f'{st["l_pix"]:.6f}' for st in resumed['steps']))
-    if iters != list(range(total_iter + 1, total_iter + RESUME_ITERS + 1)):
-        fail(f'resume should continue at step {total_iter + 1}, ran {iters}')
+    if spec.get('resume', True):
+        resumed = {'steps': []}
+        run_train_pipeline(['--auto_resume', '--force_yml',
+                            f'train:total_iter={total_iter + RESUME_ITERS}'], resumed,
+                           config=spec['train_config'], model_cls=model_cls, wrappers=wrappers,
+                           before_first_step=lambda model, record: None)
+        iters = [st['iter'] for st in resumed['steps']]
+        print(f'resumed from {total_iter}.state: ran steps {iters}, l_pix '
+              + ' '.join(f'{st["l_pix"]:.6f}' for st in resumed['steps']))
+        if iters != list(range(total_iter + 1, total_iter + RESUME_ITERS + 1)):
+            fail(f'resume should continue at step {total_iter + 1}, ran {iters}')
 
-    phase(f'{number}b. device time of 2 {name} training steps by kernel (torch.profiler)')
-    model.lq, model.gt = record['fixed']
-    model.optimize_parameters(total_iter)
-    profile_device_time(lambda: model.optimize_parameters(total_iter), 2, 'step',
-                        SAMPLER_DEVICE_KERNELS,
-                        f'{name.lower().replace("+", "p")}_step_profile.json')
+    profiled = spec.get('profiled_steps', spec.get('profiled', 2))
+    if profiled:
+        phase(f'{number}b. device time of {"a" if profiled == 1 else profiled} {name} training '
+              f'step{"s" * (profiled > 1)} by kernel (torch.profiler)')
+        model.lq, model.gt = record['fixed']
+        model.optimize_parameters(total_iter)
+        profile_device_time(lambda: model.optimize_parameters(total_iter), profiled, 'step',
+                            SAMPLER_DEVICE_KERNELS, f'{tag_of(name)}_step_profile.json')
     del model
     torch.cuda.empty_cache()
     return launches, mean_ms, peak
@@ -3366,7 +3590,7 @@ def check_video_gradients(name, number):
     and through its plain versions: the loss and every parameter's gradient."""
     from basicsr4rs_torch.archs import build_network
     from basicsr4rs_torch.utils.options import yaml_load
-    spec = VIDEO[name]
+    spec = video_spec(name)
     opt = yaml_load(spec['train_config'])
     phase(f'{number}. {name}, forward and backward: kernels vs plain versions, one training batch')
     path = os.path.join('experiments', 'chip_smoke_gradients.pth')
@@ -3406,7 +3630,7 @@ def check_video_gradients(name, number):
             p.stop()
     if counts != {k: w.launches for k, w in wrappers.items()}:
         fail('the plain run launched a kernel')
-    compare_gradients(name, loss_k, grads_k, loss_p, grads_p)
+    compare_gradients(name, loss_k, grads_k, loss_p, grads_p, spec.get('gradients', 'tensor'))
 
 
 # ------------------------------------------- the serving modes of the image-SR path
@@ -4444,8 +4668,6 @@ def write_cnn_inputs():
     their perceptual losses as ``pretrain_path``."""
     import cv2
     import numpy as np
-
-    from basicsr4rs_torch.archs.vgg_arch import _CFG, vgg_layer_names
     for scale, root in ((SCALE, CNN_DIR), (2, CNN_X2_DIR)):
         rng = np.random.RandomState(4)
         sets = [('GT', 'LQ', [(CNN_TRAIN_GT, CNN_TRAIN_GT)] * CNN_TRAIN_IMAGES),
@@ -4458,6 +4680,14 @@ def write_cnn_inputs():
                 lq = cv2.resize(gt, (w // scale, h // scale), interpolation=cv2.INTER_CUBIC)
                 cv2.imwrite(os.path.join(root, gt_dir, f'{i:04d}.png'), gt)
                 cv2.imwrite(os.path.join(root, lq_dir, f'{i:04d}.png'), lq)
+    write_vgg19()
+
+
+def write_vgg19():
+    """A random VGG19 in torchvision's layout (He-scaled, seed 0) at
+    ``VGG_WEIGHTS``, which the GAN runs give their perceptual losses as
+    ``pretrain_path``."""
+    from basicsr4rs_torch.archs.vgg_arch import _CFG, vgg_layer_names
     gen = torch.Generator().manual_seed(0)
     state, cin = {}, 3
     channels = iter(c for c in _CFG['vgg19'] if c != 'M')
@@ -4508,10 +4738,13 @@ def net_options(opt, key='network_g'):
     return {k: v for k, v in opt[key].items() if k != 'type'}
 
 
-def train_gan(config, model_cls, number, title, extra=()):
+def train_gan(config, model_cls, number, title, extra=(), wrappers=None, per_step=None,
+              before_first_step=None):
     """A GAN model trained ``CNN_ITERS`` steps through the training entry
     point on the synthetic tree: every logged loss finite at every step,
-    the step time and the peak memory. Returns (model, record, options)."""
+    ``per_step`` launches of each of the kernels ``wrappers`` names (none
+    by default), the step time and the peak memory. Returns (model, record,
+    options)."""
     from basicsr4rs_torch.utils.options import yaml_load
     opt = yaml_load(config)
     forced = dict(e.split('=', 1) for e in extra)
@@ -4520,19 +4753,21 @@ def train_gan(config, model_cls, number, title, extra=()):
     phase(f'{number}. {title} through basicsr4rs_torch.train on cuda:0 (batch '
           f'{train_opt["batch_size_per_gpu"]}, GT {gt_size}; no TPU kernel on this path)')
     name = forced.get('name', opt['name'])
-    fresh_run(dict(opt, name=name), {})
+    wrappers = wrappers or {}
+    fresh_run(dict(opt, name=name), wrappers)
     record = {'steps': []}
     t0 = time.perf_counter()
     model = run_train_pipeline(short_run(CNN_ITERS, 'train:perceptual_opt:pretrain_path='
                                          + VGG_WEIGHTS, *extra), record, config=config,
-                               model_cls=model_cls, loss_key='l_g_total', wrappers={},
-                               before_first_step=keep_fed_batch, after_step=keep_logs)
+                               model_cls=model_cls, loss_key='l_g_total', wrappers=wrappers,
+                               before_first_step=before_first_step or keep_fed_batch,
+                               after_step=keep_logs)
     torch.cuda.synchronize()
     if model.device.type != 'cuda':
         fail(f'the model trained on {model.device}')
     print(f'pipeline wall time {time.perf_counter() - t0:.3f} s for {CNN_ITERS} steps, one '
           'validation and a checkpoint at the end')
-    check_steps(record['steps'], CNN_ITERS, 'l_g_total', {})
+    check_steps(record['steps'], CNN_ITERS, 'l_g_total', per_step or {})
     check_logs_finite(record['steps'])
     return model, record, dict(opt, name=name)
 
@@ -4883,6 +5118,134 @@ def cnn_gan_paths(launches):
     print(f'phases 32 to 36: {time.perf_counter() - t0:.1f} s')
 
 
+# ------------------------------------------------ the recurrent video slice
+GAN_VIDEO_TRAIN = 'options/train/VideoRecurrentGAN/train_VideoRecurrentGANModel_REDS_synthetic.yml'
+
+
+def generator_loss(model, batch):
+    """The pixel and perceptual losses of the training network in eval mode
+    on a fixed batch."""
+    net = model.net_g
+    net.eval()
+    with torch.no_grad():
+        loss = float(model.pixel_and_perceptual_losses(net(batch['lq']), batch['gt'], {}))
+    net.train()
+    return loss
+
+
+def train_video_gan(number):
+    """The video GAN as published (BasicVSR 64 x 30, VGGStyleDiscriminator
+    32 at 256, perceptual conv5_4 + GAN 0.005 + L1 0.01, batch 4 of 15 frames,
+    GT 256) trained ``CNN_ITERS`` steps through the training entry point
+    from random weights: the sampler's launches a step, SpyNet in the
+    generator's one param group, the G phase's losses on the first batch
+    falling. Returns the sampler's launches."""
+    from basicsr4rs_torch.models.video_recurrent_model import VideoRecurrentGANModel
+    from basicsr4rs_torch.utils.options import yaml_load
+    spec = RECURRENT['BasicVSR']
+    for part in ('train', 'val'):
+        write_clips(spec['data'], part, *spec['clips'][part])
+    write_vgg19()
+    train_opt = yaml_load(GAN_VIDEO_TRAIN)['datasets']['train']
+    lq = train_opt['gt_size'] // SCALE
+    forward = basicvsr_launches((train_opt['batch_size_per_gpu'], train_opt['num_frame'], 3, lq,
+                                 lq))
+    wrappers = sampler_wrappers()
+
+    def first_batch(model, record):
+        keep_fed_batch(model, record)
+        record['loss_before'] = generator_loss(model, record['batch'])
+
+    model, record, _ = train_gan(
+        GAN_VIDEO_TRAIN, VideoRecurrentGANModel, number,
+        f'train the video GAN (BasicVSR 64 x 30, VGGStyleDiscriminator 32 at 256; '
+        f'{train_opt["num_frame"]} frames)', wrappers=wrappers,
+        per_step={'deform_sample_fwd': forward, 'deform_sample_bwd': forward - 1},
+        before_first_step=first_batch)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    after = generator_loss(model, record['batch'])
+    print(f'SpyNet trains in the generator\'s {len(model.optimizer_g.param_groups)} param group '
+          f'(the GAN step reads no flow_lr_mul, fix_flow or lr_flow); pixel + perceptual loss '
+          f'on the first batch, eval mode: {record["loss_before"]:.6f} before step 1, '
+          f'{after:.6f} after step {CNN_ITERS}; launches in the run ' + ' '.join(
+              f'{k}={v}' for k, v in launches.items()))
+    if len(model.optimizer_g.param_groups) != 1 or not after < record['loss_before']:
+        fail('SpyNet has a param group of its own, or the loss on the first batch did not fall')
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def inference_matches_test(number):
+    """``inference_basicvsr`` and ``inference_basicvsrpp`` on the REDS clip
+    with its 30 frames in one forward, as ``basicsr4rs_torch.test`` runs it,
+    from the seed-0 weights that phases 37 and 14 served: the same PNGs
+    (BasicVSR++'s test run is made here when phase 14 did not run)."""
+    import glob
+
+    import cv2
+
+    from basicsr4rs_torch.inference import inference_basicvsr, inference_basicvsrpp
+    from basicsr4rs_torch.utils.options import yaml_load
+    phase(f'{number}. inference_basicvsr and inference_basicvsrpp on the REDS clip against '
+          'basicsr4rs_torch.test\'s images')
+    runs = (('BasicVSR', inference_basicvsr, ['--num_feat', '64', '--num_block', '30']),
+            ('BasicVSR++', inference_basicvsrpp, ['--mid_channels', '64', '--num_blocks', '7']))
+    for name, script, args in runs:
+        spec = video_spec(name)
+        opt = yaml_load(spec['test_config'])
+        clip = os.path.join(opt['datasets']['test_1']['dataroot_lq'], '300')
+        vis = os.path.join('results', opt['name'], 'visualization',
+                           opt['datasets']['test_1']['name'], '300')
+        if len(glob.glob(os.path.join(vis, '*.png'))) != 30:
+            write_clips(spec['data'], 'test', *spec['clips']['test'])
+            seed0_video_weights(opt, opt['path']['pretrain_network_g'])
+            run_test_pipeline(spec['test_config'], [])
+        out_dir = os.path.join(PROFILE_DIR, f'inference_{tag_of(name)}')
+        t0 = time.perf_counter()
+        script.main(['--model_path', opt['path']['pretrain_network_g'], '--input', clip,
+                     '--output', out_dir, '--interval', '30', *args])
+        wall = time.perf_counter() - t0
+        worst, differing = 0, 0
+        suffix = 'BasicVSRPP' if name == 'BasicVSR++' else name
+        for i in range(30):
+            a = cv2.imread(os.path.join(vis, f'{i:08d}_{opt["name"]}.png'))
+            b = cv2.imread(os.path.join(out_dir, f'{i:08d}_{suffix}.png'))
+            if a is None or b is None or a.shape != b.shape or a.shape != (720, 1280, 3):
+                fail(f'{name}, frame {i}: {None if a is None else a.shape}, '
+                     f'{None if b is None else b.shape}')
+            diff = abs(a.astype(int) - b.astype(int))
+            worst, differing = max(worst, int(diff.max())), differing + int((diff > 0).sum())
+        print(f'{name}: inference script {wall:.3f} s (model build, 30 frames read, one '
+              f'forward, 30 written); its 30 images and test.py\'s differ in {differing} values, '
+              f'by at most {worst} levels')
+        if worst > 1:
+            fail(f'test.py and the inference script give different {name} images')
+
+
+def recurrent_video_paths(launches):
+    """Phases 37 to 46: BasicVSR and IconVSR served on REDS, IconVSR and
+    EDVR-L on Vimeo90K, BasicVSR and IconVSR trained (their gradients through
+    the kernels against the plain versions), the video GAN, TOFlow and DUF
+    served, the two inference scripts; the sampler's launches added to
+    ``launches``."""
+    t0 = time.perf_counter()
+    for name, number in (('BasicVSR', '37'), ('IconVSR', '38'), ('IconVSR Vimeo90K', '39'),
+                         ('EDVR-L Vimeo90K', '40')):
+        launches['deform_sample_fwd'] += serve_video(name, number)[0]
+    for name, number in (('BasicVSR', '41'), ('IconVSR Vimeo90K', '42')):
+        trained = train_video(name, number)[0]
+        check_video_gradients(name, f'{number}c')
+        for kernel in DEFORM_KERNELS:
+            launches[kernel] += trained[kernel]
+    for kernel, count in train_video_gan('43').items():
+        launches[kernel] += count
+    for name, number in (('TOFlow', '44'), ('DUF', '45')):
+        launches['deform_sample_fwd'] += serve_video(name, number)[0]
+    inference_matches_test('46')
+    print(f'phases 37 to 46: {time.perf_counter() - t0:.1f} s')
+
+
 SUMMARY_KEYS = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
 KERNELS = [
     ('swin_block_joint_fwd', 'basicsr4rs_tpu/ops/swin_block.py:287'),
@@ -4934,6 +5297,12 @@ def main():
         cnn_gan_paths(launches)
         print(json.dumps(launches))
         return
+    if sys.argv[1:] == ['video']:   # development: the recurrent video slice alone
+        print(json.dumps(check_deform_kernels('3h', recurrent_deform_cases())))
+        launches = collections.Counter()
+        recurrent_video_paths(launches)
+        print(json.dumps(launches))
+        return
     if sys.argv[1:] == ['serving']:   # development: the serving modes' kernels and paths alone
         print(json.dumps({'swin_block_joint_fwd': check_joint_kernel(), **check_conv_kernels(),
                           **check_int8_block_kernel()}))
@@ -4945,6 +5314,8 @@ def main():
     kernels.update(check_branch_kernels())
     kernels.update(check_attention_kernels(rs_batch, l2s_batch, align_batch))
     kernels.update(check_deform_kernels())
+    for name, checked in check_deform_kernels('3h', recurrent_deform_cases()).items():
+        kernels[name]['max_abs_err'] = max(kernels[name]['max_abs_err'], checked['max_abs_err'])
     kernels.update(check_conv_kernels())
     kernels.update(check_int8_block_kernel())
     if sys.argv[1:] == ['kernels']:   # development: the kernel phases alone
@@ -4980,6 +5351,7 @@ def main():
     l2s_paths(launches)
     align_paths(launches)
     cnn_gan_paths(launches)
+    recurrent_video_paths(launches)
     for name, count in launches.items():
         if count == 0:
             fail(f'{name} was never launched on the main paths')

@@ -6,6 +6,8 @@ import re
 import subprocess
 import sys
 
+import pytest
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'basicsr4rs_tpu')
 
@@ -22,7 +24,7 @@ def port_modules():
 
 def test_port_imports_without_jax():
     """Every module of the port (the diffusion, video, serving-mode,
-    alignment and CNN / GAN slices' among them) imports with JAX and the JAX package blocked, and none of them is in
+    alignment, CNN / GAN and recurrent-video slices' among them) imports with JAX and the JAX package blocked, and none of them is in
     ``sys.modules`` afterwards."""
     modules = port_modules()
     for expected in ('basicsr4rs_torch.ops.window_attention', 'basicsr4rs_torch.archs.unet_arch',
@@ -59,7 +61,11 @@ def test_port_imports_without_jax():
                      'basicsr4rs_torch.models.esrgan_model',
                      'basicsr4rs_torch.data.single_image_dataset',
                      'basicsr4rs_torch.inference.inference_esrgan',
-                     'basicsr4rs_torch.inference.inference_ridnet'):
+                     'basicsr4rs_torch.inference.inference_ridnet',
+                     'basicsr4rs_torch.archs.tof_arch', 'basicsr4rs_torch.archs.duf_arch',
+                     'basicsr4rs_torch.data.vimeo90k_dataset',
+                     'basicsr4rs_torch.inference.inference_basicvsr',
+                     'basicsr4rs_torch.inference.inference_basicvsrpp'):
         assert expected in modules
     code = ('import importlib, sys\n'
             f'for name in {BLOCKED!r}:\n'
@@ -82,3 +88,19 @@ def test_port_sources_do_not_import_jax():
     offenders += [name for name in ('chip_smoke.py',)
                   if (ROOT / name).exists() and pattern.search((ROOT / name).read_text())]
     assert not offenders
+
+
+@pytest.mark.parametrize('registry, name', [
+    ('ARCH_REGISTRY', 'BasicVSR'), ('ARCH_REGISTRY', 'IconVSR'), ('ARCH_REGISTRY', 'TOFlow'),
+    ('ARCH_REGISTRY', 'DUF'), ('DATASET_REGISTRY', 'Vimeo90KDataset'),
+    ('DATASET_REGISTRY', 'Vimeo90KRecurrentDataset'),
+    ('DATASET_REGISTRY', 'VideoTestVimeo90KDataset'), ('DATASET_REGISTRY', 'VideoTestDUFDataset'),
+    ('MODEL_REGISTRY', 'VideoRecurrentGANModel'), ('MODEL_REGISTRY', 'VideoGANModel')])
+def test_port_registers_the_recurrent_video_slice(registry, name):
+    """Under the JAX package's names, once the builders have imported their
+    modules."""
+    import basicsr4rs_torch.archs  # noqa: F401
+    import basicsr4rs_torch.data  # noqa: F401
+    import basicsr4rs_torch.models  # noqa: F401
+    from basicsr4rs_torch.utils import registry as port_registry
+    assert getattr(port_registry, registry).get(name).__name__ == name
