@@ -138,16 +138,25 @@ class SRModel(BaseModel):
         if 'gt' in data:
             self.gt = data['gt'].to(self.device, non_blocking=True)
 
+    def loss_targets(self):
+        """(pixel, perceptual, GAN) targets of the training losses: the GT
+        batch for each (Real-ESRGAN's models pick its USM-sharpened copy
+        term by term)."""
+        return self.gt, self.gt, self.gt
+
     def pixel_and_perceptual_losses(self, output, target, loss_dict, names=('l_pix', 'l_percep',
-                                                                              'l_style')):
+                                                                              'l_style'),
+                                    percep_target=None):
         """The sum of the pixel loss, the perceptual loss and its style term
-        that the config asks for, of ``output`` against ``target``; each
-        term goes into ``loss_dict`` under its name in ``names``."""
+        that the config asks for, of ``output`` against ``target`` (the
+        perceptual terms against ``percep_target`` when given); each term
+        goes into ``loss_dict`` under its name in ``names``."""
         terms = []
         if self.cri_pix is not None:
             terms.append((names[0], self.cri_pix(output, target)))
         if self.cri_perceptual is not None:
-            l_percep, l_style = self.cri_perceptual(output, target)
+            l_percep, l_style = self.cri_perceptual(
+                output, target if percep_target is None else percep_target)
             terms += [(name, value) for name, value in zip(names[1:], (l_percep, l_style))
                       if value is not None]
         loss_dict.update(terms)
@@ -157,7 +166,9 @@ class SRModel(BaseModel):
         self.optimizer_g.zero_grad(set_to_none=True)
         self.output = self.net_g(self.lq)
         loss_dict = OrderedDict()
-        self.pixel_and_perceptual_losses(self.output, self.gt, loss_dict).backward()
+        pix_gt, percep_gt, _ = self.loss_targets()
+        self.pixel_and_perceptual_losses(self.output, pix_gt, loss_dict,
+                                         percep_target=percep_gt).backward()
         # a frozen parameter takes part in the step (its moments and step
         # count run from the first iteration, as in the JAX package, which
         # masks the update) and gets its old value back

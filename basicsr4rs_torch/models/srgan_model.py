@@ -13,8 +13,9 @@ loads into it), its own optimizer and scheduler, and a step in two phases.
   ``current_iter <= net_d_init_iters`` the optimizer does not step, so its
   moments and step count stay as they are, while the schedulers go on. The
   EMA moves on every step, gated or not, after the update.
-* D phase: the real batch, then the generator's output detached; each pass
-  updates the running statistics, the second from the first's.
+* D phase: the real batch (the GAN target of ``loss_targets()``), then the
+  generator's output detached; each pass updates the running statistics,
+  the second from the first's.
 
 ``train.ldl_opt`` adds LDL's artifact-weighted pixel loss (against the EMA
 network's output, so it needs ``ema_decay`` > 0). ``save`` writes
@@ -29,6 +30,7 @@ import warnings
 from collections import OrderedDict
 
 import torch
+from torch.profiler import record_function
 
 from ..archs import build_network
 from ..archs.arch_util import frozen_batch_stats
@@ -94,10 +96,14 @@ class SRGANModel(SRModel):
         return self.cri_ldl(pixel_weight * output, pixel_weight * self.gt)
 
     def _g_losses(self, output):
-        """(total, losses): pixel, LDL, perceptual and style, GAN."""
+        """(total, losses): pixel, LDL, perceptual and style, GAN; the first
+        and the perceptual terms against ``loss_targets()``, LDL's against
+        the GT batch."""
         losses = OrderedDict()
-        total = self.pixel_and_perceptual_losses(output, self.gt, losses,
-                                                 ('l_g_pix', 'l_g_percep', 'l_g_style'))
+        pix_gt, percep_gt, _ = self.loss_targets()
+        total = self.pixel_and_perceptual_losses(output, pix_gt, losses,
+                                                 ('l_g_pix', 'l_g_percep', 'l_g_style'),
+                                                 percep_target=percep_gt)
         if self.cri_ldl is not None:
             losses['l_g_ldl'] = self._ldl_loss(output)
             total = total + losses['l_g_ldl']
@@ -124,23 +130,27 @@ class SRGANModel(SRModel):
         return l_d_real + l_d_fake, losses
 
     def optimize_parameters(self, current_iter):
-        for p in self.net_d.parameters():
-            p.requires_grad_(False)
-        self.optimizer_g.zero_grad(set_to_none=True)
-        self.output = self.net_g(self.lq)
-        l_g_total, loss_dict = self._g_losses(self.output)
-        if current_iter % self.net_d_iters == 0 and current_iter > self.net_d_init_iters:
-            l_g_total.backward()
-            self.optimizer_g.step()
-        if self.ema_decay > 0:
-            self.model_ema(decay=self.ema_decay)
+        # the two phases are profiler ranges: a trace splits the step's
+        # device time between them
+        with record_function('G phase'):
+            for p in self.net_d.parameters():
+                p.requires_grad_(False)
+            self.optimizer_g.zero_grad(set_to_none=True)
+            self.output = self.net_g(self.lq)
+            l_g_total, loss_dict = self._g_losses(self.output)
+            if current_iter % self.net_d_iters == 0 and current_iter > self.net_d_init_iters:
+                l_g_total.backward()
+                self.optimizer_g.step()
+            if self.ema_decay > 0:
+                self.model_ema(decay=self.ema_decay)
 
-        for p in self.net_d.parameters():
-            p.requires_grad_(True)
-        self.optimizer_d.zero_grad(set_to_none=True)
-        l_d_total, d_losses = self._d_losses(self.gt, self.output.detach())
-        l_d_total.backward()
-        self.optimizer_d.step()
+        with record_function('D phase'):
+            for p in self.net_d.parameters():
+                p.requires_grad_(True)
+            self.optimizer_d.zero_grad(set_to_none=True)
+            l_d_total, d_losses = self._d_losses(self.loss_targets()[2], self.output.detach())
+            l_d_total.backward()
+            self.optimizer_d.step()
         loss_dict.update(d_losses)
         self.log_dict = self.reduce_loss_dict(loss_dict)
 

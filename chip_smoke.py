@@ -266,6 +266,7 @@ last is a JSON summary of the kernels; the last line is
 """
 
 import collections
+import contextlib
 import itertools
 import json
 import math
@@ -5246,6 +5247,401 @@ def recurrent_video_paths(launches):
     print(f'phases 37 to 46: {time.perf_counter() - t0:.1f} s')
 
 
+REALESRNET_TRAIN = 'options/train/RealESRGAN/train_realesrnet_x4plus_synthetic.yml'
+REALESRGAN_TRAIN = 'options/train/RealESRGAN/train_realesrgan_x4plus_synthetic.yml'
+REALESRGAN_DIR = 'datasets/RealESRGAN_synthetic'
+REALESRGAN_GT = [(480, 512), (512, 448), (448, 600), (600, 480)] * 6   # each side past 400
+REALESRGAN_ITERS = 16   # the pool of 180 fills at batch 12 in 15 steps and swaps at the 16th
+# the degrader on the card against its plain run of the same draws on the CPU,
+# on the LQ's 8-bit levels. PyTorch's CUDA division by a Python number
+# multiplies by its reciprocal, one float32 ulp off the CPU's division in
+# a good share of values; that is nothing until a rounding step: JPEG's
+# round(dct / q) then flips a coefficient now and then, and a flipped
+# coefficient moves its 8x8 luma (16x16 chroma) block by up to q / 4
+# levels. So the bound is a share: at most 1e-3 of the LQ values more than
+# one level apart (the bound the CPU tests hold the port to against the
+# JAX package; the card read at most 2.08e-4 in the six cases), and a mean
+# difference under 0.05 levels. A control run of each case with TF32 on
+# inside ``apply`` is printed beside the check
+DEGRADER_SHARE, DEGRADER_MEAN_LEVELS = 1e-3, 0.05
+# the arithmetic is sample by sample, so the plain run takes the first 4
+# samples of the card's batch of 12 (a third of the CPU's time)
+CPU_SAMPLES = 4
+POISSON_LAMBDAS = (0.5, 5., 11.9, 12., 40.)
+POISSON_SAMPLES = 2 * 10**6
+
+
+def write_realesrgan_inputs():
+    """``datasets/RealESRGAN_synthetic/``: 24 smooth random GT images past
+    400 on both sides listed in ``meta_info.txt`` (the synthetic configs'
+    meta-info mode), two validation pairs (LQ 64x64, GT its x4 source), and
+    the random VGG19 the GAN config names."""
+    import cv2
+    import numpy as np
+    rng = np.random.RandomState(7)
+    for sub in ('GT', 'val_GT', 'val_LQ'):
+        os.makedirs(os.path.join(REALESRGAN_DIR, sub), exist_ok=True)
+    names = []
+    for i, (h, w) in enumerate(REALESRGAN_GT):
+        names.append(f'{i:04d}.png')
+        cv2.imwrite(os.path.join(REALESRGAN_DIR, 'GT', names[-1]), smooth_image(rng, h, w))
+    with open(os.path.join(REALESRGAN_DIR, 'meta_info.txt'), 'w') as f:
+        f.writelines(f'{name} ({h}, {w}, 3)\n' for name, (h, w) in zip(names, REALESRGAN_GT))
+    for i in range(2):
+        gt = smooth_image(rng, 256, 256)
+        cv2.imwrite(os.path.join(REALESRGAN_DIR, 'val_GT', f'{i:04d}.png'), gt)
+        cv2.imwrite(os.path.join(REALESRGAN_DIR, 'val_LQ', f'{i:04d}.png'),
+                    cv2.resize(gt, (64, 64), interpolation=cv2.INTER_CUBIC))
+    write_vgg19()
+
+
+def realesrgan_batch(config):
+    """The first training batch of the synthetic config's dataset (B=12 GT
+    crops of 400 and their kernels), on the card."""
+    from basicsr4rs_torch.data import build_dataset
+    from basicsr4rs_torch.data.loader import default_collate
+    from basicsr4rs_torch.utils.options import yaml_load
+    opt = yaml_load(config)
+    ds_opt = dict(opt['datasets']['train'], phase='train', manual_seed=opt['manual_seed'])
+    dataset = build_dataset(ds_opt)
+    batch = default_collate([dataset[i] for i in range(ds_opt['batch_size_per_gpu'])])
+    return opt, {k: v.cuda() for k, v in batch.items() if torch.is_tensor(v)}
+
+
+def forced_draws(deg, shape, case, gen):
+    """Draws of the degrader with the batch-level branches of ``case`` (0 to
+    5; between them every branch): drawn as the model draws them, then each
+    batch-level choice set and each stage's noise drawn anew of its kind."""
+    import dataclasses
+
+    import numpy as np
+
+    from basicsr4rs_torch.ops.degradation_pipeline import RESIZE_MODES
+    d = deg.draw(shape, np.random.default_rng(case), gen, 'cuda')
+    canvas1, canvas2 = deg.canvases(shape[-1])
+    scales = {'up': np.float32(1.37), 'down': np.float32(0.41), 'keep': np.float32(1.)}
+    first, second = RESIZE_MODES[case % 3], RESIZE_MODES[(case + 1) % 3]
+    n, c = shape[:2]
+    return dataclasses.replace(
+        d, resize1=first, scale1=scales[first], method1=case % 3,
+        noise1=deg.draw_noise('', case % 2 == 0, (n, c, canvas1, canvas1), gen, 'cuda'),
+        blur2=case % 2 == 0, resize2=second, scale2=scales[second], method2=(case + 1) % 3,
+        noise2=deg.draw_noise('2', case % 2 == 1, (n, c, canvas2, canvas2), gen, 'cuda'),
+        method3=(case + 2) % 3, resize_first=case < 3)
+
+
+def to_cpu(draws, n):
+    """The draws of the first ``n`` samples, every tensor copied to the CPU
+    (each per-sample tensor has the batch first)."""
+    import dataclasses
+
+    def move(v):
+        if torch.is_tensor(v):
+            return v[:n].cpu()
+        if isinstance(v, tuple):
+            return tuple(move(x) for x in v)
+        if dataclasses.is_dataclass(v):
+            return dataclasses.replace(v, **{f.name: move(getattr(v, f.name))
+                                             for f in dataclasses.fields(v)})
+        return v
+    return move(draws)
+
+
+def check_degrader():
+    """Phase 47: the degrader at the published shape on the card against its
+    plain run of the same draws on the CPU, in every batch-level branch;
+    the Poisson sampler's moments on the card; the time of one synthesis
+    call (draws and arithmetic) by CUDA events and by torch.profiler."""
+    import numpy as np
+
+    from basicsr4rs_torch.data.degradations import poisson_fields, poisson_sample
+    from basicsr4rs_torch.ops.degradation_pipeline import RealESRGANDegrader
+    opt, batch = realesrgan_batch(REALESRNET_TRAIN)
+    gt, k1, k2, sinc = (batch[k] for k in ('gt', 'kernel1', 'kernel2', 'sinc_kernel'))
+    deg = RealESRGANDegrader(opt).to('cuda')
+    canvas1, canvas2 = deg.canvases(gt.shape[-1])
+    phase(f'47. the degrader on cuda:0: B={gt.shape[0]}, crop {gt.shape[-1]}, canvases '
+          f'{canvas1} and {canvas2}, LQ {gt.shape[-1] // opt["scale"]} (no TPU kernel on this path)')
+    deg_cpu = RealESRGANDegrader(opt)
+    cpu_in = [t[:CPU_SAMPLES].cpu() for t in (gt, k1, k2, sinc)]
+    gen = torch.Generator(device='cuda').manual_seed(0)
+
+    def against_cpu(lq, gt_usm, lq_cpu, usm_cpu):
+        """(share of LQ levels past one, mean difference in levels, max
+        difference, share equal, gt_usm's max abs error)."""
+        diff = ((lq[:CPU_SAMPLES].cpu() * 255).round() - (lq_cpu * 255).round()).abs()
+        return ((diff > 1).float().mean().item(), diff.mean().item(), diff.max().item(),
+                (diff == 0).float().mean().item(),
+                (gt_usm[:CPU_SAMPLES].cpu() - usm_cpu).abs().max().item())
+
+    taken, cases = {}, []
+    for case in range(6):
+        draws = forced_draws(deg, gt.shape, case, gen)
+        lq, _, gt_usm = deg.apply(gt, k1, k2, sinc, draws)
+        lq_cpu, _, usm_cpu = deg_cpu.apply(*cpu_in, to_cpu(draws, CPU_SAMPLES))
+        cases.append((draws, lq_cpu, usm_cpu))
+        share, mean_levels, most, equal, usm_err = against_cpu(lq, gt_usm, lq_cpu, usm_cpu)
+        for name, value in draws.branches().items():
+            taken.setdefault(name, set()).add(value)
+        print(f'case {case}: {draws.branches()}: LQ levels of samples 0 to {CPU_SAMPLES - 1} '
+              f'past one from the CPU run '
+              f'{share:.2e} (bound {DEGRADER_SHARE:.0e}), mean difference {mean_levels:.2e} '
+              f'levels (bound {DEGRADER_MEAN_LEVELS}), max {most:.0f}, equal {equal:.6f}; '
+              f'gt_usm max abs err {usm_err:.2e}; LQ mean {lq.mean().item():.4f}')
+        if lq.shape != (gt.shape[0], 3, 100, 100) or not torch.isfinite(lq).all():
+            fail(f'degrader case {case}: LQ {tuple(lq.shape)} or not finite')
+        if share > DEGRADER_SHARE or mean_levels > DEGRADER_MEAN_LEVELS or usm_err > 1e-5:
+            fail(f'degrader case {case} disagrees with its CPU run')
+    # the control: the same draws with TF32 left on for cuDNN and cuBLAS
+    # inside ``apply``, against the same CPU runs; printed, not required
+    from basicsr4rs_torch.ops import degradation_pipeline
+
+    @contextlib.contextmanager
+    def tf32_on():
+        saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            yield
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+    with mock.patch.object(degradation_pipeline, 'full_float32', tf32_on):
+        for case, (draws, lq_cpu, usm_cpu) in enumerate(cases):
+            lq, _, gt_usm = deg.apply(gt, k1, k2, sinc, draws)
+            share, mean_levels, most, equal, usm_err = against_cpu(lq, gt_usm, lq_cpu, usm_cpu)
+            caught = share > DEGRADER_SHARE or mean_levels > DEGRADER_MEAN_LEVELS
+            print(f'control, case {case} with TF32 on inside apply: LQ levels past one '
+                  f'{share:.2e}, mean difference {mean_levels:.2e} levels, max {most:.0f}, '
+                  f'equal {equal:.6f} ({"outside" if caught else "inside"} the LQ bounds); '
+                  f'gt_usm max abs err {usm_err:.2e}')
+    missing = {k: v for k, v in {'resize1': 3, 'method1': 3, 'noise1': 2, 'blur2': 2,
+                                 'resize2': 3, 'method2': 3, 'noise2': 2, 'method3': 3,
+                                 'order': 2}.items() if len(taken[k]) != v}
+    if missing:
+        fail(f'degrader cases missed branches of {list(missing)}')
+    print('every batch-level branch taken: ' + '; '.join(f'{k} {sorted(map(str, v))}'
+                                                         for k, v in taken.items()))
+
+    for lam in POISSON_LAMBDAS:
+        shape = (POISSON_SAMPLES,)
+        s = poisson_sample(torch.full(shape, lam, device='cuda'),
+                           *poisson_fields(shape, gen, 'cuda')).double()
+        mean, var = s.mean().item(), s.var().item()
+        print(f'Poisson on the card at lambda {lam}: mean {mean:.4f} (want within '
+              f'{5 * math.sqrt(lam / POISSON_SAMPLES):.4f}), variance / lambda {var / lam:.4f}')
+        if abs(mean - lam) > 5 * math.sqrt(lam / POISSON_SAMPLES) or abs(var / lam - 1) > 0.02:
+            fail(f'the Poisson sampler\'s moments at lambda {lam}')
+
+    rng = np.random.default_rng(1)
+
+    def synthesis():
+        return deg(gt, k1, k2, sinc, rng, gen)
+
+    ms = cuda_time_ms(synthesis, iters=20)
+    draws = [deg.draw(gt.shape, rng, gen, 'cuda') for _ in range(20)]
+    it = iter(draws * 2)
+    apply_ms = cuda_time_ms(lambda: deg.apply(gt, k1, k2, sinc, next(it)), iters=20)
+    print(f'one synthesis call (draws and arithmetic, random branches): {ms:.3f} ms by CUDA events '
+          f'(mean of 20), the arithmetic alone {apply_ms:.3f} ms; peak device memory '
+          f'{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB')
+    phase('47b. device time of one synthesis call (torch.profiler, device activity)')
+    busy, by_name, _ = trace_device_ms(synthesis, 'degrader_trace.json')
+    print(f'{busy:.3f} ms of device time, {sum(n for _, n in by_name.values())} launches; the '
+          f'longest: {longest_kernels(by_name)}')
+
+
+def timed_feeds(model_cls, record):
+    """``feed_data`` of ``model_cls`` that times each synthesising call by
+    CUDA events into ``record['feed_ms']`` and keeps the first raw batch."""
+    feed = model_cls.feed_data
+
+    def timed(model, data):
+        if not model._synthesizes(data):
+            return feed(model, data)
+        record.setdefault('raw', data)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        feed(model, data)
+        end.record()
+        torch.cuda.synchronize()
+        record.setdefault('feed_ms', []).append(start.elapsed_time(end))
+        record.setdefault('swaps', []).append(model.pool.swaps)
+    return timed
+
+
+def counted_validations(model_cls, record):
+    validate = model_cls.validation
+
+    def counted(model, *args, **kwargs):
+        record.setdefault('validations', []).append(model._test_net() is model.net_g_ema)
+        return validate(model, *args, **kwargs)
+    return counted
+
+
+def trace_device_ms(run, json_name, ranges=()):
+    """Device time of one call of ``run`` by a ``torch.profiler`` trace,
+    summed from the trace as exported to ``results/chip_smoke/``
+    (``key_averages`` builds a Python object an event: a D phase's 10^5
+    launches took it most of a minute): (busy ms, {kernel: (ms, launches)},
+    {range: ms}). With ``ranges``, the names of ``record_function`` ranges,
+    the host's activity is traced too and each device event goes to the
+    innermost of those ranges around the host call that launched it (by the
+    trace's correlation ids); without, the device's activity alone."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    activities = [ProfilerActivity.CPU] * bool(ranges) + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
+        run()
+        torch.cuda.synchronize()
+    os.makedirs(PROFILE_DIR, exist_ok=True)
+    path = os.path.join(PROFILE_DIR, json_name)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)['traceEvents']
+    spans = sorted((e['ts'], e['ts'] + e['dur'], e['name']) for e in events
+                   if e.get('cat') == 'user_annotation' and e['name'] in ranges)
+    launched_at = {e['args']['correlation']: e['ts'] for e in events
+                   if e.get('cat') in ('cuda_runtime', 'cuda_driver') and 'correlation' in
+                   e.get('args', {})}
+    by_name, by_range = {}, dict.fromkeys(ranges, 0.)
+    for e in events:
+        if e.get('cat') not in ('kernel', 'gpu_memcpy', 'gpu_memset'):
+            continue
+        ms, n = by_name.get(e['name'], (0., 0))
+        by_name[e['name']] = (ms + e['dur'] / 1e3, n + 1)
+        ts = launched_at.get(e.get('args', {}).get('correlation'))
+        inner = [name for start, end, name in spans if ts is not None and start <= ts <= end]
+        if inner:   # the spans are sorted by start: the last one holding ts is the innermost
+            by_range[inner[-1]] += e['dur'] / 1e3
+    return sum(ms for ms, _ in by_name.values()), by_name, by_range
+
+
+def longest_kernels(by_name, n=3):
+    """The ``n`` kernels of ``trace_device_ms`` with the most device time, as text."""
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n]
+    return '; '.join(f'{ms:.1f} ms in {k} x {name[:60]}' for name, (ms, k) in top)
+
+
+STEP_RANGES = ('synthesis', 'optimize_parameters', 'G phase', 'D phase')
+
+
+def profile_step(model, raw, current_iter):
+    """Device time of one more training step as ``train.py`` runs it
+    (``feed_data`` on a raw batch, then ``optimize_parameters``), split by
+    the profiler ranges of the model code: the synthesis, and a GAN's G and
+    D phases (a model without them: its whole ``optimize_parameters`` is
+    G), and the rest: {name: ms}."""
+    from torch.profiler import record_function
+
+    def step():
+        model.feed_data(raw)
+        with record_function('optimize_parameters'):
+            model.optimize_parameters(current_iter)
+
+    t0 = time.perf_counter()
+    busy, by_name, by_range = trace_device_ms(
+        step, f'{model.opt["model_type"]}_step_trace.json', STEP_RANGES)
+    split = {'synthesis': by_range['synthesis']}
+    if hasattr(model, 'net_d'):
+        split.update(G=by_range['G phase'], D=by_range['D phase'])
+    else:
+        split['G'] = by_range['optimize_parameters']
+    split['rest'] = busy - sum(split.values())
+    print(f'one step traced (host and device, {time.perf_counter() - t0:.1f} s with the trace\'s '
+          f'export and reading): {busy:.3f} ms of device time, '
+          f'{sum(n for _, n in by_name.values())} launches; the longest: '
+          f'{longest_kernels(by_name)}')
+    return split
+
+
+def train_realesrgan(config, model_cls, number, title, loss_key):
+    """A Real-ESRGAN model trained ``REALESRGAN_ITERS`` steps through the
+    training entry point on the synthetic config as it stands: every step's
+    synthesis timed and its losses finite, the pool's swap at the step where
+    it fills, one validation on ``net_g_ema``, the checkpoint reloading to
+    the EMA network's output; then the device time of synthesis, G and D."""
+    from basicsr4rs_torch.archs.rrdbnet_arch import RRDBNet
+    from basicsr4rs_torch.utils.options import yaml_load
+    opt = yaml_load(config)
+    train_opt = opt['datasets']['train']
+    phase(f'{number}. {title} through basicsr4rs_torch.train on cuda:0 (batch '
+          f'{train_opt["batch_size_per_gpu"]}, GT {opt["gt_size"]}, crops of '
+          f'{train_opt.get("crop_pad_size", 400)} degraded on the card, pool {opt["queue_size"]}; '
+          'no TPU kernel on this path)')
+    fresh_run(opt, {})
+    record = {'steps': []}
+    t0 = time.perf_counter()
+    with mock.patch.object(model_cls, 'feed_data', timed_feeds(model_cls, record)), \
+            mock.patch.object(model_cls, 'validation', counted_validations(model_cls, record)):
+        model = run_train_pipeline(['--force_yml', 'logger:print_freq=4',
+                                    'logger:use_tb_logger=false'], record, config=config,
+                                   model_cls=model_cls, loss_key=loss_key, wrappers={},
+                                   before_first_step=lambda m, r: None, after_step=keep_logs)
+    torch.cuda.synchronize()
+    if model.device.type != 'cuda':
+        fail(f'the model trained on {model.device}')
+    print(f'pipeline wall time {time.perf_counter() - t0:.3f} s for {REALESRGAN_ITERS} steps, one '
+          'validation and a checkpoint at the end')
+    step_ms = check_steps(record['steps'], REALESRGAN_ITERS, loss_key, {})
+    check_logs_finite(record['steps'])
+    feeds, swaps = record['feed_ms'], record['swaps']
+    full_at = opt['queue_size'] // train_opt['batch_size_per_gpu']
+    if len(feeds) != REALESRGAN_ITERS or swaps != [0] * full_at + [1] * (REALESRGAN_ITERS -
+                                                                          full_at):
+        fail(f'pool swaps by step {swaps}: expected the first at step {full_at + 1}')
+    feed_ms = sum(feeds[2:]) / len(feeds[2:])
+    print(f'synthesis (feed_data: degrade, crop, pool, USM): {feed_ms:.3f} ms mean of steps '
+          f'3..{REALESRGAN_ITERS} by CUDA events, {100 * feed_ms / (feed_ms + step_ms):.1f}% of '
+          f'synthesis + optimize_parameters ({feed_ms + step_ms:.3f} ms); the pool swapped first '
+          f'at step {full_at + 1} ({swaps[-1]} swaps in {REALESRGAN_ITERS} steps)')
+    if record.get('validations') != [True] or not all(
+            math.isfinite(v) for v in model.metric_results.values()):
+        fail(f'validations {record.get("validations")} (want one, on net_g_ema), metrics '
+             f'{model.metric_results}')
+    print(f'one validation on net_g_ema: {model.metric_results}')
+    net = RRDBNet(**net_options(opt)).cuda().eval()
+    model.load_network(net, os.path.join('experiments', opt['name'], 'models',
+                                         'net_g_latest.pth'), True, 'params_ema')
+    lq = model.lq[:2]
+    with torch.no_grad():
+        err = (net(lq) - model.net_g_ema(lq)).abs().max().item()
+    print(f'net_g_latest.pth (params_ema) reloaded: output max abs difference from net_g_ema '
+          f'{err:.3e}')
+    if err > 1e-5:
+        fail('the checkpoint does not give the EMA network\'s output')
+    phase(f'{number}b. device time of a step by phase (torch.profiler ranges of the model code)')
+    split = profile_step(model, record['raw'], REALESRGAN_ITERS + 1)
+    total = sum(split.values())
+    if total > 0:
+        print('device time a step: ' + ', '.join(f'{k} {v:.3f} ms ({100 * v / total:.1f}%)'
+                                                 for k, v in split.items())
+              + f'; total {total:.3f} ms')
+    else:
+        print('the profiler recorded no device time')
+    del model, net
+    torch.cuda.empty_cache()
+    return step_ms, feed_ms, split
+
+
+def realesrgan_paths():
+    """Phases 47 to 49: the degrader, RealESRNet x4plus and RealESRGAN
+    x4plus; no kernel on this path."""
+    from basicsr4rs_torch.models.realesrgan_model import RealESRGANModel
+    from basicsr4rs_torch.models.realesrnet_model import RealESRNetModel
+    t0 = time.perf_counter()
+    write_realesrgan_inputs()
+    check_degrader()
+    t1 = time.perf_counter()
+    train_realesrgan(REALESRNET_TRAIN, RealESRNetModel, '48', 'train RealESRNet x4plus '
+                     '(RRDBNet 64 x 23, growth 32; L1 against the sharpened GT)', 'l_pix')
+    t2 = time.perf_counter()
+    train_realesrgan(REALESRGAN_TRAIN, RealESRGANModel, '49', 'train RealESRGAN x4plus '
+                     '(RRDBNet 64 x 23; UNetDiscriminatorSN 64; L1, VGG19 perceptual, GAN)',
+                     'l_g_total')
+    print(f'phases 47 to 49: {time.perf_counter() - t0:.1f} s (47 {t1 - t0:.1f}, 48 '
+          f'{t2 - t1:.1f}, 49 {time.perf_counter() - t2:.1f})')
+
+
 SUMMARY_KEYS = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
 KERNELS = [
     ('swin_block_joint_fwd', 'basicsr4rs_tpu/ops/swin_block.py:287'),
@@ -5303,6 +5699,13 @@ def main():
         recurrent_video_paths(launches)
         print(json.dumps(launches))
         return
+    if sys.argv[1:] == ['realesrgan']:   # the Real-ESRGAN degradation and training path alone
+        realesrgan_paths()
+        print(card)
+        print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
+                                                 'kind': torch.cuda.get_device_name(0),
+                                                 'count': torch.cuda.device_count()}}))
+        return
     if sys.argv[1:] == ['serving']:   # development: the serving modes' kernels and paths alone
         print(json.dumps({'swin_block_joint_fwd': check_joint_kernel(), **check_conv_kernels(),
                           **check_int8_block_kernel()}))
@@ -5352,6 +5755,7 @@ def main():
     align_paths(launches)
     cnn_gan_paths(launches)
     recurrent_video_paths(launches)
+    realesrgan_paths()
     for name, count in launches.items():
         if count == 0:
             fail(f'{name} was never launched on the main paths')

@@ -24,6 +24,17 @@ from test_torch_align_findings import SYNTHETIC, config
 from test_torch_l2s_data import write_l2s_tree
 from test_torch_lpips import write_weights
 
+
+@pytest.fixture(autouse=True, scope='module')
+def few_threads():
+    """Several test workers share the host's cores: with torch's default of
+    one thread a core each, the small convolutions here crawl."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SOURCES = (('landsat', 100, 100, 20000), ('sentinel', 300, 150, 2900),
            ('sentinel_hm', 300, 150, 2900))
 ALIGN_SHRINK = ['num_feat=8', 'num_block=1']

@@ -13,6 +13,7 @@ every parameter's gradient within 1e-3 of the largest gradient entry of the
 network."""
 
 import contextlib
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -44,20 +45,25 @@ def few_threads():
     """Several test workers share the host's cores: with torch's default of
     one thread a core each, the small convolutions here crawl."""
     threads = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
 
 
-def jax_run(name):
-    """(clip, target, JAX params, JAX output, loss, parameter gradients as a
-    torch state_dict) of one case."""
-    jax_cls, port_cls, cfg, frames, size, interpret = CASES[name]
+def case_inputs(name):
+    """(clip, target, JAX params) of one case."""
+    jax_cls, _, cfg, frames, size, _ = CASES[name]
     rng = np.random.RandomState(sum(map(ord, name)))
     x = smooth_clip(rng, 1, frames, *size)
     target = rng.rand(1, frames, 3, 4 * size[0], 4 * size[1]).astype(np.float32)
+    return x, target, random_params(jax_cls(**cfg), 1, to_jax(x))
+
+
+def jax_run(name, x, target, params):
+    """(JAX output, loss, parameter gradients as a torch state_dict) of one
+    case."""
+    jax_cls, port_cls, cfg, _, _, interpret = CASES[name]
     jnet = jax_cls(**cfg)
-    params = random_params(jnet, 1, to_jax(x))
 
     def loss_and_out(p):
         out = jnet.apply({'params': p}, to_jax(x))
@@ -67,12 +73,19 @@ def jax_run(name):
         (loss, out), grads = jax.jit(jax.value_and_grad(loss_and_out, has_aux=True))(params)
     grads = jax_params_to_state_dict(jax.tree_util.tree_map(np.array, jax.device_get(grads)),
                                      port_cls.JAX_KEY_RULES)
-    return x, target, params, from_jax(out), float(loss), grads
+    return from_jax(out), float(loss), grads
 
 
 @pytest.fixture(scope='module')
-def runs():
-    return {name: jax_run(name) for name in HERE}
+def run(request):
+    """One case's inputs, and its ``jax_run`` started in a thread, so that
+    the port's forward and backward run while JAX traces and compiles; once
+    a module (its tests of the case share it; the two cases' runs fall to
+    their own tests)."""
+    name = request.param
+    inputs = case_inputs(name)
+    with ThreadPoolExecutor(1) as pool:
+        yield name, inputs, pool.submit(jax_run, name, *inputs)
 
 
 def port_network(name, params):
@@ -84,15 +97,16 @@ def port_network(name, params):
     return net
 
 
-def check_forward_and_gradients(name, run):
-    x, target, params, want, want_loss, want_grads = run
+def check_forward_and_gradients(name, inputs, jax_result):
+    x, target, params = inputs
     net = port_network(name, params).train()
     out = net(torch.from_numpy(x))
+    loss = ((out - torch.from_numpy(target))**2).mean()
+    loss.backward()
+    want, want_loss, want_grads = jax_result.result()
     assert out.shape == want.shape
     np.testing.assert_allclose(out.detach().numpy(), want, rtol=0,
                                atol=1e-4 * np.abs(want).max())
-    loss = ((out - torch.from_numpy(target))**2).mean()
-    loss.backward()
     assert loss.item() == pytest.approx(want_loss, rel=1e-5)
     got = {k: p.grad for k, p in net.named_parameters()}
     assert got.keys() == want_grads.keys()
@@ -107,9 +121,9 @@ def check_forward_and_gradients(name, run):
             assert float(got[key].abs().max()) > 0, key
 
 
-@pytest.mark.parametrize('name', HERE)
-def test_forward_and_gradients_match_jax(name, runs):
-    check_forward_and_gradients(name, runs[name])
+@pytest.mark.parametrize('run', HERE, indirect=True)
+def test_forward_and_gradients_match_jax(run):
+    check_forward_and_gradients(*run)
 
 
 def check_round_trip(name, params):
@@ -127,9 +141,10 @@ def check_round_trip(name, params):
         np.testing.assert_array_equal(got[key], value, err_msg=key)
 
 
-@pytest.mark.parametrize('name', HERE)
-def test_weights_round_trip_through_both_converters(name, runs):
-    check_round_trip(name, runs[name][2])
+@pytest.mark.parametrize('run', HERE, indirect=True)
+def test_weights_round_trip_through_both_converters(run):
+    name, (_, _, params), _ = run
+    check_round_trip(name, params)
 
 
 @pytest.mark.parametrize('tp, frames', [(2, 4), (3, 6)])

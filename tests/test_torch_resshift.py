@@ -29,6 +29,8 @@ from basicsr4rs_torch.utils.jax_convert import jax_params_to_state_dict
 from basicsr4rs_torch.utils.options import yaml_load
 from basicsr4rs_tpu.archs import autoencoder_arch as jax_ae
 from basicsr4rs_tpu.models import build_model as jax_build_model
+from basicsr4rs_tpu.models import resshift_model as jax_resshift_model
+from basicsr4rs_tpu.models import sr_model as jax_sr_model
 from basicsr4rs_tpu.utils.torch_convert import convert_torch_state_dict
 
 from test_torch_unet import assert_close_rel, nchw, nhwc
@@ -51,6 +53,26 @@ DIFFUSION = dict(normalize_input=True, schedule_name='exponential', sf=4, min_no
 OPTIMIZERS = {'SGD': dict(type='SGD', lr=1e-2),
               'Adam': dict(type='Adam', lr=1e-3, weight_decay=0, betas=[0.9, 0.99])}
 EMA_DECAY = 0.9
+
+
+@pytest.fixture(autouse=True, scope='module')
+def few_threads():
+    """Several test workers share the host's cores: with torch's default of
+    one thread a core each, the small convolutions here crawl."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _shapes_only(init):
+    """``jit_init`` that only traces: the variables come out as zeros of
+    their shapes, for a model whose every variable a test then loads (an
+    un-jitted init of the UNet takes most of a minute on the CPU)."""
+    def zeros(*args):
+        return jax.tree_util.tree_map(lambda s: jnp.zeros(s.shape, s.dtype),
+                                      jax.eval_shape(init, *args))
+    return zeros
 
 
 def _opt(optim='SGD', init_path=None, **train):
@@ -99,7 +121,9 @@ def _pair(optim, init, **train):
     path, stage = init
     port_model = port_build_model(_opt(optim, path, **train))
     port_model.first_stage.load_state_dict(stage)
-    jax_model = jax_build_model(_opt(optim, path, **train))
+    with mock.patch.object(jax_sr_model, 'jit_init', _shapes_only), \
+            mock.patch.object(jax_resshift_model, 'jit_init', _shapes_only):
+        jax_model = jax_build_model(_opt(optim, path, **train))
     jax_model.first_stage.params = jax.tree_util.tree_map(jnp.asarray, convert_torch_state_dict(
         stage, rules=jax_ae.VQModelTorch.TORCH_KEY_RULES))
     return port_model, jax_model
@@ -120,34 +144,33 @@ def _feed(port_model, jax_model, batch):
 
 
 @pytest.fixture(scope='module')
-def trajectories(init):
-    """3 steps of both packages' models under each optimizer, from one init,
-    on the same batches, timesteps and noise: the logged losses and the EMA
-    trees. (Run here, once: the JAX step's compilation is most of the time.)"""
-    runs = {}
-    for optim in OPTIMIZERS:
-        port_model, jax_model = _pair(optim, init)
-        rng = np.random.RandomState(3)
-        port_logs, jax_logs = [], []
-        for current_iter in range(1, 4):
-            _feed(port_model, jax_model, _batch(rng))
-            port_model.update_learning_rate(current_iter)
-            port_model.optimize_parameters(current_iter)
-            jax_model.optimize_parameters(current_iter)
-            port_logs.append(port_model.get_current_log())
-            jax_logs.append(jax_model.get_current_log())
-        tree = jax.tree_util.tree_map(np.array, jax.device_get(jax_model.state.ema_params))
-        runs[optim] = (port_logs, jax_logs, dict(port_model.net_g_ema.named_parameters()),
-                       jax_params_to_state_dict(tree, UNetModelSwin.JAX_KEY_RULES),
-                       port_model.skipped_steps)
-    return runs
+def trajectories(init, request):
+    """3 steps of both packages' models under the optimizer
+    ``request.param``, from one init, on the same batches, timesteps and
+    noise: the logged losses and the EMA trees. (Run here, once an
+    optimizer: the JAX step's compilation is most of the time.)"""
+    optim = request.param
+    port_model, jax_model = _pair(optim, init)
+    rng = np.random.RandomState(3)
+    port_logs, jax_logs = [], []
+    for current_iter in range(1, 4):
+        _feed(port_model, jax_model, _batch(rng))
+        port_model.update_learning_rate(current_iter)
+        port_model.optimize_parameters(current_iter)
+        jax_model.optimize_parameters(current_iter)
+        port_logs.append(port_model.get_current_log())
+        jax_logs.append(jax_model.get_current_log())
+    tree = jax.tree_util.tree_map(np.array, jax.device_get(jax_model.state.ema_params))
+    return (optim, port_logs, jax_logs, dict(port_model.net_g_ema.named_parameters()),
+            jax_params_to_state_dict(tree, UNetModelSwin.JAX_KEY_RULES),
+            port_model.skipped_steps)
 
 
-@pytest.mark.parametrize('optim', list(OPTIMIZERS))
-def test_loss_trajectory_matches_jax(optim, trajectories):
+@pytest.mark.parametrize('trajectories', list(OPTIMIZERS), indirect=True)
+def test_loss_trajectory_matches_jax(trajectories):
     """Every logged loss of every step within 1e-4 relative (float32 sums in
     another order through the first stage and the UNet)."""
-    port_logs, jax_logs, _, _, skipped = trajectories[optim]
+    _, port_logs, jax_logs, _, _, skipped = trajectories
     assert list(port_logs[0]) == list(jax_logs[0]) == ['loss', 'mse', 'mse1', 'mse3', 'mse4']
     for got, want in zip(port_logs, jax_logs):
         for key in want:
@@ -156,13 +179,13 @@ def test_loss_trajectory_matches_jax(optim, trajectories):
     assert skipped == 0
 
 
-@pytest.mark.parametrize('optim', list(OPTIMIZERS))
-def test_ema_after_three_steps_matches_jax(optim, trajectories):
+@pytest.mark.parametrize('trajectories', list(OPTIMIZERS), indirect=True)
+def test_ema_after_three_steps_matches_jax(trajectories):
     """After SGD within 1e-4 of each tensor's largest entry; after Adam
     (which divides by the gradient's size, so an entry whose gradient is
     rounding noise moves by the rate in either direction) within 2 x 3 steps
     x rate."""
-    _, _, got_ema, want_ema, _ = trajectories[optim]
+    optim, _, _, got_ema, want_ema, _ = trajectories
     assert got_ema.keys() == want_ema.keys()
     lr = OPTIMIZERS[optim]['lr']
     for key, value in got_ema.items():
@@ -403,7 +426,9 @@ def test_saved_pth_loads_in_the_jax_package_with_the_same_denoiser_output(traine
                    'param_key_g': 'params_ema', 'strict_load_g': True,
                    'pretrain_network_ae': None}
     opt.pop('train')
-    jax_model = jax_build_model(opt)
+    with mock.patch.object(jax_sr_model, 'jit_init', _shapes_only), \
+            mock.patch.object(jax_resshift_model, 'jit_init', _shapes_only):
+        jax_model = jax_build_model(opt)   # the UNet's every variable comes from the .pth
     rng = np.random.RandomState(9)
     x = rng.randn(1, 3, 16, 16).astype(np.float32)
     lq = rng.randn(1, 3, 8, 8).astype(np.float32)

@@ -41,11 +41,12 @@ from basicsr4rs_torch.utils.options import yaml_load
 from basicsr4rs_tpu.archs import autoencoder_arch as jax_ae
 from basicsr4rs_tpu.archs import swinir_stylecnn_arch as jax_stylecnn
 from basicsr4rs_tpu.models import build_model as jax_build_model
+from basicsr4rs_tpu.models import resshift_model as jax_resshift_model
 from basicsr4rs_tpu.models import sr_model as jax_sr_model
 from basicsr4rs_tpu.utils.torch_convert import convert_torch_state_dict
 
 from test_torch_l2s_data import l2s_opt, write_l2s_tree
-from test_torch_resshift import AE, DIFFUSION, NET as RS_NET, _nonzero_
+from test_torch_resshift import AE, DIFFUSION, NET as RS_NET, _nonzero_, _shapes_only
 
 ROOT = os.path.join(os.path.dirname(__file__), '..')
 CONFIGS = {
@@ -69,6 +70,16 @@ STYLECNN_TORCH_KEY_RULES = (
     (r'^sr_net\.upsample\.(\d+)\.', lambda m: f'sr_net.upsample.conv{int(m.group(1)) // 2}.'),
 )
 TOL = 1e-4
+
+
+@pytest.fixture(autouse=True, scope='module')
+def few_threads():
+    """Several test workers share the host's cores: with torch's default of
+    one thread a core each, the small convolutions here crawl."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def nhwc(a):
@@ -217,7 +228,11 @@ def test_resshift_l2s_feed_and_first_stage_match_jax(l2s_root, tmp_path):
     opt['path']['pretrain_network_ae'] = None
     port = port_build_model(copy.deepcopy(opt))
     port.first_stage.load_state_dict(stage.state_dict())
-    jax_model = jax_build_model(copy.deepcopy(opt))
+    # the JAX networks' variables as zeros of their shapes (the first stage's
+    # come next; the UNet is not run here)
+    with mock.patch.object(jax_sr_model, 'jit_init', _shapes_only), \
+            mock.patch.object(jax_resshift_model, 'jit_init', _shapes_only):
+        jax_model = jax_build_model(copy.deepcopy(opt))
     jax_model.first_stage.params = jax.tree_util.tree_map(jnp.asarray, convert_torch_state_dict(
         stage.state_dict(), rules=jax_ae.VQModelTorch.TORCH_KEY_RULES))
     batch = l2s_batch(l2s_root)
@@ -232,10 +247,15 @@ def test_resshift_l2s_feed_and_first_stage_match_jax(l2s_root, tmp_path):
         z = port.base_diffusion.encode_first_stage(port.gt, port.first_stage)
         back = port.base_diffusion.decode_first_stage(z, port.first_stage)
         z_lq = port.base_diffusion.encode_first_stage(port.lq, port.first_stage, up_sample=True)
-    jz = jax_model.base_diffusion.encode_first_stage(jax_model.batch['gt'], jax_model.first_stage)
-    jback = jax_model.base_diffusion.decode_first_stage(jz, jax_model.first_stage)
-    jz_lq = jax_model.base_diffusion.encode_first_stage(jax_model.batch['lq'],
-                                                        jax_model.first_stage, up_sample=True)
+    diffusion, first_stage = jax_model.base_diffusion, jax_model.first_stage
+
+    @jax.jit   # one compilation: op by op the VQ autoencoder takes a minute here
+    def round_trip(gt, lq):
+        z = diffusion.encode_first_stage(gt, first_stage)
+        return (z, diffusion.decode_first_stage(z, first_stage),
+                diffusion.encode_first_stage(lq, first_stage, up_sample=True))
+
+    jz, jback, jz_lq = round_trip(jax_model.batch['gt'], jax_model.batch['lq'])
     assert z.shape == (2, 6, 18, 18) and z_lq.shape == (2, 6, 18, 18)
     assert_close(nhwc(z), jz, 'latent of the GT')
     assert_close(nhwc(z_lq), jz_lq, 'latent of the x3 LQ')

@@ -5,6 +5,7 @@ small size, and a port checkpoint read back by the JAX package. Float32,
 ``num_gpu: 0``."""
 
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from os import path as osp
 from unittest import mock
 
@@ -43,7 +44,7 @@ def few_threads():
     """Several test workers share the host's cores: with torch's default of
     one thread a core each, the small convolutions here crawl."""
     threads = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
 
@@ -88,67 +89,87 @@ def model_opt(model_type, network_g, init_path, train_extra):
             'train': train, 'val': {'val_freq': 100}}
 
 
+def jax_trajectory(opt, arch, batches):
+    """The JAX package's model through ``batches`` on one of the host's CPU
+    devices (on all eight, the batch of one is replicated and every step
+    runs eight times): per step its rate before the step and its loss, its
+    parameters after iteration ``BOUNDARY`` and its EMA at the end, as
+    state dicts of ``arch``."""
+    from basicsr4rs_tpu.parallel import mesh as jax_mesh
+
+    def state_dict(tree):
+        return jax_params_to_state_dict(
+            jax.tree_util.tree_map(np.array, jax.device_get(tree)), arch.JAX_KEY_RULES)
+
+    one_device = mock.patch('basicsr4rs_tpu.models.base_model.create_mesh',
+                            lambda opt: jax_mesh.create_mesh(opt, jax.devices()[:1]))
+    with one_device:
+        model = jax_build_model(opt)
+    out = {'rates': [], 'losses': []}
+    for current_iter, (lq, gt) in enumerate(batches, start=1):
+        out['rates'].append(model.get_current_learning_rate()[0])
+        model.feed_data({'lq': np.moveaxis(lq, -3, -1), 'gt': np.moveaxis(gt, -3, -1)})
+        model.optimize_parameters(current_iter)
+        out['losses'].append(model.get_current_log()['l_pix'])
+        if current_iter == BOUNDARY:
+            out['boundary'] = state_dict(model.state.params)
+    out['ema'] = state_dict(model.state.ema_params)
+    return out
+
+
 def run_trajectories(opt, arch, batches, slow, frozen, multiplier):
-    """``STEPS`` steps of both packages' models on the same batches. Checks
-    the rates (the ``slow`` parameters' group keeps its ratio through the
-    schedule), the losses, and what the warm-up freeze means: before
+    """Both packages' models through ``batches``, the JAX package's in a
+    thread beside the port's (its trace and compile take most of the time).
+    Checks the rates (the ``slow`` parameters' group keeps its ratio through
+    the schedule), the losses, and what the warm-up freeze means: before
     iteration ``BOUNDARY`` the ``frozen`` parameters keep their values while
     Adam's moments and step count run; from it on they move, by what the JAX
     package's masked update moves them."""
-    port_model = port_build_model(opt)
-    jax_model = jax_build_model(opt)
-    init = {k: v.detach().clone() for k, v in port_model.net_g.named_parameters()}
-    assert any(slow(k) for k in init) and any(frozen(k) for k in init)
-    assert not all(frozen(k) for k in init)
-    groups = port_model.optimizer_g.param_groups
-    assert len(groups) == 2
-    losses, moved = [], {}
-    for current_iter, (lq, gt) in enumerate(batches, start=1):
-        port_model.update_learning_rate(current_iter)
-        rates = port_model.get_current_learning_rate()
-        assert rates[1] == pytest.approx(rates[0] * multiplier, rel=1e-9)
-        assert rates[0] == pytest.approx(jax_model.get_current_learning_rate()[0], rel=1e-6)
-        port_model.feed_data({'lq': torch.from_numpy(lq), 'gt': torch.from_numpy(gt)})
-        port_model.optimize_parameters(current_iter)
-        jax_model.feed_data({'lq': np.moveaxis(lq, -3, -1), 'gt': np.moveaxis(gt, -3, -1)})
-        jax_model.optimize_parameters(current_iter)
-        losses.append((port_model.get_current_log()['l_pix'],
-                       jax_model.get_current_log()['l_pix']))
-        params = dict(port_model.net_g.named_parameters())
-        if current_iter == BOUNDARY - 1:
-            for key, p in params.items():
-                assert torch.equal(p, init[key]) == frozen(key), key
-                state = port_model.optimizer_g.state[p]
-                assert int(state['step']) == current_iter and state['exp_avg'].abs().max() > 0
-        if current_iter == BOUNDARY:
-            want = jax_params_to_state_dict(
-                jax.tree_util.tree_map(np.array, jax.device_get(jax_model.state.params)),
-                arch.JAX_KEY_RULES)
-            assert want.keys() == params.keys()
-            for key, p in params.items():
-                if frozen(key):
-                    got_step = (p.detach() - init[key]).numpy()
-                    want_step = (want[key] - init[key]).numpy()
-                    moved[key] = (np.abs(got_step).max(),
-                                  np.median(np.abs(got_step - want_step)))
-    losses = np.asarray(losses)
+    with ThreadPoolExecutor(1) as pool:
+        jax_run = pool.submit(jax_trajectory, opt, arch, batches)
+        port_model = port_build_model(opt)
+        init = {k: v.detach().clone() for k, v in port_model.net_g.named_parameters()}
+        assert any(slow(k) for k in init) and any(frozen(k) for k in init)
+        assert not all(frozen(k) for k in init)
+        groups = port_model.optimizer_g.param_groups
+        assert len(groups) == 2
+        rates, losses, at_boundary = [], [], None
+        for current_iter, (lq, gt) in enumerate(batches, start=1):
+            port_model.update_learning_rate(current_iter)
+            rates.append(port_model.get_current_learning_rate())
+            port_model.feed_data({'lq': torch.from_numpy(lq), 'gt': torch.from_numpy(gt)})
+            port_model.optimize_parameters(current_iter)
+            losses.append(port_model.get_current_log()['l_pix'])
+            params = dict(port_model.net_g.named_parameters())
+            if current_iter == BOUNDARY - 1:
+                for key, p in params.items():
+                    assert torch.equal(p, init[key]) == frozen(key), key
+                    state = port_model.optimizer_g.state[p]
+                    assert int(state['step']) == current_iter and state['exp_avg'].abs().max() > 0
+            if current_iter == BOUNDARY:
+                at_boundary = {k: p.detach().clone() for k, p in params.items()}
+        want = jax_run.result()
+    for got, jax_rate in zip(rates, want['rates']):
+        assert got[1] == pytest.approx(got[0] * multiplier, rel=1e-9)
+        assert got[0] == pytest.approx(jax_rate, rel=1e-6)
     # the JAX package's own bound for a trajectory against a torch reference
-    np.testing.assert_allclose(losses[:, 0], losses[:, 1], rtol=5e-4, atol=5e-5)
-    assert abs(losses[0, 0] - losses[-1, 0]) > 1e-5
+    np.testing.assert_allclose(losses, want['losses'], rtol=5e-4, atol=5e-5)
+    assert abs(losses[0] - losses[-1]) > 1e-5
     # the first kept update of a frozen parameter: with moments that ran from
     # iteration 1 it is the JAX package's to a few percent of the rate (Adam
     # divides by the gradient's size, so single entries whose gradient is
     # rounding noise may differ by the rate itself: the median is held); with
     # moments started at the boundary every entry would move by the full rate
-    for key, (largest, median_error) in moved.items():
-        rate = LR * (multiplier if slow(key) else 1.)
-        assert 0 < largest <= 1.01 * rate, key
-        assert median_error <= 0.05 * rate, key
-    want_ema = jax_params_to_state_dict(
-        jax.tree_util.tree_map(np.array, jax.device_get(jax_model.state.ema_params)),
-        arch.JAX_KEY_RULES)
+    assert want['boundary'].keys() == at_boundary.keys()
+    for key, p in at_boundary.items():
+        if frozen(key):
+            got_step = (p - init[key]).numpy()
+            want_step = (want['boundary'][key] - init[key]).numpy()
+            rate = LR * (multiplier if slow(key) else 1.)
+            assert 0 < np.abs(got_step).max() <= 1.01 * rate, key
+            assert np.median(np.abs(got_step - want_step)) <= 0.05 * rate, key
     for key, value in port_model.net_g_ema.named_parameters():
-        np.testing.assert_allclose(value.detach().numpy(), want_ema[key].numpy(), atol=10 * LR,
+        np.testing.assert_allclose(value.detach().numpy(), want['ema'][key].numpy(), atol=10 * LR,
                                    rtol=0, err_msg=f'EMA of {key}')
     return port_model
 
@@ -351,12 +372,12 @@ PP_SHRINK = ['num_gpu=0', 'network_g:mid_channels=8', 'network_g:num_blocks=1']
 @pytest.fixture(scope='module')
 def pp_trained(tmp_path_factory):
     """``train_pipeline`` on the BasicVSR++ config cut to width 8, one block a
-    branch, clips of 3 frames at LQ 64x64 (its smallest), 8 iterations."""
+    branch, clips of 2 frames at LQ 64x64 (its smallest), 8 iterations."""
     root = tmp_path_factory.mktemp('pp')
     write_clips(root, {'train': ({'100': 4, '101': 3}, (64, 64)), 'val': ({'200': 2}, (64, 64)),
                        'test': ({'300': 3}, (64, 72))}, np.random.RandomState(1))
     force = (PP_SHRINK + [f'path:experiments_root={root / "experiments"}',
-                          'datasets:train:num_frame=3', 'datasets:train:num_worker_per_gpu=1',
+                          'datasets:train:num_frame=2', 'datasets:train:num_worker_per_gpu=1',
                           'train:ema_decay=0.9']
              + data_overrides(root, {'train': 'train'})
              + [f'datasets:val:dataroot_gt={root / "val_GT"}',
