@@ -1,7 +1,7 @@
 """Dataset path helpers (counterpart of ``basicsr4rs_tpu/data/data_util.py``;
-reference: basicsr/data/data_util.py). The folder scan, the video helpers
-and DUF's downsampling are ported; the LMDB and meta-info-file variants of
-the image pairs come with their datasets."""
+reference: basicsr/data/data_util.py). The folder scan, the LMDB key list,
+the video helpers and DUF's downsampling are ported; the LMDB and
+meta-info-file variants of the image pairs come with their datasets."""
 
 from __future__ import annotations
 
@@ -92,6 +92,15 @@ def paired_paths_from_folder(folders: Sequence[str], keys: Sequence[str],
         paths.append({f'{input_key}_path': osp.join(input_folder, input_name),
                       f'{gt_key}_path': osp.join(gt_folder, gt_path)})
     return paths
+
+
+def paths_from_lmdb(folder: str) -> List[str]:
+    """The keys of an LMDB folder, from its ``meta_info.txt`` (the name
+    before the first dot on each line)."""
+    if not folder.endswith('.lmdb'):
+        raise ValueError(f'Folder {folder} should be in lmdb format.')
+    with open(osp.join(folder, 'meta_info.txt')) as fin:
+        return [line.split('.')[0] for line in fin]
 
 
 def generate_gaussian_kernel(kernel_size: int = 13, sigma: float = 1.6) -> np.ndarray:

@@ -60,6 +60,15 @@ def load_state_dict(model_path: str) -> 'OrderedDict[str, torch.Tensor]':
                        for k, v in ckpt.items() if not k.endswith(_COMPUTED_BUFFERS))
 
 
+def load_weights(net: torch.nn.Module, model_path: str) -> None:
+    """``load_state_dict`` of ``model_path`` into ``net``, strictly, less the
+    keys of the network's non-persistent buffers (constants the port makes
+    itself, such as resampling kernels, which BasicSR's files store)."""
+    constants = {k for k, _ in net.named_buffers()} - set(net.state_dict())
+    net.load_state_dict(OrderedDict((k, v) for k, v in load_state_dict(model_path).items()
+                                    if k not in constants), strict=True)
+
+
 def round_up(value: int, multiple: int) -> int:
     return -(-value // multiple) * multiple
 

@@ -1,6 +1,8 @@
 """Pixel losses (counterpart of ``basicsr4rs_tpu/losses/basic_loss.py``;
 reference: basicsr/losses/basic_loss.py). ``L1Loss``, ``MSELoss`` and
-``CharbonnierLoss`` are ported; the rest come with the models that use them."""
+``CharbonnierLoss``, and ``GANFeatLoss``, the feature-matching loss of a
+multiscale patch discriminator (HiFaceGAN's); the rest come with the models
+that use them."""
 
 from __future__ import annotations
 
@@ -65,3 +67,28 @@ class CharbonnierLoss(_PixelLoss):
     def forward(self, pred, target, weight=None, **kwargs):
         return self.loss_weight * charbonnier_loss(pred, target, weight, eps=self.eps,
                                                    reduction=self.reduction)
+
+
+@LOSS_REGISTRY.register()
+class GANFeatLoss(nn.Module):
+    """Feature matching: for each discriminator scale (a list of its
+    stages' outputs), the ``criterion`` between the fake and the detached
+    real output of every stage but the last, averaged over the scales."""
+
+    def __init__(self, criterion: str = 'l1', loss_weight: float = 1.0, reduction: str = 'mean'):
+        super().__init__()
+        losses = {'l1': l1_loss, 'l2': mse_loss, 'mse': mse_loss, 'charbonnier': charbonnier_loss}
+        if criterion not in losses:
+            raise ValueError(f'Unsupported loss mode: {criterion}. '
+                             'Supported ones are: l1|l2|charbonnier')
+        self.loss_op = losses[criterion]
+        self.loss_weight = loss_weight
+        self.reduction = reduction
+
+    def forward(self, pred_fake, pred_real):
+        num_d = len(pred_fake)
+        loss = 0.
+        for fake_feats, real_feats in zip(pred_fake, pred_real):
+            for fake, real in zip(fake_feats[:-1], real_feats[:-1]):
+                loss = loss + self.loss_op(fake, real.detach(), reduction=self.reduction) / num_d
+        return loss * self.loss_weight

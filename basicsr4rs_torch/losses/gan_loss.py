@@ -1,15 +1,18 @@
 """GAN losses (counterpart of ``basicsr4rs_tpu/losses/gan_loss.py``;
 reference: basicsr/losses/gan_loss.py).
 
-``GANLoss`` (vanilla, lsgan, wgan, wgan_softplus, hinge) and
-``MultiScaleGANLoss``. The regularisers of that module (``r1_penalty``,
-``g_path_regularize``, ``gradient_penalty_loss``) come with the StyleGAN2
-model that calls them.
+``GANLoss`` (vanilla, lsgan, wgan, wgan_softplus, hinge),
+``MultiScaleGANLoss``, and the regularisers ``r1_penalty``,
+``g_path_regularize`` and ``gradient_penalty_loss``: each takes the
+gradient of a network's output with respect to its input by
+``torch.autograd.grad(..., create_graph=True)``, so that the penalty's own
+gradient reaches the network's parameters.
 """
 
 from __future__ import annotations
 
-from typing import List, Union
+import math
+from typing import Callable, List, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -73,3 +76,54 @@ class MultiScaleGANLoss(GANLoss):
                 pred_i = pred_i[-1]
             loss = loss + super().forward(pred_i, target_is_real, is_disc)
         return loss / len(pred)
+
+
+def _input_gradient(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """d sum(fn(x)) / dx, kept in the graph. ``x`` may be a tensor of the
+    graph (its own gradient then flows too) or a plain one."""
+    if not x.requires_grad:
+        x = x.detach().requires_grad_(True)
+    grad, = torch.autograd.grad(fn(x).sum(), x, create_graph=True)
+    return grad
+
+
+def r1_penalty(d_fn: Callable[[torch.Tensor], torch.Tensor],
+               real_img: torch.Tensor) -> torch.Tensor:
+    """R1: the mean over the batch of |d D(x) / dx|^2 on the real images."""
+    return _input_gradient(d_fn, real_img).pow(2).sum(dim=(1, 2, 3)).mean()
+
+
+def g_path_regularize(fake_fn: Callable[[torch.Tensor], torch.Tensor], latents: torch.Tensor,
+                      mean_path_length, noise: torch.Tensor, decay: float = 0.01):
+    """StyleGAN2's path-length penalty. ``fake_fn(latents)`` is the image
+    (N, C, H, W); ``noise`` (its shape) is divided by sqrt(H * W) and
+    projects the image before the gradient with respect to the latents
+    (N, L, F) is taken. Returns the penalty, the detached path lengths (N,)
+    and the new running mean."""
+
+    def proj(w):
+        img = fake_fn(w)
+        return img * (noise.to(img) / math.sqrt(img.shape[2] * img.shape[3]))
+
+    grad = _input_gradient(proj, latents)
+    path_lengths = torch.sqrt(grad.pow(2).sum(dim=2).mean(dim=1) + 1e-12)
+    # the running mean moves with this batch's lengths inside the penalty's graph
+    path_mean = mean_path_length + decay * (path_lengths.mean() - mean_path_length)
+    path_penalty = (path_lengths - path_mean).pow(2).mean()
+    return path_penalty, path_lengths.detach(), path_mean.detach()
+
+
+def gradient_penalty_loss(d_fn: Callable[[torch.Tensor], torch.Tensor], real_data: torch.Tensor,
+                          fake_data: torch.Tensor, alpha: torch.Tensor,
+                          weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """WGAN-GP on the images interpolated by ``alpha`` (N, 1, 1, 1). The
+    gradient's norm is taken over the channel axis only, pixel by pixel, as
+    the reference does (not over the whole sample)."""
+    alpha = alpha.to(real_data)
+    grad = _input_gradient(d_fn, alpha * real_data + (1. - alpha) * fake_data)
+    if weight is not None:
+        grad = grad * weight
+    loss = (torch.sqrt(grad.pow(2).sum(dim=1) + 1e-12) - 1).pow(2).mean()
+    if weight is not None:
+        loss = loss / weight.mean()
+    return loss

@@ -256,11 +256,27 @@ nonzero exit code and no result line:
     ``inference_basicvsr`` and ``inference_basicvsrpp`` against
     ``test.py``'s images (46); each request's and step's sampler launches
     counted.
+47 to 49. the Real-ESRGAN degradation engine against its CPU run, and
+    RealESRNet and RealESRGAN x4plus trained 16 steps each (no kernel);
+50 to 53. the face models at the published widths (no kernel): StyleGAN2
+    256 Cmul2 trained 16 steps of batch 3 through ``basicsr4rs_torch.train``
+    (``options/train/StyleGAN/train_StyleGAN2_256_Cmul2_FFHQ_synthetic.yml``
+    on ``datasets/FFHQ_256_synthetic/``; R1 and the path-length term
+    non-zero on their steps only, step times by kind, one step with both
+    terms traced, 50a), one regularised step at out_size 64 on the card
+    and the CPU in float32, both against float64 (50b), ``inference_stylegan2`` at truncation 0.7 (50c),
+    a forward of the bilinear generator at 256 (50d); HiFaceGAN (48
+    features, crop 512) trained 4 steps (51, 51b by phase) and served
+    through both test files (52a, 52b); DFDNet (64 features) on a 512x512
+    face through ``inference_dfdnet``, the card against the CPU with the
+    entries each part selected (53); 52a and 53b trace a request by kernel.
 
 ``python3 chip_smoke.py kernels`` stops after phase 3; ``python3 chip_smoke.py
 serving`` runs phases 3a, 3e, 3g, 3f, 4, 4b and 17 to 22 alone; ``python3
 chip_smoke.py cnn`` runs phases 3g and 32 to 36 alone; ``python3 chip_smoke.py
-video`` runs phases 3h and 37 to 46 alone. The line before the
+video`` runs phases 3h and 37 to 46 alone; ``python3 chip_smoke.py
+realesrgan`` phases 47 to 49 and ``python3 chip_smoke.py faces`` phases 50
+to 53, each ending with the same last line. The line before the
 last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -4740,8 +4756,8 @@ def net_options(opt, key='network_g'):
 
 
 def train_gan(config, model_cls, number, title, extra=(), wrappers=None, per_step=None,
-              before_first_step=None):
-    """A GAN model trained ``CNN_ITERS`` steps through the training entry
+              before_first_step=None, iters=CNN_ITERS):
+    """A GAN model trained ``iters`` steps through the training entry
     point on the synthetic tree: every logged loss finite at every step,
     ``per_step`` launches of each of the kernels ``wrappers`` names (none
     by default), the step time and the peak memory. Returns (model, record,
@@ -4758,7 +4774,7 @@ def train_gan(config, model_cls, number, title, extra=(), wrappers=None, per_ste
     fresh_run(dict(opt, name=name), wrappers)
     record = {'steps': []}
     t0 = time.perf_counter()
-    model = run_train_pipeline(short_run(CNN_ITERS, 'train:perceptual_opt:pretrain_path='
+    model = run_train_pipeline(short_run(iters, 'train:perceptual_opt:pretrain_path='
                                          + VGG_WEIGHTS, *extra), record, config=config,
                                model_cls=model_cls, loss_key='l_g_total', wrappers=wrappers,
                                before_first_step=before_first_step or keep_fed_batch,
@@ -4766,9 +4782,9 @@ def train_gan(config, model_cls, number, title, extra=(), wrappers=None, per_ste
     torch.cuda.synchronize()
     if model.device.type != 'cuda':
         fail(f'the model trained on {model.device}')
-    print(f'pipeline wall time {time.perf_counter() - t0:.3f} s for {CNN_ITERS} steps, one '
+    print(f'pipeline wall time {time.perf_counter() - t0:.3f} s for {iters} steps, one '
           'validation and a checkpoint at the end')
-    check_steps(record['steps'], CNN_ITERS, 'l_g_total', per_step or {})
+    check_steps(record['steps'], iters, 'l_g_total', per_step or {})
     check_logs_finite(record['steps'])
     return model, record, dict(opt, name=name)
 
@@ -5642,6 +5658,411 @@ def realesrgan_paths():
           f'{t2 - t1:.1f}, 49 {time.perf_counter() - t2:.1f})')
 
 
+FFHQ_DIR = 'datasets/FFHQ_256_synthetic'
+HIFACEGAN_DIR = 'datasets/HiFaceGAN_synthetic'
+STYLEGAN2_TRAIN = 'options/train/StyleGAN/train_StyleGAN2_256_Cmul2_FFHQ_synthetic.yml'
+HIFACEGAN_TRAIN = 'options/train/HiFaceGAN/train_hifacegan_synthetic.yml'
+HIFACEGAN_TESTS = ('options/test/HiFaceGAN/test_hifacegan_synthetic.yml',
+                   'options/test/HiFaceGAN/test_hifacegan_woGT_synthetic.yml')
+STYLEGAN2_ITERS = 16   # the path-length term at steps 4, 8, 12 and 16, R1 at 16
+HIFACEGAN_ITERS = 4
+# the same regularised StyleGAN2 step (R1 and path length) on the card and
+# the CPU in float32, TF32 off, each against the card in float64: the card's
+# logged values within the larger of 1e-4 relative and 10 times the CPU
+# float32 run's distance, each parameter gradient (of its tensor's largest
+# entry) within the larger of GRAD_TOLERANCE and 10 times the CPU's. The
+# path-length term is a second-order gradient, and a scalar parameter's
+# gradient (a noise weight) sums a whole map of terms of both signs: float32
+# moves both by 1e-4 to 1e-3 on either device
+STEP_LOG_TOLERANCE = 1e-4
+# DFDNet's face on the card against the CPU's run of the same net and
+# dictionary, on its [-1, 1] output: MODEL_TOLERANCE of the [0, 1] range
+DFDNET_TOLERANCE = 2 * MODEL_TOLERANCE
+DFDNET_DICT_SIZES = {256: (128, 9), 128: (256, 7), 64: (512, 5), 32: (512, 3)}
+DFDNET_BOXES = [[120., 150., 200., 230.], [300., 150., 380., 230.], [220., 240., 290., 320.],
+                [200., 340., 310., 420.]]   # left eye, right eye, nose, mouth at 512
+
+
+def write_face_inputs():
+    """``datasets/FFHQ_256_synthetic/``: 12 smooth 256x256 faces' stand-ins;
+    ``datasets/HiFaceGAN_synthetic/``: two training and two validation pairs
+    of 512x512 (LQ the GT's x4 bicubic down- and upscale); the random
+    VGG19 the HiFaceGAN file names."""
+    import cv2
+    import numpy as np
+    rng = np.random.RandomState(11)
+    os.makedirs(FFHQ_DIR, exist_ok=True)
+    for i in range(12):
+        cv2.imwrite(os.path.join(FFHQ_DIR, f'{i:05d}.png'), smooth_image(rng, 256, 256))
+    for gt_dir, lq_dir in (('GT', 'LQ'), ('val_GT', 'val_LQ')):
+        for sub in (gt_dir, lq_dir):
+            os.makedirs(os.path.join(HIFACEGAN_DIR, sub), exist_ok=True)
+        for i in range(2):
+            gt = smooth_image(rng, 512, 512)
+            lq = cv2.resize(cv2.resize(gt, (128, 128), interpolation=cv2.INTER_CUBIC),
+                            (512, 512), interpolation=cv2.INTER_CUBIC)
+            cv2.imwrite(os.path.join(HIFACEGAN_DIR, gt_dir, f'{i:04d}.png'), gt)
+            cv2.imwrite(os.path.join(HIFACEGAN_DIR, lq_dir, f'{i:04d}.png'), lq)
+    write_vgg19()
+
+
+def keep_real_batch(model, record):
+    record.setdefault('raw', {'gt': model.real_img.clone()})
+
+
+def on_cuda(what, *tensors):
+    for t in tensors:
+        if t.device.type != 'cuda':
+            fail(f'{what} is on {t.device}')
+
+
+def train_stylegan2():
+    """Phase 50: StyleGAN2 256 Cmul2 trained ``STYLEGAN2_ITERS`` steps
+    through the training entry point: R1 and the path-length term non-zero
+    on their steps only, every log finite, step times by kind, peak memory;
+    then one more step with both terms timed, and traced for its device
+    time by phase."""
+    import numpy as np
+
+    from basicsr4rs_torch.models.stylegan2_model import StyleGAN2Model
+    from basicsr4rs_torch.utils.options import yaml_load
+    opt = yaml_load(STYLEGAN2_TRAIN)
+    g, train = opt['network_g'], opt['train']
+    phase(f'50. train StyleGAN2 {g["out_size"]} Cmul{g["channel_multiplier"]} '
+          f'({g["num_style_feat"]} style features, {g["num_mlp"]} MLP layers) through '
+          'basicsr4rs_torch.train on cuda:0 (batch '
+          f'{opt["datasets"]["train"]["batch_size_per_gpu"]}, '
+          f'{STYLEGAN2_ITERS} steps; R1 every {train["net_d_reg_every"]}, path length every '
+          f'{train["net_g_reg_every"]}; no TPU kernel on this path)')
+    fresh_run(opt, {})
+    record = {'steps': []}
+    t0 = time.perf_counter()
+    model = run_train_pipeline(['--force_yml', 'logger:print_freq=4', 'logger:use_tb_logger=false'],
+                               record, config=STYLEGAN2_TRAIN, model_cls=StyleGAN2Model,
+                               loss_key='l_g', wrappers={}, before_first_step=keep_real_batch,
+                               after_step=keep_logs)
+    torch.cuda.synchronize()
+    on_cuda('StyleGAN2', model.real_img, *model.net_g.parameters(), *model.net_d.parameters(),
+            *model.net_g_ema.parameters())
+    print(f'pipeline wall time {time.perf_counter() - t0:.3f} s for {STYLEGAN2_ITERS} steps and a '
+          'checkpoint at the end')
+    steps = record['steps']
+    check_steps(steps, STYLEGAN2_ITERS, 'l_g', {})
+    check_logs_finite(steps)
+    for st in steps:
+        r1, path = st['iter'] % train['net_d_reg_every'] == 0, st['iter'] % train[
+            'net_g_reg_every'] == 0
+        if (st['logs']['l_d_r1'] != 0) != r1 or (st['logs']['l_g_path'] != 0) != path:
+            fail(f'step {st["iter"]}: l_d_r1 {st["logs"]["l_d_r1"]}, l_g_path '
+                 f'{st["logs"]["l_g_path"]} (R1 due: {r1}, path length due: {path})')
+    kinds = {'plain': [st['ms'] for st in steps[2:] if st['iter'] % train['net_g_reg_every']],
+             'path length': [st['ms'] for st in steps[2:] if st['iter'] % train[
+                 'net_g_reg_every'] == 0 and st['iter'] % train['net_d_reg_every']],
+             'path length and R1': [st['ms'] for st in steps if st['iter'] % train[
+                 'net_d_reg_every'] == 0]}
+    print('step time by kind (steps 3..16, CUDA events): ' + '; '.join(
+        f'{k} {np.mean(v):.3f} ms (n={len(v)})' for k, v in kinds.items()))
+    print('l_g_path by step: ' + ', '.join(f'{st["iter"]}: {st["logs"]["l_g_path"]:.4f}'
+                                          for st in steps if st['logs']['l_g_path']))
+    print(f'path length at the last path step: {steps[-1]["logs"]["path_length"]:.5f}, mean '
+          f'path length {float(model.mean_path_length):.5f}')
+
+    def regularised_step():
+        model.step = 31   # the count gates the terms only: the next is the 32nd, both run
+        model.feed_data(record['raw'])
+        model.optimize_parameters(0)
+
+    torch.cuda.synchronize()   # step 16 ran both terms: the routes are warm
+    t1 = time.perf_counter()
+    regularised_step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t1) * 1e3
+    phase('50a. device time of one step with R1 and the path-length term (torch.profiler '
+          'ranges of the model code)')
+    busy, by_name, by_range = trace_device_ms(regularised_step, 'stylegan2_step_trace.json',
+                                              ('D phase', 'G phase'))
+    print(f'{busy:.3f} ms of device time, {sum(n for _, n in by_name.values())} launches, '
+          f'against {wall_ms:.3f} ms of wall time for the same step untraced: device busy '
+          f'{100 * busy / wall_ms:.1f}%; D phase {by_range["D phase"]:.3f} ms, G phase '
+          f'{by_range["G phase"]:.3f} ms; the longest: {longest_kernels(by_name, 4)}')
+    return model, opt
+
+
+def stylegan2_card_vs_cpu(opt):
+    """Phase 50b: one step with R1 and the path-length term at out_size 64,
+    narrow 0.25, on the card and the CPU in float32 and on the card in
+    float64, from the same weights, batch, codes and noise: the logged
+    values and every parameter gradient of the two float32 runs against
+    the float64 one (exact to float32 on either device)."""
+    import copy
+
+    from basicsr4rs_torch.models import build_model
+    phase('50b. one StyleGAN2 step with R1 and the path-length term on the card and on the CPU '
+          '(out_size 64, narrow 0.25; the same weights, batch, codes and noise; TF32 off), both '
+          'against the card in float64')
+    small = copy.deepcopy(opt)
+    for key in ('network_g', 'network_d'):
+        small[key].update(out_size=64, narrow=0.25)
+    small.update(is_train=True, dist=False, rank=0, world_size=1)
+    small['path'].update(pretrain_network_g=None, pretrain_network_d=None)
+    models = {}
+    for run, num_gpu in (('card', 1), ('cpu', 0), ('float64', 1)):
+        torch.manual_seed(0)
+        models[run] = build_model(dict(copy.deepcopy(small), num_gpu=num_gpu))
+    for name in ('net_g', 'net_g_ema', 'net_d'):
+        for run in ('cpu', 'float64'):
+            getattr(models[run], name).load_state_dict(getattr(models['card'], name).state_dict())
+        getattr(models['float64'], name).double()
+    real = torch.rand((3, 3, 64, 64), generator=torch.Generator().manual_seed(1)) * 2 - 1
+    draws = models['cpu'].draw_step(3, True)
+    logs, grads = {}, {}
+    for run, model in models.items():
+        model.step = small['train']['net_d_reg_every'] - 1   # the next step runs both terms
+        dtype = torch.float64 if run == 'float64' else torch.float32
+        model.feed_data({'gt': real.to(dtype)})
+        moved = {k: [t.to(model.device, dtype) for t in v] if isinstance(v, list)
+                 else v.to(model.device, dtype) for k, v in draws.items()}
+        with mock.patch.object(model, 'draw_step', lambda batch, regularize_g: moved):
+            model.optimize_parameters(0)
+        logs[run] = model.get_current_log()
+        grads[run] = {f'{net}.{name}': p.grad.detach().double().cpu() for net in ('net_g', 'net_d')
+                      for name, p in getattr(model, net).named_parameters()}
+    on_cuda('the card\'s step', models['card'].real_img, *models['card'].net_g.parameters())
+    exact_logs, exact = logs.pop('float64'), grads.pop('float64')
+    if not exact_logs['l_d_r1'] or not exact_logs['l_g_path']:
+        fail('the compared step did not run both terms')
+    worst = {}
+    for run in ('card', 'cpu'):
+        if not all(torch.isfinite(g).all() for g in grads[run].values()):
+            fail(f'non-finite gradients on the {run}')
+        log_err = max(abs(logs[run][k] - v) / max(abs(v), 1e-6) for k, v in exact_logs.items())
+        grad_err, at = max((((grads[run][k] - g).abs().max() / g.abs().max().clamp(min=1e-12)
+                             ).item(), k) for k, g in exact.items())
+        worst[run] = (log_err, grad_err)
+        print(f'{run} (float32) against float64: logs {log_err:.3e} relative; '
+              f'{len(exact)} parameter gradients, largest max|difference| / max|float64| of '
+              f'the tensor {grad_err:.3e} at {at}')
+    print('logs (card / CPU float32 / float64): ' + ', '.join(
+        f'{k} {logs["card"][k]:.6f} / {logs["cpu"][k]:.6f} / {v:.6f}' for k, v in
+        exact_logs.items()))
+    bounds = (max(STEP_LOG_TOLERANCE, 10 * worst['cpu'][0]),
+              max(GRAD_TOLERANCE, 10 * worst['cpu'][1]))
+    print(f'bounds on the card: logs {bounds[0]:.3e}, gradients {bounds[1]:.3e} (the larger of '
+          f'{STEP_LOG_TOLERANCE} / {GRAD_TOLERANCE} and 10 times the CPU float32 run\'s)')
+    if worst['card'][0] > bounds[0] or worst['card'][1] > bounds[1]:
+        fail('the card\'s StyleGAN2 step is further from float64 than float32 allows')
+
+
+def sample_stylegan2(opt):
+    """Phase 50c: ``inference_stylegan2`` with truncation 0.7 on the trained
+    EMA generator; phase 50d: one forward of the bilinear generator at 256."""
+    import cv2
+
+    from basicsr4rs_torch.archs.stylegan2_arch import StyleGAN2Generator
+    from basicsr4rs_torch.archs.stylegan2_bilinear_arch import StyleGAN2GeneratorBilinear
+    from basicsr4rs_torch.inference import inference_stylegan2
+    g = opt['network_g']
+    phase('50c. sample the trained generator through basicsr4rs_torch.inference.'
+          'inference_stylegan2 (params_ema, truncation 0.7 about the mean W of 4096 codes)')
+    out_dir = os.path.join(PROFILE_DIR, 'stylegan2_samples')
+    ckpt = os.path.join('experiments', opt['name'], 'models', 'net_g_latest.pth')
+    devices = set()
+    synthesis = StyleGAN2Generator.synthesis
+
+    def spy(net, latent, *args, **kwargs):
+        devices.add(latent.device.type)
+        return synthesis(net, latent, *args, **kwargs)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(StyleGAN2Generator, 'synthesis', spy):
+        inference_stylegan2.main(['--model_path', ckpt, '--out_size', str(g['out_size']),
+                                  '--channel_multiplier', str(g['channel_multiplier']),
+                                  '--truncation', '0.7', '--sample', '4', '--pics', '2',
+                                  '--output', out_dir])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if devices != {'cuda'}:
+        fail(f'the sampler ran on {devices}')
+    imgs = [cv2.imread(os.path.join(out_dir, f'{i:06d}.png')) for i in range(8)]
+    if any(im is None or im.shape != (g['out_size'], g['out_size'], 3) for im in imgs) or \
+            all(im.std() == 0 for im in imgs):
+        fail('the sampler did not write 8 images of the output size')
+    print(f'8 samples of {g["out_size"]}x{g["out_size"]} in {wall:.3f} s (load, the mean W, 2 '
+          f'batches of 4, PNGs); pixel std of the first {imgs[0].std():.2f} levels')
+    phase('50d. one forward of StyleGAN2GeneratorBilinear at 256 Cmul2 (batch 3, random weights)')
+    torch.manual_seed(0)
+    net = StyleGAN2GeneratorBilinear(out_size=g['out_size'], num_style_feat=g['num_style_feat'],
+                                     num_mlp=g['num_mlp'],
+                                     channel_multiplier=g['channel_multiplier'],
+                                     lr_mlp=g['lr_mlp']).cuda().eval()
+    z = torch.randn((3, g['num_style_feat']), device='cuda',
+                    generator=torch.Generator('cuda').manual_seed(0))
+    gen = torch.Generator('cuda')
+
+    def forward():
+        gen.manual_seed(0)
+        with torch.inference_mode():
+            return net([z], generator=gen)[0]
+
+    out = forward()
+    if out.shape != (3, 3, g['out_size'], g['out_size']) or not torch.isfinite(out).all() or \
+            out.device.type != 'cuda':
+        fail(f'bilinear generator: {tuple(out.shape)} on {out.device}')
+    print(f'output {tuple(out.shape)}, std {out.std().item():.4f}; '
+          f'{cuda_time_ms(forward, iters=5):.3f} ms a forward (CUDA events, mean of 5)')
+    del net
+
+
+def train_and_serve_hifacegan():
+    """Phases 51 and 52: HiFaceGAN trained ``HIFACEGAN_ITERS`` steps at the
+    published widths, its device time split between G and D; then served
+    through both test files from the checkpoint it wrote."""
+    import glob
+
+    from basicsr4rs_torch.models.hifacegan_model import HiFaceGANModel
+    model, record, opt = train_gan(HIFACEGAN_TRAIN, HiFaceGANModel, '51', 'train HiFaceGAN '
+                                   '(48 features, crop 512, spectral SPADE with batch statistics; '
+                                   'HiFaceGANDiscriminator 64, two scales; lsgan, feature '
+                                   'matching, VGG19 perceptual)', iters=HIFACEGAN_ITERS)
+    on_cuda('HiFaceGAN', model.lq, model.output, *model.net_g.parameters(),
+            *model.net_d.parameters())
+    if not all(math.isfinite(v) for v in model.metric_results.values()):
+        fail(f'validation metrics {model.metric_results}')
+    print(f'one validation (net_g): {model.metric_results}')
+    phase('51b. device time of a HiFaceGAN step by phase (torch.profiler ranges of the model code)')
+    split = profile_step(model, record['batch'], HIFACEGAN_ITERS + 1)
+    total = sum(split.values())
+    print('device time a step: ' + ', '.join(f'{k} {v:.3f} ms ({100 * v / max(total, 1e-9):.1f}%)'
+                                             for k, v in split.items()) + f'; total {total:.3f} ms')
+    del model
+    torch.cuda.empty_cache()
+    for i, config in enumerate(HIFACEGAN_TESTS):
+        phase(f'52{"ab"[i]}. serve HiFaceGAN through basicsr4rs_torch.test '
+              f'({os.path.basename(config)}: the checkpoint of phase 51)')
+        served = run_test_pipeline(config, [])
+        on_cuda('HiFaceGAN served', served.lq, served.output, *served.net_g.parameters())
+        pngs = glob.glob(os.path.join(served.opt['path']['visualization'], '*', '*.png'))
+        if len(pngs) != 2:
+            fail(f'{config} wrote {len(pngs)} images, expected 2')
+        items = list(model_loader(served))
+        lat = request_latencies(served, items, lambda it: (1, 3, 512, 512))
+        metrics = getattr(served, 'metric_results', None)
+        print(f'2 images written; metrics {metrics}; request latency ' + ', '.join(
+            f'{ms:.3f} ms' for ms in lat) + f'; peak device memory '
+            f'{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB')
+        if i == 0:
+            served.feed_data(items[0])
+            busy, by_name, _ = trace_device_ms(served.test, 'hifacegan_request_trace.json')
+            eig = sum(ms for name, (ms, _) in by_name.items() if 'syev' in name)
+            print(f'one request traced: {busy:.3f} ms of device time, '
+                  f'{sum(n for _, n in by_name.values())} launches; the exact spectral norms\' '
+                  f'eigensolvers (syev*) {eig:.3f} ms; the longest: {longest_kernels(by_name, 4)}')
+        del served
+
+
+def serve_dfdnet():
+    """Phase 53: DFDNet (64 features) on one 512x512 face through
+    ``inference_dfdnet`` with a random dictionary of the published shapes
+    and fixed boxes; the same request on the card and on the CPU: the
+    faces, and the entries each part selected."""
+    import copy
+
+    import cv2
+    import numpy as np
+
+    from basicsr4rs_torch.archs.dfdnet_arch import DFDNet, load_dfdnet_dict
+    from basicsr4rs_torch.archs.vgg_arch import load_vgg_params
+    from basicsr4rs_torch.inference import inference_dfdnet
+    phase('53. DFDNet (64 features, VGG19 features, a random dictionary of 3 entries a part) on '
+          'a 512x512 face through basicsr4rs_torch.inference.inference_dfdnet; the card against '
+          'the CPU')
+    root = os.path.join(PROFILE_DIR, 'dfdnet')
+    os.makedirs(os.path.join(root, 'in'), exist_ok=True)
+    torch.manual_seed(0)
+    net = DFDNet(num_feat=64)
+    load_vgg_params(net.vgg_extractor, VGG_WEIGHTS)   # He-scaled: deep features keep their size
+    torch.save({'params': net.state_dict()}, os.path.join(root, 'net.pth'))
+    gen = torch.Generator().manual_seed(0)
+    parts = DFDNet.parts
+    torch.save({f'{size}': {p: torch.randn(3, ch, k, k, generator=gen) for p in parts}
+                for size, (ch, k) in DFDNET_DICT_SIZES.items()}, os.path.join(root, 'dict.pth'))
+    face = smooth_image(np.random.RandomState(13), 512, 512)
+    cv2.imwrite(os.path.join(root, 'in', 'face.png'), face)
+    with open(os.path.join(root, 'boxes.txt'), 'w') as f:
+        f.write('face.png ' + ' '.join(f'{v:g}' for v in np.ravel(DFDNET_BOXES)) + '\n')
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    inference_dfdnet.main(['--model_path', os.path.join(root, 'net.pth'), '--dict_path',
+                           os.path.join(root, 'dict.pth'), '--input', os.path.join(root, 'in'),
+                           '--locations', os.path.join(root, 'boxes.txt'), '--output',
+                           os.path.join(root, 'out')])
+    torch.cuda.synchronize()
+    print(f'inference_dfdnet: {time.perf_counter() - t0:.3f} s (load, one face, its PNG)')
+    written = cv2.imread(os.path.join(root, 'out', 'face.png'))
+    x = torch.from_numpy(face[..., ::-1].astype(np.float32) / 255. * 2 - 1).permute(2, 0, 1)[None]
+    boxes = [np.asarray(DFDNET_BOXES[i:i + 1]) for i in range(4)]
+    dictionary = load_dfdnet_dict(os.path.join(root, 'dict.pth'))
+    card = net.cuda().eval()
+    on_device = {s: {p: torch.from_numpy(v).cuda() for p, v in d.items()}
+                 for s, d in dictionary.items()}
+    xc = x.cuda()
+
+    def request():
+        with torch.inference_mode():
+            return card(xc, boxes, on_device)
+
+    out_card = request()
+    on_cuda('DFDNet', out_card, *card.parameters())
+    selected_card = [int(i) for i in card.selected]
+    ms = cuda_time_ms(request, iters=5)
+    cpu_net = copy.deepcopy(card).cpu()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        out_cpu = cpu_net(x, boxes, dictionary)
+    cpu_s = time.perf_counter() - t0
+    selected_cpu = [int(i) for i in cpu_net.selected]
+    err = (out_card.cpu() - out_cpu).abs().max().item()
+    png = ((out_card[0].clamp(-1, 1) + 1) / 2).permute(1, 2, 0).cpu().numpy()[..., ::-1] * 255
+    png_err = np.abs(written.astype(np.float32) - png.round()).max() if written is not None else -1
+    print(f'a request: {ms:.3f} ms on the card (CUDA events, mean of 5), {cpu_s:.3f} s on the '
+          f'CPU; face max|card - CPU| {err:.3e} (tolerance {DFDNET_TOLERANCE}); entries selected '
+          f'(4 levels x 4 parts) card {selected_card}, CPU {selected_cpu}; the script\'s PNG '
+          f'within {png_err:.0f} levels of the request; peak device memory '
+          f'{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB')
+    if written is None or png_err > 1:
+        fail('inference_dfdnet did not write the request\'s face')
+    if selected_card != selected_cpu or len(selected_card) != 16:
+        fail('the card and the CPU selected different dictionary entries')
+    if err > DFDNET_TOLERANCE or not torch.isfinite(out_card).all():
+        fail('DFDNet on the card disagrees with the CPU')
+    phase('53b. device time of one DFDNet request (torch.profiler, device activity)')
+    busy, by_name, _ = trace_device_ms(request, 'dfdnet_request_trace.json')
+    eig = sum(ms for name, (ms, _) in by_name.items() if 'syev' in name)
+    print(f'{busy:.3f} ms of device time ({100 * busy / ms:.1f}% of the request by events), '
+          f'{sum(n for _, n in by_name.values())} launches; the exact spectral norms\' '
+          f'eigensolvers (syev*) {eig:.3f} ms; the longest: {longest_kernels(by_name, 4)}')
+    del card, cpu_net
+
+
+def faces_paths():
+    """Phases 50 to 53: StyleGAN2 256 Cmul2, HiFaceGAN and DFDNet; no
+    kernel on these paths."""
+    t0 = time.perf_counter()
+    write_face_inputs()
+    model, opt = train_stylegan2()
+    del model
+    torch.cuda.empty_cache()
+    stylegan2_card_vs_cpu(opt)
+    sample_stylegan2(opt)
+    t1 = time.perf_counter()
+    train_and_serve_hifacegan()
+    t2 = time.perf_counter()
+    serve_dfdnet()
+    print(f'phases 50 to 53: {time.perf_counter() - t0:.1f} s (50 {t1 - t0:.1f}, 51-52 '
+          f'{t2 - t1:.1f}, 53 {time.perf_counter() - t2:.1f})')
+
+
 SUMMARY_KEYS = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
 KERNELS = [
     ('swin_block_joint_fwd', 'basicsr4rs_tpu/ops/swin_block.py:287'),
@@ -5699,8 +6120,8 @@ def main():
         recurrent_video_paths(launches)
         print(json.dumps(launches))
         return
-    if sys.argv[1:] == ['realesrgan']:   # the Real-ESRGAN degradation and training path alone
-        realesrgan_paths()
+    if sys.argv[1:] in (['realesrgan'], ['faces']):   # a slice without kernels alone
+        realesrgan_paths() if sys.argv[1] == 'realesrgan' else faces_paths()
         print(card)
         print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                                  'kind': torch.cuda.get_device_name(0),
@@ -5756,6 +6177,7 @@ def main():
     cnn_gan_paths(launches)
     recurrent_video_paths(launches)
     realesrgan_paths()
+    faces_paths()
     for name, count in launches.items():
         if count == 0:
             fail(f'{name} was never launched on the main paths')

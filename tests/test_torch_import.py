@@ -24,7 +24,8 @@ def port_modules():
 
 def test_port_imports_without_jax():
     """Every module of the port (the diffusion, video, serving-mode,
-    alignment, CNN / GAN and recurrent-video slices' among them) imports with JAX and the JAX package blocked, and none of them is in
+    alignment, CNN / GAN, recurrent-video and face slices' among them)
+    imports with JAX and the JAX package blocked, and none of them is in
     ``sys.modules`` afterwards."""
     modules = port_modules()
     for expected in ('basicsr4rs_torch.ops.window_attention', 'basicsr4rs_torch.archs.unet_arch',
@@ -65,7 +66,18 @@ def test_port_imports_without_jax():
                      'basicsr4rs_torch.archs.tof_arch', 'basicsr4rs_torch.archs.duf_arch',
                      'basicsr4rs_torch.data.vimeo90k_dataset',
                      'basicsr4rs_torch.inference.inference_basicvsr',
-                     'basicsr4rs_torch.inference.inference_basicvsrpp'):
+                     'basicsr4rs_torch.inference.inference_basicvsrpp',
+                     'basicsr4rs_torch.ops.fused_act', 'basicsr4rs_torch.ops.upfirdn2d',
+                     'basicsr4rs_torch.archs.stylegan2_arch',
+                     'basicsr4rs_torch.archs.stylegan2_bilinear_arch',
+                     'basicsr4rs_torch.data.ffhq_dataset',
+                     'basicsr4rs_torch.models.stylegan2_model',
+                     'basicsr4rs_torch.inference.inference_stylegan2',
+                     'basicsr4rs_torch.archs.hifacegan_util',
+                     'basicsr4rs_torch.archs.hifacegan_arch',
+                     'basicsr4rs_torch.models.hifacegan_model',
+                     'basicsr4rs_torch.archs.dfdnet_util', 'basicsr4rs_torch.archs.dfdnet_arch',
+                     'basicsr4rs_torch.inference.inference_dfdnet'):
         assert expected in modules
     code = ('import importlib, sys\n'
             f'for name in {BLOCKED!r}:\n'
@@ -104,3 +116,79 @@ def test_port_registers_the_recurrent_video_slice(registry, name):
     import basicsr4rs_torch.models  # noqa: F401
     from basicsr4rs_torch.utils import registry as port_registry
     assert getattr(port_registry, registry).get(name).__name__ == name
+
+
+@pytest.mark.parametrize('registry, name', [
+    ('ARCH_REGISTRY', 'StyleGAN2Generator'), ('ARCH_REGISTRY', 'StyleGAN2Discriminator'),
+    ('ARCH_REGISTRY', 'StyleGAN2GeneratorBilinear'), ('ARCH_REGISTRY', 'SPADEGenerator'),
+    ('ARCH_REGISTRY', 'HiFaceGAN'), ('ARCH_REGISTRY', 'HiFaceGANDiscriminator'),
+    ('ARCH_REGISTRY', 'DFDNet'), ('MODEL_REGISTRY', 'StyleGAN2Model'),
+    ('MODEL_REGISTRY', 'HiFaceGANModel'), ('DATASET_REGISTRY', 'FFHQDataset'),
+    ('LOSS_REGISTRY', 'GANFeatLoss')])
+def test_port_registers_the_face_slice(registry, name):
+    """StyleGAN2, HiFaceGAN and DFDNet under the JAX package's names, in both
+    packages' registries."""
+    import basicsr4rs_torch.archs  # noqa: F401
+    import basicsr4rs_torch.data  # noqa: F401
+    import basicsr4rs_torch.losses  # noqa: F401
+    import basicsr4rs_torch.models  # noqa: F401
+    import basicsr4rs_tpu.archs  # noqa: F401
+    import basicsr4rs_tpu.data  # noqa: F401
+    import basicsr4rs_tpu.losses  # noqa: F401
+    import basicsr4rs_tpu.models  # noqa: F401
+    from basicsr4rs_torch.utils import registry as port_registry
+    from basicsr4rs_tpu.utils import registry as jax_registry
+    assert getattr(port_registry, registry).get(name).__name__ == name
+    assert getattr(jax_registry, registry).get(name).__name__ == name
+
+
+# published option files that name a type the port lacks: taming's VQGAN
+# model, and the RS LPIPS metric, which neither package registers
+UNPORTED_OPTION_FILES = {'options/test/taming/test_taming_vqgan8192.yml': ['TamingModel'],
+                         'options/test/SRCNN/test_SRCNN_x4.yml': ['calculate_rs_lpips'],
+                         'options/test/SwinIR/test_SwinIR_x4.yml': ['calculate_rs_lpips']}
+
+
+def _type_names(node):
+    """The ``type`` and ``model_type`` values of an option tree, outside
+    ``io_backend``, the optimizers and the scheduler."""
+    if isinstance(node, dict):
+        for key, value in node.items():
+            if key in ('io_backend', 'scheduler') or key.startswith('optim_'):
+                continue
+            if key in ('type', 'model_type') and isinstance(value, str):
+                yield value
+            else:
+                yield from _type_names(value)
+    elif isinstance(node, list):
+        for value in node:
+            yield from _type_names(value)
+
+
+def test_published_option_files_name_registered_types():
+    """Every published option file (not ``*_synthetic.yml``) names only
+    types of the port's five registries, but the three listed: 86 of 89."""
+    import yaml
+
+    import basicsr4rs_torch.archs  # noqa: F401
+    import basicsr4rs_torch.data  # noqa: F401
+    import basicsr4rs_torch.losses  # noqa: F401
+    import basicsr4rs_torch.metrics  # noqa: F401
+    import basicsr4rs_torch.models  # noqa: F401
+    from basicsr4rs_torch.utils import registry as reg
+    registries = (reg.ARCH_REGISTRY, reg.DATASET_REGISTRY, reg.LOSS_REGISTRY,
+                  reg.MODEL_REGISTRY, reg.METRIC_REGISTRY)
+
+    def known(name):
+        return any(name in r._obj_map for r in registries)
+
+    files = sorted(str(p.relative_to(ROOT)) for p in (ROOT / 'options').rglob('*.yml')
+                   if not p.name.endswith('_synthetic.yml'))
+    missing = {}
+    for path in files:
+        names = sorted({n for n in _type_names(yaml.safe_load((ROOT / path).read_text()))
+                        if not known(n)})
+        if names:
+            missing[path] = names
+    assert missing == UNPORTED_OPTION_FILES
+    assert (len(files), len(files) - len(missing)) == (89, 86)
