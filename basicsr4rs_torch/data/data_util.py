@@ -1,7 +1,7 @@
 """Dataset path helpers (counterpart of ``basicsr4rs_tpu/data/data_util.py``;
-reference: basicsr/data/data_util.py). The folder scan, the LMDB key list,
-the video helpers and DUF's downsampling are ported; the LMDB and
-meta-info-file variants of the image pairs come with their datasets."""
+reference: basicsr/data/data_util.py). The image pairs by folder scan and
+by meta-info file, the LMDB key list, the video helpers and DUF's
+downsampling; the LMDB pairs are not ported yet."""
 
 from __future__ import annotations
 
@@ -66,6 +66,27 @@ def generate_frame_indices(crt_idx: int, max_frame_num: int, num_frames: int,
             pad_idx = i
         indices.append(pad_idx)
     return indices
+
+
+def paired_paths_from_meta_info_file(folders: Sequence[str], keys: Sequence[str],
+                                     meta_info_file: str, filename_tmpl: str) -> List[dict]:
+    """Pair the GT files a meta-info file lists (the first word of each
+    line, relative to the GT folder) with the inputs
+    ``filename_tmpl.format(name).ext``; the files are not looked up."""
+    if len(folders) != 2 or len(keys) != 2:
+        raise ValueError('paired_paths_from_meta_info_file takes [input_folder, gt_folder] '
+                         'and [input_key, gt_key]')
+    input_folder, gt_folder = folders
+    input_key, gt_key = keys
+    with open(meta_info_file, 'r') as fin:
+        gt_names = [line.strip().split(' ')[0] for line in fin]
+    paths = []
+    for gt_name in gt_names:
+        basename, ext = osp.splitext(osp.basename(gt_name))
+        paths.append({f'{input_key}_path': osp.join(input_folder,
+                                                    f'{filename_tmpl.format(basename)}{ext}'),
+                      f'{gt_key}_path': osp.join(gt_folder, gt_name)})
+    return paths
 
 
 def paired_paths_from_folder(folders: Sequence[str], keys: Sequence[str],

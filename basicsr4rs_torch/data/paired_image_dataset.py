@@ -2,11 +2,12 @@
 ``basicsr4rs_tpu/data/paired_image_dataset.py``; reference:
 basicsr/data/paired_image_dataset.py).
 
-Folder mode: each item is the LQ and GT images as CHW float32 RGB tensors in
-[0, 1]. The train phase takes a random aligned crop (``gt_size``) and flips
-and rotates it, drawing from a generator seeded with ``manual_seed``; the
-val/test phases crop the GT to scale x the LQ. The LMDB and meta-info-file
-modes are not ported yet.
+Each item is the LQ and GT images as CHW float32 RGB tensors in [0, 1],
+paired by scanning the two folders, or from the GT names of
+``meta_info_file`` and ``filename_tmpl``. The train phase takes a random
+aligned crop (``gt_size``) and flips and rotates it, drawing from a
+generator seeded with ``manual_seed``; the val/test phases crop the GT to
+scale x the LQ. The LMDB mode is not ported yet.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from ..utils.color_util import bgr2ycbcr
 from ..utils.file_client import FileClient
 from ..utils.img_util import imfrombytes, img2tensor
 from ..utils.registry import DATASET_REGISTRY
-from .data_util import paired_paths_from_folder
+from .data_util import paired_paths_from_folder, paired_paths_from_meta_info_file
 from .transforms import augment, paired_random_crop
 
 
@@ -28,14 +29,18 @@ class PairedImageDataset:
     def __init__(self, opt):
         self.opt = opt
         io_backend_opt = dict(opt.get('io_backend', {'type': 'disk'}))
-        if io_backend_opt['type'] != 'disk' or opt.get('meta_info_file') is not None:
-            raise NotImplementedError('PairedImageDataset: only folder mode on disk is '
-                                      'ported yet')
+        if io_backend_opt['type'] != 'disk':
+            raise NotImplementedError('PairedImageDataset: only the disk backend is ported yet')
         self.file_client = FileClient(io_backend_opt.pop('type'), **io_backend_opt)
         self.mean = opt.get('mean')
         self.std = opt.get('std')
-        self.paths = paired_paths_from_folder([opt['dataroot_lq'], opt['dataroot_gt']],
-                                              ['lq', 'gt'], opt.get('filename_tmpl', '{}'))
+        folders = [opt['dataroot_lq'], opt['dataroot_gt']]
+        filename_tmpl = opt.get('filename_tmpl', '{}')
+        if opt.get('meta_info_file') is not None:
+            self.paths = paired_paths_from_meta_info_file(folders, ['lq', 'gt'],
+                                                          opt['meta_info_file'], filename_tmpl)
+        else:
+            self.paths = paired_paths_from_folder(folders, ['lq', 'gt'], filename_tmpl)
         # per-item random stream, as in the JAX package: one generator, drawn
         # in item order (the loader fetches a batch's items in order)
         self._rng = np.random.default_rng(opt.get('manual_seed'))

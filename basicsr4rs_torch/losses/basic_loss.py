@@ -1,8 +1,8 @@
 """Pixel losses (counterpart of ``basicsr4rs_tpu/losses/basic_loss.py``;
-reference: basicsr/losses/basic_loss.py). ``L1Loss``, ``MSELoss`` and
-``CharbonnierLoss``, and ``GANFeatLoss``, the feature-matching loss of a
-multiscale patch discriminator (HiFaceGAN's); the rest come with the models
-that use them."""
+reference: basicsr/losses/basic_loss.py). ``L1Loss``, ``MSELoss``,
+``CharbonnierLoss``, ``WeightedTVLoss``, and ``GANFeatLoss``, the
+feature-matching loss of a multiscale patch discriminator (HiFaceGAN's); the
+rest come with the models that use them."""
 
 from __future__ import annotations
 
@@ -67,6 +67,26 @@ class CharbonnierLoss(_PixelLoss):
     def forward(self, pred, target, weight=None, **kwargs):
         return self.loss_weight * charbonnier_loss(pred, target, weight, eps=self.eps,
                                                    reduction=self.reduction)
+
+
+@LOSS_REGISTRY.register()
+class WeightedTVLoss(L1Loss):
+    """Total variation as the L1 distance of each pixel to its neighbour
+    below and to its right, each term with the matching part of ``weight``
+    when one is given. NCHW; ``reduction`` 'mean' or 'sum'."""
+
+    def __init__(self, loss_weight: float = 1.0, reduction: str = 'mean'):
+        if reduction not in ('mean', 'sum'):
+            raise ValueError(f'Unsupported reduction mode: {reduction}. '
+                             'Supported ones are: mean | sum')
+        super().__init__(loss_weight=loss_weight, reduction=reduction)
+
+    def forward(self, pred, weight=None, **kwargs):
+        y_weight = None if weight is None else weight[:, :, :-1, :]
+        x_weight = None if weight is None else weight[:, :, :, :-1]
+        y_diff = super().forward(pred[:, :, :-1, :], pred[:, :, 1:, :], weight=y_weight)
+        x_diff = super().forward(pred[:, :, :, :-1], pred[:, :, :, 1:], weight=x_weight)
+        return x_diff + y_diff
 
 
 @LOSS_REGISTRY.register()

@@ -20,7 +20,7 @@ from torch import nn
 
 from ..utils.dist_util import master_only
 from ..utils.logger import get_root_logger
-from . import lr_scheduler
+from . import lr_scheduler, optimizers
 
 # buffers that BasicSR stores and the port computes (per input shape, or as
 # constants: SpyNet's normalisation)
@@ -78,10 +78,17 @@ class BaseModel:
 
     # ------------------------------------------------- optimizers, schedulers
     def get_optimizer(self, optim_type: str, params, lr: float, **kwargs):
-        """The ``torch.optim`` optimizer of that name. torch's ``Adam`` adds
-        ``weight_decay`` to the gradient (L2), which is what the JAX
-        package's Adam composes by hand."""
-        types = ('Adam', 'AdamW', 'Adamax', 'SGD', 'RMSprop')
+        """The optimizer of that name: ``torch.optim``'s, or ``Adafactor`` and
+        ``Lamb`` of ``optimizers.py``. torch's ``Adam`` adds ``weight_decay``
+        to the gradient (L2), which is what the JAX package's Adam composes
+        by hand. As in the JAX package, Adafactor takes the rate alone, and
+        Lamb ``betas``, ``eps`` and ``weight_decay``."""
+        if optim_type == 'Adafactor':
+            return optimizers.Adafactor(params, lr)
+        if optim_type == 'Lamb':
+            return optimizers.Lamb(params, lr, **{k: kwargs[k] for k in (
+                'betas', 'eps', 'weight_decay') if k in kwargs})
+        types = ('Adam', 'AdamW', 'Adamax', 'SGD', 'RMSprop', 'Adafactor', 'Lamb')
         if optim_type not in types:
             raise NotImplementedError(f'optimizer {optim_type} is not supported yet; '
                                       f'supported: {types}')
@@ -129,6 +136,20 @@ class BaseModel:
         return [group['lr'] for group in self.optimizers[0].param_groups]
 
     # ------------------------------------------------------------------- EMA
+    def start_ema(self):
+        """The weights ``net_g_ema`` starts from. A fine-tune or a fresh run
+        starts it as a copy of ``net_g``, the weights loaded under
+        ``param_key_g``, as the JAX package does: a checkpoint's own
+        ``params_ema`` is not read then. A resumed run reads ``params_ema``
+        of the resumed checkpoint, where the JAX package restores its EMA
+        with the training state."""
+        path_opt = self.opt['path']
+        if path_opt.get('resume_state') and path_opt.get('pretrain_network_g') is not None:
+            self.load_network(self.net_g_ema, path_opt['pretrain_network_g'],
+                              path_opt.get('strict_load_g', True), 'params_ema')
+        else:
+            self.net_g_ema.load_state_dict(self.net_g.state_dict())
+
     @torch.no_grad()
     def model_ema(self, decay: float = 0.999):
         """``net_g_ema = decay * net_g_ema + (1 - decay) * net_g``, parameters

@@ -5,7 +5,10 @@ Builds ``network_g`` on the model's device and loads ``pretrain_network_g``.
 Training: pixel loss, one optimizer with its scheduler, an EMA copy of the
 network (``net_g_ema``) that validation and the saved ``params_ema`` use.
 Validation: each item of the loader is one request, run forward under
-``torch.inference_mode()``, scored with the configured metrics and saved.
+``torch.inference_mode()``, scored with the configured metrics and saved;
+a metric whose type ends in ``_pt`` or ``_jax`` (``calculate_psnr_pt``) is
+computed on the device from the output and the GT tensors, the others on
+the host from their 8-bit images.
 ``val.quant_int8: true | 'static'`` runs the evaluation forward as W8A8
 (``ops/quant.py``): dynamic activation scales, or scales calibrated on the
 first evaluation batch and static from then on.
@@ -90,19 +93,13 @@ class SRModel(BaseModel):
 
     def _init_ema(self):
         """``net_g_ema``, when ``train.ema_decay`` > 0: a second network, used
-        only for testing and saving; it starts as the pretrained ``params_ema``
-        when there is one, else as a copy of ``net_g``."""
+        only for testing and saving (``BaseModel.start_ema``)."""
         self.ema_decay = self.opt['train'].get('ema_decay', 0)
         if self.ema_decay > 0:
             get_root_logger().info(
                 f'Use Exponential Moving Average with decay: {self.ema_decay}')
             self.net_g_ema = build_network(self.opt['network_g']).to(self.device)
-            load_path = self.opt['path'].get('pretrain_network_g')
-            if load_path is not None:
-                self.load_network(self.net_g_ema, load_path,
-                                  self.opt['path'].get('strict_load_g', True), 'params_ema')
-            else:
-                self.net_g_ema.load_state_dict(self.net_g.state_dict())
+            self.start_ema()
             self.net_g_ema.eval()
 
     def lr_multiplier(self, name: str) -> float:
@@ -290,8 +287,10 @@ class SRModel(BaseModel):
 
             visuals = self.get_current_visuals()
             metric_data = {'img': tensor2img(visuals['result'])}
+            device_data = {'img': self.output}
             if 'gt' in visuals:
                 metric_data['img2'] = tensor2img(visuals['gt'])
+                device_data['img2'] = self.gt
                 del self.gt
 
             if save_img:
@@ -306,7 +305,10 @@ class SRModel(BaseModel):
 
             if with_metrics:
                 for name, opt_ in val_opt['metrics'].items():
-                    self.metric_results[name] += calculate_metric(metric_data, opt_)
+                    # the device variants take the output and the GT where they are
+                    on_device = str(opt_.get('type', '')).endswith(('_pt', '_jax'))
+                    self.metric_results[name] += calculate_metric(
+                        device_data if on_device else metric_data, opt_)
             cnt += 1
 
         if with_metrics and cnt > 0:

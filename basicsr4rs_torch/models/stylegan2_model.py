@@ -81,11 +81,7 @@ class StyleGAN2Model(BaseModel):
                               path_opt.get('strict_load_d', True),
                               path_opt.get('param_key_d', 'params'))
         self.net_g_ema = build_network(self.opt['network_g']).to(self.device)
-        if path_opt.get('pretrain_network_g') is not None:
-            self.load_network(self.net_g_ema, path_opt['pretrain_network_g'],
-                              path_opt.get('strict_load_g', True), 'params_ema')
-        else:
-            self.net_g_ema.load_state_dict(self.net_g.state_dict())
+        self.start_ema()
         self.net_g_ema.eval().requires_grad_(False)
         self.net_g.train()
         self.net_d.train()

@@ -1,11 +1,13 @@
 """Color-space conversions with MATLAB (ITU-R BT.601) coefficients
 (counterpart of ``basicsr4rs_tpu/utils/color_util.py``; reference:
 basicsr/utils/color_util.py). They feed the Y-channel PSNR/SSIM protocol,
-so coefficients and rounding match MATLAB's ``rgb2ycbcr``. numpy, float64."""
+so coefficients and rounding match MATLAB's ``rgb2ycbcr``. numpy, float64;
+``rgb2ycbcr_pt`` on tensors, for the device metrics."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 # MATLAB rgb2ycbcr matrix, indexed [rgb_channel, ycbcr_channel]: input in
 # [0, 1], output in [0, 255] before the range is restored.
@@ -65,3 +67,15 @@ def ycbcr2rgb(img: np.ndarray) -> np.ndarray:
 
 def ycbcr2bgr(img: np.ndarray) -> np.ndarray:
     return ycbcr2rgb(img)[..., ::-1]
+
+
+def rgb2ycbcr_pt(img: torch.Tensor, y_only: bool = False) -> torch.Tensor:
+    """RGB -> YCbCr (or Y only) of NCHW tensors in [0, 1], in [0, 1], in the
+    tensor's dtype and on its device."""
+    weights = torch.as_tensor(_YCBCR_WEIGHTS, dtype=img.dtype, device=img.device)
+    if y_only:
+        out = torch.einsum('nchw,c->nhw', img, weights[:, 0])[:, None] + 16.0
+    else:
+        bias = torch.as_tensor(_YCBCR_BIAS, dtype=img.dtype, device=img.device)
+        out = torch.einsum('nchw,cd->ndhw', img, weights) + bias[:, None, None]
+    return out / 255.

@@ -128,7 +128,7 @@ nonzero exit code and no result line:
     ``options/train/BasicVSRPP/
     train_BasicVSRPP_x4_synthetic.yml``: ``REDSRecurrentDataset``, batch 1 of
     30 frames, 462 forward and 461 backward launches a step, SpyNet frozen
-    before iteration 4);
+    before iteration 4; one request and one step by kernel);
 17. serves SwinIR-M x4 through ``basicsr4rs_torch.test`` again with
     ``SWIN_FUSED_CONV=1``: 10 launches of the convolution kernel a forward,
     outputs against the cuDNN route, latency of both routes;
@@ -247,11 +247,11 @@ nonzero exit code and no result line:
 37 to 46. the recurrent video models at the published widths on synthetic
     data and seed-0 weights (phase 3h holds the sampler's kernels at their
     shapes first): BasicVSR and IconVSR served through
-    ``basicsr4rs_torch.test`` on a 30-frame clip of 180x320 (37, 38; 38b by
-    kernel group), IconVSR and EDVR-L on Vimeo90K septuplets (39, 40),
-    BasicVSR trained on REDS and IconVSR on Vimeo90K through
-    ``basicsr4rs_torch.train`` across ``fix_flow`` (41, 42; 42b by kernel
-    group; 41c, 42c one batch's gradients against the plain sampler), the
+    ``basicsr4rs_torch.test`` on a 30-frame clip of 180x320 (37, 38),
+    IconVSR and EDVR-L on Vimeo90K septuplets (39, 40), BasicVSR trained on
+    REDS and IconVSR on Vimeo90K through ``basicsr4rs_torch.train`` across
+    ``fix_flow`` (41, 42; 41c, 42c one batch's gradients against the plain
+    sampler), the
     video GAN (43), TOFlow and DUF served (44, 45), and
     ``inference_basicvsr`` and ``inference_basicvsrpp`` against
     ``test.py``'s images (46); each request's and step's sampler launches
@@ -270,13 +270,29 @@ nonzero exit code and no result line:
     through both test files (52a, 52b); DFDNet (64 features) on a 512x512
     face through ``inference_dfdnet``, the card against the CPU with the
     entries each part selected (53); 52a and 53b trace a request by kernel.
+54 to 58. the FID / taming slice (no kernel): ``TamingModel`` built from
+    ``options/test/taming/test_taming_vqgan8192_synthetic.yml`` (the
+    published VQGAN: 4 bands, ch 128, 8192 codes; seed-0 weights it writes)
+    validated on 4 items of the taco layout at GT 256 (PSNR, SSIM, the two
+    RS NIQE scores, CSV, band PNGs), latency, device time and memory, one
+    item against the CPU stage by stage with the share of codes that agree
+    (54); the FID InceptionV3 (random weights in pytorch-fid's layout) on two
+    sets of 32 images at 299 on the card and the CPU, images a second,
+    ``calculate_fid`` from each (55); ``calculate_psnr_pt`` and
+    ``calculate_ssim_pt`` through SwinIR-M's validation route and item by
+    item against the host metrics on the same images, seconds of each route
+    (56); MSRResNet x4 trained 4 steps with Adafactor and with Lamb on the
+    card and the CPU, and Adafactor's factored route on a 256 -> 256
+    convolution (57); the EMA of a fine-tune start from a ``.pth`` whose
+    ``params`` and ``params_ema`` differ, and of a resumed run (58).
 
 ``python3 chip_smoke.py kernels`` stops after phase 3; ``python3 chip_smoke.py
 serving`` runs phases 3a, 3e, 3g, 3f, 4, 4b and 17 to 22 alone; ``python3
 chip_smoke.py cnn`` runs phases 3g and 32 to 36 alone; ``python3 chip_smoke.py
 video`` runs phases 3h and 37 to 46 alone; ``python3 chip_smoke.py
-realesrgan`` phases 47 to 49 and ``python3 chip_smoke.py faces`` phases 50
-to 53, each ending with the same last line. The line before the
+realesrgan`` phases 47 to 49, ``python3 chip_smoke.py faces`` phases 50
+to 53 and ``python3 chip_smoke.py taming`` phases 54 to 58, each ending with
+the same last line. The line before the
 last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -290,6 +306,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 from unittest import mock
 
 import torch
@@ -3250,7 +3267,8 @@ VIDEO = {
         # SpyNet's first warp has a zero flow and an input image: no backward
         forward_launches=basicvsrpp_launches, backward_skipped=1, train_frames=30,
         boundary_key='fix_flow', frozen=('spynet.basic_module.5.basic_module.0.weight',),
-        free='conv_last.weight', all_frames=True, memory_stages=basicvsrpp_memory_stages),
+        free='conv_last.weight', all_frames=True, memory_stages=basicvsrpp_memory_stages,
+        profiled=1),   # one request and one step profiled: the run's time limit
 }
 
 
@@ -3315,7 +3333,7 @@ RECURRENT = {
     'IconVSR': dict(
         BASICVSR_REDS, test_config='options/test/BasicVSR/test_IconVSR_REDS_synthetic.yml',
         forward_launches=iconvsr_launches(dict(keyframe_stride=5, temporal_padding=2)),
-        profiled=1),
+        profiled=0),
     'IconVSR Vimeo90K': dict(
         test_config='options/test/BasicVSR/test_IconVSR_Vimeo90K_BIx4_synthetic.yml',
         train_config='options/train/BasicVSR/train_IconVSR_Vimeo90K_BIx4_synthetic.yml',
@@ -3325,7 +3343,7 @@ RECURRENT = {
         backward_skipped=1, train_frames=14, boundary_key='fix_flow',
         frozen=('spynet.basic_module.5.basic_module.0.weight', 'edvr.conv_first.weight',
                 'edvr.pcd_align.dcn_pack.l1.weight'), free='conv_last.weight', resume=False,
-        profiled=0, profiled_steps=1, warm=False, gradients='network',
+        profiled=0, warm=False, gradients='network',
         saved=1),   # the two septuplets' centre frames share a name
     'EDVR-L Vimeo90K': dict(
         test_config='options/test/EDVR/test_EDVR_L_x4_SR_Vimeo90K_synthetic.yml',
@@ -6063,6 +6081,446 @@ def faces_paths():
           f'{t2 - t1:.1f}, 53 {time.perf_counter() - t2:.1f})')
 
 
+TAMING_CONFIG = 'options/test/taming/test_taming_vqgan8192_synthetic.yml'
+TAMING_ITEMS = 4
+TAMING_CODE_SHARE = 0.99   # the least share of latent positions whose code card and CPU agree on
+TAMING_TOLERANCE = 1e-4    # the encoder's latents and the decoder's output, of their largest
+FID_WEIGHTS = 'results/chip_smoke/pt_inception-random.pth'
+FID_IMAGES, FID_BATCH = 32, 16
+FEATURE_TOLERANCE = 1e-4   # card against CPU, of the largest feature (float32, TF32 off)
+# device metrics against the host's on the same 8-bit images: float32 on [0, 1]
+# against float64 on [0, 255]. SSIM's E[x^2] - mu^2 cancels in float32: on
+# random-weight outputs (SSIM near 0.14) it reads 1.2e-5 off on the CPU and
+# 1.5e-5 on an NVIDIA H100 80GB HBM3 at 700 W
+METRIC_TOLERANCE = {'psnr': 1e-3, 'ssim': 1e-4}
+OPTIM_STEPS = 4
+OPTIM_BATCH, OPTIM_GT = 4, 64
+# the share of parameter entries whose change after OPTIM_STEPS card and CPU
+# agree on to 1e-3 of the tensor's largest change: Adafactor's first update of
+# an unfactored tensor is the gradient's sign, which float32 flips near 0
+OPTIM_AGREEMENT = 0.999
+
+
+class ItemLoader:
+    """A validation loader of items made in memory (batch 1, in order), as
+    ``build_dataloader`` gives a dataset's."""
+
+    def __init__(self, name, items):
+        self.dataset = types.SimpleNamespace(opt={'name': name})
+        self.items = items
+
+    def __iter__(self):
+        return iter(self.items)
+
+
+def build_test_model(config):
+    """The model of a test option file, as ``test.py`` builds it (the
+    options parsed, the result folders made)."""
+    import argparse
+
+    from basicsr4rs_torch.models import build_model
+    from basicsr4rs_torch.utils import make_exp_dirs
+    from basicsr4rs_torch.utils.options import parse_options
+    args = argparse.Namespace(opt=config, force_yml=None, debug=False, auto_resume=False)
+    opt, _ = parse_options(ROOT, is_train=False, args=args)
+    opt['root_path'] = ROOT
+    make_exp_dirs(opt)
+    return build_model(opt)
+
+
+def write_taming_weights(opt):
+    """The seed-0 random VQGAN of the config at its widths, the codebook
+    spread over [-1, 1] as in ``random_resshift_weights``, saved as a bare
+    state_dict (``param_key_g: null``); returns it on the CPU."""
+    from basicsr4rs_torch.archs.autoencoder_arch import VQModelTorch
+    gen = torch.Generator().manual_seed(0)
+    net = VQModelTorch(**net_options(opt), generator=gen)
+    with torch.no_grad():
+        net.quantize.embedding.weight.uniform_(-1., 1., generator=gen)
+    path = opt['path']['pretrain_network_g']
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save(net.state_dict(), path)
+    return net.eval()
+
+
+def taco_items(rng, n, gt_size, bands):
+    """Items as ``TacoDataset`` gives them: smooth random reflectances in
+    [0, 3000] of ``bands`` bands, over 3000 into [-1, 1]; the LQ the GT's
+    x4 area downscale; batch 1."""
+    import numpy as np
+    items = []
+    for i in range(n):
+        refl = np.concatenate([smooth_image(rng, gt_size, gt_size)
+                               for _ in range(-(-bands // 3))], axis=2)[..., :bands]
+        gt = torch.from_numpy(refl.transpose(2, 0, 1).astype(np.float32) / 255. * 3000)[None]
+        gt = gt / 3000 * 2 - 1
+        name = [f'S2N_synthetic_{i:02d}.taco']
+        items.append({'lq': torch.nn.functional.avg_pool2d(gt, SCALE), 'gt': gt,
+                      'lq_path': name, 'gt_path': name})
+    return items
+
+
+def serve_taming():
+    """Phase 54: TamingModel at the published widths on the card, its
+    validation over items of the taco layout, request latency, device time
+    and memory; one item against the same network on the CPU, stage by
+    stage."""
+    import numpy as np
+
+    from basicsr4rs_torch.utils.options import yaml_load
+    opt = yaml_load(TAMING_CONFIG)
+    dd, gt_size = opt['network_g']['ddconfig'], opt['datasets']['test_1']['gt_size']
+    phase(f'54. TamingModel through its validation on cuda:0 ({opt["network_g"]["type"]} as '
+          f'published: {dd["in_channels"]} bands, ch {dd["ch"]}, ch_mult {dd["ch_mult"]}, '
+          f'{opt["network_g"]["n_embed"]} codes of {opt["network_g"]["embed_dim"]}; '
+          f'{TAMING_ITEMS} items of the taco layout at GT {gt_size}; no TPU kernel on this path)')
+    cpu_net = write_taming_weights(opt)
+    items = taco_items(np.random.RandomState(54), TAMING_ITEMS, gt_size, dd['in_channels'])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_test_model(TAMING_CONFIG)
+    name = opt['datasets']['test_1']['name']
+    model.validation(ItemLoader(name, items), current_iter=model.opt['name'], tb_logger=None,
+                     save_img=model.opt['val']['save_img'])
+    torch.cuda.synchronize()
+    print(f'model build and validation of {TAMING_ITEMS} items (metrics, CSV, band PNGs): '
+          f'{time.perf_counter() - t0:.3f} s')
+    if model.device.type != 'cuda':
+        fail(f'the model ran on {model.device}')
+    for metric, value in model.metric_results.items():
+        print(f'{metric}: {value:.4f} (random weights)')
+        if not np.isfinite(value):
+            fail(f'{metric} is not finite')
+    vis = model.opt['path']['visualization']
+    with open(os.path.join(vis, f'{name}_{model.opt["name"]}.csv')) as f:
+        rows = f.read().splitlines()
+    saved = {sub: len(os.listdir(os.path.join(vis, sub, name))) for sub in ('RGB', 'NIR')}
+    print(f'CSV rows {len(rows) - 1}, saved image folders {saved}')
+    if len(rows) != TAMING_ITEMS + 1 or saved != {'RGB': TAMING_ITEMS, 'NIR': TAMING_ITEMS}:
+        fail('the validation wrote the wrong rows or images')
+
+    latencies = request_latencies(model, items, lambda item: item['gt'].shape)
+    print(f'request latency (GT {gt_size}x{gt_size}x{dd["in_channels"]} through the '
+          f'autoencoder): {" ".join(f"{ms:.3f}" for ms in latencies)} ms, mean '
+          f'{sum(latencies) / len(latencies):.3f}; peak device memory '
+          f'{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB')
+    busy, by_name, _ = trace_device_ms(model.test, 'taming_request_trace.json')
+    print(f'device time of a request {busy:.3f} ms, {sum(n for _, n in by_name.values())} '
+          f'launches; the longest: {longest_kernels(by_name, 3)}')
+
+    net = model.net_g
+    x = items[0]['gt']
+    with torch.no_grad():
+        h_card, h_cpu = net.encode(x.cuda()), cpu_net.encode(x)
+        codes_card = net.quantize(h_card)[2].cpu()
+        codes_cpu = cpu_net.quantize(h_cpu)[2]
+        quant_card = net.quantize(h_card)[0]
+        out_card = net.decode(quant_card, force_not_quantize=True)
+        out_cpu = cpu_net.decode(quant_card.cpu(), force_not_quantize=True)
+        whole = (net(x.cuda()).cpu() - cpu_net(x)).abs()
+    share = (codes_card == codes_cpu).float().mean().item()
+    h_err = ((h_card.cpu() - h_cpu).abs().max() / h_cpu.abs().max()).item()
+    out_err = ((out_card.cpu() - out_cpu).abs().max() / out_cpu.abs().max()).item()
+    print(f'card against the CPU, one item: encoder latents {h_err:.3e} of the largest; '
+          f'{100 * share:.3f}% of the {codes_cpu.numel()} latent positions pick the same of '
+          f'the {net.quantize.n_e} codes; the decoder on the card\'s codes {out_err:.3e} of '
+          f'the largest output; end to end max |err| {whole.max().item():.3e}, '
+          f'{100 * (whole > 1e-3).float().mean().item():.3f}% of the values past 1e-3')
+    if h_err > TAMING_TOLERANCE or out_err > TAMING_TOLERANCE or share < TAMING_CODE_SHARE:
+        fail('the autoencoder differs between the card and the CPU')
+    del model
+
+
+def random_inception_weights(path, seed=0):
+    """pytorch-fid's keys, its classifier among them, with He-scaled
+    convolutions and BatchNorms near the identity (block 3 stays of order
+    one): a stand-in for pt_inception-2015-12-05, not in the repository."""
+    import numpy as np
+
+    from basicsr4rs_torch.archs.inception import InceptionV3
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for key, value in InceptionV3().state_dict().items():
+        shape = tuple(value.shape)
+        if key.endswith('num_batches_tracked'):
+            sd[key] = value
+            continue
+        if key.endswith('conv.weight'):
+            arr = rng.standard_normal(shape) * np.sqrt(2. / np.prod(shape[1:]))
+        elif key.endswith(('bn.weight', 'running_var')):
+            arr = rng.uniform(0.8, 1.2, shape)
+        else:
+            arr = rng.uniform(-0.1, 0.1, shape)
+        sd[key] = torch.from_numpy(arr.astype(np.float32))
+    sd['fc.weight'] = torch.from_numpy(rng.standard_normal((1008, 2048)).astype(np.float32))
+    sd['fc.bias'] = torch.zeros(1008)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save(sd, path)
+
+
+def fid_on_the_card():
+    """Phase 55: the FID InceptionV3's features of two sets of images on
+    the card and on the CPU, and the FID of the two sets from each."""
+    import numpy as np
+
+    from basicsr4rs_torch.metrics.fid import (calculate_fid, calculate_stats,
+                                              extract_inception_features,
+                                              load_patched_inception_v3)
+    phase(f'55. FID: InceptionV3 (the FID variant; random weights in pytorch-fid\'s layout) '
+          f'features of 2 sets of {FID_IMAGES} images at 299x299 on cuda:0 and on the CPU, '
+          f'calculate_fid from each (no TPU kernel on this path)')
+    random_inception_weights(FID_WEIGHTS)
+    card, cpu = (load_patched_inception_v3(FID_WEIGHTS, device=d) for d in ('cuda', 'cpu'))
+    rng = np.random.RandomState(55)
+    sets = [np.stack([smooth_image(rng, 299, 299).transpose(2, 0, 1)
+                      for _ in range(FID_IMAGES)]).astype(np.float32) / 127.5 - 1
+            for _ in range(2)]
+
+    def batches(images):
+        return (images[i:i + FID_BATCH] for i in range(0, len(images), FID_BATCH))
+
+    extract_inception_features(batches(sets[0][:FID_BATCH]), card)   # warm-up
+    t0 = time.perf_counter()
+    feats_card = [extract_inception_features(batches(s), card) for s in sets]
+    card_s = time.perf_counter() - t0   # each batch's features are read back to the host
+    t0 = time.perf_counter()
+    feats_cpu = [extract_inception_features(batches(s), cpu) for s in sets]
+    cpu_s = time.perf_counter() - t0
+    n = 2 * FID_IMAGES
+    err = max(np.abs(a - b).max() / np.abs(b).max() for a, b in zip(feats_card, feats_cpu))
+    print(f'features ({n} images in batches of {FID_BATCH}): the card {n / card_s:.1f} images/s '
+          f'({1e3 * card_s:.1f} ms), the CPU {n / cpu_s:.1f} images/s; card against CPU '
+          f'{err:.3e} of the largest feature (tolerance {FEATURE_TOLERANCE}); features '
+          f'{feats_card[0].shape}, largest {np.abs(feats_cpu[0]).max():.3f}')
+    if err > FEATURE_TOLERANCE or feats_card[0].shape != (FID_IMAGES, 2048):
+        fail('the InceptionV3 features differ between the card and the CPU')
+    fids = []
+    for where, feats in (('card', feats_card), ('CPU', feats_cpu)):
+        t0 = time.perf_counter()
+        fids.append(calculate_fid(*calculate_stats(feats[0]), *calculate_stats(feats[1])))
+        print(f'FID of the two sets from the {where}\'s features: {fids[-1]:.6f} '
+              f'({time.perf_counter() - t0:.2f} s on the host, scipy sqrtm of 2048 x 2048)')
+    if not all(np.isfinite(fids)) or abs(fids[0] - fids[1]) > 1e-3 * abs(fids[1]):
+        fail(f'FID {fids}')
+
+
+def device_metrics():
+    """Phase 56: the device PSNR / SSIM through SwinIR-M's validation route,
+    then item by item against the host metrics on the same images."""
+    import numpy as np
+
+    from basicsr4rs_torch.metrics import psnr_ssim
+    from basicsr4rs_torch.utils.img_util import tensor2img
+    from basicsr4rs_torch.utils.options import yaml_load
+    from basicsr4rs_torch.utils.registry import METRIC_REGISTRY
+    phase('56. device PSNR / SSIM (calculate_psnr_pt, calculate_ssim_pt) on SwinIR-M x4 '
+          'validation outputs (LQ 128x128, 96x160, 125x94, 64x64) against the host metrics on '
+          'the same images')
+    if not os.path.exists(WEIGHTS):
+        write_inputs()
+    seen = []
+
+    def spy(fn):
+        return lambda **kw: seen.append((kw['img'].device, kw['img2'].device)) or fn(**kw)
+    with mock.patch.dict(METRIC_REGISTRY._obj_map, {
+            name: spy(getattr(psnr_ssim, name))
+            for name in ('calculate_psnr_pt', 'calculate_ssim_pt')}):
+        model = run_test_pipeline(CONFIG, [
+            '--force_yml', 'name=test_SwinIR_M_x4_synthetic_device_metrics',
+            'val:save_img=false', 'val:metrics:psnr:type=calculate_psnr_pt',
+            'val:metrics:ssim:type=calculate_ssim_pt'])
+    devices = {d.type for pair in seen for d in pair}
+    results = ', '.join(f'{k} {v:.4f}' for k, v in model.metric_results.items())
+    print(f'validation on the device route: {results} (random weights); {len(seen)} metric '
+          f'calls on {devices}')
+    if devices != {'cuda'} or len(seen) != 2 * len(LQ_SIZES):
+        fail('the validation did not hand the device metrics the tensors on the card')
+
+    opts = {k: {o: v for o, v in m.items() if o != 'type'}
+            for k, m in yaml_load(CONFIG)['val']['metrics'].items()}
+    host = {'psnr': psnr_ssim.calculate_psnr, 'ssim': psnr_ssim.calculate_ssim}
+    dev = {'psnr': psnr_ssim.calculate_psnr_pt, 'ssim': psnr_ssim.calculate_ssim_pt}
+    times = {'host': [], 'device': []}
+    for item, (h, w) in zip(model_loader(model), LQ_SIZES):
+        model.feed_data(item)
+        model.test()
+        out, gt = model.output, model.gt
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_img, gt_img = tensor2img(out.detach().cpu()), tensor2img(gt.detach().cpu())
+        on_host = {k: host[k](out_img, gt_img, **opts[k]) for k in host}
+        times['host'].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        on_device = {k: dev[k](out, gt, **opts[k]) for k in dev}
+        times['device'].append(time.perf_counter() - t0)
+        as_u8 = [torch.from_numpy(np.ascontiguousarray(i.transpose(2, 0, 1))).cuda()
+                 for i in (out_img, gt_img)]
+        u8 = {k: dev[k](*as_u8, **opts[k]) for k in dev}
+        plain = {k: dev[k](out.cpu(), gt.cpu(), **opts[k]) for k in dev}
+        print(f'LQ {h}x{w}: host ' + ', '.join(f'{k} {v:.6f}' for k, v in on_host.items())
+              + f' in {1e3 * times["host"][-1]:.1f} ms; device on the float output '
+              + ', '.join(f'{k} {v:.6f}' for k, v in on_device.items())
+              + f' in {1e3 * times["device"][-1]:.1f} ms; device on the 8-bit images '
+              + ', '.join(f'{k} {u8[k] - on_host[k]:+.2e}' for k in u8) + ' from the host')
+        for k in dev:
+            if abs(u8[k] - on_host[k]) > METRIC_TOLERANCE[k]:
+                fail(f'{k} on the card differs from the host metric on the same images')
+            if abs(plain[k] - on_device[k]) > METRIC_TOLERANCE[k]:
+                fail(f'{k} on the card differs from the same function on the CPU')
+    print(f'a validation item\'s two metrics, items 2 to {len(LQ_SIZES)}: host route (8-bit '
+          f'images, then numpy and cv2) {1e3 * np.mean(times["host"][1:]):.1f} ms, device '
+          f'route {1e3 * np.mean(times["device"][1:]):.1f} ms')
+    del model
+
+
+def msrresnet_opt(init_path, optim_g, num_gpu, root, ema_decay=0.999):
+    """SRModel training options of ``train_MSRResNet_x4_synthetic.yml``'s
+    network, scheduler and loss, from ``init_path``, with ``optim_g``."""
+    from basicsr4rs_torch.utils.options import yaml_load
+    base = yaml_load(MS_TRAIN_CONFIG)
+    return {'name': 'optim', 'model_type': 'SRModel', 'scale': SCALE, 'num_gpu': num_gpu,
+            'manual_seed': 0, 'is_train': True, 'dist': False, 'rank': 0, 'world_size': 1,
+            'network_g': dict(base['network_g']),
+            'path': {'pretrain_network_g': init_path, 'strict_load_g': True,
+                     'models': os.path.join(root, 'models'),
+                     'training_states': os.path.join(root, 'states')},
+            'train': dict(base['train'], ema_decay=ema_decay, optim_g=optim_g), 'val': {}}
+
+
+def write_two_sets(path):
+    """A ``.pth`` of MSRResNet x4 whose ``params`` and ``params_ema`` are two
+    different seeded random sets; returns them."""
+    from basicsr4rs_torch.archs.srresnet_arch import MSRResNet
+    from basicsr4rs_torch.utils.options import yaml_load
+    sets = []
+    for seed in (57, 58):
+        torch.manual_seed(seed)
+        sets.append(MSRResNet(**net_options(yaml_load(MS_TRAIN_CONFIG))).state_dict())
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save({'params': sets[0], 'params_ema': sets[1]}, path)
+    return sets
+
+
+def train_with_optimizers(init_path):
+    """Phase 57: MSRResNet x4 trained a few steps with Adafactor and with
+    Lamb on the card and on the CPU from the same weights and batches; and
+    Adafactor's factored route on a 256 -> 256 convolution."""
+    import numpy as np
+
+    from basicsr4rs_torch.models import build_model
+    from basicsr4rs_torch.models.optimizers import Adafactor, factored_dims
+    phase(f'57. MSRResNet x4 (64 x 16) {OPTIM_STEPS} steps with Adafactor and with Lamb on '
+          f'cuda:0 against the same steps on the CPU (batch {OPTIM_BATCH}, GT {OPTIM_GT}; no '
+          'TPU kernel on this path)')
+    rng = np.random.RandomState(57)
+    batches = []
+    for _ in range(OPTIM_STEPS):
+        gt = np.stack([smooth_image(rng, OPTIM_GT, OPTIM_GT) for _ in range(OPTIM_BATCH)])
+        gt = torch.from_numpy(gt.transpose(0, 3, 1, 2).astype(np.float32) / 255.)
+        batches.append({'gt': gt, 'lq': torch.nn.functional.interpolate(
+            gt, scale_factor=1 / SCALE, mode='bicubic', align_corners=False)})
+    # Lamb at eps 1e-3: at 1e-8 its first update is the gradient's sign too
+    for optim_g in ({'type': 'Adafactor', 'lr': 2e-4},
+                    {'type': 'Lamb', 'lr': 2e-4, 'betas': [0.9, 0.99], 'eps': 1e-3,
+                     'weight_decay': 1e-4}):
+        runs = {}
+        for where, num_gpu in (('card', 1), ('CPU', 0)):
+            model = build_model(msrresnet_opt(init_path, optim_g, num_gpu,
+                                              os.path.join(PROFILE_DIR, 'optim')))
+            if type(model.optimizer_g).__name__ != optim_g['type']:
+                fail(f'the model built {type(model.optimizer_g).__name__}')
+            losses, ms = [], []
+            for it, batch in enumerate(batches, start=1):
+                model.update_learning_rate(it)
+                model.feed_data(batch)
+                start = time.perf_counter()
+                model.optimize_parameters(it)
+                losses.append(model.get_current_log()['l_pix'])   # reads the loss: a sync
+                ms.append(1e3 * (time.perf_counter() - start))
+            runs[where] = (losses, {k: v.detach().cpu() for k, v in
+                                    model.net_g.state_dict().items()}, ms)
+        init = torch.load(init_path, weights_only=True)['params']
+        (loss_k, params_k, ms_k), (loss_c, params_c, _) = runs['card'], runs['CPU']
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(loss_k, loss_c))
+        agree, total, worst, still = 0, 0, 0., []
+        for key, want in params_c.items():
+            change = (want - init[key]).abs().max().item()
+            off = (params_k[key] - want).abs()
+            agree += (off <= 1e-3 * change + 1e-7).sum().item()
+            total += off.numel()
+            worst = max(worst, off.max().item() / max(change, 1e-30))
+            if change == 0:
+                still.append(key)
+        print(f'{optim_g["type"]}: losses on the card {" ".join(f"{v:.6f}" for v in loss_k)}, '
+              f'{loss_err:.2e} relative from the CPU\'s; {100 * agree / total:.4f}% of the '
+              f'{total} parameter entries within 1e-3 of their tensor\'s largest change '
+              f'(worst {worst:.2e} of it); step {np.mean(ms_k[1:]):.2f} ms on the card')
+        if loss_err > 1e-4 or agree < OPTIM_AGREEMENT * total or still:
+            fail(f'{optim_g["type"]}: the card and the CPU trained apart, or {still} did not move')
+    # the factored route (two dimensions of at least 128), three steps
+    gen = torch.Generator().manual_seed(5)
+    w = torch.randn(256, 256, 3, 3, generator=gen) * 0.02
+    params = [w.clone().cuda().requires_grad_(), w.clone().requires_grad_()]
+    opts = [Adafactor([p], 1e-2) for p in params]
+    for _ in range(3):
+        g = torch.randn(w.shape, generator=gen)
+        for p, opt in zip(params, opts):
+            p.grad = g.to(p.device)
+            opt.step()
+    change = (params[1] - w).abs().max().item()
+    err = (params[0].detach().cpu() - params[1].detach()).abs().max().item()
+    print(f'Adafactor on a 256 -> 256 3x3 convolution (factored over dims '
+          f'{factored_dims(w.shape, 128)}), 3 steps: card against CPU {err:.2e}, '
+          f'{err / change:.2e} of the change')
+    if err > 1e-4 * change:
+        fail('Adafactor\'s factored route differs between the card and the CPU')
+
+
+def ema_start(init_path, sets):
+    """Phase 58 (F8): a fine-tune start from a ``.pth`` whose ``params`` and
+    ``params_ema`` differ starts the EMA at ``params``; a resumed one at
+    ``params_ema``."""
+    from basicsr4rs_torch.models import build_model
+    phase('58. the EMA of a fine-tune start (F8): SRModel (MSRResNet x4) on cuda:0 from a '
+          '.pth whose params and params_ema differ')
+    optim_g = {'type': 'Adam', 'lr': 2e-4}
+    root = os.path.join(PROFILE_DIR, 'ema_start')
+    started = build_model(msrresnet_opt(init_path, optim_g, 1, root))
+    resumed_opt = msrresnet_opt(init_path, optim_g, 1, root)
+    resumed_opt['path']['resume_state'] = os.path.join(root, 'states', '1.state')
+    resumed = build_model(resumed_opt)
+    for model, want, other, what in ((started, sets[0], sets[1], 'fine-tune start'),
+                                     (resumed, sets[1], sets[0], 'resumed run')):
+        ema = model.net_g_ema.state_dict()
+        equal = all(torch.equal(ema[k].cpu(), want[k]) for k in want)
+        differs = any(not torch.equal(ema[k].cpu(), other[k]) for k in other)
+        print(f'{what}: net_g_ema on {ema["conv_first.weight"].device} equals '
+              f'{"params" if want is sets[0] else "params_ema"} of the file: {equal}')
+        if not (equal and differs):
+            fail(f'{what}: the EMA did not start where the JAX package starts it')
+
+
+def taming_paths():
+    """Phases 54 to 58: TamingModel, FID, the device metrics, Adafactor and
+    Lamb, and the EMA's start; no kernel on these paths."""
+    t0 = time.perf_counter()
+    serve_taming()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    fid_on_the_card()
+    t2 = time.perf_counter()
+    device_metrics()
+    t3 = time.perf_counter()
+    init_path = os.path.join(PROFILE_DIR, 'msrresnet_two_sets.pth')
+    sets = write_two_sets(init_path)
+    train_with_optimizers(init_path)
+    t4 = time.perf_counter()
+    ema_start(init_path, sets)
+    print(f'phases 54 to 58: {time.perf_counter() - t0:.1f} s (54 {t1 - t0:.1f}, 55 '
+          f'{t2 - t1:.1f}, 56 {t3 - t2:.1f}, 57 {t4 - t3:.1f}, 58 '
+          f'{time.perf_counter() - t4:.1f})')
+
+
 SUMMARY_KEYS = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
 KERNELS = [
     ('swin_block_joint_fwd', 'basicsr4rs_tpu/ops/swin_block.py:287'),
@@ -6120,8 +6578,9 @@ def main():
         recurrent_video_paths(launches)
         print(json.dumps(launches))
         return
-    if sys.argv[1:] in (['realesrgan'], ['faces']):   # a slice without kernels alone
-        realesrgan_paths() if sys.argv[1] == 'realesrgan' else faces_paths()
+    slices = {'realesrgan': realesrgan_paths, 'faces': faces_paths, 'taming': taming_paths}
+    if len(sys.argv) == 2 and sys.argv[1] in slices:   # a slice without kernels alone
+        slices[sys.argv[1]]()
         print(card)
         print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                                  'kind': torch.cuda.get_device_name(0),
@@ -6178,6 +6637,7 @@ def main():
     recurrent_video_paths(launches)
     realesrgan_paths()
     faces_paths()
+    taming_paths()
     for name, count in launches.items():
         if count == 0:
             fail(f'{name} was never launched on the main paths')

@@ -24,7 +24,8 @@ def port_modules():
 
 def test_port_imports_without_jax():
     """Every module of the port (the diffusion, video, serving-mode,
-    alignment, CNN / GAN, recurrent-video and face slices' among them)
+    alignment, CNN / GAN, recurrent-video, face and FID / taming slices'
+    among them)
     imports with JAX and the JAX package blocked, and none of them is in
     ``sys.modules`` afterwards."""
     modules = port_modules()
@@ -77,7 +78,14 @@ def test_port_imports_without_jax():
                      'basicsr4rs_torch.archs.hifacegan_arch',
                      'basicsr4rs_torch.models.hifacegan_model',
                      'basicsr4rs_torch.archs.dfdnet_util', 'basicsr4rs_torch.archs.dfdnet_arch',
-                     'basicsr4rs_torch.inference.inference_dfdnet'):
+                     'basicsr4rs_torch.inference.inference_dfdnet',
+                     'basicsr4rs_torch.archs.inception', 'basicsr4rs_torch.metrics.fid',
+                     'basicsr4rs_torch.models.taming_model',
+                     'basicsr4rs_torch.models.optimizers', 'basicsr4rs_torch.utils.flow_util',
+                     'basicsr4rs_torch.utils.plot_util',
+                     'basicsr4rs_torch.scripts.metrics.calculate_fid_folder',
+                     'basicsr4rs_torch.scripts.metrics.calculate_fid_stats_from_datasets',
+                     'basicsr4rs_torch.scripts.metrics.calculate_stylegan2_fid'):
         assert expected in modules
     code = ('import importlib, sys\n'
             f'for name in {BLOCKED!r}:\n'
@@ -142,10 +150,30 @@ def test_port_registers_the_face_slice(registry, name):
     assert getattr(jax_registry, registry).get(name).__name__ == name
 
 
-# published option files that name a type the port lacks: taming's VQGAN
-# model, and the RS LPIPS metric, which neither package registers
-UNPORTED_OPTION_FILES = {'options/test/taming/test_taming_vqgan8192.yml': ['TamingModel'],
-                         'options/test/SRCNN/test_SRCNN_x4.yml': ['calculate_rs_lpips'],
+@pytest.mark.parametrize('registry, name', [
+    ('ARCH_REGISTRY', 'InceptionV3'), ('MODEL_REGISTRY', 'TamingModel'),
+    ('LOSS_REGISTRY', 'WeightedTVLoss'), ('METRIC_REGISTRY', 'calculate_psnr_pt'),
+    ('METRIC_REGISTRY', 'calculate_ssim_pt'), ('METRIC_REGISTRY', 'calculate_psnr_jax'),
+    ('METRIC_REGISTRY', 'calculate_ssim_jax')])
+def test_port_registers_the_fid_and_taming_slice(registry, name):
+    """Under the names the JAX package registers them by."""
+    import basicsr4rs_torch.archs  # noqa: F401
+    import basicsr4rs_torch.losses  # noqa: F401
+    import basicsr4rs_torch.metrics  # noqa: F401
+    import basicsr4rs_torch.models  # noqa: F401
+    import basicsr4rs_tpu.archs  # noqa: F401
+    import basicsr4rs_tpu.losses  # noqa: F401
+    import basicsr4rs_tpu.metrics  # noqa: F401
+    import basicsr4rs_tpu.models  # noqa: F401
+    from basicsr4rs_torch.utils import registry as port_registry
+    from basicsr4rs_tpu.utils import registry as jax_registry
+    assert name in getattr(port_registry, registry)._obj_map
+    assert name in getattr(jax_registry, registry)._obj_map
+
+
+# published option files that name a type the port lacks: the RS LPIPS
+# metric, which neither package registers
+UNPORTED_OPTION_FILES = {'options/test/SRCNN/test_SRCNN_x4.yml': ['calculate_rs_lpips'],
                          'options/test/SwinIR/test_SwinIR_x4.yml': ['calculate_rs_lpips']}
 
 
@@ -167,7 +195,7 @@ def _type_names(node):
 
 def test_published_option_files_name_registered_types():
     """Every published option file (not ``*_synthetic.yml``) names only
-    types of the port's five registries, but the three listed: 86 of 89."""
+    types of the port's five registries, but the two listed: 87 of 89."""
     import yaml
 
     import basicsr4rs_torch.archs  # noqa: F401
@@ -191,4 +219,4 @@ def test_published_option_files_name_registered_types():
         if names:
             missing[path] = names
     assert missing == UNPORTED_OPTION_FILES
-    assert (len(files), len(files) - len(missing)) == (89, 86)
+    assert (len(files), len(files) - len(missing)) == (89, 87)

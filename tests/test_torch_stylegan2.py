@@ -421,7 +421,8 @@ def test_model_save_and_resume_repeat_the_run(tmp_path):
     first.save(0, 2)
     resumed_opt = copy.deepcopy(opt)
     resumed_opt['path'].update(pretrain_network_g=str(tmp_path / 'models' / 'net_g_2.pth'),
-                               pretrain_network_d=str(tmp_path / 'models' / 'net_d_2.pth'))
+                               pretrain_network_d=str(tmp_path / 'models' / 'net_d_2.pth'),
+                               resume_state=str(tmp_path / 'states' / '2.state'))
     second = port_build_model(resumed_opt)
     second.resume_training(torch.load(tmp_path / 'states' / '2.state', weights_only=True))
     for step in range(3, 5):

@@ -120,7 +120,7 @@ def test_scheduler_and_optimizer_setup_reject_what_they_do_not_know():
                        'train': {'scheduler': {'type': 'NoSuchLR'}}})
     param = torch.nn.Parameter(torch.zeros(3))
     with pytest.raises(NotImplementedError, match='optimizer'):
-        model.get_optimizer('Lamb', [param], lr=1e-3)
+        model.get_optimizer('Adagrad', [param], lr=1e-3)
     model.optimizers.append(model.get_optimizer('SGD', [param], lr=1e-3))
     with pytest.raises(NotImplementedError, match='Scheduler'):
         model.setup_schedulers()
