@@ -11,9 +11,18 @@ package imports neither JAX nor ``basicsr4rs_tpu``.
 
 __version__ = '0.1.0'
 
-from .archs import build_network  # noqa: F401,E402
-from .data import build_dataloader, build_dataset  # noqa: F401,E402
-from .metrics import calculate_metric  # noqa: F401,E402
-from .models import build_model  # noqa: F401,E402
-from .utils import (ARCH_REGISTRY, DATASET_REGISTRY, METRIC_REGISTRY,  # noqa: F401,E402
-                    MODEL_REGISTRY, get_root_logger, img2tensor, imwrite, tensor2img)
+import importlib
+
+# the builders and helpers at the package's top level, imported on first use:
+# importing a submodule (``ops``, ``utils.serving``) loads no network code
+_LAZY = {'build_network': 'archs', 'build_dataloader': 'data', 'build_dataset': 'data',
+         'calculate_metric': 'metrics', 'build_model': 'models',
+         **dict.fromkeys(('ARCH_REGISTRY', 'DATASET_REGISTRY', 'METRIC_REGISTRY',
+                          'MODEL_REGISTRY', 'get_root_logger', 'img2tensor', 'imwrite',
+                          'tensor2img'), 'utils')}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        return getattr(importlib.import_module(f'.{_LAZY[name]}', __name__), name)
+    raise AttributeError(f'module {__name__!r} has no attribute {name!r}')

@@ -60,7 +60,32 @@ def conv3x3(conv: nn.Conv2d, x: torch.Tensor, residual: Optional[torch.Tensor] =
     return out
 
 
-@functools.lru_cache(maxsize=16)
+def _real_tensor_cache(maxsize: int):
+    """A cache of at most ``maxsize`` results (the oldest out first) for a
+    function of hashable arguments that makes a constant tensor, keeping
+    only real tensors: traced by ``torch.export`` the function makes a fake
+    tensor, which is handed back and never kept, so that no later forward
+    meets it. ``.cache`` is the {arguments: tensor} store, ``.cache_clear()``
+    empties it."""
+    def decorate(make):
+        cache = {}
+
+        @functools.wraps(make)
+        def cached(*key):
+            t = cache.get(key)
+            if t is None:
+                t = make(*key)
+                if type(t) is torch.Tensor:
+                    if len(cache) >= maxsize:
+                        cache.pop(next(iter(cache)), None)
+                    cache[key] = t
+            return t
+        cached.cache, cached.cache_clear = cache, cache.clear
+        return cached
+    return decorate
+
+
+@_real_tensor_cache(maxsize=16)
 def _relative_position_index(window_size: int, table_window: int,
                              device: torch.device) -> torch.Tensor:
     """(n*n,) row of the (2*table_window-1)^2 bias table for each query/key
@@ -76,7 +101,7 @@ def _relative_position_index(window_size: int, table_window: int,
         return torch.from_numpy(index.reshape(-1)).to(device)
 
 
-@functools.lru_cache(maxsize=64)
+@_real_tensor_cache(maxsize=64)
 def _shift_attn_mask(h: int, w: int, window_size: int, shift_size: int,
                      device: torch.device) -> torch.Tensor:
     """(nW, n, n) float32 0/-100 mask of the shifted windows of an h x w map

@@ -25,6 +25,7 @@ gradients through PyTorch's library in float32, with the cotangent gated by
 the sign of the saved output when ``act_slope`` is set (a leaky-ReLU with a
 positive slope keeps the sign) and the residual's gradient equal to that
 gated cotangent. ``fused_conv3x3.launches`` counts the kernel's launches.
+The forward is the operator ``basicsr4rs::conv3x3_fwd`` (``ops/library.py``).
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from . import _launch
+from . import _launch, library
 
 
 def conv_fusion_enabled() -> bool:
@@ -137,15 +138,11 @@ def _launch_forward(x, weight, bias, residual, act_slope):
 
 def conv3x3_forward(x, weight, bias, residual=None, act_slope: Optional[float] = None):
     """The convolution and its epilogue in one kernel launch; no autograd.
-    The output is channels-last."""
-    if x.device.type == 'cpu':
-        return reference_conv3x3(x, weight, bias, residual, act_slope).contiguous(
-            memory_format=CHANNELS_LAST)
-    if x.device.type != 'cuda':
-        raise ValueError(f'fused_conv3x3: no kernel for device {x.device}')
-    out = _launch_forward(x, weight, bias, residual, act_slope)
-    fused_conv3x3.launches += 1
-    return out
+    The output is channels-last. The op ``basicsr4rs::conv3x3_fwd``: its
+    launches count in ``fused_conv3x3.launches``."""
+    library.check_device(x, 'fused_conv3x3')
+    return torch.ops.basicsr4rs.conv3x3_fwd.default(
+        x, weight, bias, residual, None if act_slope is None else float(act_slope))
 
 
 class _FusedConv3x3(torch.autograd.Function):
@@ -192,3 +189,24 @@ def fused_conv3x3(x, weight, bias, residual=None, act_slope: Optional[float] = N
 
 
 fused_conv3x3.launches = 0
+
+
+# ------------------------------------------------------------------- the op
+def _forward_cpu(x, weight, bias, residual, act_slope):
+    out = reference_conv3x3(x, weight, bias, residual, act_slope)
+    return torch.empty_like(out, memory_format=CHANNELS_LAST).copy_(out)
+
+
+def _forward_cuda(x, weight, bias, residual, act_slope):
+    out = _launch_forward(x, weight, bias, residual, act_slope)
+    fused_conv3x3.launches += 1
+    return out
+
+
+def _forward_fake(x, weight, bias, residual=None, act_slope=None):
+    return torch.empty((x.shape[0], weight.shape[0], *x.shape[2:]), dtype=x.dtype,
+                       device=x.device, memory_format=CHANNELS_LAST)
+
+
+library.define('conv3x3_fwd', 'Tensor x, Tensor weight, Tensor bias, Tensor? residual, '
+               'float? act_slope', _forward_cpu, _forward_cuda, _forward_fake)

@@ -6,7 +6,8 @@ Counterpart of ``basicsr4rs_tpu/ops/mlp_block.py``. ``fused_mlp_block`` is a
 (``csrc/mlp_block_fwd.cu``) and ``mlp_block_backward``
 (``csrc/mlp_block_bwd.cu``). Each of the two sends a CUDA tensor to its
 kernel and a CPU tensor to its plain version (``reference_mlp_block``,
-``reference_mlp_block_backward``), and counts its launches in ``.launches``.
+``reference_mlp_block_backward``), and counts its launches in ``.launches``;
+the forward as the operator ``basicsr4rs::mlp_block_fwd`` (``ops/library.py``).
 
 Weights are in the ``nn.Linear`` (out, in) layout and are cast to x's dtype;
 LayerNorm parameters and biases are used in float32. Three output modes:
@@ -22,7 +23,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from . import _launch
+from . import _launch, library
 
 LN_EPS = 1e-5
 # both kernels: 8 n8 tiles of fc2's sums a warp (forward), 8 features a lane
@@ -81,16 +82,13 @@ def reference_mlp_block_backward(x, dz, ln_weight, ln_bias, fc1_weight, fc1_bias
 
 def mlp_block_forward(x, ln_weight, ln_bias, fc1_weight, fc1_bias, fc2_weight, fc2_bias,
                       add_residual: bool = False, residual_scale=None):
-    """The MLP branch of x (B, ..., C) in one kernel launch; no autograd."""
-    args = (x, ln_weight, ln_bias, fc1_weight, fc1_bias, fc2_weight, fc2_bias,
-            add_residual, residual_scale)
-    if x.device.type == 'cpu':
-        return reference_mlp_block(*args)
-    if x.device.type != 'cuda':
-        raise ValueError(f'mlp_block_forward: no kernel for device {x.device}')
-    out = _launch_forward(*args)
-    mlp_block_forward.launches += 1
-    return out
+    """The MLP branch of x (B, ..., C) in one kernel launch; no autograd.
+    The op ``basicsr4rs::mlp_block_fwd``: its launches count in
+    ``mlp_block_forward.launches``."""
+    library.check_device(x, 'mlp_block_forward')
+    return torch.ops.basicsr4rs.mlp_block_fwd.default(
+        x, ln_weight, ln_bias, fc1_weight, fc1_bias, fc2_weight, fc2_bias, bool(add_residual),
+        residual_scale)
 
 
 mlp_block_forward.launches = 0
@@ -144,9 +142,13 @@ def fused_mlp_block(x, ln_weight, ln_bias, fc1_weight, fc1_bias, fc2_weight, fc2
 
     ``add_residual`` returns ``x + branch``; ``residual_scale`` (B,) float32,
     DropPath's mask / keep per sample, returns ``x + s[b] * branch`` and gets
-    no gradient."""
-    return _FusedMlpBlock.apply(x, ln_weight, ln_bias, fc1_weight, fc1_bias, fc2_weight,
-                                fc2_bias, add_residual, residual_scale)
+    no gradient. With gradients off it is ``mlp_block_forward`` itself, which
+    ``torch.export`` keeps as one node."""
+    args = (x, ln_weight, ln_bias, fc1_weight, fc1_bias, fc2_weight, fc2_bias, add_residual,
+            residual_scale)
+    if not torch.is_grad_enabled():
+        return mlp_block_forward(*args)
+    return _FusedMlpBlock.apply(*args)
 
 
 # ------------------------------------------------------------------ launches
@@ -258,3 +260,21 @@ def _launch_backward(x, dz, ln_weight, ln_bias, fc1_weight, fc1_bias, fc2_weight
     dln_w, dln_b, dw1, db1, dw2, db2 = grads.split(
         [c, c, hidden * c, hidden, c * hidden, c])
     return dx, dln_w, dln_b, dw1.view(hidden, c), db1, dw2.view(c, hidden), db2
+
+
+# ------------------------------------------------------------------- the op
+# x is taken contiguous here: see the ops of ``ops.swin_block``
+def _forward_cpu(x, *args):
+    return reference_mlp_block(x.contiguous(), *args).contiguous()
+
+
+def _forward_cuda(x, *args):
+    out = _launch_forward(x.contiguous(), *args)
+    mlp_block_forward.launches += 1
+    return out
+
+
+library.define('mlp_block_fwd',
+               'Tensor x, Tensor ln_weight, Tensor ln_bias, Tensor fc1_weight, Tensor fc1_bias, '
+               'Tensor fc2_weight, Tensor fc2_bias, bool add_residual, Tensor? residual_scale',
+               _forward_cpu, _forward_cuda, library.like_x)

@@ -25,7 +25,11 @@ already rolled by the caller:
 
 Every wrapper sends a CUDA tensor to its kernel and a CPU tensor to its
 plain PyTorch version (``reference_*``), and counts its launches in
-``.launches``. Weights are in the ``nn.Linear`` (out, in) layout and are cast
+``.launches``. The two float forwards do so as the operators
+``basicsr4rs::swin_block_joint_fwd`` and ``basicsr4rs::swin_attn_block_fwd``
+(``ops/library.py``), so that ``torch.export`` keeps each as one node; with
+gradients off, ``fused_swin_block_full`` and ``fused_swin_attn_block`` are
+those forwards alone. Weights are in the ``nn.Linear`` (out, in) layout and are cast
 to x's dtype; LayerNorm parameters and biases are used in float32. The
 attention bias comes as the relative-position bias (heads, n, n) and the
 shift mask (nW, n, n) or None, so that nothing passed in grows with the
@@ -43,7 +47,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from . import _launch
+from . import _launch, library
 from .mlp_block import fold_branch, layer_norm_f32, mlp_block_backward, reference_mlp_block
 from .quant import quantize_weight_int8
 from .window_attention import reference_window_attention
@@ -115,16 +119,13 @@ def reference_swin_attn_block_backward(x, dz, ln_weight, ln_bias, qkv_weight, qk
 def swin_attn_block_forward(x, ln_weight, ln_bias, qkv_weight, qkv_bias, proj_weight,
                             proj_bias, rel_bias, mask, window_size: int, num_heads: int,
                             scale: float, add_residual: bool = False, residual_scale=None):
-    """The attention branch of x (B, H, W, C) in one kernel launch; no autograd."""
-    args = (x, ln_weight, ln_bias, qkv_weight, qkv_bias, proj_weight, proj_bias, rel_bias,
-            mask, window_size, num_heads, scale, add_residual, residual_scale)
-    if x.device.type == 'cpu':
-        return reference_swin_attn_block(*args)
-    if x.device.type != 'cuda':
-        raise ValueError(f'swin_attn_block_forward: no kernel for device {x.device}')
-    out = _launch_attn_forward(*args)
-    swin_attn_block_forward.launches += 1
-    return out
+    """The attention branch of x (B, H, W, C) in one kernel launch; no
+    autograd. The op ``basicsr4rs::swin_attn_block_fwd``: its launches count
+    in ``swin_attn_block_forward.launches``."""
+    library.check_device(x, 'swin_attn_block_forward')
+    return torch.ops.basicsr4rs.swin_attn_block_fwd.default(
+        x, ln_weight, ln_bias, qkv_weight, qkv_bias, proj_weight, proj_bias, rel_bias, mask,
+        int(window_size), int(num_heads), float(scale), bool(add_residual), residual_scale)
 
 
 swin_attn_block_forward.launches = 0
@@ -186,10 +187,14 @@ def fused_swin_attn_block(x, ln_weight, ln_bias, qkv_weight, qkv_bias, proj_weig
     ``mask``: (nW, n, n) 0/-100 shift mask for the nW windows of one image,
     or None (no gradient). ``add_residual`` returns ``x + branch``;
     ``residual_scale`` (B,) float32, DropPath's mask / keep per sample,
-    returns ``x + s[b] * branch`` and gets no gradient."""
-    return _FusedSwinAttnBlock.apply(x, ln_weight, ln_bias, qkv_weight, qkv_bias, proj_weight,
-                                     proj_bias, rel_bias, mask, window_size, num_heads, scale,
-                                     add_residual, residual_scale)
+    returns ``x + s[b] * branch`` and gets no gradient. With gradients off
+    it is ``swin_attn_block_forward`` itself, which ``torch.export`` keeps as
+    one node."""
+    args = (x, ln_weight, ln_bias, qkv_weight, qkv_bias, proj_weight, proj_bias, rel_bias, mask,
+            window_size, num_heads, scale, add_residual, residual_scale)
+    if not torch.is_grad_enabled():
+        return swin_attn_block_forward(*args)
+    return _FusedSwinAttnBlock.apply(*args)
 
 
 def joint_train_enabled() -> bool:
@@ -219,17 +224,14 @@ def swin_block_full_forward(x, ln1_weight, ln1_bias, qkv_weight, qkv_bias,
                             window_size: int, num_heads: int, scale: float,
                             residual_scales=None):
     """The whole block of x (B, H, W, C) in one kernel launch; no autograd.
-    Each launch adds one to ``fused_swin_block_full.launches``."""
-    args = (x, ln1_weight, ln1_bias, qkv_weight, qkv_bias, proj_weight, proj_bias,
-            rel_bias, mask, ln2_weight, ln2_bias, fc1_weight, fc1_bias, fc2_weight,
-            fc2_bias, window_size, num_heads, scale, residual_scales)
-    if x.device.type == 'cpu':
-        return reference_swin_block_full(*args)
-    if x.device.type != 'cuda':
-        raise ValueError(f'fused_swin_block_full: no kernel for device {x.device}')
-    out = _launch_joint(*args)
-    fused_swin_block_full.launches += 1
-    return out
+    The op ``basicsr4rs::swin_block_joint_fwd``: each launch adds one to
+    ``fused_swin_block_full.launches``."""
+    library.check_device(x, 'fused_swin_block_full')
+    s1, s2 = residual_scales if residual_scales is not None else (None, None)
+    return torch.ops.basicsr4rs.swin_block_joint_fwd.default(
+        x, ln1_weight, ln1_bias, qkv_weight, qkv_bias, proj_weight, proj_bias, rel_bias, mask,
+        ln2_weight, ln2_bias, fc1_weight, fc1_bias, fc2_weight, fc2_bias, int(window_size),
+        int(num_heads), float(scale), s1, s2)
 
 
 class _FusedSwinBlockFull(torch.autograd.Function):
@@ -294,11 +296,13 @@ def fused_swin_block_full(x, ln1_weight, ln1_bias, qkv_weight, qkv_bias,
                                     proj_bias, rel_bias, mask, ln2_weight, ln2_bias, fc1_weight,
                                     fc1_bias, fc2_weight, fc2_bias, window_size, num_heads,
                                     scale)
+    block = (x, ln1_weight, ln1_bias, qkv_weight, qkv_bias, proj_weight, proj_bias, rel_bias,
+             mask, ln2_weight, ln2_bias, fc1_weight, fc1_bias, fc2_weight, fc2_bias,
+             window_size, num_heads, scale)
+    if not torch.is_grad_enabled():   # the op alone, which torch.export keeps as one node
+        return swin_block_full_forward(*block, residual_scales)
     s1, s2 = residual_scales if residual_scales is not None else (None, None)
-    return _FusedSwinBlockFull.apply(x, ln1_weight, ln1_bias, qkv_weight, qkv_bias,
-                                     proj_weight, proj_bias, rel_bias, mask, ln2_weight,
-                                     ln2_bias, fc1_weight, fc1_bias, fc2_weight, fc2_bias,
-                                     window_size, num_heads, scale, s1, s2)
+    return _FusedSwinBlockFull.apply(*block, s1, s2)
 
 
 fused_swin_block_full.launches = 0
@@ -654,3 +658,44 @@ def _launch_attn_backward(x, dz, ln_weight, ln_bias, qkv_weight, qkv_bias, proj_
         [c, c, 3 * c * c, 3 * c, c * c, c, num_heads * n * n])
     return (dx, dln_w, dln_b, dwqkv.view(3 * c, c), dbqkv, dwproj.view(c, c), dbproj,
             drel.view(num_heads, n, n))
+
+
+# ------------------------------------------------------------------ the ops
+# Each implementation takes x contiguous itself: an exported graph keeps the
+# callers' ``x.contiguous()`` only where the tracing saw a copy, and a tensor
+# the tracing took for contiguous may reach a loaded artifact with other strides.
+def _joint_cpu(x, *args):
+    *block, s1, s2 = args
+    return reference_swin_block_full(x.contiguous(), *block,
+                                     None if s1 is None else (s1, s2)).contiguous()
+
+
+def _joint_cuda(x, *args):
+    *block, s1, s2 = args
+    out = _launch_joint(x.contiguous(), *block, None if s1 is None else (s1, s2))
+    fused_swin_block_full.launches += 1
+    return out
+
+
+def _attn_cpu(x, *args):
+    return reference_swin_attn_block(x.contiguous(), *args).contiguous()
+
+
+def _attn_cuda(x, *args):
+    out = _launch_attn_forward(x.contiguous(), *args)
+    swin_attn_block_forward.launches += 1
+    return out
+
+
+_ATTENTION_SCHEMA = ('Tensor x, Tensor ln{i}_weight, Tensor ln{i}_bias, Tensor qkv_weight, '
+                     'Tensor qkv_bias, Tensor proj_weight, Tensor proj_bias, Tensor rel_bias, '
+                     'Tensor? mask')
+library.define('swin_block_joint_fwd',
+               _ATTENTION_SCHEMA.format(i=1) + ', Tensor ln2_weight, Tensor ln2_bias, '
+               'Tensor fc1_weight, Tensor fc1_bias, Tensor fc2_weight, Tensor fc2_bias, '
+               'int window_size, int num_heads, float scale, Tensor? s1, Tensor? s2',
+               _joint_cpu, _joint_cuda, library.like_x)
+library.define('swin_attn_block_fwd',
+               _ATTENTION_SCHEMA.format(i='') + ', int window_size, int num_heads, float scale, '
+               'bool add_residual, Tensor? residual_scale', _attn_cpu, _attn_cuda,
+               library.like_x)

@@ -1,2 +1,3 @@
-"""Metric scripts: FID of a folder or of a StyleGAN2 generator, and the
-Inception statistics of a dataset folder."""
+"""Metric scripts: FID of a folder or of a StyleGAN2 generator, the
+Inception statistics of a dataset folder, PSNR / SSIM, NIQE and LPIPS of a
+folder, and back-projection refinement of SR outputs."""

@@ -10,6 +10,7 @@ name (reference behavior at basicsr/utils/registry.py:58-66).
 
 from __future__ import annotations
 
+import importlib
 from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 
@@ -27,8 +28,9 @@ class Registry:
         cls = ARCH_REGISTRY.get('MSRResNet')
     """
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, package: Optional[str] = None):
         self._name = name
+        self._package = package
         self._obj_map: Dict[str, Any] = {}
 
     @property
@@ -54,7 +56,11 @@ class Registry:
 
     def get(self, name: str, suffix: str = 'basicsr4rs_torch') -> Any:
         """Look up ``name``; fall back to ``name_{suffix}`` like the reference
-        suffix-registration scheme (basicsr/utils/registry.py:58-66)."""
+        suffix-registration scheme (basicsr/utils/registry.py:58-66). On a
+        miss the registry's ``package`` (whose import registers its modules)
+        is imported first."""
+        if name not in self._obj_map and self._package:
+            importlib.import_module(self._package)
         obj = self._obj_map.get(name)
         if obj is None and suffix:
             obj = self._obj_map.get(f'{name}_{suffix}')
@@ -80,8 +86,8 @@ class Registry:
         return f"Registry(name={self._name}, items={sorted(self._obj_map)})"
 
 
-DATASET_REGISTRY = Registry('dataset')
-ARCH_REGISTRY = Registry('arch')
-MODEL_REGISTRY = Registry('model')
-LOSS_REGISTRY = Registry('loss')
-METRIC_REGISTRY = Registry('metric')
+DATASET_REGISTRY = Registry('dataset', 'basicsr4rs_torch.data')
+ARCH_REGISTRY = Registry('arch', 'basicsr4rs_torch.archs')
+MODEL_REGISTRY = Registry('model', 'basicsr4rs_torch.models')
+LOSS_REGISTRY = Registry('loss', 'basicsr4rs_torch.losses')
+METRIC_REGISTRY = Registry('metric', 'basicsr4rs_torch.metrics')

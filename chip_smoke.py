@@ -155,6 +155,22 @@ nonzero exit code and no result line:
     against its plain forward; then, with the blocks' linears at full scale,
     under ``swin_kernels=True``: the W8A8 block alone, against the float
     forward by phase 18's SNR bound; a width refused fails the phase;
+59. (in the serving modes, after 22) exports SwinIR-M x4 with
+    ``python -m basicsr4rs_torch.scripts.export_serving --device cuda`` under
+    ``SWIN_FUSED_CONV=1`` (seed-0 weights, one 128x128 bucket) into a
+    temporary directory, loads it with ``ServingModel`` and serves a
+    128x128 and a 120x124 request with the switch off: 36 K1 and 10 K10
+    launches a request read from the served run alone, outputs against the
+    live network (bit for bit or within ``F32_TOL``), export time, served
+    and live latency;
+60. the same for phase 22's C=240 network (one 64x64 bucket): K2 and K4 a
+    block, no K1;
+61. MSRResNet x4 with static int8 scales calibrated on one batch (one 64x64
+    bucket at batch 4, a request of 3 at 60x60) against the live
+    ``quantized_inference`` run, and its SNR against float;
+62. a second interpreter serves phase 59's directory: K1 and K10 launch
+    there, the port's networks, models and registries are never imported,
+    the output is this process's;
 23. writes a synthetic Landsat -> Sentinel tree (``results/chip_smoke/l2s``:
     40 windows of uint16 TIFFs, Landsat a 3x area average of Sentinel) and
     trains SwinIR-L2S x3 through ``basicsr4rs_torch.train`` (``-opt
@@ -278,7 +294,7 @@ nonzero exit code and no result line:
     item against the CPU stage by stage with the share of codes that agree
     (54); the FID InceptionV3 (random weights in pytorch-fid's layout) on two
     sets of 32 images at 299 on the card and the CPU, images a second,
-    ``calculate_fid`` from each (55); ``calculate_psnr_pt`` and
+    ``calculate_fid`` from the card's features (55); ``calculate_psnr_pt`` and
     ``calculate_ssim_pt`` through SwinIR-M's validation route and item by
     item against the host metrics on the same images, seconds of each route
     (56); MSRResNet x4 trained 4 steps with Adafactor and with Lamb on the
@@ -287,7 +303,7 @@ nonzero exit code and no result line:
     ``params`` and ``params_ema`` differ, and of a resumed run (58).
 
 ``python3 chip_smoke.py kernels`` stops after phase 3; ``python3 chip_smoke.py
-serving`` runs phases 3a, 3e, 3g, 3f, 4, 4b and 17 to 22 alone; ``python3
+serving`` runs phases 3a, 3e, 3g, 3f, 4, 4b, 17 to 22 and 59 to 62 alone; ``python3
 chip_smoke.py cnn`` runs phases 3g and 32 to 36 alone; ``python3 chip_smoke.py
 video`` runs phases 3h and 37 to 46 alone; ``python3 chip_smoke.py
 realesrgan`` phases 47 to 49, ``python3 chip_smoke.py faces`` phases 50
@@ -303,8 +319,10 @@ import itertools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from unittest import mock
@@ -4679,6 +4697,275 @@ def serve_wide_swinir():
     return launches
 
 
+# --------------------------------------------- ahead-of-time serving (torch.export)
+SERVE_BUCKET = (128, 128)   # SwinIR-M's artifact; requests at the bucket and off it
+SERVE_OFF_BUCKET = (120, 124)
+INT8_BUCKET, INT8_BATCH, INT8_REQUEST = (64, 64), 4, (3, 60, 60)
+
+
+def served_request(sm, lq, counters):
+    """``sm.run(lq)`` once with the counts of ``counters`` set to 0 just
+    before it and read just after: (output, [launches of each])."""
+    for f in counters:
+        f.launches = 0
+    out = sm.run(lq)
+    torch.cuda.synchronize()
+    return out, [f.launches for f in counters]
+
+
+def live_like_served(net, lq, bucket, batch=1):
+    """The live network on ``lq`` padded as ``ServingModel`` pads it to
+    ``bucket`` (reflect on H and W, zeros up to ``batch``), cropped back: the
+    same work as the served request."""
+    import torch.nn.functional as F
+    b, _, h, w = lq.shape
+    xp = F.pad(lq, (0, bucket[1] - w, 0, bucket[0] - h), mode='reflect') if (h, w) != bucket \
+        else lq
+    if batch > b:
+        xp = torch.cat([xp, xp.new_zeros((batch - b, *xp.shape[1:]))])
+    with torch.no_grad():
+        return net(xp)[:b, :, :SCALE * h, :SCALE * w]
+
+
+def check_served(tag, got, want, against='the live network'):
+    """Holds a served output against the live one: bit for bit, or within
+    ``F32_TOL`` element by element (an artifact and the live network may get
+    other cuDNN algorithms for the convolutions outside the kernels)."""
+    err = (got - want).abs()
+    bound = F32_TOL[0] + F32_TOL[1] * want.abs()
+    print(f'{tag}: output {tuple(got.shape)}, max abs difference from {against} '
+          f'{err.max().item():.3e} ({"bit for bit" if torch.equal(got, want) else "not bitwise"};'
+          f' tolerance {F32_TOL[0]} + {F32_TOL[1]} |live|)')
+    if got.shape != want.shape or not torch.isfinite(got).all() or (err > bound).any():
+        fail(f'{tag}: the served output disagrees with the live network')
+
+
+def serve_exported_swinir(tmp):
+    """Phase 59: SwinIR-M x4 exported with ``export_serving`` at full width
+    (seed-0 weights, ``SWIN_FUSED_CONV=1``) to one 128x128 bucket, loaded with
+    ``ServingModel`` and served a bucket-exact and an off-bucket request with
+    the switch off: K1 36 and K10 10 launches a request, read from the served
+    run alone, outputs against the live network. Returns (launches, the
+    serving directory, its ServingModel, [K1, K10] launches a request)."""
+    from basicsr4rs_torch.archs.swinir_arch import SwinIR
+    from basicsr4rs_torch.inference.inference_swinir import load_weights
+    from basicsr4rs_torch.ops.conv3x3 import fused_conv3x3
+    from basicsr4rs_torch.ops.swin_block import fused_swin_block_full
+    from basicsr4rs_torch.scripts import export_serving
+    from basicsr4rs_torch.utils.options import yaml_load
+    from basicsr4rs_torch.utils.serving import ServingModel
+    phase('59. SwinIR-M x4 ahead of time: export_serving --device cuda with SWIN_FUSED_CONV=1, '
+          'one 128x128 bucket, served by ServingModel')
+    if not os.path.exists(WEIGHTS):
+        write_inputs()
+    out_dir = os.path.join(tmp, 'swinir_m_x4')
+    os.environ['SWIN_FUSED_CONV'] = '1'
+    try:
+        t0 = time.perf_counter()
+        manifest = export_serving.main(['-opt', CONFIG, '--model_path', WEIGHTS, '--buckets',
+                                        'x'.join(map(str, SERVE_BUCKET)), '--out', out_dir])
+        export_s = time.perf_counter() - t0
+    finally:
+        os.environ.pop('SWIN_FUSED_CONV')
+    t0 = time.perf_counter()
+    sm = ServingModel(out_dir)
+    load_s = time.perf_counter() - t0
+    print(f'export {export_s:.1f} s (one bucket, weights included: '
+          f'{os.path.getsize(os.path.join(out_dir, manifest["buckets"][0]["file"])) / 2**20:.1f}'
+          f' MiB), load {load_s:.1f} s; manifest {json.dumps({k: manifest[k] for k in ("scale", "dtype", "pad_multiple", "device", "buckets")})}')
+    net_opt = dict(yaml_load(CONFIG)['network_g'])
+    net_opt.pop('type')
+    net = SwinIR(**net_opt)
+    load_weights(net, WEIGHTS)
+    net = net.cuda().eval()
+    # K1 a block; K10 for the RSTB tails, conv_after_body, conv_before_upsample
+    # and the two of the x4 Upsample, as in phase 17
+    blocks, per_forward = sum(net_opt['depths']), len(net_opt['depths']) + 4
+    gen = torch.Generator().manual_seed(0)
+    launches = {'swin_block_joint_fwd': 0, 'conv3x3_fwd': 0}
+    for h, w in (SERVE_BUCKET, SERVE_OFF_BUCKET):
+        lq = torch.rand(1, 3, h, w, generator=gen).cuda()
+        got, (k1, k10) = served_request(sm, lq, (fused_swin_block_full, fused_conv3x3))
+        if [k1, k10] != [blocks, per_forward]:
+            fail(f'served {h}x{w}: K1 {k1}, K10 {k10} launches, expected {blocks} and '
+                 f'{per_forward}')
+        launches['swin_block_joint_fwd'] += k1
+        launches['conv3x3_fwd'] += k10
+        os.environ['SWIN_FUSED_CONV'] = '1'
+        try:
+            want = live_like_served(net, lq, SERVE_BUCKET)
+            live_ms = cuda_time_ms(lambda: live_like_served(net, lq, SERVE_BUCKET))
+        finally:
+            os.environ.pop('SWIN_FUSED_CONV')
+        check_served(f'served LQ {h}x{w} (bucket {SERVE_BUCKET[0]}x{SERVE_BUCKET[1]})', got, want)
+        served_ms = cuda_time_ms(lambda: sm.run(lq))
+        print(f'LQ {h}x{w}: K1 {k1}, K10 {k10} launches in the served request; request '
+              f'{served_ms:.3f} ms served, {live_ms:.3f} ms live (CUDA events, 10 after 3)',
+              flush=True)
+    return launches, out_dir, sm, [blocks, per_forward]
+
+
+def serve_exported_wide():
+    """Phase 60: phase 22's C=240 eval network (8 heads of 30, depths [2, 2],
+    seed-0 weights) exported to one 64x64 bucket: the served request
+    launches K2 and K4 a block and no K1."""
+    from basicsr4rs_torch.archs.swinir_arch import SwinIR
+    from basicsr4rs_torch.ops import mlp_block as M
+    from basicsr4rs_torch.ops import swin_block as S
+    from basicsr4rs_torch.utils.serving import ServingModel, save_serving_dir
+    phase('60. SwinIR at C=240 in 8 heads of 30 ahead of time: K2 + K4 in the artifact, '
+          'one 64x64 bucket')
+    gen = torch.Generator().manual_seed(0)
+    embed, heads = WIDE_SWINIR[-1]
+    depths = [2, 2]
+    net = SwinIR(upscale=4, in_chans=3, img_size=64, window_size=8, img_range=1., depths=depths,
+                 embed_dim=embed, num_heads=[heads] * len(depths), mlp_ratio=2.,
+                 upsampler='pixelshuffle', resi_connection='1conv',
+                 generator=gen).cuda().eval()
+    out_dir = tempfile.mkdtemp(prefix='swinir_c240_')
+    try:
+        t0 = time.perf_counter()
+        save_serving_dir(out_dir, net, [(64, 64)], scale=4, pad_multiple=8)
+        export_s = time.perf_counter() - t0
+        sm = ServingModel(out_dir)
+    finally:
+        shutil.rmtree(out_dir)
+    lq = torch.rand(1, 3, 64, 64, generator=gen).cuda()
+    counters = (S.fused_swin_block_full, S.swin_attn_block_forward, M.mlp_block_forward)
+    got, counts = served_request(sm, lq, counters)
+    blocks = sum(depths)
+    if counts != [0, blocks, blocks]:
+        fail(f'C={embed}, served: launches K1, K2, K4 {counts}, expected [0, {blocks}, {blocks}]')
+    check_served(f'C={embed}, served LQ 64x64', got, live_like_served(net, lq, (64, 64)))
+    print(f'export {export_s:.1f} s; launches K1, K2, K4 {counts} in the served request; '
+          f'request {cuda_time_ms(lambda: sm.run(lq)):.3f} ms served, '
+          f'{cuda_time_ms(lambda: live_like_served(net, lq, (64, 64))):.3f} ms live', flush=True)
+    return {'swin_attn_block_fwd': blocks, 'mlp_block_fwd': blocks}
+
+
+def serve_exported_int8():
+    """Phase 61: MSRResNet x4 (phase 19's network and seed-0 weights) with
+    static int8 scales calibrated on one batch, exported to one 64x64 bucket
+    at batch 4 (``quantized_inference(net, act_scales=...)``,
+    ``swin_kernels=False``); a request of batch 3 at 60x60 against the live
+    quantised run on the same padded batch, and away from the float one;
+    the device time of each by kernel group (``torch.profiler``)."""
+    from basicsr4rs_torch.archs.srresnet_arch import MSRResNet
+    from basicsr4rs_torch.inference.inference_swinir import load_weights
+    from basicsr4rs_torch.ops.quant import calibrate_act_scales, quantized_inference
+    from basicsr4rs_torch.utils.options import yaml_load
+    from basicsr4rs_torch.utils.serving import ServingModel, save_serving_dir
+    phase('61. MSRResNet x4 --int8 ahead of time: static scales from one batch, one 64x64 bucket '
+          'at batch 4, a request of 3 at 60x60')
+    opt = yaml_load(MS_CONFIG)
+    if not os.path.exists(opt['path']['pretrain_network_g']):
+        write_msrresnet_inputs()
+    net_opt = dict(opt['network_g'])
+    net_opt.pop('type')
+    net = MSRResNet(**net_opt)
+    load_weights(net, opt['path']['pretrain_network_g'])
+    net = net.cuda().eval()
+    gen = torch.Generator().manual_seed(0)
+    calib = torch.rand(INT8_BATCH, 3, *INT8_BUCKET, generator=gen).cuda()
+    with torch.no_grad():
+        scales = calibrate_act_scales(net, net, [calib])
+    out_dir = tempfile.mkdtemp(prefix='msrresnet_int8_')
+    try:
+        t0 = time.perf_counter()
+        manifest = save_serving_dir(out_dir, net, [INT8_BUCKET], scale=SCALE,
+                                    batch=INT8_BATCH, quant_act_scales=scales)
+        export_s = time.perf_counter() - t0
+        sm = ServingModel(out_dir)
+    finally:
+        shutil.rmtree(out_dir)
+    lq = torch.rand(INT8_REQUEST[0], 3, *INT8_REQUEST[1:], generator=gen).cuda()
+    got = sm.run(lq)
+    torch.cuda.synchronize()
+    with quantized_inference(net, act_scales=scales):
+        want = live_like_served(net, lq, INT8_BUCKET, INT8_BATCH)
+        live_ms = cuda_time_ms(lambda: live_like_served(net, lq, INT8_BUCKET, INT8_BATCH))
+    flo = live_like_served(net, lq, INT8_BUCKET)
+    check_served(f'int8 ({manifest["quant"]}, {len(scales)} sites), served batch '
+                 f'{INT8_REQUEST[0]} of {INT8_REQUEST[1]}x{INT8_REQUEST[2]}', got, want)
+    snr = snr_db(flo, got)
+    print(f'export {export_s:.1f} s; SNR of the served int8 output against float {snr:.2f} dB '
+          f'(bound {INT8_CONV_SNR_DB}); request {cuda_time_ms(lambda: sm.run(lq)):.3f} ms served, '
+          f'{live_ms:.3f} ms live', flush=True)
+    print('device time of a served request:')
+    profile_device_time(lambda: sm.run(lq), 1, 'request', (), 'msrresnet_int8_served.json')
+    print('and of the live one:')
+    with quantized_inference(net, act_scales=scales):
+        profile_device_time(lambda: live_like_served(net, lq, INT8_BUCKET, INT8_BATCH), 1,
+                            'request', (), 'msrresnet_int8_live.json')
+    if manifest['quant'] != 'int8-static' or snr <= INT8_CONV_SNR_DB or torch.equal(got, flo):
+        fail('the int8 artifact is not the W8A8 mode')
+
+
+def serve_in_a_second_process(out_dir, sm, per_request):
+    """Phase 62: a new interpreter serves phase 59's directory: the port's
+    networks, models and registries are never imported there, K1 and K10
+    launch there as in this
+    process (``per_request``), and its output is that of ``sm``, this
+    process's ServingModel of it."""
+    import numpy as np
+    phase('62. a second process serves the SwinIR-M x4 artifact')
+    lq = torch.rand(1, 3, *SERVE_BUCKET, generator=torch.Generator().manual_seed(1))
+    np.save(os.path.join(out_dir, 'lq.npy'), lq.numpy())
+    code = ('import json, sys, time\n'
+            'import numpy as np, torch\n'
+            'torch.backends.cuda.matmul.allow_tf32 = False\n'   # as main() sets them here
+            'torch.backends.cudnn.allow_tf32 = False\n'
+            'from basicsr4rs_torch.utils.serving import ServingModel\n'
+            't0 = time.perf_counter()\n'
+            f'sm = ServingModel({out_dir!r})\n'
+            'load_s = time.perf_counter() - t0\n'
+            'from basicsr4rs_torch.ops.conv3x3 import fused_conv3x3\n'
+            'from basicsr4rs_torch.ops.swin_block import fused_swin_block_full\n'
+            f'out = sm.run(torch.from_numpy(np.load({os.path.join(out_dir, "lq.npy")!r})))\n'
+            'torch.cuda.synchronize()\n'
+            f'np.save({os.path.join(out_dir, "out.npy")!r}, out.cpu().numpy())\n'
+            'print(json.dumps({"k1": fused_swin_block_full.launches, '
+            '"k10": fused_conv3x3.launches, "load_s": load_s, '
+            '"imported": [m for m in sys.modules if m.startswith(("basicsr4rs_torch.archs", '
+            '"basicsr4rs_torch.models", "basicsr4rs_torch.utils.registry"))]}))\n')
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, '-c', code], cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f'the second process failed: {proc.stderr[-2000:]}')
+    seen = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f'second process: {wall:.1f} s in all, artifact load {seen["load_s"]:.1f} s; K1 '
+          f'{seen["k1"]}, K10 {seen["k10"]} launches; of the port\'s networks, models and '
+          f'registries it imported {seen["imported"]}')
+    if seen['imported'] or [seen['k1'], seen['k10']] != per_request:
+        fail(f'the second process imported the networks or launched K1 {seen["k1"]}, '
+             f'K10 {seen["k10"]} times')
+    want = sm.run(lq.cuda())
+    check_served(f'second process, served LQ {SERVE_BUCKET[0]}x{SERVE_BUCKET[1]}',
+                 torch.from_numpy(np.load(os.path.join(out_dir, 'out.npy'))).cuda(), want,
+                 'this process\'s served run')
+    return {'swin_block_joint_fwd': seen['k1'], 'conv3x3_fwd': seen['k10']}
+
+
+def serve_ahead_of_time():
+    """Phases 59 to 62: the port's networks exported with torch.export and
+    served by ``ServingModel``; their launches."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix='aot_serving_')
+    launches = collections.Counter()
+    try:
+        swinir, out_dir, sm, per_request = serve_exported_swinir(tmp)
+        launches.update(swinir)
+        launches.update(serve_exported_wide())
+        serve_exported_int8()
+        launches.update(serve_in_a_second_process(out_dir, sm, per_request))
+    finally:
+        shutil.rmtree(tmp)
+    print(f'phases 59 to 62: {time.perf_counter() - t0:.1f} s')
+    return launches
+
+
 # --------------------------------------------------- the classic CNN and GAN paths
 CNN_DIR = 'datasets/CNN_x4_synthetic'
 CNN_X2_DIR = 'datasets/CNN_x2_synthetic'   # the same GT images, LQ at x2 (RCAN x2)
@@ -6260,7 +6547,7 @@ def random_inception_weights(path, seed=0):
 
 def fid_on_the_card():
     """Phase 55: the FID InceptionV3's features of two sets of images on
-    the card and on the CPU, and the FID of the two sets from each."""
+    the card and on the CPU, and the FID of the two sets from the card's."""
     import numpy as np
 
     from basicsr4rs_torch.metrics.fid import (calculate_fid, calculate_stats,
@@ -6268,7 +6555,7 @@ def fid_on_the_card():
                                               load_patched_inception_v3)
     phase(f'55. FID: InceptionV3 (the FID variant; random weights in pytorch-fid\'s layout) '
           f'features of 2 sets of {FID_IMAGES} images at 299x299 on cuda:0 and on the CPU, '
-          f'calculate_fid from each (no TPU kernel on this path)')
+          f'calculate_fid from the card\'s (no TPU kernel on this path)')
     random_inception_weights(FID_WEIGHTS)
     card, cpu = (load_patched_inception_v3(FID_WEIGHTS, device=d) for d in ('cuda', 'cpu'))
     rng = np.random.RandomState(55)
@@ -6294,14 +6581,14 @@ def fid_on_the_card():
           f'{feats_card[0].shape}, largest {np.abs(feats_cpu[0]).max():.3f}')
     if err > FEATURE_TOLERANCE or feats_card[0].shape != (FID_IMAGES, 2048):
         fail('the InceptionV3 features differ between the card and the CPU')
-    fids = []
-    for where, feats in (('card', feats_card), ('CPU', feats_cpu)):
-        t0 = time.perf_counter()
-        fids.append(calculate_fid(*calculate_stats(feats[0]), *calculate_stats(feats[1])))
-        print(f'FID of the two sets from the {where}\'s features: {fids[-1]:.6f} '
-              f'({time.perf_counter() - t0:.2f} s on the host, scipy sqrtm of 2048 x 2048)')
-    if not all(np.isfinite(fids)) or abs(fids[0] - fids[1]) > 1e-3 * abs(fids[1]):
-        fail(f'FID {fids}')
+    # one FID, from the card's features: a second from the CPU's took another
+    # 2048 x 2048 sqrtm (10 to 22 s on the host) for the script's time
+    t0 = time.perf_counter()
+    fid = calculate_fid(*calculate_stats(feats_card[0]), *calculate_stats(feats_card[1]))
+    print(f'FID of the two sets from the card\'s features: {fid:.6f} '
+          f'({time.perf_counter() - t0:.2f} s on the host, scipy sqrtm of 2048 x 2048)')
+    if not np.isfinite(fid):
+        fail(f'FID {fid}')
 
 
 def device_metrics():
@@ -6538,9 +6825,9 @@ KERNELS = [
 
 
 def serving_modes(launches, split_step_ms):
-    """Phases 17 to 22: the serving modes of the image-SR path, the joint
-    training route and the widths past the joint kernel's; their launches
-    are added to ``launches``.
+    """Phases 17 to 22 and 59 to 62: the serving modes of the image-SR path,
+    the joint training route, the widths past the joint kernel's and
+    ahead-of-time serving; their launches are added to ``launches``.
     ``split_step_ms``: phase 6's step time, or None when it did not run."""
     model, loader, conv_launches, k1_fused = serve_fused_conv()
     launches['conv3x3_fwd'] = conv_launches
@@ -6551,6 +6838,8 @@ def serving_modes(launches, split_step_ms):
     for name, count in train_joint(split_step_ms).items():
         launches[name] += count
     for name, count in serve_wide_swinir().items():
+        launches[name] += count
+    for name, count in serve_ahead_of_time().items():
         launches[name] += count
 
 

@@ -24,8 +24,8 @@ def port_modules():
 
 def test_port_imports_without_jax():
     """Every module of the port (the diffusion, video, serving-mode,
-    alignment, CNN / GAN, recurrent-video, face and FID / taming slices'
-    among them)
+    alignment, CNN / GAN, recurrent-video, face, FID / taming and
+    ahead-of-time serving slices' among them)
     imports with JAX and the JAX package blocked, and none of them is in
     ``sys.modules`` afterwards."""
     modules = port_modules()
@@ -85,7 +85,14 @@ def test_port_imports_without_jax():
                      'basicsr4rs_torch.utils.plot_util',
                      'basicsr4rs_torch.scripts.metrics.calculate_fid_folder',
                      'basicsr4rs_torch.scripts.metrics.calculate_fid_stats_from_datasets',
-                     'basicsr4rs_torch.scripts.metrics.calculate_stylegan2_fid'):
+                     'basicsr4rs_torch.scripts.metrics.calculate_stylegan2_fid',
+                     'basicsr4rs_torch.ops.library', 'basicsr4rs_torch.utils.serving',
+                     'basicsr4rs_torch.scripts.export_serving',
+                     'basicsr4rs_torch.scripts.swinir_host_time',
+                     'basicsr4rs_torch.scripts.metrics.calculate_psnr_ssim',
+                     'basicsr4rs_torch.scripts.metrics.calculate_niqe',
+                     'basicsr4rs_torch.scripts.metrics.calculate_lpips',
+                     'basicsr4rs_torch.scripts.metrics.back_projection'):
         assert expected in modules
     code = ('import importlib, sys\n'
             f'for name in {BLOCKED!r}:\n'
