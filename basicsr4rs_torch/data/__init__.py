@@ -35,10 +35,14 @@ def build_dataloader(dataset, dataset_opt, num_gpu: int = 1, dist: bool = False,
                      sampler=None, seed=None):
     """The train loader (``batch_size_per_gpu`` items per device of this
     process, worker threads, the given sampler, incomplete batches
-    dropped) or the val/test loader (batch 1, in order)."""
+    dropped) or the val/test loader (batch 1, in order). Under a launcher
+    (``dist``) a process is one rank on one card: its batch is
+    ``batch_size_per_gpu`` and its workers ``num_worker_per_gpu``, so the
+    global batch is ``batch_size_per_gpu x world_size``, the JAX package's
+    one-process ``batch_size_per_gpu x device count``."""
     phase = dataset_opt['phase']
     if phase == 'train':
-        multiplier = max(num_gpu, 1)   # the global batch, as in the JAX package
+        multiplier = 1 if dist else max(num_gpu, 1)
         prefetch_cuda = dataset_opt.get('prefetch_mode') == 'cuda'
         return DataLoader(dataset, batch_size=dataset_opt['batch_size_per_gpu'] * multiplier,
                           sampler=sampler,

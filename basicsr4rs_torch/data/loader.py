@@ -20,6 +20,8 @@ from typing import Any, Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
+from ..parallel import shard_batch
+
 
 class EnlargedSampler:
     """Rank-strided sampler over a dataset virtually enlarged ``ratio``
@@ -175,8 +177,7 @@ class CUDAPrefetcher:
         if self.batch is None:
             return
         with torch.cuda.stream(self.stream):
-            self.batch = {k: v.to(self.device, non_blocking=True) if torch.is_tensor(v) else v
-                          for k, v in self.batch.items()}
+            self.batch = shard_batch(self.batch, self.device)
 
     def next(self):
         torch.cuda.current_stream(self.device).wait_stream(self.stream)

@@ -5,6 +5,13 @@ The device, network printing, ``.pth`` loading and saving with param keys
 and strict key matching, validation dispatch, best-metric tracking,
 optimizers, schedulers with linear warm-up, EMA, and the training state
 (``.state`` files written by ``torch.save``).
+
+Under a launcher (``opt['dist']``) each rank is one process on its card
+(``cuda:<current device>``) and ``model_to_device`` wraps a trained network
+in ``DistributedDataParallel``; printing, saving, loading and the EMA go
+through the bare module, so that no key gains ``module.``. A model class
+whose training has no data-parallel form yet names why in
+``SINGLE_RANK_ONLY`` and raises on more than one rank.
 """
 
 from __future__ import annotations
@@ -16,8 +23,12 @@ from os import path as osp
 from typing import Any, Dict, List
 
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.nn.modules.batchnorm import _BatchNorm
+from torch.nn.parallel import DataParallel, DistributedDataParallel
 
+from ..parallel import create_mesh, replicate
 from ..utils.dist_util import master_only
 from ..utils.logger import get_root_logger
 from . import lr_scheduler, optimizers
@@ -29,10 +40,25 @@ _COMPUTED_BUFFERS = ('relative_position_index', 'attn_mask', 'spynet.mean', 'spy
 
 class BaseModel:
 
+    # why the model does not train data-parallel yet (None: it does)
+    SINGLE_RANK_ONLY = None
+
     def __init__(self, opt):
         self.opt = opt
         self.is_train = opt['is_train']
-        self.device = torch.device('cuda' if opt['num_gpu'] != 0 else 'cpu')
+        world_size = opt.get('world_size', 1)
+        if self.is_train and opt.get('dist') and world_size > 1 and self.SINGLE_RANK_ONLY:
+            raise NotImplementedError(
+                f'{type(self).__name__} does not train on {world_size} ranks: '
+                f'{self.SINGLE_RANK_ONLY} (ROADMAP Queue 1, item 5)')
+        if opt['num_gpu'] == 0:
+            self.device = torch.device('cpu')
+        elif torch.cuda.is_available():   # the card init_dist selected, or the first
+            self.device = torch.device('cuda', torch.cuda.current_device())
+        else:
+            self.device = torch.device('cuda')
+        if opt.get('dist'):
+            create_mesh(opt, world_size)   # the axes must cover the ranks
         self.best_metric_results: Dict[str, Any] = {}
         self.schedulers: List[Any] = []
         self.optimizers: List[torch.optim.Optimizer] = []
@@ -54,6 +80,14 @@ class BaseModel:
         pass
 
     def validation(self, dataloader, current_iter, tb_logger, save_img: bool = False):
+        """The ranks share the validation under a launcher with more than
+        one rank (``dist_validation``); otherwise one process runs it all."""
+        if self.opt.get('dist') and self.opt.get('world_size', 1) > 1:
+            self.dist_validation(dataloader, current_iter, tb_logger, save_img)
+        else:
+            self.nondist_validation(dataloader, current_iter, tb_logger, save_img)
+
+    def dist_validation(self, dataloader, current_iter, tb_logger, save_img):
         self.nondist_validation(dataloader, current_iter, tb_logger, save_img)
 
     def nondist_validation(self, dataloader, current_iter, tb_logger, save_img):
@@ -148,14 +182,14 @@ class BaseModel:
             self.load_network(self.net_g_ema, path_opt['pretrain_network_g'],
                               path_opt.get('strict_load_g', True), 'params_ema')
         else:
-            self.net_g_ema.load_state_dict(self.net_g.state_dict())
+            self.net_g_ema.load_state_dict(self.get_bare_model(self.net_g).state_dict())
 
     @torch.no_grad()
     def model_ema(self, decay: float = 0.999):
         """``net_g_ema = decay * net_g_ema + (1 - decay) * net_g``, parameters
         only, in place."""
         ema = list(self.net_g_ema.parameters())
-        cur = list(self.net_g.parameters())
+        cur = list(self.get_bare_model(self.net_g).parameters())
         torch._foreach_mul_(ema, decay)
         torch._foreach_add_(ema, cur, alpha=1 - decay)
 
@@ -166,11 +200,50 @@ class BaseModel:
     def reduce_loss_dict(self, loss_dict) -> OrderedDict:
         """The losses to log: detached device tensors, so that a training
         step never waits for the host; ``get_current_log`` turns them into
-        floats when a line is printed. One process has nothing to reduce."""
-        return OrderedDict((k, v.detach()) for k, v in loss_dict.items())
+        floats when a line is printed. On several ranks, each is the mean
+        over the ranks (one ``all_reduce``): with equal local batches, the
+        global batch's mean, as the JAX step returns it."""
+        world_size = self.opt.get('world_size', 1) if self.opt.get('dist') else 1
+        if world_size == 1 or not loss_dict:
+            return OrderedDict((k, v.detach()) for k, v in loss_dict.items())
+        with torch.no_grad():
+            values = torch.stack([v.detach().float() for v in loss_dict.values()])
+            dist.all_reduce(values)
+            values /= world_size
+        return OrderedDict(zip(loss_dict, values.unbind()))
+
+    # -------------------------------------------------------- data parallel
+    def model_to_device(self, net: nn.Module) -> nn.Module:
+        """``net`` on the model's device; for training under a launcher,
+        wrapped in ``DistributedDataParallel`` with ``find_unused_parameters``
+        and ``broadcast_buffers`` of the config (BasicSR's keys). Raises on
+        more than one rank when ``net`` has a BatchNorm that trains: the JAX
+        mesh takes its statistics over the global batch, a rank over its
+        own rows (ROADMAP Queue 1, item 5)."""
+        net = net.to(self.device)
+        if not (self.is_train and self.opt.get('dist')) or self.SINGLE_RANK_ONLY:
+            return net
+        if self.opt.get('world_size', 1) > 1:
+            norms = [name for name, m in net.named_modules() if isinstance(m, _BatchNorm) and (
+                m.training or any(p.requires_grad for p in m.parameters()))]
+            if norms:
+                raise NotImplementedError(
+                    f'{net.__class__.__name__} trains BatchNorm ({norms[0]}, {len(norms)} in '
+                    'all) whose statistics would be per rank: a synced BatchNorm is not ported '
+                    '(ROADMAP Queue 1, item 5)')
+        return replicate(net, self.device, self.opt.get('find_unused_parameters', False),
+                         self.opt.get('broadcast_buffers', True))
+
+    @staticmethod
+    def get_bare_model(net: nn.Module) -> nn.Module:
+        """The network inside a (Distributed)DataParallel wrapper, or ``net``."""
+        if isinstance(net, (DataParallel, DistributedDataParallel)):
+            return net.module
+        return net
 
     # --------------------------------------------------------------- utils
     def print_network(self, net: nn.Module) -> None:
+        net = self.get_bare_model(net)
         n = sum(p.numel() for p in net.parameters())
         get_root_logger().info(f'Network: {net.__class__.__name__}, with parameters: {n:,d}')
 
@@ -181,6 +254,7 @@ class BaseModel:
         ``params``; ``module.`` prefixes and the buffers the port computes
         are dropped; ``strict`` makes any other key difference an error."""
         logger = get_root_logger()
+        net = self.get_bare_model(net)
         ckpt = torch.load(load_path, map_location='cpu', weights_only=True)
         if param_key in ckpt:
             state_dict = ckpt[param_key]
@@ -220,19 +294,31 @@ class BaseModel:
         for net_, key in zip(nets, param_keys):
             save_dict[key] = OrderedDict(
                 (k[len('module.'):] if k.startswith('module.') else k, v.cpu())
-                for k, v in net_.state_dict().items())
+                for k, v in self.get_bare_model(net_).state_dict().items())
         _save_with_retry(save_dict, save_path)
 
-    @master_only
     def save_training_state(self, epoch: int, current_iter: int):
         """Save ``training_states/<iter>.state``: epoch, iteration, and the
-        state of every optimizer and scheduler."""
+        state of every optimizer and scheduler. Every rank calls it: the
+        model's own generators differ by rank, so on several ranks
+        ``rank_states`` keeps each rank's ``extra_training_state`` (the top
+        level keeps rank 0's); rank 0 writes the file."""
         if current_iter == -1:
+            return
+        extra = self.extra_training_state()
+        world_size = self.opt.get('world_size', 1) if self.opt.get('dist') else 1
+        rank_states = None
+        if world_size > 1 and extra:
+            rank_states = [None] * world_size
+            dist.all_gather_object(rank_states, extra)
+        if self.opt.get('rank', 0) != 0:
             return
         state = {'epoch': epoch, 'iter': current_iter,
                  'optimizers': [o.state_dict() for o in self.optimizers],
                  'schedulers': [s.state_dict() for s in self.schedulers]}
-        state.update(self.extra_training_state())
+        state.update(extra)
+        if rank_states is not None:
+            state['rank_states'] = rank_states
         _save_with_retry(state, osp.join(self.opt['path']['training_states'],
                                          f'{current_iter}.state'))
 

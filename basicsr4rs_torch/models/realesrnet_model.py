@@ -10,10 +10,11 @@ TF32 off), crops ``gt_size`` and its LQ at one random offset, passes the
 pair through the training-pair pool (``queue_size``, 180 by default), and
 sharpens the GT that comes out (``gt_usm``). The batch-level draws and the
 crop offset come from a host ``np.random.Generator``, the rest from a
-``torch.Generator`` on the device, both seeded from ``manual_seed``; no step
-reads the device from the host. A batch without kernels (validation, or a
-training batch given as ``lq`` / ``gt``) is fed as it is, with ``gt_usm``
-made from its GT while training. Validation never synthesises.
+``torch.Generator`` on the device, both seeded from ``manual_seed`` plus the
+rank; no step reads the device from the host. A batch without kernels
+(validation, or a training batch given as ``lq`` / ``gt``) is fed as it is,
+with ``gt_usm`` made from its GT while training. Validation never
+synthesises.
 
 ``RealESRNetModel`` trains against ``gt_usm`` unless ``gt_usm: false``.
 """
@@ -36,7 +37,8 @@ class _SynthesisMixin:
     def _init_synthesis(self):
         self.degrader = RealESRGANDegrader(self.opt).to(self.device)
         self.pool = TrainingPairPool(self.opt.get('queue_size', 180))
-        seed = self.opt.get('manual_seed') or 0
+        # each rank draws the degradations of its own rows
+        seed = (self.opt.get('manual_seed') or 0) + self.opt.get('rank', 0)
         self.synth_rng = np.random.default_rng(seed)
         self.synth_generator = torch.Generator(device=self.device).manual_seed(seed)
 

@@ -7,7 +7,10 @@ A frozen first-stage autoencoder (VQ or KL) defines the latent space; the
 with the ResShift objective. ``test()`` runs the whole reverse chain on the
 EMA weights and decodes. Images are in [-1, 1]. The model's own random
 draws (timesteps, noise) come from one ``torch.Generator`` on the model's
-device, seeded with ``manual_seed`` and saved with the training state.
+device, seeded with ``manual_seed`` plus the rank (each rank draws for its
+own rows) and saved with the training state. Under a launcher the UNet
+trains wrapped in ``DistributedDataParallel``; the frozen first stage is not
+wrapped (it has no trainable parameter).
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ class ResShiftModel(SRRSModel):
         self.base_diffusion = create_gaussian_diffusion(**self.opt['diffusion'])
         self.cond_lq = self.opt['network_g'].get('cond_lq', True)
         self.generator = torch.Generator(device=self.device).manual_seed(
-            self.opt.get('manual_seed') or 0)
+            (self.opt.get('manual_seed') or 0) + self.opt.get('rank', 0))
 
     def init_training_settings(self):
         self.net_g.train()

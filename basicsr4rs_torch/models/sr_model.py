@@ -15,6 +15,10 @@ first evaluation batch and static from then on.
 ``val.selfensemble_testing`` averages the x8 flip / transpose ensemble.
 Training losses: ``pixel_opt`` and ``perceptual_opt`` (a VGG feature loss
 and its style term), either or both.
+Under a launcher ``net_g`` trains wrapped in ``DistributedDataParallel``;
+everything else (the EMA, evaluation, DropPath's generator, parameter names)
+reads the bare network, and on several ranks validation runs on rank 0 while
+the others wait (the JAX package's ``dist_validation``).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from ..losses import build_loss
 from ..metrics import calculate_metric
 from ..ops.dcn import DCNv2Pack
 from ..ops.quant import calibrate_act_scales, quantized_inference
+from ..utils.dist_util import barrier
 from ..utils.img_util import imwrite, tensor2img
 from ..utils.logger import get_root_logger
 from ..utils.registry import MODEL_REGISTRY
@@ -53,6 +58,7 @@ class SRModel(BaseModel):
         if load_path is not None:
             self.load_network(self.net_g, load_path, self.opt['path'].get('strict_load_g', True),
                               self.opt['path'].get('param_key_g', 'params'))
+        self.net_g = self.model_to_device(self.net_g)
         self.ema_decay = 0
         if self.is_train:
             self.init_training_settings()
@@ -63,10 +69,13 @@ class SRModel(BaseModel):
     def init_training_settings(self):
         self.net_g.train()
         train_opt = self.opt['train']
+        net_g = self.get_bare_model(self.net_g)
         # the network's own random draws (DropPath) come from one generator,
-        # seeded from the experiment's seed and saved with the training state
-        if hasattr(self.net_g, 'seed_drop_path'):
-            self.net_g.seed_drop_path(self.opt.get('manual_seed') or 0, self.device)
+        # seeded from the experiment's seed (plus the rank: each rank drops
+        # its own rows' paths) and saved with the training state
+        if hasattr(net_g, 'seed_drop_path'):
+            net_g.seed_drop_path((self.opt.get('manual_seed') or 0) + self.opt.get('rank', 0),
+                                 self.device)
 
         self._init_ema()
 
@@ -75,7 +84,7 @@ class SRModel(BaseModel):
             raise ValueError('Both pixel and perceptual losses are None.')
 
         if train_opt.get('log_dcn_offset'):
-            for module in self.net_g.modules():
+            for module in net_g.modules():
                 if isinstance(module, DCNv2Pack):
                     module.log_offset = True
 
@@ -118,7 +127,7 @@ class SRModel(BaseModel):
         schedulers and the warm-up scale like the first."""
         optim_opt = dict(self.opt['train']['optim_g'])
         groups = {}
-        for name, param in self.net_g.named_parameters():
+        for name, param in self.get_bare_model(self.net_g).named_parameters():
             if param.requires_grad:
                 groups.setdefault(self.lr_multiplier(name), []).append(param)
             else:
@@ -180,8 +189,10 @@ class SRModel(BaseModel):
             self.model_ema(decay=self.ema_decay)
 
     def _test_net(self):
-        """Validation uses the EMA network when training keeps one."""
-        return self.net_g_ema if self.ema_decay > 0 else self.net_g
+        """Validation uses the EMA network when training keeps one; never
+        the data-parallel wrapper, whose forward would wait for the other
+        ranks."""
+        return self.net_g_ema if self.ema_decay > 0 else self.get_bare_model(self.net_g)
 
     def _quant_scope(self, net, x):
         """The W8A8 scope ``val.quant_int8`` asks for, or none. 'static'
@@ -251,12 +262,12 @@ class SRModel(BaseModel):
         self.save_training_state(epoch, current_iter)
 
     def extra_training_state(self):
-        generator = getattr(self.net_g, 'drop_path_generator', None)
+        generator = getattr(self.get_bare_model(self.net_g), 'drop_path_generator', None)
         return {} if generator is None else {'drop_path_generator': generator.get_state()}
 
     def resume_training(self, resume_state):
         super().resume_training(resume_state)
-        generator = getattr(self.net_g, 'drop_path_generator', None)
+        generator = getattr(self.get_bare_model(self.net_g), 'drop_path_generator', None)
         if generator is not None and 'drop_path_generator' in resume_state:
             generator.set_state(resume_state['drop_path_generator'].cpu())
 
@@ -267,6 +278,13 @@ class SRModel(BaseModel):
         if hasattr(self, 'gt'):
             out_dict['gt'] = self.gt.detach().cpu()
         return out_dict
+
+    def dist_validation(self, dataloader, current_iter, tb_logger, save_img):
+        """Rank 0 validates; the others wait for it, so that no collective
+        of the next step times out behind a long validation."""
+        if self.opt['rank'] == 0:
+            self.nondist_validation(dataloader, current_iter, tb_logger, save_img)
+        barrier()
 
     def nondist_validation(self, dataloader, current_iter, tb_logger, save_img):
         dataset_name = dataloader.dataset.opt['name']

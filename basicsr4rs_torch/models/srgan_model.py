@@ -43,6 +43,8 @@ from .sr_model import SRModel
 @MODEL_REGISTRY.register()
 class SRGANModel(SRModel):
 
+    SINGLE_RANK_ONLY = 'the GAN models under DDP (two networks, two optimizers a step)'
+
     def init_training_settings(self):
         train_opt = self.opt['train']
         self.net_g.train()

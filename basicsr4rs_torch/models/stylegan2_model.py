@@ -47,6 +47,8 @@ from .base_model import BaseModel
 @MODEL_REGISTRY.register()
 class StyleGAN2Model(BaseModel):
 
+    SINGLE_RANK_ONLY = 'StyleGAN2 under DDP (R1\'s double backward, two networks)'
+
     def __init__(self, opt):
         super().__init__(opt)
         self.net_g = build_network(opt['network_g']).to(self.device)

@@ -13,6 +13,8 @@ from .srrs_model import SRRSModel
 @MODEL_REGISTRY.register()
 class TamingModel(SRRSModel):
 
+    SINGLE_RANK_ONLY = 'TamingModel under DDP'
+
     def feed_data(self, data):
         """``lq`` is the GT when the batch has one, else the batch's ``lq``."""
         if 'gt' in data:

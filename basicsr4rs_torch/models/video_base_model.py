@@ -6,8 +6,9 @@ basicsr/models/video_base_model.py, basicsr/models/edvr_model.py).
 its centre frame; metrics are kept per clip and frame, averaged per clip and
 then over the clips. ``EDVRModel`` adds EDVR's training schedule: only the
 TSA fusion trains before iteration ``tsa_iter``, and the deformable
-convolutions' parameters learn at ``dcn_lr_mul`` times the rate. One process;
-the validation spread over several processes is not ported yet.
+convolutions' parameters learn at ``dcn_lr_mul`` times the rate. On several
+ranks, validation strides the frames over the ranks and merges the metric
+rows with one sum (``dist_validation``).
 """
 
 from __future__ import annotations
@@ -17,7 +18,9 @@ from os import path as osp
 
 import numpy as np
 
+from ..data import default_collate
 from ..metrics import calculate_metric
+from ..utils.dist_util import sum_across_processes
 from ..utils.img_util import imwrite, tensor2img
 from ..utils.logger import get_root_logger
 from ..utils.registry import MODEL_REGISTRY
@@ -46,8 +49,37 @@ class VideoBaseModel(SRModel):
         if with_metrics:
             self._log_video_metrics(current_iter, dataset_name, tb_logger)
 
-    def _validate_item(self, val_data, dataset_name, save_img, with_metrics):
-        """One window of frames: its centre frame's output, image and metric row."""
+    def _strided_items(self, dataset):
+        """(item, whether to record it) of this rank: items ``rank::world_size``
+        (frame windows here; whole clips in ``VideoRecurrentModel``)."""
+        rank, world_size = self.opt['rank'], self.opt['world_size']
+        for i in range(rank, len(dataset), world_size):
+            yield default_collate([dataset[i]]), True
+
+    def dist_validation(self, dataloader, current_iter, tb_logger, save_img):
+        """Each rank validates its stride of the items into zeroed metric
+        rows, one ``sum_across_processes`` merges the rows, and every rank
+        then holds the same averages (rank 0 logs them)."""
+        dataset = dataloader.dataset
+        dataset_name = dataset.opt['name']
+        with_metrics = self.opt['val'].get('metrics') is not None
+        if with_metrics:
+            self._init_folder_metric_results(dataset)
+            self._initialize_best_metric_results(dataset_name)
+        for val_data, record in self._strided_items(dataset):
+            self._validate_item(val_data, dataset_name, save_img, with_metrics, record)
+        if with_metrics:
+            folders = list(self.metric_results_per_folder)
+            rows = [len(self.metric_results_per_folder[f]) for f in folders]
+            merged = sum_across_processes(
+                np.concatenate([self.metric_results_per_folder[f] for f in folders]), self.device)
+            self.metric_results_per_folder = dict(zip(folders, np.split(merged,
+                                                                        np.cumsum(rows)[:-1])))
+            self._log_video_metrics(current_iter, dataset_name, tb_logger)
+
+    def _validate_item(self, val_data, dataset_name, save_img, with_metrics, record=True):
+        """One window of frames: its centre frame's output, image and metric
+        row (none of them kept unless ``record``)."""
         folder = val_data['folder'][0]
         frame_idx = val_data['idx'][0].split('/')[0]
         self.feed_data(val_data)
@@ -57,6 +89,8 @@ class VideoBaseModel(SRModel):
         if 'gt' in visuals:
             metric_data['img2'] = tensor2img(visuals['gt'])
             del self.gt
+        if not record:
+            return
 
         if save_img:
             if self.is_train:
@@ -120,7 +154,7 @@ class EDVRModel(VideoBaseModel):
     def frozen_parameters(self, current_iter):
         if not self.tsa_iter or current_iter >= self.tsa_iter:
             return []
-        return [p for name, p in self.net_g.named_parameters()
+        return [p for name, p in self.get_bare_model(self.net_g).named_parameters()
                 if 'fusion' not in name.split('.')]
 
     def optimize_parameters(self, current_iter):

@@ -7,7 +7,10 @@ flow network learns at ``train.flow_lr_mul`` times the rate, and before
 iteration ``train.fix_flow`` its updates (and those of a keyframe ``edvr``
 branch) are discarded. Validation runs each clip in one forward, optionally
 averaged with the reversed clip (``val.flip_seq``) or cut to its centre frame
-(``val.center_frame_only``).
+(``val.center_frame_only``). On several ranks each rank validates the
+clips ``rank::world_size``; where the clip count does not divide, the tail
+ranks run the last clip again without recording it, so that every rank
+reaches the metric merge after as many forwards.
 
 ``VideoRecurrentGANModel`` trains as ``SRGANModel`` and validates as
 ``VideoRecurrentModel``; the discriminator sees the frames folded into the
@@ -24,6 +27,7 @@ from os import path as osp
 
 import torch
 
+from ..data import default_collate
 from ..metrics import calculate_metric
 from ..utils.img_util import imwrite, tensor2img
 from ..utils.logger import get_root_logger
@@ -47,7 +51,7 @@ class VideoRecurrentModel(VideoBaseModel):
     def frozen_parameters(self, current_iter):
         if not self.fix_flow_iter or current_iter >= self.fix_flow_iter:
             return []
-        return [p for name, p in self.net_g.named_parameters()
+        return [p for name, p in self.get_bare_model(self.net_g).named_parameters()
                 if 'spynet' in name or 'edvr' in name]
 
     def optimize_parameters(self, current_iter):
@@ -71,8 +75,22 @@ class VideoRecurrentModel(VideoBaseModel):
             output = output[:, output.shape[1] // 2]
         self.output = output
 
-    def _validate_item(self, val_data, dataset_name, save_img, with_metrics):
-        """One clip: every frame's output, image and metric row."""
+    def _strided_items(self, dataset):
+        """The clips ``rank::world_size``, padded with unrecorded runs of the
+        last clip up to a multiple of the rank count (the JAX package's and
+        BasicSR's rule)."""
+        rank, world_size = self.opt['rank'], self.opt['world_size']
+        num_folders = len(dataset)
+        num_pad = (world_size - num_folders % world_size) % world_size
+        if rank == 0 and num_pad:
+            get_root_logger().info(f'{num_pad} padding folders added to keep validation '
+                                   'in step')
+        for i in range(rank, num_folders + num_pad, world_size):
+            yield default_collate([dataset[min(i, num_folders - 1)]]), i < num_folders
+
+    def _validate_item(self, val_data, dataset_name, save_img, with_metrics, record=True):
+        """One clip: every frame's output, image and metric row (none of them
+        kept unless ``record``)."""
         folder = val_data['folder'][0]
         self.feed_data(val_data)
         self.test()
@@ -81,6 +99,8 @@ class VideoRecurrentModel(VideoBaseModel):
         gt = visuals['gt'][0] if 'gt' in visuals else None
         if gt is not None:
             del self.gt
+        if not record:
+            return
         if self.opt['val'].get('center_frame_only', False):
             # the one frame takes metric row 0
             result = result.unsqueeze(0)

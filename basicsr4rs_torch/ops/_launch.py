@@ -1,6 +1,8 @@
 """What every kernel wrapper does around a launch: bind the library's C
-functions, check an operand, find the stream, turn a CUDA error code into an
-exception."""
+functions, check an operand, find the stream (on the card the thread is set
+to: a ctypes launch runs on the current device, whatever the tensor's), turn
+a CUDA error code into an exception, hand parameter gradients back in the
+parameters' layout."""
 
 from __future__ import annotations
 
@@ -75,19 +77,43 @@ def mode_of(add_residual: bool, residual_scale) -> int:
 _RAW_STREAM = getattr(torch._C, '_cuda_getCurrentRawStream', None)   # CUDA builds only
 
 
+def check_current_device(index: int) -> int:
+    """``index``, the card a tensor lies on; raises unless it is the card
+    this thread is set to (``torch.cuda.set_device``, which ``init_dist``
+    calls for a rank): the launch would go to another card, or fail with an
+    invalid resource handle."""
+    current = torch.cuda.current_device()
+    if index != current:
+        raise RuntimeError(f'the operands lie on cuda:{index}, the current device is '
+                           f'cuda:{current}: call torch.cuda.set_device({index}) (or work under '
+                           f'torch.cuda.device({index})) before launching')
+    return index
+
+
 def current_stream(device: torch.device) -> int:
     """The raw ``cudaStream_t`` of PyTorch's current stream on ``device``,
-    without building a ``torch.cuda.Stream`` object where the build allows."""
+    which must be the current device, without building a ``torch.cuda.Stream``
+    object where the build allows."""
+    index = check_current_device(torch.cuda.current_device() if device.index is None
+                                 else device.index)
     if _RAW_STREAM is None:
-        return torch.cuda.current_stream(device).cuda_stream
-    return _RAW_STREAM(torch.cuda.current_device() if device.index is None else device.index)
+        return torch.cuda.current_stream(index).cuda_stream
+    return _RAW_STREAM(index)
 
 
 def stream_of(t: torch.Tensor) -> int:
     """``current_stream`` of the CUDA tensor ``t``'s device."""
-    if _RAW_STREAM is None:
-        return current_stream(t.device)
-    return _RAW_STREAM(t.get_device())
+    return current_stream(t.device)
+
+
+def grad_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """The gradient ``g`` of ``p`` in ``p``'s dtype and strides:
+    ``DistributedDataParallel`` copies a gradient of other strides into its
+    bucket and warns."""
+    g = g.to(p.dtype)
+    if g.stride() != p.stride():
+        g = torch.empty_like(p).copy_(g)
+    return g
 
 
 @functools.lru_cache(maxsize=None)

@@ -132,7 +132,7 @@ class _FusedMlpBlock(torch.autograd.Function):
         grads = mlp_block_backward(x, dz.to(x.dtype).contiguous(), *params[1:],
                                    ctx.add_residual, residual_scale)
         like = (*params, fc2_bias)
-        return (*(g.to(p.dtype) for g, p in zip(grads, like)), None, None)
+        return (*(_launch.grad_like(g, p) for g, p in zip(grads, like)), None, None)
 
 
 def fused_mlp_block(x, ln_weight, ln_bias, fc1_weight, fc1_bias, fc2_weight, fc2_bias,

@@ -173,8 +173,8 @@ class _FusedSwinAttnBlock(torch.autograd.Function):
         grads = swin_attn_block_backward(x, dz.to(x.dtype).contiguous(), *params[1:], rel_bias,
                                          mask, *ctx.geometry, residual_scale)
         like = (*params, proj_bias, rel_bias)
-        return (*(g.to(p.dtype) for g, p in zip(grads, like)), None, None, None, None, None,
-                None)
+        return (*(_launch.grad_like(g, p) for g, p in zip(grads, like)), None, None, None, None,
+                None, None)
 
 
 def fused_swin_attn_block(x, ln_weight, ln_bias, qkv_weight, qkv_bias, proj_weight, proj_bias,
@@ -266,9 +266,9 @@ class _FusedSwinBlockFull(torch.autograd.Function):
                                                    s1 is None, s1)
         like_attn = (*attn, proj_bias, rel_bias)
         like_mlp = (*mlp, fc2_bias)
-        return (dx, *(g.to(p.dtype) for g, p in zip(attn_grads, like_attn)), None,
-                *(g.to(p.dtype) for g, p in zip(mlp_grads, like_mlp)), None, None, None, None,
-                None)
+        return (dx, *(_launch.grad_like(g, p) for g, p in zip(attn_grads, like_attn)), None,
+                *(_launch.grad_like(g, p) for g, p in zip(mlp_grads, like_mlp)), None, None,
+                None, None, None)
 
 
 def fused_swin_block_full(x, ln1_weight, ln1_bias, qkv_weight, qkv_bias,

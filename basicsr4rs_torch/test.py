@@ -1,7 +1,12 @@
 """Test pipeline (counterpart of ``basicsr4rs_tpu/test.py``; reference:
 basicsr/test.py).
 
-Run: ``python -m basicsr4rs_torch.test -opt options/test/....yml``
+Run: ``python -m basicsr4rs_torch.test -opt options/test/....yml``; on N
+ranks (``python -m torch.distributed.run --standalone --nproc_per_node N -m
+basicsr4rs_torch.test -opt <yml> --launcher pytorch``) the models share the
+evaluation out through their ``dist_validation``: the video models stride the
+items over the ranks and merge the metrics, the image models evaluate on
+rank 0.
 """
 
 from __future__ import annotations
@@ -13,6 +18,7 @@ from basicsr4rs_torch.data import build_dataloader, build_dataset
 from basicsr4rs_torch.models import build_model
 from basicsr4rs_torch.utils import (dict2str, get_env_info, get_root_logger, get_time_str,
                                     make_exp_dirs)
+from basicsr4rs_torch.utils.dist_util import barrier, close_dist
 from basicsr4rs_torch.utils.options import parse_options
 
 
@@ -21,6 +27,7 @@ def test_pipeline(root_path):
     opt['root_path'] = root_path
 
     make_exp_dirs(opt)
+    barrier()   # rank 0 made the folders
     log_file = osp.join(opt['path']['log'], f"test_{opt['name']}_{get_time_str()}.log")
     logger = get_root_logger(log_level=logging.INFO, log_file=log_file)
     logger.info(get_env_info())
@@ -45,7 +52,10 @@ def test_pipeline(root_path):
 
 def main():
     root_path = osp.abspath(osp.join(__file__, osp.pardir, osp.pardir))
-    test_pipeline(root_path)
+    try:
+        test_pipeline(root_path)
+    finally:
+        close_dist()
 
 
 if __name__ == '__main__':

@@ -5,7 +5,11 @@ Parse the options, resume if asked, build the loggers, the train and
 validation loaders and the model, then loop: learning-rate update, one
 optimization step, logging, checkpoints and validation at their intervals.
 
-Run: ``python -m basicsr4rs_torch.train -opt options/train/....yml``
+Run: ``python -m basicsr4rs_torch.train -opt options/train/....yml``; on N
+cards, one rank each: ``python -m torch.distributed.run --standalone
+--nproc_per_node N -m basicsr4rs_torch.train -opt <yml> --launcher pytorch``.
+Every rank takes the same steps, checkpoints and validations; rank 0 alone
+makes the folders, copies the option file and writes the logs and files.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from basicsr4rs_torch.models import build_model
 from basicsr4rs_torch.utils import (AvgTimer, MessageLogger, check_resume, copy_opt_file, dict2str,
                                     find_latest_checkpoint_iter, get_env_info, get_root_logger,
                                     get_time_str, init_tb_logger, init_wandb_logger, make_exp_dirs)
+from basicsr4rs_torch.utils.dist_util import barrier, close_dist
 from basicsr4rs_torch.utils.options import parse_options
 
 
@@ -46,22 +51,23 @@ def create_train_val_dataloader(opt, logger):
     for phase, dataset_opt in opt['datasets'].items():
         if phase == 'train':
             dataset_enlarge_ratio = dataset_opt.get('dataset_enlarge_ratio', 1)
-            dataset_opt.setdefault('manual_seed', opt['manual_seed'])
+            # each rank crops and flips from its own seed
+            dataset_opt.setdefault('manual_seed', opt['manual_seed'] + opt['rank'])
             train_set = build_dataset(dataset_opt)
             train_sampler = EnlargedSampler(len(train_set), opt['world_size'], opt['rank'],
                                             dataset_enlarge_ratio)
             train_loader = build_dataloader(train_set, dataset_opt, num_gpu=opt['num_gpu'],
                                             dist=opt['dist'], sampler=train_sampler,
-                                            seed=opt['manual_seed'])
-            global_batch = dataset_opt['batch_size_per_gpu'] * max(opt['num_gpu'], 1)
+                                            seed=opt['manual_seed'] + opt['rank'])
+            global_batch = train_loader.batch_size * opt['world_size']
             if len(train_loader) == 0:
                 raise ValueError(
                     f'Train dataloader is empty: {len(train_set)} images x enlarge '
                     f'{dataset_enlarge_ratio} < global batch {global_batch} '
-                    '(batch_size_per_gpu x num_gpu) with drop_last. Increase '
+                    '(batch_size_per_gpu x num_gpu x world_size) with drop_last. Increase '
                     'dataset_enlarge_ratio or reduce the batch size.')
             num_iter_per_epoch = math.ceil(
-                len(train_set) * dataset_enlarge_ratio / (global_batch * opt['world_size']))
+                len(train_set) * dataset_enlarge_ratio / global_batch)
             total_iters = int(opt['train']['total_iter'])
             total_epochs = math.ceil(total_iters / num_iter_per_epoch)
             logger.info('Training statistics:'
@@ -98,6 +104,10 @@ def load_resume_state(opt):
     if resume_state_path is None:
         return None
     resume_state = torch.load(resume_state_path, map_location='cpu', weights_only=True)
+    # each rank's own generators, where the run that saved it had as many ranks
+    rank_states = resume_state.pop('rank_states', None)
+    if rank_states is not None and len(rank_states) == opt['world_size']:
+        resume_state.update(rank_states[opt['rank']])
     check_resume(opt, resume_state['iter'])
     return resume_state
 
@@ -111,6 +121,7 @@ def train_pipeline(root_path):
         make_exp_dirs(opt)
         if opt['logger'].get('use_tb_logger') and 'debug' not in opt['name'] and opt['rank'] == 0:
             os.makedirs(osp.join(root_path, 'tb_logger', opt['name']), exist_ok=True)
+    barrier()   # no rank reads the experiment's folder before rank 0 made it
 
     copy_opt_file(args.opt, opt['path']['experiments_root'])
 
@@ -207,7 +218,10 @@ def train_pipeline(root_path):
 
 def main():
     root_path = osp.abspath(osp.join(__file__, osp.pardir, osp.pardir))
-    train_pipeline(root_path)
+    try:
+        train_pipeline(root_path)
+    finally:
+        close_dist()
 
 
 if __name__ == '__main__':

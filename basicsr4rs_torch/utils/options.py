@@ -9,7 +9,12 @@ run gets the ``experiments/<name>/`` layout, a test run ``results/<name>/``;
 and checkpoint intervals. ``num_gpu`` picks the
 device: ``auto`` is ``torch.cuda.device_count()``, ``0`` means the CPU, and a
 run that asks for a GPU on a host without one raises instead of falling back
-to the CPU.
+to the CPU. One process drives at most one card: ``num_gpu`` above 1 raises
+and names the torchrun command. Under a launcher (``--launcher pytorch``,
+``slurm``; ``jax`` is taken as ``pytorch``) each process is one rank on one
+card, ``num_gpu`` resolves to 1 (0 where the config says 0) and
+``world_size`` carries the count; the group's backend is
+``dist_params.backend`` (NCCL by default), gloo with ``num_gpu: 0``.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ import numpy as np
 import torch
 import yaml
 
-from .dist_util import get_dist_info, master_only
+from .dist_util import TORCHRUN, get_dist_info, init_dist, master_only
 
 
 def ordered_yaml():
@@ -115,10 +120,19 @@ def apply_force_yml(opt: Dict[str, Any], force_yml) -> None:
         node[key_list[-1]] = _postprocess_value(value)
 
 
-def resolve_num_gpu(num_gpu) -> int:
+def resolve_num_gpu(num_gpu, dist: bool = False) -> int:
     """``auto`` -> every visible CUDA device; 0 -> the CPU; n >= 1 needs n
-    CUDA devices. Raises when the devices asked for are not there."""
+    CUDA devices. Raises when the devices asked for are not there, and when
+    one process is asked for more than one card. Under a launcher
+    (``dist``) every rank drives one card: 1, or 0 where ``num_gpu`` is 0."""
     available = torch.cuda.device_count()
+    if dist:
+        if num_gpu == 0:
+            return 0
+        if available == 0:
+            raise RuntimeError(f'num_gpu: {num_gpu} under a launcher needs a CUDA device on '
+                               'every rank, none visible; set num_gpu: 0 to run on the CPU')
+        return 1
     if num_gpu == 'auto':
         num_gpu = available
         if num_gpu == 0:
@@ -128,18 +142,26 @@ def resolve_num_gpu(num_gpu) -> int:
     if num_gpu > available:
         raise RuntimeError(f'num_gpu: {num_gpu} asks for CUDA devices, {available} '
                            'visible; set num_gpu: 0 to run on the CPU')
+    if num_gpu > 1:
+        command = TORCHRUN.replace(' N', f' {num_gpu}')
+        raise RuntimeError(f'num_gpu: {num_gpu} in one process: the port drives one card a '
+                           f'process; start {num_gpu} ranks with {command} -m '
+                           'basicsr4rs_torch.train -opt <yml> --launcher pytorch, or set '
+                           'num_gpu: 1')
     return num_gpu
 
 
 def parse_options(root_path: str, is_train: bool = False,
                   args: Optional[argparse.Namespace] = None
                   ) -> Tuple[Dict[str, Any], argparse.Namespace]:
-    """Parse the command line (``-opt``, ``--auto_resume``, ``--debug``,
-    ``--force_yml``) and the YAML file into the experiment option dict.
-    Distributed launchers are not ported: the run is one process."""
+    """Parse the command line (``-opt``, ``--launcher``, ``--auto_resume``,
+    ``--debug``, ``--force_yml``) and the YAML file into the experiment
+    option dict; under a launcher, join the process group first."""
     if args is None:
         parser = argparse.ArgumentParser()
         parser.add_argument('-opt', type=str, required=True, help='Path to option YAML file.')
+        parser.add_argument('--launcher', choices=['none', 'jax', 'pytorch', 'slurm'],
+                            default='none', help='job launcher')
         parser.add_argument('--auto_resume', action='store_true')
         parser.add_argument('--debug', action='store_true')
         parser.add_argument('--force_yml', nargs='+', default=None,
@@ -147,23 +169,30 @@ def parse_options(root_path: str, is_train: bool = False,
         args = parser.parse_args()
 
     opt = yaml_load(args.opt)
+    apply_force_yml(opt, args.force_yml)
+    launcher = getattr(args, 'launcher', 'none') or 'none'
+    opt['dist'] = launcher != 'none'
+    if opt['dist']:
+        use_cuda = opt.get('num_gpu', 'auto') != 0
+        backend = (opt.get('dist_params') or {}).get('backend', 'nccl') if use_cuda else 'gloo'
+        init_dist(launcher, backend, use_cuda)
     rank, world_size = get_dist_info()
     opt['rank'], opt['world_size'] = rank, world_size
-    opt['dist'] = False
-    apply_force_yml(opt, args.force_yml)
 
     if getattr(args, 'debug', False) and not opt['name'].startswith('debug'):
         opt['name'] = 'debug_' + opt['name']
 
     seed = opt.get('manual_seed')
     if seed is None:
-        seed = random.randint(1, 10000)
-        opt['manual_seed'] = seed
+        seed = [random.randint(1, 10000)]
+        if world_size > 1:   # one seed for every rank: rank 0's
+            torch.distributed.broadcast_object_list(seed, src=0)
+        seed = opt['manual_seed'] = seed[0]
     set_random_seed(seed + rank)
 
     opt['auto_resume'] = getattr(args, 'auto_resume', False)
     opt['is_train'] = is_train
-    opt['num_gpu'] = resolve_num_gpu(opt.get('num_gpu', 'auto'))
+    opt['num_gpu'] = resolve_num_gpu(opt.get('num_gpu', 'auto'), opt['dist'])
 
     for phase, dataset in (opt.get('datasets') or {}).items():
         dataset['phase'] = phase.split('_')[0]

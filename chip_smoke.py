@@ -192,7 +192,7 @@ nonzero exit code and no result line:
     options/train/ResShift/train_ResShift_L2S288_synthetic.yml``: window 9,
     72x72 latents of 6 bands, batch 32, ``use_amp``) for 8 steps: 18
     launches of K6 and of K7 a step in bfloat16, step time, peak memory, the
-    device time of 2 steps by kernel;
+    device time of a step by kernel;
 27. samples it through ``basicsr4rs_torch.test`` (``-opt
     options/test/ResShift/test_ResShift_L2S288_synthetic.yml``): 2 requests
     of 15 reverse steps, 270 K6 launches each, latency, the device time of a
@@ -205,14 +205,14 @@ nonzero exit code and no result line:
     gates opened: step time, peak memory, a loss that falls on the first
     batch, one validation of its 26 metrics (CSV, RGB and NSS PNGs) and
     the host time of each metric type on one item, LPIPS's on the card,
-    and 2 steps by kernel (28b);
+    and one step by kernel (28b);
 29. trains the joint align-diffusion model (``-opt options/train/
     AlignResDiff/train_AlignResDiff_3loss_L2S_Square192_synthetic.yml``:
     ``AlignJointDiffModel`` on ``ResNetAE_SwinUNet``, the published widths,
     batch 12 at GT 66, ``use_amp``) for 8 steps: the K6 and K7 launches of
     each step, counted from the UNet's Swin blocks (2 and 2) and read back,
     the dtype they are made in (bfloat16 alone, or the phase fails), step
-    time, peak memory, one validation, 2 steps by kernel with
+    time, peak memory, one validation, one step by kernel with
     ``torch.profiler`` (29b, as 28b for phase 28); 29c holds it in float32
     against the plain versions on seed-0 weights: one batch's loss and every
     gradient, and a request's output from the same noises;
@@ -234,7 +234,7 @@ nonzero exit code and no result line:
     from random weights: every logged loss finite, step time, peak memory,
     the G phase's discriminator passes keeping its BatchNorm statistics, the
     EMA moved, the checkpoint reloading to the EMA network's output; 32b
-    breaks 2 steps down by kernel group;
+    breaks one step down by kernel group;
 33. serves RRDBNet x4 through ``basicsr4rs_torch.test`` (``-opt options/
     test/ESRGAN/test_ESRGAN_x4_synthetic.yml``) and through
     ``basicsr4rs_torch.inference.inference_esrgan`` from one random
@@ -268,7 +268,8 @@ nonzero exit code and no result line:
     REDS and IconVSR on Vimeo90K through ``basicsr4rs_torch.train`` across
     ``fix_flow`` (41, 42; 41c, 42c one batch's gradients against the plain
     sampler), the
-    video GAN (43), TOFlow and DUF served (44, 45), and
+    video GAN (43), TOFlow and DUF served (44, 45; DUF times one request),
+    and
     ``inference_basicvsr`` and ``inference_basicvsrpp`` against
     ``test.py``'s images (46); each request's and step's sampler launches
     counted.
@@ -301,14 +302,31 @@ nonzero exit code and no result line:
     card and the CPU, and Adafactor's factored route on a 256 -> 256
     convolution (57); the EMA of a fine-tune start from a ``.pth`` whose
     ``params`` and ``params_ema`` differ, and of a resumed run (58).
+63, 64. (after 7) data-parallel training through the launcher: 63 starts
+    ``python -m torch.distributed.run --standalone --nproc_per_node 1`` on
+    NCCL, whose rank runs ``basicsr4rs_torch.train``'s pipeline with
+    ``--launcher pytorch`` on the SwinIR-M x4 config (DDP around ``net_g``):
+    10 steps, a checkpoint, one validation, then ``--auto_resume`` to 12; K2 to
+    K5 counted a step and K1 in each validation; the step beside phase 6's
+    (DDP's cost at one rank). 64 starts two ranks on the one card over gloo
+    for 2 SGD steps at 2 rows a rank (no DropPath, flips or crops), then one
+    process at 4 rows from the same ``.pth`` on the same items: the
+    parameters against each other (``F32_TOL`` elementwise, the steps taken
+    within ``F32_SUM_TOL`` of the largest), the EMA within 4 ulps of the
+    weights (an EMA that never moved, and the weights, must fail that), the
+    loss, both step times. A rank that fails, a run past its time and DDP's
+    stride warning fail the phase. One card cannot show NCCL between two
+    cards.
 
 ``python3 chip_smoke.py kernels`` stops after phase 3; ``python3 chip_smoke.py
 serving`` runs phases 3a, 3e, 3g, 3f, 4, 4b, 17 to 22 and 59 to 62 alone; ``python3
 chip_smoke.py cnn`` runs phases 3g and 32 to 36 alone; ``python3 chip_smoke.py
 video`` runs phases 3h and 37 to 46 alone; ``python3 chip_smoke.py
 realesrgan`` phases 47 to 49, ``python3 chip_smoke.py faces`` phases 50
-to 53 and ``python3 chip_smoke.py taming`` phases 54 to 58, each ending with
-the same last line. The line before the
+to 53, ``python3 chip_smoke.py taming`` phases 54 to 58 and ``python3
+chip_smoke.py dist`` phases 6, 63 and 64, each ending with the same last
+line (``python3 chip_smoke.py rank <job>`` is one rank of 63 or 64, as
+torchrun starts it). The line before the
 last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -1671,14 +1689,15 @@ def keep_fed_batch(model, record):
 
 
 def profile_fed_steps(model, record, wrappers, json_name):
-    """2 training steps of ``model`` on the kept batch, device time by
-    kernel; the launches they make belong to no main path's count."""
+    """One training step of ``model`` on the kept batch (after one
+    unprofiled), device time by kernel; the launches they make belong to no
+    main path's count."""
     for key, value in record['batch'].items():
         setattr(model, key, value)
     model.tt = model.noise = None
     counts = {k: wr.launches for k, wr in wrappers.items()}
     model.optimize_parameters(0)
-    profile_device_time(lambda: model.optimize_parameters(0), 2, 'step', tuple(wrappers),
+    profile_device_time(lambda: model.optimize_parameters(0), 1, 'step', tuple(wrappers),
                         json_name)
     for k, wr in wrappers.items():
         wr.launches = counts[k]
@@ -1772,6 +1791,367 @@ def train():
         fail(f'resume should continue at step {total_iter + 1}, ran {iters}')
     profile_training_steps(model, record['fixed'])
     return launches, step_ms, peak
+
+
+# ------------------------------------------------------------ data parallel
+DIST_DIR = 'results/chip_smoke/dist'
+DIST_DATA_DIR = 'datasets/SwinIR_M_x4_dist'
+DIST_ITERS, DIST_RESUME_ITERS = 10, 2   # phase 63: steps, then steps after --auto_resume
+DIST_ROWS, DIST_STEPS, DIST_LR = 2, 2, 1e-2   # phase 64: rows a rank a step, steps, SGD's rate
+STRIDE_WARNING = 'Grad strides do not match bucket view strides'
+DIST_TIMEOUT = 600   # seconds from a launcher's start to its last rank's end
+
+
+def dist_rank(job_file):
+    """One rank of phase 63 or 64, started by torchrun: ``basicsr4rs_torch.
+    train``'s pipeline with each command line of the job in turn (the code
+    path of ``python -m basicsr4rs_torch.train -opt <yml> --launcher
+    pytorch``; a second line with ``--auto_resume`` resumes in the same
+    process), every step timed by CUDA events with its kernel launches, the
+    launches of each run in all, and every warning; written as JSON for the
+    parent. A job with ``after`` trains once that file exists (the card's
+    other phase has ended); rank 0 of a job with ``done`` writes that file at
+    its end."""
+    import warnings
+
+    import torch._dynamo  # noqa: F401  the first DDP's imports, done while
+    import torch.distributed.tensor  # noqa: F401  the other phase trains
+
+    from basicsr4rs_torch.utils.dist_util import close_dist, get_dist_info
+    with open(job_file) as f:
+        job = json.load(f)
+    deadline = time.monotonic() + DIST_TIMEOUT
+    while job.get('after') and not os.path.exists(job['after']):
+        if time.monotonic() > deadline:
+            fail(f'{job["after"]} did not appear within {DIST_TIMEOUT} s')
+        time.sleep(0.2)
+    wrappers = training_kernels()
+    runs = []
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            for argv in job['argv']:
+                record = {'steps': []}
+                for wr in wrappers.values():
+                    wr.launches = 0
+                model = run_train_pipeline(argv, record, config=job['config'],
+                                           before_first_step=lambda *_: None)
+                torch.cuda.synchronize()
+                runs.append({'steps': record['steps'],
+                             'launches': {k: wr.launches for k, wr in wrappers.items()},
+                             'net': type(model.net_g).__name__, 'device': str(model.device)})
+        rank, world_size = get_dist_info()
+        with open(f'{job["out"]}.rank{rank}.json', 'w') as f:
+            json.dump({'rank': rank, 'world_size': world_size, 'runs': runs,
+                       'warnings': [str(w.message) for w in caught],
+                       'peak_mib': torch.cuda.max_memory_allocated() / 2**20}, f)
+        if job.get('done') and rank == 0:
+            open(job['done'], 'w').close()
+    finally:
+        close_dist()
+
+
+def start_torchrun(nproc, config, argv, out, after=None, done=None):
+    """``chip_smoke.py rank`` on ``nproc`` ranks under ``torchrun
+    --standalone`` (a free port) in a session of its own, each running the
+    pipeline with the command lines ``argv`` (``after``, ``done``: see
+    ``dist_rank``). Returns what ``finish_torchrun`` takes."""
+    os.makedirs(DIST_DIR, exist_ok=True)
+    job_file = f'{out}.job.json'
+    with open(job_file, 'w') as f:
+        json.dump({'config': config, 'argv': argv, 'out': out, 'after': after, 'done': done}, f)
+    for rank in range(nproc):
+        if os.path.exists(f'{out}.rank{rank}.json'):
+            os.remove(f'{out}.rank{rank}.json')
+    log = open(f'{out}.log', 'w')
+    command = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+               '--nproc_per_node', str(nproc), os.path.join(ROOT, 'chip_smoke.py'), 'rank',
+               job_file]
+    proc = subprocess.Popen(command, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
+                            start_new_session=True)
+    return dict(proc=proc, log=log, out=out, nproc=nproc, t0=time.perf_counter())
+
+
+def stop_torchrun(run):
+    """End the run's launcher and ranks, whatever their state."""
+    if run['proc'].poll() is None:
+        os.killpg(run['proc'].pid, 9)
+        run['proc'].wait()
+    run['log'].close()
+
+
+def finish_torchrun(run, others=()):
+    """Wait for ``run``; fail (stopping ``others`` first) unless every rank
+    ended well within ``DIST_TIMEOUT`` s of the start and without DDP's
+    stride warning. Returns the ranks' records and the wall time."""
+    out, nproc = run['out'], run['nproc']
+    try:
+        run['proc'].wait(timeout=max(1., DIST_TIMEOUT - (time.perf_counter() - run['t0'])))
+    except subprocess.TimeoutExpired:
+        pass
+    wall = time.perf_counter() - run['t0']
+    rc = run['proc'].poll()
+    stop_torchrun(run)
+    with open(f'{out}.log') as f:
+        text = f.read()
+    if rc != 0:
+        for other in others:
+            stop_torchrun(other)
+        print(text[-8000:])
+        fail(f'torchrun on {nproc} ranks ' + (f'did not end within {DIST_TIMEOUT} s' if rc is None
+                                              else f'exited with {rc}') + f' (log: {out}.log)')
+    ranks = []
+    for rank in range(nproc):
+        with open(f'{out}.rank{rank}.json') as f:
+            ranks.append(json.load(f))
+    if STRIDE_WARNING in text or any(STRIDE_WARNING in w for r in ranks for w in r['warnings']):
+        fail(f'DDP warned: {STRIDE_WARNING} (a kernel handed back a gradient of other strides)')
+    return ranks, wall
+
+
+def check_dist_steps(steps, iters, blocks, who):
+    if [st['iter'] for st in steps] != list(iters):
+        fail(f'{who}: ran steps {[st["iter"] for st in steps]}, expected {list(iters)}')
+    for st in steps:
+        print(f'{who} step {st["iter"]}: {st["ms"]:.3f} ms, l_pix {st["l_pix"]:.6f}, launches '
+              + ' '.join(f'{k}={v}' for k, v in st['launches'].items() if v))
+        if not math.isfinite(st['l_pix']):
+            fail(f'{who}: l_pix is not finite at step {st["iter"]}')
+        for name in SPLIT_KERNELS:
+            if st['launches'][name] != blocks:
+                fail(f'{who} step {st["iter"]}: {st["launches"][name]} launches of {name}, '
+                     f'expected {blocks}')
+
+
+def one_rank_argv():
+    """Phase 63's command lines: training steps with a checkpoint and one
+    validation, then ``--auto_resume`` for more."""
+    name = 'chip_smoke_dist_one_rank'
+    shutil.rmtree(os.path.join('experiments', name), ignore_errors=True)
+    force = [f'name={name}', 'val:val_freq=1000', f'logger:save_checkpoint_freq={DIST_ITERS}']
+    return [['--launcher', 'pytorch', '--force_yml', *force, f'train:total_iter={DIST_ITERS}'],
+            ['--launcher', 'pytorch', '--auto_resume', '--force_yml', *force,
+             f'train:total_iter={DIST_ITERS + DIST_RESUME_ITERS}']]
+
+
+def dist_one_rank(ranks, wall, split_step_ms, card):
+    """Phase 63: one rank through the real launcher on NCCL: training steps,
+    a checkpoint and one validation, then ``--auto_resume``; K2 to K5 a step,
+    K1 in the validation; the step beside phase 6's one-process step."""
+    from basicsr4rs_torch.utils.options import yaml_load
+    phase('63. data parallel, one rank: torchrun --standalone --nproc_per_node 1, NCCL, '
+          'basicsr4rs_torch.train --launcher pytorch on SwinIR-M x4 (batch 4, GT 192)')
+    blocks = sum(yaml_load(TRAIN_CONFIG)['network_g']['depths'])
+    first, resumed = ranks[0]['runs']
+    print(f'torchrun wall time {wall:.3f} s from the start of phases 63 and 64 (the launcher, '
+          'the process, CUDA and NCCL set-up, waiting for phase 64\'s ranks, two pipelines); '
+          f'network {first["net"]} on {first["device"]}; peak device memory '
+          f'{ranks[0]["peak_mib"]:.1f} MiB')
+    if first['net'] != 'DistributedDataParallel' or first['device'] != 'cuda:0':
+        fail(f'the rank trained {first["net"]} on {first["device"]}')
+    check_dist_steps(first['steps'], range(1, DIST_ITERS + 1), blocks, 'rank 0')
+    check_dist_steps(resumed['steps'], range(DIST_ITERS + 1, DIST_ITERS + DIST_RESUME_ITERS + 1),
+                     blocks, 'rank 0, resumed')
+    for run in (first, resumed):   # one validation image after each run: K1 per block
+        if run['launches']['swin_block_joint_fwd'] != blocks:
+            fail(f'{run["launches"]["swin_block_joint_fwd"]} K1 launches in a run, expected '
+                 f'{blocks} (one validation image)')
+    ckpt = torch.load(os.path.join('experiments', 'chip_smoke_dist_one_rank', 'models',
+                                   f'net_g_{DIST_ITERS}.pth'), map_location='cpu',
+                      weights_only=True)
+    if sorted(ckpt) != ['params', 'params_ema'] or any(
+            k.startswith('module.') for k in ckpt['params']):
+        fail(f'net_g_{DIST_ITERS}.pth holds {sorted(ckpt)} with keys like '
+             f'{next(iter(ckpt["params"]))}')
+    timed = [st['ms'] for st in first['steps'][2:]]
+    step_ms = sum(timed) / len(timed)
+    print(f'{card}: training step under DDP on one rank {step_ms:.3f} ms (mean of steps 3..'
+          f'{DIST_ITERS}, min {min(timed):.3f}, max {max(timed):.3f}; CUDA events around '
+          f'optimize_parameters) against {split_step_ms:.3f} ms one process without DDP (phase '
+          f'6, this call): DDP\'s cost at one rank {step_ms - split_step_ms:+.3f} ms '
+          f'({100 * (step_ms / split_step_ms - 1):+.1f}%)')
+    return {k: first['launches'][k] + resumed['launches'][k] for k in first['launches']}
+
+
+def write_dist_inputs():
+    """8 GT 192x192 / LQ 48x48 pairs for phase 64 (the crop is the whole GT:
+    no random draw touches the data) and one validation pair."""
+    import cv2
+    import numpy as np
+    rng = np.random.RandomState(5)
+    for gt_dir, lq_dir, count, size in (('GT', 'LQ', 8, 192), ('val_GT', 'val_LQ', 1, 256)):
+        for sub in (gt_dir, lq_dir):
+            os.makedirs(os.path.join(DIST_DATA_DIR, sub), exist_ok=True)
+        for i in range(count):
+            gt = smooth_image(rng, size, size)
+            lq = cv2.resize(gt, (size // SCALE, size // SCALE), interpolation=cv2.INTER_CUBIC)
+            cv2.imwrite(os.path.join(DIST_DATA_DIR, gt_dir, f'{i:04d}.png'), gt)
+            cv2.imwrite(os.path.join(DIST_DATA_DIR, lq_dir, f'{i:04d}.png'), lq)
+
+
+def dist_config(name, rows, init):
+    """The SwinIR-M x4 training config for phase 64, ``rows`` a rank a
+    step, from ``init``, without DropPath, flips or crops, with SGD (Adam
+    would turn the rounding of gradients that are noise into steps of the
+    full rate)."""
+    import yaml
+
+    from basicsr4rs_torch.utils.options import yaml_load
+    opt = json.loads(json.dumps(yaml_load(TRAIN_CONFIG)))
+    opt['name'] = name
+    opt['dist_params'] = {'backend': 'gloo'}
+    opt['datasets']['train'].update(
+        dataroot_gt=f'{DIST_DATA_DIR}/GT', dataroot_lq=f'{DIST_DATA_DIR}/LQ', gt_size=192,
+        use_hflip=False, use_rot=False, batch_size_per_gpu=rows)
+    opt['datasets']['val'].update(dataroot_gt=f'{DIST_DATA_DIR}/val_GT',
+                                  dataroot_lq=f'{DIST_DATA_DIR}/val_LQ')
+    opt['network_g']['drop_path_rate'] = 0.0
+    opt['path'].update(pretrain_network_g=init)
+    opt['train'].update(total_iter=DIST_STEPS, optim_g={'type': 'SGD', 'lr': DIST_LR},
+                        scheduler={'type': 'ConstantLR'})
+    opt['val']['val_freq'] = 1000
+    opt['logger']['save_checkpoint_freq'] = DIST_STEPS
+    path = os.path.join(DIST_DIR, f'{name}.yml')
+    with open(path, 'w') as f:
+        yaml.safe_dump(opt, f, sort_keys=False)
+    shutil.rmtree(os.path.join('experiments', name), ignore_errors=True)
+    return path
+
+
+def two_ranks_inputs():
+    """Phase 64's data, its init ``.pth`` and its two configs (two ranks,
+    one process)."""
+    from basicsr4rs_torch.archs.swinir_arch import SwinIR
+    from basicsr4rs_torch.utils.options import yaml_load
+    write_dist_inputs()
+    os.makedirs(DIST_DIR, exist_ok=True)
+    net_opt = dict(yaml_load(TRAIN_CONFIG)['network_g'], drop_path_rate=0.0)
+    net_opt.pop('type')
+    init = os.path.join(DIST_DIR, 'init.pth')
+    torch.save({'params': SwinIR(**net_opt, generator=torch.Generator().manual_seed(3))
+                .state_dict()}, init)
+    return (init, dist_config('chip_smoke_dist_two_ranks', DIST_ROWS, init),
+            dist_config('chip_smoke_dist_one_process', 2 * DIST_ROWS, init))
+
+
+def dist_two_ranks(ranks, wall, init, one, card):
+    """Phase 64: two ranks on the one card over gloo against one process at
+    the global batch, from one ``.pth`` on the same items: the parameters
+    and the EMA after the steps, and both step times."""
+    from basicsr4rs_torch.utils.options import yaml_load
+    phase(f'64. data parallel, two ranks on the one card over gloo: {DIST_STEPS} SGD steps of '
+          f'SwinIR-M x4 at {DIST_ROWS} rows a rank against one process at {2 * DIST_ROWS} rows, '
+          'from one .pth on the same items')
+    blocks = sum(yaml_load(TRAIN_CONFIG)['network_g']['depths'])
+    print(f'torchrun wall time {wall:.3f} s (two processes on cuda:0, gloo)')
+    for r in ranks:
+        run = r['runs'][0]
+        if run['net'] != 'DistributedDataParallel' or run['device'] != 'cuda:0':
+            fail(f'rank {r["rank"]} trained {run["net"]} on {run["device"]}')
+        check_dist_steps(run['steps'], range(1, DIST_STEPS + 1), blocks, f'rank {r["rank"]}')
+    wrappers = training_kernels()
+    for wr in wrappers.values():
+        wr.launches = 0
+    record = {'steps': []}
+    run_train_pipeline([], record, config=one, before_first_step=lambda *_: None)
+    torch.cuda.synchronize()
+    check_dist_steps(record['steps'], range(1, DIST_STEPS + 1), blocks, 'one process')
+    launches = {k: wr.launches + sum(r['runs'][0]['launches'][k] for r in ranks)
+                for k, wr in wrappers.items()}
+    for got, want in zip(ranks[0]['runs'][0]['steps'], record['steps']):
+        print(f'step {got["iter"]}: l_pix {got["l_pix"]:.6f} (the ranks\' mean) against '
+              f'{want["l_pix"]:.6f} (one process)')
+        if not abs(got['l_pix'] - want['l_pix']) <= 1e-4 * abs(want['l_pix']):
+            fail('the two ranks\' loss is not one process\'s')
+    start = torch.load(init, map_location='cpu', weights_only=True)['params']
+    pth = f'net_g_{DIST_STEPS}.pth'
+    got = torch.load(os.path.join('experiments', 'chip_smoke_dist_two_ranks', 'models', pth),
+                     map_location='cpu', weights_only=True)
+    want = torch.load(os.path.join('experiments', 'chip_smoke_dist_one_process', 'models', pth),
+                      map_location='cpu', weights_only=True)
+    atol, rtol = F32_TOL
+    for key in ('params', 'params_ema'):
+        if got[key].keys() != want[key].keys() or any(k.startswith('module.') for k in got[key]):
+            fail(f'{key}: the two ranks saved other keys than one process')
+    step_err = step_max = param_err = 0.
+    elementwise = True
+    for name, value in got['params'].items():
+        if not value.is_floating_point() or name not in start:
+            continue
+        moved_got, moved_want = value - start[name], want['params'][name] - start[name]
+        step_err = max(step_err, (moved_got - moved_want).abs().max().item())
+        step_max = max(step_max, moved_want.abs().max().item())
+        diff = (value - want['params'][name]).abs()
+        param_err = max(param_err, diff.max().item())
+        elementwise &= bool((diff <= atol + rtol * want['params'][name].abs()).all())
+    print(f'params after {DIST_STEPS} steps: largest parameter difference {param_err:.3e} '
+          f'(F32_TOL elementwise: {"held" if elementwise else "BROKEN"}); the steps taken '
+          f'differ by {step_err:.3e} of a largest step {step_max:.3e} '
+          f'({step_err / step_max:.2e} of it; F32_SUM_TOL {F32_SUM_TOL})')
+    if not (elementwise and step_max > 0 and step_err <= F32_SUM_TOL * step_max):
+        fail('params: the two ranks do not train as one process at the global batch')
+    # The EMA moves by (1 - decay) of a step, about a thousandth: below the
+    # step rule's reach at float32's resolution of the weights. Each of its
+    # two updates rounds to the weight's ulp, and the parameters it averages
+    # may differ by what the step rule allows; an EMA that never moved, or
+    # that is the weights themselves, must break the same rule.
+    decay = yaml_load(TRAIN_CONFIG)['train']['ema_decay']
+    slack = 2 * (1 - decay) * F32_SUM_TOL * step_max
+
+    def ema_misses(ema):
+        misses = 0
+        for name, w in want['params_ema'].items():
+            if w.is_floating_point() and name in start:
+                ulp = torch.nextafter(w.abs(), torch.tensor(math.inf)) - w.abs()
+                misses += int(((ema[name] - w).abs() > 4 * ulp + slack).sum())
+        return misses
+
+    ema_err = max((v - want['params_ema'][k]).abs().max().item()
+                  for k, v in got['params_ema'].items() if v.is_floating_point())
+    ema_moved = max((want['params_ema'][k] - v).abs().max().item()
+                    for k, v in start.items() if v.is_floating_point())
+    misses, stale, weights = (ema_misses(got['params_ema']), ema_misses(start),
+                              ema_misses(want['params']))
+    print(f'params_ema after {DIST_STEPS} steps (decay {decay}): largest difference {ema_err:.3e} '
+          f'against an EMA that moved by at most {ema_moved:.3e}; entries beyond 4 ulps of the '
+          f'weight + {slack:.1e}: {misses} (an EMA that never moved: {stale}; the weights '
+          f'themselves: {weights})')
+    if misses or not stale or not weights:
+        fail('params_ema: the two ranks\' EMA is not one process\'s, or the check cannot tell '
+             'a wrong one')
+    two_ms = [[st['ms'] for st in r['runs'][0]['steps']] for r in ranks]
+    one_ms = [st['ms'] for st in record['steps']]
+    print(f'{card}: step times (CUDA events around optimize_parameters; step 1 includes the '
+          'first calls\' set-up) ' + '; '.join(
+              f'rank {i}: ' + ', '.join(f'{ms:.3f}' for ms in t) for i, t in enumerate(two_ms))
+          + ' ms on two ranks sharing the card over gloo; one process at the global batch: '
+          + ', '.join(f'{ms:.3f}' for ms in one_ms) + ' ms. These show the merge is right on '
+          'the card; they are not a rate of the system.')
+    return launches
+
+
+def dist_paths(launches, split_step_ms, card):
+    """Phases 63 and 64, their kernel launches added to ``launches``. Both
+    launchers start together, so that their processes' set-up (imports, CUDA,
+    the process groups) overlaps; the card trains one phase at a time: 64's
+    two ranks, then 63's rank, then 64's one process."""
+    t0 = time.perf_counter()
+    phase('63, 64. the data-parallel launchers start: one rank on NCCL, two ranks on gloo')
+    init, two, one = two_ranks_inputs()
+    marker = os.path.join(DIST_DIR, 'two_ranks.done')
+    if os.path.exists(marker):
+        os.remove(marker)
+    two_run = start_torchrun(2, two, [['--launcher', 'pytorch']],
+                             os.path.join(DIST_DIR, 'two_ranks'), done=marker)
+    one_run = start_torchrun(1, TRAIN_CONFIG, one_rank_argv(), os.path.join(DIST_DIR, 'one_rank'),
+                             after=marker)
+    two_ranks, two_wall = finish_torchrun(two_run, others=[one_run])
+    one_rank, one_wall = finish_torchrun(one_run)
+    for counts in (dist_one_rank(one_rank, one_wall, split_step_ms, card),
+                   dist_two_ranks(two_ranks, two_wall, init, one, card)):
+        for name, count in counts.items():
+            launches[name] = launches.get(name, 0) + count
+    print(f'phases 63 and 64: {time.perf_counter() - t0:.1f} s')
 
 
 def device_time_by_group(prof, ours):
@@ -2126,13 +2506,13 @@ def serve_resshift():
                                                       img_err > RS_SAMPLE_TOLERANCE):
         fail('the sampled request differs between kernels and plain versions')
 
-    phase('8b. device time of 2 sampled requests by kernel (torch.profiler)')
+    phase('8b. device time of a sampled request by kernel (torch.profiler)')
 
     def request():
         model.feed_data(loader[0])
         model.test()
 
-    profile_device_time(request, 2, 'request', tuple(wrappers), 'resshift_request_profile.json')
+    profile_device_time(request, 1, 'request', tuple(wrappers), 'resshift_request_profile.json')
     print('of which the first stage alone (bicubic x4, VQ-f4 encode of the LQ, quantize and '
           'decode of a latent):')
     lq = model.lq
@@ -2142,7 +2522,7 @@ def serve_resshift():
             z = model.base_diffusion.encode_first_stage(lq, model.first_stage, up_sample=True)
             model.base_diffusion.decode_first_stage(z, model.first_stage)
 
-    profile_device_time(first_stage_only, 2, 'request', tuple(wrappers),
+    profile_device_time(first_stage_only, 1, 'request', tuple(wrappers),
                         'resshift_first_stage_profile.json')
     return launches
 
@@ -2191,7 +2571,7 @@ def train_resshift():
     if iters != list(range(total_iter + 1, total_iter + RESUME_ITERS + 1)):
         fail(f'resume should continue at step {total_iter + 1}, ran {iters}')
 
-    phase('9b. device time of 2 training steps by kernel (torch.profiler)')
+    phase('9b. device time of a training step by kernel (torch.profiler)')
     profile_fed_steps(model, record, wrappers, 'resshift_train_step_profile.json')
     del model
 
@@ -2660,7 +3040,7 @@ def train_resshift_l2s():
         fail('under use_amp the attention kernels should run in bfloat16')
     check_validation(model, opt, 'L2S_single_val', gt_size)
 
-    phase('26b. device time of 2 ResShift-L2S training steps by kernel (torch.profiler)')
+    phase('26b. device time of a ResShift-L2S training step by kernel (torch.profiler)')
     profile_fed_steps(model, record, wrappers, 'resshift_l2s_train_step_profile.json')
     del model
     return launches
@@ -2894,7 +3274,7 @@ def train_registration():
           f'{len(opt["val"]["metrics"])} metrics {sum(by_type.values()):.3f} s; by type: '
           + ', '.join(f'{k} {v:.3f} s' for k, v in by_type.most_common()))
 
-    phase('28b. device time of 2 registration training steps by kernel (torch.profiler)')
+    phase('28b. device time of a registration training step by kernel (torch.profiler)')
     profile_fed_steps(model, record, {}, 'registration_train_step_profile.json')
     del model
 
@@ -2974,7 +3354,7 @@ def train_joint_align():
         fail(f'under use_amp the attention kernels were handed {dict(dtypes)}')
     check_validation(model, opt, 'L2S_square_val', gt_size)
 
-    phase('29b. device time of 2 joint align-diffusion training steps by kernel (torch.profiler)')
+    phase('29b. device time of a joint align-diffusion training step by kernel (torch.profiler)')
     profile_fed_steps(model, record, wrappers, 'align_joint_train_step_profile.json')
     return model, launches
 
@@ -3102,7 +3482,7 @@ def serve_joint_align():
         model.feed_data(loader[0])
         model.test()
 
-    profile_device_time(request, 2, 'request', tuple(wrappers),
+    profile_device_time(request, 1, 'request', tuple(wrappers),
                         'align_joint_request_profile.json')
     del model
     return launches
@@ -3378,7 +3758,7 @@ RECURRENT = {
         test_config='options/test/DUF/test_DUF_synthetic.yml', data='datasets/DUF_synthetic',
         write=lambda: write_vid_clip('datasets/DUF_synthetic', 'BIx4', (576, 720), 7, False),
         clips={'test': ({'clip': 7}, (144, 180))}, forward_launches=lambda shape: 0,
-        profiled=0, warm=False),
+        profiled=0, warm=False, timed=1),
 }
 
 
@@ -3431,7 +3811,7 @@ def serve_video(name, number):
     # the requests to time (the items of a set share a shape: the count is
     # the first one's for each)
     requests = len(model_loader(model).dataset)
-    loader = list(itertools.islice(model_loader(model), 4))
+    loader = list(itertools.islice(model_loader(model), spec.get('timed', 4)))
     flip = 2 if opt['val'].get('flip_seq') else 1   # the network sees the clip and its reverse
     b, t, c, h, w = loader[0]['lq'].shape
     expected = requests * spec['forward_launches']((b, flip * t, c, h, w))
@@ -5099,7 +5479,7 @@ def train_esrgan():
     64, perceptual on conv5_4, vanilla GAN 0.005, L1 0.01, EMA 0.999, Adam
     1e-4 at batch 16, GT 128) from random weights: the G phase's
     discriminator passes keep its BatchNorm statistics, the EMA moved, the
-    checkpoint reloads and gives the EMA network's output; and two steps
+    checkpoint reloads and gives the EMA network's output; and one step
     by kernel group."""
     from basicsr4rs_torch.archs.discriminator_arch import VGGStyleDiscriminator
     from basicsr4rs_torch.archs.rrdbnet_arch import RRDBNet
@@ -5134,9 +5514,9 @@ def train_esrgan():
           f'output max abs difference from net_g_ema {err:.3e}; net_d_latest.pth loads')
     if not ema_diff > 0 or err > 1e-5:
         fail('the EMA did not move, or the checkpoint does not give the EMA network\'s output')
-    phase('32b. device time of 2 ESRGAN training steps by kernel group (torch.profiler)')
+    phase('32b. device time of an ESRGAN training step by kernel group (torch.profiler)')
     model.optimize_parameters(CNN_ITERS + 1)
-    profile_device_time(lambda: model.optimize_parameters(CNN_ITERS + 1), 2, 'step', {},
+    profile_device_time(lambda: model.optimize_parameters(CNN_ITERS + 1), 1, 'step', {},
                         'esrgan_train_step_profile.json')
     del model, net
 
@@ -6850,6 +7230,9 @@ def main():
     os.chdir(ROOT)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == ['rank']:   # one rank of phase 63 or 64, started by torchrun
+        dist_rank(sys.argv[2])
+        return
     card = card_info()
     rs_batch = resshift_options(RS_TRAIN_CONFIG)[0]['datasets']['train']['batch_size_per_gpu']
     l2s_batch = resshift_options(L2S_CONFIG)[0]['datasets']['train']['batch_size_per_gpu']
@@ -6866,6 +7249,16 @@ def main():
         launches = collections.Counter()
         recurrent_video_paths(launches)
         print(json.dumps(launches))
+        return
+    if sys.argv[1:] == ['dist']:   # development: the data-parallel phases (and phase 6's step)
+        launches = collections.Counter()
+        write_train_inputs()
+        dist_paths(launches, train()[1], card)
+        print(json.dumps(launches))
+        print(card)
+        print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
+                                                 'kind': torch.cuda.get_device_name(0),
+                                                 'count': torch.cuda.device_count()}}))
         return
     slices = {'realesrgan': realesrgan_paths, 'faces': faces_paths, 'taming': taming_paths}
     if len(sys.argv) == 2 and sys.argv[1] in slices:   # a slice without kernels alone
@@ -6902,9 +7295,10 @@ def main():
     train_launches, split_step_ms, _ = train()
     check_model_gradients()
     # SwinIR's paths: the serving run plus the training run (its validations
-    # go through the joint kernel)
+    # go through the joint kernel), then the same training data-parallel
     launches = dict(train_launches)
     launches['swin_block_joint_fwd'] += serve_launches
+    dist_paths(launches, split_step_ms, card)
     served = serve_resshift()
     trained = train_resshift()
     check_resshift_gradients()
