@@ -14,6 +14,7 @@ from torch import nn
 
 from ..ops.conv3x3 import conv_fusion_enabled, fused_conv3x3
 from ..ops.dcn import bilinear_warp, warp_by_flow
+from ..utils.dist_util import all_reduce_sum
 
 
 def trunc_normal_(tensor: torch.Tensor, std: float = 0.02,
@@ -70,11 +71,38 @@ class ResidualBlockNoBN(nn.Module):
         return x + self.conv2(F.relu(self.conv1(x))) * self.res_scale
 
 
+def global_batch_moments(x: torch.Tensor):
+    """(x minus its mean, the mean, the biased variance) of ``x`` (N, C, ...)
+    over every axis but C and the rows of every rank: the mean from the
+    ranks' sums and row counts, then the variance from their sums of squared
+    deviations, through ``all_reduce_sum`` (whose backward crosses the ranks
+    again). One process's own batch in one process."""
+    dims, c = (0,) + tuple(range(2, x.dim())), x.shape[1]
+    count = x.new_full((1,), x.numel() // c)
+    sums = all_reduce_sum(torch.cat([x.sum(dims), count]))
+    mean = sums[:c] / sums[c]
+    centred = x - mean.view((1, c) + (1,) * (x.dim() - 2))
+    sums = all_reduce_sum(torch.cat([centred.square().sum(dims), count]))
+    return centred, mean, sums[:c] / sums[c]
+
+
 class _FlaxBatchStats:
     """BatchNorm whose running variance takes the batch's biased variance,
     as Flax's does; momentum 0.1 in torch's sense (Flax's 0.9). While
     ``update_stats`` is False a train-mode pass normalises by the batch's
-    statistics and leaves the running ones as they are."""
+    statistics and leaves the running ones as they are.
+
+    With ``sync_ranks`` (``parallel.sync_statistics``, set on a network that
+    trains on several ranks) a train-mode pass takes the global batch's
+    statistics, as Flax's BatchNorm over the JAX mesh's sharded batch
+    (``global_batch_moments``), and the running statistics move from those.
+    Flax takes the variance as mean(x^2) - mean(x)^2, which
+    loses float32 digits where the mean is large against the spread; the
+    deviations keep them, as one process's ``F.batch_norm`` does.
+    ``torch.nn.SyncBatchNorm`` would move the running variance by the
+    unbiased one. Every rank must run the same train-mode passes."""
+
+    sync_ranks = False
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__(num_features, eps=eps, momentum=momentum)
@@ -84,15 +112,35 @@ class _FlaxBatchStats:
         if not self.training:
             return super().forward(x)
         self._check_input_dim(x)
-        out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0., self.eps)
+        if self.sync_ranks:
+            out, mean, var = self._global_batch_norm(x)
+        else:
+            out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0., self.eps)
+            if self.update_stats:
+                with torch.no_grad():
+                    var, mean = torch.var_mean(x.float(), dim=self._dims(x), unbiased=False)
         if self.update_stats:
             with torch.no_grad():
-                dims = (0,) + tuple(range(2, x.dim()))
-                var, mean = torch.var_mean(x.float(), dim=dims, unbiased=False)
-                self.running_mean.lerp_(mean, self.momentum)
-                self.running_var.lerp_(var, self.momentum)
+                self.running_mean.lerp_(mean.detach().to(self.running_mean), self.momentum)
+                self.running_var.lerp_(var.detach().to(self.running_var), self.momentum)
                 self.num_batches_tracked.add_(1)
         return out
+
+    @staticmethod
+    def _dims(x):
+        return (0,) + tuple(range(2, x.dim()))
+
+    def _global_batch_norm(self, x):
+        """(normalised x, global mean, global biased variance)."""
+        centred, mean, var = global_batch_moments(x.float())
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        scale = torch.rsqrt(var + self.eps)
+        if self.weight is not None:
+            scale = scale * self.weight
+        out = centred * scale.view(shape)
+        if self.bias is not None:
+            out = out + self.bias.view(shape)
+        return out.to(x.dtype), mean, var
 
 
 class BatchNorm2d(_FlaxBatchStats, nn.BatchNorm2d):
@@ -106,7 +154,8 @@ class BatchNorm3d(_FlaxBatchStats, nn.BatchNorm3d):
 @contextlib.contextmanager
 def frozen_batch_stats(net: nn.Module):
     """Within the block, the train-mode passes of ``net``'s BatchNorms keep
-    their running statistics (they still normalise by the batch's)."""
+    their running statistics (they still normalise by the batch's, the
+    global batch's under ``sync_ranks``)."""
     norms = [m for m in net.modules() if isinstance(m, _FlaxBatchStats)]
     before = [m.update_stats for m in norms]
     for m in norms:

@@ -119,7 +119,11 @@ class NLayerDiscriminator(nn.Module):
     """A PatchGAN: a 4x4 stride-2 convolution, ``n_layers_d - 1`` more
     (doubling to 512 features, the last of stride 1; spectral and with the
     ``norm_d`` norm), and a 4x4 one to a map of logits; each followed by a
-    leaky ReLU but the last. Returns every stage's output (or the last)."""
+    leaky ReLU but the last. Returns every stage's output (or the last).
+    A ``batch`` norm takes the global batch's statistics in training on
+    several ranks (``sync_ranks``), as SPADE's does."""
+
+    sync_ranks = False
 
     def __init__(self, input_nc: int, n_layers_d: int = 4, num_feat: int = 64,
                  norm_d: str = 'spectralinstance', keep_features: bool = True):
@@ -142,7 +146,7 @@ class NLayerDiscriminator(nn.Module):
         if self.sub_norm in ('instance', 'sync_batch'):
             return instance_norm(h)
         if self.sub_norm == 'batch':
-            return batch_norm(h)
+            return batch_norm(h, sync=self.training and self.sync_ranks)
         return h
 
     def forward(self, x):

@@ -11,8 +11,10 @@ PyTorch modules would compute otherwise:
   (``discriminator_arch``), the weight ``weight_orig``;
 * SPADE's ``batch`` norm always normalises by the batch's own statistics,
   in eval too, and keeps no running buffers (``nn.BatchNorm2d`` in eval
-  mode would use its running ones); ``instance`` and ``syncbatch`` are an
-  instance norm;
+  mode would use its running ones); in training on several ranks
+  (``sync_ranks``) by the global batch's, in eval by the rank's own (a
+  rank validates alone); ``instance`` and ``syncbatch`` are an instance
+  norm;
 * ``nearest_resize_to`` takes source index ``floor(dst * in / out)``, the
   JAX package's rule, not ``F.interpolate``'s float scale;
 * the LIP gate's affine instance norm is a ``GroupNorm`` of one channel a
@@ -28,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .arch_util import global_batch_moments
 from .discriminator_arch import spectral_normalize
 
 
@@ -49,10 +52,15 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (x - mean) * torch.rsqrt(var + eps)
 
 
-def batch_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """Parameter-free norm by the batch's statistics over (N, H, W)."""
-    var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False, keepdim=True)
-    return (x - mean) * torch.rsqrt(var + eps)
+def batch_norm(x: torch.Tensor, eps: float = 1e-5, sync: bool = False) -> torch.Tensor:
+    """Parameter-free norm by the batch's statistics over (N, H, W); with
+    ``sync`` by the global batch's (``global_batch_moments``), as
+    ``jnp.mean`` and ``jnp.var`` over the JAX mesh's sharded batch."""
+    if not sync:
+        var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False, keepdim=True)
+        return (x - mean) * torch.rsqrt(var + eps)
+    centred, _, var = global_batch_moments(x)
+    return centred * torch.rsqrt(var + eps).view(1, -1, 1, 1)
 
 
 def avg_pool_3x3s2(x: torch.Tensor, count_include_pad: bool = True) -> torch.Tensor:
@@ -105,6 +113,8 @@ class SPADE(nn.Module):
     gamma plus beta, both convolved from the segmentation map resized to
     x. ``config_text`` is ``spade<norm><k>x<k>``."""
 
+    sync_ranks = False   # the global batch's ``batch`` statistics in training
+
     def __init__(self, config_text: str, norm_nc: int, label_nc: int):
         super().__init__()
         parsed = re.search(r'spade(\D+)(\d)x\d', config_text)
@@ -119,7 +129,8 @@ class SPADE(nn.Module):
         self.mlp_beta = nn.Conv2d(nhidden, norm_nc, ks, padding=pw, bias=False)
 
     def forward(self, x, segmap):
-        normalized = batch_norm(x) if self.norm_type == 'batch' else instance_norm(x)
+        normalized = (batch_norm(x, sync=self.training and self.sync_ranks)
+                      if self.norm_type == 'batch' else instance_norm(x))
         actv = self.mlp_shared(nearest_resize_to(segmap, x.shape[2:]))
         return normalized * self.mlp_gamma(actv) + self.mlp_beta(actv)
 

@@ -31,6 +31,7 @@ from torch import nn
 
 from ..ops.fused_act import FusedLeakyReLU, fused_leaky_relu, scaled_leaky_relu
 from ..ops.upfirdn2d import make_resample_kernel, upfirdn_smooth, upfirdn_upsample
+from ..utils.dist_util import all_gather_rows, get_dist_info
 from ..utils.registry import ARCH_REGISTRY
 
 # the JAX package's leaf names for the three parameters it lays out as torch does
@@ -424,21 +425,33 @@ class ResBlock(nn.Module):
         return (self.conv2(self.conv1(x)) + self.skip(x)) / math.sqrt(2)
 
 
-def minibatch_stddev(out: torch.Tensor, stddev_group: int) -> torch.Tensor:
+def minibatch_stddev(out: torch.Tensor, stddev_group: int, sync: bool = False) -> torch.Tensor:
     """``out`` with one channel more: the mean over (C, H, W) of the
     standard deviation across each group of ``min(b, stddev_group)``
-    samples strided b / group apart."""
+    samples strided b / group apart. With ``sync`` the groups are those of
+    the global batch (the ranks' rows in rank order, equal on every rank,
+    gathered with ``all_gather_rows``), as over the JAX mesh's sharded
+    batch, and each rank keeps its own rows' channel."""
     b, c, h, w = out.shape
-    group = min(b, stddev_group)
-    stddev = out.reshape(group, -1, c, h, w)
+    full = all_gather_rows(out) if sync else out
+    group = min(full.shape[0], stddev_group)
+    stddev = full.reshape(group, -1, c, h, w)
     stddev = torch.sqrt(stddev.var(dim=0, unbiased=False) + 1e-8).mean(dim=(1, 2, 3))
-    return torch.cat([out, stddev.reshape(-1, 1, 1, 1).repeat(group, 1, h, w)], dim=1)
+    stddev = stddev.reshape(-1, 1, 1, 1).repeat(group, 1, h, w)
+    if sync:
+        rank = get_dist_info()[0]
+        stddev = stddev[rank * b:(rank + 1) * b]
+    return torch.cat([out, stddev], dim=1)
 
 
 @ARCH_REGISTRY.register()
 class StyleGAN2Discriminator(nn.Module):
     """A 1x1 ConvLayer, ResBlocks down to 4x4, the minibatch stddev, a 3x3
-    ConvLayer and two EqualLinears on the map flattened in NCHW order."""
+    ConvLayer and two EqualLinears on the map flattened in NCHW order. In
+    training on several ranks (``sync_ranks``) the stddev groups are the
+    global batch's."""
+
+    sync_ranks = False
 
     def __init__(self, out_size: int, channel_multiplier: int = 2,
                  resample_kernel: Sequence[int] = (1, 3, 3, 1), stddev_group: int = 4,
@@ -461,6 +474,7 @@ class StyleGAN2Discriminator(nn.Module):
         self.stddev_group = stddev_group
 
     def forward(self, x):
-        out = minibatch_stddev(self.conv_body(x), self.stddev_group)
+        out = minibatch_stddev(self.conv_body(x), self.stddev_group,
+                               sync=self.training and self.sync_ranks)
         out = self.final_conv(out)
         return self.final_linear(out.reshape(out.shape[0], -1))

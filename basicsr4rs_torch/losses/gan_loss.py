@@ -6,7 +6,11 @@ reference: basicsr/losses/gan_loss.py).
 ``g_path_regularize`` and ``gradient_penalty_loss``: each takes the
 gradient of a network's output with respect to its input by
 ``torch.autograd.grad(..., create_graph=True)``, so that the penalty's own
-gradient reaches the network's parameters.
+gradient reaches the network's parameters. Their means are the global
+batch's on several ranks (``dist_util.global_mean``: sums and counts, with
+the gradient), as ``jnp.mean`` over the JAX mesh's sharded batch; a mean
+of the ranks' means would be another function where the rows split
+unevenly.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.dist_util import global_mean
 from ..utils.registry import LOSS_REGISTRY
 
 GAN_TYPES = ('vanilla', 'lsgan', 'wgan', 'wgan_softplus', 'hinge')
@@ -90,7 +95,7 @@ def _input_gradient(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor)
 def r1_penalty(d_fn: Callable[[torch.Tensor], torch.Tensor],
                real_img: torch.Tensor) -> torch.Tensor:
     """R1: the mean over the batch of |d D(x) / dx|^2 on the real images."""
-    return _input_gradient(d_fn, real_img).pow(2).sum(dim=(1, 2, 3)).mean()
+    return global_mean(_input_gradient(d_fn, real_img).pow(2).sum(dim=(1, 2, 3)))
 
 
 def g_path_regularize(fake_fn: Callable[[torch.Tensor], torch.Tensor], latents: torch.Tensor,
@@ -99,17 +104,21 @@ def g_path_regularize(fake_fn: Callable[[torch.Tensor], torch.Tensor], latents: 
     (N, C, H, W); ``noise`` (its shape) is divided by sqrt(H * W) and
     projects the image before the gradient with respect to the latents
     (N, L, F) is taken. Returns the penalty, the detached path lengths (N,)
-    and the new running mean."""
+    and the new running mean. A rank whose share of the path batch is empty
+    (N = 0) runs no image and still takes part in the global means."""
 
     def proj(w):
         img = fake_fn(w)
         return img * (noise.to(img) / math.sqrt(img.shape[2] * img.shape[3]))
 
-    grad = _input_gradient(proj, latents)
-    path_lengths = torch.sqrt(grad.pow(2).sum(dim=2).mean(dim=1) + 1e-12)
+    if latents.shape[0]:
+        grad = _input_gradient(proj, latents)
+        path_lengths = torch.sqrt(grad.pow(2).sum(dim=2).mean(dim=1) + 1e-12)
+    else:
+        path_lengths = latents.new_zeros(0, requires_grad=True)
     # the running mean moves with this batch's lengths inside the penalty's graph
-    path_mean = mean_path_length + decay * (path_lengths.mean() - mean_path_length)
-    path_penalty = (path_lengths - path_mean).pow(2).mean()
+    path_mean = mean_path_length + decay * (global_mean(path_lengths) - mean_path_length)
+    path_penalty = global_mean((path_lengths - path_mean).pow(2))
     return path_penalty, path_lengths.detach(), path_mean.detach()
 
 
@@ -123,7 +132,7 @@ def gradient_penalty_loss(d_fn: Callable[[torch.Tensor], torch.Tensor], real_dat
     grad = _input_gradient(d_fn, alpha * real_data + (1. - alpha) * fake_data)
     if weight is not None:
         grad = grad * weight
-    loss = (torch.sqrt(grad.pow(2).sum(dim=1) + 1e-12) - 1).pow(2).mean()
+    loss = global_mean((torch.sqrt(grad.pow(2).sum(dim=1) + 1e-12) - 1).pow(2))
     if weight is not None:
-        loss = loss / weight.mean()
+        loss = loss / global_mean(weight)
     return loss

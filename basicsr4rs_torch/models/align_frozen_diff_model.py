@@ -49,8 +49,6 @@ class AlignFirstStage:
 @MODEL_REGISTRY.register()
 class AlignFrozenDiffModel(ResShiftL2SModel):
 
-    SINGLE_RANK_ONLY = 'the align models under DDP'
-
     def __init__(self, opt):
         super().__init__(opt)
         if self.first_stage is not None:

@@ -12,7 +12,13 @@ decoded, against the GT) and ``sr_opt`` (the prediction decoded, against
 the GT); the decodings are cropped to the GT as ``AlignSingleModel``'s.
 Gradients reach the autoencoder and the LR encoder through every path the
 detachments leave. ``test()`` draws z_T about z_lr, runs the reverse steps
-and decodes."""
+and decodes.
+
+The step reaches the network through its methods (``apply_ae_encode``,
+``apply_unet`` ...), never its ``forward``, which DDP's reducer needs to see:
+on several ranks the network is not wrapped (``WRAP_IN_DDP = False``); it
+starts from rank 0's weights and its gradients are averaged before each
+step. Each rank draws its own rows' timesteps and noise."""
 
 from __future__ import annotations
 
@@ -33,6 +39,8 @@ _LOSSES = (('align', 'encoder_opt'), ('diffusion', 'diffusion_opt'),
 
 @MODEL_REGISTRY.register()
 class AlignJointDiffModel(AlignFrozenDiffModel):
+
+    WRAP_IN_DDP = False
 
     def __init__(self, opt):
         super().__init__(opt)

@@ -40,8 +40,6 @@ def registration_input(lq: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
 @MODEL_REGISTRY.register()
 class AlignSingleModel(L2SSingleModel):
 
-    SINGLE_RANK_ONLY = 'the align models under DDP'
-
     def init_training_settings(self):
         self.net_g.train()
         self._init_ema()

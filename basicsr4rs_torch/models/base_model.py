@@ -7,11 +7,14 @@ optimizers, schedulers with linear warm-up, EMA, and the training state
 (``.state`` files written by ``torch.save``).
 
 Under a launcher (``opt['dist']``) each rank is one process on its card
-(``cuda:<current device>``) and ``model_to_device`` wraps a trained network
-in ``DistributedDataParallel``; printing, saving, loading and the EMA go
-through the bare module, so that no key gains ``module.``. A model class
-whose training has no data-parallel form yet names why in
-``SINGLE_RANK_ONLY`` and raises on more than one rank.
+(``cuda:<current device>``) and ``model_to_device`` sets a trained network
+up for data parallelism: its norms take the global batch's statistics
+(``parallel.sync_statistics``), and it is wrapped in
+``DistributedDataParallel`` or, for a model class whose step does not fit
+DDP's reducer (``WRAP_IN_DDP = False``), left bare with rank 0's weights,
+its gradients averaged by ``average_gradients`` before each optimizer
+step. Printing, saving, loading and the EMA go through the bare module, so
+that no key gains ``module.``.
 """
 
 from __future__ import annotations
@@ -25,11 +28,11 @@ from typing import Any, Dict, List
 import torch
 import torch.distributed as dist
 from torch import nn
-from torch.nn.modules.batchnorm import _BatchNorm
 from torch.nn.parallel import DataParallel, DistributedDataParallel
 
-from ..parallel import create_mesh, replicate
-from ..utils.dist_util import master_only
+from ..parallel import create_mesh, replicate, sync_statistics
+from ..parallel import average_gradients as _average_gradients
+from ..utils.dist_util import broadcast_module, master_only
 from ..utils.logger import get_root_logger
 from . import lr_scheduler, optimizers
 
@@ -40,17 +43,16 @@ _COMPUTED_BUFFERS = ('relative_position_index', 'attn_mask', 'spynet.mean', 'spy
 
 class BaseModel:
 
-    # why the model does not train data-parallel yet (None: it does)
-    SINGLE_RANK_ONLY = None
+    # whether a trained network goes into DistributedDataParallel: a step of
+    # one forward through the wrapper and one backward a network. A class
+    # whose step is otherwise sets False and calls ``average_gradients``
+    # before each optimizer step (parallel/mesh.py)
+    WRAP_IN_DDP = True
 
     def __init__(self, opt):
         self.opt = opt
         self.is_train = opt['is_train']
         world_size = opt.get('world_size', 1)
-        if self.is_train and opt.get('dist') and world_size > 1 and self.SINGLE_RANK_ONLY:
-            raise NotImplementedError(
-                f'{type(self).__name__} does not train on {world_size} ranks: '
-                f'{self.SINGLE_RANK_ONLY} (ROADMAP Queue 1, item 5)')
         if opt['num_gpu'] == 0:
             self.device = torch.device('cpu')
         elif torch.cuda.is_available():   # the card init_dist selected, or the first
@@ -183,6 +185,8 @@ class BaseModel:
                               path_opt.get('strict_load_g', True), 'params_ema')
         else:
             self.net_g_ema.load_state_dict(self.get_bare_model(self.net_g).state_dict())
+        if self.data_parallel():   # rank 0's, whatever each rank loaded
+            broadcast_module(self.net_g_ema)
 
     @torch.no_grad()
     def model_ema(self, decay: float = 0.999):
@@ -213,26 +217,36 @@ class BaseModel:
         return OrderedDict(zip(loss_dict, values.unbind()))
 
     # -------------------------------------------------------- data parallel
+    def data_parallel(self) -> bool:
+        """Whether this model trains on more than one rank."""
+        return bool(self.is_train and self.opt.get('dist') and self.opt.get('world_size', 1) > 1)
+
     def model_to_device(self, net: nn.Module) -> nn.Module:
-        """``net`` on the model's device; for training under a launcher,
-        wrapped in ``DistributedDataParallel`` with ``find_unused_parameters``
-        and ``broadcast_buffers`` of the config (BasicSR's keys). Raises on
-        more than one rank when ``net`` has a BatchNorm that trains: the JAX
-        mesh takes its statistics over the global batch, a rank over its
-        own rows (ROADMAP Queue 1, item 5)."""
+        """``net`` on the model's device; for training under a launcher, set
+        up for data parallelism: on more than one rank its norms take the
+        global batch's statistics (``sync_statistics``); wrapped in
+        ``DistributedDataParallel`` with ``find_unused_parameters`` and
+        ``broadcast_buffers`` of the config (BasicSR's keys), or, where the
+        class does not wrap (``WRAP_IN_DDP``), rank 0's parameters and
+        buffers broadcast to every rank."""
         net = net.to(self.device)
-        if not (self.is_train and self.opt.get('dist')) or self.SINGLE_RANK_ONLY:
+        if not (self.is_train and self.opt.get('dist')):
             return net
-        if self.opt.get('world_size', 1) > 1:
-            norms = [name for name, m in net.named_modules() if isinstance(m, _BatchNorm) and (
-                m.training or any(p.requires_grad for p in m.parameters()))]
-            if norms:
-                raise NotImplementedError(
-                    f'{net.__class__.__name__} trains BatchNorm ({norms[0]}, {len(norms)} in '
-                    'all) whose statistics would be per rank: a synced BatchNorm is not ported '
-                    '(ROADMAP Queue 1, item 5)')
+        if self.data_parallel():
+            sync_statistics(net)
+        if not self.WRAP_IN_DDP:
+            broadcast_module(net)
+            return net
         return replicate(net, self.device, self.opt.get('find_unused_parameters', False),
                          self.opt.get('broadcast_buffers', True))
+
+    def average_gradients(self, *nets: nn.Module) -> None:
+        """The global batch's gradients of ``nets``, before their optimizer
+        steps: the mean over the ranks of each gradient where the class
+        does not wrap in DDP (``parallel.average_gradients``); nothing
+        under DDP, which averaged them in the backward, or on one rank."""
+        if self.data_parallel() and not self.WRAP_IN_DDP:
+            _average_gradients(*(self.get_bare_model(net) for net in nets))
 
     @staticmethod
     def get_bare_model(net: nn.Module) -> nn.Module:

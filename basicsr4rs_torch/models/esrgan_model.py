@@ -9,6 +9,9 @@ discriminator's is half its loss on the real batch against the mean of a
 detached pass over the output (a pass that keeps the BatchNorm statistics)
 and half on the output against the mean of the real predictions, detached.
 The generator sees the discriminator from before this step's update.
+On several ranks each of those means is the global batch's
+(``dist_util.global_mean``, with its gradient), as ``jnp.mean`` over the JAX
+mesh's sharded batch.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from __future__ import annotations
 from collections import OrderedDict
 
 from ..archs.arch_util import frozen_batch_stats
+from ..utils.dist_util import global_mean
 from ..utils.registry import MODEL_REGISTRY
 from .srgan_model import SRGANModel
 
@@ -26,17 +30,18 @@ class ESRGANModel(SRGANModel):
     def _g_gan_loss(self, output):
         real_d_pred = self.net_d(self.gt).detach()
         fake_g_pred = self.net_d(output)
-        l_g_real = self.cri_gan(real_d_pred - fake_g_pred.mean(), False, is_disc=False)
-        l_g_fake = self.cri_gan(fake_g_pred - real_d_pred.mean(), True, is_disc=False)
+        l_g_real = self.cri_gan(real_d_pred - global_mean(fake_g_pred), False, is_disc=False)
+        l_g_fake = self.cri_gan(fake_g_pred - global_mean(real_d_pred), True, is_disc=False)
         return (l_g_real + l_g_fake) / 2
 
     def _d_losses(self, real, fake):
         with frozen_batch_stats(self.net_d):
             fake_d_pred_const = self.net_d(fake).detach()
         real_d_pred = self.net_d(real)
-        l_d_real = self.cri_gan(real_d_pred - fake_d_pred_const.mean(), True, is_disc=True) * 0.5
+        l_d_real = self.cri_gan(real_d_pred - global_mean(fake_d_pred_const), True,
+                                is_disc=True) * 0.5
         fake_d_pred = self.net_d(fake)
-        l_d_fake = self.cri_gan(fake_d_pred - real_d_pred.detach().mean(), False,
+        l_d_fake = self.cri_gan(fake_d_pred - global_mean(real_d_pred.detach()), False,
                                 is_disc=True) * 0.5
         losses = OrderedDict(l_d_real=l_d_real, l_d_fake=l_d_fake,
                              out_d_real=real_d_pred.detach().mean(),

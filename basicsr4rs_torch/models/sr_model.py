@@ -175,6 +175,7 @@ class SRModel(BaseModel):
         pix_gt, percep_gt, _ = self.loss_targets()
         self.pixel_and_perceptual_losses(self.output, pix_gt, loss_dict,
                                          percep_target=percep_gt).backward()
+        self.average_gradients(self.net_g)
         # a frozen parameter takes part in the step (its moments and step
         # count run from the first iteration, as in the JAX package, which
         # masks the update) and gets its old value back

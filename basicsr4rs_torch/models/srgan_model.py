@@ -17,6 +17,15 @@ loads into it), its own optimizer and scheduler, and a step in two phases.
   generator's output detached; each pass updates the running statistics,
   the second from the first's.
 
+On several ranks both networks train data-parallel without DDP's wrapper
+(``WRAP_IN_DDP = False``): the discriminator has no gradient in the G
+phase and the G update is gated, which DDP's reducer does not fit. Both
+start from rank 0's weights and BatchNorm buffers, each phase averages its
+network's gradients once before its optimizer steps (a gated G step
+exchanges and applies nothing, on every rank alike), and the BatchNorm
+passes take the global batch's statistics (``sync_ranks``), so that the
+buffers stay the same on every rank.
+
 ``train.ldl_opt`` adds LDL's artifact-weighted pixel loss (against the EMA
 network's output, so it needs ``ema_decay`` > 0). ``save`` writes
 ``net_g_<iter>.pth`` (``params``, ``params_ema``) and ``net_d_<iter>.pth``;
@@ -43,7 +52,7 @@ from .sr_model import SRModel
 @MODEL_REGISTRY.register()
 class SRGANModel(SRModel):
 
-    SINGLE_RANK_ONLY = 'the GAN models under DDP (two networks, two optimizers a step)'
+    WRAP_IN_DDP = False
 
     def init_training_settings(self):
         train_opt = self.opt['train']
@@ -56,6 +65,7 @@ class SRGANModel(SRModel):
         if load_path is not None:
             self.load_network(self.net_d, load_path, self.opt['path'].get('strict_load_d', True),
                               self.opt['path'].get('param_key_d', 'params'))
+        self.net_d = self.model_to_device(self.net_d)
         self.net_d.train()
 
         self.build_pixel_and_perceptual_losses()
@@ -142,6 +152,7 @@ class SRGANModel(SRModel):
             l_g_total, loss_dict = self._g_losses(self.output)
             if current_iter % self.net_d_iters == 0 and current_iter > self.net_d_init_iters:
                 l_g_total.backward()
+                self.average_gradients(self.net_g)
                 self.optimizer_g.step()
             if self.ema_decay > 0:
                 self.model_ema(decay=self.ema_decay)
@@ -152,6 +163,7 @@ class SRGANModel(SRModel):
             self.optimizer_d.zero_grad(set_to_none=True)
             l_d_total, d_losses = self._d_losses(self.loss_targets()[2], self.output.detach())
             l_d_total.backward()
+            self.average_gradients(self.net_d)
             self.optimizer_d.step()
         loss_dict.update(d_losses)
         self.log_dict = self.reduce_loss_dict(loss_dict)

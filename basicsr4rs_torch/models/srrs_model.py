@@ -59,6 +59,7 @@ class SRRSModel(SRModel):
         self.optimizer_g.zero_grad(set_to_none=True)
         loss, loss_dict = self.compute_losses()
         loss.backward()
+        self.average_gradients(self.net_g)
         self.step_if_finite(loss)
         self.log_dict = self.reduce_loss_dict(loss_dict)
         if self.ema_decay > 0:

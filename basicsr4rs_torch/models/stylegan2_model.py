@@ -22,9 +22,21 @@ BasicSR's:
   ``mean_path_length``.
 
 Every random draw of a step comes from the model's ``torch.Generator``
-(seeded by ``manual_seed``, saved with the training state), through
-``draw_step``. ``test`` samples the EMA generator on ``fixed_sample``;
-validation saves the first four samples side by side.
+(seeded by ``manual_seed`` plus the rank, saved with the training state),
+through ``draw_step``. ``test`` samples the EMA generator on
+``fixed_sample``; validation saves the first four samples side by side.
+
+On several ranks both networks train data-parallel without DDP's wrapper
+(``WRAP_IN_DDP = False``: R1 and the path length are double backwards, and
+the discriminator has no gradient in the G phase). Both start from rank 0's
+weights, and each network's gradients are averaged once before its one
+update. ``batch`` is then the rank's rows, the global batch ``batch`` times
+the rank count; the path batch follows the JAX package's global rule,
+``max(1, global batch // path_batch_shrink)``, split over the ranks (the
+first ``rows % ranks`` take one more), R1's and the path length's means,
+and so ``mean_path_length``, are the global rows' (``gan_loss``), and so
+are the discriminator's minibatch-stddev groups. Each rank draws its own
+rows' codes and noise.
 """
 
 from __future__ import annotations
@@ -39,6 +51,7 @@ from torch.profiler import record_function
 from ..archs import build_network
 from ..losses import build_loss
 from ..losses.gan_loss import g_path_regularize, r1_penalty
+from ..utils.dist_util import global_mean
 from ..utils.img_util import imwrite, tensor2img
 from ..utils.registry import MODEL_REGISTRY
 from .base_model import BaseModel
@@ -47,7 +60,7 @@ from .base_model import BaseModel
 @MODEL_REGISTRY.register()
 class StyleGAN2Model(BaseModel):
 
-    SINGLE_RANK_ONLY = 'StyleGAN2 under DDP (R1\'s double backward, two networks)'
+    WRAP_IN_DDP = False
 
     def __init__(self, opt):
         super().__init__(opt)
@@ -59,8 +72,9 @@ class StyleGAN2Model(BaseModel):
             self.load_network(self.net_g, path_opt['pretrain_network_g'],
                               path_opt.get('strict_load_g', True),
                               path_opt.get('param_key_g', 'params'))
+        self.net_g = self.model_to_device(self.net_g)
         seed = opt.get('manual_seed') or 0
-        self.generator = torch.Generator(self.device).manual_seed(seed)
+        self.generator = torch.Generator(self.device).manual_seed(seed + opt.get('rank', 0))
         num_val_samples = (opt.get('val') or {}).get('num_val_samples', 16)
         self.fixed_sample = torch.randn((num_val_samples, self.num_style_feat),
                                         generator=torch.Generator().manual_seed(seed)).to(
@@ -82,6 +96,7 @@ class StyleGAN2Model(BaseModel):
             self.load_network(self.net_d, path_opt['pretrain_network_d'],
                               path_opt.get('strict_load_d', True),
                               path_opt.get('param_key_d', 'params'))
+        self.net_d = self.model_to_device(self.net_d)
         self.net_g_ema = build_network(self.opt['network_g']).to(self.device)
         self.start_ema()
         self.net_g_ema.eval().requires_grad_(False)
@@ -130,15 +145,23 @@ class StyleGAN2Model(BaseModel):
         mix = torch.rand((), generator=self.generator, device=self.device) < self.mixing_prob
         return [z1, torch.where(mix, z2, z1)]
 
+    def path_rows(self, batch: int) -> int:
+        """This rank's rows of the path batch: ``max(1, global batch //
+        path_batch_shrink)`` split over the ranks, the first ``rows %
+        ranks`` taking one more (a rank may take none)."""
+        world_size = self.opt.get('world_size', 1) if self.data_parallel() else 1
+        total = max(1, batch * world_size // self.path_batch_shrink)
+        return total // world_size + int(self.opt.get('rank', 0) < total % world_size)
+
     def draw_step(self, batch: int, regularize_g: bool):
         """The random draws of one step: the codes and noise maps of the D
         phase's and the G phase's fake batch and, on a path-length step,
-        the path batch's codes and noise maps and the noise its image is
-        projected on."""
+        the path batch's codes and noise maps (this rank's ``path_rows``)
+        and the noise its image is projected on."""
         draws = {'d_codes': self._mixing_codes(batch), 'd_noise': self._noise_maps(batch),
                  'g_codes': self._mixing_codes(batch), 'g_noise': self._noise_maps(batch)}
         if regularize_g:
-            path_batch = max(1, batch // self.path_batch_shrink)
+            path_batch = self.path_rows(batch)
             size = 2**self.net_g.log_size
             draws.update(path_codes=self._mixing_codes(path_batch),
                          path_noise=self._noise_maps(path_batch),
@@ -170,6 +193,7 @@ class StyleGAN2Model(BaseModel):
             if regularize_d:   # its gradient joins the one update below
                 l_d_r1 = r1_penalty(self.net_d, self.real_img)
                 (self.r1_reg_weight / 2 * l_d_r1 * self.net_d_reg_every).backward()
+            self.average_gradients(self.net_d)
             self.optimizer_d.step()
 
         with record_function('G phase'):
@@ -180,7 +204,9 @@ class StyleGAN2Model(BaseModel):
             l_g.backward()
             l_g_path, path_length = zero, zero
             if regularize_g:
-                latents = self.net_g.latents(draws['path_codes'])
+                codes = draws['path_codes']
+                latents = (self.net_g.latents(codes) if len(codes[0]) else codes[0].new_zeros(
+                    (0, self.net_g.num_latent, self.num_style_feat)))
 
                 def fake_from_latent(w):
                     return self.net_g(w, input_is_latent=True, noise=draws['path_noise'])[0]
@@ -189,7 +215,8 @@ class StyleGAN2Model(BaseModel):
                     fake_from_latent, latents, self.mean_path_length, draws['path_proj'])
                 l_g_path = self.path_reg_weight * self.net_g_reg_every * l_path
                 l_g_path.backward()
-                path_length = path_lengths.mean()
+                path_length = global_mean(path_lengths)
+            self.average_gradients(self.net_g)
             self.optimizer_g.step()
             self.model_ema(decay=self.ema_decay)
         self.step = step

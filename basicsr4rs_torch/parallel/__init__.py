@@ -1,5 +1,5 @@
 """Data parallelism (counterpart of ``basicsr4rs_tpu/parallel/``)."""
 
-from .mesh import create_mesh, replicate, shard_batch
+from .mesh import average_gradients, create_mesh, replicate, shard_batch, sync_statistics
 
-__all__ = ['create_mesh', 'replicate', 'shard_batch']
+__all__ = ['average_gradients', 'create_mesh', 'replicate', 'shard_batch', 'sync_statistics']

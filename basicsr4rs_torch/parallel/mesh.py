@@ -4,10 +4,24 @@
 The JAX package declares shardings over a device mesh and XLA compiles the
 gradient all-reduce. Here each rank is one process on one card: its loader
 yields its own rows (``data.loader.EnlargedSampler`` strides the permutation
-by rank), ``shard_batch`` puts them on its card, and ``replicate`` wraps a
-trained network in ``DistributedDataParallel``, which broadcasts rank 0's
-weights at the start (the JAX package's process-identical init) and averages
-the gradients in each backward.
+by rank) and ``shard_batch`` puts them on its card. A network's gradient
+becomes the global batch's by one of two routes:
+
+* ``replicate`` wraps it in ``DistributedDataParallel``, which broadcasts
+  rank 0's weights at the start (the JAX package's process-identical init)
+  and averages the gradients inside the backward. It fits a step with one
+  forward through the wrapper and one backward of each network;
+* ``average_gradients`` averages them once, in one flat buffer, just before
+  the optimizer steps: what the JAX step's one ``value_and_grad`` of the
+  global loss amounts to. The GAN, StyleGAN2 and joint-align steps take
+  this route (a network without gradient in one phase, a double backward,
+  a gated update, a network reached through its methods); their weights
+  start from ``dist_util.broadcast_module``.
+
+Either way ``sync_statistics`` turns on the global-batch statistics that
+the JAX mesh takes over the sharded batch (``sync_ranks``: the BatchNorm of
+``arch_util._FlaxBatchStats``, SPADE's and the PatchGAN's ``batch`` norm,
+StyleGAN2's minibatch stddev).
 
 Config (``opt['parallel']``)::
 
@@ -21,6 +35,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..utils.dist_util import get_dist_info
@@ -62,3 +77,32 @@ def replicate(net: nn.Module, device: torch.device, find_unused_parameters: bool
     return DistributedDataParallel(
         net, device_ids=[device] if device.type == 'cuda' else None,
         find_unused_parameters=find_unused_parameters, **extra)
+
+
+def sync_statistics(net: nn.Module) -> None:
+    """The train-mode statistics of every module of ``net`` that has
+    ``sync_ranks`` taken over the ranks' rows together."""
+    for m in net.modules():
+        if hasattr(m, 'sync_ranks'):
+            m.sync_ranks = True
+
+
+@torch.no_grad()
+def average_gradients(*nets: nn.Module) -> None:
+    """Each parameter's gradient replaced by its mean over the ranks, in
+    place: one ``all_reduce`` of a flat buffer per dtype, copied back in
+    each gradient's own strides (K3 and K5 hand back views of one buffer).
+    Parameters without a gradient take no part; a step where none has one
+    (a gated update) exchanges nothing. Every rank must have gradients for
+    the same parameters. Nothing in one process."""
+    world_size = get_dist_info()[1]
+    if world_size == 1:
+        return
+    grads = [p.grad for net in nets for p in net.parameters() if p.grad is not None]
+    for dtype in dict.fromkeys(g.dtype for g in grads):
+        group = [g for g in grads if g.dtype == dtype]
+        flat = torch.cat([g.reshape(-1) for g in group])
+        dist.all_reduce(flat)
+        flat.div_(world_size)
+        torch._foreach_copy_(group, [v.view(g.shape) for v, g in
+                                     zip(flat.split([g.numel() for g in group]), group)])

@@ -5,6 +5,12 @@ A data-parallel run is one process per card, started by ``torchrun``
 (``python -m torch.distributed.run``) or by Slurm's ``srun``; ``init_dist``
 joins this process to the group, NCCL on cards and gloo on the CPU. Without a
 launcher nothing is initialised and ``get_dist_info`` is (0, 1).
+
+What the models need of the group: ``all_reduce_sum`` (a sum over the ranks
+with a sum over the ranks as its backward), ``all_gather_rows`` (the global
+batch's rows), ``global_mean`` (the global batch's mean from sums and
+counts) and ``broadcast_module`` (rank 0's weights everywhere). Each is the identity in one process, with no
+collective.
 """
 
 from __future__ import annotations
@@ -132,6 +138,70 @@ def sum_across_processes(arr, device=None) -> np.ndarray:
     t = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
     dist.all_reduce(t, op=dist.ReduceOp.SUM)
     return t.cpu().numpy()
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """``all_reduce(SUM)`` of a copy, whose backward is again the sum over
+    the ranks (differentiable twice over)."""
+
+    @staticmethod
+    def forward(ctx, t):
+        t = t.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(t, op=dist.ReduceOp.SUM)
+        return t
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _SumOverRanks.apply(grad)
+
+
+def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
+    """The sum of ``t`` over the ranks, as a new tensor whose backward is
+    again the sum over the ranks: a loss every rank computes from it takes
+    its gradient from every rank's rows, as the JAX mesh's global-batch loss
+    does. Every rank must call it, in the same order. ``t`` itself in one
+    process."""
+    if get_dist_info()[1] == 1:
+        return t
+    return _SumOverRanks.apply(t)
+
+
+def all_gather_rows(t: torch.Tensor) -> torch.Tensor:
+    """Every rank's rows of ``t`` in rank order (each rank must hold as many),
+    differentiable: each rank's rows in a zero buffer of the global batch,
+    summed by ``all_reduce_sum`` (gloo gathers no CUDA tensor; it sums
+    them). ``t`` in one process."""
+    rank, world_size = get_dist_info()
+    if world_size == 1:
+        return t
+    zeros = torch.zeros_like(t)
+    return all_reduce_sum(torch.cat([t if r == rank else zeros for r in range(world_size)]))
+
+
+def global_mean(t: torch.Tensor) -> torch.Tensor:
+    """The mean of ``t`` over the entries of every rank, from their sums and
+    counts in one ``all_reduce_sum``: uneven rows per rank still give the
+    global batch's mean, with its gradient. ``t.mean()`` in one process."""
+    if get_dist_info()[1] == 1:
+        return t.mean()
+    total = all_reduce_sum(torch.stack([t.sum().float(), t.new_tensor(t.numel(),
+                                                                      dtype=torch.float32)]))
+    return (total[0] / total[1]).to(t.dtype)
+
+
+@torch.no_grad()
+def broadcast_module(net: torch.nn.Module, src: int = 0) -> None:
+    """Rank ``src``'s parameters and buffers on every rank, in place: one
+    ``broadcast`` of a flat buffer for each dtype. Nothing in one process."""
+    if get_dist_info()[1] == 1:
+        return
+    tensors = list(net.parameters()) + list(net.buffers())
+    for dtype in dict.fromkeys(t.dtype for t in tensors):
+        group = [t for t in tensors if t.dtype == dtype]
+        flat = torch.cat([t.detach().reshape(-1) for t in group])
+        dist.broadcast(flat, src)
+        for t, value in zip(group, flat.split([t.numel() for t in group])):
+            t.copy_(value.view(t.shape))
 
 
 def close_dist() -> None:

@@ -72,7 +72,7 @@ nonzero exit code and no result line:
    ``python -m basicsr4rs_torch.test -opt options/test/SwinIR/
    test_SwinIR_M_x4_synthetic.yml``) on 4 synthetic image pairs and random
    seed-0 weights that it writes first, counts the kernel's launches, checks
-   the outputs and times each request; 4b breaks two requests of each size
+   the outputs and times each request; 4b breaks one request of each size
    down by kernel group with ``torch.profiler``;
 5. runs one request again with every block on the plain version and
    compares the two outputs;
@@ -317,6 +317,19 @@ nonzero exit code and no result line:
     loss, both step times. A rank that fails, a run past its time and DDP's
     stride warning fail the phase. One card cannot show NCCL between two
     cards.
+65. (after 64) the two-network models on two ranks sharing the card over
+    gloo, each rank's job ``chip_smoke.py rank`` with the model jobs of
+    ``dist_model_specs``, then each in this process at the global batch,
+    from one seed (the second rank from another, which rank 0's broadcast
+    replaces), 2 steps on host-made batches: ESRGAN x4 (RRDBNet 64 x 23,
+    VGG-style D 64; and once more with each rank's own statistics and
+    means, a control the check must fail), StyleGAN2 256 Cmul2 (R1 and the
+    path length on step 2, the path batch 3 split 2 + 1, replayed draws),
+    the video GAN (BasicVSR 64 x 30 on a 15-frame clip a rank: K8, K9) and
+    the joint align-diffusion model at GT 66 (K6, K7). Each network's step
+    1 gradients and its moves within ``DIST_MODEL_TOL`` of their largest
+    entry, the ranks' weights equal, the losses and ``mean_path_length``
+    within 1e-3; the step times of both and the gradient exchange's.
 
 ``python3 chip_smoke.py kernels`` stops after phase 3; ``python3 chip_smoke.py
 serving`` runs phases 3a, 3e, 3g, 3f, 4, 4b, 17 to 22 and 59 to 62 alone; ``python3
@@ -324,8 +337,8 @@ chip_smoke.py cnn`` runs phases 3g and 32 to 36 alone; ``python3 chip_smoke.py
 video`` runs phases 3h and 37 to 46 alone; ``python3 chip_smoke.py
 realesrgan`` phases 47 to 49, ``python3 chip_smoke.py faces`` phases 50
 to 53, ``python3 chip_smoke.py taming`` phases 54 to 58 and ``python3
-chip_smoke.py dist`` phases 6, 63 and 64, each ending with the same last
-line (``python3 chip_smoke.py rank <job>`` is one rank of 63 or 64, as
+chip_smoke.py dist`` phases 6 and 63 to 65, each ending with the same last
+line (``python3 chip_smoke.py rank <job>`` is one rank of 63, 64 or 65, as
 torchrun starts it). The line before the
 last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1515,12 +1528,12 @@ def request_latencies(model, items, want, launches=None, warm=True):
 
 def profile_requests(model, loader):
     """Phase 4b: where the device time of the SwinIR-M requests goes, by
-    kernel group, two requests of each served size."""
+    kernel group, one request of each served size."""
     phase('4b. device time of the SwinIR-M requests by kernel group (torch.profiler)')
     for item, (h, w) in zip(loader, LQ_SIZES):
         model.feed_data(item)
         print(f'LQ {h}x{w}:')
-        profile_device_time(model.test, 2, 'request', ('swin_block_joint_kernel',),
+        profile_device_time(model.test, 1, 'request', ('swin_block_joint_kernel',),
                             f'swinir_request_{h}x{w}_profile.json')
 
 
@@ -1803,12 +1816,13 @@ DIST_TIMEOUT = 600   # seconds from a launcher's start to its last rank's end
 
 
 def dist_rank(job_file):
-    """One rank of phase 63 or 64, started by torchrun: ``basicsr4rs_torch.
+    """One rank of phase 63, 64 or 65, started by torchrun: ``basicsr4rs_torch.
     train``'s pipeline with each command line of the job in turn (the code
     path of ``python -m basicsr4rs_torch.train -opt <yml> --launcher
     pytorch``; a second line with ``--auto_resume`` resumes in the same
     process), every step timed by CUDA events with its kernel launches, the
-    launches of each run in all, and every warning; written as JSON for the
+    launches of each run in all, and every warning; or phase 65's model
+    jobs (``models``, ``dist_models_rank``); written as JSON for the
     parent. A job with ``after`` trains once that file exists (the card's
     other phase has ended); rank 0 of a job with ``done`` writes that file at
     its end."""
@@ -1830,7 +1844,9 @@ def dist_rank(job_file):
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter('always')
-            for argv in job['argv']:
+            if job.get('models'):   # phase 65
+                runs = dist_models_rank(job)
+            for argv in job['argv'] or []:
                 record = {'steps': []}
                 for wr in wrappers.values():
                     wr.launches = 0
@@ -1851,15 +1867,17 @@ def dist_rank(job_file):
         close_dist()
 
 
-def start_torchrun(nproc, config, argv, out, after=None, done=None):
+def start_torchrun(nproc, config, argv, out, after=None, done=None, models=None):
     """``chip_smoke.py rank`` on ``nproc`` ranks under ``torchrun
     --standalone`` (a free port) in a session of its own, each running the
-    pipeline with the command lines ``argv`` (``after``, ``done``: see
-    ``dist_rank``). Returns what ``finish_torchrun`` takes."""
+    pipeline with the command lines ``argv``, or phase 65's ``models``
+    (``after``, ``done``: see ``dist_rank``). Returns what
+    ``finish_torchrun`` takes."""
     os.makedirs(DIST_DIR, exist_ok=True)
     job_file = f'{out}.job.json'
     with open(job_file, 'w') as f:
-        json.dump({'config': config, 'argv': argv, 'out': out, 'after': after, 'done': done}, f)
+        json.dump({'config': config, 'argv': argv, 'out': out, 'after': after, 'done': done,
+                   'models': models}, f)
     for rank in range(nproc):
         if os.path.exists(f'{out}.rank{rank}.json'):
             os.remove(f'{out}.rank{rank}.json')
@@ -2130,28 +2148,414 @@ def dist_two_ranks(ranks, wall, init, one, card):
     return launches
 
 
+# ------------------------------------------------ data parallel, two networks
+DIST_MODEL_STEPS, DIST_MODEL_LR, DIST_MODEL_EMA = 2, 1e-3, 0.5
+# the two ranks against one process: each network's first-step gradient
+# within this share of its largest entry, and each tensor's move over the
+# steps within this share of the network's largest move. Float32 alone
+# takes ESRGAN's discriminator's first gradient 1.1e-2 of its largest entry
+# from float64's at these widths (the two ranks' 3.7e-3; the CPU, both in
+# the same run), the video GAN's 2e-3 at the tests' widths; a rank's own
+# statistics move it further (the control run of ESRGAN must fail this).
+DIST_MODEL_TOL = 3e-2
+
+
+def dist_model_specs():
+    """Phase 65's four jobs at the published widths, each from one seed:
+    config, model type, rows a rank, the networks compared, and how each
+    was cut (SGD at ``DIST_MODEL_LR`` for Adam, whose first step is the
+    gradient's sign; EMA ``DIST_MODEL_EMA`` for 0.999, whose move would sit
+    under float32's resolution of the weights; float32 for use_amp)."""
+    sgd = {'type': 'SGD', 'lr': DIST_MODEL_LR}
+    return [
+        dict(name='esrgan', config=ESRGAN_TRAIN, rows=2, nets=['net_g', 'net_g_ema', 'net_d'],
+             train=dict(optim_g=sgd, optim_d=sgd, ema_decay=DIST_MODEL_EMA),
+             title='ESRGAN x4 (RRDBNet 64 x 23, VGGStyleDiscriminator 64, 9 synced BatchNorms; '
+                   'GT 128)'),
+        # the same on the ranks with each rank's own statistics and means: the
+        # check must fail it
+        dict(name='esrgan_control', config=ESRGAN_TRAIN, rows=2, nets=['net_g', 'net_d'],
+             train=dict(optim_g=sgd, optim_d=sgd, ema_decay=DIST_MODEL_EMA), control=True,
+             title='ESRGAN x4 with each rank\'s own statistics and means (a control)'),
+        # R1 and the path length both on step 2; the stddev groups of 2 (the
+        # published 4 does not divide the global batch of 6); Adam as
+        # published with eps 1 in both runs (at 1e-8 its first step is the
+        # gradient's sign, which float32 flips near 0)
+        dict(name='stylegan2', config=STYLEGAN2_TRAIN, rows=3, nets=['net_g', 'net_g_ema', 'net_d'],
+             train=dict(net_d_reg_every=2, net_g_reg_every=2), network_d=dict(stddev_group=2),
+             adam_eps=1., title='StyleGAN2 256 Cmul2 (R1 and the path length on step 2, path '
+                                'batch 3 split 2 + 1; stddev groups of 2)'),
+        dict(name='videogan', config=GAN_VIDEO_TRAIN, rows=1, nets=['net_g', 'net_g_ema', 'net_d'],
+             train=dict(optim_g=sgd, optim_d=sgd, ema_decay=DIST_MODEL_EMA),
+             title='the video GAN (BasicVSR 64 x 30 on one 15-frame clip a rank, '
+                   'VGGStyleDiscriminator 32 at 256; K8, K9)'),
+        dict(name='joint', config=ALIGN_JOINT_TRAIN, rows=2, nets=['net_g', 'net_g_ema'],
+             train=dict(optim_g=sgd, ema_decay=DIST_MODEL_EMA, use_amp=False),
+             title='AlignJointDiffModel (GT 66, float32; K6, K7)')]
+
+
+def dist_model_opt(spec):
+    """The spec's config as a model's options: no datasets, the VGG of
+    ``write_vgg19``, the spec's cuts."""
+    from basicsr4rs_torch.utils.options import yaml_load
+    opt = json.loads(json.dumps(yaml_load(spec['config'])))
+    for key in ('datasets', 'logger', 'dist_params'):
+        opt.pop(key, None)
+    opt.update(num_gpu=1, is_train=True, manual_seed=0,
+               path={'strict_load_g': True, 'strict_load_d': True})
+    opt['train'].update(spec.get('train', {}))
+    opt['network_d' if 'network_d' in opt else 'network_g'].update(spec.get('network_d', {}))
+    if opt['train'].get('perceptual_opt'):
+        opt['train']['perceptual_opt']['pretrain_path'] = VGG_WEIGHTS
+    return opt
+
+
+def dist_model_batches(spec, opt):
+    """``DIST_MODEL_STEPS`` global batches of two ranks' rows on the host
+    (smooth random images; the second rank's rows darker), with the
+    replayed draws of StyleGAN2's steps or the joint model's timesteps and
+    noise."""
+    import numpy as np
+    rng = np.random.RandomState(65)
+    n = 2 * spec['rows']
+
+    def images(count, h, w, low=0.):
+        a = np.stack([smooth_image(rng, h, w) for _ in range(count)]).astype(np.float32) / 255.
+        a[count // 2:] *= 0.6
+        return torch.from_numpy(a.transpose(0, 3, 1, 2).copy()) * (1 - low) + low
+
+    gen = torch.Generator().manual_seed(65)
+    batches, draws = [], []
+    for step in range(1, DIST_MODEL_STEPS + 1):
+        if spec['name'].startswith('esrgan'):
+            gt = images(n, 128, 128)
+            batches.append({'gt': gt, 'lq': torch.nn.functional.interpolate(
+                gt, scale_factor=0.25, mode='bicubic', antialias=True)})
+        elif spec['name'] == 'videogan':
+            gt = images(n * 15, 256, 256).view(n, 15, 3, 256, 256)
+            lq = torch.nn.functional.interpolate(gt.flatten(0, 1), scale_factor=0.25,
+                                                 mode='bicubic', antialias=True)
+            batches.append({'gt': gt, 'lq': lq.view(n, 15, 3, 64, 64)})
+        elif spec['name'] == 'stylegan2':
+            batches.append({'gt': images(n, 256, 256) * 2 - 1})
+            draws.append(stylegan2_global_draws(opt, n, step, gen))
+        else:
+            batches.append({'lq': {'rgb': images(n, 22, 22) * 2 - 1,
+                                   'nss': images(n, 22, 22) * 2 - 1},
+                            'gt': {'rgb': images(n, 66, 66) * 2 - 1,
+                                   'nss': images(n, 33, 33) * 2 - 1},
+                            'tt': torch.randint(0, opt['diffusion']['steps'], (n,), generator=gen),
+                            'noise': torch.randn((n, 6, 64, 64), generator=gen)})
+    path = os.path.join(DIST_DIR, f'{spec["name"]}_batches.pt')
+    torch.save({'batches': batches, 'draws': draws}, path)
+    return path
+
+
+def stylegan2_global_draws(opt, n, step, gen):
+    """One step's draws for ``n`` rows (``StyleGAN2Model.draw_step``'s keys):
+    mixed codes on step 1, the path batch's on a regularised step."""
+    g = opt['network_g']
+    log_size = int(math.log2(g['out_size']))
+    sizes = [2**((i + 5) // 2) for i in range((log_size - 2) * 2 + 1)]
+    every = opt['train']['net_g_reg_every']
+
+    def codes(rows):
+        z1, z2 = torch.randn((2, rows, g['num_style_feat']), generator=gen)
+        return [z1, z2 if step == 1 else z1]
+
+    def maps(rows):
+        return [torch.randn((rows, 1, s, s), generator=gen) for s in sizes]
+
+    draw = {'d_codes': codes(n), 'd_noise': maps(n), 'g_codes': codes(n), 'g_noise': maps(n)}
+    if step % every == 0:
+        rows = max(1, n // opt['train'].get('path_batch_shrink', 2))
+        draw.update(path_codes=codes(rows), path_noise=maps(rows),
+                    path_proj=torch.randn((rows, 3, g['out_size'], g['out_size']), generator=gen))
+    return draw
+
+
+def split_rows(n, rank, world_size):
+    """The rows ``[start, stop)`` of ``n`` that ``rank`` takes (the first
+    ``n % world_size`` ranks one more)."""
+    base, extra = divmod(n, world_size)
+    start = rank * base + min(rank, extra)
+    return start, start + base + int(rank < extra)
+
+
+def rank_batch(value, rank, world_size, device):
+    if isinstance(value, dict):
+        return {k: rank_batch(v, rank, world_size, device) for k, v in value.items()}
+    start, stop = split_rows(len(value), rank, world_size)
+    return value[start:stop].to(device)
+
+
+def dist_model_steps(spec, rank, world_size):
+    """One job of phase 65 in this process (a rank of the group, or the one
+    process at the global batch): the model built from ``spec``'s seed (a
+    rank other than 0 from another seed, which rank 0's broadcast must
+    replace), ``DIST_MODEL_STEPS`` steps on its rows timed by CUDA events
+    around ``optimize_parameters``, the gradient exchange's time, the
+    gradients each optimizer was handed on step 1, K6 to K9's launches, the
+    logged losses, and the networks before and after."""
+    from basicsr4rs_torch.models import base_model, build_model
+    from basicsr4rs_torch.models.base_model import BaseModel
+    from basicsr4rs_torch.models.stylegan2_model import StyleGAN2Model
+    opt = dist_model_opt(spec)
+    opt.update(dist=world_size > 1, rank=rank, world_size=world_size)
+    data = torch.load(spec['batches'], weights_only=False)
+    wrappers = {**attention_wrappers(), **sampler_wrappers()}
+    patches = contextlib.ExitStack()
+    if spec.get('control'):   # the sum over the ranks of statistics and means: none
+        from basicsr4rs_torch.utils import dist_util
+        patches.enter_context(mock.patch.object(dist_util._SumOverRanks, 'apply', lambda t: t))
+    if spec.get('adam_eps'):
+        get_optimizer = BaseModel.get_optimizer
+        patches.enter_context(mock.patch.object(
+            BaseModel, 'get_optimizer', lambda self, kind, params, lr, **kw: get_optimizer(
+                self, kind, params, lr, eps=spec['adam_eps'], **kw)))
+    if data['draws']:
+        draws = iter(data['draws'])
+
+        def draw_step(model, batch, regularize_g):
+            step = next(draws)
+            out = {k: [t[rank * batch:(rank + 1) * batch].cuda() for t in step[k]]
+                   for k in ('d_codes', 'd_noise', 'g_codes', 'g_noise')}
+            if regularize_g:
+                start, stop = split_rows(len(step['path_proj']), rank, world_size)
+                if stop - start != model.path_rows(batch):
+                    fail(f'rank {rank}: {model.path_rows(batch)} path rows, expected '
+                         f'{stop - start}')
+                out.update({k: [t[start:stop].cuda() for t in step[k]]
+                            for k in ('path_codes', 'path_noise')},
+                           path_proj=step['path_proj'][start:stop].cuda())
+            return out
+        patches.enter_context(mock.patch.object(StyleGAN2Model, 'draw_step', draw_step))
+    exchange_ms = []
+    average = base_model._average_gradients
+
+    def timed_average(*nets):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        average(*nets)
+        torch.cuda.synchronize()
+        exchange_ms.append(1e3 * (time.perf_counter() - t0))
+    patches.enter_context(mock.patch.object(base_model, '_average_gradients', timed_average))
+    with patches:
+        torch.manual_seed(1000 + rank)
+        model = build_model(opt)
+        nets = {label: model.get_bare_model(getattr(model, label)) for label in spec['nets']}
+        before = {label: {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
+                  for label, net in nets.items()}
+        names = {p: f'{label}.{k}' for label, net in nets.items() if label != 'net_g_ema'
+                 for k, p in net.named_parameters()}
+        grads = {}
+
+        def keep(optimizer, args, kwargs):
+            if not steps:
+                grads.update({names[p]: p.grad.detach().cpu().clone()
+                              for group in optimizer.param_groups for p in group['params']
+                              if p.grad is not None})
+        for optimizer in model.optimizers:
+            optimizer.register_step_pre_hook(keep)
+        for wr in wrappers.values():
+            wr.launches = 0
+        steps = []
+        for step, batch in enumerate(data['batches'], 1):
+            model.feed_data(rank_batch(batch, rank, world_size, model.device))
+            exchange_ms.clear()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            model.optimize_parameters(step)
+            end.record()
+            torch.cuda.synchronize()
+            steps.append({'ms': start.elapsed_time(end), 'exchange_ms': sum(exchange_ms),
+                          'losses': model.get_current_log()})
+    launches = {k: wr.launches for k, wr in wrappers.items()}
+    after = {label: {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
+             for label, net in nets.items()}
+    result = {'steps': steps, 'launches': launches, 'grads': grads, 'before': before,
+              'after': after, 'wrapped': {label: type(getattr(model, label)).__name__
+                                          for label in nets},
+              'mean_path_length': float(getattr(model, 'mean_path_length', 0.))}
+    if world_size > 1:   # every rank holds rank 0's weights: its largest difference from them
+        import torch.distributed as dist
+        flat = torch.cat([v.double().reshape(-1).cuda() for state in after.values()
+                          for v in state.values()])
+        mine = flat.clone()
+        dist.broadcast(flat, 0)
+        spread = (mine - flat).abs().max().reshape(1)
+        dist.all_reduce(spread, op=dist.ReduceOp.MAX)
+        result['rank_spread'] = spread.item()
+    del model, nets
+    torch.cuda.empty_cache()
+    return result
+
+
+def dist_models_rank(job):
+    """The ranks' side of phase 65: each job of ``job['models']`` in turn;
+    rank 0 saves the runs, every rank its times and launches."""
+    from basicsr4rs_torch.utils.dist_util import get_dist_info, init_dist
+    init_dist('pytorch', 'gloo')   # the card rank % count: both share cuda:0
+    rank, world_size = get_dist_info()
+    runs = {}
+    for spec in job['models']:
+        runs[spec['name']] = dist_model_steps(spec, rank, world_size)
+    if rank == 0:
+        torch.save(runs, f'{job["out"]}.runs.pt')
+    return {name: {'steps': run['steps'], 'launches': run['launches']}
+            for name, run in runs.items()}
+
+
+def dist_model_errors(spec, two, one):
+    """Each network's largest difference of the two ranks from one process:
+    (its step 1 gradient's, against the largest gradient entry; its move's
+    over the steps, against the largest move)."""
+    worst = {}
+    for key, want in one['grads'].items():
+        net = key.split('.')[0]
+        err, big = worst.get(net, (0., 0.))
+        worst[net] = (max(err, (two['grads'][key] - want).abs().max().item()),
+                      max(big, want.abs().max().item()))
+    out = {}
+    for label in spec['nets']:
+        moved = err = 0.
+        for k, v in one['after'][label].items():
+            if v.is_floating_point():
+                moved = max(moved, (v - one['before'][label][k]).abs().max().item())
+                err = max(err, (two['after'][label][k] - v).abs().max().item())
+        out[label] = {'move': (err, moved), 'grad': worst.get(label)}
+    return out
+
+
+def dist_model_misses(errors):
+    return [f'{label} {kind}' for label, e in errors.items() for kind in ('grad', 'move')
+            if e[kind] is not None and not e[kind][0] <= DIST_MODEL_TOL * e[kind][1]]
+
+
+def dist_model_check(spec, two, one, card, number):
+    """One job of phase 65: the two ranks (rank 0's run, the ranks' spread)
+    against the one process at the global batch."""
+    phase(f'65{number}. {spec["title"]}: two ranks of {spec["rows"]} rows against one process '
+          f'of {2 * spec["rows"]}, {DIST_MODEL_STEPS} steps')
+    print(f'networks on the ranks: {two["wrapped"]}; largest difference between the ranks\' '
+          f'weights and buffers after the steps {two["rank_spread"]:.3e}')
+    if two['rank_spread'] != 0 and not spec.get('control'):   # the control's own statistics
+        fail('the ranks hold different weights')
+    errors = dist_model_errors(spec, two, one)
+    for label, e in errors.items():
+        line = (f'{label}: largest move {e["move"][1]:.3e}, two ranks against one process '
+                f'{e["move"][0]:.3e} ({e["move"][0] / max(e["move"][1], 1e-30):.2e} of it)')
+        if e['grad']:
+            line += (f'; step 1 gradients differ by {e["grad"][0]:.3e} of a largest '
+                     f'{e["grad"][1]:.3e} ({e["grad"][0] / e["grad"][1]:.2e})')
+        print(line)
+    misses = dist_model_misses(errors)
+    if spec.get('control'):
+        print(f'beyond DIST_MODEL_TOL {DIST_MODEL_TOL}: {misses} (the control must be)')
+        if not misses:
+            fail('the check cannot tell each rank\'s own statistics from the global batch\'s')
+        return
+    if misses or any(not e['move'][1] > 0 for e in errors.values()):
+        fail(f'{misses}: the two ranks do not train as one process at the global batch '
+             f'(DIST_MODEL_TOL {DIST_MODEL_TOL})')
+    for i, (got, want) in enumerate(zip(two['steps'], one['steps']), 1):
+        print(f'step {i}: ' + ', '.join(f'{k} {v:.6g} ({want["losses"][k]:.6g})'
+                                        for k, v in got['losses'].items())
+              + ' (two ranks\' mean; one process in brackets)')
+        for k, v in got['losses'].items():
+            w = want['losses'][k]
+            if not (math.isfinite(v) and abs(v - w) <= 1e-3 * abs(w) + 1e-5):
+                fail(f'step {i}: {k} {v} on two ranks, {w} in one process')
+    if spec['name'] == 'stylegan2':
+        got, want = two['mean_path_length'], one['mean_path_length']
+        print(f'mean_path_length {got:.6f} on the ranks, {want:.6f} in one process')
+        if not (want > 0 and abs(got - want) <= 1e-3 * want):
+            fail('mean_path_length is not one process\'s')
+    print(f'{card}: step times (CUDA events around optimize_parameters; step 1 includes the '
+          'first calls\' set-up) rank 0 ' + ', '.join(f'{st["ms"]:.3f}' for st in two['steps'])
+          + ' ms, of which the gradient exchange (host clock, synchronised) '
+          + ', '.join(f'{st["exchange_ms"]:.3f}' for st in two['steps'])
+          + ' ms, on two ranks sharing the card over gloo; one process at the global batch '
+          + ', '.join(f'{st["ms"]:.3f}' for st in one['steps']) + ' ms')
+
+
+def dist_two_networks(ranks, wall, card):
+    """Phase 65: the four jobs on two gloo ranks sharing the card, then each
+    in this process at the global batch; K6 to K9's launches of both."""
+    phase('65. data parallel, two networks: ESRGAN, StyleGAN2, the video GAN and the joint '
+          'align model on two ranks sharing the card over gloo, each against one process at '
+          'the global batch')
+    print(f'torchrun wall time {wall:.3f} s (two processes on cuda:0, gloo)')
+    two = torch.load(os.path.join(DIST_DIR, 'two_networks.runs.pt'), weights_only=False)
+    launches = collections.Counter()
+    for r in ranks:
+        for name, run in r['runs'].items():
+            print(f'rank {r["rank"]}, {name}: launches ' + ' '.join(
+                f'{k}={v}' for k, v in run['launches'].items() if v))
+            launches.update(run['launches'])
+    one = None
+    for number, spec in zip('abcde', dist_model_specs()):
+        spec['batches'] = os.path.join(DIST_DIR, f'{spec["name"].split("_")[0]}_batches.pt')
+        if not spec.get('control'):   # the control is held against the job before it
+            one = dist_model_steps(spec, 0, 1)
+            launches.update(one['launches'])
+        dist_model_check(spec, two[spec['name']], one, card, number)
+    for name, wanted in (('videogan', ('deform_sample_fwd', 'deform_sample_bwd')),
+                         ('joint', ('window_attention_fwd', 'window_attention_bwd'))):
+        for r in ranks:
+            missing = [k for k in wanted if not r['runs'][name]['launches'][k]]
+            if missing:
+                fail(f'rank {r["rank"]}, {name}: {missing} never launched')
+    return dict(launches)
+
+
+def two_networks_inputs():
+    """Phase 65's batches (and StyleGAN2's draws, the joint model's noise)
+    and the job every rank runs."""
+    write_vgg19()
+    specs = []
+    for spec in dist_model_specs():
+        spec['batches'] = (specs[-1]['batches'] if spec.get('control')
+                           else dist_model_batches(spec, dist_model_opt(spec)))
+        specs.append(spec)
+    return specs
+
+
 def dist_paths(launches, split_step_ms, card):
-    """Phases 63 and 64, their kernel launches added to ``launches``. Both
-    launchers start together, so that their processes' set-up (imports, CUDA,
-    the process groups) overlaps; the card trains one phase at a time: 64's
-    two ranks, then 63's rank, then 64's one process."""
+    """Phases 63, 64 and 65, their kernel launches added to ``launches``. The
+    three launchers start together, so that their processes' set-up
+    (imports, CUDA, the process groups) overlaps; the card trains one phase
+    at a time: 64's two ranks, then 63's rank, then 64's one process, then
+    65's two ranks and its one-process runs."""
     t0 = time.perf_counter()
-    phase('63, 64. the data-parallel launchers start: one rank on NCCL, two ranks on gloo')
+    phase('63, 64, 65. the data-parallel launchers start: one rank on NCCL, two ranks on gloo, '
+          'two ranks on gloo with two networks')
     init, two, one = two_ranks_inputs()
-    marker = os.path.join(DIST_DIR, 'two_ranks.done')
-    if os.path.exists(marker):
-        os.remove(marker)
+    specs = two_networks_inputs()
+    markers = [os.path.join(DIST_DIR, f'{name}.done') for name in ('two_ranks', 'models_ready')]
+    for marker in markers:
+        if os.path.exists(marker):
+            os.remove(marker)
     two_run = start_torchrun(2, two, [['--launcher', 'pytorch']],
-                             os.path.join(DIST_DIR, 'two_ranks'), done=marker)
+                             os.path.join(DIST_DIR, 'two_ranks'), done=markers[0])
     one_run = start_torchrun(1, TRAIN_CONFIG, one_rank_argv(), os.path.join(DIST_DIR, 'one_rank'),
-                             after=marker)
-    two_ranks, two_wall = finish_torchrun(two_run, others=[one_run])
-    one_rank, one_wall = finish_torchrun(one_run)
+                             after=markers[0])
+    models_run = start_torchrun(2, None, None, os.path.join(DIST_DIR, 'two_networks'),
+                                after=markers[1], models=specs)
+    two_ranks, two_wall = finish_torchrun(two_run, others=[one_run, models_run])
+    one_rank, one_wall = finish_torchrun(one_run, others=[models_run])
     for counts in (dist_one_rank(one_rank, one_wall, split_step_ms, card),
                    dist_two_ranks(two_ranks, two_wall, init, one, card)):
         for name, count in counts.items():
             launches[name] = launches.get(name, 0) + count
     print(f'phases 63 and 64: {time.perf_counter() - t0:.1f} s')
+    t1 = time.perf_counter()
+    open(markers[1], 'w').close()
+    model_ranks, models_wall = finish_torchrun(models_run)
+    for name, count in dist_two_networks(model_ranks, models_wall, card).items():
+        launches[name] = launches.get(name, 0) + count
+    print(f'phase 65: {time.perf_counter() - t1:.1f} s after phase 64 (its ranks\' set-up '
+          f'overlapped 63 and 64); phases 63 to 65: {time.perf_counter() - t0:.1f} s')
 
 
 def device_time_by_group(prof, ours):
@@ -3666,7 +4070,8 @@ VIDEO = {
         forward_launches=basicvsrpp_launches, backward_skipped=1, train_frames=30,
         boundary_key='fix_flow', frozen=('spynet.basic_module.5.basic_module.0.weight',),
         free='conv_last.weight', all_frames=True, memory_stages=basicvsrpp_memory_stages,
-        profiled=1),   # one request and one step profiled: the run's time limit
+        # one request profiled and no step (31 to 38 s): the run's time limit
+        profiled=1, profiled_steps=0),
 }
 
 
@@ -5561,10 +5966,10 @@ def serve_rrdbnet():
     print('request latency: ' + ', '.join(f'LQ {h}x{w} {ms:.3f} ms' for (h, w), ms in
                                           zip(CNN_VAL_LQ, lat))
           + f'; peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB')
-    phase('33b. device time of 2 RRDBNet x4 requests (LQ 128x128) by kernel group '
+    phase('33b. device time of an RRDBNet x4 request (LQ 128x128) by kernel group '
           '(torch.profiler)')
     model.feed_data(items[0])
-    profile_device_time(model.test, 2, 'request', {}, 'rrdbnet_request_profile.json')
+    profile_device_time(model.test, 1, 'request', {}, 'rrdbnet_request_profile.json')
     del model
 
 
@@ -7230,7 +7635,7 @@ def main():
     os.chdir(ROOT)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if sys.argv[1:2] == ['rank']:   # one rank of phase 63 or 64, started by torchrun
+    if sys.argv[1:2] == ['rank']:   # one rank of phase 63, 64 or 65, started by torchrun
         dist_rank(sys.argv[2])
         return
     card = card_info()
@@ -7250,7 +7655,7 @@ def main():
         recurrent_video_paths(launches)
         print(json.dumps(launches))
         return
-    if sys.argv[1:] == ['dist']:   # development: the data-parallel phases (and phase 6's step)
+    if sys.argv[1:] == ['dist']:   # development: phases 63 to 65 (and phase 6's step)
         launches = collections.Counter()
         write_train_inputs()
         dist_paths(launches, train()[1], card)
@@ -7303,10 +7708,13 @@ def main():
     trained = train_resshift()
     check_resshift_gradients()
     l2s = check_l2s_unet()
-    launches['window_attention_fwd'] = served + trained['window_attention_fwd'] + l2s[
-        'window_attention_fwd']
-    launches['window_attention_bwd'] = trained['window_attention_bwd'] + l2s['window_attention_bwd']
-    launches.update(deform_sample_fwd=0, deform_sample_bwd=0)
+    # added to phase 65's launches of K6 to K9
+    launches['window_attention_fwd'] = launches.get('window_attention_fwd', 0) + served + trained[
+        'window_attention_fwd'] + l2s['window_attention_fwd']
+    launches['window_attention_bwd'] = launches.get('window_attention_bwd', 0) + trained[
+        'window_attention_bwd'] + l2s['window_attention_bwd']
+    for name in ('deform_sample_fwd', 'deform_sample_bwd'):
+        launches.setdefault(name, 0)
     for i, name in enumerate(VIDEO):
         served, _ = serve_video(name, 11 + 3 * i)
         trained, _, _ = train_video(name, 12 + 3 * i)
