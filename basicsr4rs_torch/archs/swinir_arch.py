@@ -22,12 +22,28 @@ the joint kernel with its recomputing backward. With ``SWIN_FUSED_CONV=1`` the 3
 the Swin blocks run through ``ops.conv3x3.fused_conv3x3`` with their
 residual or leaky-ReLU folded in; the modules stay ``nn.Conv2d``, so the
 ``state_dict`` is the same on every route.
+
+The model's own unfused forward, BasicSR's chain of LayerNorm, window
+partition, ``WindowAttention.forward``, window reverse, DropPath and
+LayerNorm + ``Mlp``, is the counterpart of the JAX package's XLA route, and
+only the configuration selects it, as the JAX block does: ``fused_attn:
+false``, or ``attn_drop_rate > 0`` in ``train()``. In training with
+``drop_rate > 0`` (and no attention dropout) the attention branch stays one
+kernel call with its residual not folded, followed by ``proj_drop``, the
+DropPath residual and the unfused ``norm2`` / ``Mlp`` with its dropout.
+Dropout is the identity in ``eval()``, so an eval forward with rates above 0
+keeps the kernel routes; only ``fused_attn: false`` sends eval through the
+unfused chain. Every dropout mask and DropPath scale comes from the model's
+generator (``seed_drop_path``), drawn in the same order and shapes on every
+route: DropPath's two scales first, then the attention dropout, then
+``proj_drop`` in the windows' layout, then the MLP's two.
 """
 
 from __future__ import annotations
 
 import functools
 import itertools
+import math
 from typing import Optional, Sequence
 
 import numpy as np
@@ -117,14 +133,66 @@ def _shift_attn_mask(h: int, w: int, window_size: int, shift_size: int,
         return torch.from_numpy(np.where(diff != 0, -100.0, 0.0).astype(np.float32)).to(device)
 
 
+def window_partition(x: torch.Tensor, window_size: int) -> torch.Tensor:
+    """(B, H, W, C) -> (B*nW, ws, ws, C) (reference swinir_arch.py:60-72)."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // window_size, window_size, w // window_size, window_size, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(-1, window_size, window_size, c)
+
+
+def window_reverse(windows: torch.Tensor, window_size: int, h: int, w: int) -> torch.Tensor:
+    """The inverse of ``window_partition`` (reference swinir_arch.py:75-92)."""
+    b = windows.shape[0] // (h * w // window_size // window_size)
+    x = windows.reshape(b, h // window_size, w // window_size, window_size, window_size, -1)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, -1)
+
+
+def _draw_keep(shape, keep: float, device: torch.device,
+               generator: Optional[torch.Generator]) -> torch.Tensor:
+    """A float32 mask of 0 and 1 / keep on ``device``, each entry kept with
+    probability ``keep``, drawn from ``generator`` (torch's global one on
+    ``device`` when None)."""
+    draw_on = device if generator is None else generator.device
+    mask = torch.rand(shape, device=draw_on, generator=generator) < keep
+    return mask.to(device=device, dtype=torch.float32) / keep
+
+
+class Dropout(nn.Module):
+    """Inverted dropout at rate ``p`` in ``train()``, the identity in
+    ``eval()``; the mask comes from ``generator`` (set by
+    ``SwinIR.seed_drop_path``; torch's global one when None)."""
+
+    def __init__(self, p: float = 0.):
+        super().__init__()
+        self.p = p
+        self.generator: Optional[torch.Generator] = None
+
+    def active(self) -> bool:
+        return self.training and self.p > 0.
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.active():
+            return x
+        return x * _draw_keep(x.shape, 1. - self.p, x.device, self.generator).to(x.dtype)
+
+
+def drop_path(x: torch.Tensor, scale: Optional[torch.Tensor]) -> torch.Tensor:
+    """DropPath of x (B, ...) with its per-sample scales (B,) float32 (0 or
+    1 / keep), or x itself when ``scale`` is None."""
+    if scale is None:
+        return x
+    return x * scale.to(x.dtype).view(-1, *(1,) * (x.dim() - 1))
+
+
 class WindowAttention(nn.Module):
-    """Parameters of window attention with relative-position bias (reference
-    swinir_arch.py:95-192). SwinIR's blocks hand them to the block kernels;
+    """Window attention with relative-position bias (reference
+    swinir_arch.py:95-192). ``forward`` is BasicSR's chain on windowed
+    tokens; SwinIR's kernel routes hand the parameters to the block kernels;
     ``fused`` is the attention on its own, for blocks that normalise
     otherwise (the diffusion UNet's)."""
 
     def __init__(self, dim: int, window_size: int, num_heads: int, qkv_bias: bool = True,
-                 qk_scale: Optional[float] = None):
+                 qk_scale: Optional[float] = None, attn_drop: float = 0., proj_drop: float = 0.):
         super().__init__()
         self.dim = dim
         self.window_size = window_size
@@ -133,7 +201,9 @@ class WindowAttention(nn.Module):
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * window_size - 1)**2, num_heads))
         self.qkv = nn.Linear(dim, dim * 3, bias=qkv_bias)
+        self.attn_drop = Dropout(attn_drop)
         self.proj = nn.Linear(dim, dim)
+        self.proj_drop = Dropout(proj_drop)
 
     def relative_position_bias(self, window_size: int) -> torch.Tensor:
         """(heads, n, n) float32 bias of a window_size x window_size window."""
@@ -142,6 +212,24 @@ class WindowAttention(nn.Module):
                                          self.relative_position_bias_table.device)
         table = self.relative_position_bias_table[index]
         return table.view(n, n, -1).permute(2, 0, 1).float().contiguous()
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x: (B*nW, n, C) tokens of square windows, n = ws * ws; ``mask``:
+        (nW, n, n) shift mask or None. qkv, scaled q k^T, relative bias,
+        mask, softmax, ``attn_drop``, times v, proj, ``proj_drop``."""
+        b_, n, c = x.shape
+        heads = self.num_heads
+        qkv = self.qkv(x).reshape(b_, n, 3, heads, c // heads).permute(2, 0, 3, 1, 4)
+        q, k, v = qkv.unbind(0)
+        attn = (q * self.scale) @ k.transpose(-2, -1)
+        attn = attn + self.relative_position_bias(math.isqrt(n))[None].to(attn.dtype)
+        if mask is not None:
+            nw = mask.shape[0]
+            attn = attn.view(b_ // nw, nw, heads, n, n) + mask[None, :, None].to(attn.dtype)
+            attn = attn.view(-1, heads, n, n)
+        attn = self.attn_drop(torch.softmax(attn, dim=-1))
+        x = (attn @ v).transpose(1, 2).reshape(b_, n, c)
+        return self.proj_drop(self.proj(x))
 
     def fused(self, x: torch.Tensor, window_size: int,
               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -156,32 +244,53 @@ class WindowAttention(nn.Module):
         out = fused_window_attention(self.qkv(x), bias, window_size, self.num_heads, self.scale)
         return self.proj(out)
 
+    def windowed(self, x: torch.Tensor, window_size: int,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``forward`` on the windows of x (B, H, W, C), already rolled, put
+        back in place: (B, H, W, C)."""
+        _, h, w, c = x.shape
+        windows = window_partition(x, window_size).reshape(-1, window_size * window_size, c)
+        out = self(windows, mask)
+        return window_reverse(out.view(-1, window_size, window_size, c), window_size, h, w)
+
 
 class Mlp(nn.Module):
+    """fc1, GELU (exact), dropout, fc2, dropout (reference swinir_arch.py:22-41)."""
 
-    def __init__(self, in_features: int, hidden_features: int):
+    def __init__(self, in_features: int, hidden_features: int, drop: float = 0.):
         super().__init__()
         self.fc1 = nn.Linear(in_features, hidden_features)
         self.fc2 = nn.Linear(hidden_features, in_features)
+        self.drop = Dropout(drop)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.drop(self.fc2(self.drop(F.gelu(self.fc1(x)))))
 
 
 class SwinTransformerBlock(nn.Module):
-    """(reference swinir_arch.py:194-310)"""
+    """(reference swinir_arch.py:194-310). Its route, by the rule of the JAX
+    block: the unfused chain when ``fused_attn`` is off, or in ``train()``
+    with attention dropout; in ``train()`` with ``drop > 0``, the attention
+    branch's kernel without its residual, then the unfused rest; else the
+    kernel routes (see the module docstring)."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int = 7, shift_size: int = 0,
                  mlp_ratio: float = 4., qkv_bias: bool = True, qk_scale: Optional[float] = None,
-                 drop_path: float = 0.):
+                 drop_path: float = 0., drop: float = 0., attn_drop: float = 0.,
+                 fused_attn: bool = True):
         super().__init__()
         self.window_size = window_size
         self.shift_size = shift_size
         self.drop_path = drop_path
+        self.fused_attn = fused_attn
         # DropPath draws from this generator (torch's global one when None);
         # SwinIR hands every block the model's
         self.generator: Optional[torch.Generator] = None
         self.norm1 = nn.LayerNorm(dim)
-        self.attn = WindowAttention(dim, window_size, num_heads, qkv_bias, qk_scale)
+        self.attn = WindowAttention(dim, window_size, num_heads, qkv_bias, qk_scale, attn_drop,
+                                    drop)
         self.norm2 = nn.LayerNorm(dim)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), drop)
 
     def drop_path_scales(self, batch: int, device: torch.device):
         """DropPath's per-sample scales (s1, s2) = bernoulli(keep) / keep, each
@@ -189,12 +298,7 @@ class SwinTransformerBlock(nn.Module):
         the block keeps every path (``drop_path == 0`` or ``eval()``)."""
         if not self.training or self.drop_path == 0.:
             return None
-        keep = 1. - self.drop_path
-        generator = self.generator
-        draw_on = device if generator is None else generator.device
-        mask = torch.rand(2, batch, device=draw_on, generator=generator) < keep
-        s1, s2 = (mask.to(device=device, dtype=torch.float32) / keep).unbind(0)
-        return s1, s2
+        return _draw_keep((2, batch), 1. - self.drop_path, device, self.generator).unbind(0)
 
     def forward(self, x: torch.Tensor, x_size, residual_scales=None) -> torch.Tensor:
         """x: (B, H*W, C) tokens of an H x W map. ``residual_scales``
@@ -204,13 +308,23 @@ class SwinTransformerBlock(nn.Module):
         window_size, shift_size = self.window_size, self.shift_size
         if min(x_size) <= window_size:  # small input: shrink the window, no shift
             window_size, shift_size = min(x_size), 0
+        if self.training and residual_scales is None:
+            residual_scales = self.drop_path_scales(b, x.device)
+        s1, s2 = residual_scales if residual_scales is not None else (None, None)
+        attn = self.attn
+        unfused = not self.fused_attn or attn.attn_drop.active()
 
+        shortcut = x
+        if unfused:   # LayerNorm is per token: before the roll, as the reference
+            x = self.norm1(x)
         x = x.reshape(b, h, w, c)
         mask = None
         if shift_size > 0:
             x = torch.roll(x, (-shift_size, -shift_size), dims=(1, 2))
             mask = _shift_attn_mask(h, w, window_size, shift_size, x.device)
-        attn = self.attn
+        if unfused:
+            return self._unfused_rest(attn.windowed(x, window_size, mask), shortcut, x_size,
+                                      shift_size, s1, s2)
         qkv_bias = attn.qkv.bias
         if qkv_bias is None:
             qkv_bias = torch.zeros(3 * c, device=x.device)
@@ -220,16 +334,19 @@ class SwinTransformerBlock(nn.Module):
         mlp_args = (self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight, self.mlp.fc1.bias,
                     self.mlp.fc2.weight, self.mlp.fc2.bias)
         geometry = (window_size, attn.num_heads, attn.scale)
-        if self.training:
-            if residual_scales is None:
-                residual_scales = self.drop_path_scales(b, x.device)
+        if self.training and self.mlp.drop.active():
+            # the branch alone from its kernel; proj_drop on its windows, as
+            # the unfused route draws it
+            x = fused_swin_attn_block(x.contiguous(), *attn_args, *geometry)
+            x = window_reverse(attn.proj_drop(window_partition(x, window_size)),
+                               window_size, h, w)
+            return self._unfused_rest(x, shortcut, x_size, shift_size, s1, s2)
         if self.training and joint_train_enabled():
             x = fused_swin_block_full(x.contiguous(), *attn_args, *mlp_args, *geometry,
                                       residual_scales=residual_scales)
         elif self.training:
             # the split pair; the residual adds (and DropPath's x + s * branch)
             # happen inside the kernels, and the roll back commutes with both
-            s1, s2 = residual_scales if residual_scales is not None else (None, None)
             x = fused_swin_attn_block(x.contiguous(), *attn_args, *geometry,
                                       add_residual=s1 is None, residual_scale=s1)
             x = fused_mlp_block(x, *mlp_args, add_residual=s2 is None, residual_scale=s2)
@@ -244,6 +361,15 @@ class SwinTransformerBlock(nn.Module):
             x = torch.roll(x, (shift_size, shift_size), dims=(1, 2))
         return x.reshape(b, h * w, c)
 
+    def _unfused_rest(self, x, shortcut, x_size, shift_size, s1, s2):
+        """From the rolled attention branch x (B, H, W, C): roll back,
+        ``shortcut + DropPath(x)``, then ``+ DropPath(Mlp(norm2(.)))``."""
+        h, w = x_size
+        if shift_size > 0:
+            x = torch.roll(x, (shift_size, shift_size), dims=(1, 2))
+        x = shortcut + drop_path(x.reshape(shortcut.shape), s1)
+        return x + drop_path(self.mlp(self.norm2(x)), s2)
+
 
 class BasicLayer(nn.Module):
     """A stack of Swin blocks, shifted every other one (reference
@@ -251,12 +377,14 @@ class BasicLayer(nn.Module):
 
     def __init__(self, dim: int, depth: int, num_heads: int, window_size: int,
                  mlp_ratio: float, qkv_bias: bool, qk_scale: Optional[float],
-                 drop_path: Sequence[float]):
+                 drop_path: Sequence[float], drop: float = 0., attn_drop: float = 0.,
+                 fused_attn: bool = True):
         super().__init__()
         self.blocks = nn.ModuleList([
             SwinTransformerBlock(dim, num_heads, window_size,
-                                 0 if i % 2 == 0 else window_size // 2, mlp_ratio,
-                                 qkv_bias, qk_scale, drop_path[i]) for i in range(depth)])
+                                 0 if i % 2 == 0 else window_size // 2, mlp_ratio, qkv_bias,
+                                 qk_scale, drop_path[i], drop, attn_drop, fused_attn)
+            for i in range(depth)])
 
     def forward(self, x, x_size):
         for block in self.blocks:
@@ -265,21 +393,35 @@ class BasicLayer(nn.Module):
 
 
 class RSTB(nn.Module):
-    """Residual Swin Transformer Block: Swin blocks, a 3x3 conv, a residual
-    (reference swinir_arch.py:480-569)."""
+    """Residual Swin Transformer Block: Swin blocks, a convolution, a residual
+    (reference swinir_arch.py:480-569). ``resi_connection``: ``1conv``, one
+    3x3 convolution; ``3conv``, 3x3 C -> C/4, leaky-ReLU 0.2, 1x1, leaky-ReLU
+    0.2, 3x3 C/4 -> C (keys ``conv.0``, ``conv.2``, ``conv.4``)."""
 
     def __init__(self, dim: int, depth: int, num_heads: int, window_size: int,
                  mlp_ratio: float, qkv_bias: bool, qk_scale: Optional[float],
-                 drop_path: Sequence[float]):
+                 drop_path: Sequence[float], resi_connection: str = '1conv', drop: float = 0.,
+                 attn_drop: float = 0., fused_attn: bool = True):
         super().__init__()
         self.residual_group = BasicLayer(dim, depth, num_heads, window_size, mlp_ratio,
-                                         qkv_bias, qk_scale, drop_path)
-        self.conv = nn.Conv2d(dim, dim, 3, 1, 1)
+                                         qkv_bias, qk_scale, drop_path, drop, attn_drop,
+                                         fused_attn)
+        if resi_connection == '1conv':
+            self.conv = nn.Conv2d(dim, dim, 3, 1, 1)
+        elif resi_connection == '3conv':
+            self.conv = nn.Sequential(
+                nn.Conv2d(dim, dim // 4, 3, 1, 1), nn.LeakyReLU(negative_slope=0.2, inplace=True),
+                nn.Conv2d(dim // 4, dim // 4, 1, 1, 0),
+                nn.LeakyReLU(negative_slope=0.2, inplace=True), nn.Conv2d(dim // 4, dim, 3, 1, 1))
+        else:
+            raise ValueError(f'unknown resi_connection {resi_connection!r}')
 
     def forward(self, x, x_size):
         res = self.residual_group(x, x_size)
         b, _, c = res.shape
         img = res.transpose(1, 2).reshape(b, c, *x_size)
+        if isinstance(self.conv, nn.Sequential):
+            return self.conv(img).flatten(2).transpose(1, 2) + x
         if conv_fusion_enabled():   # the conv and the RSTB residual in one call
             shortcut = x.transpose(1, 2).reshape(b, c, *x_size)
             return conv3x3(self.conv, img, residual=shortcut).flatten(2).transpose(1, 2)
@@ -298,14 +440,23 @@ class PatchEmbed(nn.Module):
 class SwinIR(nn.Module):
     """(reference swinir_arch.py:694-956). Upsamplers: ``pixelshuffle``
     (classical SR), ``pixelshuffledirect`` (lightweight SR), ``nearest+conv``
-    (real-world SR, x4) and ``''`` (denoising / JPEG artifacts). Only the
-    ``1conv`` residual connection and no absolute position embedding are
-    ported. ``generator`` seeds the parameter init (torch's global generator
-    when None). ``drop_path_rate`` is the stochastic-depth rate of the last
-    block, rising linearly from 0 at the first; a training forward draws the
-    DropPath masks from ``drop_path_generator`` (see ``seed_drop_path``)."""
+    (real-world SR, x4) and ``''`` (denoising / JPEG artifacts).
+    ``resi_connection``: ``1conv`` or ``3conv`` (see ``RSTB``). ``ape`` adds
+    BasicSR's absolute position embedding, (1, (img_size // patch_size)**2,
+    embed_dim): the input's token count must be that (``patch_size`` changes
+    nothing else, as BasicSR's ``PatchEmbed`` only flattens). ``drop_rate``
+    drops after the patch embedding and in every block's projection and MLP,
+    ``attn_drop_rate`` the attention weights; ``fused_attn: false`` runs
+    every block's unfused chain (see the module docstring). ``generator``
+    seeds the parameter init (torch's global generator when None).
+    ``drop_path_rate`` is the stochastic-depth rate of the last block,
+    rising linearly from 0 at the first; a training forward draws the
+    DropPath and dropout masks from ``drop_path_generator`` (see
+    ``seed_drop_path``)."""
 
-    # JAX package parameter path -> BasicSR key (utils/jax_convert.py)
+    # JAX package parameter path -> BasicSR key (utils/jax_convert.py); the
+    # 3conv layers' conv_0 / conv_2 / conv_4 become conv.0 / .2 / .4 by the
+    # module-list rule
     JAX_KEY_RULES = (
         (r'^patch_embed_norm\.', 'patch_embed.norm.'),
         (r'^upsample\.conv(\d+)\.', lambda m: f'upsample.{2 * int(m.group(1))}.'),
@@ -318,14 +469,8 @@ class SwinIR(nn.Module):
                  drop_rate: float = 0., attn_drop_rate: float = 0., drop_path_rate: float = 0.1,
                  ape: bool = False, patch_norm: bool = True, upscale: int = 2,
                  img_range: float = 1., upsampler: str = '', resi_connection: str = '1conv',
-                 generator: Optional[torch.Generator] = None):
+                 fused_attn: bool = True, generator: Optional[torch.Generator] = None):
         super().__init__()
-        if patch_size != 1 or ape or resi_connection != '1conv':
-            raise NotImplementedError('SwinIR: patch_size 1, ape False and resi_connection '
-                                      '1conv are ported')
-        if drop_rate != 0. or attn_drop_rate != 0.:
-            raise NotImplementedError('SwinIR: drop_rate and attn_drop_rate other than 0 need '
-                                      'the unfused block, which is not ported')
         num_feat = 64
         self.img_range = img_range
         self.upscale = upscale
@@ -335,11 +480,18 @@ class SwinIR(nn.Module):
 
         self.conv_first = nn.Conv2d(in_chans, embed_dim, 3, 1, 1)
         self.patch_embed = PatchEmbed(embed_dim, patch_norm)
+        if ape:
+            self.absolute_pos_embed = nn.Parameter(
+                torch.zeros(1, (img_size // patch_size)**2, embed_dim))
+        else:
+            self.absolute_pos_embed = None
+        self.pos_drop = Dropout(drop_rate)
         # stochastic depth decay rule (reference swinir_arch.py:786)
         dpr = np.linspace(0, drop_path_rate, sum(depths)).tolist()
         self.layers = nn.ModuleList([
             RSTB(embed_dim, depths[i], num_heads[i], window_size, mlp_ratio, qkv_bias, qk_scale,
-                 dpr[sum(depths[:i]):sum(depths[:i + 1])])
+                 dpr[sum(depths[:i]):sum(depths[:i + 1])], resi_connection, drop_rate,
+                 attn_drop_rate, fused_attn)
             for i in range(len(depths))])
         self.norm = nn.LayerNorm(embed_dim)
         self.conv_after_body = nn.Conv2d(embed_dim, embed_dim, 3, 1, 1)
@@ -368,10 +520,11 @@ class SwinIR(nn.Module):
         self.drop_path_generator: Optional[torch.Generator] = None
 
     def seed_drop_path(self, seed: int, device='cpu') -> torch.Generator:
-        """Give the model its own DropPath generator on ``device``, seeded."""
+        """Give the model its own generator of DropPath and dropout masks on
+        ``device``, seeded."""
         self.drop_path_generator = torch.Generator(device=device).manual_seed(seed)
         for m in self.modules():
-            if isinstance(m, SwinTransformerBlock):
+            if isinstance(m, (SwinTransformerBlock, Dropout)):
                 m.generator = self.drop_path_generator
         return self.drop_path_generator
 
@@ -391,12 +544,20 @@ class SwinIR(nn.Module):
                 default_conv_init_(m, generator)
             elif isinstance(m, WindowAttention):
                 trunc_normal_(m.relative_position_bias_table, .02, generator)
+        if self.absolute_pos_embed is not None:
+            trunc_normal_(self.absolute_pos_embed, .02, generator)
 
     def forward_features(self, x: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
         x = x.flatten(2).transpose(1, 2)
         if self.patch_embed.norm is not None:
             x = self.patch_embed.norm(x)
+        if self.absolute_pos_embed is not None:
+            if x.shape[1] != self.absolute_pos_embed.shape[1]:
+                raise ValueError(f'SwinIR with ape: {h}x{w} is {x.shape[1]} tokens, the '
+                                 f'position embedding holds {self.absolute_pos_embed.shape[1]}')
+            x = x + self.absolute_pos_embed
+        x = self.pos_drop(x)
         for layer in self.layers:
             x = layer(x, (h, w))
         return self.norm(x).transpose(1, 2).reshape(b, c, h, w)

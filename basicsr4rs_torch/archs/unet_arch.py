@@ -13,7 +13,9 @@ input. NCHW, BasicSR's module tree and key names
 Every ``SwinBlockGN`` runs its attention as qkv ``Linear`` -> one call of
 ``ops.window_attention.fused_window_attention`` on the rolled (B, H, W, 3C)
 map (one CUDA kernel forward, one backward, for a CUDA tensor) -> proj
-``Linear``. A torch module is built before it sees an input, so the
+``Linear``; with ``fused_attn: false`` it runs SwinIR's unfused
+``WindowAttention.forward`` on the map's windows instead, the counterpart of
+the JAX package's XLA route. A torch module is built before it sees an input, so the
 constructors take ``lq_channels`` (default ``in_channels``) where the JAX
 modules read the channel count off the first batch.
 """
@@ -227,12 +229,15 @@ class SwinBlockGN(nn.Module):
     then + MLP(GN(.)). An input no larger than the window shrinks the window
     to it and drops the shift, per input, as the JAX package does; the
     relative-position table keeps the configured window's size and is
-    indexed with the smaller window's offsets."""
+    indexed with the smaller window's offsets. ``fused_attn``: the attention
+    as the window-attention kernel (default), or partitioned into windows
+    and run through ``WindowAttention.forward``."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int, shift_size: int,
-                 mlp_ratio: float = 2.):
+                 mlp_ratio: float = 2., fused_attn: bool = True):
         super().__init__()
         self.window_size, self.shift_size = window_size, shift_size
+        self.fused_attn = fused_attn
         self.norm1 = group_norm(dim)
         self.attn = WindowAttention(dim, window_size, num_heads)
         self.norm2 = group_norm(dim)
@@ -248,7 +253,10 @@ class SwinBlockGN(nn.Module):
         if shift_size > 0:
             xn = torch.roll(xn, (-shift_size, -shift_size), dims=(1, 2))
             mask = _shift_mask_tensor(h, w, window_size, shift_size, x.device)
-        xn = self.attn.fused(xn, window_size, mask)
+        if self.fused_attn:
+            xn = self.attn.fused(xn, window_size, mask)
+        else:
+            xn = self.attn.windowed(xn, window_size, mask)
         if shift_size > 0:
             xn = torch.roll(xn, (shift_size, shift_size), dims=(1, 2))
         x = x + xn.permute(0, 3, 1, 2)
@@ -275,12 +283,14 @@ class BasicLayer(nn.Module):
     takes is contiguous and no layout copy is made around it."""
 
     def __init__(self, in_chans: int, embed_dim: int, num_heads: int, window_size: int,
-                 depth: int = 2, mlp_ratio: float = 2., patch_norm: bool = False):
+                 depth: int = 2, mlp_ratio: float = 2., patch_norm: bool = False,
+                 fused_attn: bool = True):
         super().__init__()
         self.patch_embed = _Embed(in_chans, embed_dim, patch_norm)
         self.blocks = nn.ModuleList([
             SwinBlockGN(embed_dim, num_heads, window_size,
-                        0 if i % 2 == 0 else window_size // 2, mlp_ratio) for i in range(depth)])
+                        0 if i % 2 == 0 else window_size // 2, mlp_ratio, fused_attn)
+            for i in range(depth)])
         self.patch_unembed = _Embed(embed_dim, in_chans, patch_norm)
 
     def forward(self, x):
@@ -408,7 +418,8 @@ class UNetModelSwin(_ADMUNet):
     ``BasicLayer``s of Swin blocks. ``forward(x, timesteps, lq=None,
     mask=None)``: x (B, in_channels, S, S), timesteps (B,), lq (B,
     lq_channels, lq_size, lq_size). ``dims`` and ``use_fp16`` are accepted
-    for the published configs and must be 2 and false."""
+    for the published configs and must be 2 and false. ``fused_attn``: see
+    ``SwinBlockGN``."""
 
     def __init__(self, image_size: int, in_channels: int, model_channels: int, out_channels: int,
                  num_res_blocks=2, attention_resolutions: Sequence[int] = (64, 32),
@@ -419,7 +430,7 @@ class UNetModelSwin(_ADMUNet):
                  swin_depth: int = 2, swin_embed_dim: int = 96, window_size: int = 8,
                  mlp_ratio: float = 2.0, patch_norm: bool = False, cond_lq: bool = True,
                  cond_mask: bool = False, lq_size: int = 256, lq_channels: Optional[int] = None,
-                 generator: Optional[torch.Generator] = None):
+                 fused_attn: bool = True, generator: Optional[torch.Generator] = None):
         super().__init__()
         if dims != 2 or use_fp16:
             raise NotImplementedError('UNetModelSwin: dims 2 and use_fp16 false are ported')
@@ -428,7 +439,7 @@ class UNetModelSwin(_ADMUNet):
         self.dropout, self.use_scale_shift_norm = dropout, use_scale_shift_norm
         self.attention_resolutions = tuple(attention_resolutions)
         self.swin = dict(embed_dim=swin_embed_dim, window_size=window_size, depth=swin_depth,
-                         mlp_ratio=mlp_ratio, patch_norm=patch_norm,
+                         mlp_ratio=mlp_ratio, patch_norm=patch_norm, fused_attn=fused_attn,
                          num_heads=(num_heads if num_head_channels == -1
                                     else swin_embed_dim // num_head_channels))
         first = in_channels

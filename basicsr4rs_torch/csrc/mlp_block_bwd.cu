@@ -62,9 +62,11 @@
 // tensor cores but what surrounds mma.sync at one 16-warp unit an SM
 // (fragment loads, transposed float32 reads, the barriers between eight
 // dependent phases, epilogues, the copy of x).
-// Any hidden and C <= 224 in float32 (shared memory), C <= kMaxC (256) in
-// bfloat16 (the LayerNorm launch), with C % 4 == 0 and hidden % 4 == 0:
-// every shape the first route held (C <= 196).
+// Any hidden and C <= kMaxC (256; the LayerNorm launch), with C % 4 == 0 and
+// hidden % 4 == 0. Past C = 224 in float32 (SwinIR-L's 240) three dL/dLN(x)
+// stages of 32 words of K would not fit in shared memory with the rest
+// (246 KB at C = 240): those stages then hold 16 words of K, half the rows
+// of W1[chunk] a step and twice the steps (mlp_layout).
 //
 // Roundings (bfloat16): LN(x), s dz, GELU(h) and dh' are rounded to the
 // model dtype; h, dh, GELU' and every sum stay float32.
@@ -103,6 +105,7 @@ constexpr int kChunk = 96;   // hidden columns a unit: 3 n8 tiles a warp
 struct MlpLayout {
   int ldR, ldH;        // pitches: C features, kChunk features
   int dz, h, stages;   // LN(x) at 0, then s dz, then g / dh'
+  int dln_kw;          // words of K a stage of dL/dLN(x) holds
   int stage_words, red, scale, words;
 };
 
@@ -116,13 +119,16 @@ __host__ __device__ inline MlpLayout mlp_layout(int channels, int P) {
   l.h = l.dz + kTok * l.ldR;
   l.stages = l.h + kTok * l.ldH;
   // a stage: kChunk rows of W1 by kKq words (fc1), kKq words of K as rows
-  // of the chunk's W2 columns (dh), or kKw words of K as rows of C features
-  // (dL/dLN(x))
-  l.stage_words = imax(imax(kChunk * (kKq + 4), kKq * P * l.ldH), kKw * P * l.ldR);
-  l.red = l.stages + kStages * l.stage_words;
-  l.scale = l.red + 4 * kChunk;   // d b1's partial sums: four token warps a column
-  l.words = l.scale + kTok;
-  return l;
+  // of the chunk's W2 columns (dh), or dln_kw words of K as rows of C
+  // features (dL/dLN(x)): kKw, halved while the block would pass the shared
+  // memory a block can have (C > 224 in float32), down to one mma's 8
+  for (l.dln_kw = kKw;; l.dln_kw /= 2) {
+    l.stage_words = imax(imax(kChunk * (kKq + 4), kKq * P * l.ldH), l.dln_kw * P * l.ldR);
+    l.red = l.stages + kStages * l.stage_words;
+    l.scale = l.red + 4 * kChunk;   // d b1's partial sums: four token warps a column
+    l.words = l.scale + kTok;
+    if (l.words * 4 <= kSmemLimit || l.dln_kw == 8) return l;
+  }
 }
 
 size_t mlp_smem_bytes(int dtype, int channels) {
@@ -190,9 +196,9 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_block_bwd_kernel(const Params
     }
   };
   const auto dln_in = [&](int step) {   // rows j of W1[chunk], C columns
-    if (step * kKw < Hw) {
-      const int r0 = step * kKw * P;
-      stage_in<kCopy>(stage(step), ldR, kKw * P, Cw, Cw,
+    if (step * L.dln_kw < Hw) {
+      const int r0 = step * L.dln_kw * P;
+      stage_in<kCopy>(stage(step), ldR, L.dln_kw * P, Cw, Cw,
                       [&, r0](int r) -> const uint32_t* {
                         return r0 + r < hc
                                    ? words_of(p.w1, static_cast<size_t>(j0 + r0 + r) * C)
@@ -330,7 +336,8 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_block_bwd_kernel(const Params
       });
   // dL/dLN(x) += dh' W1[chunk], into the (tokens, C) buffer
   float acc[kMaxC / 32][4] = {};
-  streamed_product<R, T, kMaxC / 32, true>(acc, Hw, kKw, C, ldR, stages, L.stage_words, dln_in,
+  streamed_product<R, T, kMaxC / 32, true>(acc, Hw, L.dln_kw, C, ldR, stages, L.stage_words,
+                                           dln_in,
                                            [&](uint32_t (&a)[4], int m, int k) {
                                              frag_a(a, Hb, ldH, m, k);
                                            });

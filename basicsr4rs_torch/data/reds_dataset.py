@@ -9,8 +9,10 @@ file with lines ``clip frames (h,w,c)``; the validation clips
 (``val_partition``) are left out. Temporal interval, reversal, crop and flips
 are drawn from one generator seeded with ``manual_seed``, in the JAX
 package's order, so the same seed gives the same items in both packages.
-Frames are read from disk; the LMDB backend and the optical-flow input are
-not ported yet. Tensors are (T, C, H, W) / (C, H, W) float32 RGB in [0, 1].
+Frames are read from disk; the LMDB backend is not ported yet.
+``dataroot_flow`` is accepted and, as in the JAX package, read by nothing in
+disk mode (the JAX ``REDSDataset`` only adds it to the LMDB clients). Tensors
+are (T, C, H, W) / (C, H, W) float32 RGB in [0, 1].
 """
 
 from __future__ import annotations
@@ -33,8 +35,6 @@ class _REDSBase:
         self.gt_root, self.lq_root = opt['dataroot_gt'], opt['dataroot_lq']
         self.num_frame = opt['num_frame']
         name = type(self).__name__
-        if opt.get('dataroot_flow') is not None:
-            raise NotImplementedError(f'{name}: the optical-flow input is not ported yet')
         io_backend_opt = dict(opt.get('io_backend', {'type': 'disk'}))
         if io_backend_opt['type'] != 'disk':
             raise NotImplementedError(f'{name}: only the disk backend is ported yet')

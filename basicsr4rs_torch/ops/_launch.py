@@ -55,9 +55,13 @@ def operand(t: torch.Tensor, name: str, shape, dtype, device) -> torch.Tensor:
 
 
 def scale_operand(residual_scale, x: torch.Tensor):
-    """DropPath's per-sample scale (B,) as a float32 operand, or None."""
+    """DropPath's per-sample scale (B,) as a float32 operand, or None. A
+    view that is not 16-byte aligned (the second row of one (2, B) draw when
+    B is not a multiple of 4) is copied first: it is B floats."""
     if residual_scale is None:
         return None
+    if residual_scale.data_ptr() % 16:
+        residual_scale = residual_scale.clone(memory_format=torch.contiguous_format)
     return operand(residual_scale, 'residual_scale', (x.shape[0],), torch.float32, x.device)
 
 

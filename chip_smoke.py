@@ -331,13 +331,41 @@ nonzero exit code and no result line:
     entry, the ranks' weights equal, the losses and ``mean_path_length``
     within 1e-3; the step times of both and the gradient exchange's.
 
+66 to 70. (after 58) SwinIR's options and the unfused routes: 66a holds K2
+    to K5 at SwinIR-L's shapes (C=240 in 8 heads of 30, hidden 480; the
+    training batch of 8 x 64x64 with DropPath's scales and as the branch
+    alone, a served 64x64 request) against their plain versions and times
+    them; 66 serves SwinIR-L real-world x4 (``-opt options/test/SwinIR/
+    test_SwinIR_L_x4_realworld_synthetic.yml``: 9 RSTBs of 6 blocks,
+    nearest+conv, 3conv; 3 requests of LQ 64x64, seed-0 weights it writes)
+    through ``basicsr4rs_torch.test``: 54 K2 and 54 K4 launches a request,
+    none of K1, request time, a request's device time by kernel (66b), peak
+    memory, one request against the plain forward; 67 trains it (``-opt
+    options/train/SwinIR/train_SwinIR_L_x4_realworld_synthetic.yml``, batch
+    8 at GT 256) for 6 steps: 54 launches of each of K2 to K5 a step, finite
+    losses falling on the first batch, the checkpoint, step time, peak
+    memory, one step by kernel (67c), and (67b) one batch's output and every
+    gradient through the kernels against the plain versions; 68, at
+    SwinIR-M's width: (a) in eval ``fused_attn: false`` against K1, (b) in
+    training with every rate 0 the unfused route against K2 to K5, (c) with
+    ``drop_rate: 0.1`` K2 and the unfused MLP against the unfused route from
+    the same generator state (the same masks), outputs and gradients; 69
+    samples ResShift x4 built with ``network_g:fused_attn=false`` and again
+    with its blocks on K6, same weights and noise; 70 runs SR3UNet at the
+    widths quoted for SR3 16 -> 128 (inner 64, multipliers 1, 2, 4, 8, 8,
+    attention at 16, 2 residual blocks, dropout 0.2; not checked against
+    the public config file), a training step of B=4 at 128x128
+    (time, peak memory, by kernel in 70b), and its output and gradients in
+    float32 against float64 on the card.
+
 ``python3 chip_smoke.py kernels`` stops after phase 3; ``python3 chip_smoke.py
 serving`` runs phases 3a, 3e, 3g, 3f, 4, 4b, 17 to 22 and 59 to 62 alone; ``python3
 chip_smoke.py cnn`` runs phases 3g and 32 to 36 alone; ``python3 chip_smoke.py
 video`` runs phases 3h and 37 to 46 alone; ``python3 chip_smoke.py
 realesrgan`` phases 47 to 49, ``python3 chip_smoke.py faces`` phases 50
-to 53, ``python3 chip_smoke.py taming`` phases 54 to 58 and ``python3
-chip_smoke.py dist`` phases 6 and 63 to 65, each ending with the same last
+to 53, ``python3 chip_smoke.py taming`` phases 54 to 58, ``python3
+chip_smoke.py dist`` phases 6 and 63 to 65 and ``python3 chip_smoke.py
+options`` phases 66 to 70, each ending with the same last
 line (``python3 chip_smoke.py rank <job>`` is one rank of 63, 64 or 65, as
 torchrun starts it). The line before the
 last is a JSON summary of the kernels; the last line is
@@ -2645,7 +2673,8 @@ def profile_training_steps(model, batch, steps=3):
                         'train_step_profile.json')
 
 
-def compare_gradients(what, loss_k, grads_k, loss_p, grads_p, scale='tensor'):
+def compare_gradients(what, loss_k, grads_k, loss_p, grads_p, scale='tensor',
+                      names=('kernels', 'plain')):
     """Hold one batch's loss and parameter gradients through the kernels
     against those through the plain versions: each gradient within
     GRAD_TOLERANCE of the plain one's largest entry (``scale='tensor'``),
@@ -2665,12 +2694,12 @@ def compare_gradients(what, loss_k, grads_k, loss_p, grads_p, scale='tensor'):
         if rel > worst:
             worst, worst_name = rel, name
     held = worst if scale == 'tensor' else worst_net
-    print(f'loss {loss_k:.7f} (kernels) vs {loss_p:.7f} (plain); {len(grads_p)} parameter '
-          f'gradients, largest max|difference| / max|plain| of the tensor: {worst:.3e} at '
+    print(f'loss {loss_k:.7f} ({names[0]}) vs {loss_p:.7f} ({names[1]}); {len(grads_p)} parameter '
+          f'gradients, largest max|difference| / max|{names[1]}| of the tensor: {worst:.3e} at '
           f'{worst_name}; of the network: {worst_net:.3e} (tolerance {GRAD_TOLERANCE} '
           f'{"a tensor" if scale == "tensor" else "of the network"})')
     if abs(loss_k - loss_p) > 1e-5 * abs(loss_p) or held > GRAD_TOLERANCE:
-        fail(f'{what}: loss or gradients disagree between kernels and plain versions')
+        fail(f'{what}: loss or gradients disagree between {names[0]} and {names[1]}')
 
 
 def check_model_gradients(number='7', config=TRAIN_CONFIG, lq_shape=(4, 3, 48, 48)):
@@ -7593,6 +7622,523 @@ def taming_paths():
           f'{time.perf_counter() - t4:.1f})')
 
 
+# ------------------------------------- SwinIR's options, the unfused routes, SR3
+L_TEST_CONFIG = 'options/test/SwinIR/test_SwinIR_L_x4_realworld_synthetic.yml'
+L_TRAIN_CONFIG = 'options/train/SwinIR/train_SwinIR_L_x4_realworld_synthetic.yml'
+L_DATA_DIR = 'datasets/SwinIR_L_x4_realworld_synthetic'
+L_TRAIN_DIR = 'datasets/SwinIR_L_x4_realworld_synthetic_train'
+L_REQUESTS, L_LQ, L_TRAIN_IMAGES = 3, 64, 16
+L_WIDTHS = (240, 8, 8, 480)   # SwinIR-L: 8 heads of 30, window 8, mlp 2
+L_SERVE_SHAPE = (1, L_LQ, L_LQ)
+# SR3 16 -> 128: the widths quoted for config/sr_sr3_16_128.json of the public
+# SR3 code (Image-Super-Resolution-via-Iterative-Refinement); that file is not
+# in this repository and these figures were not checked against it. The
+# bicubic-enlarged 16x16 input beside the noisy 128x128 image, 6 channels in
+SR3_UNET = dict(in_channel=6, out_channel=3, inner_channel=64, norm_groups=32,
+                channel_mults=(1, 2, 4, 8, 8), attn_res=(16,), res_blocks=2, dropout=0.2,
+                image_size=128)
+SR3_BATCH = 4
+
+
+def check_swinir_l_kernels():
+    """Phase 66a: K2 to K5 at the shapes SwinIR-L real-world x4 gives them
+    (C=240 in 8 heads of 30, window 8, hidden 480): the training batch (8 of
+    64x64, shifted by 4) with DropPath's scales and as the branch alone (the
+    output mode of the ``drop_rate`` route), and the served request (1 of
+    64x64) with the residual; each against its plain version by phase 3b's
+    rules, timed beside it with its bound. Returns, a kernel, the training
+    shape's figures (the served one's for K2 and K4 under ``serve_``)."""
+    from basicsr4rs_torch.ops import mlp_block as M
+    from basicsr4rs_torch.ops import swin_block as S
+    from basicsr4rs_torch.utils.options import yaml_load
+    phase('66a. K2 to K5 at SwinIR-L\'s shapes (C=240, 8 heads of 30, window 8, hidden 480): '
+          'training batch 8 x 64x64 and a served 64x64 request, float32, vs plain versions')
+    gen = torch.Generator().manual_seed(66)
+    c, heads, ws, hidden = L_WIDTHS
+    b_train = yaml_load(L_TRAIN_CONFIG)['datasets']['train']['batch_size_per_gpu']
+    cases = [((b_train, L_LQ, L_LQ), mode, True) for mode in ('scaled', 'branch')]
+    cases.append((L_SERVE_SHAPE, 'residual', False))
+    out = {}
+    for (b, h, w), mode, train in cases:
+        (x, ln1w, ln1b, wqkv, bqkv, wproj, bproj, rel, mask, ln2w, ln2b, w1, b1, w2, b2,
+         ws, heads, scale) = block_inputs(b, h, w, torch.float32, 4, gen, c, heads, ws, hidden)
+        dz = torch.randn(x.shape, generator=gen).cuda()
+        s = None
+        if mode == 'scaled':   # DropPath's mask / keep: one sample dropped
+            s = torch.full((b,), 1 / 0.9, device='cuda')
+            s[1] = 0.
+        tail = (mode == 'residual', s)
+        runs = [('swin_attn_block_fwd', S.swin_attn_block_forward, S.reference_swin_attn_block,
+                 (x, ln1w, ln1b, wqkv, bqkv, wproj, bproj, rel, mask, ws, heads, scale) + tail,
+                 ('out',)),
+                ('swin_attn_block_bwd', S.swin_attn_block_backward,
+                 S.reference_swin_attn_block_backward,
+                 (x, dz, ln1w, ln1b, wqkv, bqkv, wproj, rel, mask, ws, heads, scale) + tail,
+                 ATTN_GRADS),
+                ('mlp_block_fwd', M.mlp_block_forward, M.reference_mlp_block,
+                 (x, ln2w, ln2b, w1, b1, w2, b2) + tail, ('out',)),
+                ('mlp_block_bwd', M.mlp_block_backward, M.reference_mlp_block_backward,
+                 (x, dz, ln2w, ln2b, w1, b1, w2) + tail, MLP_GRADS)]
+        if not train:
+            runs = runs[0:1] + runs[2:3]
+        tag = f'B={b} {h}x{w} shift=4 {mode}'
+        for name, kernel, plain, args, outputs in runs:
+            with torch.no_grad():
+                got = kernel(*args)
+            want = plain(*args)
+            torch.cuda.synchronize()
+            got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+            worst, err = [], 0.
+            for out_name, g, wnt in zip(outputs, got, want):
+                rule = 'elementwise' if out_name in ('out', 'dx') else 'sum'
+                ok, max_abs, max_rel, tolerance = compare(g, wnt, torch.float32, rule)
+                worst.append(f'{out_name} {max_abs:.2e} ({max_rel:.1e})')
+                err = max(err, max_abs)
+                if not ok:
+                    fail(f'{name}: {out_name} disagrees with the plain version at C=240, {tag}: '
+                         f'max abs err {max_abs:.3e}, {max_rel:.3e} of max|plain|, '
+                         f'tolerance {tolerance}')
+            if mode == 'branch':
+                print(f'{name:20s} {tag}: max abs err (of max|plain|): ' + ', '.join(worst),
+                      flush=True)
+                continue
+            kernel_ms, plain_ms = time_pair(lambda: plain(*args), lambda: kernel(*args))
+            flop, nbytes = kernel_work(name, b, h, w, torch.float32, True, L_WIDTHS)
+            (bound, by), cuda_cores = tensor_core_bound_ms(flop, nbytes, torch.float32)
+            print(f'{name:20s} {tag}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
+                  f'{bound:.4f} ms by {by} ({ROUTE[torch.float32]}; CUDA cores '
+                  f'{cuda_cores:.4f}) | max abs err (of max|plain|): ' + ', '.join(worst),
+                  flush=True)
+            key = 'swinir_l_' if train else 'swinir_l_serve_'
+            out.setdefault(name, {'max_abs_err': 0.})
+            out[name]['max_abs_err'] = max(out[name]['max_abs_err'], err)
+            out[name].update({key + 'ms': kernel_ms, key + 'plain_ms': plain_ms,
+                              key + 'bound_ms': bound})
+    return out
+
+
+def write_swinir_l_inputs():
+    """SwinIR-L's synthetic pairs: L_REQUESTS to serve at LQ 64x64,
+    L_TRAIN_IMAGES of GT 256x256 to train on and one to validate; and the
+    seed-0 random weights the test config names. Returns the Swin blocks."""
+    import cv2
+    import numpy as np
+
+    from basicsr4rs_torch.archs.swinir_arch import SwinIR
+    from basicsr4rs_torch.utils.options import yaml_load
+    rng = np.random.RandomState(66)
+    size = SCALE * L_LQ
+    for root, gt_dir, lq_dir, count in ((L_DATA_DIR, 'GT', 'LQ', L_REQUESTS),
+                                        (L_TRAIN_DIR, 'GT', 'LQ', L_TRAIN_IMAGES),
+                                        (L_TRAIN_DIR, 'val_GT', 'val_LQ', 1)):
+        for sub in (gt_dir, lq_dir):
+            os.makedirs(os.path.join(root, sub), exist_ok=True)
+        for i in range(count):
+            gt = smooth_image(rng, size, size)
+            lq = cv2.resize(gt, (L_LQ, L_LQ), interpolation=cv2.INTER_CUBIC)
+            cv2.imwrite(os.path.join(root, gt_dir, f'{i:04d}.png'), gt)
+            cv2.imwrite(os.path.join(root, lq_dir, f'{i:04d}.png'), lq)
+    opt = yaml_load(L_TEST_CONFIG)
+    net = SwinIR(**net_options(opt), generator=torch.Generator().manual_seed(0))
+    path = opt['path']['pretrain_network_g']
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save({'params': net.state_dict()}, path)
+    return sum(opt['network_g']['depths'])
+
+
+def serve_swinir_l(blocks):
+    """Phase 66: SwinIR-L real-world x4 served through ``basicsr4rs_torch.
+    test``: K2 and K4 once a block a forward (past K1's widths), none of K1;
+    the outputs, one request against the plain forward, request time, a
+    request's device time by kernel, peak memory. Returns the launches."""
+    import numpy as np
+
+    import basicsr4rs_torch.test as entry
+    from basicsr4rs_torch.ops import mlp_block as M
+    from basicsr4rs_torch.ops import swin_block as S
+    phase(f'66. serve SwinIR-L real-world x4 through basicsr4rs_torch.test (C=240, 9 x 6 blocks, '
+          f'8 heads of 30, nearest+conv, 3conv; {L_REQUESTS} requests of LQ {L_LQ}x{L_LQ})')
+    counters = {'swin_block_joint_fwd': S.fused_swin_block_full,
+                'swin_attn_block_fwd': S.swin_attn_block_forward,
+                'mlp_block_fwd': M.mlp_block_forward}
+    for wr in counters.values():
+        wr.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    argv = sys.argv
+    sys.argv = ['basicsr4rs_torch.test', '-opt', L_TEST_CONFIG]
+    t0 = time.perf_counter()
+    try:
+        model = entry.test_pipeline(ROOT)
+    finally:
+        sys.argv = argv
+    torch.cuda.synchronize()
+    launches = {k: wr.launches for k, wr in counters.items()}
+    print(f'pipeline wall time {time.perf_counter() - t0:.3f} s (model build, weight load, '
+          f'{L_REQUESTS} requests, metrics, image writes); launches {launches}')
+    if model.device.type != 'cuda':
+        fail(f'the model ran on {model.device}')
+    want = {'swin_block_joint_fwd': 0, 'swin_attn_block_fwd': blocks * L_REQUESTS,
+            'mlp_block_fwd': blocks * L_REQUESTS}
+    if launches != want:
+        fail(f'launches {launches}, expected {want} ({blocks} of K2 and of K4 a request)')
+    for name, value in model.metric_results.items():
+        print(f'{name}: {value:.4f} (random weights)')
+        if not np.isfinite(value):
+            fail(f'{name} is not finite')
+    loader = list(model_loader(model))
+    size = SCALE * L_LQ
+    latencies = request_latencies(model, loader, lambda item: (1, 3, size, size),
+                                  (S.swin_attn_block_forward, blocks))
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    print(f'request LQ {L_LQ}x{L_LQ} -> {size}x{size}: '
+          + ', '.join(f'{ms:.3f}' for ms in latencies) + f' ms (mean {sum(latencies) / len(latencies):.3f}; CUDA events around test(), after a '
+          f'warm-up request); peak device memory {peak:.1f} MiB')
+    model.feed_data(loader[0])
+    print('66b. device time of one request by kernel (torch.profiler):')
+    profile_device_time(model.test, 1, 'request', {'K2 (window, head) units': 'swin_attn_fwd_head',
+                                                   'K2 proj': 'swin_attn_fwd_proj',
+                                                   'K4': 'mlp_block_fwd'},
+                        'swinir_l_request_profile.json')
+    model.test()
+    with_kernels = model.output.float().clamp(0, 1)
+    with mock.patch.object(S, 'swin_attn_block_forward', S.reference_swin_attn_block), \
+            mock.patch.object(M, 'mlp_block_forward', M.reference_mlp_block):
+        model.test()
+    err = (with_kernels - model.output.float().clamp(0, 1)).abs().max().item()
+    print(f'one request, kernels vs plain versions: max abs difference {err:.3e} on the [0, 1] '
+          f'output (tolerance {MODEL_TOLERANCE})')
+    if not err <= MODEL_TOLERANCE:
+        fail('SwinIR-L: the served output disagrees with the plain forward')
+    del model
+    torch.cuda.empty_cache()
+    return {'swin_attn_block_fwd': launches['swin_attn_block_fwd'],
+            'mlp_block_fwd': launches['mlp_block_fwd']}
+
+
+def train_swinir_l(blocks):
+    """Phase 67: SwinIR-L real-world x4 trained through ``basicsr4rs_torch.
+    train`` on its synthetic config: K2 to K5 once a block a step (the split
+    pair with DropPath's scales; K1 never: C=240 is past its widths), finite
+    losses, the loss on the first batch falling, a checkpoint, step time,
+    peak memory and one step's device time by kernel. Returns the launches
+    of the run (its validation's K2 and K4 among them)."""
+    from basicsr4rs_torch.utils.options import yaml_load
+    phase('67. train SwinIR-L real-world x4 through basicsr4rs_torch.train '
+          f'({os.path.basename(L_TRAIN_CONFIG)})')
+    opt = yaml_load(L_TRAIN_CONFIG)
+    total_iter = opt['train']['total_iter']
+    batch = opt['datasets']['train']['batch_size_per_gpu']
+    wrappers = training_kernels()
+    exp_dir = fresh_run(opt, wrappers)
+    record = {'steps': []}
+    t0 = time.perf_counter()
+    model = run_train_pipeline([], record, config=L_TRAIN_CONFIG)
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    print(f'pipeline wall time {time.perf_counter() - t0:.3f} s for {len(record["steps"])} steps '
+          f'of batch {batch} at GT {opt["datasets"]["train"]["gt_size"]}, one validation, '
+          f'checkpoints; launches in the run {launches}')
+    if model.device.type != 'cuda':
+        fail(f'the model trained on {model.device}')
+    check_steps(record['steps'], total_iter, 'l_pix', dict.fromkeys(SPLIT_KERNELS, blocks))
+    if launches['swin_block_joint_fwd']:
+        fail('SwinIR-L launched K1, whose widths stop at C=192')
+    loss_after = fixed_batch_loss(model, record['fixed'])
+    print(f'l_pix on the first batch, eval mode: {record["fixed_loss_before"]:.6f} before step 1, '
+          f'{loss_after:.6f} after step {total_iter}')
+    if not loss_after < record['fixed_loss_before']:
+        fail('SwinIR-L: the loss on the fixed batch did not fall')
+    ckpt = os.path.join(exp_dir, 'models', f'net_g_{total_iter}.pth')
+    if sorted(torch.load(ckpt, map_location='cpu', weights_only=True)) != ['params', 'params_ema']:
+        fail(f'{ckpt} does not hold params and params_ema')
+    print(f'{ckpt}: params and params_ema; peak device memory of the run {peak:.1f} MiB')
+    print('67c. device time of one training step by kernel (torch.profiler):')
+    model.lq, model.gt = record['fixed']
+    model.optimize_parameters(0)
+    profile_device_time(lambda: model.optimize_parameters(0), 1, 'step',
+                        ('swin_attn_fwd_head', 'swin_attn_fwd_proj', 'swin_attn_block_bwd',
+                         'mlp_block_fwd', 'mlp_block_bwd', 'branch_ln_bwd'),
+                        'swinir_l_step_profile.json')
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def route_run(net, lq, gt, train):
+    """One forward (and in training a backward of the L1 loss) of ``net``
+    from a freshly seeded mask generator, after one such warm-up run:
+    (output, loss, gradients, ms by CUDA events, the block kernels' launches
+    of the second run)."""
+    wrappers = training_kernels()
+
+    def run():
+        net.seed_drop_path(123, 'cuda')
+        net.zero_grad(set_to_none=True)
+        if not train:
+            with torch.no_grad():
+                return net(lq)
+        out = net(lq)
+        (out - gt).abs().mean().backward()
+        return out
+
+    run()
+    before = {k: w.launches for k, w in wrappers.items()}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = run().detach()
+    end.record()
+    torch.cuda.synchronize()
+    grads = {k: p.grad.clone() for k, p in net.named_parameters()} if train else None
+    return (out, (out - gt).abs().mean().item(), grads, start.elapsed_time(end),
+            {k: w.launches - before[k] for k, w in wrappers.items()})
+
+
+def set_fused_attn(net, fused):
+    from basicsr4rs_torch.archs.swinir_arch import SwinTransformerBlock
+    for m in net.modules():
+        if isinstance(m, SwinTransformerBlock):
+            m.fused_attn = fused
+
+
+def swinir_dropout_routes():
+    """Phase 68: the routes that SwinIR's options select, at SwinIR-M's width
+    (embed 180, 6 x 6 blocks, 6 heads, window 8), seed-0 weights: (a) in
+    eval, ``fused_attn: false`` against the kernel route (K1); (b) in
+    training with every rate 0 (DropPath 0.1 from one seed), the unfused
+    route against the kernel route (K2 to K5), forward and gradients; (c)
+    with ``drop_rate: 0.1``, K2 with the unfused MLP against the unfused
+    route from the same generator state (the same masks), forward and
+    gradients. Returns the kernel routes' launches."""
+    from basicsr4rs_torch.archs.swinir_arch import SwinIR
+    from basicsr4rs_torch.utils.options import yaml_load
+    phase('68. SwinIR-M\'s option routes: (a) eval fused_attn false vs K1, (b) training rates 0 '
+          'unfused vs K2 to K5, (c) drop_rate 0.1: K2 + unfused MLP vs unfused, same masks')
+    net_opt = net_options(yaml_load(TRAIN_CONFIG))
+    blocks = sum(net_opt['depths'])
+    gen = torch.Generator().manual_seed(0)
+    net = SwinIR(**net_opt, generator=gen).cuda()
+    lq = torch.rand(1, 3, 64, 64, generator=gen).cuda()
+    gt = torch.rand(1, 3, 256, 256, generator=gen).cuda()
+    launches = collections.Counter()
+    results = {}
+    net.eval()
+    for fused in (True, False):
+        set_fused_attn(net, fused)
+        results[fused] = route_run(net, lq, gt, False)
+    (out_k, _, _, ms_k, n_k), (out_u, _, _, ms_u, n_u) = results[True], results[False]
+    err = (out_k - out_u).abs().max().item()
+    print(f'(a) eval, B=1 64x64, after a warm-up forward each: kernel route {ms_k:.3f} ms, '
+          f'launches {n_k}; fused_attn false '
+          f'{ms_u:.3f} ms, launches {n_u}; max abs difference {err:.3e} (tolerance '
+          f'{MODEL_TOLERANCE})')
+    if n_k['swin_block_joint_fwd'] != blocks or any(n_u.values()) or not err <= MODEL_TOLERANCE:
+        fail('(a) the unfused eval route disagrees with the kernel route or launched a kernel')
+    launches.update(n_k)
+
+    lq = torch.rand(2, 3, 48, 48, generator=gen).cuda()
+    gt = torch.rand(2, 3, 192, 192, generator=gen).cuda()
+    for label, rates, kernel_launches in (
+            ('(b) training, every rate 0', {}, dict.fromkeys(SPLIT_KERNELS, blocks)),
+            ('(c) training, drop_rate 0.1', {'drop_rate': 0.1},
+             {'swin_attn_block_fwd': blocks, 'swin_attn_block_bwd': blocks})):
+        trained = SwinIR(**net_opt, **rates).cuda().train()
+        trained.load_state_dict(net.state_dict())
+        runs = {}
+        for fused in (True, False):
+            set_fused_attn(trained, fused)
+            runs[fused] = route_run(trained, lq, gt, True)
+        (out_k, loss_k, grads_k, ms_k, n_k), (out_u, loss_u, grads_u, ms_u, n_u) = (
+            runs[True], runs[False])
+        err = (out_k - out_u).abs().max().item()
+        want = {k: kernel_launches.get(k, 0) for k in n_k}
+        print(f'{label}, B=2 48x48: kernel route {ms_k:.3f} ms (forward and backward), launches '
+              f'{n_k}; unfused {ms_u:.3f} ms, launches {n_u}; output max abs difference '
+              f'{err:.3e} (tolerance {MODEL_TOLERANCE})')
+        if n_k != want or any(n_u.values()):
+            fail(f'{label}: launches {n_k} and {n_u}, expected {want} and none')
+        if not err <= MODEL_TOLERANCE:
+            fail(f'{label}: the outputs disagree')
+        compare_gradients(label, loss_k, grads_k, loss_u, grads_u, names=('kernels', 'unfused'))
+        launches.update(n_k)
+        del trained, runs
+    del net
+    torch.cuda.empty_cache()
+    return dict(launches)
+
+
+def serve_resshift_unfused():
+    """Phase 69: ResShift x4 built from its test config with
+    ``network_g:fused_attn=false`` (every SwinBlockGN on the unfused
+    chain), one request sampled, then the same request with the blocks
+    switched to the fused route (K6) on the same weights and noise: the
+    latent, the image and the codes by phase 8's rule. Returns the K6
+    launches of the fused request."""
+    import argparse
+
+    from basicsr4rs_torch.archs.unet_arch import SwinBlockGN
+    from basicsr4rs_torch.data import build_dataloader, build_dataset
+    from basicsr4rs_torch.models import build_model
+    from basicsr4rs_torch.utils import make_exp_dirs
+    from basicsr4rs_torch.utils.options import parse_options
+    phase('69. ResShift x4 sampled with fused_attn false against the fused route (K6), same '
+          'weights and noise (test_ResShift_x4_synthetic.yml)')
+    opt, steps, per_forward = resshift_options(RS_CONFIG)
+    if not os.path.exists(opt['path']['pretrain_network_g']):
+        write_resshift_inputs(opt)
+    args = argparse.Namespace(opt=RS_CONFIG, force_yml=['network_g:fused_attn=false'],
+                              debug=False, auto_resume=False)
+    opt, _ = parse_options(ROOT, is_train=False, args=args)
+    opt['root_path'] = ROOT
+    make_exp_dirs(opt)
+    model = build_model(opt)
+    blocks = [m for m in model.net_g.modules() if isinstance(m, SwinBlockGN)]
+    if not blocks or any(b.fused_attn for b in blocks):
+        fail('network_g:fused_attn=false did not reach the Swin blocks')
+    dataset_opt = opt['datasets']['test_1']
+    item = next(iter(build_dataloader(build_dataset(dataset_opt), dataset_opt)))
+    forward = attention_wrappers()['window_attention_fwd']
+    kept, results = {}, []
+    decode = model.base_diffusion.decode_first_stage
+
+    def keep_latent(z, *a, **k):
+        kept['z'] = z.clone()
+        return decode(z, *a, **k)
+
+    with mock.patch.object(model.base_diffusion, 'decode_first_stage', keep_latent):
+        for fused in (False, True):
+            for b in blocks:
+                b.fused_attn = fused
+            forward.launches = 0
+            model.generator.manual_seed(11)
+            model.feed_data(item)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            model.test()
+            end.record()
+            torch.cuda.synchronize()
+            with torch.inference_mode():
+                codes = model.first_stage.quantize(kept['z'])[2]
+            results.append((kept['z'], model.output.clone(), codes, start.elapsed_time(end),
+                            forward.launches))
+    (z_u, img_u, codes_u, ms_u, n_u), (z_k, img_k, codes_k, ms_k, n_k) = results
+    z_err = (z_k - z_u).abs().max().item()
+    img_err = (img_k - img_u).abs().max().item()
+    flipped = int((codes_k != codes_u).sum())
+    print(f'unfused request {ms_u:.3f} ms, {n_u} K6 launches; fused {ms_k:.3f} ms, {n_k} K6 '
+          f'launches ({per_forward} a UNet forward x {steps} steps); latent max abs difference '
+          f'{z_err:.3e}, image {img_err:.3e} on [-1, 1] (tolerance {RS_SAMPLE_TOLERANCE}); '
+          f'{flipped} of {codes_k.numel()} code indices differ')
+    if n_u or n_k != per_forward * steps:
+        fail(f'K6 launches {n_u} (unfused) and {n_k} (fused), expected 0 and {per_forward * steps}')
+    if z_err > RS_SAMPLE_TOLERANCE or flipped > 4 or (flipped == 0 and
+                                                      img_err > RS_SAMPLE_TOLERANCE):
+        fail('the unfused and the fused ResShift requests differ')
+    del model
+    torch.cuda.empty_cache()
+    return n_k
+
+
+def sr3_full_width():
+    """Phase 70: SR3UNet at the SR3 16 -> 128 settings, seed-0 weights, B=4
+    of 128x128: one training step's forward and backward with its dropout
+    (time, peak memory, finite loss and gradients); then, dropout off, the
+    output and every gradient in float32 against the same network in
+    float64 on the card."""
+    from basicsr4rs_torch.archs.sr3_arch import SR3UNet
+    phase(f'70. SR3UNet at full width (SR3 16 -> 128: {SR3_UNET}), B={SR3_BATCH} of 128x128, '
+          'forward and backward')
+    gen = torch.Generator().manual_seed(0)
+    net = SR3UNet(**SR3_UNET, generator=gen).cuda()
+    params = sum(p.numel() for p in net.parameters())
+    size = SR3_UNET['image_size']
+    x = torch.randn(SR3_BATCH, SR3_UNET['in_channel'], size, size, generator=gen).cuda()
+    t = torch.rand(SR3_BATCH, generator=gen).cuda()
+    noise = torch.randn(SR3_BATCH, SR3_UNET['out_channel'], size, size, generator=gen).cuda()
+    opt = torch.optim.Adam(net.parameters(), lr=1e-4)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = (net(x, t) - noise).square().mean()
+        loss.backward()
+        opt.step()
+        return loss
+
+    net.train()
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(step().item())
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    print(f'{params / 1e6:.2f} M parameters; training step (dropout {SR3_UNET["dropout"]}, Adam): '
+          + ', '.join(f'{ms:.3f}' for ms in times) + f' ms; losses {losses}; peak device memory '
+          f'{peak:.1f} MiB')
+    if not all(math.isfinite(v) for v in losses):
+        fail('SR3UNet: a loss is not finite')
+    print('70b. device time of one training step by kernel (torch.profiler):')
+    profile_device_time(step, 1, 'step', {}, 'sr3_step_profile.json')
+
+    def run(model, dtype):
+        model.zero_grad(set_to_none=True)
+        out = model(x.to(dtype), t.to(dtype))
+        (out - noise.to(dtype)).square().mean().backward()
+        return out.detach(), {k: p.grad.clone() for k, p in model.named_parameters()}
+
+    net.eval()   # no dropout: the two runs take the same function
+    wide = SR3UNet(**SR3_UNET).cuda().double().eval()
+    wide.load_state_dict(net.state_dict())
+    out32, grads32 = run(net, torch.float32)
+    out64, grads64 = run(wide, torch.float64)
+    err = (out32.double() - out64).abs().max().item() / out64.abs().max().item()
+    print(f'float32 against float64 on the card: output max abs difference {err:.3e} of '
+          f'max|float64| (tolerance {MODEL_TOLERANCE})')
+    if not err <= MODEL_TOLERANCE:
+        fail('SR3UNet: the float32 output disagrees with float64')
+    loss32 = (out32 - noise).square().mean().item()
+    loss64 = (out64 - noise.double()).square().mean().item()
+    compare_gradients('SR3UNet float32 vs float64', loss32,
+                      {k: g.double() for k, g in grads32.items()}, loss64, grads64,
+                      names=('float32', 'float64'))
+    del net, wide, opt
+    torch.cuda.empty_cache()
+
+
+def options_paths(launches, kernels):
+    """Phases 66 to 70: SwinIR-L real-world x4 served and trained, SwinIR's
+    option routes, ResShift's unfused route and SR3; their launches are
+    added to ``launches``, 66a's kernel figures to ``kernels``."""
+    t0 = time.perf_counter()
+    for name, figures in check_swinir_l_kernels().items():
+        entry = kernels.setdefault(name, {'max_abs_err': 0.})
+        entry['max_abs_err'] = max(entry['max_abs_err'], figures.pop('max_abs_err'))
+        entry.update(figures)
+    t1 = time.perf_counter()
+    blocks = write_swinir_l_inputs()
+    for name, count in serve_swinir_l(blocks).items():
+        launches[name] += count
+    t2 = time.perf_counter()
+    for name, count in train_swinir_l(blocks).items():
+        launches[name] += count
+    check_model_gradients('67b', L_TRAIN_CONFIG, (2, 3, L_LQ, L_LQ))
+    t3 = time.perf_counter()
+    for name, count in swinir_dropout_routes().items():
+        launches[name] += count
+    t4 = time.perf_counter()
+    launches['window_attention_fwd'] += serve_resshift_unfused()
+    t5 = time.perf_counter()
+    sr3_full_width()
+    print(f'phases 66 to 70: {time.perf_counter() - t0:.1f} s (66a {t1 - t0:.1f}, 66 '
+          f'{t2 - t1:.1f}, 67 {t3 - t2:.1f}, 68 {t4 - t3:.1f}, 69 {t5 - t4:.1f}, 70 '
+          f'{time.perf_counter() - t5:.1f})')
+
+
 SUMMARY_KEYS = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
 KERNELS = [
     ('swin_block_joint_fwd', 'basicsr4rs_tpu/ops/swin_block.py:287'),
@@ -7665,6 +8211,16 @@ def main():
                                                  'kind': torch.cuda.get_device_name(0),
                                                  'count': torch.cuda.device_count()}}))
         return
+    if sys.argv[1:] == ['options']:   # development: phases 66 to 70 alone
+        launches, kernels = collections.Counter(), {}
+        options_paths(launches, kernels)
+        print(json.dumps(launches))
+        print(json.dumps(kernels))
+        print(card)
+        print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
+                                                 'kind': torch.cuda.get_device_name(0),
+                                                 'count': torch.cuda.device_count()}}))
+        return
     slices = {'realesrgan': realesrgan_paths, 'faces': faces_paths, 'taming': taming_paths}
     if len(sys.argv) == 2 and sys.argv[1] in slices:   # a slice without kernels alone
         slices[sys.argv[1]]()
@@ -7729,6 +8285,7 @@ def main():
     realesrgan_paths()
     faces_paths()
     taming_paths()
+    options_paths(launches, kernels)
     for name, count in launches.items():
         if count == 0:
             fail(f'{name} was never launched on the main paths')

@@ -227,3 +227,55 @@ def test_published_option_files_name_registered_types():
             missing[path] = names
     assert missing == UNPORTED_OPTION_FILES
     assert (len(files), len(files) - len(missing)) == (89, 87)
+
+
+SWINIR_L_REALWORLD = ['options/test/SwinIR/test_SwinIR_L_x4_realworld_synthetic.yml',
+                      'options/train/SwinIR/train_SwinIR_L_x4_realworld_synthetic.yml']
+
+
+@pytest.mark.parametrize('path', SWINIR_L_REALWORLD)
+def test_swinir_l_realworld_configs(path):
+    """The SwinIR-L real-world x4 configs name only registered types, both
+    packages' SwinIR take their ``network_g``, and it is the ``real_sr``
+    large preset at full width and depth: 9 RSTBs of 6 blocks at C=240 in 8
+    heads of 30, window 8, nearest+conv, 3conv, LQ 64."""
+    import torch
+    import yaml
+
+    import basicsr4rs_torch.archs  # noqa: F401
+    import basicsr4rs_torch.data  # noqa: F401
+    import basicsr4rs_torch.metrics  # noqa: F401
+    import basicsr4rs_torch.models  # noqa: F401
+    from basicsr4rs_torch.archs.swinir_arch import SwinIR, SwinTransformerBlock
+    from basicsr4rs_torch.utils import registry as reg
+    from basicsr4rs_tpu.archs.swinir_arch import SwinIR as JaxSwinIR
+    opt = yaml.safe_load((ROOT / path).read_text())
+    registries = (reg.ARCH_REGISTRY, reg.DATASET_REGISTRY, reg.LOSS_REGISTRY,
+                  reg.MODEL_REGISTRY, reg.METRIC_REGISTRY)
+    assert all(any(n in r._obj_map for r in registries) for n in _type_names(opt))
+    net_opt = dict(opt['network_g'])
+    assert net_opt.pop('type') == 'SwinIR'
+    assert net_opt == dict(upscale=4, in_chans=3, img_size=64, window_size=8, img_range=1.0,
+                           depths=[6] * 9, embed_dim=240, num_heads=[8] * 9, mlp_ratio=2,
+                           upsampler='nearest+conv', resi_connection='3conv')
+    JaxSwinIR(**net_opt)
+    # on the meta device: the structure without initialising 28 M parameters
+    with torch.device('meta'):
+        net = SwinIR(**net_opt, generator=torch.Generator().manual_seed(0))
+    blocks = [m for m in net.modules() if isinstance(m, SwinTransformerBlock)]
+    assert len(blocks) == 54 and all(b.attn.dim // b.attn.num_heads == 30 for b in blocks)
+    assert 'layers.8.conv.4.weight' in net.state_dict()
+    if 'train' in path:
+        assert opt['datasets']['train']['gt_size'] == 4 * 64
+
+
+@pytest.mark.parametrize('name', ['SR3UNet', 'SR3'])
+def test_port_registers_sr3(name):
+    """SR3's networks under the JAX package's names, in both packages'
+    registries."""
+    import basicsr4rs_torch.archs  # noqa: F401
+    import basicsr4rs_tpu.archs  # noqa: F401
+    from basicsr4rs_torch.utils import registry as port_registry
+    from basicsr4rs_tpu.utils import registry as jax_registry
+    assert port_registry.ARCH_REGISTRY.get(name).__name__ == name
+    assert jax_registry.ARCH_REGISTRY.get(name).__name__ == name

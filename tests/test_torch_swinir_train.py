@@ -187,12 +187,6 @@ def test_training_forward_after_an_inference_mode_forward():
     assert all(p.grad is not None for p in net.parameters())
 
 
-@pytest.mark.parametrize('option', ['drop_rate', 'attn_drop_rate'])
-def test_dropout_inside_the_block_is_refused(option):
-    with pytest.raises(NotImplementedError, match='drop_rate'):
-        port_arch.SwinIR(**_config(8), **{option: 0.1})
-
-
 # ------------------------------------------------- SWIN_JOINT_TRAIN=1: the joint VJP
 def _model_grads(net, lq, gt, scales=None):
     net.zero_grad(set_to_none=True)

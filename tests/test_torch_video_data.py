@@ -176,10 +176,26 @@ def test_reds_recurrent_dataset_items(clips, extra):
 def test_reds_datasets_reject_what_is_not_ported(clips, cls):
     with pytest.raises(NotImplementedError, match='disk'):
         port_build_dataset(_train_opt(clips, cls, io_backend={'type': 'lmdb'}))
-    with pytest.raises(NotImplementedError, match='flow'):
-        port_build_dataset(_train_opt(clips, cls, dataroot_flow='flows'))
     with pytest.raises(ValueError, match='partition'):
         port_build_dataset(_train_opt(clips, cls, val_partition='mine'))
+
+
+@pytest.mark.parametrize('cls, num_frame', [('REDSDataset', 3), ('REDSRecurrentDataset', 4)])
+def test_reds_datasets_take_a_flow_root_in_disk_mode(clips, cls, num_frame):
+    """``dataroot_flow`` set (to a folder that does not exist: disk mode
+    reads nothing from it, as in the JAX package): every item equals the
+    item without it and the JAX dataset's item with it."""
+    opt = _train_opt(clips, cls, num_frame=num_frame)
+    flow = dict(opt, dataroot_flow=str(clips / 'no_flow_here'))
+    plain, got, want = port_build_dataset(opt), port_build_dataset(flow), jax_build_dataset(flow)
+    assert got.keys == plain.keys == want.keys
+    for i in range(len(want)):
+        item, without = got[i], plain[i]
+        assert_same_item(item, want[i])
+        assert item.keys() == without.keys()
+        for key, value in without.items():
+            assert torch.equal(item[key], value) if torch.is_tensor(value) else (
+                item[key] == value), key
 
 
 def test_reds_dataset_needs_an_odd_window(clips):
