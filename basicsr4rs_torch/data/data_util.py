@@ -1,7 +1,7 @@
 """Dataset path helpers (counterpart of ``basicsr4rs_tpu/data/data_util.py``;
 reference: basicsr/data/data_util.py). The image pairs by folder scan and
-by meta-info file, the LMDB key list, the video helpers and DUF's
-downsampling; the LMDB pairs are not ported yet."""
+by meta-info file and by LMDB keys, the LMDB key list, the video helpers
+and DUF's downsampling."""
 
 from __future__ import annotations
 
@@ -66,6 +66,27 @@ def generate_frame_indices(crt_idx: int, max_frame_num: int, num_frames: int,
             pad_idx = i
         indices.append(pad_idx)
     return indices
+
+
+def paired_paths_from_lmdb(folders: Sequence[str], keys: Sequence[str]) -> List[dict]:
+    """Pair the keys of two ``.lmdb`` folders, read from their
+    ``meta_info.txt`` files (the name before the first dot on each line);
+    both folders must hold the same keys. Each pair names one key twice,
+    sorted by key."""
+    if len(folders) != 2 or len(keys) != 2:
+        raise ValueError('paired_paths_from_lmdb takes [input_folder, gt_folder] '
+                         'and [input_key, gt_key]')
+    input_folder, gt_folder = folders
+    input_key, gt_key = keys
+    if not (input_folder.endswith('.lmdb') and gt_folder.endswith('.lmdb')):
+        raise ValueError(f'{input_key} folder and {gt_key} folder should both in lmdb '
+                         f'formats. But received {input_key}: {input_folder}; '
+                         f'{gt_key}: {gt_folder}')
+    input_lmdb_keys, gt_lmdb_keys = paths_from_lmdb(input_folder), paths_from_lmdb(gt_folder)
+    if set(input_lmdb_keys) != set(gt_lmdb_keys):
+        raise ValueError(f'Keys in {input_key}_folder and {gt_key}_folder are different.')
+    return [{f'{input_key}_path': key, f'{gt_key}_path': key}
+            for key in sorted(input_lmdb_keys)]
 
 
 def paired_paths_from_meta_info_file(folders: Sequence[str], keys: Sequence[str],

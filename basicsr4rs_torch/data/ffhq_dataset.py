@@ -27,27 +27,21 @@ class FFHQDataset:
 
     def __init__(self, opt):
         self.opt = opt
-        self.file_client = None
-        self.io_backend_opt = dict(opt.get('io_backend', {'type': 'disk'}))
+        io_backend_opt = dict(opt.get('io_backend', {'type': 'disk'}))
         self.gt_folder = opt['dataroot_gt']
         self.mean = torch.tensor(opt.get('mean', [0.5] * 3), dtype=torch.float32).view(-1, 1, 1)
         self.std = torch.tensor(opt.get('std', [0.5] * 3), dtype=torch.float32).view(-1, 1, 1)
-        if self.io_backend_opt['type'] == 'lmdb':
-            self.io_backend_opt['db_paths'] = self.gt_folder
+        if io_backend_opt['type'] == 'lmdb':
+            io_backend_opt['db_paths'] = self.gt_folder
             self.paths = paths_from_lmdb(self.gt_folder)
         else:
             self.paths = sorted(scandir(self.gt_folder, full_path=True))
+        self.file_client = FileClient(io_backend_opt.pop('type'), **io_backend_opt)
         self._rng = np.random.default_rng(opt.get('manual_seed'))
-
-    def _client(self) -> FileClient:
-        if self.file_client is None:   # made at first use: a worker opens its own LMDB
-            backend_opt = dict(self.io_backend_opt)
-            self.file_client = FileClient(backend_opt.pop('type'), **backend_opt)
-        return self.file_client
 
     def __getitem__(self, index):
         gt_path = self.paths[index]
-        img_gt = imfrombytes(self._client().get(gt_path), float32=True)
+        img_gt = imfrombytes(self.file_client.get(gt_path), float32=True)
         img_gt = augment(img_gt, hflip=self.opt.get('use_hflip', True), rotation=False,
                          rng=self._rng)
         img_gt = img2tensor(img_gt, bgr2rgb=True, float32=True)

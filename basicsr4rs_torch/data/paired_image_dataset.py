@@ -3,11 +3,13 @@
 basicsr/data/paired_image_dataset.py).
 
 Each item is the LQ and GT images as CHW float32 RGB tensors in [0, 1],
-paired by scanning the two folders, or from the GT names of
-``meta_info_file`` and ``filename_tmpl``. The train phase takes a random
-aligned crop (``gt_size``) and flips and rotates it, drawing from a
-generator seeded with ``manual_seed``; the val/test phases crop the GT to
-scale x the LQ. The LMDB mode is not ported yet.
+paired by the keys of two ``.lmdb`` folders (``io_backend: lmdb``), from
+the GT names of ``meta_info_file`` and ``filename_tmpl``, or by scanning the
+two folders. The LMDB store is opened at the first item, so building the
+dataset needs no ``lmdb``; reading an LMDB item without it raises
+``ImportError``. The train phase takes a random aligned crop (``gt_size``)
+and flips and rotates it, drawing from a generator seeded with
+``manual_seed``; the val/test phases crop the GT to scale x the LQ.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ from ..utils.color_util import bgr2ycbcr
 from ..utils.file_client import FileClient
 from ..utils.img_util import imfrombytes, img2tensor
 from ..utils.registry import DATASET_REGISTRY
-from .data_util import paired_paths_from_folder, paired_paths_from_meta_info_file
+from .data_util import (paired_paths_from_folder, paired_paths_from_lmdb,
+                        paired_paths_from_meta_info_file)
 from .transforms import augment, paired_random_crop
 
 
@@ -29,18 +32,20 @@ class PairedImageDataset:
     def __init__(self, opt):
         self.opt = opt
         io_backend_opt = dict(opt.get('io_backend', {'type': 'disk'}))
-        if io_backend_opt['type'] != 'disk':
-            raise NotImplementedError('PairedImageDataset: only the disk backend is ported yet')
-        self.file_client = FileClient(io_backend_opt.pop('type'), **io_backend_opt)
         self.mean = opt.get('mean')
         self.std = opt.get('std')
         folders = [opt['dataroot_lq'], opt['dataroot_gt']]
         filename_tmpl = opt.get('filename_tmpl', '{}')
-        if opt.get('meta_info_file') is not None:
+        if io_backend_opt['type'] == 'lmdb':
+            io_backend_opt['db_paths'] = folders
+            io_backend_opt['client_keys'] = ['lq', 'gt']
+            self.paths = paired_paths_from_lmdb(folders, ['lq', 'gt'])
+        elif opt.get('meta_info_file') is not None:
             self.paths = paired_paths_from_meta_info_file(folders, ['lq', 'gt'],
                                                           opt['meta_info_file'], filename_tmpl)
         else:
             self.paths = paired_paths_from_folder(folders, ['lq', 'gt'], filename_tmpl)
+        self.file_client = FileClient(io_backend_opt.pop('type'), **io_backend_opt)
         # per-item random stream, as in the JAX package: one generator, drawn
         # in item order (the loader fetches a batch's items in order)
         self._rng = np.random.default_rng(opt.get('manual_seed'))

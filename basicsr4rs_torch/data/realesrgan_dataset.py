@@ -46,8 +46,8 @@ class RealESRGANDataset:
 
     def __init__(self, opt):
         self.opt = opt
-        self.file_client = None
-        self.io_backend_opt = dict(opt.get('io_backend', {'type': 'disk'}))
+        io_backend_opt = dict(opt.get('io_backend', {'type': 'disk'}))
+        self.file_client = FileClient(io_backend_opt.pop('type'), **io_backend_opt)
 
         if opt.get('meta_info') is not None:
             with open(opt['meta_info']) as fin:
@@ -62,12 +62,6 @@ class RealESRGANDataset:
 
         self._rng = np.random.RandomState(opt.get('manual_seed'))
         self._rng_lock = threading.Lock()
-
-    def _client(self):
-        if self.file_client is None:
-            backend_opt = dict(self.io_backend_opt)
-            self.file_client = FileClient(backend_opt.pop('type'), **backend_opt)
-        return self.file_client
 
     def _sample_kernel(self, suffix):
         """Kernel 1 (``suffix`` '') or 2 ('2'): a sinc with probability
@@ -90,11 +84,10 @@ class RealESRGANDataset:
     def _read(self, index):
         """(HWC float32 BGR image, path); a failed read is retried up to
         three times, each on a random other index."""
-        client = self._client()
         gt_path = self.paths[index]
         for retry in range(2, -1, -1):
             try:
-                return imfrombytes(client.get(gt_path, 'gt'), float32=True), gt_path
+                return imfrombytes(self.file_client.get(gt_path, 'gt'), float32=True), gt_path
             except (IOError, OSError) as e:
                 get_root_logger().warning(f'File client error: {e}, remaining retry times: '
                                           f'{retry}')
@@ -149,8 +142,8 @@ class RealESRGANPairedDataset:
 
     def __init__(self, opt):
         self.opt = opt
-        self.file_client = None
-        self.io_backend_opt = dict(opt.get('io_backend', {'type': 'disk'}))
+        io_backend_opt = dict(opt.get('io_backend', {'type': 'disk'}))
+        self.file_client = FileClient(io_backend_opt.pop('type'), **io_backend_opt)
         self.mean = opt.get('mean')
         self.std = opt.get('std')
         self.gt_folder, self.lq_folder = opt['dataroot_gt'], opt['dataroot_lq']
@@ -168,19 +161,12 @@ class RealESRGANPairedDataset:
                                                   opt.get('filename_tmpl', '{}'))
         self._rng = np.random.default_rng(opt.get('manual_seed'))
 
-    def _client(self):
-        if self.file_client is None:
-            backend_opt = dict(self.io_backend_opt)
-            self.file_client = FileClient(backend_opt.pop('type'), **backend_opt)
-        return self.file_client
-
     def __getitem__(self, index):
-        client = self._client()
         scale = self.opt['scale']
         gt_path = self.paths[index]['gt_path']
         lq_path = self.paths[index]['lq_path']
-        img_gt = imfrombytes(client.get(gt_path, 'gt'), float32=True)
-        img_lq = imfrombytes(client.get(lq_path, 'lq'), float32=True)
+        img_gt = imfrombytes(self.file_client.get(gt_path, 'gt'), float32=True)
+        img_lq = imfrombytes(self.file_client.get(lq_path, 'lq'), float32=True)
 
         if self.opt['phase'] == 'train':
             img_gt, img_lq = paired_random_crop(img_gt, img_lq, self.opt['gt_size'], scale, gt_path,

@@ -9,9 +9,11 @@ file with lines ``clip frames (h,w,c)``; the validation clips
 (``val_partition``) are left out. Temporal interval, reversal, crop and flips
 are drawn from one generator seeded with ``manual_seed``, in the JAX
 package's order, so the same seed gives the same items in both packages.
-Frames are read from disk; the LMDB backend is not ported yet.
-``dataroot_flow`` is accepted and, as in the JAX package, read by nothing in
-disk mode (the JAX ``REDSDataset`` only adds it to the LMDB clients). Tensors
+Frames are files ``<root>/<clip>/<frame:08d>.png``, or with ``io_backend:
+lmdb`` the keys ``<clip>/<frame:08d>`` of the ``.lmdb`` roots, opened at the
+first item (reading one without ``lmdb`` raises ``ImportError``).
+``dataroot_flow`` is accepted and, as in the JAX package, read by nothing:
+in LMDB mode ``REDSDataset`` opens it as a third client, ``flow``. Tensors
 are (T, C, H, W) / (C, H, W) float32 RGB in [0, 1].
 """
 
@@ -30,14 +32,18 @@ from .transforms import augment, paired_random_crop
 
 class _REDSBase:
 
-    def __init__(self, opt):
+    def __init__(self, opt, flow_root=None):
         self.opt = opt
         self.gt_root, self.lq_root = opt['dataroot_gt'], opt['dataroot_lq']
         self.num_frame = opt['num_frame']
-        name = type(self).__name__
         io_backend_opt = dict(opt.get('io_backend', {'type': 'disk'}))
-        if io_backend_opt['type'] != 'disk':
-            raise NotImplementedError(f'{name}: only the disk backend is ported yet')
+        self.is_lmdb = io_backend_opt['type'] == 'lmdb'
+        if self.is_lmdb:
+            io_backend_opt['db_paths'] = [self.lq_root, self.gt_root]
+            io_backend_opt['client_keys'] = ['lq', 'gt']
+            if flow_root is not None:
+                io_backend_opt['db_paths'].append(flow_root)
+                io_backend_opt['client_keys'].append('flow')
         self.file_client = FileClient(io_backend_opt.pop('type'), **io_backend_opt)
 
         self.keys = []
@@ -65,8 +71,13 @@ class _REDSBase:
         self.random_reverse = opt.get('random_reverse', False)
         self._rng = np.random.default_rng(opt.get('manual_seed'))
 
+    def _path(self, root, clip_name, frame):
+        if self.is_lmdb:
+            return f'{clip_name}/{frame:08d}'
+        return osp.join(root, clip_name, f'{frame:08d}.png')
+
     def _read(self, root, clip_name, frame, client_key):
-        path = osp.join(root, clip_name, f'{frame:08d}.png')
+        path = self._path(root, clip_name, frame)
         return imfrombytes(self.file_client.get(path, client_key), float32=True)
 
     def __len__(self):
@@ -79,7 +90,7 @@ class REDSDataset(_REDSBase):
     def __init__(self, opt):
         if opt['num_frame'] % 2 != 1:
             raise ValueError(f"num_frame should be odd number, but got {opt['num_frame']}")
-        super().__init__(opt)
+        super().__init__(opt, opt.get('dataroot_flow'))
         self.num_half_frames = opt['num_frame'] // 2
 
     def __getitem__(self, index):
@@ -99,7 +110,7 @@ class REDSDataset(_REDSBase):
 
         img_gt = self._read(self.gt_root, clip_name, center_frame_idx, 'gt')
         img_lqs = [self._read(self.lq_root, clip_name, i, 'lq') for i in neighbor_list]
-        gt_path = osp.join(self.gt_root, clip_name, f'{center_frame_idx:08d}.png')
+        gt_path = self._path(self.gt_root, clip_name, center_frame_idx)
         img_gt, img_lqs = paired_random_crop(img_gt, img_lqs, self.opt['gt_size'],
                                              self.opt['scale'], gt_path, rng=self._rng)
         img_lqs.append(img_gt)

@@ -4,8 +4,10 @@ basicsr/data/single_image_dataset.py).
 
 Each item is an LQ image as a CHW float32 tensor in [0, 1] (RGB, or the Y
 channel with ``color: y``), normalised by ``mean`` and ``std`` when given,
-and its path. The images are every file of ``dataroot_lq`` (folder mode) or
-the ones a ``meta_info_file`` lists; the LMDB mode is not ported yet.
+and its path. The images are the keys of an ``.lmdb`` folder (``io_backend:
+lmdb``, opened at the first item: reading one without ``lmdb`` raises
+``ImportError``), the ones a ``meta_info_file`` lists, or every file of
+``dataroot_lq``.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from ..utils.file_client import FileClient
 from ..utils.img_util import imfrombytes, img2tensor
 from ..utils.misc import scandir
 from ..utils.registry import DATASET_REGISTRY
+from .data_util import paths_from_lmdb
 
 
 @DATASET_REGISTRY.register()
@@ -27,18 +30,20 @@ class SingleImageDataset:
     def __init__(self, opt):
         self.opt = opt
         io_backend_opt = dict(opt.get('io_backend', {'type': 'disk'}))
-        if io_backend_opt['type'] != 'disk':
-            raise NotImplementedError('SingleImageDataset: only images on disk are ported yet')
-        self.file_client = FileClient(io_backend_opt.pop('type'), **io_backend_opt)
         self.mean = opt.get('mean')
         self.std = opt.get('std')
         self.lq_folder = opt['dataroot_lq']
-        if opt.get('meta_info_file') is not None:
+        if io_backend_opt['type'] == 'lmdb':
+            io_backend_opt['db_paths'] = [self.lq_folder]
+            io_backend_opt['client_keys'] = ['lq']
+            self.paths = paths_from_lmdb(self.lq_folder)
+        elif opt.get('meta_info_file') is not None:
             with open(opt['meta_info_file'], 'r') as fin:
                 self.paths = [osp.join(self.lq_folder, line.rstrip().split(' ')[0])
                               for line in fin]
         else:
             self.paths = sorted(scandir(self.lq_folder, full_path=True))
+        self.file_client = FileClient(io_backend_opt.pop('type'), **io_backend_opt)
 
     def __getitem__(self, index):
         lq_path = self.paths[index]

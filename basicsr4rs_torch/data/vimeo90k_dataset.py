@@ -36,29 +36,23 @@ class Vimeo90KDataset:
         with open(opt['meta_info_file'], 'r') as fin:
             self.keys = [line.split(' ')[0].strip() for line in fin if line.strip()]
 
-        self.file_client = None
-        self.io_backend_opt = dict(opt.get('io_backend', {'type': 'disk'}))
-        self.is_lmdb = self.io_backend_opt['type'] == 'lmdb'
+        io_backend_opt = dict(opt.get('io_backend', {'type': 'disk'}))
+        self.is_lmdb = io_backend_opt['type'] == 'lmdb'
         if self.is_lmdb:
-            self.io_backend_opt['db_paths'] = [self.lq_root, self.gt_root]
-            self.io_backend_opt['client_keys'] = ['lq', 'gt']
+            io_backend_opt['db_paths'] = [self.lq_root, self.gt_root]
+            io_backend_opt['client_keys'] = ['lq', 'gt']
+        self.file_client = FileClient(io_backend_opt.pop('type'), **io_backend_opt)
 
         # the neighbours centred on im4
         self.neighbor_list = [i + (9 - opt['num_frame']) // 2 for i in range(opt['num_frame'])]
         self.random_reverse = opt.get('random_reverse', False)
         self._rng = np.random.default_rng(opt.get('manual_seed'))
 
-    def _client(self):
-        if self.file_client is None:
-            backend_opt = dict(self.io_backend_opt)
-            self.file_client = FileClient(backend_opt.pop('type'), **backend_opt)
-        return self.file_client
-
     def _read(self, clip, seq, frame, client_key):
         root = self.gt_root if client_key == 'gt' else self.lq_root
         path = f'{clip}/{seq}/im{frame}' if self.is_lmdb else osp.join(root, clip, seq,
                                                                        f'im{frame}.png')
-        return imfrombytes(self._client().get(path, client_key), float32=True), path
+        return imfrombytes(self.file_client.get(path, client_key), float32=True), path
 
     def __getitem__(self, index):
         key = self.keys[index]

@@ -15,28 +15,33 @@ class HardDiskBackend:
 
 
 class LmdbBackend:
-    """Read-only LMDB environments, one a client key; ``lmdb`` is imported
-    when the backend is made, and its absence raises there."""
+    """Read-only LMDB environments, one a client key. ``lmdb`` is imported and
+    the environments are opened at the first ``get``, so that making the
+    backend (and a dataset) needs no ``lmdb`` and each loader worker opens its
+    own; without ``lmdb`` the first ``get`` raises ``ImportError``."""
 
     def __init__(self, db_paths, client_keys='default', readonly: bool = True,
                  lock: bool = False, readahead: bool = False, **kwargs):
-        try:
-            import lmdb
-        except ImportError:
-            raise ImportError('Please install lmdb to enable LmdbBackend.')
         client_keys = [client_keys] if isinstance(client_keys, str) else list(client_keys)
         db_paths = [str(v) for v in db_paths] if isinstance(db_paths, list) else [str(db_paths)]
         if len(client_keys) != len(db_paths):
             raise ValueError('client_keys and db_paths should have the same length, '
                              f'but received {len(client_keys)} and {len(db_paths)}.')
-        self._client = {key: lmdb.open(path, readonly=readonly, lock=lock, readahead=readahead,
-                                       **kwargs)
-                        for key, path in zip(client_keys, db_paths)}
+        self.db_paths = dict(zip(client_keys, db_paths))
+        self._open_kwargs = dict(readonly=readonly, lock=lock, readahead=readahead, **kwargs)
+        self._envs = None
 
     def get(self, filepath: str, client_key: str = 'default') -> bytes:
-        if client_key not in self._client:
+        if client_key not in self.db_paths:
             raise KeyError(f'client_key {client_key} is not in lmdb clients.')
-        with self._client[client_key].begin(write=False) as txn:
+        if self._envs is None:
+            try:
+                import lmdb
+            except ImportError:
+                raise ImportError('Please install lmdb to enable LmdbBackend.')
+            self._envs = {key: lmdb.open(path, **self._open_kwargs)
+                          for key, path in self.db_paths.items()}
+        with self._envs[client_key].begin(write=False) as txn:
             return txn.get(str(filepath).encode('ascii'))
 
 

@@ -9,8 +9,6 @@ import time
 from os import path as osp
 from typing import Iterator, Optional
 
-from .dist_util import master_only
-
 
 def get_time_str() -> str:
     return time.strftime('%Y%m%d_%H%M%S', time.localtime())
@@ -25,10 +23,14 @@ def mkdir_and_rename(path: str) -> None:
     os.makedirs(path, exist_ok=True)
 
 
-@master_only
 def make_exp_dirs(opt) -> None:
     """Create the directory tree of a training run (``experiments_root``)
-    or a test run (``results_root``); an existing root is renamed aside."""
+    or a test run (``results_root``) on rank 0; an existing root is renamed
+    aside. The rank is read at the call: this module (``scandir`` for the
+    data-preparation scripts) imports without torch."""
+    from .dist_util import get_dist_info
+    if get_dist_info()[0] != 0:
+        return
     path_opt = dict(opt['path'])
     mkdir_and_rename(path_opt.pop('experiments_root' if opt['is_train'] else 'results_root'))
     for key, path in path_opt.items():

@@ -168,9 +168,10 @@ nonzero exit code and no result line:
 61. MSRResNet x4 with static int8 scales calibrated on one batch (one 64x64
     bucket at batch 4, a request of 3 at 60x60) against the live
     ``quantized_inference`` run, and its SNR against float;
-62. a second interpreter serves phase 59's directory: K1 and K10 launch
-    there, the port's networks, models and registries are never imported,
-    the output is this process's;
+62. (beside phase 71a, whose scripts keep the card idle; in ``serving``
+    mode after 61) a second interpreter serves phase 59's directory: K1 and
+    K10 launch there, the port's networks, models and registries are never
+    imported, the output is this process's;
 23. writes a synthetic Landsat -> Sentinel tree (``results/chip_smoke/l2s``:
     40 windows of uint16 TIFFs, Landsat a 3x area average of Sentinel) and
     trains SwinIR-L2S x3 through ``basicsr4rs_torch.train`` (``-opt
@@ -358,14 +359,39 @@ nonzero exit code and no result line:
     (time, peak memory, by kernel in 70b), and its output and gradients in
     float32 against float64 on the card.
 
+71. (after 70) the user's path from raw images and an official checkpoint,
+    on the port's scripts alone, each started as ``python -m
+    basicsr4rs_torch.scripts...`` in a process of its own: (a) a DIV2K-style
+    HR folder from ``tests/data/baboon.png`` (the image, its flips, its
+    transpose, its 2x MATLAB bicubic enlargement) through
+    ``extract_subimages`` at the published crop 480, step 240, thresh 0,
+    two sub-images held out as the validation pair, ``generate_bicubic_lr
+    --scale 4`` and ``generate_meta_info``; (b) the sub-image count by the
+    crop rule, every LR 120x120, one sorted meta-info line each; (c)
+    ``basicsr4rs_torch.train`` on the published
+    ``options/train/SwinIR/train_SwinIR_SRx4_scratch.yml`` (SwinIR-M x4,
+    batch 4, GT 192, 6 loader workers, Adam 2e-4, EMA 0.999; only the data
+    roots, the run's length and its logging given by ``--force_yml``) for 40
+    steps and one validation: 36 launches of each of K2 to K5 a step and of
+    K1 a validation image, by the wrappers' counts and by
+    ``torch.profiler``, the mean L1 of the last 5 steps below the first 5's,
+    a finite PSNR, median step time, busy share, peak memory; (d) without
+    ``lmdb``, ``create_lmdb`` and a dataset's first item in LMDB mode raise
+    its ``ImportError`` (with it, both folders go into LMDBs and the file
+    trains 3 steps from them); (e) a seed-0 EDSR-L x4 under EDSR-PyTorch's
+    key names through ``convert_models --model edsr --num_block 32``,
+    served through ``basicsr4rs_torch.test`` with ``SWIN_FUSED_CONV=1`` (2
+    K10 launches a request), bit for bit the network it was made from.
+
 ``python3 chip_smoke.py kernels`` stops after phase 3; ``python3 chip_smoke.py
 serving`` runs phases 3a, 3e, 3g, 3f, 4, 4b, 17 to 22 and 59 to 62 alone; ``python3
 chip_smoke.py cnn`` runs phases 3g and 32 to 36 alone; ``python3 chip_smoke.py
 video`` runs phases 3h and 37 to 46 alone; ``python3 chip_smoke.py
 realesrgan`` phases 47 to 49, ``python3 chip_smoke.py faces`` phases 50
 to 53, ``python3 chip_smoke.py taming`` phases 54 to 58, ``python3
-chip_smoke.py dist`` phases 6 and 63 to 65 and ``python3 chip_smoke.py
-options`` phases 66 to 70, each ending with the same last
+chip_smoke.py dist`` phases 6 and 63 to 65, ``python3 chip_smoke.py
+options`` phases 66 to 70 and ``python3 chip_smoke.py data`` phase 71, each
+ending with the same last
 line (``python3 chip_smoke.py rank <job>`` is one rank of 63, 64 or 65, as
 torchrun starts it). The line before the
 last is a JSON summary of the kernels; the last line is
@@ -1593,6 +1619,7 @@ TRAIN_DATA_DIR = 'datasets/SwinIR_M_x4_synthetic_train'
 TRAIN_IMAGES, TRAIN_GT_SIZE, VAL_LQ_SIZE = 8, 256, 64
 RESUME_ITERS = 2
 PROFILE_DIR = 'results/chip_smoke'
+PROFILE_PAD = (200, 10**6)   # spin kernels, cycles each: about 0.1 s before a profiled window
 # whole-model gradients, kernels vs plain versions: per parameter,
 # max|difference| <= 1e-3 of the largest entry of the plain gradient (float32
 # sums in another order through 36 blocks and 7 convolutions' backward)
@@ -2594,10 +2621,11 @@ def device_time_by_group(prof, ours):
     GroupNorm, library GEMMs, memory operations, the rest."""
     from torch.autograd import DeviceType
     # kernels and memory operations only: a host annotation (Optimizer.step#...)
-    # also shows on the device timeline, over the kernels it spans
+    # also shows on the device timeline, over the kernels it spans; the spin
+    # kernels are profile_device_time's pad
     rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and not e.is_user_annotation
-            and '#' not in e.key]
+            and '#' not in e.key and 'spin_kernel' not in e.key]
     groups = {}
     ours = ours if isinstance(ours, dict) else {k: k for k in ours}
     for key, ms, count in rows:
@@ -2636,11 +2664,20 @@ def profile_device_time(run, units, unit, ours, json_name):
     ``torch.profiler``: summed by group, printed, and written to
     ``results/chip_smoke/<json_name>``. Reported, not required: a profiler
     that sees no device time only says so. Returns the groups as
-    {name: (ms, launches)} over all units, or None."""
+    {name: (ms, launches)} over all units, or None.
+
+    The device's activity alone is traced. Late in a long process the trace
+    loses the first device records of a session (the count grows with the
+    process's age, and an idle gap after the profiler starts does not keep
+    them), so each session opens with ``PROFILE_PAD`` spin kernels that the
+    sums leave out, and the window starts once they have run."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_PAD[0]):
+            torch.cuda._sleep(PROFILE_PAD[1])
+        torch.cuda.synchronize()
         start.record()
         for _ in range(units):
             run()
@@ -3294,13 +3331,13 @@ def train_swinir_l2s():
     check_ema_and_checkpoint(model, SwinIR(**net_opt),
                              os.path.join(exp_dir, 'models', f'net_g_{total_iter}.pth'))
 
-    phase('23b. device time of 2 SwinIR-L2S training steps by kernel (torch.profiler)')
+    phase('23b. device time of a SwinIR-L2S training step by kernel (torch.profiler)')
     model.lq, model.gt = record['fixed']
     counts = {k: wr.launches for k, wr in wrappers.items()}
     model.optimize_parameters(0)
     ours = ('swin_attn_fwd_head', 'swin_attn_fwd_proj', 'swin_attn_block_bwd', 'mlp_block_fwd',
             'mlp_block_bwd', 'branch_ln_bwd')
-    profile_device_time(lambda: model.optimize_parameters(0), 2, 'step', ours,
+    profile_device_time(lambda: model.optimize_parameters(0), 1, 'step', ours,
                         'swinir_l2s_train_step_profile.json')
     for k, wr in wrappers.items():   # the profiled steps belong to no main path's count
         wr.launches = counts[k]
@@ -4087,7 +4124,8 @@ VIDEO = {
         clips={'test': ({'300': 5, '301': 5}, VIDEO_LQ),
                'train': ({'100': 8, '101': 8}, (80, 80)), 'val': ({'200': 5}, (64, 64))},
         forward_launches=edvr_launches, backward_skipped=0, train_frames=EDVR_FRAMES,
-        boundary_key='tsa_iter', frozen=('conv_first.weight',), free='fusion.feat_fusion.weight'),
+        boundary_key='tsa_iter', frozen=('conv_first.weight',), free='fusion.feat_fusion.weight',
+        profiled=1),   # one request and one step by kernel: the run's time limit
     'BasicVSR++': dict(
         test_config='options/test/BasicVSRPP/test_BasicVSRPP_x4_synthetic.yml',
         train_config='options/train/BasicVSRPP/train_BasicVSRPP_x4_synthetic.yml',
@@ -5559,8 +5597,8 @@ def serve_exported_swinir(tmp):
     (seed-0 weights, ``SWIN_FUSED_CONV=1``) to one 128x128 bucket, loaded with
     ``ServingModel`` and served a bucket-exact and an off-bucket request with
     the switch off: K1 36 and K10 10 launches a request, read from the served
-    run alone, outputs against the live network. Returns (launches, the
-    serving directory, its ServingModel, [K1, K10] launches a request)."""
+    run alone, outputs against the live network. Returns the launches and
+    phase 62's job on the directory (``second_process_job``)."""
     from basicsr4rs_torch.archs.swinir_arch import SwinIR
     from basicsr4rs_torch.inference.inference_swinir import load_weights
     from basicsr4rs_torch.ops.conv3x3 import fused_conv3x3
@@ -5616,7 +5654,7 @@ def serve_exported_swinir(tmp):
         print(f'LQ {h}x{w}: K1 {k1}, K10 {k10} launches in the served request; request '
               f'{served_ms:.3f} ms served, {live_ms:.3f} ms live (CUDA events, 10 after 3)',
               flush=True)
-    return launches, out_dir, sm, [blocks, per_forward]
+    return launches, second_process_job(tmp, out_dir, sm, [blocks, per_forward])
 
 
 def serve_exported_wide():
@@ -5715,16 +5753,21 @@ def serve_exported_int8():
         fail('the int8 artifact is not the W8A8 mode')
 
 
-def serve_in_a_second_process(out_dir, sm, per_request):
-    """Phase 62: a new interpreter serves phase 59's directory: the port's
-    networks, models and registries are never imported there, K1 and K10
-    launch there as in this
-    process (``per_request``), and its output is that of ``sm``, this
-    process's ServingModel of it."""
+def second_process_job(tmp, out_dir, sm, per_request):
+    """Phase 62's inputs, made beside phase 59: a request saved in the
+    artifact's directory (``tmp`` holds it), this process's served output for
+    it (``sm``, its ServingModel) and K1's and K10's launches a request."""
     import numpy as np
-    phase('62. a second process serves the SwinIR-M x4 artifact')
     lq = torch.rand(1, 3, *SERVE_BUCKET, generator=torch.Generator().manual_seed(1))
     np.save(os.path.join(out_dir, 'lq.npy'), lq.numpy())
+    return {'tmp': tmp, 'out_dir': out_dir, 'per_request': per_request,
+            'want': sm.run(lq.cuda()).cpu()}
+
+
+def start_second_process(job):
+    """Phase 62 starts: a new interpreter serves phase 59's directory, beside
+    work that keeps the card idle; ``finish_second_process`` collects it."""
+    out_dir = job['out_dir']
     code = ('import json, sys, time\n'
             'import numpy as np, torch\n'
             'torch.backends.cuda.matmul.allow_tf32 = False\n'   # as main() sets them here
@@ -5742,42 +5785,63 @@ def serve_in_a_second_process(out_dir, sm, per_request):
             '"k10": fused_conv3x3.launches, "load_s": load_s, '
             '"imported": [m for m in sys.modules if m.startswith(("basicsr4rs_torch.archs", '
             '"basicsr4rs_torch.models", "basicsr4rs_torch.utils.registry"))]}))\n')
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, '-c', code], cwd=ROOT, capture_output=True, text=True,
-                          timeout=300)
-    wall = time.perf_counter() - t0
-    if proc.returncode != 0:
-        fail(f'the second process failed: {proc.stderr[-2000:]}')
-    seen = json.loads(proc.stdout.strip().splitlines()[-1])
-    print(f'second process: {wall:.1f} s in all, artifact load {seen["load_s"]:.1f} s; K1 '
-          f'{seen["k1"]}, K10 {seen["k10"]} launches; of the port\'s networks, models and '
-          f'registries it imported {seen["imported"]}')
-    if seen['imported'] or [seen['k1'], seen['k10']] != per_request:
-        fail(f'the second process imported the networks or launched K1 {seen["k1"]}, '
-             f'K10 {seen["k10"]} times')
-    want = sm.run(lq.cuda())
-    check_served(f'second process, served LQ {SERVE_BUCKET[0]}x{SERVE_BUCKET[1]}',
-                 torch.from_numpy(np.load(os.path.join(out_dir, 'out.npy'))).cuda(), want,
-                 'this process\'s served run')
+    job['proc'] = subprocess.Popen([sys.executable, '-c', code], cwd=ROOT,
+                                   stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    job['started'] = time.perf_counter()
+
+
+def finish_second_process(job):
+    """Phase 62: the second process's K1 and K10 launches are phase 59's a
+    request, it imported none of the port's networks, models and
+    registries, and its output is this process's served one. Removes the
+    artifact's directory; returns the launches."""
+    import numpy as np
+    phase('62. a second process serves the SwinIR-M x4 artifact')
+    try:
+        out, err = job['proc'].communicate(timeout=300)
+        wall = time.perf_counter() - job['started']
+        if job['proc'].returncode != 0:
+            fail(f'the second process failed: {err[-2000:]}')
+        seen = json.loads(out.strip().splitlines()[-1])
+        print(f'second process: collected {wall:.1f} s after its start, artifact load '
+              f'{seen["load_s"]:.1f} s; K1 {seen["k1"]}, K10 {seen["k10"]} launches; of the '
+              f'port\'s networks, models and registries it imported {seen["imported"]}')
+        if seen['imported'] or [seen['k1'], seen['k10']] != job['per_request']:
+            fail(f'the second process imported the networks or launched K1 {seen["k1"]}, '
+                 f'K10 {seen["k10"]} times')
+        check_served(f'second process, served LQ {SERVE_BUCKET[0]}x{SERVE_BUCKET[1]}',
+                     torch.from_numpy(np.load(os.path.join(job['out_dir'], 'out.npy'))),
+                     job['want'], 'this process\'s served run')
+    finally:
+        stop_second_process(job)
     return {'swin_block_joint_fwd': seen['k1'], 'conv3x3_fwd': seen['k10']}
 
 
+def stop_second_process(job):
+    """Ends phase 62's process if it still runs and removes its directory."""
+    if job.get('proc') is not None and job['proc'].poll() is None:
+        job['proc'].kill()
+        job['proc'].wait()
+    shutil.rmtree(job['tmp'], ignore_errors=True)
+
+
 def serve_ahead_of_time():
-    """Phases 59 to 62: the port's networks exported with torch.export and
-    served by ``ServingModel``; their launches."""
+    """Phases 59 to 61: the port's networks exported with torch.export and
+    served by ``ServingModel``; their launches and phase 62's job, which
+    keeps phase 59's directory until ``finish_second_process``."""
     t0 = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix='aot_serving_')
     launches = collections.Counter()
     try:
-        swinir, out_dir, sm, per_request = serve_exported_swinir(tmp)
+        swinir, second = serve_exported_swinir(tmp)
         launches.update(swinir)
         launches.update(serve_exported_wide())
         serve_exported_int8()
-        launches.update(serve_in_a_second_process(out_dir, sm, per_request))
-    finally:
+    except BaseException:
         shutil.rmtree(tmp)
-    print(f'phases 59 to 62: {time.perf_counter() - t0:.1f} s')
-    return launches
+        raise
+    print(f'phases 59 to 61: {time.perf_counter() - t0:.1f} s')
+    return launches, second
 
 
 # --------------------------------------------------- the classic CNN and GAN paths
@@ -8139,6 +8203,375 @@ def options_paths(launches, kernels):
           f'{time.perf_counter() - t5:.1f})')
 
 
+# ------------------------------------------- data preparation and conversion (phase 71)
+DATA_TRAIN = 'options/train/SwinIR/train_SwinIR_SRx4_scratch.yml'   # the published file
+DATA_ITERS, DATA_LMDB_ITERS = 40, 3
+DATA_CROP, DATA_STEP, DATA_THRESH = 480, 240, 0   # extract_subimages' published settings
+DATA_VAL = ('0005_s011.png', '0005_s012.png')   # held out: 480x480, sides multiples of 12
+BABOON = 'tests/data/baboon.png'
+
+
+def start_script(script, *args):
+    """``python -m basicsr4rs_torch.scripts.<script> args`` in its own
+    process, as a user starts it."""
+    proc = subprocess.Popen([sys.executable, '-m', f'basicsr4rs_torch.scripts.{script}',
+                             *map(str, args)], cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    proc.started = time.perf_counter()
+    return proc
+
+
+def finish_script(proc, expect_ok=True):
+    """Wait for a script; fail unless it exited as expected. Returns its
+    standard error."""
+    out, err = proc.communicate(timeout=300)
+    name = proc.args[2].rsplit('.', 1)[-1]
+    if (proc.returncode == 0) != expect_ok:
+        fail(f'{name} exited with {proc.returncode}: {err[-1500:]}')
+    print(f'{name}: exit {proc.returncode}, collected {time.perf_counter() - proc.started:.1f} s '
+          f'after its start; {out.strip().splitlines()[-1] if out.strip() else ""}')
+    return err
+
+
+def crops_along(size):
+    """The starts of extract_subimages' crops along a side of ``size``."""
+    starts = list(range(0, size - DATA_CROP + 1, DATA_STEP))
+    return starts + ([size - DATA_CROP] if size - (starts[-1] + DATA_CROP) > DATA_THRESH else [])
+
+
+def write_div2k_hr(folder):
+    """A DIV2K-style HR folder from baboon.png (480x492): the image, its
+    flips, its transpose and its 2x MATLAB bicubic enlargement. Returns
+    {name: (h, w)}."""
+    import cv2
+    import numpy as np
+
+    from basicsr4rs_torch.utils.matlab_functions import imresize_uint8
+    img = cv2.imread(BABOON)
+    images = [img, img[:, ::-1], img[::-1], img.transpose(1, 0, 2), imresize_uint8(img, 2)]
+    os.makedirs(folder)
+    shapes = {}
+    for i, im in enumerate(images):
+        name = f'{i + 1:04d}.png'
+        cv2.imwrite(os.path.join(folder, name), np.ascontiguousarray(im))
+        shapes[name] = im.shape[:2]
+    return shapes
+
+
+def write_official_edsr(net_opt, root):
+    """A seed-0 EDSR-L x4 (drawn on the card) saved twice: as BasicSR's
+    ``{'params': ...}`` and under EDSR-PyTorch's key names (with its two
+    mean-shift convs). Returns the two paths."""
+    from basicsr4rs_torch.archs.edsr_arch import EDSR
+    torch.manual_seed(0)
+    with torch.device('cuda'):
+        state = {k: v.cpu() for k, v in EDSR(**net_opt).state_dict().items()}
+    n = net_opt['num_block']
+    official = {'sub_mean.weight': torch.eye(3).view(3, 3, 1, 1), 'sub_mean.bias': torch.zeros(3),
+                'add_mean.weight': torch.eye(3).view(3, 3, 1, 1), 'add_mean.bias': torch.zeros(3)}
+    for key, value in state.items():
+        for basicsr, ori in (('conv_first.', 'head.0.'), ('conv_after_body.', f'body.{n}.'),
+                             ('upsample.0.', 'tail.0.0.'), ('upsample.2.', 'tail.0.2.'),
+                             ('conv_last.', 'tail.1.'), ('.conv1.', '.body.0.'),
+                             ('.conv2.', '.body.2.')):
+            key = key.replace(basicsr, ori)
+        official[key] = value
+    paths = os.path.join(root, 'EDSR_Lx4_basicsr.pth'), os.path.join(root, 'EDSR_x4.pt')
+    torch.save({'params': state}, paths[0])
+    torch.save(official, paths[1])
+    return paths
+
+
+def check_prepared(root, hr_shapes):
+    """Phase 71b: the sub-image count by the crop rule, every LR 120x120 of
+    a 480x480 GT, one sorted ``name (480,480,3)`` meta-info line each."""
+    import cv2
+    phase('71b. the prepared layout')
+    gt_dir = os.path.join(root, 'DIV2K_train_HR_sub')
+    names = sorted(os.listdir(gt_dir))
+    want = sum(len(crops_along(h)) * len(crops_along(w)) for h, w in hr_shapes.values())
+    if len(names) + len(DATA_VAL) != want or len(names) < 16:
+        fail(f'{len(names)} training + {len(DATA_VAL)} held-out sub-images, the crop rule '
+             f'gives {want}')
+    lr = DATA_CROP // SCALE
+    for folder, lq_folder, files in (('DIV2K_train_HR_sub', 'DIV2K_train_LR_bicubic_X4_sub', names),
+                                     ('Set5_GTmod12', 'Set5_LRbicx4', DATA_VAL)):
+        for name in files:
+            gt = cv2.imread(os.path.join(root, folder, name))
+            lq = cv2.imread(os.path.join(root, lq_folder, name))
+            if gt.shape != (DATA_CROP, DATA_CROP, 3) or lq.shape != (lr, lr, 3):
+                fail(f'{folder}/{name}: GT {gt.shape}, LR {lq.shape}')
+    with open(os.path.join(root, 'meta_info_DIV2K800sub_GT.txt')) as f:
+        meta = f.read()
+    if meta != ''.join(f'{n} ({DATA_CROP},{DATA_CROP},3)\n' for n in names):
+        fail(f'meta_info: {meta[:200]!r}')
+    print(f'{len(names)} training sub-images of {DATA_CROP}x{DATA_CROP} from '
+          f'{len(hr_shapes)} HR images (+ {len(DATA_VAL)} held out for validation, as the rule '
+          f'gives {want}), every LR {lr}x{lr}, {len(names)} meta-info lines in order')
+    return len(names)
+
+
+def data_train_args(root, extra=()):
+    """The one ``--force_yml`` of phase 71's runs of the published file: the
+    data roots, the run's length and its logging; nothing else."""
+    import importlib.util
+    args = ['--force_yml',
+            f'datasets:train:dataroot_gt={root}/DIV2K_train_HR_sub',
+            f'datasets:train:dataroot_lq={root}/DIV2K_train_LR_bicubic_X4_sub',
+            f'datasets:train:meta_info_file={root}/meta_info_DIV2K800sub_GT.txt',
+            f'datasets:val:dataroot_gt={root}/Set5_GTmod12',
+            f'datasets:val:dataroot_lq={root}/Set5_LRbicx4',
+            f'train:total_iter={DATA_ITERS}', f'val:val_freq={10**6}', 'logger:print_freq=10',
+            f'logger:save_checkpoint_freq={10**6}']
+    if importlib.util.find_spec('tensorboard') is None:
+        args.append('logger:use_tb_logger=false')
+    return args + list(extra)
+
+
+def train_prepared(root, wrappers, card):
+    """Phase 71c: the published SwinIR-M x4 file trained on the prepared
+    data: K2 to K5 36 each a step, K1 36 a validation image, a loss that
+    falls, a finite PSNR; step times, busy share, peak memory beside the
+    card (``card``: its name and power limit)."""
+    import statistics
+
+    import cv2
+    from basicsr4rs_torch.models.swinir_model import SwinIRModel
+    from basicsr4rs_torch.utils.options import yaml_load
+    opt = yaml_load(DATA_TRAIN)
+    blocks = sum(opt['network_g']['depths'])
+    phase(f'71c. train {DATA_TRAIN} (SwinIR-M x4: embed {opt["network_g"]["embed_dim"]}, '
+          f'{blocks} blocks; batch {opt["datasets"]["train"]["batch_size_per_gpu"]}, GT '
+          f'{opt["datasets"]["train"]["gt_size"]}, '
+          f'{opt["datasets"]["train"]["num_worker_per_gpu"]} loader workers) through '
+          f'basicsr4rs_torch.train on the prepared data, {DATA_ITERS} steps')
+    fresh_run(opt, wrappers)
+    record = {'steps': []}
+    ends = []
+    model = run_train_pipeline(data_train_args(root), record, config=DATA_TRAIN,
+                               model_cls=SwinIRModel, wrappers=wrappers,
+                               before_first_step=keep_fed_batch,
+                               after_step=lambda m, st: ends.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    launches = {k: w.launches for k, w in wrappers.items()}
+    check_steps(record['steps'], DATA_ITERS, 'l_pix', dict.fromkeys(SPLIT_KERNELS, blocks))
+    val_images = len(DATA_VAL)
+    if launches['swin_block_joint_fwd'] != blocks * val_images:
+        fail(f'{launches["swin_block_joint_fwd"]} K1 launches, expected {blocks} a validation '
+             f'image x {val_images}')
+    losses = [st['l_pix'] for st in record['steps']]
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    psnr = model.metric_results['psnr']
+    events = statistics.median(st['ms'] for st in record['steps'][2:])
+    wall = statistics.median(b - a for a, b in zip(ends[2:], ends[3:])) * 1e3
+    print(f'l_pix: mean of the first 5 steps {first:.5f}, of the last 5 {last:.5f}; validation '
+          f'PSNR {psnr:.4f} dB on {val_images} held-out pairs (net_g_ema); median step '
+          f'{events:.3f} ms by CUDA events, {wall:.3f} ms by the wall clock between step ends '
+          f'(data included); peak device memory {peak:.1f} MiB')
+    if not last < first:
+        fail('the loss did not fall')
+    if not math.isfinite(psnr):
+        fail('the validation PSNR is not finite')
+
+    phase('71c-b. a step and a validation image by kernel (torch.profiler)')
+    counts = dict(launches)
+    for key, value in record['batch'].items():
+        setattr(model, key, value)
+    model.optimize_parameters(0)
+    ours = ('swin_attn_fwd_head', 'swin_attn_fwd_proj', 'swin_attn_block_bwd', 'mlp_block_fwd',
+            'mlp_block_bwd', 'branch_ln_bwd')
+    step = profile_device_time(lambda: model.optimize_parameters(0), 1, 'step', ours,
+                               'data_train_step_profile.json')
+    lq = cv2.imread(os.path.join(root, 'Set5_LRbicx4', DATA_VAL[0]))[:, :, ::-1] / 255.
+    model.feed_data({'lq': torch.from_numpy(lq.copy()).permute(2, 0, 1)[None].float()})
+    val = profile_device_time(model.test, 1, 'request', ('swin_block_joint_kernel',),
+                              'data_val_profile.json')
+    for k, wr in wrappers.items():   # the profiled runs belong to no main path's count
+        wr.launches = counts[k]
+    per_step = {'swin_attn_fwd_head': blocks, 'swin_attn_fwd_proj': blocks,
+                'swin_attn_block_bwd': blocks, 'mlp_block_fwd': blocks, 'mlp_block_bwd': blocks}
+    if step is None or val is None:
+        fail('the profiler recorded no device time')
+    got = {k: step.get(k, (0, 0))[1] for k in per_step}
+    got_k1 = val.get('swin_block_joint_kernel', (0, 0))[1]
+    print(f'the profiler counts a step {got}, a validation image K1 {got_k1} (the wrappers: '
+          f'{blocks} each a step, {blocks} a validation image)')
+    if got != per_step or got_k1 != blocks:
+        fail('the profiler did not see every launch of the step or of the validation image')
+    busy = sum(ms for ms, _ in step.values())
+    print(f'phase 71c on {card}: median step {events:.3f} ms by CUDA events, {wall:.3f} ms by '
+          f'the wall clock; device busy {busy:.3f} ms a step (profiled) = '
+          f'{100 * busy / events:.1f}% of the median step; peak {peak:.1f} MiB; PSNR '
+          f'{psnr:.4f} dB')
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def lmdb_gate(root, gate, wrappers):
+    """Phase 71d: without ``lmdb``, ``create_lmdb`` (``gate``, already
+    started) and ``io_backend: lmdb`` at a dataset's first item raise its
+    ImportError; with it, the prepared pairs go into two LMDBs and the
+    published file trains from them."""
+    import importlib.util
+
+    from basicsr4rs_torch.data import build_dataset
+    from basicsr4rs_torch.models.swinir_model import SwinIRModel
+    from basicsr4rs_torch.utils.options import yaml_load
+    phase('71d. the lmdb gate')
+    have_lmdb = importlib.util.find_spec('lmdb') is not None
+    err = finish_script(gate, expect_ok=have_lmdb)
+    if not have_lmdb:
+        if 'ImportError' not in err or 'lmdb' not in err:
+            fail(f'create_lmdb failed otherwise: {err[-800:]}')
+        folders = []
+        for name in ('gate_gt.lmdb', 'gate_lq.lmdb'):
+            os.makedirs(os.path.join(root, name))
+            with open(os.path.join(root, name, 'meta_info.txt'), 'w') as f:
+                f.write(f'{DATA_VAL[0][:-4]}.png (480,480,3) 1\n')
+            folders.append(os.path.join(root, name))
+        opt = dict(yaml_load(DATA_TRAIN)['datasets']['train'], phase='train', scale=SCALE,
+                   dataroot_gt=folders[0], dataroot_lq=folders[1], io_backend={'type': 'lmdb'})
+        dataset = build_dataset(opt)
+        try:
+            dataset[0]
+        except ImportError as e:
+            print(f'no lmdb here: create_lmdb raised ImportError ({err.strip().splitlines()[-1]}); '
+                  f'PairedImageDataset in LMDB mode built and raised at its first item ({e})')
+        else:
+            fail('io_backend: lmdb read an item without lmdb')
+        return {}
+    for folder in ('DIV2K_train_HR_sub', 'DIV2K_train_LR_bicubic_X4_sub'):
+        finish_script(start_script('data_preparation.create_lmdb', '--dataset', 'div2k',
+                                   '--input', os.path.join(root, folder), '--output',
+                                   os.path.join(root, folder + '.lmdb'), '--n-thread', 4))
+    opt = yaml_load(DATA_TRAIN)
+    fresh_run(opt, wrappers)
+    record = {'steps': []}
+    run_train_pipeline(data_train_args(root, [
+        'datasets:train:io_backend:type=lmdb', f'train:total_iter={DATA_LMDB_ITERS}',
+        f'datasets:train:dataroot_gt={root}/DIV2K_train_HR_sub.lmdb',
+        f'datasets:train:dataroot_lq={root}/DIV2K_train_LR_bicubic_X4_sub.lmdb']), record,
+        config=DATA_TRAIN, model_cls=SwinIRModel, wrappers=wrappers,
+        before_first_step=lambda m, r: None)
+    check_steps(record['steps'], DATA_LMDB_ITERS, 'l_pix',
+                dict.fromkeys(SPLIT_KERNELS, sum(opt['network_g']['depths'])))
+    return {k: w.launches for k, w in wrappers.items()}
+
+
+def serve_converted(root, converted, basicsr_pth):
+    """Phase 71e: EDSR-L x4 served through ``basicsr4rs_torch.test`` from the
+    converted checkpoint with ``SWIN_FUSED_CONV=1`` (K10 on the upsampler's
+    two convs), its output equal to the same network's loaded from the
+    BasicSR-keyed file. Returns K10's launches."""
+    from basicsr4rs_torch.ops.conv3x3 import fused_conv3x3
+    phase('71e. EDSR-L x4 from an official-key checkpoint converted by convert_models, '
+          'served with SWIN_FUSED_CONV=1')
+    os.environ['SWIN_FUSED_CONV'] = '1'
+    fused_conv3x3.launches = 0
+    try:
+        model = run_test_pipeline(EDSR_TEST, [
+            '--force_yml', f'path:pretrain_network_g={converted}',
+            f'datasets:test_1:dataroot_gt={root}/Set5_GTmod12',
+            f'datasets:test_1:dataroot_lq={root}/Set5_LRbicx4'])
+        torch.cuda.synchronize()
+        launches = fused_conv3x3.launches
+        if launches != 2 * len(DATA_VAL):
+            fail(f'{launches} K10 launches for {len(DATA_VAL)} requests, expected 2 each')
+        item = next(iter(model_loader(model)))
+        model.feed_data(item)
+        model.test()
+        got = model.output.clone()
+        model.load_network(model.net_g, basicsr_pth, True, 'params')
+        model.test()
+        want = model.output
+    finally:
+        os.environ.pop('SWIN_FUSED_CONV')
+    fused_conv3x3.launches = launches   # the comparison's requests count for no path
+    print(f'{launches} K10 launches on {len(DATA_VAL)} requests (LQ 120x120 -> 480x480); the '
+          f'converted network against the BasicSR-keyed one: max abs difference '
+          f'{(got - want).abs().max().item():.3e}, '
+          f'{"bit for bit" if torch.equal(got, want) else "NOT equal"}')
+    if not torch.equal(got, want) or not torch.isfinite(got).all():
+        fail('the converted EDSR-L differs from the network it was made from')
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def data_path(launches, card, second=None):
+    """Phase 71: the user's path from raw images and an official checkpoint
+    to a training run and a request, on the port's scripts alone: (a)
+    prepare, (b) check the layout, (c) train the published file, (d) the
+    lmdb gate, (e) convert and serve. Its launches are added to
+    ``launches``; ``card`` is the card's name and power limit. ``second``,
+    phase 62's job, runs beside 71a's scripts and is collected after them."""
+    from basicsr4rs_torch.utils.options import yaml_load
+    t0 = time.perf_counter()
+    phase('71a. prepare DIV2K-style data with the port\'s scripts (python -m, no JAX): '
+          f'extract_subimages (crop {DATA_CROP}, step {DATA_STEP}, thresh {DATA_THRESH}), '
+          'generate_bicubic_lr --scale 4, generate_meta_info; convert_models --model edsr'
+          + ('; phase 62\'s second process beside them' if second else ''))
+    root = tempfile.mkdtemp(prefix='div2k_prepared_')
+    try:
+        if second:
+            start_second_process(second)
+        net_opt = net_options(yaml_load(EDSR_TEST))
+        basicsr_pth, official = write_official_edsr(net_opt, root)
+        converted = os.path.join(root, 'EDSR_Lx4_converted.pth')
+        convert = start_script('model_conversion.convert_models', '--model', 'edsr', '--input',
+                               official, '--output', converted, '--num_block',
+                               net_opt['num_block'])
+        hr = os.path.join(root, 'DIV2K_train_HR')
+        hr_shapes = write_div2k_hr(hr)
+        sub = os.path.join(root, 'sub')
+        extract = start_script('data_preparation.extract_subimages', '--input', hr, '--output',
+                               os.path.join(sub, 'DIV2K_train_HR_sub'), '--crop-size', DATA_CROP,
+                               '--step', DATA_STEP, '--thresh-size', DATA_THRESH, '--n-thread',
+                               len(hr_shapes))
+        gate = start_script('data_preparation.create_lmdb', '--dataset', 'div2k', '--input', hr,
+                            '--output', os.path.join(root, 'DIV2K_train_HR.lmdb'))
+        finish_script(extract)
+        os.makedirs(os.path.join(sub, 'Set5_GTmod12'))
+        for name in DATA_VAL:
+            os.rename(os.path.join(sub, 'DIV2K_train_HR_sub', name),
+                      os.path.join(sub, 'Set5_GTmod12', name))
+        bicubic = start_script('data_preparation.generate_bicubic_lr', '--input', sub, '--output',
+                               os.path.join(root, 'lr'), '--scale', SCALE)
+        meta = start_script('data_preparation.generate_meta_info', '--input',
+                            os.path.join(sub, 'DIV2K_train_HR_sub'), '--output',
+                            os.path.join(root, 'meta_info_DIV2K800sub_GT.txt'))
+        for proc in (bicubic, meta, convert):
+            finish_script(proc)
+        for folder in ('DIV2K_train_HR_sub', 'Set5_GTmod12'):
+            os.rename(os.path.join(sub, folder), os.path.join(root, folder))
+        os.rename(os.path.join(root, 'lr', 'DIV2K_train_HR_sub'),
+                  os.path.join(root, 'DIV2K_train_LR_bicubic_X4_sub'))
+        os.rename(os.path.join(root, 'lr', 'Set5_GTmod12'), os.path.join(root, 'Set5_LRbicx4'))
+        t62 = time.perf_counter()
+        if second:
+            for name, count in finish_second_process(second).items():
+                launches[name] += count
+        t1 = time.perf_counter()
+        check_prepared(root, hr_shapes)
+        wrappers = training_kernels()
+        for name, count in train_prepared(root, wrappers, card).items():
+            launches[name] += count
+        t2 = time.perf_counter()
+        for name, count in lmdb_gate(root, gate, wrappers).items():
+            launches[name] += count
+        t3 = time.perf_counter()
+        launches['conv3x3_fwd'] += serve_converted(root, converted, basicsr_pth)
+    finally:
+        shutil.rmtree(root)
+        if second:
+            stop_second_process(second)
+    print(f'phase 71: {time.perf_counter() - t0:.1f} s (71a {t62 - t0:.1f}, then phase 62 '
+          f'{t1 - t62:.1f}, 71b and 71c '
+          f'{t2 - t1:.1f}, 71d {t3 - t2:.1f}, 71e {time.perf_counter() - t3:.1f})')
+
+
 SUMMARY_KEYS = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
 KERNELS = [
     ('swin_block_joint_fwd', 'basicsr4rs_tpu/ops/swin_block.py:287'),
@@ -8156,10 +8589,11 @@ KERNELS = [
 
 
 def serving_modes(launches, split_step_ms):
-    """Phases 17 to 22 and 59 to 62: the serving modes of the image-SR path,
+    """Phases 17 to 22 and 59 to 61: the serving modes of the image-SR path,
     the joint training route, the widths past the joint kernel's and
     ahead-of-time serving; their launches are added to ``launches``.
-    ``split_step_ms``: phase 6's step time, or None when it did not run."""
+    ``split_step_ms``: phase 6's step time, or None when it did not run.
+    Returns phase 62's job (``second_process_job``)."""
     model, loader, conv_launches, k1_fused = serve_fused_conv()
     launches['conv3x3_fwd'] = conv_launches
     launches['swin_block_joint_int8_fwd'] = serve_int8(model, loader)
@@ -8170,8 +8604,10 @@ def serving_modes(launches, split_step_ms):
         launches[name] += count
     for name, count in serve_wide_swinir().items():
         launches[name] += count
-    for name, count in serve_ahead_of_time().items():
+    served, second = serve_ahead_of_time()
+    for name, count in served.items():
         launches[name] += count
+    return second
 
 
 def main():
@@ -8221,6 +8657,15 @@ def main():
                                                  'kind': torch.cuda.get_device_name(0),
                                                  'count': torch.cuda.device_count()}}))
         return
+    if sys.argv[1:] == ['data']:   # development: phase 71 alone
+        launches = collections.Counter()
+        data_path(launches, card)
+        print(json.dumps(launches))
+        print(card)
+        print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
+                                                 'kind': torch.cuda.get_device_name(0),
+                                                 'count': torch.cuda.device_count()}}))
+        return
     slices = {'realesrgan': realesrgan_paths, 'faces': faces_paths, 'taming': taming_paths}
     if len(sys.argv) == 2 and sys.argv[1] in slices:   # a slice without kernels alone
         slices[sys.argv[1]]()
@@ -8234,7 +8679,12 @@ def main():
                           **check_int8_block_kernel()}))
         profile_requests(*serve()[:2])
         write_train_inputs()
-        serving_modes(collections.Counter(), None)
+        second = serving_modes(collections.Counter(), None)
+        try:
+            start_second_process(second)
+            finish_second_process(second)
+        finally:
+            stop_second_process(second)
         return
     kernels = {'swin_block_joint_fwd': check_joint_kernel()}
     kernels.update(check_branch_kernels())
@@ -8277,7 +8727,7 @@ def main():
         check_video_gradients(name, 13 + 3 * i)
         launches['deform_sample_fwd'] += served + trained['deform_sample_fwd']
         launches['deform_sample_bwd'] += trained['deform_sample_bwd']
-    serving_modes(launches, split_step_ms)
+    second = serving_modes(launches, split_step_ms)
     l2s_paths(launches)
     align_paths(launches)
     cnn_gan_paths(launches)
@@ -8286,6 +8736,7 @@ def main():
     faces_paths()
     taming_paths()
     options_paths(launches, kernels)
+    data_path(launches, card, second)
     for name, count in launches.items():
         if count == 0:
             fail(f'{name} was never launched on the main paths')

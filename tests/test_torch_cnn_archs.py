@@ -258,8 +258,17 @@ def test_single_image_dataset_matches_jax(color, tmp_path):
         assert got['lq'].shape == ((1 if color == 'y' else 3), 31, 27)
         np.testing.assert_allclose(got['lq'].numpy().transpose(1, 2, 0), np.asarray(want['lq']),
                                    rtol=1e-6, atol=1e-6)
-    with pytest.raises(NotImplementedError):
-        port_build_dataset(dict(opt, io_backend={'type': 'lmdb'}))
+    # LMDB mode without the lmdb package: both packages build the dataset
+    # from the folder's meta_info.txt and raise the gate at the first item
+    lmdb_root = tmp_path / 'lq.lmdb'
+    lmdb_root.mkdir()
+    (lmdb_root / 'meta_info.txt').write_text('000.png (31,27,3) 1\n')
+    lmdb_opt = dict(opt, dataroot_lq=str(lmdb_root), io_backend={'type': 'lmdb'})
+    with mock.patch.dict('sys.modules', {'lmdb': None}):
+        for dataset in (port_build_dataset(dict(lmdb_opt)), jax_build_dataset(dict(lmdb_opt))):
+            assert dataset.paths == ['000']
+            with pytest.raises(ImportError, match='lmdb'):
+                dataset[0]
 
 
 def test_upsample_counts_one_fused_conv_per_stage():

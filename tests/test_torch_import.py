@@ -92,7 +92,8 @@ def test_port_imports_without_jax():
                      'basicsr4rs_torch.scripts.metrics.calculate_psnr_ssim',
                      'basicsr4rs_torch.scripts.metrics.calculate_niqe',
                      'basicsr4rs_torch.scripts.metrics.calculate_lpips',
-                     'basicsr4rs_torch.scripts.metrics.back_projection'):
+                     'basicsr4rs_torch.scripts.metrics.back_projection',
+                     'basicsr4rs_torch.utils.lmdb_util', *NEW_SCRIPTS):
         assert expected in modules
     code = ('import importlib, sys\n'
             f'for name in {BLOCKED!r}:\n'
@@ -105,6 +106,42 @@ def test_port_imports_without_jax():
     proc = subprocess.run([sys.executable, '-c', code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+NEW_SCRIPTS = tuple(f'basicsr4rs_torch.scripts.{name}' for name in (
+    'data_preparation.extract_subimages', 'data_preparation.generate_bicubic_lr',
+    'data_preparation.generate_meta_info', 'data_preparation.create_lmdb',
+    'data_preparation.regroup_reds_dataset', 'data_preparation.prepare_hifacegan_dataset',
+    'data_preparation.extract_images_from_tfrecords', 'model_conversion.zoo_remaps',
+    'model_conversion.convert_models', 'model_conversion.convert_ridnet',
+    'model_conversion.convert_stylegan', 'model_conversion.convert_dfdnet',
+    'plot.model_complexity', 'publish_models'))
+
+
+def test_data_and_conversion_scripts_start_without_jax():
+    """Each data-preparation, conversion and small script imports, and each
+    command starts (``--help``) as ``python -m`` runs it, in a process where
+    JAX, Flax and the JAX package cannot be imported."""
+    code = ('import runpy, sys\n'
+            f'for name in {BLOCKED!r}:\n'
+            '    sys.modules[name] = None\n'
+            f'for name in {NEW_SCRIPTS!r}:\n'
+            '    if name.endswith("zoo_remaps"):\n'
+            '        __import__(name)\n'
+            '        continue\n'
+            '    sys.argv = [name, "--help"]\n'
+            '    try:\n'
+            '        runpy.run_module(name, run_name="__main__", alter_sys=True)\n'
+            '    except SystemExit as e:\n'
+            '        assert e.code == 0, (name, e.code)\n'
+            '    else:\n'
+            '        raise AssertionError(name + " did not parse --help")\n'
+            'assert not any(m.split(".")[0] in {"jax", "flax", "basicsr4rs_tpu"} '
+            'for m in sys.modules if sys.modules[m] is not None)\n')
+    proc = subprocess.run([sys.executable, '-c', code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.count('usage:') == len(NEW_SCRIPTS) - 1
 
 
 def test_port_sources_do_not_import_jax():

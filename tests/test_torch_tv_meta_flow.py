@@ -8,6 +8,8 @@ Tolerances: the loss within 1e-6 relative (float32 sums in another order);
 items, paths, files and quantised flows equal.
 """
 
+import sys
+
 import cv2
 import jax.numpy as jnp
 import numpy as np
@@ -82,11 +84,20 @@ def test_meta_info_pairs_match_jax(tmp_path, phase):
         assert got['gt_path'] == want['gt_path']
 
 
-def test_lmdb_backend_still_refused(tmp_path):
-    with pytest.raises(NotImplementedError):
-        port_build_dataset({'name': 'x', 'type': 'PairedImageDataset', 'phase': 'val',
-                            'scale': 2, 'dataroot_gt': 'a.lmdb', 'dataroot_lq': 'b.lmdb',
-                            'io_backend': {'type': 'lmdb'}})
+def test_lmdb_backend_raises_the_gate_without_lmdb(tmp_path, monkeypatch):
+    """``io_backend: lmdb`` without the ``lmdb`` package: both packages
+    pair the two folders' keys and raise ``ImportError`` at the first item."""
+    for name in ('a.lmdb', 'b.lmdb'):
+        (tmp_path / name).mkdir()
+        (tmp_path / name / 'meta_info.txt').write_text('1.png (8,8,3) 1\n0.png (8,8,3) 1\n')
+    monkeypatch.setitem(sys.modules, 'lmdb', None)
+    opt = {'name': 'x', 'type': 'PairedImageDataset', 'phase': 'val', 'scale': 2,
+           'dataroot_gt': str(tmp_path / 'a.lmdb'), 'dataroot_lq': str(tmp_path / 'b.lmdb'),
+           'io_backend': {'type': 'lmdb'}}
+    for dataset in (port_build_dataset(dict(opt)), jax_build_dataset(dict(opt))):
+        assert dataset.paths == [{'lq_path': '0', 'gt_path': '0'}, {'lq_path': '1', 'gt_path': '1'}]
+        with pytest.raises(ImportError, match='lmdb'):
+            dataset[0]
 
 
 def test_flo_files_round_trip_and_read_as_jax(tmp_path):

@@ -6,6 +6,8 @@ against the JAX package's classes, item by item, on PNG clips written to
 with the same seed, so tensors are equal exactly: the port's (T, C, H, W)
 are the JAX package's (T, H, W, C) transposed."""
 
+import sys
+
 import cv2
 import numpy as np
 import pytest
@@ -173,9 +175,15 @@ def test_reds_recurrent_dataset_items(clips, extra):
 
 
 @pytest.mark.parametrize('cls', ['REDSDataset', 'REDSRecurrentDataset'])
-def test_reds_datasets_reject_what_is_not_ported(clips, cls):
-    with pytest.raises(NotImplementedError, match='disk'):
-        port_build_dataset(_train_opt(clips, cls, io_backend={'type': 'lmdb'}))
+def test_reds_datasets_reject_what_is_not_ported(clips, cls, monkeypatch):
+    """LMDB mode without ``lmdb`` builds, and raises the gate's
+    ``ImportError`` at the first item as the JAX dataset does; an unknown
+    validation partition is refused."""
+    monkeypatch.setitem(sys.modules, 'lmdb', None)
+    opt = _train_opt(clips, cls, io_backend={'type': 'lmdb'})
+    for dataset in (port_build_dataset(dict(opt)), jax_build_dataset(dict(opt))):
+        with pytest.raises(ImportError, match='lmdb'):
+            dataset[0]
     with pytest.raises(ValueError, match='partition'):
         port_build_dataset(_train_opt(clips, cls, val_partition='mine'))
 
