@@ -14,6 +14,8 @@ from torch import nn
 
 from ..ops.conv3x3 import conv_fusion_enabled, fused_conv3x3
 from ..ops.dcn import bilinear_warp, warp_by_flow
+from ..ops.quant import int8_forward_of
+from ..parallel.halo import current_shard, halo_rows
 from ..utils.dist_util import all_reduce_sum
 
 
@@ -50,6 +52,28 @@ def default_init_weights(module_list, scale: float = 1., bias_fill: float = 0.) 
                     m.bias.fill_(bias_fill)
 
 
+def halo_conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``conv(x)``; under a spatial scope (``parallel/halo.py``) on x's band:
+    the convolution of the band with ``k // 2`` rows of each neighbouring
+    band (zeros past the map's edges), W padded as before and H not at all,
+    which is the whole map's convolution cut to the band; inside a W8A8
+    scope the convolution's int8 forward takes the haloed band. Stride 1,
+    zero padding of ``k // 2`` only (every convolution of the spatial
+    networks)."""
+    if current_shard() is None:
+        return conv(x)
+    (kh, _), (ph, pw) = conv.kernel_size, conv.padding
+    if (conv.stride != (1, 1) or conv.dilation != (1, 1) or ph != kh // 2
+            or conv.padding_mode != 'zeros'):
+        raise NotImplementedError(f'halo_conv: {conv} has no spatial route (stride 1, zero '
+                                  'padding of k // 2 only)')
+    haloed = halo_rows(x, ph, ph)
+    int8 = int8_forward_of(conv)
+    if int8 is not None:   # inside a W8A8 scope (ops/quant.py)
+        return int8(haloed, padding=(0, pw))
+    return F.conv2d(haloed, conv.weight, conv.bias, padding=(0, pw), groups=conv.groups)
+
+
 def make_layer(basic_block: Callable[..., nn.Module], num_basic_block: int,
                **kwarg) -> nn.Sequential:
     """``num_basic_block`` instances of one block in a ``Sequential``."""
@@ -68,7 +92,7 @@ class ResidualBlockNoBN(nn.Module):
         default_init_weights([self.conv1, self.conv2], 0.1)
 
     def forward(self, x):
-        return x + self.conv2(F.relu(self.conv1(x))) * self.res_scale
+        return x + halo_conv(self.conv2, F.relu(halo_conv(self.conv1, x))) * self.res_scale
 
 
 def global_batch_moments(x: torch.Tensor):
@@ -237,10 +261,12 @@ class Upsample(nn.Sequential):
         super().__init__(*m)
 
     def forward(self, x):
-        fused = conv_fusion_enabled()
+        fused = conv_fusion_enabled() and current_shard() is None
         for module in self:
             if fused and isinstance(module, nn.Conv2d):
                 x = fused_conv3x3(x, module.weight, module.bias)
+            elif isinstance(module, nn.Conv2d):
+                x = halo_conv(module, x)
             else:
                 x = module(x)
         return x
@@ -252,6 +278,9 @@ class UpsampleOneStep(nn.Sequential):
     def __init__(self, scale: int, num_feat: int, num_out_ch: int):
         super().__init__(nn.Conv2d(num_feat, scale**2 * num_out_ch, 3, 1, 1),
                          nn.PixelShuffle(scale))
+
+    def forward(self, x):
+        return self[1](halo_conv(self[0], x))
 
 
 def resize_nearest(x: torch.Tensor, scale: int) -> torch.Tensor:
@@ -282,8 +311,26 @@ def per_level(value, levels: int) -> list:
 def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int,
                     align_corners: bool = False) -> torch.Tensor:
     """Bilinear resize of NCHW without antialiasing, in either corner
-    convention."""
-    return F.interpolate(x, size=(out_h, out_w), mode='bilinear', align_corners=align_corners)
+    convention. Under a spatial scope x is a band and ``out_h`` its output
+    rows, a whole multiple s of its rows (half-pixel corners only): the band
+    takes one row of each neighbouring band, copies of its own edge row past
+    the map's first and last row (the border clamp), is resized whole and
+    cut to its own s * h rows, so that every row is the whole map's."""
+    shard = current_shard()
+    if shard is None:
+        return F.interpolate(x, size=(out_h, out_w), mode='bilinear',
+                             align_corners=align_corners)
+    h = x.shape[2]
+    if align_corners or out_h % h:
+        raise NotImplementedError('resize_bilinear on a band: an integer scale of the rows and '
+                                  'align_corners=False only')
+    s = out_h // h
+    haloed = halo_rows(x, 1, 1)
+    if shard.first or shard.last:
+        haloed = torch.cat([x[:, :, :1] if shard.first else haloed[:, :, :1], x,
+                            x[:, :, -1:] if shard.last else haloed[:, :, -1:]], 2)
+    out = F.interpolate(haloed, size=((h + 2) * s, out_w), mode='bilinear', align_corners=False)
+    return out[:, :, s:s + out_h]
 
 
 def flow_warp(x: torch.Tensor, flow: torch.Tensor, interpolation: str = 'bilinear',

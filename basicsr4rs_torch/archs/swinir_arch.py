@@ -37,6 +37,19 @@ unfused chain. Every dropout mask and DropPath scale comes from the model's
 generator (``seed_drop_path``), drawn in the same order and shapes on every
 route: DropPath's two scales first, then the attention dropout, then
 ``proj_drop`` in the windows' layout, then the MLP's two.
+
+Under a spatial scope (``parallel/halo.py``, ``parallel: {spatial: N}``) the
+network runs on a band of each image's rows, on every route above: each
+convolution takes its halo rows (``arch_util.halo_conv``; under
+``SWIN_FUSED_CONV=1`` too, where the band's convolution is PyTorch's, as the
+JAX kernel gives way to XLA on a spatial mesh), the shifted windows' roll is
+``roll_rows`` along H (the wrap-around from the first band to the last) and
+``torch.roll`` along W, the shift mask is the whole map's sliced to the
+band's window rows (``bias_spec = P('spatial')`` of the JAX dispatch), the
+small-input rule reads the whole map's height and ``ape``'s embedding is cut
+to the band's tokens. A band must hold whole window rows. Dropout has no
+spatial route: a network with ``drop_rate`` or ``attn_drop_rate`` above 0
+declares none (``SPATIAL_SHARDING``).
 """
 
 from __future__ import annotations
@@ -57,18 +70,20 @@ from ..ops.quant import swin_kernels_int8
 from ..ops.swin_block import (fused_swin_attn_block, fused_swin_block_full,
                               joint_block_takes, joint_train_enabled, swin_block_full_int8)
 from ..ops.window_attention import fused_window_attention
+from ..parallel.halo import current_shard, roll_rows
 from ..utils.registry import ARCH_REGISTRY
-from .arch_util import Upsample, UpsampleOneStep, default_conv_init_, trunc_normal_
+from .arch_util import Upsample, UpsampleOneStep, default_conv_init_, halo_conv, trunc_normal_
 
 
 def conv3x3(conv: nn.Conv2d, x: torch.Tensor, residual: Optional[torch.Tensor] = None,
             act_slope: Optional[float] = None) -> torch.Tensor:
     """``conv(x)`` (+ ``residual``), then a leaky-ReLU of ``act_slope`` when
     given: one call of ``fused_conv3x3`` on the module's parameters when
-    ``SWIN_FUSED_CONV=1``, else the module and plain tensor code."""
-    if conv_fusion_enabled():
+    ``SWIN_FUSED_CONV=1``, else (and on a band) the module and plain tensor
+    code."""
+    if conv_fusion_enabled() and current_shard() is None:
         return fused_conv3x3(x, conv.weight, conv.bias, residual, act_slope)
-    out = conv(x)
+    out = halo_conv(conv, x)
     if residual is not None:
         out = out + residual
     if act_slope is not None:
@@ -131,6 +146,26 @@ def _shift_attn_mask(h: int, w: int, window_size: int, shift_size: int,
     diff = m[:, None, :] - m[:, :, None]
     with torch.inference_mode(False):   # cached: see _relative_position_index
         return torch.from_numpy(np.where(diff != 0, -100.0, 0.0).astype(np.float32)).to(device)
+
+
+def shift_mask(h: int, w: int, window_size: int, shift_size: int,
+               device: torch.device) -> torch.Tensor:
+    """``_shift_attn_mask`` of an h x w map, or under a spatial scope (h a
+    band's rows) the whole map's mask cut to the band's window rows."""
+    shard = current_shard()
+    if shard is None:
+        return _shift_attn_mask(h, w, window_size, shift_size, device)
+    whole = _shift_attn_mask(shard.global_rows(h), w, window_size, shift_size, device)
+    per_band = (h // window_size) * (w // window_size)
+    return whole.narrow(0, shard.index * per_band, per_band)
+
+
+def roll_map(x: torch.Tensor, shift: int) -> torch.Tensor:
+    """x (B, H, W, C) rolled by ``shift`` along H and W; H is the whole map's
+    under a spatial scope (``roll_rows``)."""
+    if current_shard() is None:
+        return torch.roll(x, (shift, shift), dims=(1, 2))
+    return torch.roll(roll_rows(x, shift, dim=1), shift, dims=2)
 
 
 def window_partition(x: torch.Tensor, window_size: int) -> torch.Tensor:
@@ -306,8 +341,13 @@ class SwinTransformerBlock(nn.Module):
         h, w = x_size
         b, _, c = x.shape
         window_size, shift_size = self.window_size, self.shift_size
-        if min(x_size) <= window_size:  # small input: shrink the window, no shift
-            window_size, shift_size = min(x_size), 0
+        shard = current_shard()
+        map_h = h if shard is None else shard.global_rows(h)
+        if min(map_h, w) <= window_size:  # small input: shrink the window, no shift
+            window_size, shift_size = min(map_h, w), 0
+        if shard is not None and h % window_size:
+            raise ValueError(f'SwinIR on a band: {h} rows are not whole rows of {window_size}-row '
+                             'windows (H / spatial must be a multiple of the window)')
         if self.training and residual_scales is None:
             residual_scales = self.drop_path_scales(b, x.device)
         s1, s2 = residual_scales if residual_scales is not None else (None, None)
@@ -320,8 +360,8 @@ class SwinTransformerBlock(nn.Module):
         x = x.reshape(b, h, w, c)
         mask = None
         if shift_size > 0:
-            x = torch.roll(x, (-shift_size, -shift_size), dims=(1, 2))
-            mask = _shift_attn_mask(h, w, window_size, shift_size, x.device)
+            x = roll_map(x, -shift_size)
+            mask = shift_mask(h, w, window_size, shift_size, x.device)
         if unfused:
             return self._unfused_rest(attn.windowed(x, window_size, mask), shortcut, x_size,
                                       shift_size, s1, s2)
@@ -358,7 +398,7 @@ class SwinTransformerBlock(nn.Module):
             x = fused_swin_attn_block(x.contiguous(), *attn_args, *geometry, add_residual=True)
             x = fused_mlp_block(x, *mlp_args, add_residual=True)
         if shift_size > 0:
-            x = torch.roll(x, (shift_size, shift_size), dims=(1, 2))
+            x = roll_map(x, shift_size)
         return x.reshape(b, h * w, c)
 
     def _unfused_rest(self, x, shortcut, x_size, shift_size, s1, s2):
@@ -366,7 +406,7 @@ class SwinTransformerBlock(nn.Module):
         ``shortcut + DropPath(x)``, then ``+ DropPath(Mlp(norm2(.)))``."""
         h, w = x_size
         if shift_size > 0:
-            x = torch.roll(x, (shift_size, shift_size), dims=(1, 2))
+            x = roll_map(x, shift_size)
         x = shortcut + drop_path(x.reshape(shortcut.shape), s1)
         return x + drop_path(self.mlp(self.norm2(x)), s2)
 
@@ -421,11 +461,13 @@ class RSTB(nn.Module):
         b, _, c = res.shape
         img = res.transpose(1, 2).reshape(b, c, *x_size)
         if isinstance(self.conv, nn.Sequential):
-            return self.conv(img).flatten(2).transpose(1, 2) + x
+            for module in self.conv:
+                img = halo_conv(module, img) if isinstance(module, nn.Conv2d) else module(img)
+            return img.flatten(2).transpose(1, 2) + x
         if conv_fusion_enabled():   # the conv and the RSTB residual in one call
             shortcut = x.transpose(1, 2).reshape(b, c, *x_size)
             return conv3x3(self.conv, img, residual=shortcut).flatten(2).transpose(1, 2)
-        return self.conv(img).flatten(2).transpose(1, 2) + x
+        return halo_conv(self.conv, img).flatten(2).transpose(1, 2) + x
 
 
 class PatchEmbed(nn.Module):
@@ -518,6 +560,12 @@ class SwinIR(nn.Module):
             raise ValueError(f'unknown upsampler {upsampler!r}')
         self.reset_parameters(generator)
         self.drop_path_generator: Optional[torch.Generator] = None
+        self.dropout = drop_rate > 0 or attn_drop_rate > 0
+
+    @property
+    def SPATIAL_SHARDING(self) -> bool:   # noqa: N802  the flag the models read
+        """Whether this network runs on bands of rows (no dropout)."""
+        return not self.dropout
 
     def seed_drop_path(self, seed: int, device='cpu') -> torch.Generator:
         """Give the model its own generator of DropPath and dropout masks on
@@ -553,10 +601,16 @@ class SwinIR(nn.Module):
         if self.patch_embed.norm is not None:
             x = self.patch_embed.norm(x)
         if self.absolute_pos_embed is not None:
-            if x.shape[1] != self.absolute_pos_embed.shape[1]:
-                raise ValueError(f'SwinIR with ape: {h}x{w} is {x.shape[1]} tokens, the '
-                                 f'position embedding holds {self.absolute_pos_embed.shape[1]}')
-            x = x + self.absolute_pos_embed
+            shard = current_shard()
+            bands = 1 if shard is None else shard.size
+            if x.shape[1] * bands != self.absolute_pos_embed.shape[1]:
+                raise ValueError(f'SwinIR with ape: {h * bands}x{w} is {x.shape[1] * bands} '
+                                 'tokens, the position embedding holds '
+                                 f'{self.absolute_pos_embed.shape[1]}')
+            pos = self.absolute_pos_embed
+            if shard is not None:   # the band's tokens
+                pos = pos.narrow(1, shard.index * x.shape[1], x.shape[1])
+            x = x + pos
         x = self.pos_drop(x)
         for layer in self.layers:
             x = layer(x, (h, w))
@@ -568,22 +622,22 @@ class SwinIR(nn.Module):
         mean = self.mean.to(x.dtype)
         x = (x - mean) * self.img_range
         if self.upsampler == '':
-            x_first = self.conv_first(x)
+            x_first = halo_conv(self.conv_first, x)
             res = conv3x3(self.conv_after_body, self.forward_features(x_first), x_first)
-            x = x + self.conv_last(res)
+            x = x + halo_conv(self.conv_last, res)
         else:
-            x = self.conv_first(x)
+            x = halo_conv(self.conv_first, x)
             x = conv3x3(self.conv_after_body, self.forward_features(x), x)
             if self.upsampler == 'pixelshuffledirect':
                 x = self.upsample(x)
             else:
                 x = conv3x3(self.conv_before_upsample[0], x, act_slope=0.01)
             if self.upsampler == 'pixelshuffle':
-                x = self.conv_last(self.upsample(x))
+                x = halo_conv(self.conv_last, self.upsample(x))
             elif self.upsampler == 'nearest+conv':
                 x = conv3x3(self.conv_up1, F.interpolate(x, scale_factor=2, mode='nearest'),
                             act_slope=0.2)
                 x = conv3x3(self.conv_up2, F.interpolate(x, scale_factor=2, mode='nearest'),
                             act_slope=0.2)
-                x = self.conv_last(conv3x3(self.conv_hr, x, act_slope=0.2))
+                x = halo_conv(self.conv_last, conv3x3(self.conv_hr, x, act_slope=0.2))
         return x / self.img_range + mean

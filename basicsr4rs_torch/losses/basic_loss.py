@@ -41,6 +41,12 @@ class _PixelLoss(nn.Module):
         self.loss_weight = loss_weight
         self.reduction = reduction
 
+    @property
+    def SPATIAL_SHARDING(self) -> bool:   # noqa: N802  the flag the models read
+        """Whether the loss runs on bands of rows (``parallel.spatial > 1``):
+        an elementwise mean, whose mean over equal bands is the whole map's."""
+        return self.reduction == 'mean'
+
 
 @LOSS_REGISTRY.register()
 class L1Loss(_PixelLoss):
@@ -73,7 +79,10 @@ class CharbonnierLoss(_PixelLoss):
 class WeightedTVLoss(L1Loss):
     """Total variation as the L1 distance of each pixel to its neighbour
     below and to its right, each term with the matching part of ``weight``
-    when one is given. NCHW; ``reduction`` 'mean' or 'sum'."""
+    when one is given. NCHW; ``reduction`` 'mean' or 'sum'. No spatial
+    route: the difference below a band's last row needs the next band's."""
+
+    SPATIAL_SHARDING = False
 
     def __init__(self, loss_weight: float = 1.0, reduction: str = 'mean'):
         if reduction not in ('mean', 'sum'):

@@ -15,6 +15,14 @@ DDP's reducer (``WRAP_IN_DDP = False``), left bare with rank 0's weights,
 its gradients averaged by ``average_gradients`` before each optimizer
 step. Printing, saving, loading and the EMA go through the bare module, so
 that no key gains ``module.``.
+
+Under ``parallel: {spatial: N > 1}`` the ranks form a (data, spatial) grid
+(``self.grid``): only a model class that declares a spatial route itself
+(``SPATIAL_SHARDING``) builds, only networks that declare one are set up,
+every trained network takes the ``average_gradients`` route over all the
+ranks (no DDP: the halo exchanges of its backward must not interleave with
+DDP's bucket hooks), and ``spatial_shard`` is what its forwards run under
+(``parallel/halo.py``).
 """
 
 from __future__ import annotations
@@ -30,8 +38,9 @@ import torch.distributed as dist
 from torch import nn
 from torch.nn.parallel import DataParallel, DistributedDataParallel
 
-from ..parallel import create_mesh, replicate, sync_statistics
+from ..parallel import opt_grid, replicate, require_spatial_route, sync_statistics
 from ..parallel import average_gradients as _average_gradients
+from ..parallel.halo import make_shard, spatial_scope
 from ..utils.dist_util import broadcast_module, master_only
 from ..utils.logger import get_root_logger
 from . import lr_scheduler, optimizers
@@ -48,6 +57,10 @@ class BaseModel:
     # whose step is otherwise sets False and calls ``average_gradients``
     # before each optimizer step (parallel/mesh.py)
     WRAP_IN_DDP = True
+    # whether this class (itself, not by inheritance: a subclass changes the
+    # step or the validation) trains and validates on bands of rows under
+    # parallel.spatial > 1
+    SPATIAL_SHARDING = False
 
     def __init__(self, opt):
         self.opt = opt
@@ -59,8 +72,16 @@ class BaseModel:
             self.device = torch.device('cuda', torch.cuda.current_device())
         else:
             self.device = torch.device('cuda')
-        if opt.get('dist'):
-            create_mesh(opt, world_size)   # the axes must cover the ranks
+        self.grid = opt_grid(opt)   # under a launcher the axes must cover the ranks
+        self.spatial_shard = None
+        if self.grid.spatial > 1:
+            if not type(self).__dict__.get('SPATIAL_SHARDING', False):
+                raise NotImplementedError(
+                    f'{type(self).__name__} has no spatial route (parallel.spatial > 1 splits '
+                    'each image\'s rows over the ranks; see ROADMAP Queue 1 for the routes still '
+                    'to port)')
+            self.spatial_shard = make_shard(self.grid.data_rank, self.grid.spatial_rank,
+                                            self.grid.spatial)
         self.best_metric_results: Dict[str, Any] = {}
         self.schedulers: List[Any] = []
         self.optimizers: List[torch.optim.Optimizer] = []
@@ -221,20 +242,33 @@ class BaseModel:
         """Whether this model trains on more than one rank."""
         return bool(self.is_train and self.opt.get('dist') and self.opt.get('world_size', 1) > 1)
 
+    def wraps_in_ddp(self) -> bool:
+        """Whether trained networks go into DDP: the class's ``WRAP_IN_DDP``,
+        on the data axis alone (never under ``spatial > 1``)."""
+        return self.WRAP_IN_DDP and self.grid.spatial == 1
+
+    def spatial_scope(self):
+        """The scope a forward on this rank's band runs in (``spatial_shard``;
+        nothing on one band)."""
+        return spatial_scope(self.spatial_shard)
+
     def model_to_device(self, net: nn.Module) -> nn.Module:
         """``net`` on the model's device; for training under a launcher, set
         up for data parallelism: on more than one rank its norms take the
         global batch's statistics (``sync_statistics``); wrapped in
         ``DistributedDataParallel`` with ``find_unused_parameters`` and
         ``broadcast_buffers`` of the config (BasicSR's keys), or, where the
-        class does not wrap (``WRAP_IN_DDP``), rank 0's parameters and
-        buffers broadcast to every rank."""
+        class does not wrap (``wraps_in_ddp``), rank 0's parameters and
+        buffers broadcast to every rank. Under ``spatial > 1`` a network
+        without a spatial route raises ``NotImplementedError`` first."""
+        if self.grid.spatial > 1:
+            require_spatial_route([net])
         net = net.to(self.device)
         if not (self.is_train and self.opt.get('dist')):
             return net
         if self.data_parallel():
             sync_statistics(net)
-        if not self.WRAP_IN_DDP:
+        if not self.wraps_in_ddp():
             broadcast_module(net)
             return net
         return replicate(net, self.device, self.opt.get('find_unused_parameters', False),
@@ -242,10 +276,10 @@ class BaseModel:
 
     def average_gradients(self, *nets: nn.Module) -> None:
         """The global batch's gradients of ``nets``, before their optimizer
-        steps: the mean over the ranks of each gradient where the class
+        steps: the mean over the ranks of each gradient where the model
         does not wrap in DDP (``parallel.average_gradients``); nothing
         under DDP, which averaged them in the backward, or on one rank."""
-        if self.data_parallel() and not self.WRAP_IN_DDP:
+        if self.data_parallel() and not self.wraps_in_ddp():
             _average_gradients(*(self.get_bare_model(net) for net in nets))
 
     @staticmethod

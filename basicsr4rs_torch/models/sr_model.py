@@ -19,6 +19,17 @@ Under a launcher ``net_g`` trains wrapped in ``DistributedDataParallel``;
 everything else (the EMA, evaluation, DropPath's generator, parameter names)
 reads the bare network, and on several ranks validation runs on rank 0 while
 the others wait (the JAX package's ``dist_validation``).
+Under ``parallel: {spatial: N > 1}`` (``BaseModel.grid``) each rank trains on
+its band of the batch's rows (``feed_data``, the JAX ``feed_data``'s
+``batch_spec``), the network runs in the model's ``spatial_scope`` and its
+gradients are averaged over every rank; DropPath draws by data rank, so the
+ranks of a spatial group drop the same paths. The losses must have a spatial
+route (the pixel losses with ``reduction: mean``). Validation strides the
+images over the data ranks; each spatial group shares an image, on bands
+(gathered by ``gather_rows`` before the metrics) when its padded height
+divides into bands of whole ``band_rows_multiple()`` rows, else whole on
+every rank of the group, as the JAX call sites give way to XLA; one sum
+over the ranks merges the metrics.
 """
 
 from __future__ import annotations
@@ -27,14 +38,18 @@ import contextlib
 from collections import OrderedDict
 from os import path as osp
 
+import numpy as np
 import torch
 
 from ..archs import build_network
+from ..data import default_collate
 from ..losses import build_loss
 from ..metrics import calculate_metric
 from ..ops.dcn import DCNv2Pack
 from ..ops.quant import calibrate_act_scales, quantized_inference
-from ..utils.dist_util import barrier
+from ..parallel import gather_rows, require_spatial_route, shard_batch
+from ..parallel.halo import band_of
+from ..utils.dist_util import barrier, sum_across_processes
 from ..utils.img_util import imwrite, tensor2img
 from ..utils.logger import get_root_logger
 from ..utils.registry import MODEL_REGISTRY
@@ -48,6 +63,8 @@ def _flips(x):
 
 @MODEL_REGISTRY.register()
 class SRModel(BaseModel):
+
+    SPATIAL_SHARDING = True
 
     def __init__(self, opt):
         super().__init__(opt)
@@ -71,10 +88,11 @@ class SRModel(BaseModel):
         train_opt = self.opt['train']
         net_g = self.get_bare_model(self.net_g)
         # the network's own random draws (DropPath) come from one generator,
-        # seeded from the experiment's seed (plus the rank: each rank drops
-        # its own rows' paths) and saved with the training state
+        # seeded from the experiment's seed (plus the data rank: each data
+        # rank drops its own rows' paths, the bands of a row the same) and
+        # saved with the training state
         if hasattr(net_g, 'seed_drop_path'):
-            net_g.seed_drop_path((self.opt.get('manual_seed') or 0) + self.opt.get('rank', 0),
+            net_g.seed_drop_path((self.opt.get('manual_seed') or 0) + self.grid.data_rank,
                                  self.device)
 
         self._init_ema()
@@ -99,6 +117,9 @@ class SRModel(BaseModel):
                         if train_opt.get('pixel_opt') else None)
         self.cri_perceptual = (build_loss(train_opt['perceptual_opt']).to(self.device)
                                if train_opt.get('perceptual_opt') else None)
+        if self.grid.spatial > 1:
+            require_spatial_route([c for c in (self.cri_pix, self.cri_perceptual)
+                                   if c is not None], 'loss')
 
     def _init_ema(self):
         """``net_g_ema``, when ``train.ema_decay`` > 0: a second network, used
@@ -140,9 +161,16 @@ class SRModel(BaseModel):
         self.optimizers.append(self.optimizer_g)
 
     def feed_data(self, data):
-        self.lq = data['lq'].to(self.device, non_blocking=True)
-        if 'gt' in data:
-            self.gt = data['gt'].to(self.device, non_blocking=True)
+        """The batch on the device; under ``spatial > 1`` this rank's band
+        of its rows."""
+        self._feed(data, bands=self.grid.spatial > 1)
+
+    def _feed(self, data, bands):
+        batch = shard_batch({k: data[k] for k in ('lq', 'gt') if k in data}, self.device,
+                            spatial_sharded=bands, grid=self.grid)
+        self.lq = batch['lq']
+        if 'gt' in batch:
+            self.gt = batch['gt']
 
     def loss_targets(self):
         """(pixel, perceptual, GAN) targets of the training losses: the GT
@@ -170,7 +198,8 @@ class SRModel(BaseModel):
 
     def optimize_parameters(self, current_iter):
         self.optimizer_g.zero_grad(set_to_none=True)
-        self.output = self.net_g(self.lq)
+        with self.spatial_scope():
+            self.output = self.net_g(self.lq)
         loss_dict = OrderedDict()
         pix_gt, percep_gt, _ = self.loss_targets()
         self.pixel_and_perceptual_losses(self.output, pix_gt, loss_dict,
@@ -198,7 +227,8 @@ class SRModel(BaseModel):
     def _quant_scope(self, net, x):
         """The W8A8 scope ``val.quant_int8`` asks for, or none. 'static'
         calibrates the activation scales on the first evaluation batch, in
-        full precision, and keeps them."""
+        full precision, and keeps them; on a band (under the spatial scope)
+        each scale is the whole map's (``ops/quant.py``)."""
         quant = (self.opt.get('val') or {}).get('quant_int8')
         if not quant:
             return contextlib.nullcontext()
@@ -209,13 +239,29 @@ class SRModel(BaseModel):
             scales = self._quant_scales
         return quantized_inference(net, act_scales=scales)
 
+    def band_rows_multiple(self) -> int:
+        """Rows a band of an evaluation input must hold a whole number of
+        (the network's window where it has one)."""
+        return 1
+
+    def _eval_on_bands(self, x) -> bool:
+        """Whether an evaluation forward of the whole input x runs on this
+        rank's band: under ``spatial > 1``, when x's rows split into bands
+        of whole ``band_rows_multiple()`` rows."""
+        shard = self.spatial_shard
+        return shard is not None and x.shape[2] % (shard.size * self.band_rows_multiple()) == 0
+
     def _eval_forward(self, x):
         net = self._test_net()
         was_training = net.training
         net.eval()
+        shard = self.spatial_shard if self._eval_on_bands(x) else None
         try:
-            with torch.inference_mode(), self._quant_scope(net, x):
-                return net(x)
+            with torch.inference_mode(), (contextlib.nullcontext() if shard is None
+                                          else self.spatial_scope()):
+                x = band_of(x, shard)
+                with self._quant_scope(net, x):
+                    return gather_rows(net(x), shard)
         finally:
             net.train(was_training)
 
@@ -282,13 +328,32 @@ class SRModel(BaseModel):
 
     def dist_validation(self, dataloader, current_iter, tb_logger, save_img):
         """Rank 0 validates; the others wait for it, so that no collective
-        of the next step times out behind a long validation."""
+        of the next step times out behind a long validation. Under
+        ``spatial > 1`` the data ranks stride the images, each spatial group
+        runs its images together and its first rank records them; one sum
+        over the ranks merges the metrics."""
+        if self.grid.spatial > 1:
+            dataset = dataloader.dataset
+            grid = self.grid
+            items = (default_collate([dataset[i]])
+                     for i in range(grid.data_rank, len(dataset), grid.data))
+            self._validate(items, dataset.opt['name'], current_iter, tb_logger, save_img,
+                           record=grid.spatial_rank == 0, merge=True,
+                           feed=lambda data: self._feed(data, bands=False))
+            return
         if self.opt['rank'] == 0:
             self.nondist_validation(dataloader, current_iter, tb_logger, save_img)
         barrier()
 
     def nondist_validation(self, dataloader, current_iter, tb_logger, save_img):
-        dataset_name = dataloader.dataset.opt['name']
+        self._validate(dataloader, dataloader.dataset.opt['name'], current_iter, tb_logger,
+                       save_img)
+
+    def _validate(self, items, dataset_name, current_iter, tb_logger, save_img, record=True,
+                  merge=False, feed=None):
+        """Each item: fed (by ``feed``, else ``feed_data``), forward, image,
+        metrics (scored and saved only where ``record``); then the averages,
+        from the sums of every rank when ``merge``."""
         val_opt = self.opt['val']
         with_metrics = val_opt.get('metrics') is not None
         if with_metrics:
@@ -296,13 +361,16 @@ class SRModel(BaseModel):
             self._initialize_best_metric_results(dataset_name)
 
         cnt = 0
-        for val_data in dataloader:
+        for val_data in items:
             img_name = osp.splitext(osp.basename(val_data['lq_path'][0]))[0]
-            self.feed_data(val_data)
+            (feed or self.feed_data)(val_data)
             if val_opt.get('selfensemble_testing', False):
                 self.test_selfensemble()
             else:
                 self.test()
+            if not record:
+                self.__dict__.pop('gt', None)
+                continue
 
             visuals = self.get_current_visuals()
             metric_data = {'img': tensor2img(visuals['result'])}
@@ -330,6 +398,11 @@ class SRModel(BaseModel):
                         device_data if on_device else metric_data, opt_)
             cnt += 1
 
+        if with_metrics and merge:
+            names = list(self.metric_results)
+            sums = sum_across_processes(np.array([float(self.metric_results[m]) for m in names]
+                                                 + [cnt], np.float64))
+            self.metric_results, cnt = dict(zip(names, sums[:-1].tolist())), int(sums[-1])
         if with_metrics and cnt > 0:
             for metric in self.metric_results:
                 self.metric_results[metric] /= cnt

@@ -1,5 +1,6 @@
 """SwinIRModel: reflect-pads the LQ to a multiple of the window before the
-forward and crops the output back (counterpart of
+forward and crops the output back, on bands of whole window rows under
+``parallel: {spatial: N}`` where the padded height allows it (counterpart of
 ``basicsr4rs_tpu/models/swinir_model.py``; reference:
 basicsr/models/swinir_model.py), and its remote-sensing variants, which
 compose that padded test with the SRRS behaviours (CSV metrics, [-1, 1]
@@ -32,6 +33,12 @@ def pad_to_multiple(x: torch.Tensor, multiple: int) -> torch.Tensor:
 
 @MODEL_REGISTRY.register()
 class SwinIRModel(SRModel):
+
+    SPATIAL_SHARDING = True
+
+    def band_rows_multiple(self) -> int:
+        """A band of the padded LQ holds whole window rows."""
+        return self.opt['network_g'].get('window_size', 8)
 
     def test(self):
         window_size = self.opt['network_g'].get('window_size', 8)

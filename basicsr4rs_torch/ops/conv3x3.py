@@ -26,6 +26,10 @@ the sign of the saved output when ``act_slope`` is set (a leaky-ReLU with a
 positive slope keeps the sign) and the residual's gradient equal to that
 gated cotangent. ``fused_conv3x3.launches`` counts the kernel's launches.
 The forward is the operator ``basicsr4rs::conv3x3_fwd`` (``ops/library.py``).
+On a band of rows (``parallel: {spatial: N}``, ``parallel/halo.py``) the
+archs do not call it: their 3x3 convolutions take halo rows and run
+PyTorch's convolution (``archs/arch_util.halo_conv``), as the JAX kernel
+gives way to XLA on a spatial mesh.
 """
 
 from __future__ import annotations

@@ -30,6 +30,13 @@ The integer product is exact on both devices: float64 on the CPU, where
 every partial sum is an integer below 2^53, and im2col + ``torch._int_mm``
 (int8 x int8 -> int32) on a card. No float32 or TF32 convolution touches it.
 
+On a band of rows (``parallel: {spatial: N}``) the archs hand a rewritten
+convolution the band with its halo rows and the padding of the rows taken
+off (``archs/arch_util.halo_conv``, ``int8_forward_of``); a dynamic scale,
+and a calibrated absmax, is then the maximum over every band
+(``parallel/halo.max_over_bands``), the whole map's, as the JAX package's
+per-tensor absmax of the sharded map is.
+
 ``swin_kernels=True`` also switches SwinIR's joint block to its W8A8 kernel
 (``ops.swin_block.fused_swin_block_full(..., quant_int8=True)``), which the
 arch asks through ``swin_kernels_int8()``.
@@ -44,6 +51,8 @@ from typing import Callable, Dict, Iterable, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.halo import max_over_bands
 
 _QMAX = 127.0
 _MISSING = object()
@@ -143,20 +152,45 @@ def conv_eligible(module: nn.Module, min_channels: int) -> bool:
     return _canonical_padding(module) is not None
 
 
-def _int8_forward(conv: nn.Conv2d, name: str, original: Callable, act_scales, record, x):
+def _int8_forward(conv: nn.Conv2d, name: str, original: Callable, act_scales, record, x,
+                  padding=None):
+    """The rewritten forward. ``padding``: a band with its halo rows
+    (``halo_conv``), convolved with this (rows, columns) padding in place of
+    the convolution's own, its absmax the whole map's."""
     if x.dim() != 4:
         return original(x)
+
+    def unquantised():
+        if padding is None:
+            return original(x)
+        return F.conv2d(x, conv.weight, conv.bias, conv.stride, padding)
+
+    def absmax():
+        amax = x.float().abs().amax()
+        return amax if padding is None else max_over_bands(amax)
+
     if record is not None:      # calibration: keep the absmax, run in full precision
-        record[name] = max(record.get(name, 0.0), float(x.float().abs().amax()))
-        return original(x)
+        record[name] = max(record.get(name, 0.0), float(absmax()))
+        return unquantised()
     act_scale = None
     if act_scales is not None:
         amax = act_scales.get(name)
         if amax is None:        # a site the calibration did not see
-            return original(x)
+            return unquantised()
         act_scale = max(amax, 1e-12) / _QMAX
-    return int8_conv2d(x, conv.weight, conv.bias, conv.stride, _canonical_padding(conv),
-                       act_scale)
+    elif padding is not None:
+        act_scale = absmax().clamp_min(1e-12) / _QMAX
+    return int8_conv2d(x, conv.weight, conv.bias, conv.stride,
+                       _canonical_padding(conv) if padding is None else padding, act_scale)
+
+
+def int8_forward_of(conv: nn.Module) -> Optional[Callable]:
+    """The forward a ``quantized_inference`` or calibration scope put on
+    ``conv`` (it takes ``padding=``), or None."""
+    forward = conv.__dict__.get('forward')
+    if isinstance(forward, functools.partial) and forward.func is _int8_forward:
+        return forward
+    return None
 
 
 @contextlib.contextmanager

@@ -10,6 +10,9 @@ cards, one rank each: ``python -m torch.distributed.run --standalone
 --nproc_per_node N -m basicsr4rs_torch.train -opt <yml> --launcher pytorch``.
 Every rank takes the same steps, checkpoints and validations; rank 0 alone
 makes the folders, copies the option file and writes the logs and files.
+With ``parallel: {spatial: N}`` the ranks form a (data, spatial) grid: the
+N ranks of a spatial group load the same items (the sampler and the crops
+by data rank) and each trains on its band of their rows.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 from basicsr4rs_torch.data import (CPUPrefetcher, CUDAPrefetcher, EnlargedSampler,
                                    build_dataloader, build_dataset)
 from basicsr4rs_torch.models import build_model
+from basicsr4rs_torch.parallel import opt_grid
 from basicsr4rs_torch.utils import (AvgTimer, MessageLogger, check_resume, copy_opt_file, dict2str,
                                     find_latest_checkpoint_iter, get_env_info, get_root_logger,
                                     get_time_str, init_tb_logger, init_wandb_logger, make_exp_dirs)
@@ -51,20 +55,30 @@ def create_train_val_dataloader(opt, logger):
     for phase, dataset_opt in opt['datasets'].items():
         if phase == 'train':
             dataset_enlarge_ratio = dataset_opt.get('dataset_enlarge_ratio', 1)
-            # each rank crops and flips from its own seed
-            dataset_opt.setdefault('manual_seed', opt['manual_seed'] + opt['rank'])
+            # each data rank crops and flips from its own seed and takes its
+            # own stride of the items; the ranks of a spatial group load the
+            # same rows (each then keeps its band)
+            grid = opt_grid(opt)
+            dataset_opt.setdefault('manual_seed', opt['manual_seed'] + grid.data_rank)
+            if grid.spatial > 1 and dataset_opt.get('num_worker_per_gpu', 0) > 0:
+                # the dataset draws from one generator, and worker threads
+                # would take its draws in an order of their own on each rank
+                logger.warning('parallel.spatial > 1: the train loader runs without worker '
+                               'threads, so that the ranks of a spatial group draw the same '
+                               'crops and flips')
+                dataset_opt['num_worker_per_gpu'] = 0
             train_set = build_dataset(dataset_opt)
-            train_sampler = EnlargedSampler(len(train_set), opt['world_size'], opt['rank'],
+            train_sampler = EnlargedSampler(len(train_set), grid.data, grid.data_rank,
                                             dataset_enlarge_ratio)
             train_loader = build_dataloader(train_set, dataset_opt, num_gpu=opt['num_gpu'],
                                             dist=opt['dist'], sampler=train_sampler,
-                                            seed=opt['manual_seed'] + opt['rank'])
-            global_batch = train_loader.batch_size * opt['world_size']
+                                            seed=opt['manual_seed'] + grid.data_rank)
+            global_batch = train_loader.batch_size * grid.data
             if len(train_loader) == 0:
                 raise ValueError(
                     f'Train dataloader is empty: {len(train_set)} images x enlarge '
                     f'{dataset_enlarge_ratio} < global batch {global_batch} '
-                    '(batch_size_per_gpu x num_gpu x world_size) with drop_last. Increase '
+                    '(batch_size_per_gpu x num_gpu x data ranks) with drop_last. Increase '
                     'dataset_enlarge_ratio or reduce the batch size.')
             num_iter_per_epoch = math.ceil(
                 len(train_set) * dataset_enlarge_ratio / global_batch)
@@ -75,6 +89,7 @@ def create_train_val_dataloader(opt, logger):
                         f'\n\tDataset enlarge ratio: {dataset_enlarge_ratio}'
                         f'\n\tBatch size per gpu: {dataset_opt["batch_size_per_gpu"]}'
                         f'\n\tWorld size (process count): {opt["world_size"]}'
+                        f'\n\tParallel axes (data, spatial): {(grid.data, grid.spatial)}'
                         f'\n\tRequire iter number per epoch: {num_iter_per_epoch}'
                         f'\n\tTotal epochs: {total_epochs}; iters: {total_iters}.')
         elif phase.split('_')[0] == 'val':

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 import yaml
 
+from ..parallel.mesh import opt_grid
 from .dist_util import TORCHRUN, get_dist_info, init_dist, master_only
 
 
@@ -188,7 +189,8 @@ def parse_options(root_path: str, is_train: bool = False,
         if world_size > 1:   # one seed for every rank: rank 0's
             torch.distributed.broadcast_object_list(seed, src=0)
         seed = opt['manual_seed'] = seed[0]
-    set_random_seed(seed + rank)
+    # each data rank its own stream; the ranks of a spatial group share one
+    set_random_seed(seed + opt_grid(opt).data_rank)
 
     opt['auto_resume'] = getattr(args, 'auto_resume', False)
     opt['is_train'] = is_train

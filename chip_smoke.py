@@ -1635,21 +1635,28 @@ def smooth_image(rng, h, w):
     return (np.clip(img, 0, 1) * 255).round().astype(np.uint8)
 
 
-def write_train_inputs():
-    """Synthetic GT/LQ pairs for training (8 of GT 256x256, two batches of 4
-    at GT patch 192) and one validation pair (LQ 64x64)."""
+def write_pairs(root, seed, sets):
+    """Smooth GT images and their bicubic x``SCALE`` LQ under ``root``: for
+    each of ``sets`` (GT folder, LQ folder, count, GT size), from one
+    ``RandomState(seed)``."""
     import cv2
     import numpy as np
-    rng = np.random.RandomState(1)
-    sets = [('GT', 'LQ', TRAIN_IMAGES, TRAIN_GT_SIZE), ('val_GT', 'val_LQ', 1, SCALE * VAL_LQ_SIZE)]
+    rng = np.random.RandomState(seed)
     for gt_dir, lq_dir, count, size in sets:
         for sub in (gt_dir, lq_dir):
-            os.makedirs(os.path.join(TRAIN_DATA_DIR, sub), exist_ok=True)
+            os.makedirs(os.path.join(root, sub), exist_ok=True)
         for i in range(count):
             gt = smooth_image(rng, size, size)
             lq = cv2.resize(gt, (size // SCALE, size // SCALE), interpolation=cv2.INTER_CUBIC)
-            cv2.imwrite(os.path.join(TRAIN_DATA_DIR, gt_dir, f'{i:04d}.png'), gt)
-            cv2.imwrite(os.path.join(TRAIN_DATA_DIR, lq_dir, f'{i:04d}.png'), lq)
+            cv2.imwrite(os.path.join(root, gt_dir, f'{i:04d}.png'), gt)
+            cv2.imwrite(os.path.join(root, lq_dir, f'{i:04d}.png'), lq)
+
+
+def write_train_inputs():
+    """Synthetic GT/LQ pairs for training (8 of GT 256x256, two batches of 4
+    at GT patch 192) and one validation pair (LQ 64x64)."""
+    write_pairs(TRAIN_DATA_DIR, 1, [('GT', 'LQ', TRAIN_IMAGES, TRAIN_GT_SIZE),
+                                    ('val_GT', 'val_LQ', 1, SCALE * VAL_LQ_SIZE)])
 
 
 def training_kernels():
@@ -1662,11 +1669,13 @@ def training_kernels():
 
 
 def run_train_pipeline(extra_args, record, config=None, model_cls=None, loss_key='l_pix',
-                       wrappers=None, before_first_step=None, after_step=None):
+                       wrappers=None, before_first_step=None, after_step=None,
+                       record_tests=False):
     """``basicsr4rs_torch.train.train_pipeline`` on a synthetic config, with
     every optimization step of ``model_cls`` timed by CUDA events and its
     loss and launch counts recorded; ``after_step(model, step record)`` may
-    add to the step's record."""
+    add to the step's record; with ``record_tests`` each ``test()`` of the
+    model (a validation image) is recorded too (``recorded_tests``)."""
     import basicsr4rs_torch.train as entry
     from basicsr4rs_torch.models.swinir_model import SwinIRModel
     config = config or TRAIN_CONFIG
@@ -1694,10 +1703,60 @@ def run_train_pipeline(extra_args, record, config=None, model_cls=None, loss_key
     argv = sys.argv
     sys.argv = ['basicsr4rs_torch.train', '-opt', config] + extra_args
     try:
-        with mock.patch.object(model_cls, 'optimize_parameters', timed_step):
+        with contextlib.ExitStack() as patches:
+            patches.enter_context(mock.patch.object(model_cls, 'optimize_parameters', timed_step))
+            if record_tests:
+                for patch in recorded_tests(model_cls, record, wrappers):
+                    patches.enter_context(patch)
             return entry.train_pipeline(ROOT)
     finally:
         sys.argv = argv
+
+
+def recorded_tests(model_cls, record, wrappers):
+    """Patches of ``model_cls`` (an ``SRModel``) under which each ``test()``
+    goes into ``record['tests']``: its time by CUDA events, its launches, the
+    peak memory above its start, whether each forward ran on bands, its
+    output on the host."""
+    test, forward, bands = model_cls.test, model_cls._eval_forward, []
+    record.setdefault('tests', [])
+
+    def recorded_forward(model, x):
+        bands.append(model._eval_on_bands(x))
+        return forward(model, x)
+
+    def timed_test(model):
+        before = {k: w.launches for k, w in wrappers.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        test(model)
+        end.record()
+        torch.cuda.synchronize()
+        record['tests'].append({
+            'ms': start.elapsed_time(end), 'on_bands': bands[:],
+            'launches': {k: w.launches - before[k] for k, w in wrappers.items()},
+            'peak_mib': (torch.cuda.max_memory_allocated() - base) / 2**20,
+            'output': model.output.cpu()})
+        bands.clear()
+
+    return [mock.patch.object(model_cls, 'test', timed_test),
+            mock.patch.object(model_cls, '_eval_forward', recorded_forward)]
+
+
+def model_class(config):
+    """The model class that a training config names."""
+    import basicsr4rs_torch.models  # noqa: F401  registers every model class
+    from basicsr4rs_torch.utils.options import yaml_load
+    from basicsr4rs_torch.utils.registry import MODEL_REGISTRY
+    return MODEL_REGISTRY.get(yaml_load(config)['model_type'])
+
+
+def lq_rows(model, step):
+    """``after_step``: the LQ rows the step trained on."""
+    step['lq_rows'] = model.lq.shape[2]
 
 
 def fresh_run(opt, wrappers):
@@ -1871,16 +1930,18 @@ DIST_TIMEOUT = 600   # seconds from a launcher's start to its last rank's end
 
 
 def dist_rank(job_file):
-    """One rank of phase 63, 64 or 65, started by torchrun: ``basicsr4rs_torch.
+    """One rank of phase 63, 64, 65 or 72, started by torchrun: ``basicsr4rs_torch.
     train``'s pipeline with each command line of the job in turn (the code
     path of ``python -m basicsr4rs_torch.train -opt <yml> --launcher
     pytorch``; a second line with ``--auto_resume`` resumes in the same
     process), every step timed by CUDA events with its kernel launches, the
     launches of each run in all, and every warning; or phase 65's model
-    jobs (``models``, ``dist_models_rank``); written as JSON for the
-    parent. A job with ``after`` trains once that file exists (the card's
-    other phase has ended); rank 0 of a job with ``done`` writes that file at
-    its end."""
+    jobs (``models``, ``dist_models_rank``); written as JSON for the parent.
+    ``configs`` gives each command line its own config (else ``config``);
+    with ``record_tests`` each validation image's record goes with its run
+    and its outputs to ``<out>.run<i>.rank<r>.val.pt``. A job with ``after``
+    trains once that file exists (the card's other phase has ended); rank 0
+    of a job with ``done`` writes that file at its end."""
     import warnings
 
     import torch._dynamo  # noqa: F401  the first DDP's imports, done while
@@ -1901,14 +1962,24 @@ def dist_rank(job_file):
             warnings.simplefilter('always')
             if job.get('models'):   # phase 65
                 runs = dist_models_rank(job)
-            for argv in job['argv'] or []:
+            argvs = job['argv'] or []
+            for config, argv in zip(job.get('configs') or [job['config']] * len(argvs), argvs):
                 record = {'steps': []}
                 for wr in wrappers.values():
                     wr.launches = 0
-                model = run_train_pipeline(argv, record, config=job['config'],
-                                           before_first_step=lambda *_: None)
+                model = run_train_pipeline(argv, record, config=config,
+                                           model_cls=model_class(config),
+                                           before_first_step=lambda *_: None,
+                                           after_step=lq_rows,
+                                           record_tests=job.get('record_tests', False))
                 torch.cuda.synchronize()
-                runs.append({'steps': record['steps'],
+                tests = record.get('tests', [])
+                if tests:
+                    torch.save([t.pop('output') for t in tests],
+                               f'{job["out"]}.run{len(runs)}.rank{get_dist_info()[0]}.val.pt')
+                runs.append({'steps': record['steps'], 'tests': tests,
+                             'metrics': {k: float(v) for k, v in
+                                         getattr(model, 'metric_results', {}).items()},
                              'launches': {k: wr.launches for k, wr in wrappers.items()},
                              'net': type(model.net_g).__name__, 'device': str(model.device)})
         rank, world_size = get_dist_info()
@@ -1922,17 +1993,18 @@ def dist_rank(job_file):
         close_dist()
 
 
-def start_torchrun(nproc, config, argv, out, after=None, done=None, models=None):
+def start_torchrun(nproc, config, argv, out, after=None, done=None, models=None,
+                   configs=None, record_tests=False):
     """``chip_smoke.py rank`` on ``nproc`` ranks under ``torchrun
     --standalone`` (a free port) in a session of its own, each running the
     pipeline with the command lines ``argv``, or phase 65's ``models``
-    (``after``, ``done``: see ``dist_rank``). Returns what
-    ``finish_torchrun`` takes."""
+    (``after``, ``done``, ``configs``, ``record_tests``: see ``dist_rank``).
+    Returns what ``finish_torchrun`` takes."""
     os.makedirs(DIST_DIR, exist_ok=True)
     job_file = f'{out}.job.json'
     with open(job_file, 'w') as f:
         json.dump({'config': config, 'argv': argv, 'out': out, 'after': after, 'done': done,
-                   'models': models}, f)
+                   'models': models, 'configs': configs, 'record_tests': record_tests}, f)
     for rank in range(nproc):
         if os.path.exists(f'{out}.rank{rank}.json'):
             os.remove(f'{out}.rank{rank}.json')
@@ -2049,17 +2121,7 @@ def dist_one_rank(ranks, wall, split_step_ms, card):
 def write_dist_inputs():
     """8 GT 192x192 / LQ 48x48 pairs for phase 64 (the crop is the whole GT:
     no random draw touches the data) and one validation pair."""
-    import cv2
-    import numpy as np
-    rng = np.random.RandomState(5)
-    for gt_dir, lq_dir, count, size in (('GT', 'LQ', 8, 192), ('val_GT', 'val_LQ', 1, 256)):
-        for sub in (gt_dir, lq_dir):
-            os.makedirs(os.path.join(DIST_DATA_DIR, sub), exist_ok=True)
-        for i in range(count):
-            gt = smooth_image(rng, size, size)
-            lq = cv2.resize(gt, (size // SCALE, size // SCALE), interpolation=cv2.INTER_CUBIC)
-            cv2.imwrite(os.path.join(DIST_DATA_DIR, gt_dir, f'{i:04d}.png'), gt)
-            cv2.imwrite(os.path.join(DIST_DATA_DIR, lq_dir, f'{i:04d}.png'), lq)
+    write_pairs(DIST_DATA_DIR, 5, [('GT', 'LQ', 8, 192), ('val_GT', 'val_LQ', 1, 256)])
 
 
 def dist_config(name, rows, init):
@@ -2107,6 +2169,32 @@ def two_ranks_inputs():
             dist_config('chip_smoke_dist_one_process', 2 * DIST_ROWS, init))
 
 
+def params_agree(name, who, got, want, start):
+    """Weights after the steps (``got``: of several ranks) against the one
+    process's (``want``), both from ``start``: each entry within
+    ``F32_TOL``, and the steps taken within ``F32_SUM_TOL`` of the largest
+    step (K3's and K5's atomic sums). Returns the largest step."""
+    atol, rtol = F32_TOL
+    step_err = step_max = param_err = 0.
+    elementwise = True
+    for key, value in got.items():
+        if not value.is_floating_point() or key not in start:
+            continue
+        moved_got, moved_want = value - start[key], want[key] - start[key]
+        step_err = max(step_err, (moved_got - moved_want).abs().max().item())
+        step_max = max(step_max, moved_want.abs().max().item())
+        diff = (value - want[key]).abs()
+        param_err = max(param_err, diff.max().item())
+        elementwise &= bool((diff <= atol + rtol * want[key].abs()).all())
+    print(f'{name}: largest parameter difference {param_err:.3e} (F32_TOL elementwise: '
+          f'{"held" if elementwise else "BROKEN"}); the steps taken differ by {step_err:.3e} of '
+          f'a largest step {step_max:.3e} ({step_err / max(step_max, 1e-30):.2e} of it; '
+          f'F32_SUM_TOL {F32_SUM_TOL})')
+    if not (elementwise and step_max > 0 and step_err <= F32_SUM_TOL * step_max):
+        fail(f'{name}: {who} do not train as one process at the global batch')
+    return step_max
+
+
 def dist_two_ranks(ranks, wall, init, one, card):
     """Phase 64: two ranks on the one card over gloo against one process at
     the global batch, from one ``.pth`` on the same items: the parameters
@@ -2142,27 +2230,11 @@ def dist_two_ranks(ranks, wall, init, one, card):
                      map_location='cpu', weights_only=True)
     want = torch.load(os.path.join('experiments', 'chip_smoke_dist_one_process', 'models', pth),
                       map_location='cpu', weights_only=True)
-    atol, rtol = F32_TOL
     for key in ('params', 'params_ema'):
         if got[key].keys() != want[key].keys() or any(k.startswith('module.') for k in got[key]):
             fail(f'{key}: the two ranks saved other keys than one process')
-    step_err = step_max = param_err = 0.
-    elementwise = True
-    for name, value in got['params'].items():
-        if not value.is_floating_point() or name not in start:
-            continue
-        moved_got, moved_want = value - start[name], want['params'][name] - start[name]
-        step_err = max(step_err, (moved_got - moved_want).abs().max().item())
-        step_max = max(step_max, moved_want.abs().max().item())
-        diff = (value - want['params'][name]).abs()
-        param_err = max(param_err, diff.max().item())
-        elementwise &= bool((diff <= atol + rtol * want['params'][name].abs()).all())
-    print(f'params after {DIST_STEPS} steps: largest parameter difference {param_err:.3e} '
-          f'(F32_TOL elementwise: {"held" if elementwise else "BROKEN"}); the steps taken '
-          f'differ by {step_err:.3e} of a largest step {step_max:.3e} '
-          f'({step_err / step_max:.2e} of it; F32_SUM_TOL {F32_SUM_TOL})')
-    if not (elementwise and step_max > 0 and step_err <= F32_SUM_TOL * step_max):
-        fail('params: the two ranks do not train as one process at the global batch')
+    step_max = params_agree(f'params after {DIST_STEPS} steps', 'the two ranks',
+                            got['params'], want['params'], start)
     # The EMA moves by (1 - decay) of a step, about a thousandth: below the
     # step rule's reach at float32's resolution of the weights. Each of its
     # two updates rounds to the weight's ulp, and the parameters it averages
@@ -2611,6 +2683,210 @@ def dist_paths(launches, split_step_ms, card):
         launches[name] = launches.get(name, 0) + count
     print(f'phase 65: {time.perf_counter() - t1:.1f} s after phase 64 (its ranks\' set-up '
           f'overlapped 63 and 64); phases 63 to 65: {time.perf_counter() - t0:.1f} s')
+
+
+# ------------------------------------------------------- the spatial axis
+# phase 72: basicsr4rs_torch.train under torchrun --launcher pytorch with
+# parallel: {data: 1, spatial: 2}, on two gloo ranks sharing the card,
+# against the same pipeline in one process: SwinIR-M x4 3 SGD steps at B=4,
+# GT 256 (LQ bands of 32 rows, four window rows) through the CUDA
+# prefetcher, MSRResNet x4 one step at its config's batch and GT; each then
+# validates one LQ tile of 256x256 (bands of 128 rows)
+SPATIAL_STEPS, SPATIAL_BATCH, SPATIAL_GT, SPATIAL_EVAL_LQ = 3, 4, 256, 256
+SPATIAL_TRAIN_IMAGES = 16   # the larger of SwinIR's 3 x 4 and MSRResNet's batch
+SPATIAL_OUT = os.path.join(DIST_DIR, 'spatial')
+SPATIAL_DATA_DIR = 'datasets/spatial_x4'
+
+
+def spatial_specs():
+    """Phase 72's two models: name, config, steps, batch, GT size, SGD's
+    rate and the prefetcher."""
+    from basicsr4rs_torch.utils.options import yaml_load
+    ms = yaml_load(MS_TRAIN_CONFIG)['datasets']['train']
+    # MSRResNet's convolutions start at a tenth of the Kaiming scale: at
+    # phase 64's rate its largest step (9e-6) is near the float32 resolution
+    # of its weights, which the step rule would read as disagreement
+    return [{'name': 'swinir', 'config': TRAIN_CONFIG, 'steps': SPATIAL_STEPS,
+             'batch': SPATIAL_BATCH, 'gt': SPATIAL_GT, 'lr': DIST_LR, 'prefetch': 'cuda'},
+            {'name': 'msrresnet', 'config': MS_TRAIN_CONFIG, 'steps': 1,
+             'batch': ms['batch_size_per_gpu'], 'gt': ms['gt_size'], 'lr': 1., 'prefetch': None}]
+
+
+def spatial_config(spec, init, parallel):
+    """A phase 72 training config: the spec's file on phase 72's data, from
+    ``init``, SGD at a constant rate for the spec's steps with a checkpoint
+    after them, one validation after the loop, and ``parallel`` where given
+    (the ranks over gloo); the one process's loader without threads, so
+    that its draws come in the ranks' order (``train.py`` runs a spatial
+    group's loader without threads)."""
+    import yaml
+
+    from basicsr4rs_torch.utils.options import yaml_load
+    opt = json.loads(json.dumps(yaml_load(spec['config'])))
+    opt['name'] = f'chip_smoke_spatial_{spec["name"]}_{"two_ranks" if parallel else "one_process"}'
+    opt['dist_params'] = {'backend': 'gloo'}
+    opt['datasets']['train'].update(
+        dataroot_gt=f'{SPATIAL_DATA_DIR}/GT', dataroot_lq=f'{SPATIAL_DATA_DIR}/LQ',
+        gt_size=spec['gt'], batch_size_per_gpu=spec['batch'], prefetch_mode=spec['prefetch'])
+    if not parallel:
+        opt['datasets']['train']['num_worker_per_gpu'] = 0
+    opt['datasets']['val'].update(dataroot_gt=f'{SPATIAL_DATA_DIR}/val_GT',
+                                  dataroot_lq=f'{SPATIAL_DATA_DIR}/val_LQ')
+    opt['path'].update(pretrain_network_g=init)
+    opt['train'].update(total_iter=spec['steps'], optim_g={'type': 'SGD', 'lr': spec['lr']},
+                        scheduler={'type': 'ConstantLR'})
+    opt['val']['val_freq'] = 1000
+    opt['logger']['save_checkpoint_freq'] = spec['steps']
+    if parallel:
+        opt['parallel'] = parallel
+    path = os.path.join(DIST_DIR, f'{opt["name"]}.yml')
+    with open(path, 'w') as f:
+        yaml.safe_dump(opt, f, sort_keys=False)
+    shutil.rmtree(os.path.join('experiments', opt['name']), ignore_errors=True)
+    return path
+
+
+def spatial_inputs():
+    """Phase 72's data (16 GT 256x256 pairs: SwinIR's crop is the whole GT,
+    MSRResNet's a draw; one validation pair of LQ 256x256), each model's
+    init ``.pth`` (from a seed) and its two configs; the specs with their
+    paths."""
+    from basicsr4rs_torch.archs import build_network
+    from basicsr4rs_torch.utils.options import yaml_load
+    os.makedirs(DIST_DIR, exist_ok=True)
+    write_pairs(SPATIAL_DATA_DIR, 72, [('GT', 'LQ', SPATIAL_TRAIN_IMAGES, SPATIAL_GT),
+                                       ('val_GT', 'val_LQ', 1, SCALE * SPATIAL_EVAL_LQ)])
+    specs = spatial_specs()
+    for spec in specs:
+        torch.manual_seed(9)
+        spec['init'] = f'{SPATIAL_OUT}.{spec["name"]}.init.pth'
+        net = build_network(dict(yaml_load(spec['config'])['network_g']))
+        torch.save({'params': net.state_dict()}, spec['init'])
+        spec['two'] = spatial_config(spec, spec['init'], {'data': 1, 'spatial': 2})
+        spec['one'] = spatial_config(spec, spec['init'], None)
+    return specs
+
+
+def check_spatial_run(name, who, run, spec, blocks, rows):
+    """A phase 72 run of one side: the bare network on cuda:0, its steps
+    (K2 to K5 a block each, on ``rows`` LQ rows), one validation image (K1 a
+    block)."""
+    check_dist_steps(run['steps'], range(1, spec['steps'] + 1), blocks, f'{name} {who}')
+    if run['net'] in ('DistributedDataParallel', 'DataParallel') or run['device'] != 'cuda:0':
+        fail(f'{name} {who} trained {run["net"]} on {run["device"]}')
+    if [st['lq_rows'] for st in run['steps']] != [rows] * spec['steps']:
+        fail(f'{name} {who}: trained on {[st["lq_rows"] for st in run["steps"]]} LQ rows, '
+             f'expected {rows} a step')
+    if len(run['tests']) != 1 or run['tests'][0]['launches']['swin_block_joint_fwd'] != blocks:
+        fail(f'{name} {who}: {len(run["tests"])} validation images, launches '
+             f'{[t["launches"] for t in run["tests"]]}; expected one of {blocks} K1 launches')
+
+
+def spatial_paths(ranks, wall, specs, card):
+    """Phase 72: each model's pipeline on the two ranks against one process,
+    from one ``.pth`` on the same items: steps, losses, the checkpoint's
+    parameters, the validation's gathered output and metric; K1 to K5's
+    launches of both sides."""
+    phase('72. the spatial axis: basicsr4rs_torch.train --launcher pytorch with parallel: {data: '
+          '1, spatial: 2} on two gloo ranks sharing the card, against one process: SwinIR-M x4 '
+          f'{SPATIAL_STEPS} SGD steps (B={SPATIAL_BATCH}, GT {SPATIAL_GT}: LQ bands of '
+          f'{SPATIAL_GT // SCALE // 2} rows), MSRResNet x4 one step, each then a validation of '
+          f'an LQ tile of {SPATIAL_EVAL_LQ}x{SPATIAL_EVAL_LQ}')
+    from basicsr4rs_torch.utils.options import yaml_load
+    t0 = time.perf_counter()
+    print(f'torchrun wall time {wall:.3f} s from its start (two processes on cuda:0, gloo; the '
+          'halos staged through the host)')
+    launches = collections.Counter()
+    atol, rtol = F32_TOL
+    for i, spec in enumerate(specs):
+        name = spec['name']
+        net_opt = yaml_load(spec['config'])['network_g']
+        blocks = sum(net_opt['depths']) if net_opt['type'] == 'SwinIR' else 0
+        wrappers = training_kernels()
+        for wr in wrappers.values():
+            wr.launches = 0
+        record = {'steps': []}
+        model = run_train_pipeline([], record, config=spec['one'],
+                                   model_cls=model_class(spec['one']),
+                                   before_first_step=lambda *_: None, after_step=lq_rows,
+                                   record_tests=True)
+        torch.cuda.synchronize()
+        one = {'steps': record['steps'], 'tests': record['tests'],
+               'net': type(model.net_g).__name__, 'device': str(model.device),
+               'metrics': {k: float(v) for k, v in model.metric_results.items()}}
+        del model
+        launches.update({k: wr.launches for k, wr in wrappers.items()})
+        check_spatial_run(name, 'one process', one, spec, blocks, spec['gt'] // SCALE)
+        for r in ranks:
+            run = r['runs'][i]
+            check_spatial_run(name, f'rank {r["rank"]}', run, spec, blocks,
+                              spec['gt'] // SCALE // 2)
+            if run['net'] != one['net']:
+                fail(f'{name} rank {r["rank"]} trained {run["net"]}, one process {one["net"]}')
+            launches.update(run['launches'])
+        for got, want in zip(ranks[0]['runs'][i]['steps'], one['steps']):
+            print(f'{name} step {got["iter"]}: l_pix {got["l_pix"]:.6f} (the ranks\' mean) '
+                  f'against {want["l_pix"]:.6f} (one process)')
+            if not abs(got['l_pix'] - want['l_pix']) <= 1e-4 * abs(want['l_pix']):
+                fail(f'{name}: the two bands\' loss is not one process\'s')
+        start = torch.load(spec['init'], map_location='cpu', weights_only=True)['params']
+        pth = f'net_g_{spec["steps"]}.pth'
+        params = [torch.load(os.path.join('experiments', yaml_load(config)['name'], 'models',
+                                          pth), map_location='cpu', weights_only=True)['params']
+                  for config in (spec['two'], spec['one'])]
+        params_agree(f'{name} after {spec["steps"]} step(s)', 'the two bands', *params, start)
+        want = one['tests'][0]
+        for r in ranks:
+            test = r['runs'][i]['tests'][0]
+            out = torch.load(f'{SPATIAL_OUT}.run{i}.rank{r["rank"]}.val.pt', weights_only=True)[0]
+            err = (out - want['output']).abs()
+            held = bool((err <= atol + rtol * want['output'].abs()).all())
+            print(f'{name} validation, rank {r["rank"]}: its output (the bands gathered) against '
+                  f'one process, largest difference {err.max().item():.3e} (F32_TOL elementwise: '
+                  f'{"held" if held else "BROKEN"}); on bands {test["on_bands"]}, one process '
+                  f'{want["on_bands"]}; {card}: {test["ms"]:.3f} ms, peak {test["peak_mib"]:.1f} '
+                  'MiB above the call\'s start, K1 '
+                  f'{test["launches"]["swin_block_joint_fwd"]}; one process {want["ms"]:.3f} ms, '
+                  f'peak {want["peak_mib"]:.1f} MiB, K1 '
+                  f'{want["launches"]["swin_block_joint_fwd"]}')
+            if not (held and test['on_bands'] == [True] and want['on_bands'] == [False]):
+                fail(f'{name}: the validation on bands is not one process\'s forward')
+            got_metric = r['runs'][i]['metrics']
+            print(f'{name} validation, rank {r["rank"]}: merged {got_metric} against one process '
+                  f'{one["metrics"]}')
+            if got_metric.keys() != one['metrics'].keys() or any(
+                    not abs(v - one['metrics'][k]) <= 1e-3 * abs(one['metrics'][k])
+                    for k, v in got_metric.items()):
+                fail(f'{name}: the merged metric is not one process\'s')
+        print(f'{name} steps (CUDA events around optimize_parameters): ' + '; '.join(
+            f'rank {r["rank"]} ' + ', '.join(f'{st["ms"]:.3f}' for st in r['runs'][i]['steps'])
+            for r in ranks) + ' ms; one process ' + ', '.join(
+            f'{st["ms"]:.3f}' for st in one['steps']) + ' ms')
+    print(f'{card}: two ranks sharing one card over gloo show that the bands compute the one '
+          'process\'s function and what each rank holds; their times are not a rate of the '
+          f'system ({time.perf_counter() - t0:.1f} s after the ranks ended)')
+    return dict(launches)
+
+
+def start_spatial(after=None):
+    """Phase 72's inputs and its torchrun of two ranks, each running both
+    models' pipelines (``after``: see ``dist_rank``); what ``finish_spatial``
+    takes."""
+    specs = spatial_inputs()
+    run = start_torchrun(2, None, [['--launcher', 'pytorch']] * len(specs), SPATIAL_OUT,
+                         after=after, configs=[spec['two'] for spec in specs],
+                         record_tests=True)
+    run['specs'] = specs
+    return run
+
+
+def finish_spatial(run, card):
+    """Phase 72: wait for its ranks, then check them against one process."""
+    t0 = time.perf_counter()
+    ranks, wall = finish_torchrun(run)
+    launches = spatial_paths(ranks, wall, run['specs'], card)
+    print(f'phase 72: {time.perf_counter() - t0:.1f} s from the wait for its ranks to its end')
+    return launches
 
 
 def device_time_by_group(prof, ours):
@@ -8657,6 +8933,17 @@ def main():
                                                  'kind': torch.cuda.get_device_name(0),
                                                  'count': torch.cuda.device_count()}}))
         return
+    if sys.argv[1:] == ['spatial']:   # development: phase 72 alone
+        run = start_spatial()
+        try:
+            print(json.dumps(finish_spatial(run, card)))
+        finally:
+            stop_torchrun(run)
+        print(card)
+        print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
+                                                 'kind': torch.cuda.get_device_name(0),
+                                                 'count': torch.cuda.device_count()}}))
+        return
     if sys.argv[1:] == ['data']:   # development: phase 71 alone
         launches = collections.Counter()
         data_path(launches, card)
@@ -8709,7 +8996,19 @@ def main():
     # go through the joint kernel), then the same training data-parallel
     launches = dict(train_launches)
     launches['swin_block_joint_fwd'] += serve_launches
-    dist_paths(launches, split_step_ms, card)
+    # phase 72's ranks start with phases 63 to 65 (their set-up overlaps
+    # them) and train once those have left the card
+    spatial_go = os.path.join(DIST_DIR, 'spatial.go')
+    if os.path.exists(spatial_go):
+        os.remove(spatial_go)
+    spatial = start_spatial(after=spatial_go)
+    try:
+        dist_paths(launches, split_step_ms, card)
+        open(spatial_go, 'w').close()
+        for name, count in finish_spatial(spatial, card).items():
+            launches[name] = launches.get(name, 0) + count
+    finally:
+        stop_torchrun(spatial)
     served = serve_resshift()
     trained = train_resshift()
     check_resshift_gradients()

@@ -163,15 +163,15 @@ def test_a_launcher_that_asks_for_a_card_on_a_host_without_one_raises(monkeypatc
 
 # --------------------------------------------------------------- the mesh
 @pytest.mark.parametrize('parallel, world_size, want', [
-    (None, 4, (4, 1)), ({'data': -1, 'spatial': 1}, 2, (2, 1)), ({'data': 8}, 8, (8, 1))])
+    (None, 4, (4, 1)), ({'data': -1, 'spatial': 1}, 2, (2, 1)), ({'data': 8}, 8, (8, 1)),
+    ({'spatial': 2}, 4, (2, 2)), ({'data': 2, 'spatial': 2}, 4, (2, 2))])
 def test_create_mesh_puts_every_rank_on_the_data_axis(parallel, world_size, want):
     assert create_mesh({'parallel': parallel} if parallel else {}, world_size) == want
 
 
 @pytest.mark.parametrize('parallel, error', [({'data': 2}, ValueError),
                                              ({'data': 3, 'spatial': 1}, ValueError),
-                                             ({'spatial': 2}, NotImplementedError),
-                                             ({'data': 2, 'spatial': 2}, NotImplementedError)])
+                                             ({'data': 3, 'spatial': 2}, ValueError)])
 def test_create_mesh_checks_its_axes(parallel, error):
     with pytest.raises(error):
         create_mesh({'parallel': parallel}, 4)

@@ -29,7 +29,25 @@
 * ``{"kind": "units", "name": ..., "inputs": path, "control": bool}``: the
   synced BatchNorm and the three global means of ``gan_loss`` on each
   rank's rows of ``inputs`` (``units_on_rows``); rank 0 keeps every rank's
-  results.
+  results;
+* ``{"kind": "spatial", "name": ..., "spatial": n, "nets": [...], "model": {...},
+  "control": bool}``: ``parallel: {spatial: n}`` (``run_spatial``). Each of
+  ``nets`` (``{"label", "arch", "weights", "inputs", "float64"}``) runs on
+  the rank's band of ``inputs``' x in eval and in train mode, its loss
+  ``sum(out * v)`` over the band; rank 0 keeps the gathered output and input
+  gradient and the parameter gradients summed over the ranks. ``model``
+  (``{"opt", "batches", "val"}``) is built from ``opt`` under the group,
+  stepped once a global batch of ``batches`` (``feed_data`` keeps the band)
+  and validated on the items of ``val``; rank 0 keeps the losses, the
+  parameters and the EMA, the validation's metrics and outputs, and which
+  image ran on bands, then the same of a validation under ``val.quant_int8:
+  static``. ``int8`` (``{"label", "arch", "weights", "inputs", "modes"}``):
+  each network in float64 under ``quantized_inference`` on the rank's band
+  of x, its scales dynamic or calibrated on the band (``spatial_int8``);
+  ``pipelines`` (``{"label", "argv", "root"}``): ``basicsr4rs_torch.train``'s
+  pipeline with that command line from ``root`` (``spatial_pipeline``). With ``control``
+  the networks run on each band alone: no scope, so zero halos, a local
+  roll and the band's own mask (``no_exchange``).
 
 ``control`` turns the synchronisation of statistics and means off (each
 rank's own, ``no_stat_sync``), or with ``"grads"`` the gradient exchange
@@ -391,6 +409,168 @@ def run_units(job):
     return every
 
 
+def no_exchange():
+    """Each band alone: the models' spatial scope is no scope."""
+    from basicsr4rs_torch.models import base_model
+    return mock.patch.object(base_model.BaseModel, 'spatial_scope',
+                             lambda self: contextlib.nullcontext())
+
+
+def spatial_net(case, shard, control):
+    """One network of a ``spatial`` job in eval and in train mode on this
+    rank's band: the gathered output and input gradient, the parameter
+    gradients summed over the ranks."""
+    import torch.distributed as dist
+    from basicsr4rs_torch.archs import build_network
+    from basicsr4rs_torch.parallel import gather_rows, spatial_scope
+    from basicsr4rs_torch.parallel.halo import band_of
+    net = build_network(dict(case['arch']))
+    if case.get('float64'):
+        net.double()
+    net.load_state_dict(torch.load(case['weights'], weights_only=True))
+    inputs = torch.load(case['inputs'], weights_only=True)
+    out = {}
+    for mode in ('eval', 'train'):
+        net.train(mode == 'train')
+        net.zero_grad(set_to_none=True)
+        x = band_of(inputs['x'], shard).clone().requires_grad_(True)
+        with contextlib.nullcontext() if control else spatial_scope(shard):
+            y = net(x)
+        (y * band_of(inputs['v'], shard)).sum().backward()
+        grads = {k: p.grad.clone() for k, p in net.named_parameters()}
+        for g in grads.values():
+            dist.all_reduce(g)
+        out[mode] = {'out': gather_rows(y.detach(), shard), 'dx': gather_rows(x.grad, shard),
+                     'grads': grads}
+    return out
+
+
+class ItemLoader:
+    """A validation loader of given items (``lq``, ``gt``, ``lq_path``) as
+    the spatial validation reads it: its ``dataset`` indexes them."""
+
+    def __init__(self, items, name):
+        self.items, self.opt = items, {'name': name}
+        self.dataset = self
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return self.items[i]
+
+
+def spatial_model(case, rank, world_size):
+    """The ``model`` of a ``spatial`` job: steps on the global batches, then
+    a validation (the images strided over the data ranks, each shared by its
+    spatial group)."""
+    from basicsr4rs_torch.models import build_model
+    opt = copy.deepcopy(case['opt'])
+    opt.update(dist=True, rank=rank, world_size=world_size)
+    if rank:
+        opt['path']['pretrain_network_g'] = None
+    torch.manual_seed(100 + rank)
+    model = build_model(opt)
+    losses = []
+    for step, batch in enumerate(torch.load(case['batches'], weights_only=True), 1):
+        model.feed_data(batch)
+        model.optimize_parameters(step)
+        losses.append(model.get_current_log())
+    lq_rows = model.lq.shape[2]
+    outputs, on_bands = [], []
+    test = type(model).test
+
+    def kept(self):
+        on_bands.append(self._eval_on_bands(self.lq))
+        test(self)
+        outputs.append(self.output.clone())
+
+    val = ItemLoader(torch.load(case['val'], weights_only=False), 'spatial_val')
+    with mock.patch.object(type(model), 'test', kept):
+        model.validation(val, len(losses), None, False)
+        metrics = dict(model.metric_results)
+        float_runs = len(outputs)
+        model.opt['val']['quant_int8'] = 'static'
+        model.validation(val, len(losses), None, False)
+    bare = model.get_bare_model(model.net_g)
+    params = {k: v.detach().clone() for k, v in bare.state_dict().items()}
+    return {'losses': losses, 'net': type(model.net_g).__name__, 'params': params,
+            'ema': {k: v.detach().clone() for k, v in model.net_g_ema.state_dict().items()},
+            'metrics': metrics, 'outputs': outputs[:float_runs],
+            'on_bands': on_bands[:float_runs], 'int8_outputs': outputs[float_runs:],
+            'int8_on_bands': on_bands[float_runs:], 'lq_rows': lq_rows,
+            'same_on_ranks': same_on_every_rank(list(params.values()))}
+
+
+def spatial_int8(case, shard):
+    """One network of a ``spatial`` job's ``int8`` in float64 under
+    ``quantized_inference`` on this rank's band of x, for each of ``modes``:
+    dynamic scales, or static ones calibrated on the band; the gathered
+    output."""
+    from basicsr4rs_torch.archs import build_network
+    from basicsr4rs_torch.ops.quant import calibrate_act_scales, quantized_inference
+    from basicsr4rs_torch.parallel import gather_rows, spatial_scope
+    from basicsr4rs_torch.parallel.halo import band_of
+    net = build_network(dict(case['arch'])).double().eval()
+    net.load_state_dict(torch.load(case['weights'], weights_only=True))
+    x = band_of(torch.load(case['inputs'], weights_only=True)['x'], shard)
+    out = {}
+    with torch.no_grad(), spatial_scope(shard):
+        for mode in case['modes']:
+            scales = calibrate_act_scales(net, net, [x]) if mode == 'static' else None
+            with quantized_inference(net, act_scales=scales):
+                out[mode] = gather_rows(net(x), shard)
+    return out
+
+
+def spatial_pipeline(argv, root):
+    """``basicsr4rs_torch.train``'s pipeline (``SwinIRModel``) with the
+    command line ``argv`` from ``root``: each step's logged loss and LQ
+    rows, and each validation image's output and whether it ran on bands;
+    the validation's metrics."""
+    from basicsr4rs_torch import train
+    from basicsr4rs_torch.models.swinir_model import SwinIRModel
+    steps, outputs, on_bands = [], [], []
+    step, test = SwinIRModel.optimize_parameters, SwinIRModel.test
+
+    def logged_step(self, current_iter):
+        step(self, current_iter)
+        steps.append({'l_pix': float(self.log_dict['l_pix']), 'lq_rows': self.lq.shape[2]})
+
+    def kept(self):
+        on_bands.append(self._eval_on_bands(self.lq))
+        test(self)
+        outputs.append(self.output.clone())
+
+    saved = sys.argv
+    sys.argv = ['train.py', *argv]
+    try:
+        with mock.patch.object(SwinIRModel, 'optimize_parameters', logged_step), \
+                mock.patch.object(SwinIRModel, 'test', kept):
+            model = train.train_pipeline(root)
+    finally:
+        sys.argv = saved
+    return {'steps': steps, 'outputs': outputs, 'on_bands': on_bands,
+            'metrics': dict(model.metric_results), 'net': type(model.net_g).__name__}
+
+
+def run_spatial(job):
+    from basicsr4rs_torch.parallel.halo import make_shard
+    rank, world_size = get_dist_info()
+    spatial = job['spatial']
+    shard = make_shard(rank // spatial, rank % spatial, spatial)
+    out = {'nets': {}}
+    for case in job.get('nets', []):
+        out['nets'][case['label']] = spatial_net(case, shard, job.get('control'))
+    if job.get('model'):
+        with no_exchange() if job.get('control') else contextlib.nullcontext():
+            out['model'] = spatial_model(job['model'], rank, world_size)
+    out['int8'] = {case['label']: spatial_int8(case, shard) for case in job.get('int8', [])}
+    out['pipelines'] = {case['label']: spatial_pipeline(case['argv'], case['root'])
+                        for case in job.get('pipelines', [])}
+    return out
+
+
 def run_collectives(job):
     from basicsr4rs_torch.models.base_model import BaseModel
     from basicsr4rs_torch.utils.dist_util import get_device_info, sum_across_processes
@@ -415,7 +595,7 @@ def main():
         for job in jobs:
             result = {'test': run_test, 'resshift': run_resshift,
                       'collectives': run_collectives, 'model': run_model, 'build': run_build,
-                      'units': run_units}[job['kind']](job)
+                      'units': run_units, 'spatial': run_spatial}[job['kind']](job)
             if get_dist_info()[0] == 0:
                 torch.save(result, os.path.join(out_dir, f'{job["name"]}.pt'))
             barrier()
